@@ -1,0 +1,203 @@
+"""Layout-agnostic point-to-point communication (paper §4.3).
+
+Send/recv is the most-used MPI feature; its layout-agnostic form says: the
+source rank holds a tile in one layout, the destination declares a possibly
+*different* layout, and the relayout plan — derived from the two layouts,
+exactly like the MPI-datatype construction of ``collectives`` — packs the
+tile on the send side of the transfer.
+
+All operations work along one ranking dim of a (possibly multi-dim) grid
+communicator; the other grid dims act as independent sub-communicators, each
+a ``torch.distributed`` process group.  Transfers go through
+``torch.distributed.batch_isend_irecv``; a pair whose source is the receiver
+itself is a local copy, never a send to self.
+
+Non-blocking transfers
+----------------------
+Real MPI GEMMs hide the ring exchange behind the local multiply with
+``MPI_Isend``/``MPI_Irecv``; the analogue here is the ``*_start`` family,
+which *issues* the transfer and hands back a
+:class:`repro_torch.core.request.Pending` whose
+:meth:`~repro_torch.core.request.Pending.wait` is the completion point.
+
+=============================  ================================================
+MPI                            repro_torch.core
+=============================  ================================================
+``MPI_Sendrecv`` ring          :func:`ring_shift` / :func:`permute`
+``MPI_Isend``/``Irecv``        :func:`ring_shift_start` / :func:`permute_start`
+``MPI_Wait`` / ``MPI_Waitall`` :func:`wait` over one or more pending requests
+=============================  ================================================
+
+Ragged bags move at their padded *capacity* (the uniform wire datatype); the
+per-rank valid extents ride the request object's result bag, and a transfer
+hands the receiver the sender's counts — ``ring_shift`` on a ragged bag
+rotates the extents table together with the tiles.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Iterable, Sequence
+
+import torch
+import torch.distributed as dist
+
+from .collectives import DistBag
+from .dims import LayoutError, check_same_space
+from .layout import Layout
+from .relayout import check_ragged_dims, relayout
+from .request import Pending, wait_all
+
+__all__ = [
+    "permute",
+    "ring_shift",
+    "permute_start",
+    "ring_shift_start",
+    "wait",
+]
+
+
+def _along(dist_bag: DistBag, rank_dim: str | None) -> tuple[str, int]:
+    rank_dim = rank_dim or dist_bag.rank_dims[0]
+    if rank_dim not in dist_bag.rank_dims:
+        raise LayoutError(f"bag is not distributed over {rank_dim!r} (has {dist_bag.rank_dims})")
+    return rank_dim, dist_bag.dt.comm_size(rank_dim)
+
+
+def _check_perm(perm: Sequence[tuple[int, int]], R: int) -> list[tuple[int, int]]:
+    pairs = [(int(s), int(d)) for s, d in perm]
+    for s, d in pairs:
+        if not (0 <= s < R and 0 <= d < R):
+            raise LayoutError(f"permute pair ({s}, {d}) out of range for comm size {R}")
+    srcs = [s for s, _ in pairs]
+    dsts = [d for _, d in pairs]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        raise LayoutError(f"permute pairs must have unique sources and destinations: {pairs}")
+    return pairs
+
+
+def _dst_layout(dist_bag: DistBag, dst_tile_layout: Layout | None) -> Layout:
+    dst = dst_tile_layout or dist_bag.tile_layout
+    check_same_space(
+        dist_bag.tile_layout.index_space(), dst.index_space(), what="p2p endpoints"
+    )
+    if dist_bag.is_ragged:
+        # the padded capacity tile is the wire datatype: the valid region
+        # survives the endpoint relayout only as a leading rectangle
+        check_ragged_dims(dist_bag.tile_layout, dst, dist_bag.ragged_dims(), what="p2p endpoints")
+    return dst
+
+
+def _moved_extents(dist_bag: DistBag, rank_dim: str, pairs: Sequence[tuple[int, int]]):
+    """Extents table after tiles move along ``rank_dim`` per ``pairs``.
+
+    The receiving rank adopts the *source's* extents (the counts travel with
+    the tile, exactly like an MPI_Recv with the sender's count); ranks no
+    pair sends to drop to zero-extent (``permute``'s zero tiles).
+    """
+    if dist_bag.extents is None:
+        return None
+    pos = dist_bag.rank_dims.index(rank_dim)
+    recv = {d: s for s, d in pairs}
+    new = []
+    for coords in itertools.product(*(range(s) for s in dist_bag.grid_shape)):
+        c = coords[pos]
+        if c in recv:
+            src_coords = list(coords)
+            src_coords[pos] = recv[c]
+            new.append(dist_bag.extents[dist_bag.flat_rank(tuple(src_coords))])
+        else:
+            new.append(tuple((d, 0) for d, _ in dist_bag.extents[dist_bag.flat_rank(coords)]))
+    return tuple(new)
+
+
+def permute_start(
+    dist_bag: DistBag,
+    perm: Iterable[tuple[int, int]],
+    *,
+    rank_dim: str | None = None,
+    dst_tile_layout: Layout | None = None,
+) -> Pending:
+    """Non-blocking :func:`permute`: issue the transfer and return a
+    :class:`Pending` immediately (``MPI_Isend``/``MPI_Irecv``)."""
+    rank_dim, R = _along(dist_bag, rank_dim)
+    pairs = _check_perm(list(perm), R)
+    dst = _dst_layout(dist_bag, dst_tile_layout)
+    group, members = dist_bag.dt.communicator((rank_dim,))
+    me = dist_bag.dt.coord(rank_dim)
+    # the send datatype: pack into the receiver's declared layout
+    packed = relayout(dist_bag.data, dist_bag.tile_layout, dst).contiguous()
+    ops = []
+    recv_from = [s for s, d in pairs if d == me]
+    if not recv_from:
+        landed = torch.zeros_like(packed)
+    elif recv_from[0] == me:
+        landed = packed.clone()
+    else:
+        landed = torch.empty_like(packed)
+        ops.append(dist.P2POp(dist.irecv, landed, members[recv_from[0]], group))
+    for s, d in pairs:
+        if s == me and d != me:
+            ops.append(dist.P2POp(dist.isend, packed, members[d], group))
+    works = dist.batch_isend_irecv(ops) if ops else []
+    extents = _moved_extents(dist_bag, rank_dim, pairs)
+
+    def finish():
+        return dataclasses.replace(dist_bag, data=landed, tile_layout=dst, extents=extents)
+
+    return Pending(finish, works, op="permute")
+
+
+def permute(
+    dist_bag: DistBag,
+    perm: Iterable[tuple[int, int]],
+    *,
+    rank_dim: str | None = None,
+    dst_tile_layout: Layout | None = None,
+) -> DistBag:
+    """Exchange tiles along ``rank_dim`` per the ``(src, dst)`` pairs.
+
+    Every pair is a matched send/recv; the endpoint layouts may differ
+    (``dst_tile_layout``) and the relayout packs the tile before the
+    transfer.  Ranks that no pair sends to receive a zero tile — the analogue
+    of posting no matching ``MPI_Recv``.
+    """
+    return permute_start(dist_bag, perm, rank_dim=rank_dim, dst_tile_layout=dst_tile_layout).wait()
+
+
+def ring_shift_start(
+    dist_bag: DistBag,
+    shift: int = 1,
+    *,
+    rank_dim: str | None = None,
+    dst_tile_layout: Layout | None = None,
+) -> Pending:
+    """Non-blocking :func:`ring_shift`: the double-buffered SUMMA issues this
+    *before* the local GEMM of the step and waits after, so step ``k``'s panel
+    rotation overlaps step ``k``'s multiply."""
+    _, R = _along(dist_bag, rank_dim)
+    pairs = [(i, (i + shift) % R) for i in range(R)]
+    return permute_start(dist_bag, pairs, rank_dim=rank_dim, dst_tile_layout=dst_tile_layout)
+
+
+def ring_shift(
+    dist_bag: DistBag,
+    shift: int = 1,
+    *,
+    rank_dim: str | None = None,
+    dst_tile_layout: Layout | None = None,
+) -> DistBag:
+    """Rotate tiles along the ``rank_dim`` ring: rank ``r`` receives the tile
+    of rank ``r - shift`` (mod R) — MPI_Sendrecv in the classic ring pattern,
+    and the panel-rotation step of Cannon/SUMMA GEMMs."""
+    return ring_shift_start(dist_bag, shift, rank_dim=rank_dim,
+                            dst_tile_layout=dst_tile_layout).wait()
+
+
+def wait(*pending: Pending):
+    """Complete one or more pending transfers (``MPI_Wait`` / ``MPI_Waitall``).
+
+    Returns the received :class:`DistBag` for a single request, a tuple of
+    them for several.
+    """
+    return wait_all(*pending)

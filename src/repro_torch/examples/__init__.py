@@ -1,0 +1,1 @@
+"""Runnable case studies of the port (``python -m repro_torch.examples.<name>``)."""

@@ -1,0 +1,216 @@
+"""The layout-parametric GEMM kernels for Hopper and their loader.
+
+Two CUDA C++ kernels in ``csrc/gemm.cu`` replace the reference's Pallas
+kernels ``gemm_pallas`` and ``gemm_panel_pallas`` (``src/repro/kernels/
+gemm.py``): ``C = A @ B (+ acc)`` with each operand's orientation given by
+``majors="C/A/B"``, and the SUMMA ring's in-place ``panel[j-block jb] +=
+A @ B``.  Orientation encoding (the paper's Fig. 3 labels):
+
+  * A is logically (i, k):  major 'I' -> buffer (i, k);  major 'K' -> buffer (k, i)
+  * B is logically (k, j):  major 'K' -> buffer (k, j);  major 'J' -> buffer (j, k)
+  * C is logically (i, j):  major 'I' -> buffer (i, j);  major 'J' -> buffer (j, i)
+
+The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library with
+a plain C interface, at first use, into ``build/torch_kernels/`` of the
+checkout (keyed by a hash of the source and flags), and bound with
+``ctypes``.  Kernels launch on PyTorch's current stream and never
+synchronise.  A build or launch failure raises; nothing falls back to the
+plain version (``repro_torch.kernels.ref``).
+
+Each wrapper counts its launches in its ``launches`` attribute, so a run can
+show that it went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+__all__ = ["gemm_cuda", "gemm_panel_cuda", "gemm_shape", "check_gemm", "check_panel",
+           "parse_majors", "load_library", "build_log"]
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "gemm.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+_NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def parse_majors(majors: str) -> tuple[bool, bool, bool]:
+    """``(a_trans, b_trans, c_trans)`` of a ``"C/A/B"`` majors string."""
+    c_major, a_major, b_major = majors.upper().split("/")
+    return a_major == "K", b_major == "J", c_major == "J"
+
+
+def gemm_shape(a_shape, b_shape, majors: str) -> tuple[int, int, int]:
+    """Logical ``(M, N, K)`` of ``A @ B`` from the two buffers' shapes;
+    raises ``ValueError`` on a contraction mismatch."""
+    a_trans, b_trans, _ = parse_majors(majors)
+    K_, M = a_shape if a_trans else a_shape[::-1]
+    N, Kb = b_shape if b_trans else b_shape[::-1]
+    if K_ != Kb:
+        raise ValueError(
+            f"contraction mismatch: {tuple(a_shape)} vs {tuple(b_shape)} (majors={majors})"
+        )
+    return int(M), int(N), int(K_)
+
+
+def check_gemm(a, b, acc, majors: str) -> tuple[int, int, int]:
+    """``(M, N, K)`` of ``A @ B (+ acc)``; raises ``ValueError`` on a
+    contraction mismatch, an ``acc`` not in the output's shape, or a buffer
+    that is not contiguous (a buffer is its layout's physical order)."""
+    M, N, K = gemm_shape(a.shape, b.shape, majors)
+    out_shape = (N, M) if parse_majors(majors)[2] else (M, N)
+    if acc is not None and tuple(acc.shape) != out_shape:
+        raise ValueError(f"acc shape {tuple(acc.shape)} != output shape {out_shape} (majors={majors})")
+    _check_contiguous(a=a, b=b, acc=acc)
+    return M, N, K
+
+
+def check_panel(a, b, panel, majors: str) -> tuple[int, int, int, int]:
+    """``(M, N, K, nb)`` of ``panel[j-block jb] += A @ B``; raises
+    ``ValueError`` unless the panel holds whole j-blocks of width N in the
+    C orientation of ``majors``, and on non-contiguous buffers."""
+    M, N, K = gemm_shape(a.shape, b.shape, majors)
+    c_trans = parse_majors(majors)[2]
+    NJ, MP = (panel.shape[0], panel.shape[1]) if c_trans else (panel.shape[1], panel.shape[0])
+    if MP != M or N == 0 or NJ % N:
+        raise ValueError(
+            f"panel shape {tuple(panel.shape)} incompatible with block ({M},{N}) (majors={majors})"
+        )
+    _check_contiguous(a=a, b=b, panel=panel)
+    return M, N, K, NJ // N
+
+
+def _check_contiguous(**tensors) -> None:
+    for name, t in tensors.items():
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous buffer, got strides {t.stride()}")
+
+
+def _find_nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the GEMM kernels are built from source")
+
+
+def build_log() -> str:
+    """nvcc's output from this process's build (ptxas register and shared
+    memory report), empty when the library was already built."""
+    return _build.log  # type: ignore[attr-defined]
+
+
+def _build() -> Path:
+    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = _BUILD_DIR / f"liblayout_gemm_{digest}.so"
+    if lib.exists():
+        return lib
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_find_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
+    _build.log = proc.stdout + proc.stderr  # type: ignore[attr-defined]
+    return lib
+
+
+_build.log = ""  # type: ignore[attr-defined]
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; raises on failure."""
+    lib = ctypes.CDLL(str(_build()))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.layout_gemm_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.layout_gemm_f32.restype = i
+    lib.layout_gemm_panel_f32.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p, i, p]
+    lib.layout_gemm_panel_f32.restype = i
+    lib.layout_gemm_error_string.argtypes = [i]
+    lib.layout_gemm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_on_card(device: torch.device, **tensors) -> None:
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{name} must be a CUDA tensor on {device}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the kernel computes float32 only, got {t.dtype}")
+
+
+def _raise_if_failed(lib: ctypes.CDLL, code: int, what: str) -> None:
+    if code != 0:
+        msg = lib.layout_gemm_error_string(code).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} (cudaError {code})")
+
+
+def gemm_cuda(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor | None = None, *,
+              majors: str = "I/I/K", out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``C = A @ B (+ acc)`` on the card; ``acc`` is a previous C buffer in
+    the output orientation.  Float32 operands and output only."""
+    a_trans, b_trans, c_trans = parse_majors(majors)
+    M, N, K = check_gemm(a, b, acc, majors)
+    _check_on_card(a.device, a=a, b=b, acc=acc)
+    if out_dtype not in (None, torch.float32):
+        raise TypeError(f"the kernel writes float32 only, got out_dtype={out_dtype}")
+    out = torch.empty((N, M) if c_trans else (M, N), dtype=torch.float32, device=a.device)
+    if M == 0 or N == 0:
+        return out
+    lib = load_library()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    code = lib.layout_gemm_f32(a.data_ptr(), b.data_ptr(),
+                               acc.data_ptr() if acc is not None else None, out.data_ptr(),
+                               M, N, K, a_trans, b_trans, c_trans, stream)
+    _raise_if_failed(lib, code, "layout_gemm_kernel")
+    gemm_cuda.launches += 1  # type: ignore[attr-defined]
+    return out
+
+
+def gemm_panel_cuda(a: torch.Tensor, b: torch.Tensor, panel: torch.Tensor, jb, *,
+                    majors: str = "I/I/K") -> torch.Tensor:
+    """``panel[j-block jb] += A @ B`` in place on the card; returns ``panel``.
+
+    ``jb`` is a Python int or a one-element int32 CUDA tensor that the
+    kernel reads on the device (no host sync).  It is clamped to the panel's
+    blocks like the reference's ``dynamic_slice``.
+    """
+    a_trans, b_trans, c_trans = parse_majors(majors)
+    M, N, K, nb = check_panel(a, b, panel, majors)
+    _check_on_card(a.device, a=a, b=b, panel=panel)
+    jb_dev, jb_host = None, 0
+    if isinstance(jb, torch.Tensor):
+        if jb.device != a.device or jb.dtype != torch.int32 or jb.numel() != 1:
+            raise ValueError(f"jb must be one int32 on {a.device}, got {jb.dtype} "
+                             f"{tuple(jb.shape)} on {jb.device}")
+        jb_dev = jb.data_ptr()
+    else:
+        jb_host = int(jb)
+    if M == 0:
+        return panel
+    lib = load_library()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    ldp = panel.shape[1]
+    code = lib.layout_gemm_panel_f32(a.data_ptr(), b.data_ptr(), panel.data_ptr(), M, N, K,
+                                     a_trans, b_trans, c_trans, ldp, nb, jb_dev, jb_host,
+                                     stream)
+    _raise_if_failed(lib, code, "layout_gemm_panel_kernel")
+    gemm_panel_cuda.launches += 1  # type: ignore[attr-defined]
+    return panel
+
+
+gemm_cuda.launches = 0  # type: ignore[attr-defined]
+gemm_panel_cuda.launches = 0  # type: ignore[attr-defined]

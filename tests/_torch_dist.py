@@ -1,0 +1,223 @@
+"""Helpers for the port's multi-process tests: run a worker function of this
+module on N gloo ranks, each a fresh CPU-only Python process.
+
+The ranks meet through a ``file://`` rendezvous in a per-test directory (no
+fixed port, so tests can run side by side), compute with one thread each,
+and pickle their results back to the same directory.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.abspath(os.path.join(TESTS, "..", "src"))
+
+LAYOUT_CONFIGS = ["I/I/K", "I/I/J", "I/K/K", "I/K/J", "J/I/K", "J/I/J", "J/K/K", "J/K/J"]
+
+
+def run_gloo(worker: str, world: int, workdir, *, timeout: float = 300, **kwargs) -> list:
+    """Run ``worker(**kwargs)`` on ``world`` gloo ranks; returns the list of
+    per-rank results.  Any failing rank fails the call (the others are
+    stopped), with every rank's stderr tail in the message."""
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    with open(workdir / "args.pkl", "wb") as f:
+        pickle.dump(kwargs, f)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([SRC, TESTS] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    env["OMP_NUM_THREADS"] = "1"
+    procs, logs = [], []
+    try:
+        for rank in range(world):
+            log = open(workdir / f"rank{rank}.log", "w")
+            logs.append(log)
+            code = f"import _torch_dist; _torch_dist._main({rank}, {world}, {str(workdir)!r}, {worker!r})"
+            procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
+                                          stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    if any(p.returncode != 0 for p in procs):
+        tails = []
+        for rank, p in enumerate(procs):
+            text = (workdir / f"rank{rank}.log").read_text()
+            tails.append(f"--- rank {rank} (rc={p.returncode}) ---\n{text[-3000:]}")
+        raise AssertionError(f"gloo worker {worker!r} failed:\n" + "\n".join(tails))
+    out = []
+    for rank in range(world):
+        with open(workdir / f"rank{rank}.pkl", "rb") as f:  # written by our own workers
+            out.append(pickle.load(f))
+    return out
+
+
+def _main(rank: int, world: int, workdir: str, worker: str) -> None:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    with open(os.path.join(workdir, "args.pkl"), "rb") as f:
+        kwargs = pickle.load(f)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rendezvous", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        result = globals()[worker](**kwargs)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+# -----------------------------------------------------------------------------
+# workers (run inside the gloo ranks)
+# -----------------------------------------------------------------------------
+def gemm_family(*, dims_1d, dims_summa, dims_ragged, grid) -> dict:
+    """The distributed GEMM slice on this rank: 1-D GEMM over the world,
+    SUMMA and ragged SUMMA on ``grid`` (double-buffered and blocking), in
+    every majors configuration, plus this rank's scattered input tiles."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (LayoutError, bag, bag_from_numpy, make_mesh, mpi_traverser,
+                                  scatter, scatterv_bag, traverser)
+    from repro_torch.core.layout import into_blocks
+    from repro_torch.examples import distributed_gemm as g
+
+    world = torch.distributed.get_world_size()
+    mesh1 = make_mesh((world,), ("r",), device="cpu")
+    mesh2 = make_mesh(grid, ("rows", "cols"), device="cpu")
+    out: dict = {"coords": tuple(mesh2.coords().values())}
+    for majors in LAYOUT_CONFIGS:
+        c_major, a_major, b_major = majors.split("/")
+        ni, nj, nk = dims_1d
+        out[("panel1d", majors)] = g.run_distributed_gemm(
+            ni=ni, nj=nj, nk=nk, majors=majors, mesh=mesh1)[0]
+        # this rank's 1-D A tile, scattered as the GEMM scatters it
+        rng = np.random.default_rng(7)
+        A_np = rng.standard_normal((ni, nk)).astype(np.float32)
+        A_layout = g._mat_layout("i", "k", ni, nk, "i" if a_major == "I" else "k")
+        A_glob = bag_from_numpy(A_layout, A_np if a_major == "I" else A_np.T, "cpu")
+        A_root = bag(A_layout ^ into_blocks("i", "R", num_blocks=world), A_glob.data)
+        dt = mpi_traverser("R", traverser(A_root), mesh1)
+        A_tile = g._mat_layout("i", "k", ni // world, nk, "i" if a_major == "I" else "k")
+        out[("tile_a", "panel1d", majors)] = scatter(A_root, A_tile, dt).data.numpy()
+
+        ni, nj, nk = dims_summa
+        for db in (True, False):
+            out[("summa", majors, db)] = g.run_summa_gemm(
+                ni=ni, nj=nj, nk=nk, grid=grid, majors=majors, mesh=mesh2, double_buffer=db)[0]
+        _, meta = g.summa_ring_program(ni=ni, nj=nj, nk=nk, grid=grid, majors=majors, mesh=mesh2)
+        A_np, B_np = g._inputs(11, ni, nj, nk, None, None)
+        A_glob, B_glob = g._global_bags(meta["A_layout"], meta["B_layout"], A_np, B_np, "cpu")
+        out[("tile_a", "summa", majors)] = scatter(
+            bag(meta["A_root_l"], A_glob.data), meta["A_tile"], meta["dtA"]).data.numpy()
+        out[("tile_b", "summa", majors)] = scatter(
+            bag(meta["B_root_l"], B_glob.data), meta["B_tile"], meta["dtB"]).data.numpy()
+
+        ni, nj, nk = dims_ragged
+        for db in (True, False):
+            out[("ragged", majors, db)] = g.run_ragged_summa_gemm(
+                ni=ni, nj=nj, nk=nk, grid=grid, majors=majors, mesh=mesh2, double_buffer=db)[0]
+        _, meta = g.ragged_summa_program(ni=ni, nj=nj, nk=nk, grid=grid, majors=majors, mesh=mesh2)
+        A_np, B_np = g._inputs(13, ni, nj, nk, None, None)
+        A_glob, B_glob = g._global_bags(meta["A_layout"], meta["B_layout"], A_np, B_np, "cpu")
+        a_dist = scatterv_bag(A_glob, meta["A_tile"], meta["dtA"], meta["A_ragged"])
+        out[("tile_a", "ragged", majors)] = a_dist.data.numpy()
+        # the valid view of this rank's own tile; any other rank's is refused
+        out[("valid_a", "ragged", majors)] = a_dist.tile(a_dist.coords).data.numpy()
+        other = tuple((c + 1) % s for c, s in zip(a_dist.coords, a_dist.grid_shape))
+        try:
+            a_dist.tile(other)
+        except LayoutError:
+            pass
+        else:
+            raise AssertionError("DistBag.tile read another rank's tile")
+        out[("tile_b", "ragged", majors)] = scatterv_bag(
+            B_glob, meta["B_tile"], meta["dtB"], meta["B_ragged"]).data.numpy()
+    return out
+
+
+def _collective_inputs(np, L, mesh1, mesh2, C):
+    """The seeded bags both packages feed the collective checks; ``L`` is the
+    layout module and ``C`` the core package of either one."""
+    f32 = np.float32
+    rng = np.random.default_rng(5)
+
+    def rows(items):  # row-major layout over (dim, extent) pairs, outer first
+        layout = L.scalar(f32)
+        for d, n in reversed(items):
+            layout = layout ^ L.vector(d, n)
+        return layout
+
+    grid_root = rows([("Ri", 2), ("Ck", 2), ("i", 4), ("j", 12)])
+    dt2 = C.mpi_cart_traverser([("Ri", "rows"), ("Ck", "cols")],
+                               C.traverser(rows([("Ri", 2), ("Ck", 2)])), mesh2)
+    x = rng.standard_normal((2, 2, 4, 12)).astype(f32)
+    panel_root = rows([("Ri", 2), ("Ck", 2), ("i", 4), ("j", 10)])
+    p = rng.standard_normal((2, 2, 4, 10)).astype(f32)
+    ragged_root = rows([("i", 10), ("j", 5)])
+    dt1 = C.mpi_traverser("R", C.traverser(rows([("R", 4), ("i", 3), ("j", 5)])), mesh1)
+    y = rng.standard_normal((10, 5)).astype(f32)
+    bc = rng.standard_normal((3, 4)).astype(f32)
+    return dict(rows=rows, dt1=dt1, dt2=dt2, grid_root=grid_root, x=x, panel_root=panel_root,
+                p=p, ragged_root=ragged_root, y=y, bc=bc)
+
+
+def collective_cases(np, L, C, mesh1, mesh2, to_numpy, tile_of):
+    """Run the comm layer's collectives beyond the GEMM's use of them, in
+    either package, and return ``{case: this rank's tile as numpy, or the
+    extents table}``.  ``tile_of(dist_bag)`` reads the rank's padded tile."""
+    k = _collective_inputs(np, L, mesh1, mesh2, C)
+    rows = k["rows"]
+    out = {}
+    X = C.scatter(C.bag(k["grid_root"], k["x"]), rows([("i", 4), ("j", 12)]), k["dt2"])
+    for op in ("add", "mean", "max", "min"):
+        r = C.reduce_scatter_bag(X, rows([("j", 6), ("i", 4)]), scatter_dim="j", op=op,
+                                 rank_dim="Ck")
+        out[("reduce_scatter", op)] = tile_of(r)
+    P = C.scatter(C.bag(k["panel_root"], k["p"]), rows([("i", 4), ("j", 10)]), k["dt2"])
+    for op in ("add", "max", "min"):
+        r = C.reduce_scatterv_bag(P, rows([("j", 5), ("i", 4)]), scatter_dim="j",
+                                  in_blocks=(5, (5, 4)), out_extents=(5, 4), op=op, rank_dim="Ck")
+        out[("reduce_scatterv", op)] = tile_of(r)
+        out[("reduce_scatterv_extents", op)] = r.extents
+    Y = C.scatterv_bag(C.bag(k["ragged_root"], k["y"]), rows([("i", 3), ("j", 5)]), k["dt1"],
+                       {"R": ("i", (3, 3, 2, 2))})
+    moved = C.permute(Y, [(0, 2), (2, 0), (1, 1)], dst_tile_layout=rows([("j", 5), ("i", 3)]))
+    out["permute"], out["permute_extents"] = tile_of(moved), moved.extents
+    shifted = C.ring_shift(Y, 1)
+    out["ring_shift"], out["ring_shift_extents"] = tile_of(shifted), shifted.extents
+    out["gatherv"] = to_numpy(C.gatherv_bag(Y, rows([("j", 5), ("i", 10)])).data)
+    b = C.broadcast(C.bag(rows([("i", 3), ("j", 4)]), k["bc"]), k["dt1"],
+                    dst_layout=rows([("j", 4), ("i", 3)]))
+    out["broadcast"] = to_numpy(b.data)
+    return out
+
+
+def collectives_family() -> dict:
+    """:func:`collective_cases` on this gloo rank (4 ranks: a 1-D mesh and a
+    2x2 grid)."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.core import layout as L
+
+    mesh1 = C.make_mesh((4,), ("r",), device="cpu")
+    mesh2 = C.make_mesh((2, 2), ("rows", "cols"), device="cpu")
+    return collective_cases(np, L, C, mesh1, mesh2, lambda t: t.numpy(),
+                            lambda d: d.data.numpy())
