@@ -2,12 +2,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each against its plain PyTorch version, drives the distributed GEMM case
-study (1-D GEMM, double-buffered and blocking SUMMA, ragged SUMMA) at the
-paper's EXTRALARGE size on a world of one rank (NCCL, grid 1x1), proves
-under ``torch.profiler`` that the main path ran the port's kernels and no
-library GEMM, and times the kernels against ``torch.matmul``.
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+``nvcc`` per source, all at once) and drives both paths of the port:
+
+* the distributed GEMM case study (1-D GEMM, double-buffered and blocking
+  SUMMA, ragged SUMMA) at the paper's EXTRALARGE size on a world of one rank
+  (NCCL, grid 1x1), with its two GEMM kernels held against their plain
+  versions, a ``torch.profiler`` proof that it ran the port's kernels and no
+  library GEMM, and kernel times against ``torch.matmul``;
+* the dense LM at phi4-mini-3.8b's full width (32 layers, seeded random
+  weights): the attention kernels against their plain versions, one
+  full-sequence forward of 4096 tokens (32 ``flash_attention`` launches),
+  the serving engine answering 8 requests on 4 slots (``flash_decode`` in
+  every prefill chunk and decode step), each held against the same run
+  through the kernels' plain versions, a profiler proof that no library
+  attention kernel ran, where the time of a forward and of a decode step
+  goes (device time by kind, idle share), and kernel times beside their
+  bounds, plain versions and ``scaled_dot_product_attention``.  The
+  attention kernels' times are device times from the profiler (the sum of
+  the kernels one call launches); ``call_ms`` adds the host's launch work.
 
 Phases print one line each (or one line per case); any failed phase raises,
 so the exit code is non-zero and no result line is printed.  The line before
@@ -17,6 +30,7 @@ checkout around this file.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -34,6 +48,21 @@ RTOL, ATOL = 1e-4, 1e-3  # kernel vs plain version: float32 sums in another orde
 FP32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s (data sheet)
 LIBRARY_GEMM = re.compile(r"cublas|cutlass|xmma|gemm|sm90_|sm80_|ampere_|magma", re.I)
+# attention kernels vs plain versions: bf16 allows one bf16 ulp of the output
+# (2^-8 relative) on top of float32 sums in another order; float32 only the sums
+ATTN_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-4}
+LIBRARY_ATTN = re.compile(r"flash|fmha|sdpa|efficient_attention|cudnn", re.I)
+GEMM_NAMES = re.compile(r"nvjet|gemm|gemv|cublas|cutlass|xmma|sm90_|sm80_", re.I)
+PORT_ATTN = ("flash_attention_kernel", "flash_decode_kernel", "flash_decode_combine_kernel")
+DEVICE = "cuda"
+ARCH, SEQ = "phi4-mini-3.8b", 4096  # the forward's model and length
+SLOTS, MAX_LEN, REQUESTS, NEW_TOKENS = 4, 4096, 8, 32  # the serving run
+PROMPT_LENS = (128, 2049)  # seeded prompt lengths: [low, high)
+DECODE_LENS = (1, 700, 2049, 4096)  # per-slot cache lengths of the timed decode step
+# bf16 logits of the kernel path against the plain path, 32 layers deep: the
+# attention outputs may round one bf16 ulp apart, and the residual stream
+# carries that to the logits (unit scale: embed std 0.02 over d_model 3072)
+LOGIT_TOL = 0.25
 
 
 def phase(name: str, **fields) -> None:
@@ -69,6 +98,31 @@ def median_ms(fn, *, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_kernel_ms(prof) -> dict[str, float]:
+    """Device milliseconds by kernel name in a profile."""
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def device_ms(fn, *, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call: the summed durations of the kernels it
+    launches (from the profiler), over ``iters`` calls.  Unlike an event
+    pair around each call, it leaves out the host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(device_kernel_ms(prof).values()) / iters
 
 
 def bound(m: int, n: int, k: int, *, acc: bool) -> tuple[float, str]:
@@ -206,6 +260,377 @@ def time_kernels(ops, card: str) -> dict:
     return rows
 
 
+def randn(shape, dtype, seed: int) -> torch.Tensor:
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return torch.randn(shape, device=DEVICE, generator=g).to(dtype)
+
+
+def attn_bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """Least time: float32 operations (the reference's attention arithmetic
+    is float32) over the float32 peak, or bytes over the memory rate."""
+    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def decode_inputs(B, Hq, G, S, T, D, dtype, *, lens, start=None, seed=20):
+    """q, caches, lengths and (with ``start``) per-row chunk positions."""
+    q = randn((B, Hq, S, D), dtype, seed)
+    kc, vc = randn((B, G, T, D), dtype, seed + 1), randn((B, G, T, D), dtype, seed + 2)
+    lens = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    pos = None
+    if start is not None:
+        start = torch.tensor(start, dtype=torch.int32, device=DEVICE)
+        pos = start[:, None] + torch.arange(S, dtype=torch.int32, device=DEVICE)[None, :]
+    return q, kc, vc, lens, pos
+
+
+def rounding_margins(ops, got, want, q, kc, vc, lens, pos, live) -> dict:
+    """bf16 decode: the one rule the tolerance cannot see, each KV block's
+    probabilities rounded to bf16 against that block's own max.  Rounding
+    moves the outputs by less than a bf16 ulp, so the check is on the mean
+    |difference| over the live rows: the kernel's from its plain version
+    must be under a quarter of its difference from two versions that break
+    the rule, one that does not round (float32 caches) and one that rounds
+    against the max over the whole cache (a single block)."""
+    def mean(other):
+        return (got[live].float() - other[live].float()).abs().mean().item()
+
+    T = kc.shape[2]
+    out = {"plain": mean(want),
+           "unrounded": mean(ops.flash_decode(q, kc.float(), vc.float(), lens, q_positions=pos,
+                                              block=512, impl="ref")),
+           "one_block": mean(ops.flash_decode(q, kc, vc, lens, q_positions=pos, block=T,
+                                              impl="ref"))}
+    if not 4 * out["plain"] < min(out["unrounded"], out["one_block"]):
+        raise AssertionError(f"flash_decode does not round each block against its own max: "
+                             f"mean |difference| {out}")
+    return out
+
+
+def check_attention_kernels(ops) -> dict:
+    """The attention kernels against their plain versions on the card, at
+    the path's shapes and at ragged and odd ones."""
+    worst = {}
+    both = (torch.bfloat16, torch.float32)
+    for label, (B, Hq, G, S, D), causal in (("forward", (1, 24, 8, SEQ, 128), True),
+                                            ("ragged", (1, 24, 8, 1000, 128), True),
+                                            ("ragged", (1, 24, 8, 1000, 128), False),
+                                            ("small_odd", (2, 6, 2, 77, 64), True)):
+        for dt in both:
+            q, k, v = (randn(shape, dt, 10 + i) for i, shape in
+                       enumerate(((B, Hq, S, D), (B, G, S, D), (B, G, S, D))))
+            got = ops.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            want = ops.flash_attention(q, k, v, causal=causal, impl="ref")
+            torch.testing.assert_close(got, want, rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
+            err = (got.float() - want.float()).abs().max().item()
+            if label == "forward" and dt == torch.bfloat16:
+                worst["flash_attention"] = err
+            phase("kernel_check", kernel="flash_attention", case=label, shape=(B, Hq, G, S, D),
+                  causal=causal, dtype=str(dt), max_abs_err=err, tol=ATTN_TOL[dt])
+            del q, k, v, got, want
+    # decode step; prefill chunk (two prompts from 0, a resident slot, an
+    # idle one); a cache length T that the 512-key blocks do not divide
+    for label, dims, lens, start in (
+            ("decode", (4, 24, 8, 1, MAX_LEN, 128), DECODE_LENS, None),
+            ("prefill_chunk", (4, 24, 8, 2048, MAX_LEN, 128), (2047, 1000, 300, 0),
+             (0, 0, 300, 0)),
+            ("T_not_divided", (4, 24, 8, 1, 4000, 128), (4000, 3999, 512, 1), None)):
+        for dt in both:
+            q, kc, vc, lens_t, pos = decode_inputs(*dims, dt, lens=lens, start=start)
+            got = ops.flash_decode(q, kc, vc, lens_t, q_positions=pos, block=512)
+            torch.cuda.synchronize()
+            want = ops.flash_decode(q, kc, vc, lens_t, q_positions=pos, block=512, impl="ref")
+            live = lens_t > 0  # rows with no visible key give 0 in the kernel (skipped blocks)
+            torch.testing.assert_close(got[live], want[live], rtol=ATTN_TOL[dt],
+                                       atol=ATTN_TOL[dt])
+            err = (got[live].float() - want[live].float()).abs().max().item()
+            margins = None
+            if dt == torch.bfloat16:
+                margins = rounding_margins(ops, got, want, q, kc, vc, lens_t, pos, live)
+                if label == "decode":
+                    worst["flash_decode"] = err
+            phase("kernel_check", kernel="flash_decode", case=label, shape=dims, lens=lens,
+                  dtype=str(dt), max_abs_err=err, tol=ATTN_TOL[dt],
+                  excluded_rows=int((~live).sum()), mean_abs_diff_from=margins)
+            del q, kc, vc, got, want
+    return worst
+
+
+def forward_full_width(cfg, params, lm, fa) -> dict:
+    """The full-width forward of 4096 seeded tokens through the kernel, held
+    against the same forward through the plain version."""
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (1, SEQ), device=DEVICE, generator=g)
+    batch = {"tokens": tokens}
+    fa.flash_attention_cuda.launches = 0
+    logits, _ = lm.forward(params, batch, cfg)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention_cuda.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"flash_attention launches {launches} != {cfg.n_layers} layers")
+    if logits.shape != (1, SEQ, cfg.vocab_padded) or not torch.isfinite(logits).all():
+        raise AssertionError(f"forward logits {tuple(logits.shape)} not finite/expected shape")
+    last = logits[0, -1, :cfg.vocab].float()
+    del logits
+    forward_ms = median_ms(lambda: lm.forward(params, batch, cfg), iters=5, warmup=1)
+    ref_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    ref_last = lm.forward(params, batch, ref_cfg)[0][0, -1, :cfg.vocab].float()
+    err = (last - ref_last).abs().max().item()
+    if err > LOGIT_TOL:
+        raise AssertionError(f"last-position logits kernel vs plain: {err} > {LOGIT_TOL}")
+    out = dict(tokens=SEQ, launches=launches, forward_ms=forward_ms, last_logits_max_abs_err=err,
+               tol=LOGIT_TOL, logit_scale=ref_last.abs().max().item(),
+               argmax_equal=bool(last.argmax() == ref_last.argmax()))
+    phase("forward", arch=cfg.name, **out)
+    return out
+
+
+def _instrument(engine, record_gaps: bool):
+    """Wrap the engine's step: device-synchronized seconds per step kind,
+    the ledger's peak occupancy, the first prefill chunk's logits of each
+    prefilled slot at its last fed position (``{slot: (V,)}``) and
+    (``record_gaps``) the top-2 logit gap of every generated token, keyed by
+    (request, token index)."""
+    stats = {"prefill_s": 0.0, "decode_s": 0.0, "peak_occupancy": 0.0, "gaps": {},
+             "first_prefill": None}
+    step = engine._step
+
+    def timed(tokens, counts, *, prefill):
+        owners = {i: (s.request_id, len(s.tokens)) for i, s in enumerate(engine.slots)
+                  if s.request_id is not None}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(tokens, counts, prefill=prefill)
+        torch.cuda.synchronize()
+        stats["prefill_s" if prefill else "decode_s"] += time.perf_counter() - t0
+        stats["peak_occupancy"] = max(stats["peak_occupancy"], engine.ledger.valid_fraction())
+        if prefill and stats["first_prefill"] is None:
+            stats["first_prefill"] = {i: logits[i, n - 1].clone()
+                                      for i, n in enumerate(counts.tolist()) if n > 0}
+        if record_gaps and not prefill:
+            top2 = logits[:, -1, :engine.cfg.vocab].float().topk(2, dim=-1).values
+            gaps = (top2[:, 0] - top2[:, 1]).tolist()
+            for i, key in owners.items():
+                stats["gaps"][key] = gaps[i]
+        return logits
+
+    engine._step = timed
+    return stats
+
+
+def serve_prompts(cfg) -> list[list[int]]:
+    """The serving run's seeded prompts."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(2, cfg.vocab, size=int(rng.integers(*PROMPT_LENS))).tolist()
+            for _ in range(REQUESTS)]
+
+
+def serve_full_width(cfg, params, Engine, ServeConfig, fd) -> dict:
+    """8 requests (seeded prompts of 128-2048 tokens, 32 new tokens each) on
+    4 slots at max_len 4096, through the kernel and through the plain
+    version; greedy tokens compared where the plain run is not a near tie."""
+    requests = serve_prompts(cfg)
+    scfg = ServeConfig(max_len=MAX_LEN, batch_slots=SLOTS, eos_token=-1)
+    runs = {}
+    for impl in ("cuda", "ref"):
+        engine = Engine(dataclasses.replace(cfg, attn_impl=impl), params, scfg)
+        stats = _instrument(engine, record_gaps=impl == "ref")
+        for rid, prompt in enumerate(requests):
+            engine.submit(rid, prompt, NEW_TOKENS)
+        fd.flash_decode_cuda.launches = 0
+        t0 = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fd.flash_decode_cuda.launches
+        if sorted(done) != list(range(REQUESTS)) or any(
+                len(done[r]) != len(requests[r]) + NEW_TOKENS for r in range(REQUESTS)):
+            raise AssertionError(f"{impl}: not every request finished with {NEW_TOKENS} tokens")
+        expected = cfg.n_layers * (engine.steps["prefill"] + engine.steps["decode"]) \
+            if impl == "cuda" else 0
+        if launches != expected:
+            raise AssertionError(f"{impl}: flash_decode launches {launches} != {expected}")
+        runs[impl] = dict(done=done, stats=stats, steps=dict(engine.steps), wall=wall,
+                          launches=launches, prefill=stats["first_prefill"])
+        del engine
+        torch.cuda.empty_cache()
+    k, p = runs["cuda"], runs["ref"]
+    prefill_err = max((k["prefill"][i] - p["prefill"][i]).float().abs().max().item()
+                      for i in p["prefill"])
+    if prefill_err > LOGIT_TOL:
+        raise AssertionError(f"first prefill logits kernel vs plain: {prefill_err} > {LOGIT_TOL}")
+    agree, total, near_ties = 0, 0, []
+    for rid, prompt in enumerate(requests):
+        new_k, new_p = k["done"][rid][len(prompt):], p["done"][rid][len(prompt):]
+        total += NEW_TOKENS
+        for j, (a, b) in enumerate(zip(new_k, new_p)):
+            if a == b:
+                agree += 1
+                continue
+            gap = p["stats"]["gaps"][(rid, len(prompt) + j)]
+            if gap > LOGIT_TOL:
+                raise AssertionError(f"request {rid} token {j}: kernel {a} vs plain {b} with a "
+                                     f"plain top-2 gap of {gap} > {LOGIT_TOL}")
+            near_ties.append({"request": rid, "token": j, "plain_top2_gap": gap})
+            break  # past a divergence the two runs continue different texts
+    st = k["stats"]
+    out = dict(requests=REQUESTS, slots=SLOTS, max_len=MAX_LEN, new_tokens=NEW_TOKENS,
+               prompt_lens=[len(r) for r in requests], steps=k["steps"],
+               flash_decode_launches=k["launches"], prefill_s=st["prefill_s"],
+               decode_s=st["decode_s"], decode_tok_s=REQUESTS * NEW_TOKENS / st["decode_s"],
+               wall_s=k["wall"], peak_kv_occupancy=st["peak_occupancy"],
+               plain_wall_s=p["wall"], first_prefill_logits_max_abs_err=prefill_err,
+               tol=LOGIT_TOL, greedy_agreement=agree / total, divergences_at_near_ties=near_ties)
+    phase("serve", arch=cfg.name, **out)
+    return out
+
+
+def profile_lm(cfg, params, lm, Engine, ServeConfig) -> None:
+    """One short forward and a few engine steps under the profiler: both
+    attention kernels ran, and no library attention kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens = torch.arange(2, 514, device=DEVICE)[None, :]
+    engine = Engine(cfg, params, ServeConfig(max_len=512, batch_slots=2, eos_token=-1))
+    engine.submit(0, list(range(2, 130)), 3)
+    engine.submit(1, list(range(7, 40)), 3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lm.forward(params, {"tokens": tokens}, cfg)
+        engine.run()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    ours = [n for n in names if any(k in n for k in PORT_ATTN)]
+    library = [n for n in names if LIBRARY_ATTN.search(n) and not any(k in n for k in PORT_ATTN)]
+    for kernel in ("flash_attention_kernel", "flash_decode_kernel"):
+        if not any(kernel in n for n in ours):
+            raise AssertionError(f"{kernel} did not run; device kernels: {names}")
+    if library:
+        raise AssertionError(f"library attention kernels ran: {library}")
+    phase("lm_kernel_proof", device_kernels=len(names), port_kernels=ours,
+          library_attention=library)
+
+
+def by_kind(times: dict[str, float]) -> dict[str, float]:
+    """Device ms split into the port's attention kernels, library GEMMs (the
+    projections and the head) and everything else."""
+    out = {"attention_kernels": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, ms in times.items():
+        kind = ("attention_kernels" if any(k in name for k in PORT_ATTN)
+                else "gemm" if GEMM_NAMES.search(name) else "other")
+        out[kind] += ms
+    return out
+
+
+def breakdown_lm(cfg, params, lm, Engine, ServeConfig) -> None:
+    """Where the time goes at full width: for one forward of 4096 tokens and
+    for steady decode steps of the serving run's first batch, the host-clock
+    time of a step, the device time by kind, the kernels launched and the
+    device's idle share.  Each window runs once unprofiled (for the clock)
+    and once under the profiler (for the device times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(fn, n: int) -> dict:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        times = device_kernel_ms(prof)
+        launches = sum(1 for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy = sum(times.values()) / n
+        top = sorted(times.items(), key=lambda kv: -kv[1])[:5]
+        return dict(wall_ms=wall, device_ms=busy, idle_share=1 - busy / wall,
+                    kernels_launched=launches / n,
+                    device_ms_by_kind={k: v / n for k, v in by_kind(times).items()},
+                    top_kernels=[(name[:80], ms / n) for name, ms in top])
+
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (1, SEQ), device=DEVICE, generator=g)
+    fwd = window(lambda: lm.forward(params, {"tokens": tokens}, cfg), 2)
+    phase("breakdown", arch=cfg.name, window="forward", tokens=SEQ, **fwd)
+
+    engine = Engine(cfg, params, ServeConfig(max_len=MAX_LEN, batch_slots=SLOTS, eos_token=-1))
+    for rid, prompt in enumerate(serve_prompts(cfg)[:SLOTS]):
+        engine.submit(rid, prompt, NEW_TOKENS)
+    engine._fill_slots()  # the prefill chunk, outside the windows
+    engine._decode_once()
+    dec = window(engine._decode_once, 8)
+    phase("breakdown", arch=cfg.name, window="decode_step", slots=SLOTS,
+          cache_lens=list(engine.ledger.lengths), **dec)
+    del engine
+    torch.cuda.empty_cache()
+
+
+def library_attention(q, k, v, **kw):
+    """One PyTorch call computing the same attention (the yardstick, never
+    used by the port): ``scaled_dot_product_attention`` with GQA."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+
+
+def time_three(kernel, plain, library, *, plain_iters: int = 20) -> dict:
+    """Device ms (``device_ms``) of the kernel, its plain version and the
+    library call, and the kernel's ms per call with the host's launch work
+    (``median_ms``)."""
+    return dict(ms=device_ms(kernel), plain_ms=device_ms(plain, iters=plain_iters),
+                library_ms=device_ms(library, iters=plain_iters), call_ms=median_ms(kernel))
+
+
+def time_attention_kernels(ops, card: str) -> dict:
+    """Times of the attention kernels at the path's shapes."""
+    rows = {}
+    B, Hq, G, S, D = 1, 24, 8, SEQ, 128
+    q, k, v = (randn(shape, torch.bfloat16, 30 + i) for i, shape in
+               enumerate(((B, Hq, S, D), (B, G, S, D), (B, G, S, D))))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    t = time_three(lambda: ops.flash_attention(q, k, v),
+                   lambda: ops.flash_attention(q, k, v, impl="ref"),
+                   lambda: library_attention(qf, kf, vf, is_causal=True))
+    flops = 4 * B * Hq * S * S * D / 2
+    b_ms, b_by = attn_bound(flops, 2 * (2 * q.numel() + k.numel() + v.numel()))
+    rows["flash_attention"] = dict(bound_ms=b_ms, bound_by=b_by, **t)
+    phase("time", kernel="flash_attention", shape=(B, Hq, G, S, D), causal=True,
+          dtype="bfloat16", card=card, tflops=flops / t["ms"] / 1e9, **rows["flash_attention"])
+    del q, k, v, qf, kf, vf
+    for label, dims, lens, start in (
+            ("decode", (SLOTS, 24, 8, 1, MAX_LEN, 128), DECODE_LENS, None),
+            ("prefill_chunk", (SLOTS, 24, 8, 2048, MAX_LEN, 128), (2047, 1000, 300, 0),
+             (0, 0, 300, 0))):
+        B, Hq, G, S, T, D = dims
+        q, kc, vc, lens_t, pos = decode_inputs(*dims, torch.bfloat16, lens=lens, start=start,
+                                               seed=40)
+        t_idx = torch.arange(T, device=DEVICE)
+        mask = t_idx[None, None, None, :] < lens_t[:, None, None, None]
+        if pos is not None:
+            mask = mask & (t_idx[None, None, None, :] <= pos[:, None, :, None])
+        qf, kf, vf = q.float(), kc.float(), vc.float()
+        t = time_three(lambda: ops.flash_decode(q, kc, vc, lens_t, q_positions=pos),
+                       lambda: ops.flash_decode(q, kc, vc, lens_t, q_positions=pos, impl="ref"),
+                       lambda: library_attention(qf, kf, vf, attn_mask=mask), plain_iters=5)
+        # the work this run's data needs: each row's visible keys
+        if pos is None:
+            visible = S * sum(min(n, T) for n in lens)
+        else:
+            p = torch.minimum(pos.long() + 1, lens_t[:, None].long().clamp(max=T))
+            visible = int(p.clamp(min=0).sum())
+        kv_bytes = 2 * 2 * G * D * sum(min(n, T) for n in lens)
+        b_ms, b_by = attn_bound(4 * Hq * visible * D, kv_bytes + 2 * 2 * q.numel())
+        rows[("flash_decode", label)] = dict(bound_ms=b_ms, bound_by=b_by, **t)
+        phase("time", kernel="flash_decode", case=label, shape=dims, lens=lens,
+              dtype="bfloat16", card=card, **rows[("flash_decode", label)])
+        del q, kc, vc, qf, kf, vf, mask
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU", file=sys.stderr)
@@ -213,25 +638,39 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch.distributed as dist
 
+    from repro_torch import configs
     from repro_torch.core import init_world, make_mesh
     from repro_torch.examples import distributed_gemm as g
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import gemm as kernels
     from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.weights import cast_params
+    from repro_torch.serve.engine import Engine, ServeConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
-    # phase 1: the card and the build
+    # phase 1: the card and the build (one nvcc per source, all at once)
     card = nvidia_smi()
     t0 = time.perf_counter()
+    build.build_all()
     kernels.load_library()
+    fa.load_library()
+    fd.load_library()
     build_s = time.perf_counter() - t0
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", kernels.build_log())]
-    spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", kernels.build_log()))
+    ptxas = {}
+    for name in build.SOURCES:
+        log = build.build_log(name)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        ptxas[name] = dict(registers=[min(regs), max(regs)] if regs else None,
+                           spill_store_bytes=sum(int(n) for n in
+                                                 re.findall(r"(\d+) bytes spill stores", log)))
     phase("card", nvidia_smi=card, device=torch.cuda.get_device_name(0),
-          torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-          registers=[min(regs), max(regs)] if regs else None, spill_store_bytes=spills)
+          torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas)
 
     # phase 2: kernels against their plain versions
     worst = check_kernels(ops)
@@ -263,6 +702,38 @@ def main() -> int:
 
     # phase 5: times
     rows = time_kernels(ops, card)
+    torch.cuda.empty_cache()
+
+    # phase 6: the attention kernels against their plain versions
+    t0 = time.perf_counter()
+    worst.update(check_attention_kernels(ops))
+    phase("attention_kernels_vs_plain", max_abs_err=worst, seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+    # phase 7: the dense LM at full width, seeded random weights; the
+    # engine's activation-dtype copy of the weights is made here once
+    cfg = configs.get(ARCH)
+    t0 = time.perf_counter()
+    params = cast_params(lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                       device="cuda"), cfg.act_dtype)
+    torch.cuda.synchronize()
+    phase("model", arch=cfg.name, params=lm.count_params(cfg), init_s=time.perf_counter() - t0,
+          memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    fwd = forward_full_width(cfg, params, lm, fa)
+    torch.cuda.empty_cache()
+
+    # phase 8: serving at full width
+    srv = serve_full_width(cfg, params, Engine, ServeConfig, fd)
+    torch.cuda.empty_cache()
+
+    # phase 9: the LM path's kernels under the profiler
+    profile_lm(cfg, params, lm, Engine, ServeConfig)
+    breakdown_lm(cfg, params, lm, Engine, ServeConfig)
+    del params
+    torch.cuda.empty_cache()
+
+    # phase 10: attention kernel times
+    rows.update(time_attention_kernels(ops, card))
 
     gemm_src = "src/repro_torch/kernels/csrc/gemm.cu"
     report = []
@@ -271,6 +742,16 @@ def main() -> int:
         row = rows[(name, "EXTRALARGE")]
         report.append({"name": name, "route": "cuda", "source": gemm_src, "replaces": replaces,
                        "launches": launches[name], "max_abs_err": worst[name], **row})
+    report.append({"name": "flash_attention", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "replaces": "src/repro/kernels/flash_attention.py:169",
+                   "launches": fwd["launches"], "max_abs_err": worst["flash_attention"],
+                   **rows["flash_attention"]})
+    report.append({"name": "flash_decode", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+                   "replaces": "src/repro/kernels/flash_decode.py:71",
+                   "launches": srv["flash_decode_launches"], "max_abs_err": worst["flash_decode"],
+                   **rows[("flash_decode", "decode")]})
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

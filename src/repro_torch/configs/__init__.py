@@ -1,1 +1,40 @@
-"""Configurations of the port (copies of the reference's plain-Python ones)."""
+"""Configurations of the port: the case study's GEMM sizes and the model
+architectures ported so far.  ``repro_torch.configs.get("phi4-mini-3.8b")``
+resolves an architecture (its published config, or ``smoke=True`` for the
+reduced CPU one)."""
+from importlib import import_module
+
+from .base import ArchConfig
+
+_MODULES = {
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "qwen2.5-32b": "qwen2_5_32b",
+}
+
+# the reference's other architectures, by the ROADMAP.md queue-1 item that
+# ports their family
+_LATER = {
+    "minicpm3-4b": "item 6 (MLA family)",
+    "internlm2-20b": "item 6 (its config file; the dense family is ported)",
+    "llama-3.2-vision-11b": "item 6 (VLM family)",
+    "phi3.5-moe-42b-a6.6b": "item 9 (MoE)",
+    "arctic-480b": "item 9 (MoE)",
+    "rwkv6-3b": "item 6 (SSM family)",
+    "zamba2-7b": "item 6 (hybrid family)",
+    "musicgen-large": "item 6 (audio family, embeds input)",
+}
+
+ARCH_IDS = list(_MODULES)
+
+
+def get(name: str, *, smoke: bool = False) -> ArchConfig:
+    if name in _LATER:
+        raise NotImplementedError(f"arch {name!r} is not ported yet: ROADMAP.md queue 1, "
+                                  f"{_LATER[name]}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
+    mod = import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.SMOKE if smoke else mod.CONFIG
+
+
+__all__ = ["ArchConfig", "ARCH_IDS", "get"]

@@ -1,0 +1,110 @@
+"""The flash-attention kernel for Hopper and its wrapper.
+
+``csrc/flash_attention.cu`` replaces the reference's Pallas kernel
+``flash_attention_pallas`` (``src/repro/kernels/flash_attention.py``):
+blockwise online-softmax attention of q (B, Hq, Sq, D) over k/v
+(B, G, Skv, D), causal (top-left aligned) or not, all arithmetic float32,
+output in q's dtype.  Its plain version is
+:func:`repro_torch.kernels.ref.flash_attention_ref`.
+
+The kernel takes float32 or bfloat16 with head dim 64 or 128 (``v`` with the
+same head dim as ``q``).  It reads each operand through its batch, head and
+sequence strides, so the transposed views of the projections need no copy.
+It launches on PyTorch's current stream and never synchronises; a build or
+launch failure raises.  ``flash_attention_cuda.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build
+
+__all__ = ["flash_attention_cuda", "check_attention", "load_library", "KERNEL_DTYPES"]
+
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)
+
+
+def check_attention(q, k, v) -> tuple[int, int, int, int, int, int]:
+    """``(B, Hq, G, Sq, Skv, D)`` of an attention call; raises ``ValueError``
+    on shapes that do not fit together."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"q, k, v must be (B, H, S, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Hq, Sq, D = q.shape
+    Bk, G, Skv, Dk = k.shape
+    if Bk != B or Dk != D or tuple(v.shape[:3]) != (B, G, Skv):
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if G == 0 or Hq % G:
+        raise ValueError(f"Hq={Hq} not a multiple of G={G}")
+    return B, Hq, G, Sq, Skv, D
+
+
+def _row_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its head dim is contiguous and every row starts on
+    16 bytes, else a contiguous copy."""
+    per = 16 // t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % per == 0 for s in t.stride()[:-1])):
+        return t
+    return t.contiguous()
+
+
+def check_on_card(dtypes, head_dims, **tensors) -> torch.device:
+    """The common device of ``tensors``; raises unless all lie on one CUDA
+    device with one dtype the kernel takes and a head dim it takes."""
+    first = next(iter(tensors.values()))
+    for name, t in tensors.items():
+        if not t.is_cuda or t.device != first.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {first.device}, got {t.device}")
+        if t.dtype != first.dtype or t.dtype not in dtypes:
+            raise TypeError(f"{name}: the kernel takes one of {list(dtypes)} for all operands, "
+                            f"got {t.dtype} (q is {first.dtype})")
+        if t.shape[-1] not in head_dims:
+            raise ValueError(f"{name}: the kernel takes head dims {head_dims}, got {t.shape[-1]}")
+    return first.device
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; raises on failure."""
+    lib = build.load("flash_attention")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
+                                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, p]
+    lib.flash_attention_fwd.restype = i
+    lib.flash_attention_error_string.argtypes = [i]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, scale: float | None = None) -> torch.Tensor:
+    """Attention of q (B, Hq, Sq, D) over k, v (B, G, Skv, D) on the card;
+    returns (B, Hq, Sq, D) contiguous in q's dtype."""
+    B, Hq, G, Sq, Skv, D = check_attention(q, k, v)
+    device = check_on_card(KERNEL_DTYPES, HEAD_DIMS, q=q, k=k, v=v)
+    out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=device)
+    if out.numel() == 0:
+        return out
+    if Skv == 0:
+        raise ValueError("attention over an empty key sequence")
+    q, k, v = _row_aligned(q), _row_aligned(k), _row_aligned(v)
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    scale = float(scale if scale is not None else D ** -0.5)
+    lib = load_library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    code = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                   KERNEL_DTYPES[q.dtype], B, Hq, G, Sq, Skv, D, strides, scale,
+                                   int(causal), stream)
+    if code != 0:
+        msg = lib.flash_attention_error_string(code).decode()
+        raise RuntimeError(f"flash_attention_kernel launch failed: {msg} (cudaError {code})")
+    flash_attention_cuda.launches += 1  # type: ignore[attr-defined]
+    return out
+
+
+flash_attention_cuda.launches = 0  # type: ignore[attr-defined]

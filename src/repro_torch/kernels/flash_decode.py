@@ -1,0 +1,130 @@
+"""The split-KV flash-decode kernel for Hopper and its wrapper.
+
+``csrc/flash_decode.cu`` replaces the reference's Pallas kernel
+``flash_decode_pallas`` (``src/repro/kernels/flash_decode.py``) and its
+log-sum-exp combine: attention of new queries q (B, Hq, S, D) over the KV
+caches (B, G, T, D) with per-row ``cache_len`` (B,) and optional per-query
+``q_positions`` (B, S), the probabilities of each KV block of ``block``
+keys rounded to the cache dtype relative to that block's own max.  Its
+plain version is :func:`repro_torch.kernels.ref.flash_decode_ref`.
+
+The wrapper picks the row tile (16 or 64 rows of the rep*S stacked query
+rows, by how many rows there are and what fits in shared memory) and the
+number of splits of the KV blocks (enough blocks to cover the card twice),
+allocates the splits' float32 partials, and launches the kernel and its
+combine on PyTorch's current stream.  Rows with no visible key at all give
+0 where the reference gives the mean of v (idle slots; nothing reads
+them).  ``flash_decode_cuda.launches`` counts calls.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build
+from .flash_attention import HEAD_DIMS, KERNEL_DTYPES, check_on_card
+
+__all__ = ["flash_decode_cuda", "check_decode", "load_library", "plan_launch"]
+
+MAX_SMEM = 232448 - 1024  # bytes one block may opt into on Hopper, less static shared memory
+ROW_TILES = (4, 1)  # row-tile factors: 64 or 16 rows per block
+
+
+def check_decode(q, k_cache, v_cache, cache_len, q_positions) -> tuple[int, int, int, int, int, int]:
+    """``(B, Hq, G, S, T, D)`` of a decode call; raises ``ValueError`` on
+    shapes that do not fit together."""
+    if q.ndim != 4 or k_cache.ndim != 4 or v_cache.ndim != 4:
+        raise ValueError("q and the caches must be (B, H, S, D)")
+    B, Hq, S, D = q.shape
+    Bk, G, T, Dk = k_cache.shape
+    if Bk != B or Dk != D or tuple(v_cache.shape[:3]) != (B, G, T):
+        raise ValueError(f"caches {tuple(k_cache.shape)}, {tuple(v_cache.shape)} do not fit "
+                         f"q {tuple(q.shape)}")
+    if G == 0 or Hq % G:
+        raise ValueError(f"Hq={Hq} not a multiple of G={G}")
+    if tuple(cache_len.shape) != (B,):
+        raise ValueError(f"cache_len must be ({B},), got {tuple(cache_len.shape)}")
+    if q_positions is not None and tuple(q_positions.shape) != (B, S):
+        raise ValueError(f"q_positions must be ({B}, {S}), got {tuple(q_positions.shape)}")
+    return B, Hq, G, S, T, D
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; raises on failure."""
+    lib = build.load("flash_decode")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_decode_fwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
+                                     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, p]
+    lib.flash_decode_fwd.restype = i
+    lib.flash_decode_smem_bytes.argtypes = [i, i, i]
+    lib.flash_decode_smem_bytes.restype = ctypes.c_longlong
+    lib.flash_decode_error_string.argtypes = [i]
+    lib.flash_decode_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def plan_launch(rows: int, groups: int, nb: int, D: int, bk: int, sms: int,
+                smem_bytes) -> tuple[int, int, int]:
+    """``(tr, splits, per)``: the row-tile factor (64 rows when there are at
+    least 64 and they fit, else 16), and the KV-block splits, each of
+    ``per`` consecutive blocks, that give at least two blocks per SM."""
+    fits = [tr for tr in ROW_TILES if smem_bytes(D, tr, bk) <= MAX_SMEM]
+    if not fits:
+        raise ValueError(f"KV block of {bk} keys needs more shared memory than a block has "
+                         f"(D={D}); use a smaller block")
+    tr = fits[0] if rows >= 64 else fits[-1]
+    tiles = -(-rows // (16 * tr)) * groups
+    splits = max(1, min(nb, -(-2 * sms // tiles)))
+    per = -(-nb // splits)
+    return tr, -(-nb // per), per
+
+
+def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      cache_len: torch.Tensor, *, q_positions: torch.Tensor | None = None,
+                      scale: float | None = None, block: int = 512) -> torch.Tensor:
+    """Split-KV decode attention on the card; returns (B, Hq, S, D)
+    contiguous in q's dtype.  Caches must have a contiguous head dim and
+    16-byte aligned rows (a layer slice of a stacked cache does)."""
+    B, Hq, G, S, T, D = check_decode(q, k_cache, v_cache, cache_len, q_positions)
+    device = check_on_card(KERNEL_DTYPES, HEAD_DIMS, q=q, k_cache=k_cache, v_cache=v_cache)
+    out = torch.empty((B, Hq, S, D), dtype=q.dtype, device=device)
+    if out.numel() == 0:
+        return out
+    per_row = 16 // k_cache.element_size()
+    for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if c.stride(-1) != 1 or c.data_ptr() % 16 or any(s % per_row for s in c.stride()[:3]):
+            raise ValueError(f"{name} needs a contiguous head dim and 16-byte aligned rows, "
+                             f"got strides {c.stride()}")
+    if cache_len.device != device or q_positions is not None and q_positions.device != device:
+        raise ValueError(f"cache_len and q_positions must lie on {device}")
+    q = q.contiguous()
+    lens = cache_len.to(torch.int32).contiguous()
+    pos = None if q_positions is None else q_positions.to(torch.int32).contiguous()
+    rep = Hq // G
+    bk = min(block, T)
+    nb = -(-T // bk)
+    lib = load_library()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tr, splits, per = plan_launch(rep * S, B * G, nb, D, bk, sms, lib.flash_decode_smem_bytes)
+    o_part = torch.empty((B * G, splits, rep * S, D), dtype=torch.float32, device=device)
+    m_part = torch.empty((B * G, splits, rep * S), dtype=torch.float32, device=device)
+    l_part = torch.empty_like(m_part)
+    strides = (ctypes.c_longlong * 6)(*k_cache.stride()[:3], *v_cache.stride()[:3])
+    scale = float(scale if scale is not None else D ** -0.5)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    code = lib.flash_decode_fwd(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                                lens.data_ptr(), None if pos is None else pos.data_ptr(),
+                                o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+                                out.data_ptr(), KERNEL_DTYPES[q.dtype], B, Hq, G, S, T, D, bk,
+                                splits, per, tr, strides, scale, stream)
+    if code != 0:
+        msg = lib.flash_decode_error_string(code).decode()
+        raise RuntimeError(f"flash_decode_kernel launch failed: {msg} (cudaError {code})")
+    flash_decode_cuda.launches += 1  # type: ignore[attr-defined]
+    return out
+
+
+flash_decode_cuda.launches = 0  # type: ignore[attr-defined]

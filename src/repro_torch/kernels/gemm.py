@@ -12,10 +12,10 @@ A @ B``.  Orientation encoding (the paper's Fig. 3 labels):
 
 The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, at first use, into ``build/torch_kernels/`` of the
-checkout (keyed by a hash of the source and flags), and bound with
-``ctypes``.  Kernels launch on PyTorch's current stream and never
-synchronise.  A build or launch failure raises; nothing falls back to the
-plain version (``repro_torch.kernels.ref``).
+checkout (``kernels/build.py``), and bound with ``ctypes``.  Kernels launch
+on PyTorch's current stream and never synchronise.  A build or launch
+failure raises; nothing falls back to the plain version
+(``repro_torch.kernels.ref``).
 
 Each wrapper counts its launches in its ``launches`` attribute, so a run can
 show that it went through the kernel.
@@ -24,21 +24,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from . import build
+
 __all__ = ["gemm_cuda", "gemm_panel_cuda", "gemm_shape", "check_gemm", "check_panel",
            "parse_majors", "load_library", "build_log"]
-
-_SRC = Path(__file__).resolve().parent / "csrc" / "gemm.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-_NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def parse_majors(majors: str) -> tuple[bool, bool, bool]:
@@ -93,45 +85,16 @@ def _check_contiguous(**tensors) -> None:
             raise ValueError(f"{name} must be a contiguous buffer, got strides {t.stride()}")
 
 
-def _find_nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
-    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
-    for c in candidates:
-        if c and os.path.isfile(c):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the GEMM kernels are built from source")
-
-
 def build_log() -> str:
     """nvcc's output from this process's build (ptxas register and shared
     memory report), empty when the library was already built."""
-    return _build.log  # type: ignore[attr-defined]
-
-
-def _build() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"liblayout_gemm_{digest}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
-    _build.log = proc.stdout + proc.stderr  # type: ignore[attr-defined]
-    return lib
-
-
-_build.log = ""  # type: ignore[attr-defined]
+    return build.build_log("gemm")
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on failure."""
-    lib = ctypes.CDLL(str(_build()))
+    lib = build.load("gemm")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.layout_gemm_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.layout_gemm_f32.restype = i

@@ -1,0 +1,206 @@
+"""GQA attention (RoPE, optional QKV bias) of the dense LM, and its KV cache.
+
+Attention dispatch
+------------------
+Both attention paths go through :mod:`repro_torch.kernels.ops`:
+
+==========  ==================================  ==================================
+Path        CUDA tensors (default)              CPU tensors (default)
+==========  ==================================  ==================================
+seq         ``flash_attention_kernel``          ``flash_attention_ref``
+(forward)   (``impl="cuda"``)                   (its plain version, ``"ref"``)
+decode      ``flash_decode_kernel`` + combine   ``flash_decode_ref``
+(serving)   (``impl="cuda"``)                   (its plain version, ``"ref"``)
+==========  ==================================  ==================================
+
+``attn_impl="jnp"`` selects, for decode, the reference's dense path (all
+scores at once, probabilities normalized and *then* rounded to the cache
+dtype); on the seq path it means the plain version.  The ``sp_ring``
+(sequence-parallel ring) branches wait for ROADMAP queue 1 item 7.
+
+Rounding.  The reference wraps activation-dtype boundaries in ``pin`` (an
+XLA barrier, ``repro/models/numerics.py``) so that the compiler cannot fold
+a convert into a neighbouring float32 op.  Eager PyTorch rounds every op's
+output to its dtype anyway, which is what ``pin`` forces, so the port has
+no counterpart.
+
+Weights are cast to the activation dtype at every use, like the reference's
+``.astype(x.dtype)``; the cast is free when the caller hands in weights
+already in that dtype (``repro_torch.models.weights.cast_params``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import ops
+
+from .module import pspec
+
+__all__ = ["rope_angles", "apply_rope", "gqa_specs", "attention_seq", "attention_decode",
+           "KVCache", "gqa_attention"]
+
+
+# ------------------------------------------------------------------ RoPE ----
+
+def rope_angles(positions: torch.Tensor, dim: int, theta: float = 10000.0):
+    """positions (...,) int -> cos/sin (..., dim/2) float32."""
+    dev = positions.device
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=dev) / dim))
+    ang = positions.to(torch.float32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (..., S, D even); cos/sin (S, D/2) shared, or (B, S, D/2) per row
+    (every slot rotates at its own absolute position).  The rotation is
+    float32; the result is in x's dtype."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    if cos.ndim == 2:
+        shape = [1] * (x.ndim - 2) + list(cos.shape)
+    else:  # batched (B, S, D/2): broadcast over the head dims between B and S
+        shape = [cos.shape[0]] + [1] * (x.ndim - cos.ndim) + list(cos.shape[1:])
+    c, s = cos.reshape(shape), sin.reshape(shape)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# ------------------------------------------------------------ param specs ----
+
+def gqa_specs(d_model: int, n_heads: int, n_kv: int, head_dim: int, *, qkv_bias: bool = False,
+              dtype=torch.float32) -> dict:
+    s = {
+        "wq": pspec(("m", d_model), ("h", n_heads), ("d", head_dim), dtype=dtype, fan_in=("m",)),
+        "wk": pspec(("m", d_model), ("g", n_kv), ("d", head_dim), dtype=dtype, fan_in=("m",)),
+        "wv": pspec(("m", d_model), ("g", n_kv), ("d", head_dim), dtype=dtype, fan_in=("m",)),
+        "wo": pspec(("h", n_heads), ("d", head_dim), ("m", d_model), dtype=dtype,
+                    fan_in=("h", "d")),
+    }
+    if qkv_bias:
+        s["bq"] = pspec(("h", n_heads), ("d", head_dim), dtype=dtype, init="zeros")
+        s["bk"] = pspec(("g", n_kv), ("d", head_dim), dtype=dtype, init="zeros")
+        s["bv"] = pspec(("g", n_kv), ("d", head_dim), dtype=dtype, init="zeros")
+    return s
+
+
+# ------------------------------------------------------------------ cores ----
+
+def _kernel_impl(impl: str | None) -> str | None:
+    return "ref" if impl == "jnp" else impl
+
+
+def attention_seq(q, k, v, *, causal: bool = True, impl: str | None = None, block: int = 512):
+    """q (B,H,S,D), k/v (B,G,S,D) — full-sequence blockwise attention."""
+    return ops.flash_attention(q, k, v, causal=causal, impl=_kernel_impl(impl), block=block)
+
+
+def attention_decode(q, k_cache, v_cache, cache_len, *, q_positions=None,
+                     impl: str | None = None, block: int = 512):
+    """q (B,H,S,D) new queries; caches (B,G,T,D); positions >= cache_len are
+    masked.  ``q_positions`` (B,S) are the queries' absolute positions: cache
+    slot ``t`` is visible to query ``j`` iff ``t <= q_positions[b, j]`` (the
+    causal mask within a whole-prompt chunk, and each slot's own position
+    under continuous batching).
+
+    ``impl``: ``"cuda"`` (the default for CUDA tensors) runs the split-KV
+    kernel, ``"ref"`` (the default for CPU tensors) its plain version, and
+    ``"jnp"`` the reference's dense path below."""
+    B, Hq, S, D = q.shape
+    _, G, T, _ = k_cache.shape
+    rep = Hq // G
+    if impl != "jnp":
+        return ops.flash_decode(q, k_cache, v_cache, cache_len, q_positions=q_positions,
+                                impl=impl, block=block)
+    # scores and the p@v contraction accumulate in float32 over the cache in
+    # its storage dtype (bf16 products are exact in float32)
+    qg = q.reshape(B, G, rep, S, D).float()
+    s = torch.matmul(qg, k_cache.float()[:, :, None].transpose(-1, -2)) * (D ** -0.5)
+    t = torch.arange(T, device=q.device)
+    mask = t < torch.clamp(cache_len.long(), max=T).reshape(B, 1, 1, 1, 1)
+    if q_positions is not None:
+        mask = mask & (t <= q_positions.long().reshape(B, 1, 1, S, 1))
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    # the normalized probabilities round to the cache dtype before p@v
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    o = torch.matmul(p.float(), v_cache.float()[:, :, None])
+    return o.reshape(B, Hq, S, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------- GQA op ----
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, G, T, D)
+    v: torch.Tensor  # (B, G, T, D)
+    length: torch.Tensor  # (B,) int32
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsm,mhd->bhsd", x, w)`` in x's dtype."""
+    B, S, m = x.shape
+    _, h, d = w.shape
+    return torch.matmul(x, w.to(x.dtype).reshape(m, h * d)).reshape(B, S, h, d).transpose(1, 2)
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bhsd,hdm->bsm", o, wo)`` in o's dtype."""
+    B, h, S, d = o.shape
+    return torch.matmul(o.transpose(1, 2).reshape(B, S, h * d), wo.to(o.dtype).reshape(h * d, -1))
+
+
+def gqa_attention(p, x, *, n_heads: int, n_kv: int, head_dim: int, rope_theta: float = 10000.0,
+                  positions=None, cache: KVCache | None = None, causal: bool = True,
+                  attn_impl: str | None = None, block: int = 512, new_counts=None,
+                  prefill: bool = False):
+    """x (B,S,m) -> (B,S,m).  ``cache`` switches to decode mode.
+
+    Decode takes multi-token chunks (S >= 1) with per-row state:
+    ``positions`` may be (B,S) absolute positions and ``new_counts`` (B,)
+    says how many of the chunk's tokens are valid per row.  The cache is
+    updated **in place** (see :func:`_cache_update`): rows with a count of
+    0 keep their K/V, and each row's length advances by its own count.
+    ``prefill`` marks a whole-prompt chunk; without a sequence-parallel
+    recipe it runs like any chunk.  Returns ``(out, new_cache)``."""
+    del prefill, n_heads, n_kv  # the shapes come from the weights
+    B, S, _ = x.shape
+    q = _project(x, p["wq"])
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)[None, :, None, :]
+        k = k + p["bk"].to(x.dtype)[None, :, None, :]
+        v = v + p["bv"].to(x.dtype)[None, :, None, :]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    cos, sin = rope_angles(positions, head_dim, rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if cache is not None:
+        adv = S if new_counts is None else new_counts
+        active = None if new_counts is None else new_counts > 0
+        _cache_update(cache.k, k, cache.length, active)
+        _cache_update(cache.v, v, cache.length, active)
+        new_len = cache.length + adv
+        q_pos = positions if positions.ndim == 2 else None
+        o = attention_decode(q, cache.k, cache.v, new_len, q_positions=q_pos, impl=attn_impl,
+                             block=block)
+        return _out_proj(o, p["wo"]), KVCache(cache.k, cache.v, new_len.to(cache.length.dtype))
+    o = attention_seq(q, k, v, causal=causal, impl=attn_impl, block=block)
+    return _out_proj(o, p["wo"]), None
+
+
+def _cache_update(cache: torch.Tensor, new: torch.Tensor, length: torch.Tensor,
+                  active: torch.Tensor | None) -> None:
+    """Write the S new steps of each row at its own ``length[b] % T``, in
+    place, as the reference's vmapped ``dynamic_update_slice`` does: the
+    start is clamped so that the S steps fit (``min(length % T, T - S)``).
+    Rows with ``active[b] == False`` are left as they were (the reference
+    writes them and restores them, ``lm._mask_rows``).  No host sync."""
+    B, G, T, D = cache.shape
+    S = new.shape[2]
+    start = torch.clamp(length.long() % T, max=T - S)
+    t_idx = start[:, None] + torch.arange(S, device=cache.device)  # (B, S)
+    b_idx = torch.arange(B, device=cache.device)[:, None]
+    vals = new.to(cache.dtype).transpose(1, 2)  # (B, S, G, D), the indexed layout
+    if active is not None:
+        vals = torch.where(active.reshape(B, 1, 1, 1), vals, cache[b_idx, :, t_idx])
+    cache[b_idx, :, t_idx] = vals

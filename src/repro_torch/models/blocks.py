@@ -1,0 +1,61 @@
+"""Decoder block of the dense LM: pre-norm GQA attention + FFN.
+
+The reference scans stacked layer parameters with ``lax.scan``; the port
+keeps the stacked ``(L, ...)`` layout and loops over the layer index
+(``repro_torch.models.lm``).  The MLA, VLM cross-attention, SSM and hybrid
+blocks wait for their families' slices (ROADMAP queue 1 item 6), MoE for
+item 9.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import attention as attn
+from . import ffn as ffn_mod
+from .module import pspec
+
+__all__ = ["norm_spec", "rmsnorm", "attn_block_specs", "attn_block"]
+
+
+def norm_spec(d: int, dtype=torch.float32):
+    return pspec(("m", d), dtype=dtype, init="ones")
+
+
+def rmsnorm(w, x, eps: float = 1e-5):
+    """Normalized in float32, cast to x's dtype, then times the weight in
+    x's dtype (the reference's order)."""
+    xf = x.float()
+    v = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(v + eps)).to(x.dtype) * w.to(x.dtype)
+
+
+def attn_block_specs(cfg) -> dict:
+    dt = cfg.param_dtype
+    s = {
+        "ln1": norm_spec(cfg.d_model, dt),
+        "ln2": norm_spec(cfg.d_model, dt),
+        "attn": attn.gqa_specs(cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+                               qkv_bias=cfg.qkv_bias, dtype=dt),
+    }
+    if cfg.ffn_kind == "moe":
+        raise NotImplementedError("MoE FFN is not ported yet: ROADMAP.md queue 1, item 9")
+    if cfg.ffn_kind == "gelu":
+        s["ffn"] = ffn_mod.gelu_mlp_specs(cfg.d_model, cfg.d_ff, dt)
+    else:
+        s["ffn"] = ffn_mod.swiglu_specs(cfg.d_model, cfg.d_ff, dt)
+    return s
+
+
+def attn_block(p, x, cfg, *, cache=None, positions=None, new_counts=None, prefill=False):
+    """Pre-norm attention + FFN.  Returns ``(x, new_cache)``; the cache, if
+    given, is updated in place."""
+    h, new_cache = attn.gqa_attention(
+        p["attn"], rmsnorm(p["ln1"], x),
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
+        rope_theta=cfg.rope_theta, positions=positions, cache=cache,
+        attn_impl=cfg.attn_impl, block=cfg.attn_block,
+        new_counts=new_counts, prefill=prefill,
+    )
+    x = x + h
+    fn = ffn_mod.gelu_mlp if cfg.ffn_kind == "gelu" else ffn_mod.swiglu
+    return x + fn(p["ffn"], rmsnorm(p["ln2"], x)), new_cache

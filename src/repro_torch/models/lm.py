@@ -1,0 +1,143 @@
+"""The dense language model: embeddings -> block stack -> head, with the
+full-sequence forward and the serving decode step.
+
+Layer parameters, like the reference's, are stacked on a leading ``l`` dim
+(``params["blocks"]`` leaves are ``(L, ...)``), and so are the caches; the
+reference's ``lax.scan`` over them becomes a Python loop over the layer
+index.  Families other than ``dense``, the ``embeds`` input kind and the
+sharding recipes wait for their slices (ROADMAP.md queue 1 items 6 and 7).
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.core.dist import resolve_device
+
+from . import attention as attn_mod
+from . import blocks as blk
+from .module import init_params, pspec, stack_specs, tree_map, tree_size
+
+__all__ = ["build_specs", "count_params", "embed_inputs", "lm_logits", "forward",
+           "DecodeState", "init_cache", "decode_step", "init_model"]
+
+
+def _require_dense(cfg) -> None:
+    if cfg.family != "dense":
+        item = "item 9" if cfg.family == "moe" else "item 6"
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet: ROADMAP.md "
+                                  f"queue 1, {item}")
+    if cfg.input_kind != "tokens":
+        raise NotImplementedError(f"input_kind {cfg.input_kind!r} is not ported yet: "
+                                  "ROADMAP.md queue 1, item 6")
+
+
+# ================================================================= specs ====
+
+def build_specs(cfg) -> dict:
+    _require_dense(cfg)
+    dt = cfg.param_dtype
+    specs: dict[str, Any] = {
+        "embed": pspec(("v", cfg.vocab_padded), ("m", cfg.d_model), dtype=dt, init="embed"),
+        "final_norm": blk.norm_spec(cfg.d_model, dt),
+        "blocks": stack_specs(blk.attn_block_specs(cfg), cfg.n_layers),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = pspec(("m", cfg.d_model), ("v", cfg.vocab_padded), dtype=dt,
+                                 fan_in=("m",))
+    return specs
+
+
+def count_params(cfg, *, active_only: bool = False) -> int:
+    """Total parameter count (dense: every parameter is active)."""
+    del active_only
+    return tree_size(build_specs(cfg))
+
+
+# ============================================================= embeddings ====
+
+def embed_inputs(params, batch, cfg, *, positions=None):
+    """batch -> (B, S, m) activations in cfg.act_dtype."""
+    del positions  # only the embeds input kind adds position features
+    _require_dense(cfg)
+    return params["embed"].to(cfg.act_dtype)[batch["tokens"]]
+
+
+def lm_logits(params, x, cfg):
+    """(B, S, vocab_padded) logits; the tied head is ``x @ embed.T``."""
+    x = blk.rmsnorm(params["final_norm"], x)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return torch.matmul(x, head.to(x.dtype))
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a tree of stacked ``(L, ...)`` leaves (views)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+# ================================================================ forward ====
+
+def forward(params, batch, cfg, *, positions=None):
+    """Full-sequence forward (prefill without cache).  Returns
+    ``(logits, aux_loss)``; the aux loss is 0 (MoE is not ported)."""
+    x = embed_inputs(params, batch, cfg)
+    for i in range(cfg.n_layers):
+        x, _ = blk.attn_block(_layer(params["blocks"], i), x, cfg, positions=positions)
+    return lm_logits(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ================================================================ caching ====
+
+class DecodeState(NamedTuple):
+    caches: attn_mod.KVCache  # k/v (L, B, G, T, D), length (L, B)
+    positions: torch.Tensor  # (B,) int32 next position
+
+
+def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda") -> attn_mod.KVCache:
+    """Stacked per-layer KV cache in act_dtype, zero lengths."""
+    _require_dense(cfg)
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch_size, cfg.n_kv, max_len, cfg.head_dim)
+    return attn_mod.KVCache(
+        k=torch.zeros(shape, dtype=cfg.act_dtype, device=device),
+        v=torch.zeros(shape, dtype=cfg.act_dtype, device=device),
+        length=torch.zeros((cfg.n_layers, batch_size), dtype=torch.int32, device=device),
+    )
+
+
+def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
+                prefill: bool = False):
+    """One serve step: embed the new token(s) ``batch['tokens']`` (B, S), run
+    every block against the caches and return ``(logits, new DecodeState)``.
+
+    Every row runs at its own position (``state.positions[b]``) for RoPE and
+    the causal mask.  ``new_counts`` (B,) int32 says how many of the chunk's
+    S tokens are valid per row: rows with 0 are idle this step, keep their
+    K/V and length, and do not advance.  The K/V caches are updated **in
+    place** (the state's tensors are the new state's); the lengths are new
+    tensors.  ``prefill`` marks a whole-prompt chunk."""
+    positions = state.positions
+    S = batch["tokens"].shape[1]
+    pos2d = positions[:, None] + torch.arange(S, dtype=positions.dtype,
+                                              device=positions.device)[None, :]
+    adv = S if new_counts is None else new_counts
+    x = embed_inputs(params, batch, cfg)
+    caches = state.caches
+    lengths = []
+    for i in range(cfg.n_layers):
+        c = attn_mod.KVCache(caches.k[i], caches.v[i], caches.length[i])
+        x, new_c = blk.attn_block(_layer(params["blocks"], i), x, cfg, cache=c,
+                                  positions=pos2d, new_counts=new_counts, prefill=prefill)
+        lengths.append(new_c.length)
+    new_caches = attn_mod.KVCache(caches.k, caches.v, torch.stack(lengths))
+    logits = lm_logits(params, x, cfg)
+    return logits, DecodeState(caches=new_caches, positions=(positions + adv).to(positions.dtype))
+
+
+# =============================================================== helpers ====
+
+def init_model(cfg, generator: torch.Generator, *, device="cuda") -> dict:
+    """Seeded random float32 parameters on ``device`` (``generator`` on the
+    same device)."""
+    return init_params(build_specs(cfg), generator, resolve_device(device))

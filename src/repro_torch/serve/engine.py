@@ -1,0 +1,193 @@
+"""Single-host continuous-batching engine on the port's dense model.
+
+A fixed pool of batch *slots* shares one KV cache allocation tracked by a
+:class:`repro_torch.serve.kv.KVLedger` (per-request lengths over uniform
+capacity tiles).  Finished sequences free their slot and the next queued
+request is prefilled into it:
+
+  * **admission-time prefill** runs the newly admitted prompts (all but
+    their last token) as one masked chunk through
+    ``lm.decode_step(prefill=True)``, padded to a power of two;
+  * **decode** feeds each resident slot's last token through
+    ``lm.decode_step`` and samples the next one.
+
+On a card both go through the split-KV decode kernel.  The engine keeps an
+activation-dtype copy of the weights, made once (``weights.cast_params``).
+The reference's explicit tensor-parallel decode (``mesh`` +
+``microbatches``) and sharding ``recipe`` wait for ROADMAP.md queue 1
+item 8; the ``embeds`` input kind and the non-dense families for item 6.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.models import lm
+from repro_torch.models.weights import cast_params
+from repro_torch.serve.kv import KVLedger
+
+__all__ = ["ServeConfig", "Engine"]
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_len: int = 512
+    batch_slots: int = 4
+    temperature: float = 0.0  # 0 = greedy
+    eos_token: int = 1
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class _Slot:
+    request_id: int | None = None
+    tokens: list = dataclasses.field(default_factory=list)
+    remaining: int = 0
+
+
+def _kv_bytes_per_pos(cfg) -> int:
+    """Cache bytes one sequence position costs across all layers."""
+    item = torch.empty((), dtype=cfg.act_dtype).element_size()
+    return 2 * cfg.n_layers * cfg.n_kv * cfg.head_dim * item
+
+
+def _reset_slot_rows(caches, i: int) -> None:
+    """Release slot ``i`` for a new request, in place: zero its ``length``
+    rows.  The K/V payload stays; the attention mask never reads past the
+    length."""
+    caches.length[:, i] = 0
+
+
+class Engine:
+    """Slot-based continuous batching over the shared decode path.
+
+    ``params`` is the model's parameter tree on the device the engine runs
+    on.  Temperature sampling draws from a ``torch.Generator`` seeded from
+    ``ServeConfig.seed`` (its numbers are not JAX's; greedy decoding is what
+    is held against the reference).
+
+    Counters: ``steps`` counts the prefill chunks and decode steps run.
+    """
+
+    def __init__(self, cfg, params, scfg: ServeConfig, recipe=None, *, mesh=None,
+                 microbatches: int = 0, featurizer=None):
+        if recipe is not None or mesh is not None or microbatches:
+            raise NotImplementedError("sharded and tensor-parallel serving are not ported yet: "
+                                      "ROADMAP.md queue 1, item 8")
+        if featurizer is not None or cfg.input_kind != "tokens":
+            raise NotImplementedError("embeds-input serving is not ported yet: ROADMAP.md "
+                                      "queue 1, item 6")
+        self.cfg = cfg
+        self.scfg = scfg
+        self.device = params["embed"].device
+        self.params = cast_params(params, cfg.act_dtype)
+        B = scfg.batch_slots
+        self.state = lm.DecodeState(
+            caches=lm.init_cache(cfg, B, scfg.max_len, device=self.device),
+            positions=torch.zeros((B,), dtype=torch.int32, device=self.device),
+        )
+        self.slots = [_Slot() for _ in range(B)]
+        self.queue: list[tuple[int, list[int], int]] = []
+        self.finished: dict[int, list[int]] = {}
+        self.ledger = KVLedger(slots=B, max_len=scfg.max_len, bytes_per_pos=_kv_bytes_per_pos(cfg))
+        self._gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
+        self.steps = {"prefill": 0, "decode": 0}
+
+    # ------------------------------------------------------------ public ----
+    def submit(self, request_id: int, prompt: list[int], max_new_tokens: int = 16) -> None:
+        """Queue a request: a token-id prompt and how many tokens to add."""
+        prompt = list(prompt)
+        if not prompt:
+            raise ValueError("submit needs a non-empty prompt")
+        if len(prompt) + max_new_tokens > self.scfg.max_len:
+            raise ValueError(
+                f"request {request_id}: prompt {len(prompt)} + {max_new_tokens} new "
+                f"exceeds max_len {self.scfg.max_len}"
+            )
+        self.queue.append((request_id, prompt, max_new_tokens))
+
+    @property
+    def in_flight(self) -> dict[int, list[int]]:
+        """Partial outputs of requests still resident in slots."""
+        return {s.request_id: list(s.tokens) for s in self.slots if s.request_id is not None}
+
+    def run(self, max_steps: int = 10_000) -> dict[int, list[int]]:
+        """Drive admission + decode until the queue drains or ``max_steps``
+        decode steps have run.  Returns the finished map; anything still
+        resident is reported via :attr:`in_flight`."""
+        steps = 0
+        while (self.queue or self.in_flight) and steps < max_steps:
+            self._fill_slots()
+            self._decode_once()
+            steps += 1
+        return self.finished
+
+    # ---------------------------------------------------------- internals ----
+    def _step(self, tokens: np.ndarray, counts: np.ndarray, *, prefill: bool):
+        batch = {"tokens": torch.from_numpy(tokens).to(self.device)}
+        logits, self.state = lm.decode_step(self.params, self.state, batch, self.cfg,
+                                            new_counts=torch.from_numpy(counts).to(self.device),
+                                            prefill=prefill)
+        self.steps["prefill" if prefill else "decode"] += 1
+        return logits
+
+    def _fill_slots(self) -> None:
+        newly: list[tuple[int, list[int]]] = []
+        for i, slot in enumerate(self.slots):
+            if slot.request_id is None and self.queue:
+                rid, prompt, max_new = self.queue.pop(0)
+                self.ledger.admit(i, len(prompt), max_new)
+                slot.request_id = rid
+                slot.tokens = list(prompt)
+                slot.remaining = max_new
+                _reset_slot_rows(self.state.caches, i)
+                self.state.positions[i] = 0
+                newly.append((i, prompt))
+        if newly:
+            self._prefill(newly)
+
+    def _prefill(self, newly) -> None:
+        """Admission-time batched prefill of all newly filled slots, as one
+        chunk padded to a power of two; only the target slots write their
+        cache rows (``new_counts``)."""
+        B = self.scfg.batch_slots
+        feeds = [(i, prompt[:-1]) for i, prompt in newly if len(prompt) > 1]
+        if not feeds:
+            return
+        S = max(len(f) for _, f in feeds)
+        S = min(self.scfg.max_len, 1 << (S - 1).bit_length())  # bucket, like the reference
+        buf = np.zeros((B, S), np.int64)
+        counts = np.zeros((B,), np.int32)
+        for i, feed in feeds:
+            buf[i, : len(feed)] = feed
+            counts[i] = len(feed)
+        self._step(buf, counts, prefill=True)
+        for i, feed in feeds:
+            self.ledger.advance(i, len(feed))
+
+    def _decode_once(self) -> None:
+        B = self.scfg.batch_slots
+        counts = np.zeros((B,), np.int32)
+        buf = np.zeros((B, 1), np.int64)
+        for i, slot in enumerate(self.slots):
+            if slot.request_id is not None:
+                counts[i] = 1
+                buf[i, 0] = slot.tokens[-1]
+        logits = self._step(buf, counts, prefill=False)[:, -1, : self.cfg.vocab]  # strip pad
+        if self.scfg.temperature > 0:
+            probs = torch.softmax(logits.float() / self.scfg.temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=self._gen)[:, 0].tolist()
+        else:
+            nxt = torch.argmax(logits, dim=-1).tolist()
+        for i, slot in enumerate(self.slots):
+            if slot.request_id is None:
+                continue
+            self.ledger.advance(i, 1)
+            slot.tokens.append(nxt[i])
+            slot.remaining -= 1
+            if nxt[i] == self.scfg.eos_token or slot.remaining <= 0:
+                self.finished[slot.request_id] = slot.tokens
+                self.ledger.release(i)
+                self.slots[i] = _Slot()

@@ -44,6 +44,30 @@ print("IMPORTED", len(names))
     assert int(proc.stdout.split("IMPORTED")[1]) >= 15
 
 
+LM_MODULES = [
+    "repro_torch.configs.base", "repro_torch.configs.phi4_mini_3_8b",
+    "repro_torch.configs.qwen2_5_32b", "repro_torch.kernels.build",
+    "repro_torch.kernels.flash_attention", "repro_torch.kernels.flash_decode",
+    "repro_torch.models.module", "repro_torch.models.attention", "repro_torch.models.ffn",
+    "repro_torch.models.blocks", "repro_torch.models.lm", "repro_torch.models.weights",
+    "repro_torch.serve.kv", "repro_torch.serve.engine", "repro_torch.launch.serve",
+]
+
+
+def test_lm_stack_modules_import_without_jax_or_reference():
+    code = f"""
+import importlib, sys
+for name in {LM_MODULES!r}:
+    importlib.import_module(name)
+    bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not bad, (name, bad)
+print("OK")
+"""
+    proc = _python(code)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "OK" in proc.stdout
+
+
 def test_chip_smoke_imports_nothing_of_jax_or_reference():
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
@@ -102,3 +126,27 @@ def test_cli_validates_on_the_cpu(flags):
     proc = _python("", "-m", "repro_torch.examples.distributed_gemm", "--device", "cpu", *flags)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "all configurations validated" in proc.stdout
+
+
+def test_serve_cli_needs_a_gpu_unless_asked_for_the_cpu():
+    proc = _python("", "-m", "repro_torch.launch.serve", "--arch", "phi4-mini-3.8b", "--smoke")
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr
+
+
+def test_serve_cli_serves_on_the_cpu():
+    proc = _python("", "-m", "repro_torch.launch.serve", "--arch", "phi4-mini-3.8b", "--smoke",
+                   "--device", "cpu", "--requests", "5", "--slots", "2", "--max-new", "4")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "[serve] 5 done / 0 in flight, 20 tokens requested" in proc.stdout
+    assert proc.stdout.count("[serve] req ") == 5
+
+
+def test_serve_cli_raises_for_what_is_not_ported():
+    for flags, item in ((["--grid", "2x2"], "item 8"), (["--ckpt-dir", "x"], "item 11")):
+        proc = _python("", "-m", "repro_torch.launch.serve", "--arch", "phi4-mini-3.8b",
+                       "--smoke", "--device", "cpu", *flags)
+        assert proc.returncode != 0 and item in proc.stderr, proc.stderr[-2000:]
+    proc = _python("", "-m", "repro_torch.launch.serve", "--arch", "zamba2-7b", "--smoke",
+                   "--device", "cpu")
+    assert proc.returncode != 0 and "NotImplementedError" in proc.stderr

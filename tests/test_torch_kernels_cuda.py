@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.kernels import ops
 
+pytestmark = pytest.mark.cuda
+
 LAYOUT_CONFIGS = ["I/I/K", "I/I/J", "I/K/K", "I/K/J", "J/I/K", "J/I/J", "J/K/K", "J/K/J"]
 
 
