@@ -20,7 +20,17 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   goes (device time by kind, idle share), and kernel times beside their
   bounds, plain versions and ``scaled_dot_product_attention``.  The
   attention kernels' times are device times from the profiler (the sum of
-  the kernels one call launches); ``call_ms`` adds the host's launch work.
+  the kernels one call launches); ``call_ms`` adds the host's launch work;
+* the sequence-parallel ring's kernel work at phi4-mini's full width: every
+  (rank, step) carry call of a 4-rank ring over 4096 tokens and over a
+  ragged 4095 (the schedule of ``_ring_attention_local``, through its own
+  offset helper) against the plain version, carry steps chained in block
+  order against the single-shot kernel (bitwise), ``ring_attention_seq`` on
+  a one-rank NCCL mesh (bitwise against the single-shot kernel, and
+  double-buffered against blocking), and the tiled transpose against its
+  plain version (bitwise), with a profiler proof and times.  One card shows
+  no ring transfer: the ring's schedule across ranks is checked on gloo CPU
+  processes in the tests.
 
 Phases print one line each (or one line per case); any failed phase raises,
 so the exit code is non-zero and no result line is printed.  The line before
@@ -54,6 +64,8 @@ ATTN_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-4}
 LIBRARY_ATTN = re.compile(r"flash|fmha|sdpa|efficient_attention|cudnn", re.I)
 GEMM_NAMES = re.compile(r"nvjet|gemm|gemv|cublas|cutlass|xmma|sm90_|sm80_", re.I)
 PORT_ATTN = ("flash_attention_kernel", "flash_decode_kernel", "flash_decode_combine_kernel")
+CARRY_INSTANCE = ("true, true", "Lb1ELb1E")  # the carry form's template flags, as named
+RING_R = 4  # the ring whose kernel work runs on the card: 4 ranks over SEQ tokens
 DEVICE = "cuda"
 ARCH, SEQ = "phi4-mini-3.8b", 4096  # the forward's model and length
 SLOTS, MAX_LEN, REQUESTS, NEW_TOKENS = 4, 4096, 8, 32  # the serving run
@@ -109,10 +121,11 @@ def device_kernel_ms(prof) -> dict[str, float]:
     return out
 
 
-def device_ms(fn, *, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, *, iters: int = 20, warmup: int = 3, only: str | None = None) -> float:
     """Device time of one call: the summed durations of the kernels it
-    launches (from the profiler), over ``iters`` calls.  Unlike an event
-    pair around each call, it leaves out the host's time between launches."""
+    launches (from the profiler; with ``only``, of the kernels whose name
+    holds it), over ``iters`` calls.  Unlike an event pair around each call,
+    it leaves out the host's time between launches."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -122,7 +135,8 @@ def device_ms(fn, *, iters: int = 20, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(device_kernel_ms(prof).values()) / iters
+    return sum(ms for name, ms in device_kernel_ms(prof).items()
+               if only is None or only in name) / iters
 
 
 def bound(m: int, n: int, k: int, *, acc: bool) -> tuple[float, str]:
@@ -341,18 +355,18 @@ def check_attention_kernels(ops) -> dict:
             got = ops.flash_decode(q, kc, vc, lens_t, q_positions=pos, block=512)
             torch.cuda.synchronize()
             want = ops.flash_decode(q, kc, vc, lens_t, q_positions=pos, block=512, impl="ref")
-            live = lens_t > 0  # rows with no visible key give 0 in the kernel (skipped blocks)
-            torch.testing.assert_close(got[live], want[live], rtol=ATTN_TOL[dt],
-                                       atol=ATTN_TOL[dt])
-            err = (got[live].float() - want[live].float()).abs().max().item()
+            # every row, the idle slot's too (no visible key: the mean of v)
+            torch.testing.assert_close(got, want, rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
+            err = (got.float() - want.float()).abs().max().item()
             margins = None
             if dt == torch.bfloat16:
-                margins = rounding_margins(ops, got, want, q, kc, vc, lens_t, pos, live)
+                # the rounding rule shows only on rows that see keys
+                margins = rounding_margins(ops, got, want, q, kc, vc, lens_t, pos, lens_t > 0)
                 if label == "decode":
                     worst["flash_decode"] = err
             phase("kernel_check", kernel="flash_decode", case=label, shape=dims, lens=lens,
                   dtype=str(dt), max_abs_err=err, tol=ATTN_TOL[dt],
-                  excluded_rows=int((~live).sum()), mean_abs_diff_from=margins)
+                  idle_rows=int((lens_t == 0).sum()), mean_abs_diff_from=margins)
             del q, kc, vc, got, want
     return worst
 
@@ -631,6 +645,230 @@ def time_attention_kernels(ops, card: str) -> dict:
     return rows
 
 
+def ring_qkv(S: int, dtype, seed: int, *, pad_to: int | None = None):
+    """phi4-mini's attention operands over S tokens (1 x 24 x S x 128 q,
+    1 x 8 x S x 128 k/v), zero-padded to ``pad_to`` positions as the ring
+    pads a ragged sequence."""
+    q, k, v = (randn(shape, dtype, seed + i) for i, shape in
+               enumerate(((1, 24, S, 128), (1, 8, S, 128), (1, 8, S, 128))))
+    if pad_to is not None:
+        q, k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad_to - S)) for x in (q, k, v))
+    return q, k, v
+
+
+def plain_carry(q):
+    B, Hq, S, D = q.shape
+    return (torch.zeros((B, Hq, S, D), device=DEVICE),
+            torch.full((B, Hq, S), -1e30, device=DEVICE), torch.zeros((B, Hq, S), device=DEVICE))
+
+
+def check_carry_kernel(ops, ring_step_offsets, ragged_seq_extents) -> dict:
+    """``carry_check``: every (rank, step) call that a 4-rank ring over
+    SEQ tokens, and over a ragged SEQ - 1 (padded keys masked by
+    ``valid_len``), makes on each rank, with the offsets of the ring's own
+    helper; each kernel call starts from the plain version's state and is
+    held against the plain version in acc, m and l."""
+    worst = {}
+    for S in (SEQ, SEQ - 1):
+        cap, _ = ragged_seq_extents(S, RING_R)
+        valid = None if S == RING_R * cap else S
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = ring_qkv(S, dt, 50, pad_to=RING_R * cap)
+            errs, calls = {"acc": 0.0, "m": 0.0, "l": 0.0}, 0
+            for rank in range(RING_R):
+                qr = q[:, :, rank * cap:(rank + 1) * cap]
+                state = plain_carry(qr)
+                for step in range(RING_R):
+                    q_off, k_off = ring_step_offsets(rank, step, RING_R, cap)
+                    blk = slice(k_off, k_off + cap)
+                    kw = dict(q_offset=q_off, k_offset=k_off, valid_len=valid, causal=True)
+                    want = ops.flash_attention_carry(qr, k[:, :, blk], v[:, :, blk], state,
+                                                     impl="ref", **kw)
+                    got = ops.flash_attention_carry(qr, k[:, :, blk], v[:, :, blk],
+                                                    tuple(t.clone() for t in state), **kw)
+                    torch.cuda.synchronize()
+                    for name, g, w in zip(("acc", "m", "l"), got, want):
+                        torch.testing.assert_close(g, w, rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
+                        errs[name] = max(errs[name], (g - w).abs().max().item())
+                    state, calls = want, calls + 1
+            if S == SEQ and dt == torch.bfloat16:
+                worst["flash_attention_carry"] = max(errs.values())
+            phase("carry_check", arch=ARCH, ring=RING_R, seq=S, chunk=cap, valid_len=valid,
+                  dtype=str(dt), calls=calls, max_abs_err=errs, tol=ATTN_TOL[dt])
+            del q, k, v
+    return worst
+
+
+def chain(ops, q, k, v, *, causal: bool, chunks: int = RING_R):
+    """Carry steps over ``chunks`` KV chunks in block order, normalized as
+    the ring's epilogue does."""
+    n = k.shape[2] // chunks
+    carry = None
+    for c in range(chunks):
+        blk = slice(c * n, (c + 1) * n)
+        carry = ops.flash_attention_carry(q, k[:, :, blk], v[:, :, blk], carry, q_offset=0,
+                                          k_offset=c * n, causal=causal)
+    acc, _, l = carry
+    return (acc / torch.where(l == 0, 1.0, l)[..., None]).to(q.dtype)
+
+
+def check_carry_chain(ops) -> None:
+    """``carry_chain``: 4 carry steps in block order equal the single-shot
+    kernel bitwise, float32 and bf16, causal and not, at the forward's
+    shape."""
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = ring_qkv(SEQ, dt, 60)
+        for causal in (True, False):
+            chained = chain(ops, q, k, v, causal=causal)
+            single = ops.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if not torch.equal(chained, single):
+                raise AssertionError(f"carry chain != single-shot kernel ({dt}, causal={causal}): "
+                                     f"max |diff| {(chained.float() - single.float()).abs().max()}")
+            phase("carry_chain", shape=tuple(q.shape), kv=tuple(k.shape), chunks=RING_R,
+                  dtype=str(dt), causal=causal, bitwise_equal=True)
+        del q, k, v
+
+
+def drive_ring_entry(ops, fa, ring_attention_seq, mesh) -> int:
+    """``ring_entry``, the ring's path on one card: ``ring_attention_seq`` on
+    a one-rank NCCL mesh at full width (bf16 as the model runs it, and
+    float32), double-buffered and blocking, each equal to the single-shot
+    kernel bitwise.  Returns the carry kernel's launches in that run."""
+    inputs = {dt: ring_qkv(SEQ, dt, 70) for dt in (torch.bfloat16, torch.float32)}
+    fa.flash_attention_carry_cuda.launches = 0
+    outs = {(dt, db): ring_attention_seq(*inputs[dt], mesh=mesh, causal=True, double_buffer=db)
+            for dt in inputs for db in (True, False)}
+    torch.cuda.synchronize()
+    launches = fa.flash_attention_carry_cuda.launches
+    if launches != len(outs):
+        raise AssertionError(f"ring_attention_seq launched the carry kernel {launches} times, "
+                             f"expected {len(outs)} (one step each on one rank)")
+    for dt, (q, k, v) in inputs.items():
+        single = ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        if not torch.equal(outs[(dt, True)], outs[(dt, False)]):
+            raise AssertionError(f"ring_attention_seq {dt}: double-buffered != blocking")
+        if not torch.equal(outs[(dt, True)], single):
+            raise AssertionError(f"ring_attention_seq {dt} != single-shot kernel")
+        phase("ring_entry", shape=tuple(q.shape), mesh=dict(mesh.shape), dtype=str(dt),
+              equals_single_shot="bitwise", db_equals_blocking="bitwise")
+    phase("ring_entry_launches", flash_attention_carry=launches)
+    return launches
+
+
+TRANSPOSE_CASES = (((2048, 2048), torch.float32), ((4, 24, 1024, 128), torch.bfloat16),
+                   ((16, 256, 512), torch.int32))
+
+
+def transpose_input(shape, dtype, seed: int = 80) -> torch.Tensor:
+    if dtype == torch.int32:
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        return torch.randint(-2**31, 2**31 - 1, shape, dtype=dtype, device=DEVICE, generator=g)
+    return randn(shape, dtype, seed)
+
+
+def check_transpose(ops, relayout) -> int:
+    """``transpose_check``: ``ops.transpose_tiled`` (the path) on the three
+    cases, then each held against the plain version bitwise; the reference's
+    tile rule raises."""
+    xs = [transpose_input(shape, dt) for shape, dt in TRANSPOSE_CASES]
+    relayout.transpose_cuda.launches = 0
+    outs = [ops.transpose_tiled(x) for x in xs]
+    torch.cuda.synchronize()
+    launches = relayout.transpose_cuda.launches
+    if launches != len(xs):
+        raise AssertionError(f"transpose launches {launches} != {len(xs)}")
+    for x, got in zip(xs, outs):
+        want = ops.transpose_tiled(x, impl="ref")
+        if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+            raise AssertionError(f"transpose {tuple(x.shape)} {x.dtype} is not bitwise")
+        phase("transpose_check", shape=tuple(x.shape), dtype=str(x.dtype), bitwise_equal=True)
+    try:
+        ops.transpose_tiled(torch.zeros((300, 256), device=DEVICE))
+    except ValueError as e:
+        phase("transpose_check", shape=(300, 256), raises=str(e))
+    else:
+        raise AssertionError("transpose_tiled took (300, 256), which the reference refuses")
+    return launches
+
+
+def profile_ring(ops, ring_attention_seq, mesh) -> None:
+    """``ring_kernel_proof``: under the profiler, the ring entry runs the
+    carry form of the flash kernel, the transpose entry its kernel, and no
+    library attention kernel runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = ring_qkv(512, torch.bfloat16, 90)
+    x = transpose_input((2048, 2048), torch.float32)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ring_attention_seq(q, k, v, mesh=mesh, causal=True)
+        ops.transpose_tiled(x)
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    carry = [n for n in names if "flash_attention_kernel" in n
+             and any(t in n for t in CARRY_INSTANCE)]
+    transpose = [n for n in names if "transpose_kernel" in n]
+    library = [n for n in names if LIBRARY_ATTN.search(n) and not any(k in n for k in PORT_ATTN)]
+    if not carry:
+        raise AssertionError(f"the carry kernel did not run; device kernels: {names}")
+    if not transpose:
+        raise AssertionError(f"transpose_kernel did not run; device kernels: {names}")
+    if library:
+        raise AssertionError(f"library attention kernels ran: {library}")
+    phase("ring_kernel_proof", device_kernels=len(names), carry_kernels=carry,
+          transpose_kernels=transpose, library_attention=library)
+
+
+def time_ring_kernels(ops, card: str, ring_step_offsets) -> dict:
+    """Device times of a diagonal and an off-diagonal carry step of the
+    4-rank ring (rank 1, steps 0 and 1; bf16, full width), of the 4-step
+    chain against the single-shot kernel, and of the 2048 x 2048 float32
+    transpose, each beside its bound, plain version and library call."""
+    rows = {}
+    cap = SEQ // RING_R
+    q, k, v = ring_qkv(SEQ, torch.bfloat16, 100)
+    qr = q[:, :, cap:2 * cap]
+    for label, step in (("diagonal", 0), ("off_diagonal", 1)):
+        q_off, k_off = ring_step_offsets(1, step, RING_R, cap)
+        kb, vb = k[:, :, k_off:k_off + cap], v[:, :, k_off:k_off + cap]
+        carry = plain_carry(qr)
+        kw = dict(q_offset=q_off, k_offset=k_off, causal=True)
+        t = dict(ms=device_ms(lambda: ops.flash_attention_carry(qr, kb, vb, carry, **kw)),
+                 plain_ms=device_ms(lambda: ops.flash_attention_carry(qr, kb, vb, carry,
+                                                                      impl="ref", **kw)),
+                 library_ms=None,
+                 call_ms=median_ms(lambda: ops.flash_attention_carry(qr, kb, vb, carry, **kw)))
+        pairs = cap * (cap + 1) // 2 if label == "diagonal" else cap * cap  # visible (q, k)
+        flops = 4 * 24 * pairs * 128
+        nbytes = 2 * (qr.numel() + kb.numel() + vb.numel()) + 2 * 4 * sum(c.numel() for c in carry)
+        b_ms, b_by = attn_bound(flops, nbytes)
+        rows[("flash_attention_carry", label)] = dict(bound_ms=b_ms, bound_by=b_by, **t)
+        phase("time", kernel="flash_attention_carry", case=label, rank=1, step=step,
+              q=tuple(qr.shape), kv=tuple(kb.shape), dtype="bfloat16", card=card,
+              library="none: no PyTorch call returns the unnormalized (acc, m, l)",
+              tflops=flops / t["ms"] / 1e9, **rows[("flash_attention_carry", label)])
+    chain_ms = device_ms(lambda: chain(ops, q, k, v, causal=True), iters=10,
+                         only="flash_attention_kernel")
+    single_ms = device_ms(lambda: ops.flash_attention(q, k, v, causal=True), iters=10)
+    phase("time", kernel="flash_attention_carry", case="chain_of_4_vs_single_shot",
+          shape=tuple(q.shape), dtype="bfloat16", card=card, chain_kernels_ms=chain_ms,
+          single_shot_ms=single_ms)
+    rows["chain"] = dict(chain_ms=chain_ms, single_shot_ms=single_ms)
+    del q, k, v, qr
+    x = transpose_input((2048, 2048), torch.float32)
+    t = dict(ms=device_ms(lambda: ops.transpose_tiled(x)),
+             plain_ms=device_ms(lambda: ops.transpose_tiled(x, impl="ref")),
+             library_ms=device_ms(lambda: x.transpose(-2, -1).contiguous()),
+             call_ms=median_ms(lambda: ops.transpose_tiled(x)))
+    b_ms, b_by = attn_bound(0, 2 * x.numel() * x.element_size())
+    rows["transpose"] = dict(bound_ms=b_ms, bound_by=b_by, **t)
+    phase("time", kernel="transpose", shape=tuple(x.shape), dtype="float32", card=card,
+          gb_per_s=2 * x.numel() * 4 / t["ms"] / 1e6, **rows["transpose"])
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU", file=sys.stderr)
@@ -645,8 +883,10 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import gemm as kernels
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, relayout
     from repro_torch.models import lm
+    from repro_torch.models.attention import ring_attention_seq, ring_step_offsets
+    from repro_torch.models.sharding import ragged_seq_extents
     from repro_torch.models.weights import cast_params
     from repro_torch.serve.engine import Engine, ServeConfig
 
@@ -661,6 +901,7 @@ def main() -> int:
     kernels.load_library()
     fa.load_library()
     fd.load_library()
+    relayout.load_library()
     build_s = time.perf_counter() - t0
     ptxas = {}
     for name in build.SOURCES:
@@ -710,6 +951,26 @@ def main() -> int:
     phase("attention_kernels_vs_plain", max_abs_err=worst, seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
 
+    # phase 6b: the ring's kernel work and the transpose against their plain
+    # versions, the carry chain against the single-shot kernel
+    t0 = time.perf_counter()
+    worst.update(check_carry_kernel(ops, ring_step_offsets, ragged_seq_extents))
+    check_carry_chain(ops)
+    transpose_launches = check_transpose(ops, relayout)
+    phase("ring_kernels_vs_plain", max_abs_err=worst, seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+    # phase 6c: the ring's entry point on a one-rank NCCL mesh, and the
+    # profiler proof of the new kernels
+    device = init_world("cuda")
+    try:
+        ring_mesh = make_mesh((1, 1), ("data", "model"), device=device)
+        carry_launches = drive_ring_entry(ops, fa, ring_attention_seq, ring_mesh)
+        profile_ring(ops, ring_attention_seq, ring_mesh)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
     # phase 7: the dense LM at full width, seeded random weights; the
     # engine's activation-dtype copy of the weights is made here once
     cfg = configs.get(ARCH)
@@ -732,8 +993,10 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # phase 10: attention kernel times
+    # phase 10: attention, carry and transpose kernel times
     rows.update(time_attention_kernels(ops, card))
+    torch.cuda.empty_cache()
+    rows.update(time_ring_kernels(ops, card, ring_step_offsets))
 
     gemm_src = "src/repro_torch/kernels/csrc/gemm.cu"
     report = []
@@ -752,6 +1015,15 @@ def main() -> int:
                    "replaces": "src/repro/kernels/flash_decode.py:71",
                    "launches": srv["flash_decode_launches"], "max_abs_err": worst["flash_decode"],
                    **rows[("flash_decode", "decode")]})
+    report.append({"name": "flash_attention_carry", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "replaces": "src/repro/kernels/flash_attention.py:229",
+                   "launches": carry_launches, "max_abs_err": worst["flash_attention_carry"],
+                   **rows[("flash_attention_carry", "off_diagonal")]})
+    report.append({"name": "transpose_tiled", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/transpose.cu",
+                   "replaces": "src/repro/kernels/relayout.py:35",
+                   "launches": transpose_launches, "max_abs_err": 0.0, **rows["transpose"]})
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

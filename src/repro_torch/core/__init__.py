@@ -76,7 +76,8 @@ from .collectives import (
     scatterv_bag,
 )
 from .plan import CommPlan, bucket, dispatch, halo, intent_of, pipeline, ring, stagger
-from .p2p import permute, permute_start, ring_shift, ring_shift_start, wait
+from .p2p import (permute, permute_start, ring_shift, ring_shift_start, shard_all_gather_start,
+                  shard_ring_shift, shard_ring_shift_start, wait)
 
 __all__ = [
     "LayoutError", "ceil_div", "common_refinement", "ragged_split",
@@ -94,5 +95,6 @@ __all__ = [
     "reduce_identity", "reduce_scatter_bag", "reduce_scatter_start", "reduce_scatterv_bag",
     "reduce_scatterv_start", "scatter", "scatterv_bag",
     "CommPlan", "bucket", "dispatch", "halo", "intent_of", "pipeline", "ring", "stagger",
-    "permute", "permute_start", "ring_shift", "ring_shift_start", "wait",
+    "permute", "permute_start", "ring_shift", "ring_shift_start", "shard_all_gather_start",
+    "shard_ring_shift", "shard_ring_shift_start", "wait",
 ]

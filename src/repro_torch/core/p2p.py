@@ -28,6 +28,15 @@ MPI                            repro_torch.core
 ``MPI_Wait`` / ``MPI_Waitall`` :func:`wait` over one or more pending requests
 =============================  ================================================
 
+Shard-level forms
+-----------------
+The model stack works on plain per-rank tensors, not bags: the
+sequence-parallel ring attention rotates its KV block along the ``model``
+axis of a :class:`~repro_torch.core.dist.Mesh`.  :func:`shard_ring_shift`,
+:func:`shard_ring_shift_start` and :func:`shard_all_gather_start` take a
+tensor or a tuple of tensors and one named mesh axis; the axis's process
+group is the communicator.  On an axis of one rank they move nothing.
+
 Ragged bags move at their padded *capacity* (the uniform wire datatype); the
 per-rank valid extents ride the request object's result bag, and a transfer
 hands the receiver the sender's counts — ``ring_shift`` on a ragged bag
@@ -53,6 +62,9 @@ __all__ = [
     "ring_shift",
     "permute_start",
     "ring_shift_start",
+    "shard_ring_shift",
+    "shard_ring_shift_start",
+    "shard_all_gather_start",
     "wait",
 ]
 
@@ -201,3 +213,84 @@ def wait(*pending: Pending):
     them for several.
     """
     return wait_all(*pending)
+
+
+# -----------------------------------------------------------------------------
+# shard-level forms (plain per-rank tensors along one mesh axis)
+# -----------------------------------------------------------------------------
+def _leaves(x) -> tuple[list[torch.Tensor], bool]:
+    """``x``'s tensors and whether it was a tuple/list of them."""
+    if isinstance(x, (tuple, list)):
+        return list(x), True
+    return [x], False
+
+
+def _axis(mesh, axis_name: str) -> tuple[int, int, object, tuple[int, ...]]:
+    """``(R, my coordinate, process group, member global ranks)`` of this
+    process's communicator along ``axis_name``; creates the axis's groups
+    on first use (collective: every rank reaches it at the same point)."""
+    if axis_name not in mesh.shape:
+        raise LayoutError(f"mesh has no axis {axis_name!r} (has {mesh.axis_names})")
+    mesh.create_groups((axis_name,))
+    return (mesh.shape[axis_name], mesh.coords()[axis_name], mesh.group((axis_name,)),
+            mesh.members((axis_name,)))
+
+
+def shard_ring_shift_start(x, axis_name: str, shift: int = 1, *, mesh) -> Pending:
+    """Issue the rotation of ``x`` (a tensor or a tuple of them) one ring
+    step along mesh axis ``axis_name``: rank ``r`` receives rank
+    ``r - shift``'s value (mod R).  Returns a :class:`Pending` whose
+    ``wait`` gives the received value, in ``x``'s structure.  The
+    double-buffered ring attention issues this before a step's local
+    attention and waits after it, like the SUMMA ring's panel rotation."""
+    leaves, is_seq = _leaves(x)
+    R, me, group, members = _axis(mesh, axis_name)
+    if shift % R == 0:
+        return Pending(lambda: x, op="ring_shift")
+    dst, src = members[(me + shift) % R], members[(me - shift) % R]
+    sent = [t.contiguous() for t in leaves]
+    landed = [torch.empty_like(t) for t in sent]
+    ops = []
+    for t, buf in zip(sent, landed):
+        ops.append(dist.P2POp(dist.isend, t, dst, group))
+        ops.append(dist.P2POp(dist.irecv, buf, src, group))
+    works = dist.batch_isend_irecv(ops)
+
+    def finish():
+        sent.clear()  # the sends are complete: their buffers may go
+        return type(x)(landed) if is_seq else landed[0]
+
+    return Pending(finish, works, op="ring_shift")
+
+
+def shard_ring_shift(x, axis_name: str, shift: int = 1, *, mesh):
+    """Blocking :func:`shard_ring_shift_start`: rank ``r`` receives rank
+    ``r - shift``'s ``x`` along mesh axis ``axis_name``."""
+    return shard_ring_shift_start(x, axis_name, shift, mesh=mesh).wait()
+
+
+def shard_all_gather_start(x, axis_name: str, *, mesh, axis: int = 0) -> Pending:
+    """Issue ``MPI_Iallgather`` of ``x`` (a tensor or a tuple of them) along
+    mesh axis ``axis_name``: every rank's value in rank order, concatenated
+    along ``axis`` (the reference's ``tiled=True``).  Every rank must hand
+    in the same shape."""
+    leaves, is_seq = _leaves(x)
+    R, _, group, _ = _axis(mesh, axis_name)
+    flats, works = [], []
+    for t in leaves:
+        t = t.contiguous()
+        flat = torch.empty((R * t.numel(),), dtype=t.dtype, device=t.device)
+        if R == 1:
+            flat.copy_(t.reshape(-1))
+        else:  # gloo gathers flat buffers only
+            works.append(dist.all_gather_into_tensor(flat, t.reshape(-1), group=group,
+                                                     async_op=True))
+        flats.append((flat, t.shape))
+
+    def finish():
+        out = []
+        for flat, shape in flats:
+            out.append(torch.cat(flat.reshape(R, *shape).unbind(0), dim=axis))
+        return type(x)(out) if is_seq else out[0]
+
+    return Pending(finish, works, op="all_gather")

@@ -33,8 +33,12 @@
 //   * a second small kernel merges the splits' (o, m, l) partials;
 //   * KV blocks, and 64-key tiles inside one, that lie wholly past every
 //     row's last visible key (cache length, or chunk causality) are skipped:
-//     they contribute exactly 0 after the combine.  Rows with no visible key
-//     at all (idle slots) then give 0 instead of the reference's mean of v;
+//     they contribute exactly 0 after the combine.  A row with no visible
+//     key at all (an idle slot) counts as seeing up to T - 1, so its tile
+//     walks every block and it gets the reference's mean of v; the keys of
+//     the last block past T count in l as the reference's padding does; a
+//     tile of such rows only (an idle slot's) skips K and Q K^T, since
+//     every score is masked, and pays for p @ v alone;
 //   * warps whose rows all lie past rep*S skip the arithmetic (a decode
 //     step's 3 rows occupy 2 of 8 warps of a 16-row tile).
 // Shared memory at TR = 4, D = 128, bk = 512: 195 KB, set with
@@ -70,7 +74,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
   float* Qs = reinterpret_cast<float*>(smem4);
   float* KVs = Qs + BR * (D + 4);
   float* Ss = KVs + KT * (D + 4);
-  __shared__ int s_limit;
+  __shared__ int s_limit, s_seen;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int r0 = blockIdx.x * BR, bg = blockIdx.y, b = bg / G, g = bg % G;
@@ -80,12 +84,18 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
   // whole warps past the last row skip the arithmetic (warp-uniform)
   const bool busy = r0 + (ty & ~1) * TR < RS;
 
-  // keys at or past `limit` are masked for every row of the tile
+  // keys at or past `limit` are masked for every row of the tile; a row
+  // with no visible key at all sees every key (its scores are all -1e30 and
+  // p = exp(0) = 1: the reference's mean of v over the padded cache)
   const int valid = min(cache_len[b], T_len);
-  if (tid == 0) s_limit = q_pos ? -1 : valid;
+  if (tid == 0) s_limit = 0, s_seen = 0;
   load_tile<T, D>(Qs, q + ((long long)bg * RS + r0) * D, D, BR, RS - r0, scale, tid);
   __syncthreads();
-  if (q_pos && tid < BR && r0 + tid < RS) atomicMax(&s_limit, q_pos[b * S + (r0 + tid) % S] + 1);
+  if (tid < BR && r0 + tid < RS) {
+    const int seen = q_pos ? min(valid, q_pos[b * S + (r0 + tid) % S] + 1) : valid;
+    atomicMax(&s_limit, seen > 0 ? seen : T_len);
+    if (seen > 0) s_seen = 1;
+  }
   int pos[TR];
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
@@ -93,7 +103,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
     pos[i] = q_pos ? q_pos[b * S + r % S] : T_len;
   }
   __syncthreads();
-  const int limit = min(s_limit, valid);
+  const int limit = s_limit;
+  // a tile whose rows see no key at all (an idle slot) needs no scores:
+  // every one is masked, so neither K nor Q K^T is touched (block-uniform)
+  const bool blind = s_seen == 0;
 
   float o[TR][DPT], m[TR], l[TR];
 #pragma unroll
@@ -107,6 +120,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
   for (int j = split * per; j < j_end && j * bk < limit; ++j) {
     const int kb0 = j * bk, kb_end = min(kb0 + bk, T_len);
     const int ntiles = (min(kb_end, limit) - kb0 + KT - 1) / KT;
+    // keys of the block past its scored tiles (past T: the reference's
+    // padding) are masked for every row; each adds exp(-1e30 - m_j) to l_j,
+    // which is 1 for a row with no visible key in the block and 0 otherwise
+    const float unscored = static_cast<float>(bk - ntiles * KT);
 
     // scores of the whole block into shared memory, and each row's max
     float mx[TR];
@@ -114,11 +131,13 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
     for (int i = 0; i < TR; ++i) mx[i] = NEG_INF;
     for (int t = 0; t < ntiles; ++t) {
       const int k0 = kb0 + t * KT;
-      __syncthreads();  // the previous readers of KVs are done
-      load_tile<T, D>(KVs, kp + k0 * sks, sks, KT, kb_end - k0, 1.f, tid);
-      __syncthreads();
+      __syncthreads();  // the previous readers of KVs and of the scores are done
+      if (!blind) {
+        load_tile<T, D>(KVs, kp + k0 * sks, sks, KT, kb_end - k0, 1.f, tid);
+        __syncthreads();
+      }
       float s[TR][4];
-      if (busy) {
+      if (busy && !blind) {
         score_tile<D, TR>(s, Qs, KVs, ty, tx);
       } else {
 #pragma unroll
@@ -153,7 +172,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
           sum += p;
           *e = round_to<T>(p) * w_j;
         }
-      l[i] = l[i] * w_old + w_j * half_warp_sum(sum);
+      l[i] = l[i] * w_old + w_j * (half_warp_sum(sum) + unscored * expf(NEG_INF - m_j));
       m[i] = m_new;
 #pragma unroll
       for (int e = 0; e < DPT; ++e) o[i][e] *= w_old;

@@ -1,17 +1,22 @@
-"""The flash-attention kernel for Hopper and its wrapper.
+"""The flash-attention kernel for Hopper and its wrappers.
 
-``csrc/flash_attention.cu`` replaces the reference's Pallas kernel
-``flash_attention_pallas`` (``src/repro/kernels/flash_attention.py``):
-blockwise online-softmax attention of q (B, Hq, Sq, D) over k/v
-(B, G, Skv, D), causal (top-left aligned) or not, all arithmetic float32,
-output in q's dtype.  Its plain version is
-:func:`repro_torch.kernels.ref.flash_attention_ref`.
+``csrc/flash_attention.cu`` replaces the reference's Pallas kernels
+``flash_attention_pallas`` and ``flash_attention_carry_pallas``
+(``src/repro/kernels/flash_attention.py``): blockwise online-softmax
+attention of q (B, Hq, Sq, D) over k/v (B, G, Skv, D), causal (top-left
+aligned) or not, all arithmetic float32, output in q's dtype
+(:func:`flash_attention_cuda`); and one step of the sequence-parallel ring,
+the same body threading the unnormalized float32 state ``(acc, m, l)``
+through the call in place, at global offsets (:func:`flash_attention_carry_cuda`).
+Their plain versions are :func:`repro_torch.kernels.ref.flash_attention_ref`
+and :func:`repro_torch.kernels.ref.flash_carry_ref`.
 
 The kernel takes float32 or bfloat16 with head dim 64 or 128 (``v`` with the
 same head dim as ``q``).  It reads each operand through its batch, head and
 sequence strides, so the transposed views of the projections need no copy.
 It launches on PyTorch's current stream and never synchronises; a build or
-launch failure raises.  ``flash_attention_cuda.launches`` counts launches.
+launch failure raises.  ``flash_attention_cuda.launches`` and
+``flash_attention_carry_cuda.launches`` count launches.
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ import torch
 
 from . import build
 
-__all__ = ["flash_attention_cuda", "check_attention", "load_library", "KERNEL_DTYPES"]
+__all__ = ["flash_attention_cuda", "flash_attention_carry_cuda", "check_attention",
+           "check_carry", "load_library", "KERNEL_DTYPES"]
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
@@ -76,6 +82,10 @@ def load_library() -> ctypes.CDLL:
     lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, p]
     lib.flash_attention_fwd.restype = i
+    lib.flash_attention_carry_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                              ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                                              i, i, i, i, p]
+    lib.flash_attention_carry_fwd.restype = i
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -108,3 +118,62 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention_cuda.launches = 0  # type: ignore[attr-defined]
+
+INT32_MAX = 2**31 - 1
+
+
+def check_carry(carry, B: int, Hq: int, Sq: int, Dv: int) -> None:
+    """Raises unless ``carry`` is ``(acc (B, Hq, Sq, Dv), m (B, Hq, Sq),
+    l (B, Hq, Sq))``."""
+    if len(carry) != 3:
+        raise ValueError("carry must be (acc, m, l)")
+    acc, m, l = carry
+    if tuple(acc.shape) != (B, Hq, Sq, Dv) or tuple(m.shape) != (B, Hq, Sq) \
+            or tuple(l.shape) != (B, Hq, Sq):
+        raise ValueError(f"carry shapes {tuple(acc.shape)}, {tuple(m.shape)}, {tuple(l.shape)} "
+                         f"do not fit q ({B}, {Hq}, {Sq}, ·) and v (·, ·, ·, {Dv})")
+
+
+def flash_attention_carry_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, carry, *,
+                               q_offset: int = 0, k_offset: int = 0,
+                               valid_len: int | None = None, causal: bool = True,
+                               scale: float | None = None):
+    """One ring step on the card: merges the attention of q (B, Hq, Sq, D),
+    rows at global positions ``q_offset + i``, over the held block k, v
+    (B, G, Skv, D), keys at ``k_offset + j`` (those at or past
+    ``valid_len`` masked), into ``carry = (acc, m, l)``, float32 contiguous
+    tensors on q's device, **in place**; returns the carry.  The kernel does
+    nothing for query tiles that lie wholly before the block (causal)."""
+    B, Hq, G, Sq, Skv, D = check_attention(q, k, v)
+    device = check_on_card(KERNEL_DTYPES, HEAD_DIMS, q=q, k=k, v=v)
+    check_carry(carry, B, Hq, Sq, D)
+    for name, t in zip(("acc", "m", "l"), carry):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != device:
+            raise ValueError(f"carry {name} must be a contiguous float32 tensor on {device}, "
+                             f"got {t.dtype} on {t.device}")
+    if q.numel() == 0:
+        return carry
+    if Skv == 0:
+        raise ValueError("attention over an empty key sequence")
+    valid_len = INT32_MAX if valid_len is None else min(max(int(valid_len), 0), INT32_MAX)
+    for name, val in (("q_offset", q_offset), ("k_offset", k_offset)):
+        if not 0 <= int(val) <= INT32_MAX - Sq - Skv:
+            raise ValueError(f"{name}={val} outside the kernel's int32 positions")
+    q, k, v = _row_aligned(q), _row_aligned(k), _row_aligned(v)
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    scale = float(scale if scale is not None else D ** -0.5)
+    lib = load_library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    acc, m, l = carry
+    code = lib.flash_attention_carry_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        KERNEL_DTYPES[q.dtype], B, Hq, G, Sq, Skv, D, strides, scale, int(causal),
+        int(q_offset), int(k_offset), valid_len, stream)
+    if code != 0:
+        msg = lib.flash_attention_error_string(code).decode()
+        raise RuntimeError(f"flash_attention_kernel (carry) launch failed: {msg} (cudaError {code})")
+    flash_attention_carry_cuda.launches += 1  # type: ignore[attr-defined]
+    return carry
+
+
+flash_attention_carry_cuda.launches = 0  # type: ignore[attr-defined]

@@ -12,9 +12,9 @@ The wrapper picks the row tile (16 or 64 rows of the rep*S stacked query
 rows, by how many rows there are and what fits in shared memory) and the
 number of splits of the KV blocks (enough blocks to cover the card twice),
 allocates the splits' float32 partials, and launches the kernel and its
-combine on PyTorch's current stream.  Rows with no visible key at all give
-0 where the reference gives the mean of v (idle slots; nothing reads
-them).  ``flash_decode_cuda.launches`` counts calls.
+combine on PyTorch's current stream.  Rows with no visible key at all
+(idle slots) give the reference's mean of v over the padded cache.
+``flash_decode_cuda.launches`` counts calls.
 """
 from __future__ import annotations
 

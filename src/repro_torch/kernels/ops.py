@@ -2,7 +2,8 @@
 
 Each op picks an implementation:
   * ``impl="cuda"`` — the hand-written Hopper kernel (``kernels/gemm.py``,
-    ``kernels/flash_attention.py``, ``kernels/flash_decode.py``),
+    ``kernels/flash_attention.py``, ``kernels/flash_decode.py``,
+    ``kernels/relayout.py``),
   * ``impl="ref"``  — the plain PyTorch version (``kernels/ref.py``).
 
 The default follows the operands' device: the kernel for CUDA tensors, the
@@ -14,11 +15,14 @@ from __future__ import annotations
 import torch
 
 from . import ref as _ref
-from .flash_attention import check_attention, flash_attention_cuda
+from .flash_attention import (check_attention, check_carry, flash_attention_carry_cuda,
+                              flash_attention_cuda)
 from .flash_decode import check_decode, flash_decode_cuda
 from .gemm import check_gemm, check_panel, gemm_cuda, gemm_panel_cuda
+from .relayout import check_transpose, transpose_cuda
 
-__all__ = ["default_impl", "gemm", "gemm_panel", "flash_attention", "flash_decode"]
+__all__ = ["default_impl", "gemm", "gemm_panel", "flash_attention", "flash_attention_carry",
+           "flash_decode", "transpose_tiled"]
 
 
 def default_impl(x: torch.Tensor) -> str:
@@ -76,6 +80,69 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     raise ValueError(f"unknown impl {impl!r} (use 'cuda' or 'ref')")
 
 
+class _CarryStep(torch.autograd.Function):
+    """One carry step with a gradient: the forward is the kernel, writing
+    into fresh copies of the carry; the backward recomputes the step
+    through its plain version under ``torch.autograd`` (the reference's
+    ``_carry_step_vjp``).  The offsets and ``valid_len`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, acc, m, l, kw):
+        ctx.save_for_backward(q, k, v, acc, m, l)
+        ctx.kw = kw
+        carry = tuple(t.detach().clone() for t in (acc, m, l))
+        return flash_attention_carry_cuda(q, k, v, carry, **kw)
+
+    @staticmethod
+    def backward(ctx, d_acc, d_m, d_l):
+        inputs = [t.detach().requires_grad_(t.is_floating_point())
+                  for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            q, k, v, acc, m, l = inputs
+            out = _ref.flash_carry_ref(q, k, v, (acc, m, l), **ctx.kw)
+            pairs = [(o, g) for o, g in zip(out, (d_acc, d_m, d_l)) if g is not None]
+            grads = torch.autograd.grad([o for o, _ in pairs], inputs,
+                                        [g for _, g in pairs], allow_unused=True)
+        return (*grads, None)
+
+
+def flash_attention_carry(q, k, v, carry=None, *, q_offset: int = 0, k_offset: int = 0,
+                          valid_len: int | None = None, causal: bool = True,
+                          scale: float | None = None, impl: str | None = None):
+    """One carry-state flash step (a ring step of the sequence-parallel
+    attention): the resident queries q (B, Hq, Sq, D), at global positions
+    ``q_offset + i``, against the held KV block k, v (B, G, Skv, D), at
+    ``k_offset + j``, threading the unnormalized float32 state
+    ``carry = (acc, m, l)`` (``None`` starts from ``(0, -1e30, 0)``).  Keys
+    at or past ``valid_len`` are masked.  Returns the new ``(acc, m, l)``;
+    the caller normalizes ``acc / l`` after the last step.
+
+    On the card the kernel updates the carry **in place** (a carry not
+    already float32 and contiguous is copied first); when a gradient is
+    wanted it writes fresh tensors instead and differentiates through
+    :class:`_CarryStep`."""
+    B, Hq, _, Sq, _, _ = check_attention(q, k, v)
+    Dv = v.shape[-1]
+    if carry is not None:
+        check_carry(carry, B, Hq, Sq, Dv)
+    impl = impl or default_impl(q)
+    kw = dict(q_offset=int(q_offset), k_offset=int(k_offset), valid_len=valid_len,
+              causal=causal, scale=scale)
+    if impl == "ref":
+        return _ref.flash_carry_ref(q, k, v, carry, **kw)
+    if impl != "cuda":
+        raise ValueError(f"unknown impl {impl!r} (use 'cuda' or 'ref')")
+    if carry is None:
+        carry = (torch.zeros((B, Hq, Sq, Dv), dtype=torch.float32, device=q.device),
+                 torch.full((B, Hq, Sq), _ref.NEG_INF, dtype=torch.float32, device=q.device),
+                 torch.zeros((B, Hq, Sq), dtype=torch.float32, device=q.device))
+    else:
+        carry = tuple(t.to(torch.float32).contiguous() for t in carry)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, *carry)):
+        return _CarryStep.apply(q, k, v, *carry, kw)
+    return flash_attention_carry_cuda(q, k, v, carry, **kw)
+
+
 def flash_decode(q, k_cache, v_cache, cache_len, *, q_positions=None,
                  scale: float | None = None, block: int = 512, impl: str | None = None):
     """Split-KV decode attention over the cache: the reference's
@@ -90,4 +157,18 @@ def flash_decode(q, k_cache, v_cache, cache_len, *, q_positions=None,
     if impl == "cuda":
         return flash_decode_cuda(q, k_cache, v_cache, cache_len, q_positions=q_positions,
                                  scale=scale, block=block)
+    raise ValueError(f"unknown impl {impl!r} (use 'cuda' or 'ref')")
+
+
+def transpose_tiled(x, *, bm: int = 256, bn: int = 256, impl: str | None = None):
+    """Batched last-two-axes transpose ``(..., M, N) -> (..., N, M)``,
+    bitwise: the reference's ``transpose_tiled_pallas``.  Raises
+    ``ValueError`` when M or N does not divide the reference's tile
+    ``(min(bm, M), min(bn, N))``."""
+    check_transpose(x, bm, bn)
+    impl = impl or default_impl(x)
+    if impl == "ref":
+        return _ref.transpose_ref(x)
+    if impl == "cuda":
+        return transpose_cuda(x)
     raise ValueError(f"unknown impl {impl!r} (use 'cuda' or 'ref')")

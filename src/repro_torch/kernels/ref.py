@@ -6,7 +6,8 @@ use these; on the card, ``chip_smoke.py`` holds each kernel against them.
 Products are taken in float32 with TF32 off.
 
 The attention versions compute what the reference's *Pallas kernels*
-compute (``flash_attention_pallas``, ``flash_decode_pallas``): padding to
+compute (``flash_attention_pallas``, ``flash_attention_carry_pallas``,
+``flash_decode_pallas``): padding to
 the block, the finite ``-1e30`` mask, and for decode the per-block
 rounding of the probabilities to the cache dtype.  The dense oracles
 ``attention_ref`` and ``decode_attention_ref`` are the reference's jnp
@@ -18,8 +19,9 @@ import contextlib
 
 import torch
 
-__all__ = ["gemm_ref", "gemm_panel_ref", "flash_attention_ref", "flash_decode_ref",
-           "attention_ref", "decode_attention_ref", "NEG_INF"]
+__all__ = ["gemm_ref", "gemm_panel_ref", "flash_attention_ref", "flash_carry_ref",
+           "flash_decode_ref", "attention_ref", "decode_attention_ref", "transpose_ref",
+           "NEG_INF"]
 
 NEG_INF = -1e30  # the reference kernels' finite mask value
 
@@ -126,6 +128,55 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, scale: float | None = N
     return (acc / l[..., None]).reshape(B, Hq, Sq, Dv).to(q.dtype)
 
 
+def flash_carry_ref(q, k, v, carry=None, *, q_offset: int = 0, k_offset: int = 0,
+                    valid_len: int | None = None, causal: bool = True,
+                    scale: float | None = None):
+    """Plain version of one carry-state flash step,
+    :func:`repro_torch.kernels.flash_attention.flash_attention_carry_cuda`
+    (the reference's ``flash_attention_carry_pallas`` and its oracle
+    ``flash_carry_ref``): the online-softmax merge of the whole held KV
+    block k, v (B, G, Skv, D) into the unnormalized float32 state
+    ``carry = (acc (B, Hq, Sq, Dv), m (B, Hq, Sq), l (B, Hq, Sq))`` of the
+    resident queries q (B, Hq, Sq, D); ``None`` starts from
+    ``(0, -1e30, 0)``.  Query row i sits at global position
+    ``q_offset + i`` and key j at ``k_offset + j``; the causal mask is
+    ``q_pos >= k_pos`` and keys at ``k_pos >= valid_len`` are masked, with
+    ``-1e30``.  q is scaled in float32 first, as the kernel loads it.
+    Returns the new ``(acc, m, l)``; differentiable."""
+    B, Hq, Sq, D = q.shape
+    _, G, Skv, _ = k.shape
+    Dv = v.shape[-1]
+    rep = Hq // G
+    scale = float(scale if scale is not None else D ** -0.5)
+    dev = q.device
+    if carry is None:
+        acc = torch.zeros((B, Hq, Sq, Dv), dtype=torch.float32, device=dev)
+        m = torch.full((B, Hq, Sq), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, Hq, Sq), dtype=torch.float32, device=dev)
+    else:
+        acc, m, l = (t.float() for t in carry)
+    acc = acc.reshape(B, G, rep, Sq, Dv)
+    m, l = m.reshape(B, G, rep, Sq), l.reshape(B, G, rep, Sq)
+    qf = q.float().reshape(B, G, rep, Sq, D) * scale
+    q_pos = q_offset + torch.arange(Sq, device=dev)[:, None]
+    k_pos = k_offset + torch.arange(Skv, device=dev)[None, :]
+    with _full_f32():
+        s = torch.matmul(qf, k.float()[:, :, None].transpose(-1, -2))  # (B, G, rep, Sq, Skv)
+        mask = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (q_pos >= k_pos)
+        if valid_len is not None:
+            mask = mask & (k_pos < valid_len)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l_new = l * alpha + p.sum(dim=-1)
+        acc_new = acc * alpha[..., None] + torch.matmul(p, v.float()[:, :, None])
+    return (acc_new.reshape(B, Hq, Sq, Dv), m_new.reshape(B, Hq, Sq),
+            l_new.reshape(B, Hq, Sq))
+
+
 def flash_decode_ref(q, k_cache, v_cache, cache_len, *, q_positions=None,
                      scale: float | None = None, block: int = 512):
     """Plain version of :func:`repro_torch.kernels.flash_decode.flash_decode_cuda`
@@ -218,3 +269,9 @@ def decode_attention_ref(q, k_cache, v_cache, cache_len, *, q_positions=None,
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bgrqs,bgsd->bgrqd", p, v_cache.float())
     return o.reshape(B, Hq, S, v_cache.shape[-1]).to(q.dtype)
+
+
+def transpose_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`repro_torch.kernels.relayout.transpose_cuda`:
+    ``(..., M, N) -> (..., N, M)``, contiguous."""
+    return x.transpose(-1, -2).contiguous()

@@ -9,14 +9,25 @@ Path        CUDA tensors (default)              CPU tensors (default)
 ==========  ==================================  ==================================
 seq         ``flash_attention_kernel``          ``flash_attention_ref``
 (forward)   (``impl="cuda"``)                   (its plain version, ``"ref"``)
+ring step   ``flash_attention_kernel``, carry   ``flash_carry_ref``
+(sp_ring)   form: one launch per held KV block  (its plain version, ``"ref"``)
 decode      ``flash_decode_kernel`` + combine   ``flash_decode_ref``
 (serving)   (``impl="cuda"``)                   (its plain version, ``"ref"``)
 ==========  ==================================  ==================================
 
 ``attn_impl="jnp"`` selects, for decode, the reference's dense path (all
 scores at once, probabilities normalized and *then* rounded to the cache
-dtype); on the seq path it means the plain version.  The ``sp_ring``
-(sequence-parallel ring) branches wait for ROADMAP queue 1 item 7.
+dtype); on the seq and ring paths it means the plain version.
+
+Under an active ``sp_ring`` recipe (:mod:`repro_torch.models.sharding`) with
+more than one rank on the ``model`` axis, the seq path becomes the
+sequence-parallel ring (:func:`ring_attention_seq`): every rank holds its
+contiguous chunk of the sequence, and the KV blocks rotate around the
+``model`` axis with :func:`repro_torch.core.p2p.shard_ring_shift_start`
+issued *before* each step's local attention and waited after it
+(double-buffered, like the SUMMA ring).  The ring branch of a whole-prompt
+prefill chunk waits for the tensor-parallel decode slice (ROADMAP.md
+queue 1 item 8).
 
 Rounding.  The reference wraps activation-dtype boundaries in ``pin`` (an
 XLA barrier, ``repro/models/numerics.py``) so that the compiler cannot fold
@@ -34,12 +45,17 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.p2p import shard_ring_shift_start
+from repro_torch.core.plan import ring
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
 
 from .module import pspec
+from .sharding import current_recipe, ragged_seq_extents
 
 __all__ = ["rope_angles", "apply_rope", "gqa_specs", "attention_seq", "attention_decode",
-           "KVCache", "gqa_attention"]
+           "ring_step_offsets", "ring_attention_seq", "KVCache", "gqa_attention",
+           "idle_rows_read_chunk"]
 
 
 # ------------------------------------------------------------------ RoPE ----
@@ -94,6 +110,99 @@ def attention_seq(q, k, v, *, causal: bool = True, impl: str | None = None, bloc
     return ops.flash_attention(q, k, v, causal=causal, impl=_kernel_impl(impl), block=block)
 
 
+# ------------------------------------------------------- ring attention ----
+
+
+def ring_step_offsets(rank: int, step: int, R: int, chunk: int) -> tuple[int, int]:
+    """``(q_offset, k_offset)`` of ring step ``step`` on rank ``rank`` of an
+    R-rank ring of ``chunk``-long sequence chunks: after ``step`` hops of +1
+    the rank holds the KV block of rank ``(rank - step) % R``."""
+    return rank * chunk, ((rank - step) % R) * chunk
+
+
+def _ring_attention_local(q, k, v, *, mesh, axis_name: str, causal: bool, double_buffer: bool,
+                          valid_len: int | None = None, impl: str | None = None):
+    """This rank's part of the sequence-parallel attention ring.
+
+    ``q`` (B,H,Sl,D) and ``k``/``v`` (B,G,Sl,D) are the rank's contiguous
+    chunks of a sequence of R*Sl positions (R ranks on ``axis_name``, rank
+    ``r`` at positions ``[r*Sl, (r+1)*Sl)``).  Each of R steps merges the
+    attention of the resident Q chunk over the held KV block into the
+    running ``(acc, m, l)`` state with one carry step
+    (:func:`repro_torch.kernels.ops.flash_attention_carry`: the kernel on
+    the card, its plain version on the CPU), while the next KV block is in
+    flight.  The rotation is a declared :func:`repro_torch.core.plan.ring`
+    plan that issues :func:`repro_torch.core.p2p.shard_ring_shift_start`
+    before the step's attention and waits after it;
+    ``double_buffer=False`` is the blocking interpretation of the same plan,
+    bitwise equal.  Keys at global positions ``>= valid_len`` are padding
+    (ragged shards); the rows past it are garbage for the caller to drop.
+    The epilogue normalizes ``acc / l`` (``l == 0 -> 1``) into q's dtype."""
+    R, me = mesh.shape[axis_name], mesh.coords()[axis_name]
+    B, Hq, Sl, D = q.shape
+    scale = D ** -0.5
+    dev = q.device
+
+    def compute(acc, kv, s):
+        kb, vb = kv
+        q_off, k_off = ring_step_offsets(me, s, R, Sl)
+        return ops.flash_attention_carry(q, kb, vb, acc, q_offset=q_off, k_offset=k_off,
+                                         valid_len=valid_len, causal=causal, scale=scale,
+                                         impl=_kernel_impl(impl))
+
+    acc0 = (torch.zeros((B, Hq, Sl, v.shape[-1]), dtype=torch.float32, device=dev),
+            torch.full((B, Hq, Sl), NEG_INF, dtype=torch.float32, device=dev),
+            torch.zeros((B, Hq, Sl), dtype=torch.float32, device=dev))
+    plan = ring(
+        R,
+        transfer=lambda kv, s: shard_ring_shift_start(kv, axis_name, 1, mesh=mesh),
+        compute=compute,
+        epilogue=lambda acc, kv: (
+            acc[0] / torch.where(acc[2] == 0.0, 1.0, acc[2])[..., None]).to(q.dtype),
+    )
+    return plan.run((k, v), acc0, double_buffer=double_buffer)
+
+
+def ring_attention_seq(q, k, v, *, mesh, axis_name: str = "model", causal: bool = True,
+                       double_buffer: bool = True, impl: str | None = None):
+    """Sequence-parallel ring attention over the ``axis_name`` mesh axis,
+    the distributed twin of :func:`attention_seq`.
+
+    q (B,H,S,D) and k/v (B,G,S,D) are the whole sequence, on every rank;
+    each rank computes the output rows of its own contiguous chunk and
+    returns them, (B,H,extent,D): rank ``r``'s chunk is
+    ``ragged_seq_extents(S, R)``'s, so the ranks' chunks put together in
+    rank order are the whole output.  Per step a rank moves only its
+    (B,G,cap,D) KV block, behind the step's attention (see
+    :func:`_ring_attention_local`).  Lengths that do not divide the ring
+    pad to R equal capacity chunks and mask the padded keys."""
+    R = mesh.shape[axis_name]
+    S = q.shape[2]
+    if k.shape[2] != S or v.shape[2] != S:
+        raise ValueError(f"ring attention needs matching q/kv seq lens, got {S} vs {k.shape[2]}")
+    cap, extents = ragged_seq_extents(S, R)
+    valid_len = None if S == R * cap else S
+    r = mesh.coords()[axis_name]
+    ql, kl, vl = (torch.nn.functional.pad(x, (0, 0, 0, R * cap - S))[:, :, r * cap:(r + 1) * cap]
+                  for x in (q, k, v))
+    o = _ring_attention_local(ql, kl, vl, mesh=mesh, axis_name=axis_name, causal=causal,
+                              double_buffer=double_buffer, valid_len=valid_len, impl=impl)
+    return o[:, :, :extents[r]]
+
+
+def _ring_applicable(recipe, q, k) -> bool:
+    """The sp ring runs when the recipe asks for it and the shapes ring: a
+    model axis of more than one rank (any sequence length: ragged lengths
+    run as padded capacity chunks with masked keys)."""
+    if recipe is None or not recipe.sp_ring or recipe.attn_mode != "sp":
+        return False
+    if "model" not in recipe.mesh.shape:
+        return False
+    R = recipe.mesh.shape["model"]
+    S = q.shape[2]
+    return R > 1 and S >= 1 and k.shape[2] == S and q.shape[1] % k.shape[1] == 0
+
+
 def attention_decode(q, k_cache, v_cache, cache_len, *, q_positions=None,
                      impl: str | None = None, block: int = 512):
     """q (B,H,S,D) new queries; caches (B,G,T,D); positions >= cache_len are
@@ -119,7 +228,7 @@ def attention_decode(q, k_cache, v_cache, cache_len, *, q_positions=None,
     mask = t < torch.clamp(cache_len.long(), max=T).reshape(B, 1, 1, 1, 1)
     if q_positions is not None:
         mask = mask & (t <= q_positions.long().reshape(B, 1, 1, S, 1))
-    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     # the normalized probabilities round to the cache dtype before p@v
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     o = torch.matmul(p.float(), v_cache.float()[:, :, None])
@@ -150,14 +259,25 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 def gqa_attention(p, x, *, n_heads: int, n_kv: int, head_dim: int, rope_theta: float = 10000.0,
                   positions=None, cache: KVCache | None = None, causal: bool = True,
                   attn_impl: str | None = None, block: int = 512, new_counts=None,
-                  prefill: bool = False):
+                  prefill: bool = False, idle_read_chunk: bool | None = None,
+                  seq_len: int | None = None):
     """x (B,S,m) -> (B,S,m).  ``cache`` switches to decode mode.
+
+    Under an active ``sp_ring`` recipe whose ``model`` axis has R > 1 ranks,
+    the full-sequence path runs :func:`_ring_attention_local`: ``x`` is then
+    this rank's chunk of a sequence padded to R chunks, ``positions`` its
+    absolute positions and ``seq_len`` the sequence's valid length (keys
+    past it are padding).
 
     Decode takes multi-token chunks (S >= 1) with per-row state:
     ``positions`` may be (B,S) absolute positions and ``new_counts`` (B,)
     says how many of the chunk's tokens are valid per row.  The cache is
     updated **in place** (see :func:`_cache_update`): rows with a count of
     0 keep their K/V, and each row's length advances by its own count.
+    Idle rows attend as the reference's do, over their cache with the chunk
+    written, through a copy when :func:`idle_rows_read_chunk` says that the
+    chunk is visible to one of them; ``idle_read_chunk`` passes that answer
+    in (the caller's one host sync per step), or ``None`` asks here.
     ``prefill`` marks a whole-prompt chunk; without a sequence-parallel
     recipe it runs like any chunk.  Returns ``(out, new_cache)``."""
     del prefill, n_heads, n_kv  # the shapes come from the weights
@@ -180,12 +300,39 @@ def gqa_attention(p, x, *, n_heads: int, n_kv: int, head_dim: int, rope_theta: f
         _cache_update(cache.k, k, cache.length, active)
         _cache_update(cache.v, v, cache.length, active)
         new_len = cache.length + adv
+        kc, vc = cache.k, cache.v
+        if active is not None and (idle_read_chunk if idle_read_chunk is not None else
+                                   idle_rows_read_chunk(cache.length, new_counts, kc.shape[2], S)):
+            # the reference writes every row's chunk, attends, and then
+            # restores the idle rows (lm._mask_rows): those idle rows attend
+            # over a copy of the cache with their chunk written
+            kc, vc = kc.clone(), vc.clone()
+            _cache_update(kc, k, cache.length, None)
+            _cache_update(vc, v, cache.length, None)
         q_pos = positions if positions.ndim == 2 else None
-        o = attention_decode(q, cache.k, cache.v, new_len, q_positions=q_pos, impl=attn_impl,
-                             block=block)
+        o = attention_decode(q, kc, vc, new_len, q_positions=q_pos, impl=attn_impl, block=block)
         return _out_proj(o, p["wo"]), KVCache(cache.k, cache.v, new_len.to(cache.length.dtype))
+    recipe = current_recipe()
+    if _ring_applicable(recipe, q, k):
+        R = recipe.mesh.shape["model"]
+        o = _ring_attention_local(q, k, v, mesh=recipe.mesh, axis_name="model", causal=causal,
+                                  double_buffer=True,
+                                  valid_len=seq_len if seq_len not in (None, R * S) else None,
+                                  impl=attn_impl)
+        return _out_proj(o, p["wo"]), None
     o = attention_seq(q, k, v, causal=causal, impl=attn_impl, block=block)
     return _out_proj(o, p["wo"]), None
+
+
+def idle_rows_read_chunk(length: torch.Tensor, new_counts: torch.Tensor, T: int, S: int) -> bool:
+    """Whether an idle row (count 0) of a decode step would read its own
+    chunk in the reference, which writes it: a row that sees no key (then
+    every key counts, as the mean of v) or whose clamped write start lies
+    below its visible length.  One host sync."""
+    length = length.long()
+    seen = torch.clamp(length, max=T)
+    start = torch.clamp(length % T, max=T - S)
+    return bool(((new_counts == 0) & ((seen == 0) | (start < seen))).any())
 
 
 def _cache_update(cache: torch.Tensor, new: torch.Tensor, length: torch.Tensor,

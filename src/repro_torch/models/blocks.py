@@ -46,15 +46,19 @@ def attn_block_specs(cfg) -> dict:
     return s
 
 
-def attn_block(p, x, cfg, *, cache=None, positions=None, new_counts=None, prefill=False):
+def attn_block(p, x, cfg, *, cache=None, positions=None, new_counts=None, prefill=False,
+               idle_read_chunk=None, seq_len=None):
     """Pre-norm attention + FFN.  Returns ``(x, new_cache)``; the cache, if
-    given, is updated in place."""
+    given, is updated in place.  Under a sequence-parallel recipe ``x`` is
+    this rank's chunk and ``seq_len`` the valid length of the whole
+    sequence (see :func:`repro_torch.models.attention.gqa_attention`)."""
     h, new_cache = attn.gqa_attention(
         p["attn"], rmsnorm(p["ln1"], x),
         n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
         rope_theta=cfg.rope_theta, positions=positions, cache=cache,
         attn_impl=cfg.attn_impl, block=cfg.attn_block,
-        new_counts=new_counts, prefill=prefill,
+        new_counts=new_counts, prefill=prefill, idle_read_chunk=idle_read_chunk,
+        seq_len=seq_len,
     )
     x = x + h
     fn = ffn_mod.gelu_mlp if cfg.ffn_kind == "gelu" else ffn_mod.swiglu

@@ -4,20 +4,31 @@ full-sequence forward and the serving decode step.
 Layer parameters, like the reference's, are stacked on a leading ``l`` dim
 (``params["blocks"]`` leaves are ``(L, ...)``), and so are the caches; the
 reference's ``lax.scan`` over them becomes a Python loop over the layer
-index.  Families other than ``dense``, the ``embeds`` input kind and the
-sharding recipes wait for their slices (ROADMAP.md queue 1 items 6 and 7).
+index.  Families other than ``dense`` and the ``embeds`` input kind wait
+for their slices (ROADMAP.md queue 1 item 6).
+
+Under an active ``sp_ring`` recipe (:mod:`repro_torch.models.sharding`) the
+forward is sequence-parallel: each rank keeps its contiguous, padded chunk
+of the residual stream (and its share of the batch over the ``data``
+axes) through every block, and attention runs as the ``model``-axis ring.
+The decode step and the other recipe modes wait for the tensor-parallel
+decode and training slices (ROADMAP.md queue 1 items 8 and 10).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core.dims import mixed_radix_join
 from repro_torch.core.dist import resolve_device
+from repro_torch.core.p2p import shard_all_gather_start
 
 from . import attention as attn_mod
 from . import blocks as blk
 from .module import init_params, pspec, stack_specs, tree_map, tree_size
+from .sharding import current_recipe, fit_spec, ragged_seq_extents
 
 __all__ = ["build_specs", "count_params", "embed_inputs", "lm_logits", "forward",
            "DecodeState", "init_cache", "decode_step", "init_model"]
@@ -80,10 +91,61 @@ def _layer(tree, i: int):
 
 def forward(params, batch, cfg, *, positions=None):
     """Full-sequence forward (prefill without cache).  Returns
-    ``(logits, aux_loss)``; the aux loss is 0 (MoE is not ported)."""
+    ``(logits, aux_loss)``; the aux loss is 0 (MoE is not ported).
+
+    Under an active ``sp_ring`` recipe every rank takes the whole batch
+    and returns the whole ``(B, S, V)`` logits, the same on every rank; in
+    between it computes only its own chunk (:func:`_forward_sp_ring`)."""
+    recipe = current_recipe()
+    if recipe is not None:
+        return _forward_sp_ring(params, batch, cfg, recipe, positions)
     x = embed_inputs(params, batch, cfg)
     for i in range(cfg.n_layers):
         x, _ = blk.attn_block(_layer(params["blocks"], i), x, cfg, positions=positions)
+    return lm_logits(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _forward_sp_ring(params, batch, cfg, recipe, positions):
+    """The forward on this rank of a sequence-parallel recipe's mesh.
+
+    The batch splits over the recipe's batch axes where they divide it
+    (else every rank takes all of it).  The sequence of S tokens pads to
+    R = |model| chunks of ``cap`` (:func:`ragged_seq_extents`) and this rank
+    keeps chunk ``r``, at absolute positions ``r*cap + i`` for RoPE, through
+    every block (the recipe's ``hidden`` spec: (B, model, None)); attention
+    is the ring, with the padded keys masked.  The final hidden states are
+    gathered along ``model`` and the batch axes, the padding dropped, and
+    the head applied to the whole (B, S, m) on every rank, so all ranks
+    return the same logits."""
+    if not recipe.sp_ring:
+        raise NotImplementedError(
+            f"recipe attn_mode={recipe.attn_mode!r} without the ring: the port applies only "
+            "the sp_ring recipe so far (tensor parallelism: ROADMAP.md queue 1, item 8)")
+    mesh = recipe.mesh
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    R = mesh.shape.get("model", 1)
+    coords = mesh.coords()
+    entry = fit_spec(recipe.spec("tokens")[:1], (B,), mesh)[0]
+    batch_axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+    sizes = [mesh.shape[a] for a in batch_axes]
+    n_rows = B // math.prod(sizes)
+    row0 = mixed_radix_join([coords[a] for a in batch_axes], sizes) * n_rows
+    cap, _ = ragged_seq_extents(S, R)
+    r = coords.get("model", 0)
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device)
+    pad = R * cap - S
+    pos = torch.cat([positions, positions[-1] + 1 + torch.arange(pad, device=tokens.device)])
+    chunk = slice(r * cap, (r + 1) * cap)
+    tok = torch.nn.functional.pad(tokens[row0:row0 + n_rows], (0, pad))[:, chunk]
+    x = embed_inputs(params, {"tokens": tok}, cfg)
+    for i in range(cfg.n_layers):
+        x, _ = blk.attn_block(_layer(params["blocks"], i), x, cfg, positions=pos[chunk],
+                              seq_len=S)
+    x = shard_all_gather_start(x, "model", mesh=mesh, axis=1).wait()[:, :S] if R > 1 else x
+    for a in reversed(batch_axes):  # innermost batch axis first
+        x = shard_all_gather_start(x, a, mesh=mesh, axis=0).wait()
     return lm_logits(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -114,9 +176,13 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     Every row runs at its own position (``state.positions[b]``) for RoPE and
     the causal mask.  ``new_counts`` (B,) int32 says how many of the chunk's
     S tokens are valid per row: rows with 0 are idle this step, keep their
-    K/V and length, and do not advance.  The K/V caches are updated **in
+    K/V and length, and do not advance; their logits are the reference's
+    (see :func:`repro_torch.models.attention.gqa_attention`).  The K/V caches are updated **in
     place** (the state's tensors are the new state's); the lengths are new
     tensors.  ``prefill`` marks a whole-prompt chunk."""
+    if current_recipe() is not None:
+        raise NotImplementedError("decode_step under a sharding recipe: ROADMAP.md queue 1, "
+                                  "item 8 (tensor-parallel decode)")
     positions = state.positions
     S = batch["tokens"].shape[1]
     pos2d = positions[:, None] + torch.arange(S, dtype=positions.dtype,
@@ -124,11 +190,15 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     adv = S if new_counts is None else new_counts
     x = embed_inputs(params, batch, cfg)
     caches = state.caches
+    # every layer's lengths are the same: ask once per step, not per layer
+    idle_read = None if new_counts is None else attn_mod.idle_rows_read_chunk(
+        caches.length[0], new_counts, caches.k.shape[3], S)
     lengths = []
     for i in range(cfg.n_layers):
         c = attn_mod.KVCache(caches.k[i], caches.v[i], caches.length[i])
         x, new_c = blk.attn_block(_layer(params["blocks"], i), x, cfg, cache=c,
-                                  positions=pos2d, new_counts=new_counts, prefill=prefill)
+                                  positions=pos2d, new_counts=new_counts, prefill=prefill,
+                                  idle_read_chunk=idle_read)
         lengths.append(new_c.length)
     new_caches = attn_mod.KVCache(caches.k, caches.v, torch.stack(lengths))
     logits = lm_logits(params, x, cfg)

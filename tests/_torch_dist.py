@@ -221,3 +221,62 @@ def collectives_family() -> dict:
     mesh2 = C.make_mesh((2, 2), ("rows", "cols"), device="cpu")
     return collective_cases(np, L, C, mesh1, mesh2, lambda t: t.numpy(),
                             lambda d: d.data.numpy())
+
+
+RING_MESHES = [(1, 4), (2, 2)]  # (data, model) meshes of the 4-rank ring checks
+
+
+def ring_family(*, cases) -> dict:
+    """``ring_attention_seq`` on this gloo rank for every mesh of
+    :data:`RING_MESHES` and every ``(S, causal)`` case: this rank's output
+    chunk, double-buffered and blocking, and whether mismatched q/kv
+    lengths raise.  ``cases`` maps ``(S, causal)`` to numpy (q, k, v)."""
+    import torch
+
+    from repro_torch.core import make_mesh
+    from repro_torch.models.attention import ring_attention_seq
+
+    out: dict = {}
+    for shape in RING_MESHES:
+        mesh = make_mesh(shape, ("data", "model"), device="cpu")
+        for key, arrays in cases.items():
+            q, k, v = (torch.from_numpy(a) for a in arrays)
+            for db in (True, False):
+                o = ring_attention_seq(q, k, v, mesh=mesh, causal=key[1], double_buffer=db)
+                out[(shape, key, db)] = o.numpy()
+        try:
+            ring_attention_seq(q, k[:, :, 1:], v[:, :, 1:], mesh=mesh)
+        except ValueError:
+            out[(shape, "mismatch_raises")] = True
+        else:
+            out[(shape, "mismatch_raises")] = False
+    return out
+
+
+def sp_ring_forward_family(*, models, tokens) -> dict:
+    """``lm.forward`` under ``make_recipe(cfg, mesh, attn_mode="sp_ring")`` on
+    this gloo rank, for every mesh of :data:`RING_MESHES`, every
+    ``models[arch]`` (the reference's float32 parameters as numpy) and every
+    ``tokens[S]``: the logits every rank returns."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.weights import params_from_jax
+
+    out: dict = {}
+    meshes = {shape: make_mesh(shape, ("data", "model"), device="cpu") for shape in RING_MESHES}
+    for arch, tree in models.items():
+        cfg = dataclasses.replace(configs.get(arch, smoke=True), act_dtype=torch.float32)
+        params = params_from_jax(tree, device="cpu")
+        for shape, mesh in meshes.items():
+            recipe = make_recipe(cfg, mesh, attn_mode="sp_ring")
+            for S, toks in tokens.items():
+                with use_recipe(recipe):
+                    logits, _ = lm.forward(params, {"tokens": torch.from_numpy(toks).long()}, cfg)
+                out[(arch, shape, S)] = logits.numpy()
+    return out

@@ -1,5 +1,5 @@
-"""The port's CUDA attention kernels against their plain PyTorch versions,
-on the card.
+"""The port's CUDA attention and transpose kernels against their plain
+PyTorch versions, on the card.
 
 These tests import neither ``jax`` nor the reference package, and skip
 without a CUDA device; on a GPU host run
@@ -15,6 +15,8 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops
+from repro_torch.kernels import relayout
+from repro_torch.models.attention import ring_step_offsets
 
 pytestmark = pytest.mark.cuda
 
@@ -71,8 +73,9 @@ def test_flash_decode_cuda_matches_plain_version(cuda, case, dtype):
     """``decode``: one query per row, T = 300 that blocks of 128 do not
     divide, lengths 300, 1, 129 and an idle row; ``chunk``: 70 queries per
     row with ``q_positions``; ``many_rows``: rep*S = 120 rows (the 64-row
-    tile).  Rows with no visible key (the idle row) are excluded: the
-    kernel skips blocks past every visible key and gives 0 there."""
+    tile).  The idle row has no visible key and gets the mean of v over the
+    cache padded to whole blocks, as the plain version and the reference
+    give it."""
     B, Hq, G, T, D = 4, 6, 2, 300, 128
     S = {"decode": 1, "chunk": 70, "many_rows": 40}[case]
     q = _randn((B, Hq, S, D), dtype, cuda, 4)
@@ -90,9 +93,11 @@ def test_flash_decode_cuda_matches_plain_version(cuda, case, dtype):
     torch.cuda.synchronize()
     assert fd.flash_decode_cuda.launches == before + 1
     want = ops.flash_decode(q, kc, vc, lens, q_positions=pos, block=128, impl="ref")
-    live = lens > 0
-    torch.testing.assert_close(got[live], want[live], rtol=TOL[dtype], atol=TOL[dtype])
-    assert torch.all(got[~live] == 0)
+    torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+    idle = vc[2].float()
+    mean_v = torch.nn.functional.pad(idle, (0, 0, 0, 384 - T)).mean(dim=1)  # 3 blocks of 128
+    torch.testing.assert_close(got[2].float(), mean_v.repeat_interleave(Hq // G, 0)[:, None]
+                               .expand(Hq, S, D), rtol=TOL[dtype], atol=TOL[dtype])
 
 
 @pytest.mark.parametrize("case", ["block_per_split", "blocks_per_split"])
@@ -149,3 +154,101 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         fa.flash_attention_cuda(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention_cuda(q[..., :32], q[..., :32], q[..., :32])
+
+
+def _plain_carry(B, Hq, S, D, device):
+    return (torch.zeros((B, Hq, S, D), device=device), torch.full((B, Hq, S), -1e30, device=device),
+            torch.zeros((B, Hq, S), device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("valid", [300, 280])
+def test_flash_carry_cuda_matches_plain_version(cuda, dtype, causal, valid):
+    """Every (rank, step) call of a 3-rank ring over 300 positions in
+    chunks of 100 (ragged row and key tiles), GQA 3, head dim 128; with
+    ``valid = 280`` the last 20 keys are padding.  Each call starts from the
+    plain version's state and is compared in acc, m and l; the carry is
+    updated in place."""
+    B, Hq, G, R, Sl, D = 1, 6, 2, 3, 100, 128
+    q = _randn((B, Hq, R * Sl, D), dtype, cuda, 20)
+    k = _randn((B, G, R * Sl, D), dtype, cuda, 21)
+    v = _randn((B, G, R * Sl, D), dtype, cuda, 22)
+    for rank in range(R):
+        qr = q[:, :, rank * Sl:(rank + 1) * Sl]
+        state = _plain_carry(B, Hq, Sl, D, cuda)
+        for step in range(R):
+            q_off, k_off = ring_step_offsets(rank, step, R, Sl)
+            blk = slice(k_off, k_off + Sl)
+            kw = dict(q_offset=q_off, k_offset=k_off, valid_len=valid, causal=causal)
+            want = ops.flash_attention_carry(qr, k[:, :, blk], v[:, :, blk], state, impl="ref",
+                                             **kw)
+            carry = tuple(t.clone() for t in state)
+            before = fa.flash_attention_carry_cuda.launches
+            got = ops.flash_attention_carry(qr, k[:, :, blk], v[:, :, blk], carry, **kw)
+            torch.cuda.synchronize()
+            assert fa.flash_attention_carry_cuda.launches == before + 1
+            assert all(g is c for g, c in zip(got, carry))  # in place
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=TOL[dtype], atol=TOL[dtype])
+            state = want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_carry_chain_equals_single_shot_bitwise(cuda, dtype, causal, D):
+    """Four carry steps over KV chunks of 128 keys in block order,
+    normalized as the ring's epilogue does, give the single-shot kernel's
+    bits."""
+    q = _randn((1, 8, 512, D), dtype, cuda, 23)
+    k = _randn((1, 2, 512, D), dtype, cuda, 24)
+    v = _randn((1, 2, 512, D), dtype, cuda, 25)
+    carry = None
+    for c in range(4):
+        blk = slice(c * 128, (c + 1) * 128)
+        carry = ops.flash_attention_carry(q, k[:, :, blk], v[:, :, blk], carry, q_offset=0,
+                                          k_offset=c * 128, causal=causal)
+    acc, _, l = carry
+    chained = (acc / torch.where(l == 0, 1.0, l)[..., None]).to(dtype)
+    single = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(chained, single)
+
+
+def test_flash_carry_cuda_gradient_matches_plain_version(cuda):
+    """The kernel route's autograd Function (forward: the kernel on fresh
+    copies of the carry; backward: recompute through the plain version)
+    against autograd through the plain version, over two chained steps."""
+    q0 = _randn((1, 4, 128, 64), torch.float32, cuda, 26)
+    k0 = _randn((1, 2, 128, 64), torch.float32, cuda, 27)
+    v0 = _randn((1, 2, 128, 64), torch.float32, cuda, 28)
+    grads = {}
+    for impl in ("cuda", "ref"):
+        q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+        carry = None
+        for c in range(2):
+            blk = slice(c * 64, (c + 1) * 64)
+            carry = ops.flash_attention_carry(q, k[:, :, blk], v[:, :, blk], carry, q_offset=0,
+                                              k_offset=c * 64, impl=impl)
+        acc, _, l = carry
+        (acc / l[..., None]).square().sum().backward()
+        grads[impl] = (q.grad, k.grad, v.grad)
+    for got, want in zip(grads["cuda"], grads["ref"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2048, 2048), torch.float32), ((3, 64, 32), torch.bfloat16), ((2, 2, 32, 64), torch.int32),
+    ((5, 77, 33), torch.int8), ((2, 40, 300), torch.float64), ((70000, 2, 3), torch.float32)])
+def test_transpose_cuda_matches_plain_version_bitwise(cuda, shape, dtype):
+    """Any M and N (edge tiles), every element size, batches past the
+    grid's 65535 z-blocks."""
+    x = (_randn(shape, torch.float32, cuda, 29) * 100).to(dtype)
+    before = relayout.transpose_cuda.launches
+    got = ops.transpose_tiled(x, bm=shape[-2], bn=shape[-1])  # a tile the shape divides
+    torch.cuda.synchronize()
+    assert relayout.transpose_cuda.launches == before + 1
+    assert torch.equal(got, ops.transpose_tiled(x, bm=shape[-2], bn=shape[-1], impl="ref"))
+    with pytest.raises(ValueError, match="must divide tile"):
+        ops.transpose_tiled(torch.zeros((300, 256), device=cuda))

@@ -51,6 +51,7 @@ LM_MODULES = [
     "repro_torch.models.module", "repro_torch.models.attention", "repro_torch.models.ffn",
     "repro_torch.models.blocks", "repro_torch.models.lm", "repro_torch.models.weights",
     "repro_torch.serve.kv", "repro_torch.serve.engine", "repro_torch.launch.serve",
+    "repro_torch.models.sharding", "repro_torch.kernels.relayout",
 ]
 
 
