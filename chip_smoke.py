@@ -7,9 +7,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 
 * the distributed GEMM case study (1-D GEMM, double-buffered and blocking
   SUMMA, ragged SUMMA) at the paper's EXTRALARGE size on a world of one rank
-  (NCCL, grid 1x1), with its two GEMM kernels held against their plain
-  versions, a ``torch.profiler`` proof that it ran the port's kernels and no
-  library GEMM, and kernel times against ``torch.matmul``;
+  (NCCL, grid 1x1), with its two GEMM kernels (split TF32 on the tensor
+  cores) held against their plain versions, against a float64 product
+  (error at most 10x the plain version's) and against themselves (two
+  launches bitwise equal), each loader (TMA, strided TMA, ``cp.async``)
+  held to its shapes, the two the path takes (TMA, strided TMA) counted on
+  the main path, a ``torch.profiler`` proof that it ran the port's kernels
+  and no library GEMM, and kernel times in all 8 majors against
+  ``torch.matmul`` (``addmm_`` for the panel);
 * the dense LM at phi4-mini-3.8b's full width (32 layers, seeded random
   weights): the attention kernels against their plain versions, one
   full-sequence forward of 4096 tokens (32 ``flash_attention`` launches),
@@ -18,9 +23,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   through the kernels' plain versions, a profiler proof that no library
   attention kernel ran, where the time of a forward and of a decode step
   goes (device time by kind, idle share), and kernel times beside their
-  bounds, plain versions and ``scaled_dot_product_attention``.  The
-  attention kernels' times are device times from the profiler (the sum of
-  the kernels one call launches); ``call_ms`` adds the host's launch work;
+  bounds, plain versions and ``scaled_dot_product_attention``;
 * the sequence-parallel ring's kernel work at phi4-mini's full width: every
   (rank, step) carry call of a 4-rank ring over 4096 tokens and over a
   ragged 4095 (the schedule of ``_ring_attention_local``, through its own
@@ -32,6 +35,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   no ring transfer: the ring's schedule across ranks is checked on gloo CPU
   processes in the tests.
 
+Every kernel time (``ms``, ``plain_ms``, ``library_ms``) is device time per
+call from ``repro_torch.kernels.timing.queued_ms`` (calls run back to back
+behind a sleep kernel, between two CUDA events), and a kernel's time below
+its bound fails the run; ``call_ms`` is one call with the host's work.
 Phases print one line each (or one line per case); any failed phase raises,
 so the exit code is non-zero and no result line is printed.  The line before
 the last is the card's name and power limit from ``nvidia-smi``; the last
@@ -56,6 +63,10 @@ EXTRALARGE = (2048, 2560, 1408)  # PolyBench GEMM (ni, nj, nk), the paper's size
 MAJORS = ["I/I/K", "I/I/J", "I/K/K", "I/K/J", "J/I/K", "J/I/J", "J/K/K", "J/K/J"]
 RTOL, ATOL = 1e-4, 1e-3  # kernel vs plain version: float32 sums in another order
 FP32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s (data sheet)
+TF32_PEAK = 495e12  # H100 SXM TF32 on the tensor cores, dense, FLOP/s (data sheet)
+SPLIT_PRODUCTS = 3  # the GEMM kernels' split TF32: A_lo B_hi + A_hi B_lo + A_hi B_hi
+ACCURACY_RATIO = 10  # GEMM kernel's error vs float64 at most this times the plain version's
+UNALIGNED = (2049, 2561, 1409)  # the ragged SUMMA's dims+1: the strided TMA loader
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s (data sheet)
 LIBRARY_GEMM = re.compile(r"cublas|cutlass|xmma|gemm|sm90_|sm80_|ampere_|magma", re.I)
 # attention kernels vs plain versions: bf16 allows one bf16 ulp of the output
@@ -121,52 +132,58 @@ def device_kernel_ms(prof) -> dict[str, float]:
     return out
 
 
-def device_ms(fn, *, iters: int = 20, warmup: int = 3, only: str | None = None) -> float:
-    """Device time of one call: the summed durations of the kernels it
-    launches (from the profiler; with ``only``, of the kernels whose name
-    holds it), over ``iters`` calls.  Unlike an event pair around each call,
-    it leaves out the host's time between launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ms for name, ms in device_kernel_ms(prof).items()
-               if only is None or only in name) / iters
-
-
-def bound(m: int, n: int, k: int, *, acc: bool) -> tuple[float, str]:
-    """Least time for the work on the card: bytes (each input read once, the
-    output written once) over the memory rate vs float32 operations over the
-    float32 peak, whichever is larger."""
+def bound(m: int, n: int, k: int, *, acc: bool) -> tuple[float, str, float]:
+    """Least time for the GEMM kernels' work on the card: bytes (each input
+    read once, the output written once) over the memory rate vs the split
+    scheme's operations (three TF32 products) over the TF32 peak, whichever
+    is larger; and, beside it, the float32 CUDA-core bound (one product
+    over the float32 peak, or the bytes)."""
     nbytes = 4 * (m * k + k * n + (2 if acc else 1) * m * n)
-    flops = 2 * m * n * k + (m * n if acc else 0)
-    t_bytes, t_ops = nbytes / HBM_RATE, flops / FP32_PEAK
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations")
+    flops = 2 * m * n * k
+    t_bytes = nbytes / HBM_RATE
+    t_ops = SPLIT_PRODUCTS * flops / TF32_PEAK + (m * n / FP32_PEAK if acc else 0)
+    t_fp32 = (flops + (m * n if acc else 0)) / FP32_PEAK
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations",
+            max(t_bytes, t_fp32) * 1e3)
+
+
+def logical_f64(a, b, majors: str) -> torch.Tensor:
+    """The float64 product A @ B in the output orientation of ``majors``."""
+    c_major, a_major, b_major = majors.split("/")
+    al = a.double().T if a_major == "K" else a.double()
+    bl = b.double().T if b_major == "J" else b.double()
+    c = al @ bl
+    return c.T if c_major == "J" else c
 
 
 def check_kernels(ops) -> dict:
     """Phase 2: every kernel against its plain version."""
     worst = {"gemm": 0.0, "gemm_panel": 0.0}
-    for shape in (EXTRALARGE, (2049, 2561, 1409), (67, 131, 45)):
+    from repro_torch.kernels import gemm as kernels
+
+    # EXTRALARGE and 2000x2304x1000 take TMA (the second with out-of-bounds
+    # boxes), dims+1 and 67x131x45 the strided TMA, 67x131x3 cp.async
+    for shape, path in ((EXTRALARGE, "tma"), ((2000, 2304, 1000), "tma"),
+                        (UNALIGNED, "tma_strided"), ((67, 131, 45), "tma_strided"),
+                        ((67, 131, 3), "async")):
         m, n, k = shape
         errs = {}
         for majors in MAJORS:
             a, b, acc = buffers(majors, m, n, k)
             for with_acc in (False, True):
                 c = acc if with_acc else None
+                kernels.reset_launches()
                 got = ops.gemm(a, b, c, majors=majors)
+                if kernels.gemm_cuda.launches_by_path[path] != 1:
+                    raise AssertionError(f"gemm {majors} {shape}: expected the {path} loader, "
+                                         f"got {kernels.gemm_cuda.launches_by_path}")
                 want = ops.gemm(a, b, c, majors=majors, impl="ref")
                 torch.cuda.synchronize()
                 torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
                 errs[majors + ("+acc" if with_acc else "")] = (got - want).abs().max().item()
         if shape == EXTRALARGE:
             worst["gemm"] = max(errs.values())
-        phase("kernel_check", kernel="gemm", shape=shape, max_abs_err=errs)
+        phase("kernel_check", kernel="gemm", shape=shape, loader=path, max_abs_err=errs)
     m, n, k, nb = EXTRALARGE[0], EXTRALARGE[1] // 4, EXTRALARGE[2], 4
     errs = {}
     for majors in MAJORS:
@@ -190,7 +207,67 @@ def check_kernels(ops) -> dict:
     worst["gemm_panel"] = max(errs.values())
     phase("kernel_check", kernel="gemm_panel", shape=(m, n, k, nb), untouched_blocks="bitwise",
           max_abs_err=errs)
+    check_panel_odd_n(ops)
+    check_gemm_accuracy(ops)
     return worst
+
+
+def check_panel_odd_n(ops) -> None:
+    """The panel at an odd block width: jb * N is not 16-byte aligned, which
+    only the output's stores see; B's rows are N floats long when B is
+    K-major, so those majors load through the strided TMA and the others
+    through TMA.  The other blocks stay bitwise."""
+    from repro_torch.kernels import gemm as kernels
+
+    m, n, k, nb = EXTRALARGE[0], 641, EXTRALARGE[2], 4
+    errs = {}
+    for majors in MAJORS:
+        a, b, panel = buffers(majors, m, n, k, nb=nb)
+        path = "tma_strided" if majors.endswith("K") else "tma"
+        for jb in (0, nb - 1):
+            kernels.reset_launches()
+            got = ops.gemm_panel(a, b, panel.clone(), jb, majors=majors)
+            if kernels.gemm_panel_cuda.launches_by_path[path] != 1:
+                raise AssertionError(f"gemm_panel {majors} N={n}: expected the {path} loader, "
+                                     f"got {kernels.gemm_panel_cuda.launches_by_path}")
+            want = ops.gemm_panel(a, b, panel.clone(), jb, majors=majors, impl="ref")
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+            keep = torch.ones_like(panel, dtype=torch.bool)
+            blk = slice(jb * n, (jb + 1) * n)
+            if majors.startswith("J"):
+                keep[blk, :] = False
+            else:
+                keep[:, blk] = False
+            if not torch.equal(got[keep], panel[keep]):
+                raise AssertionError(f"gemm_panel {majors} N={n} jb={jb} touched other blocks")
+            errs[f"{majors} jb={jb}"] = (got - want).abs().max().item()
+    phase("kernel_check", kernel="gemm_panel", shape=(m, n, k, nb),
+          loader="tma_strided for B K-major, else tma", untouched_blocks="bitwise",
+          max_abs_err=errs)
+
+
+def check_gemm_accuracy(ops) -> None:
+    """At EXTRALARGE, every majors: two launches are bitwise equal, and the
+    kernel's max abs error against a float64 product is at most
+    ACCURACY_RATIO times the plain version's (float32 products, TF32 off)."""
+    m, n, k = EXTRALARGE
+    rows = {}
+    for majors in MAJORS:
+        a, b, acc = buffers(majors, m, n, k)
+        for c in (None, acc):
+            first = ops.gemm(a, b, c, majors=majors)
+            if not torch.equal(first, ops.gemm(a, b, c, majors=majors)):
+                raise AssertionError(f"gemm {majors}: two launches differ")
+        exact = logical_f64(a, b, majors)
+        kernel = (ops.gemm(a, b, majors=majors).double() - exact).abs().max().item()
+        plain = (ops.gemm(a, b, majors=majors, impl="ref").double() - exact).abs().max().item()
+        rows[majors] = dict(kernel=kernel, plain=plain, ratio=kernel / plain)
+        if kernel > ACCURACY_RATIO * plain:
+            raise AssertionError(f"gemm {majors}: error {kernel} against float64 is over "
+                                 f"{ACCURACY_RATIO}x the plain version's {plain}")
+    phase("gemm_accuracy", shape=EXTRALARGE, against="float64", deterministic="bitwise",
+          max_ratio=max(r["ratio"] for r in rows.values()), max_abs_err=rows)
 
 
 def drive_main_path(g, mesh1, mesh11) -> dict:
@@ -244,33 +321,68 @@ def profile_main_path(g, mesh1, mesh11) -> None:
     phase("kernel_proof", device_kernels=len(names), port_kernels=ours, library_gemms=library)
 
 
+def library_gemm(a, b, majors: str) -> torch.Tensor:
+    """One cuBLAS call for the same product in the output orientation
+    (transposed operands as views, no copy)."""
+    c_major, a_major, b_major = majors.split("/")
+    al = a.T if a_major == "K" else a
+    bl = b.T if b_major == "J" else b
+    return torch.matmul(bl.T, al.T) if c_major == "J" else torch.matmul(al, bl)
+
+
+def check_bound(name: str, row: dict) -> None:
+    """A kernel time below the least time the card needs is a broken
+    measurement: fail the run."""
+    if row["ms"] < row["bound_ms"]:
+        raise AssertionError(f"{name}: {row['ms']} ms is below its bound {row['bound_ms']} ms")
+
+
+def gemm_times(kernel, plain, library) -> dict:
+    """Device times of the kernel, its plain version and the library call,
+    and CUDA-event medians of the kernel's and the library's single calls
+    (host work included)."""
+    from repro_torch.kernels.timing import queued_ms
+
+    return dict(ms=queued_ms(kernel), plain_ms=queued_ms(plain), library_ms=queued_ms(library),
+                call_ms=median_ms(kernel), library_call_ms=median_ms(library))
+
+
 def time_kernels(ops, card: str) -> dict:
-    """Phase 5: median times at the main path's shapes and at 8192^3."""
+    """Phase 5: times at the main path's shapes (all 8 majors at
+    EXTRALARGE, the unaligned dims+1, the panel at both) and at 8192^3,
+    beside the library."""
     rows = {}
-    for label, (m, n, k) in (("EXTRALARGE", EXTRALARGE), ("8192^3", (8192, 8192, 8192))):
-        a, b, _ = buffers("I/I/K", m, n, k)
-        t_kernel = median_ms(lambda: ops.gemm(a, b, majors="I/I/K"))
-        t_plain = median_ms(lambda: ops.gemm(a, b, majors="I/I/K", impl="ref"))
-        t_lib = median_ms(lambda: torch.matmul(a, b))
-        b_ms, b_by = bound(m, n, k, acc=False)
-        rows[("gemm", label)] = dict(ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
-                                     bound_ms=b_ms, bound_by=b_by)
-        phase("time", kernel="gemm", majors="I/I/K", shape=(m, n, k), card=card, ms=t_kernel,
-              tflops=2 * m * n * k / t_kernel / 1e9, plain_ms=t_plain, matmul_ms=t_lib,
-              matmul_tflops=2 * m * n * k / t_lib / 1e9, bound_ms=b_ms, bound_by=b_by)
+    cases = [("EXTRALARGE", EXTRALARGE, majors) for majors in MAJORS]
+    cases += [("unaligned", UNALIGNED, "I/I/K"), ("8192^3", (8192, 8192, 8192), "I/I/K")]
+    for label, (m, n, k), majors in cases:
+        a, b, _ = buffers(majors, m, n, k)
+        row = gemm_times(lambda: ops.gemm(a, b, majors=majors),
+                         lambda: ops.gemm(a, b, majors=majors, impl="ref"),
+                         lambda: library_gemm(a, b, majors))
+        b_ms, b_by, fp32_ms = bound(m, n, k, acc=False)
+        row.update(bound_ms=b_ms, bound_by=b_by, fp32_bound_ms=fp32_ms)
+        check_bound(f"gemm {majors} {(m, n, k)}", row)
+        if majors == "I/I/K":
+            rows[("gemm", label)] = row
+        phase("time", kernel="gemm", majors=majors, shape=(m, n, k), card=card,
+              tflops=2 * m * n * k / row["ms"] / 1e9,
+              matmul_tflops=2 * m * n * k / row["library_ms"] / 1e9,
+              faster_than_matmul=row["ms"] < row["library_ms"], **row)
         del a, b
-    # the SUMMA step at the main path's shape: grid 1x1, so one block of width nj
-    m, n, k = EXTRALARGE
-    a, b, panel = buffers("I/I/K", m, n, k, nb=1)
-    t_kernel = median_ms(lambda: ops.gemm_panel(a, b, panel, 0, majors="I/I/K"))
-    t_plain = median_ms(lambda: ops.gemm_panel(a, b, panel, 0, majors="I/I/K", impl="ref"))
-    t_lib = median_ms(lambda: panel[:, 0:n].addmm_(a, b))
-    b_ms, b_by = bound(m, n, k, acc=True)
-    rows[("gemm_panel", "EXTRALARGE")] = dict(ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
-                                              bound_ms=b_ms, bound_by=b_by)
-    phase("time", kernel="gemm_panel", majors="I/I/K", shape=(m, n, k), nb=1, card=card,
-          ms=t_kernel, tflops=2 * m * n * k / t_kernel / 1e9, plain_ms=t_plain,
-          addmm_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
+    # the SUMMA steps at the main path's shapes: grid 1x1, so one block of
+    # width nj (the ragged SUMMA's at dims+1, through the strided TMA)
+    for label, (m, n, k) in (("EXTRALARGE", EXTRALARGE), ("unaligned", UNALIGNED)):
+        a, b, panel = buffers("I/I/K", m, n, k, nb=1)
+        row = gemm_times(lambda: ops.gemm_panel(a, b, panel, 0, majors="I/I/K"),
+                         lambda: ops.gemm_panel(a, b, panel, 0, majors="I/I/K", impl="ref"),
+                         lambda: panel[:, 0:n].addmm_(a, b))
+        b_ms, b_by, fp32_ms = bound(m, n, k, acc=True)
+        row.update(bound_ms=b_ms, bound_by=b_by, fp32_bound_ms=fp32_ms)
+        check_bound(f"gemm_panel {(m, n, k)}", row)
+        rows[("gemm_panel", label)] = row
+        phase("time", kernel="gemm_panel", majors="I/I/K", shape=(m, n, k), nb=1, card=card,
+              tflops=2 * m * n * k / row["ms"] / 1e9,
+              faster_than_addmm=row["ms"] < row["library_ms"], **row)
     return rows
 
 
@@ -592,11 +704,13 @@ def library_attention(q, k, v, **kw):
 
 
 def time_three(kernel, plain, library, *, plain_iters: int = 20) -> dict:
-    """Device ms (``device_ms``) of the kernel, its plain version and the
+    """Device ms (``queued_ms``) of the kernel, its plain version and the
     library call, and the kernel's ms per call with the host's launch work
     (``median_ms``)."""
-    return dict(ms=device_ms(kernel), plain_ms=device_ms(plain, iters=plain_iters),
-                library_ms=device_ms(library, iters=plain_iters), call_ms=median_ms(kernel))
+    from repro_torch.kernels.timing import queued_ms
+
+    return dict(ms=queued_ms(kernel), plain_ms=queued_ms(plain, iters=plain_iters),
+                library_ms=queued_ms(library, iters=plain_iters), call_ms=median_ms(kernel))
 
 
 def time_attention_kernels(ops, card: str) -> dict:
@@ -826,6 +940,8 @@ def time_ring_kernels(ops, card: str, ring_step_offsets) -> dict:
     4-rank ring (rank 1, steps 0 and 1; bf16, full width), of the 4-step
     chain against the single-shot kernel, and of the 2048 x 2048 float32
     transpose, each beside its bound, plain version and library call."""
+    from repro_torch.kernels.timing import queued_ms
+
     rows = {}
     cap = SEQ // RING_R
     q, k, v = ring_qkv(SEQ, torch.bfloat16, 100)
@@ -835,8 +951,8 @@ def time_ring_kernels(ops, card: str, ring_step_offsets) -> dict:
         kb, vb = k[:, :, k_off:k_off + cap], v[:, :, k_off:k_off + cap]
         carry = plain_carry(qr)
         kw = dict(q_offset=q_off, k_offset=k_off, causal=True)
-        t = dict(ms=device_ms(lambda: ops.flash_attention_carry(qr, kb, vb, carry, **kw)),
-                 plain_ms=device_ms(lambda: ops.flash_attention_carry(qr, kb, vb, carry,
+        t = dict(ms=queued_ms(lambda: ops.flash_attention_carry(qr, kb, vb, carry, **kw)),
+                 plain_ms=queued_ms(lambda: ops.flash_attention_carry(qr, kb, vb, carry,
                                                                       impl="ref", **kw)),
                  library_ms=None,
                  call_ms=median_ms(lambda: ops.flash_attention_carry(qr, kb, vb, carry, **kw)))
@@ -849,24 +965,39 @@ def time_ring_kernels(ops, card: str, ring_step_offsets) -> dict:
               q=tuple(qr.shape), kv=tuple(kb.shape), dtype="bfloat16", card=card,
               library="none: no PyTorch call returns the unnormalized (acc, m, l)",
               tflops=flops / t["ms"] / 1e9, **rows[("flash_attention_carry", label)])
-    chain_ms = device_ms(lambda: chain(ops, q, k, v, causal=True), iters=10,
-                         only="flash_attention_kernel")
-    single_ms = device_ms(lambda: ops.flash_attention(q, k, v, causal=True), iters=10)
+    chain_ms = queued_ms(lambda: chain(ops, q, k, v, causal=True), iters=10)
+    single_ms = queued_ms(lambda: ops.flash_attention(q, k, v, causal=True), iters=10)
     phase("time", kernel="flash_attention_carry", case="chain_of_4_vs_single_shot",
-          shape=tuple(q.shape), dtype="bfloat16", card=card, chain_kernels_ms=chain_ms,
+          shape=tuple(q.shape), dtype="bfloat16", card=card, chain_ms=chain_ms,
           single_shot_ms=single_ms)
     rows["chain"] = dict(chain_ms=chain_ms, single_shot_ms=single_ms)
     del q, k, v, qr
     x = transpose_input((2048, 2048), torch.float32)
-    t = dict(ms=device_ms(lambda: ops.transpose_tiled(x)),
-             plain_ms=device_ms(lambda: ops.transpose_tiled(x, impl="ref")),
-             library_ms=device_ms(lambda: x.transpose(-2, -1).contiguous()),
+    t = dict(ms=queued_ms(lambda: ops.transpose_tiled(x)),
+             plain_ms=queued_ms(lambda: ops.transpose_tiled(x, impl="ref")),
+             library_ms=queued_ms(lambda: x.transpose(-2, -1).contiguous()),
              call_ms=median_ms(lambda: ops.transpose_tiled(x)))
     b_ms, b_by = attn_bound(0, 2 * x.numel() * x.element_size())
     rows["transpose"] = dict(bound_ms=b_ms, bound_by=b_by, **t)
     phase("time", kernel="transpose", shape=tuple(x.shape), dtype="float32", card=card,
           gb_per_s=2 * x.numel() * 4 / t["ms"] / 1e6, **rows["transpose"])
     return rows
+
+
+def gemm_instances(log: str) -> dict:
+    """ptxas's registers and spill per instance of the GEMM kernels, by
+    kernel name and template arguments (A_T, B_T, loader: 0 cp.async, 1 TMA,
+    2 strided TMA)."""
+    out = {}
+    for m in re.finditer(r"Compiling entry function '\w*?(layout_gemm\w*?kernel)I(\w+?)EEv"
+                         r"(.*?)(?=Compiling entry function|\Z)", log, re.S):
+        args = ",".join(re.findall(r"L[bi](\d+)E", m.group(2) + "E"))
+        body = m.group(3)
+        regs = re.search(r"Used (\d+) registers", body)
+        out[f"{m.group(1)}<{args}>"] = dict(
+            registers=int(regs.group(1)) if regs else None,
+            spill_store_bytes=sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", body)))
+    return out
 
 
 def main() -> int:
@@ -912,6 +1043,8 @@ def main() -> int:
                                                  re.findall(r"(\d+) bytes spill stores", log)))
     phase("card", nvidia_smi=card, device=torch.cuda.get_device_name(0),
           torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas)
+    phase("gemm_instances", dynamic_shared_bytes=kernels.load_library().layout_gemm_smem_bytes(),
+          ptxas=gemm_instances(build.build_log("gemm")))
 
     # phase 2: kernels against their plain versions
     worst = check_kernels(ops)
@@ -922,8 +1055,7 @@ def main() -> int:
     try:
         mesh1 = make_mesh((1,), ("r",), device=device)
         mesh11 = make_mesh((1, 1), ("rows", "cols"), device=device)
-        kernels.gemm_cuda.launches = 0
-        kernels.gemm_panel_cuda.launches = 0
+        kernels.reset_launches()
         t0 = time.perf_counter()
         calls = drive_main_path(g, mesh1, mesh11)
         main_s = time.perf_counter() - t0
@@ -933,8 +1065,14 @@ def main() -> int:
         expected = {"gemm": calls["panel1d"], "gemm_panel": calls["summa"] + calls["ragged"]}
         if launches != expected:
             raise AssertionError(f"main-path launches {launches} != expected {expected}")
+        # EXTRALARGE loads through TMA, the ragged dims+1 through the strided TMA
+        by_path = {"gemm": dict(kernels.gemm_cuda.launches_by_path),
+                   "gemm_panel": dict(kernels.gemm_panel_cuda.launches_by_path)}
+        paths = {p: sum(c[p] for c in by_path.values()) for p in ("tma", "tma_strided")}
+        if not all(paths.values()):
+            raise AssertionError(f"the main path did not run both TMA loaders: {by_path}")
         phase("main_path_launches", backend=str(dist.get_backend()), calls=calls,
-              launches=launches, seconds=main_s)
+              launches=launches, launches_by_path=by_path, seconds=main_s)
 
         # phase 4: kernel proof under the profiler
         profile_main_path(g, mesh1, mesh11)
@@ -1024,6 +1162,8 @@ def main() -> int:
                    "source": "src/repro_torch/kernels/csrc/transpose.cu",
                    "replaces": "src/repro/kernels/relayout.py:35",
                    "launches": transpose_launches, "max_abs_err": 0.0, **rows["transpose"]})
+    for row in report:
+        check_bound(row["name"], row)
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

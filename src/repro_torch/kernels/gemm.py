@@ -17,8 +17,18 @@ on PyTorch's current stream and never synchronise.  A build or launch
 failure raises; nothing falls back to the plain version
 (``repro_torch.kernels.ref``).
 
-Each wrapper counts its launches in its ``launches`` attribute, so a run can
-show that it went through the kernel.
+The kernels run on the tensor cores in split TF32 (each operand split into
+two TF32 parts, three TF32 products, float32-class accuracy; see the note at
+the head of ``csrc/gemm.cu``).
+Their k-tiles are loaded through TMA (one tensor map per operand when its
+rows are 16-byte aligned, four strided ones otherwise) or, for shapes under
+4 in a dimension, through ``cp.async``; the wrapper chooses with
+:func:`loader_path` and passes the choice on.
+
+Each wrapper counts its launches in its ``launches`` attribute, and by loader
+in ``launches_by_path`` (``{"tma": n, "tma_strided": n, "async": n}``,
+summing to ``launches``), so a run can show that it went through the kernel
+and which loader it took.
 """
 from __future__ import annotations
 
@@ -30,7 +40,7 @@ import torch
 from . import build
 
 __all__ = ["gemm_cuda", "gemm_panel_cuda", "gemm_shape", "check_gemm", "check_panel",
-           "parse_majors", "load_library", "build_log"]
+           "parse_majors", "loader_path", "reset_launches", "load_library", "build_log"]
 
 
 def parse_majors(majors: str) -> tuple[bool, bool, bool]:
@@ -79,6 +89,26 @@ def check_panel(a, b, panel, majors: str) -> tuple[int, int, int, int]:
     return M, N, K, NJ // N
 
 
+LOADERS = {"async": 0, "tma": 1, "tma_strided": 2}  # the C entry points' loader codes
+
+
+def loader_path(M: int, N: int, K: int, majors: str, a_address: int, b_address: int) -> str:
+    """The loader the kernel takes for the operands it loads, A and B (the
+    output is written by plain stores):
+
+    * ``"tma"`` when K > 0, both byte addresses are 16-byte aligned and both
+      float32 row strides multiples of 16 bytes, the rules of a TMA tensor map;
+    * else ``"tma_strided"`` when M, N and K are at least 4: each operand's
+      rows as 4 tensor maps of every 4th row, 16 * ld bytes apart;
+    * else ``"async"`` (``cp.async``, any shape)."""
+    a_trans, b_trans, _ = parse_majors(majors)
+    lda, ldb = (M if a_trans else K), (K if b_trans else N)
+    aligned = a_address % 16 == 0 and b_address % 16 == 0 and lda % 4 == 0 and ldb % 4 == 0
+    if K > 0 and aligned:
+        return "tma"
+    return "tma_strided" if min(M, N, K) >= 4 else "async"
+
+
 def _check_contiguous(**tensors) -> None:
     for name, t in tensors.items():
         if t is not None and not t.is_contiguous():
@@ -96,10 +126,12 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on failure."""
     lib = build.load("gemm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.layout_gemm_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.layout_gemm_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.layout_gemm_f32.restype = i
-    lib.layout_gemm_panel_f32.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p, i, p]
+    lib.layout_gemm_panel_f32.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p, i, i, p]
     lib.layout_gemm_panel_f32.restype = i
+    lib.layout_gemm_smem_bytes.argtypes = []
+    lib.layout_gemm_smem_bytes.restype = i
     lib.layout_gemm_error_string.argtypes = [i]
     lib.layout_gemm_error_string.restype = ctypes.c_char_p
     return lib
@@ -135,11 +167,13 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor | None = None,
         return out
     lib = load_library()
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    code = lib.layout_gemm_f32(a.data_ptr(), b.data_ptr(),
-                               acc.data_ptr() if acc is not None else None, out.data_ptr(),
-                               M, N, K, a_trans, b_trans, c_trans, stream)
+    acc_ptr = acc.data_ptr() if acc is not None else 0
+    path = loader_path(M, N, K, majors, a.data_ptr(), b.data_ptr())
+    code = lib.layout_gemm_f32(a.data_ptr(), b.data_ptr(), acc_ptr or None, out.data_ptr(),
+                               M, N, K, a_trans, b_trans, c_trans, LOADERS[path], stream)
     _raise_if_failed(lib, code, "layout_gemm_kernel")
     gemm_cuda.launches += 1  # type: ignore[attr-defined]
+    gemm_cuda.launches_by_path[path] += 1  # type: ignore[attr-defined]
     return out
 
 
@@ -167,13 +201,21 @@ def gemm_panel_cuda(a: torch.Tensor, b: torch.Tensor, panel: torch.Tensor, jb, *
     lib = load_library()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     ldp = panel.shape[1]
+    path = loader_path(M, N, K, majors, a.data_ptr(), b.data_ptr())
     code = lib.layout_gemm_panel_f32(a.data_ptr(), b.data_ptr(), panel.data_ptr(), M, N, K,
                                      a_trans, b_trans, c_trans, ldp, nb, jb_dev, jb_host,
-                                     stream)
+                                     LOADERS[path], stream)
     _raise_if_failed(lib, code, "layout_gemm_panel_kernel")
     gemm_panel_cuda.launches += 1  # type: ignore[attr-defined]
+    gemm_panel_cuda.launches_by_path[path] += 1  # type: ignore[attr-defined]
     return panel
 
 
-gemm_cuda.launches = 0  # type: ignore[attr-defined]
-gemm_panel_cuda.launches = 0  # type: ignore[attr-defined]
+def reset_launches() -> None:
+    """Set every launch count of both wrappers to 0."""
+    for fn in (gemm_cuda, gemm_panel_cuda):
+        fn.launches = 0  # type: ignore[attr-defined]
+        fn.launches_by_path = dict.fromkeys(LOADERS, 0)  # type: ignore[attr-defined]
+
+
+reset_launches()
