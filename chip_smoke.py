@@ -19,19 +19,25 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   weights): the attention kernels against their plain versions, one
   full-sequence forward of 4096 tokens (32 ``flash_attention`` launches),
   the serving engine answering 8 requests on 4 slots (``flash_decode`` in
-  every prefill chunk and decode step), each held against the same run
-  through the kernels' plain versions, a profiler proof that no library
-  attention kernel ran, where the time of a forward and of a decode step
-  goes (device time by kind, idle share), and kernel times beside their
-  bounds, plain versions and ``scaled_dot_product_attention``;
+  every prefill chunk and decode step, launches counted by step kind),
+  each held against the same run through the kernels' plain versions, a
+  profiler proof that no library attention kernel ran, where the time of a
+  forward and of a decode step goes (device time by kind, idle share), and
+  kernel times beside their bounds (the bf16 products the tensor-core
+  kernels run, the float32 bound beside it), plain versions and
+  ``scaled_dot_product_attention`` (on float32 upcasts, and on the bf16
+  tensors as a speed yardstick);
 * the sequence-parallel ring's kernel work at phi4-mini's full width: every
   (rank, step) carry call of a 4-rank ring over 4096 tokens and over a
   ragged 4095 (the schedule of ``_ring_attention_local``, through its own
   offset helper) against the plain version, carry steps chained in block
   order against the single-shot kernel (bitwise), ``ring_attention_seq`` on
   a one-rank NCCL mesh (bitwise against the single-shot kernel, and
-  double-buffered against blocking), and the tiled transpose against its
-  plain version (bitwise), with a profiler proof and times.  One card shows
+  double-buffered against blocking), the bf16 kernels' float32 ``acc / l``
+  against float64 (at most 10x the plain version's error) and two launches
+  of each bitwise equal, and the tiled transpose against its plain version
+  (bitwise), with a profiler proof and times.  ptxas's registers and spills
+  of every tensor-core kernel instance are printed.  One card shows
   no ring transfer: the ring's schedule across ranks is checked on gloo CPU
   processes in the tests.
 
@@ -64,6 +70,7 @@ MAJORS = ["I/I/K", "I/I/J", "I/K/K", "I/K/J", "J/I/K", "J/I/J", "J/K/K", "J/K/J"
 RTOL, ATOL = 1e-4, 1e-3  # kernel vs plain version: float32 sums in another order
 FP32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s (data sheet)
 TF32_PEAK = 495e12  # H100 SXM TF32 on the tensor cores, dense, FLOP/s (data sheet)
+BF16_PEAK = 989e12  # H100 SXM bf16 on the tensor cores, dense, FLOP/s (data sheet)
 SPLIT_PRODUCTS = 3  # the GEMM kernels' split TF32: A_lo B_hi + A_hi B_lo + A_hi B_hi
 ACCURACY_RATIO = 10  # GEMM kernel's error vs float64 at most this times the plain version's
 UNALIGNED = (2049, 2561, 1409)  # the ragged SUMMA's dims+1: the strided TMA loader
@@ -391,11 +398,17 @@ def randn(shape, dtype, seed: int) -> torch.Tensor:
     return torch.randn(shape, device=DEVICE, generator=g).to(dtype)
 
 
-def attn_bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time: float32 operations (the reference's attention arithmetic
-    is float32) over the float32 peak, or bytes over the memory rate."""
-    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+def attn_bound(flops: float, nbytes: float, *, products: int = 2) -> tuple[float, str, float]:
+    """Least time for attention work of ``flops`` operations in the
+    reference's two float32 products (q k^T and p @ v, ``flops / 2`` each)
+    and ``nbytes`` bytes: the bf16 kernels run ``products`` bf16 products
+    of ``flops / 2`` operations on the tensor cores (q k^T once, p @ v once
+    per piece of p), over the bf16 peak, or the bytes over the memory rate,
+    whichever is larger; and, beside it, the float32 CUDA-core bound
+    (``flops`` over the float32 peak, or the bytes)."""
+    t_ops, t_bytes = products * flops / 2 / BF16_PEAK, nbytes / HBM_RATE
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            max(flops / FP32_PEAK, t_bytes) * 1e3)
 
 
 def decode_inputs(B, Hq, G, S, T, D, dtype, *, lens, start=None, seed=20):
@@ -512,24 +525,28 @@ def forward_full_width(cfg, params, lm, fa) -> dict:
     return out
 
 
-def _instrument(engine, record_gaps: bool):
+def _instrument(engine, record_gaps: bool, fd):
     """Wrap the engine's step: device-synchronized seconds per step kind,
+    ``flash_decode`` launches per step kind (from the wrapper's counter),
     the ledger's peak occupancy, the first prefill chunk's logits of each
     prefilled slot at its last fed position (``{slot: (V,)}``) and
     (``record_gaps``) the top-2 logit gap of every generated token, keyed by
     (request, token index)."""
     stats = {"prefill_s": 0.0, "decode_s": 0.0, "peak_occupancy": 0.0, "gaps": {},
-             "first_prefill": None}
+             "first_prefill": None, "launches": {"prefill": 0, "decode": 0}}
     step = engine._step
 
     def timed(tokens, counts, *, prefill):
         owners = {i: (s.request_id, len(s.tokens)) for i, s in enumerate(engine.slots)
                   if s.request_id is not None}
         torch.cuda.synchronize()
+        before = fd.flash_decode_cuda.launches
         t0 = time.perf_counter()
         logits = step(tokens, counts, prefill=prefill)
         torch.cuda.synchronize()
         stats["prefill_s" if prefill else "decode_s"] += time.perf_counter() - t0
+        stats["launches"]["prefill" if prefill else "decode"] += \
+            fd.flash_decode_cuda.launches - before
         stats["peak_occupancy"] = max(stats["peak_occupancy"], engine.ledger.valid_fraction())
         if prefill and stats["first_prefill"] is None:
             stats["first_prefill"] = {i: logits[i, n - 1].clone()
@@ -561,7 +578,7 @@ def serve_full_width(cfg, params, Engine, ServeConfig, fd) -> dict:
     runs = {}
     for impl in ("cuda", "ref"):
         engine = Engine(dataclasses.replace(cfg, attn_impl=impl), params, scfg)
-        stats = _instrument(engine, record_gaps=impl == "ref")
+        stats = _instrument(engine, record_gaps=impl == "ref", fd=fd)
         for rid, prompt in enumerate(requests):
             engine.submit(rid, prompt, NEW_TOKENS)
         fd.flash_decode_cuda.launches = 0
@@ -577,6 +594,11 @@ def serve_full_width(cfg, params, Engine, ServeConfig, fd) -> dict:
             if impl == "cuda" else 0
         if launches != expected:
             raise AssertionError(f"{impl}: flash_decode launches {launches} != {expected}")
+        by_kind = {kind: cfg.n_layers * engine.steps[kind] if impl == "cuda" else 0
+                   for kind in ("prefill", "decode")}
+        if stats["launches"] != by_kind:
+            raise AssertionError(f"{impl}: flash_decode launches by step kind "
+                                 f"{stats['launches']} != {by_kind}")
         runs[impl] = dict(done=done, stats=stats, steps=dict(engine.steps), wall=wall,
                           launches=launches, prefill=stats["first_prefill"])
         del engine
@@ -603,7 +625,8 @@ def serve_full_width(cfg, params, Engine, ServeConfig, fd) -> dict:
     st = k["stats"]
     out = dict(requests=REQUESTS, slots=SLOTS, max_len=MAX_LEN, new_tokens=NEW_TOKENS,
                prompt_lens=[len(r) for r in requests], steps=k["steps"],
-               flash_decode_launches=k["launches"], prefill_s=st["prefill_s"],
+               flash_decode_launches=k["launches"],
+               flash_decode_launches_by_kind=st["launches"], prefill_s=st["prefill_s"],
                decode_s=st["decode_s"], decode_tok_s=REQUESTS * NEW_TOKENS / st["decode_s"],
                wall_s=k["wall"], peak_kv_occupancy=st["peak_occupancy"],
                plain_wall_s=p["wall"], first_prefill_logits_max_abs_err=prefill_err,
@@ -697,24 +720,32 @@ def breakdown_lm(cfg, params, lm, Engine, ServeConfig) -> None:
 
 def library_attention(q, k, v, **kw):
     """One PyTorch call computing the same attention (the yardstick, never
-    used by the port): ``scaled_dot_product_attention`` with GQA."""
+    used by the port): ``scaled_dot_product_attention`` with GQA.  On
+    float32 upcasts it computes the reference's float32 function; on the
+    bf16 tensors themselves it rounds p to bf16, another function, and is
+    timed beside it as a speed yardstick only."""
     import torch.nn.functional as F
 
     return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
 
 
-def time_three(kernel, plain, library, *, plain_iters: int = 20) -> dict:
+def time_three(kernel, plain, library, library_bf16=None, *, plain_iters: int = 20) -> dict:
     """Device ms (``queued_ms``) of the kernel, its plain version and the
-    library call, and the kernel's ms per call with the host's launch work
-    (``median_ms``)."""
+    library call (and the library call on the bf16 tensors), and the
+    kernel's ms per call with the host's launch work (``median_ms``)."""
     from repro_torch.kernels.timing import queued_ms
 
-    return dict(ms=queued_ms(kernel), plain_ms=queued_ms(plain, iters=plain_iters),
-                library_ms=queued_ms(library, iters=plain_iters), call_ms=median_ms(kernel))
+    out = dict(ms=queued_ms(kernel), plain_ms=queued_ms(plain, iters=plain_iters),
+               library_ms=queued_ms(library, iters=plain_iters), call_ms=median_ms(kernel))
+    if library_bf16 is not None:
+        out["library_bf16_ms"] = queued_ms(library_bf16, iters=plain_iters)
+    return out
 
 
-def time_attention_kernels(ops, card: str) -> dict:
-    """Times of the attention kernels at the path's shapes."""
+def time_attention_kernels(ops, card: str, pieces: int) -> dict:
+    """Times of the attention kernels at the path's shapes (bf16), beside
+    the bounds of the products they run (the forward's p @ v in
+    ``pieces`` bf16 pieces) and the float32 bound."""
     rows = {}
     B, Hq, G, S, D = 1, 24, 8, SEQ, 128
     q, k, v = (randn(shape, torch.bfloat16, 30 + i) for i, shape in
@@ -722,10 +753,13 @@ def time_attention_kernels(ops, card: str) -> dict:
     qf, kf, vf = q.float(), k.float(), v.float()
     t = time_three(lambda: ops.flash_attention(q, k, v),
                    lambda: ops.flash_attention(q, k, v, impl="ref"),
-                   lambda: library_attention(qf, kf, vf, is_causal=True))
+                   lambda: library_attention(qf, kf, vf, is_causal=True),
+                   lambda: library_attention(q, k, v, is_causal=True))
     flops = 4 * B * Hq * S * S * D / 2
-    b_ms, b_by = attn_bound(flops, 2 * (2 * q.numel() + k.numel() + v.numel()))
-    rows["flash_attention"] = dict(bound_ms=b_ms, bound_by=b_by, **t)
+    b_ms, b_by, fp32_ms = attn_bound(flops, 2 * (2 * q.numel() + k.numel() + v.numel()),
+                                     products=1 + pieces)
+    rows["flash_attention"] = dict(bound_ms=b_ms, bound_by=b_by, fp32_bound_ms=fp32_ms, **t)
+    check_bound("flash_attention", rows["flash_attention"])
     phase("time", kernel="flash_attention", shape=(B, Hq, G, S, D), causal=True,
           dtype="bfloat16", card=card, tflops=flops / t["ms"] / 1e9, **rows["flash_attention"])
     del q, k, v, qf, kf, vf
@@ -743,7 +777,8 @@ def time_attention_kernels(ops, card: str) -> dict:
         qf, kf, vf = q.float(), kc.float(), vc.float()
         t = time_three(lambda: ops.flash_decode(q, kc, vc, lens_t, q_positions=pos),
                        lambda: ops.flash_decode(q, kc, vc, lens_t, q_positions=pos, impl="ref"),
-                       lambda: library_attention(qf, kf, vf, attn_mask=mask), plain_iters=5)
+                       lambda: library_attention(qf, kf, vf, attn_mask=mask),
+                       lambda: library_attention(q, kc, vc, attn_mask=mask), plain_iters=5)
         # the work this run's data needs: each row's visible keys
         if pos is None:
             visible = S * sum(min(n, T) for n in lens)
@@ -751,8 +786,10 @@ def time_attention_kernels(ops, card: str) -> dict:
             p = torch.minimum(pos.long() + 1, lens_t[:, None].long().clamp(max=T))
             visible = int(p.clamp(min=0).sum())
         kv_bytes = 2 * 2 * G * D * sum(min(n, T) for n in lens)
-        b_ms, b_by = attn_bound(4 * Hq * visible * D, kv_bytes + 2 * 2 * q.numel())
-        rows[("flash_decode", label)] = dict(bound_ms=b_ms, bound_by=b_by, **t)
+        b_ms, b_by, fp32_ms = attn_bound(4 * Hq * visible * D, kv_bytes + 2 * 2 * q.numel())
+        rows[("flash_decode", label)] = dict(bound_ms=b_ms, bound_by=b_by, fp32_bound_ms=fp32_ms,
+                                             **t)
+        check_bound(f"flash_decode {label}", rows[("flash_decode", label)])
         phase("time", kernel="flash_decode", case=label, shape=dims, lens=lens,
               dtype="bfloat16", card=card, **rows[("flash_decode", label)])
         del q, kc, vc, qf, kf, vf, mask
@@ -842,6 +879,83 @@ def check_carry_chain(ops) -> None:
             phase("carry_chain", shape=tuple(q.shape), kv=tuple(k.shape), chunks=RING_R,
                   dtype=str(dt), causal=causal, bitwise_equal=True)
         del q, k, v
+
+
+def exact_attention(q, k, v) -> torch.Tensor:
+    """Causal attention of q (1, Hq, S, D) over k, v (1, G, S, D) in float64,
+    head by head: the function the kernels approximate."""
+    _, Hq, S, D = q.shape
+    rep = Hq // k.shape[1]
+    mask = torch.ones((S, S), dtype=torch.bool, device=DEVICE).tril()
+    out = torch.empty(q.shape, dtype=torch.float64, device=DEVICE)
+    for h in range(Hq):
+        s = (q[0, h].double() @ k[0, h // rep].double().T) * D ** -0.5
+        p = torch.softmax(torch.where(mask, s, torch.full_like(s, -1e30)), dim=-1)
+        out[0, h] = p @ v[0, h // rep].double()
+    return out
+
+
+def check_attention_accuracy(ops) -> dict:
+    """``attention_accuracy``: at the forward's shape (bf16 q 1x24x4096x128,
+    k/v 1x8x4096x128, causal), the float32 ``acc / l`` of one carry step
+    over all keys (the forward kernel's body and arithmetic, before its
+    bf16 output rounding) and of the 4-step carry chain, against a float64
+    computation: max abs error at most ACCURACY_RATIO times the plain
+    version's (all float32)."""
+    q, k, v = ring_qkv(SEQ, torch.bfloat16, 110)
+    exact = exact_attention(q, k, v)
+
+    def err(carry) -> float:
+        acc, _, l = carry
+        return ((acc / torch.where(l == 0, 1.0, l)[..., None]).double() - exact).abs().max().item()
+
+    errs = {"plain": err(ops.flash_attention_carry(q, k, v, None, causal=True, impl="ref")),
+            "kernel": err(ops.flash_attention_carry(q, k, v, None, causal=True))}
+    n = SEQ // RING_R
+    carry = None
+    for c in range(RING_R):
+        blk = slice(c * n, (c + 1) * n)
+        carry = ops.flash_attention_carry(q, k[:, :, blk], v[:, :, blk], carry, k_offset=c * n,
+                                          causal=True)
+    errs["chain"] = err(carry)
+    ratios = {name: errs[name] / errs["plain"] for name in ("kernel", "chain")}
+    if max(ratios.values()) > ACCURACY_RATIO:
+        raise AssertionError(f"attention error against float64 over {ACCURACY_RATIO}x the plain "
+                             f"version's: {errs}")
+    phase("attention_accuracy", shape=tuple(q.shape), against="float64", max_abs_err=errs,
+          ratio=ratios, limit=ACCURACY_RATIO)
+    return ratios
+
+
+def check_attention_deterministic(ops, ring_step_offsets) -> None:
+    """``attention_deterministic``: two launches of each bf16 kernel on the
+    same inputs are bitwise equal, at the path's shapes: the forward, an
+    off-diagonal carry step (rank 1, step 1; acc, m and l), a decode step
+    and a prefill chunk."""
+    q, k, v = ring_qkv(SEQ, torch.bfloat16, 120)
+    cap = SEQ // RING_R
+    q_off, k_off = ring_step_offsets(1, 1, RING_R, cap)
+    qr, kb, vb = q[:, :, cap:2 * cap], k[:, :, k_off:k_off + cap], v[:, :, k_off:k_off + cap]
+    state = plain_carry(qr)
+
+    def carry_step():
+        out = ops.flash_attention_carry(qr, kb, vb, tuple(t.clone() for t in state),
+                                        q_offset=q_off, k_offset=k_off, causal=True)
+        return torch.cat([t.flatten() for t in out])
+
+    dec = decode_inputs(SLOTS, 24, 8, 1, MAX_LEN, 128, torch.bfloat16, lens=DECODE_LENS)
+    pre = decode_inputs(SLOTS, 24, 8, 2048, MAX_LEN, 128, torch.bfloat16, lens=(2047, 1000, 300, 0),
+                        start=(0, 0, 300, 0))
+    cases = {"forward": lambda: ops.flash_attention(q, k, v),
+             "carry_off_diagonal": carry_step,
+             "decode_step": lambda: ops.flash_decode(*dec[:4], q_positions=dec[4]),
+             "prefill_chunk": lambda: ops.flash_decode(*pre[:4], q_positions=pre[4])}
+    for name, fn in cases.items():
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            raise AssertionError(f"{name}: two launches differ")
+    phase("attention_deterministic", cases=list(cases), bitwise_equal=True)
 
 
 def drive_ring_entry(ops, fa, ring_attention_seq, mesh) -> int:
@@ -935,11 +1049,12 @@ def profile_ring(ops, ring_attention_seq, mesh) -> None:
           transpose_kernels=transpose, library_attention=library)
 
 
-def time_ring_kernels(ops, card: str, ring_step_offsets) -> dict:
+def time_ring_kernels(ops, card: str, ring_step_offsets, pieces: int) -> dict:
     """Device times of a diagonal and an off-diagonal carry step of the
-    4-rank ring (rank 1, steps 0 and 1; bf16, full width), of the 4-step
-    chain against the single-shot kernel, and of the 2048 x 2048 float32
-    transpose, each beside its bound, plain version and library call."""
+    4-rank ring (rank 1, steps 0 and 1; bf16, full width; p @ v in
+    ``pieces`` bf16 pieces), of the 4-step chain against the single-shot
+    kernel, and of the 2048 x 2048 float32 transpose, each beside its bound,
+    plain version and library call."""
     from repro_torch.kernels.timing import queued_ms
 
     rows = {}
@@ -959,8 +1074,10 @@ def time_ring_kernels(ops, card: str, ring_step_offsets) -> dict:
         pairs = cap * (cap + 1) // 2 if label == "diagonal" else cap * cap  # visible (q, k)
         flops = 4 * 24 * pairs * 128
         nbytes = 2 * (qr.numel() + kb.numel() + vb.numel()) + 2 * 4 * sum(c.numel() for c in carry)
-        b_ms, b_by = attn_bound(flops, nbytes)
-        rows[("flash_attention_carry", label)] = dict(bound_ms=b_ms, bound_by=b_by, **t)
+        b_ms, b_by, fp32_ms = attn_bound(flops, nbytes, products=1 + pieces)
+        rows[("flash_attention_carry", label)] = dict(bound_ms=b_ms, bound_by=b_by,
+                                                      fp32_bound_ms=fp32_ms, **t)
+        check_bound(f"flash_attention_carry {label}", rows[("flash_attention_carry", label)])
         phase("time", kernel="flash_attention_carry", case=label, rank=1, step=step,
               q=tuple(qr.shape), kv=tuple(kb.shape), dtype="bfloat16", card=card,
               library="none: no PyTorch call returns the unnormalized (acc, m, l)",
@@ -977,19 +1094,20 @@ def time_ring_kernels(ops, card: str, ring_step_offsets) -> dict:
              plain_ms=queued_ms(lambda: ops.transpose_tiled(x, impl="ref")),
              library_ms=queued_ms(lambda: x.transpose(-2, -1).contiguous()),
              call_ms=median_ms(lambda: ops.transpose_tiled(x)))
-    b_ms, b_by = attn_bound(0, 2 * x.numel() * x.element_size())
+    b_ms, b_by, _ = attn_bound(0, 2 * x.numel() * x.element_size())
     rows["transpose"] = dict(bound_ms=b_ms, bound_by=b_by, **t)
     phase("time", kernel="transpose", shape=tuple(x.shape), dtype="float32", card=card,
           gb_per_s=2 * x.numel() * 4 / t["ms"] / 1e6, **rows["transpose"])
     return rows
 
 
-def gemm_instances(log: str) -> dict:
-    """ptxas's registers and spill per instance of the GEMM kernels, by
-    kernel name and template arguments (A_T, B_T, loader: 0 cp.async, 1 TMA,
-    2 strided TMA)."""
+def kernel_instances(log: str, kernel: str = r"layout_gemm\w*?kernel") -> dict:
+    """ptxas's registers and spill per instance of the kernels whose names
+    match ``kernel``, by name and integer template arguments (the GEMM
+    kernels': A_T, B_T, loader: 0 cp.async, 1 TMA, 2 strided TMA; the bf16
+    attention kernels': D and HAS_CARRY, EMIT_STATE, or D and TR)."""
     out = {}
-    for m in re.finditer(r"Compiling entry function '\w*?(layout_gemm\w*?kernel)I(\w+?)EEv"
+    for m in re.finditer(rf"Compiling entry function '\w*?({kernel})I(\w+?)EEv"
                          r"(.*?)(?=Compiling entry function|\Z)", log, re.S):
         args = ",".join(re.findall(r"L[bi](\d+)E", m.group(2) + "E"))
         body = m.group(3)
@@ -1044,7 +1162,10 @@ def main() -> int:
     phase("card", nvidia_smi=card, device=torch.cuda.get_device_name(0),
           torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas)
     phase("gemm_instances", dynamic_shared_bytes=kernels.load_library().layout_gemm_smem_bytes(),
-          ptxas=gemm_instances(build.build_log("gemm")))
+          ptxas=kernel_instances(build.build_log("gemm")))
+    attn_ptxas = {name: kernel_instances(build.build_log(name), rf"{name}_kernel_wgmma")
+                  for name in ("flash_attention", "flash_decode")}
+    phase("attention_instances", ptxas=attn_ptxas)
 
     # phase 2: kernels against their plain versions
     worst = check_kernels(ops)
@@ -1090,10 +1211,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 6b: the ring's kernel work and the transpose against their plain
-    # versions, the carry chain against the single-shot kernel
+    # versions, the carry chain against the single-shot kernel; the bf16
+    # kernels against float64 and against themselves
     t0 = time.perf_counter()
     worst.update(check_carry_kernel(ops, ring_step_offsets, ragged_seq_extents))
     check_carry_chain(ops)
+    accuracy = check_attention_accuracy(ops)
+    check_attention_deterministic(ops, ring_step_offsets)
     transpose_launches = check_transpose(ops, relayout)
     phase("ring_kernels_vs_plain", max_abs_err=worst, seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
@@ -1132,9 +1256,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 10: attention, carry and transpose kernel times
-    rows.update(time_attention_kernels(ops, card))
+    rows.update(time_attention_kernels(ops, card, fa.P_PIECES))
     torch.cuda.empty_cache()
-    rows.update(time_ring_kernels(ops, card, ring_step_offsets))
+    rows.update(time_ring_kernels(ops, card, ring_step_offsets, fa.P_PIECES))
 
     gemm_src = "src/repro_torch/kernels/csrc/gemm.cu"
     report = []
@@ -1147,16 +1271,22 @@ def main() -> int:
                    "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                    "replaces": "src/repro/kernels/flash_attention.py:169",
                    "launches": fwd["launches"], "max_abs_err": worst["flash_attention"],
-                   **rows["flash_attention"]})
+                   "error_vs_float64_ratio": accuracy["kernel"], **rows["flash_attention"]})
+    prefill = rows[("flash_decode", "prefill_chunk")]
     report.append({"name": "flash_decode", "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
                    "replaces": "src/repro/kernels/flash_decode.py:71",
-                   "launches": srv["flash_decode_launches"], "max_abs_err": worst["flash_decode"],
-                   **rows[("flash_decode", "decode")]})
+                   "launches": srv["flash_decode_launches"],
+                   "launches_by_kind": srv["flash_decode_launches_by_kind"],
+                   "max_abs_err": worst["flash_decode"], **rows[("flash_decode", "decode")],
+                   **{f"prefill_chunk_{key}": prefill[key]
+                      for key in ("ms", "bound_ms", "bound_by", "fp32_bound_ms", "plain_ms",
+                                  "library_ms", "library_bf16_ms")}})
     report.append({"name": "flash_attention_carry", "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                    "replaces": "src/repro/kernels/flash_attention.py:229",
                    "launches": carry_launches, "max_abs_err": worst["flash_attention_carry"],
+                   "chain_error_vs_float64_ratio": accuracy["chain"],
                    **rows[("flash_attention_carry", "off_diagonal")]})
     report.append({"name": "transpose_tiled", "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/transpose.cu",

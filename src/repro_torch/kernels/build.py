@@ -17,15 +17,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "build_log", "load", "library_path"]
+__all__ = ["SOURCES", "build_all", "build_log", "build_variants", "load", "library_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
-
-_logs: dict[str, str] = {}
 
 
 def _find_nvcc() -> str:
@@ -68,10 +66,10 @@ def build_all(names=SOURCES) -> dict[str, Path]:
     failed = []
     for n, (proc, tmp, cmd) in procs.items():
         out, _ = proc.communicate()
-        _logs[n] = out
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {n} (rc={proc.returncode}):\n{' '.join(cmd)}\n{out}")
         else:
+            todo[n].with_suffix(".log").write_text(out)
             os.replace(tmp, todo[n])  # atomic: concurrent builders never load a partial file
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -79,9 +77,30 @@ def build_all(names=SOURCES) -> dict[str, Path]:
 
 
 def build_log(name: str) -> str:
-    """nvcc's output (ptxas registers, shared memory, spills) from this
-    process's build of ``name``; empty when the library was already built."""
-    return _logs.get(name, "")
+    """nvcc's output (ptxas registers, shared memory, spills) from the build
+    of ``name``'s library, kept beside it; empty before it is built."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def build_variants(sources: dict[str, Path]) -> dict[str, Path]:
+    """Build ``{name: source}``, other versions of kernel sources (for timing
+    them beside the checkout's), with the same flags and ``csrc/`` on the
+    include path, into ``build/torch_kernels/ab/lib<name>.so``, one ``nvcc``
+    each, all at once; returns ``{name: library}``.  Raises if any fails."""
+    out = BUILD_DIR / "ab"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _find_nvcc()
+    libs = {name: out / f"lib{name}.so" for name in sources}
+    procs = {name: subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(libs[name]),
+                                     str(src)], stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, src in sources.items()}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
+    return libs
 
 
 @functools.lru_cache(maxsize=None)

@@ -8,7 +8,7 @@
 // What it computes, as the reference does.  The rep = Hq / G query heads of
 // a KV group are stacked into rep*S rows (row r is head r / S, query r % S).
 // The cache is cut into KV blocks of bk keys; for block j and each row:
-// scores s = (scale * q) . k in float32, masked to -1e30 where
+// scores s = scale * (q . k) in float32, masked to -1e30 where
 // k_pos >= min(cache_len[b], T) or k_pos > q_positions[b, r % S]; the
 // block's own max m_j; p = exp(s - m_j); l_j = sum p in float32; and
 // o_j = round(p) @ v with p rounded to the cache type first and float32
@@ -19,37 +19,91 @@
 //
 // Bound: a decode step reads the whole valid cache for a few rows, so it is
 // bound by the bytes of K and V (3.35 TB/s on an H100 SXM); the prefill
-// chunk (rep*S = 6144 rows per group) is bound by float32 operations like
-// the forward's flash attention.  The design covers both with one body:
-//   * a block owns a tile of BR = 16*TR rows of one (batch, KV group) and a
-//     contiguous range of KV blocks (a split); splits spread a decode step's
-//     few rows over the card, while the prefill chunk's many row tiles fill
-//     it with one split;
-//   * within a split the combine runs online, block after block: the block's
-//     scores are kept in shared memory (BR x bk float32), its max is taken
-//     over all of them before any exp, and each rounded p is scaled by
-//     w_j = exp(m_j - m_run) after rounding, so each block still rounds
-//     relative to its own max;
-//   * a second small kernel merges the splits' (o, m, l) partials;
+// chunk (rep*S = 6144 rows per group) is bound by operations.  One design
+// covers both:
+//   * a block owns a tile of 16 * TR rows of one (batch, KV group) (TR = 1
+//     for a decode step's few rows, 4 for a chunk's many) and a contiguous
+//     range of KV blocks (a split); splits spread a decode step's few rows
+//     over the card (one 512-key block each at the path's shapes), while
+//     the prefill chunk's many row tiles fill it with one split;
+//   * within a split the combine runs online, block after block; the
+//     splits' (o, m, l) partials are merged in a fixed split order (bf16:
+//     by the last block of the row tile to finish; float32: by a second
+//     small kernel);
 //   * KV blocks, and 64-key tiles inside one, that lie wholly past every
 //     row's last visible key (cache length, or chunk causality) are skipped:
 //     they contribute exactly 0 after the combine.  A row with no visible
 //     key at all (an idle slot) counts as seeing up to T - 1, so its tile
 //     walks every block and it gets the reference's mean of v; the keys of
-//     the last block past T count in l as the reference's padding does; a
-//     tile of such rows only (an idle slot's) skips K and Q K^T, since
-//     every score is masked, and pays for p @ v alone;
-//   * warps whose rows all lie past rep*S skip the arithmetic (a decode
-//     step's 3 rows occupy 2 of 8 warps of a 16-row tile).
-// Shared memory at TR = 4, D = 128, bk = 512: 195 KB, set with
-// cudaFuncSetAttribute.  Tensor cores, asynchronous copies and reading the
-// cache once per group for all splits are later work.
+//     the last block past T count in l as the reference's padding does (and
+//     only there: keys of a tile past its block's end are neither summed nor
+//     multiplied); a tile of such rows only (an idle slot's) skips K and
+//     Q K^T, since every score is masked, and pays for p @ v alone.
+//
+// bf16 caches (the model's type; flash_decode_kernel_wgmma).  Both products
+// on the tensor cores, each exactly the reference's function:
+//   * s = q . k is a bf16 product with a float32 accumulator (wgmma
+//     m64n64k16, q from shared memory, stored once), the scale applied to
+//     the float32 scores after it (the reference scales q first: float32
+//     rounding apart).  wgmma's 64 rows read the block's 16 * TR rows of Q
+//     and, at TR = 1, 48 more from whatever shared memory follows: those
+//     product rows are never used;
+//   * o_j = round(p) @ v is a bf16 product too, since the reference rounds
+//     p to the cache type first: one piece (wgmma m64nDk16, P from
+//     registers), summed over the block's tiles in the tensor cores'
+//     float32 accumulator and merged into the running output with
+//     o = o * w_old + w_j * o_j.  p = exp(s - m_j) is `__expf` (the SFU's
+//     ex2 after a multiply by log2 e, within a few float32 ulp of exp
+//     before the rounding to bf16).
+//   * The block-own-max rule needs every score of a block before any exp:
+//     the scores stay in shared memory, each thread's own fragment in a
+//     thread-private slot (16 * TR x bk float32, conflict-free float2s);
+//     the second pass reads them back, exps, rounds and packs P's A
+//     fragment in registers.  Scores are masked only on a tile that reaches
+//     past the keys every row of the block sees, or past the block.
+//   * Copies: a producer warp brings 64-key tiles of K and then V by TMA
+//     (4-D maps over the (B, G, T, D) caches, a layer slice of a stacked
+//     cache included; the maps are encoded once per buffer and cached) into
+//     a ring of 4 stages, 128-byte swizzled, each guarded by an mbarrier;
+//     the consumer warpgroup releases a stage as soon as its product is
+//     done, so the V tiles of a block stream in while its scores are taken.
+//     A decode step (TR = 1, 101 KB of shared memory a block) runs two
+//     blocks an SM, all its blocks at once; its 512-key split is 16 tiles.
+//     wgmma over mma.sync: the step's 3 rows waste 61 of wgmma's 64 rows,
+//     but the tensor cores idle in a byte-bound step either way, and the
+//     chunk, bound by operations, needs wgmma's rate; one body serves both.
+//   * Splits: with one split (a prefill chunk) a block writes its rows'
+//     output itself; else each writes its partials and the last block of
+//     its row tile to finish (an arrival count per row tile, left at zero
+//     for the next launch) merges all splits' partials in split order, so
+//     there is no second launch.  An idle slot with one split gives every
+//     row of its group the same mean of v: the group's first row tile
+//     computes it and writes every row; the other row tiles exit at once.
+// Shared memory at TR = 4, D = 128, bk = 512: 209 KB; at TR = 1, 101 KB.
+//
+// float32 caches (flash_decode_kernel; no model path decodes in float32 on
+// the card): the body of the first port, unchanged, on the CUDA cores in
+// FFMA with synchronous float32 shared-memory tiles (attn_tiles.cuh): q
+// scaled first, each rounded p scaled by w_j = exp(m_j - m_run) and summed
+// into the output per tile.  Shared memory at TR = 4, D = 128, bk = 512:
+// 195 KB.
+//
+// No atomics on data (only on the arrival counts), one thread per output
+// sum in a fixed order, and a fixed split order in the merge: two launches
+// are bitwise equal.
 
 #include <algorithm>
+#include <climits>
+#include <type_traits>
 
 #include "attn_tiles.cuh"
+#include "attn_wgmma.cuh"
 
 namespace {
+
+// -------------------------------------------------------------- float32 body
+
+namespace simt {
 
 using namespace attn;
 
@@ -226,54 +280,428 @@ __global__ void flash_decode_combine_kernel(const float* __restrict__ o_part,
   }
 }
 
-template <typename T, int D, int TR>
-int launch(const void* q, const void* kc, const void* vc, const int* cache_len, const int* q_pos,
-           float* o_part, float* m_part, float* l_part, void* out, int B, int G, int S, int RS,
-           int T_len, int bk, int splits, int per, const long long* st, float scale,
-           cudaStream_t stream) {
-  auto kernel = flash_decode_kernel<T, D, TR>;
-  const long long smem = smem_bytes<D, TR>(bk);
+
+}  // namespace simt
+
+// ---------------------------------------------------------------- bf16 body
+
+namespace tc {
+
+using namespace attn_tc;
+
+constexpr int STAGES = 4;               // K or V tiles in flight
+constexpr int CONSUMERS = 128;          // one warpgroup: wgmma's 64 rows
+constexpr int THREADS = CONSUMERS + 32; // and a producer warp behind it
+
+__host__ __device__ constexpr int tiles_of(int bk) { return (bk + KT - 1) / KT; }
+
+// Floats of a block's scores: 16 * TR rows x its tiles' keys.
+template <int TR>
+__host__ __device__ constexpr long long score_floats(int bk) {
+  return 16LL * TR * tiles_of(bk) * KT;
+}
+
+template <int D, int TR>
+constexpr long long smem_bytes(int bk) {
+  // alignment slack, Q, the ring, the scores, 2 barriers a stage, 3 flags
+  return 1024 + tile_bytes(16 * TR, D) + STAGES * tile_bytes(KT, D) + 4 * score_floats<TR>(bk) +
+         2 * STAGES * 8 + 16;
+}
+
+template <int D, int TR>
+__global__ void __launch_bounds__(THREADS, TR == 1 ? 2 : 1)
+flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __restrict__ q,
+                          const int* __restrict__ cache_len, const int* __restrict__ q_pos,
+                          float* __restrict__ o_part, float* __restrict__ m_part,
+                          float* __restrict__ l_part, bf16* __restrict__ out, int* arrivals,
+                          int G, int S, int RS, int T_len, int bk, int nb, int per, float scale) {
+  constexpr int ROWS = 16 * TR;  // query rows of a block
+  constexpr int KEEP = 32 * TR;  // threads that hold them (warps 0..TR-1)
+  constexpr int ACC = D / 2;
+  constexpr int TILE = tile_bytes(KT, D);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  unsigned char* Qs = smem;
+  // Q holds the block's rows only: wgmma reads 64, and the product's rows
+  // past ROWS (read from whatever follows) are never used
+  unsigned char* ring = Qs + tile_bytes(ROWS, D);
+  // the block's scores: a thread's 16 pairs of tile t at (16t + i2) * KEEP + its index
+  float2* Ss = reinterpret_cast<float2*>(ring + STAGES * TILE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ss + score_floats<TR>(bk) / 2);
+  uint64_t* empty = full + STAGES;
+  int* flags = reinterpret_cast<int*>(empty + STAGES);  // limit, seen, common, last
+
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * ROWS, bg = blockIdx.y, b = bg / G, g = bg % G;
+  const int split = blockIdx.z, splits = gridDim.z;
+  const int valid = min(cache_len[b], T_len);
+  // an idle slot (no cached key) gives every row of the group the same
+  // mean of v: with one split, the first row tile computes it for all
+  if (valid == 0 && splits == 1 && blockIdx.x > 0) return;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS / 32);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    flags[0] = 0, flags[1] = 0, flags[2] = INT_MAX;
+  }
+  // keys at or past `limit` are masked for every row of the tile; a row
+  // with no visible key at all sees every key (its scores are all -1e30 and
+  // p = exp(0) = 1: the reference's mean of v over the padded cache)
+  const bool counts = tid < ROWS && r0 + tid < RS;
+  const int seen = !counts ? 0 : q_pos ? min(valid, q_pos[b * S + (r0 + tid) % S] + 1) : valid;
+  if (tid < CONSUMERS)
+    store_rows<D>(Qs, ROWS, q + ((long long)bg * RS + r0) * D, D, ROWS, min(ROWS, RS - r0), tid,
+                  CONSUMERS);
+  fence_async();
+  __syncthreads();
+  if (counts) {
+    atomicMax(&flags[0], seen > 0 ? seen : T_len);
+    atomicMin(&flags[2], seen);
+    if (seen > 0) flags[1] = 1;
+  }
+  __syncthreads();
+  const int limit = flags[0];
+  const int common = flags[2];  // keys below it are visible to every row
+  // a tile whose rows see no key at all (an idle slot) needs no scores:
+  // every one is masked, so neither K nor Q K^T is touched (block-uniform)
+  const bool blind = flags[1] == 0;
+  const int j_end = min(nb, (split + 1) * per);
+
+  if (tid >= CONSUMERS) {  // the producer: K tiles, then V tiles, of each block
+    if (tid == CONSUMERS) {
+      int n = 0;
+      auto load = [&](const KvMap& m, int pos) {
+        const int s = n % STAGES;
+        mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(&full[s], TILE);
+        load_tile<D>(ring + s * TILE, m, pos, g, b, KT, &full[s]);
+        ++n;
+      };
+      for (int j = split * per; j < j_end && j * bk < limit; ++j) {
+        const int kb0 = j * bk;
+        const int nt = (min(min(kb0 + bk, T_len), limit) - kb0 + KT - 1) / KT;
+        if (!blind)
+          for (int t = 0; t < nt; ++t) load(maps.k, kb0 + t * KT);
+        for (int t = 0; t < nt; ++t) load(maps.v, kb0 + t * KT);
+      }
+    }
+    return;
+  }
+
+  const int wq = tid >> 5, lane = tid & 31, quad = lane & 3;
+  const bool keeps = wq < TR && r0 + 16 * wq < RS;  // the warp has rows (warp-uniform)
+  const int row0 = r0 + 16 * wq + (lane >> 2);      // and row0 + 8
+  int pos[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = min(row0 + 8 * hh, RS - 1);
+    pos[hh] = q_pos ? q_pos[b * S + r % S] : T_len;
+  }
+
+  float o[ACC], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) o[i] = 0.f;
+
+  int n = 0;  // position in the ring's sequence of tiles
+  for (int j = split * per; j < j_end && j * bk < limit; ++j) {
+    const int kb0 = j * bk, kb_end = min(kb0 + bk, T_len);
+    const int nt = (min(kb_end, limit) - kb0 + KT - 1) / KT;
+    // keys of the block past its scored tiles (past T: the reference's
+    // padding) are masked for every row; each adds exp(-1e30 - m_j) to l_j,
+    // which is 1 for a row with no visible key in the block and 0 otherwise
+    const float unscored = static_cast<float>(bk - min(nt * KT, kb_end - kb0));
+
+    // pass 1: the block's scores into shared memory, and each row's max;
+    // pair i2 of a tile's fragment is row row0 + 8 (i2 % 2), keys
+    // 8 (i2 / 2) + 2 quad + {0, 1}
+    float mx[2] = {NEG_INF, NEG_INF};
+    if (!blind) {
+      for (int t = 0; t < nt; ++t, ++n) {
+        const int s = n % STAGES;
+        float sc[32];
+        mbar_wait(&full[s], (n / STAGES) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_qk(sc, desc_k(Qs, ROWS, kk), desc_k(ring + s * TILE, KT, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+        if (keeps) {
+          const int kt0 = kb0 + t * KT;
+          // only a tile that reaches past the keys every row sees, or past
+          // the block, has masked scores (block-uniform)
+          const bool edge = kt0 + KT > min(common, kb_end);
+#pragma unroll
+          for (int i2 = 0; i2 < 16; ++i2) {
+            const int hh = i2 & 1, key = kt0 + 8 * (i2 >> 1) + 2 * quad;
+            float2 x = make_float2(__fmul_rn(sc[2 * i2], scale), __fmul_rn(sc[2 * i2 + 1], scale));
+            if (edge) {
+              if (key >= kb_end || key >= valid || key > pos[hh]) x.x = NEG_INF;
+              if (key + 1 >= kb_end || key + 1 >= valid || key + 1 > pos[hh]) x.y = NEG_INF;
+            }
+            mx[hh] = fmaxf(mx[hh], fmaxf(x.x, x.y));
+            Ss[(16 * t + i2) * KEEP + tid] = x;
+          }
+        }
+      }
+    }
+    float m_j[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) m_j[hh] = quad_max(mx[hh]);
+
+    // pass 2: p = exp(s - m_j) rounded to bf16 (the keys of the block only),
+    // o_j = round(p) @ v over the block's tiles
+    float oj[ACC];
+    for (int t = 0; t < nt; ++t, ++n) {
+      const int s = n % STAGES;
+      uint32_t pa[4][4];
+      const int kt0 = kb0 + t * KT;
+      const bool inside = kt0 + KT <= kb_end;  // every key of the tile is the block's
+      if (keeps && blind && inside) {  // every score masked: p = exp(0) = 1
+#pragma unroll
+        for (int i2 = 0; i2 < 16; ++i2) pa[i2 >> 2][i2 & 3] = 0x3F803F80u;  // bf16 1, 1
+        sum[0] = __fadd_rn(sum[0], 16.f);
+        sum[1] = __fadd_rn(sum[1], 16.f);
+      } else if (keeps) {
+        float part[2][4];
+#pragma unroll
+        for (int i2 = 0; i2 < 16; ++i2) {
+          const int hh = i2 & 1, key = kt0 + 8 * (i2 >> 1) + 2 * quad;
+          const float2 x = blind ? make_float2(NEG_INF, NEG_INF) : Ss[(16 * t + i2) * KEEP + tid];
+          float p0 = __expf(__fsub_rn(x.x, m_j[hh])), p1 = __expf(__fsub_rn(x.y, m_j[hh]));
+          if (!inside) {
+            if (key >= kb_end) p0 = 0.f;
+            if (key + 1 >= kb_end) p1 = 0.f;
+          }
+          const float pp = __fadd_rn(p0, p1);
+          part[hh][i2 >> 2] = (i2 & 2) ? __fadd_rn(part[hh][i2 >> 2], pp) : pp;
+          pa[i2 >> 2][i2 & 3] = pack_bf16(p0, p1);  // step i2 / 4, pair i2 % 4
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          sum[hh] = __fadd_rn(sum[hh], __fadd_rn(__fadd_rn(part[hh][0], part[hh][1]),
+                                                 __fadd_rn(part[hh][2], part[hh][3])));
+      } else {
+#pragma unroll
+        for (int i2 = 0; i2 < 16; ++i2) pa[i2 >> 2][i2 & 3] = 0u;
+      }
+      mbar_wait(&full[s], (n / STAGES) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv<D>(oj, pa[kk], desc_v(ring + s * TILE, kk), t > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(oj);
+      fence_regs(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // the block into the running combine
+    float w_old[2], w_j[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float lj = __fadd_rn(quad_sum(sum[hh]),
+                                 __fmul_rn(unscored, expf(__fsub_rn(NEG_INF, m_j[hh]))));
+      const float m_new = fmaxf(m[hh], m_j[hh]);
+      w_old[hh] = expf(__fsub_rn(m[hh], m_new));
+      w_j[hh] = expf(__fsub_rn(m_j[hh], m_new));
+      l[hh] = fmaf(l[hh], w_old[hh], __fmul_rn(w_j[hh], lj));
+      m[hh] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) {
+      const int hh = (i >> 1) & 1;
+      o[i] = fmaf(o[i], w_old[hh], __fmul_rn(w_j[hh], oj[i]));
+    }
+  }
+
+  if (splits == 1 && valid == 0) {  // row 0's output, written to every row of the group
+    bf16* row = reinterpret_cast<bf16*>(Ss);  // the scores are no longer read
+    if (tid < 4) {
+      const float li = l[0] == 0.f ? 1.f : l[0];
+#pragma unroll
+      for (int c = 0; c < ACC / 4; ++c)
+        *reinterpret_cast<uint32_t*>(row + 8 * c + 2 * quad) =
+            pack_bf16(__fdiv_rn(o[4 * c], li), __fdiv_rn(o[4 * c + 1], li));
+    }
+    asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
+    const uint4* src = reinterpret_cast<const uint4*>(row);
+    uint4* dst = reinterpret_cast<uint4*>(out + (long long)bg * RS * D);
+    for (long long i = tid; i < (long long)RS * (D / 8); i += CONSUMERS) dst[i] = src[i % (D / 8)];
+    return;
+  }
+  if (splits == 1) {  // the whole cache in one split: the output itself
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = row0 + 8 * hh;
+      if (!keeps || r >= RS) continue;
+      const float li = l[hh] == 0.f ? 1.f : l[hh];
+      bf16* dst = out + ((long long)bg * RS + r) * D + 2 * quad;
+#pragma unroll
+      for (int c = 0; c < ACC / 4; ++c)
+        *reinterpret_cast<uint32_t*>(dst + 8 * c) =
+            pack_bf16(__fdiv_rn(o[4 * c + 2 * hh], li), __fdiv_rn(o[4 * c + 2 * hh + 1], li));
+    }
+    return;
+  }
+  // this split's unnormalized partial state
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row0 + 8 * hh;
+    if (!keeps || r >= RS) continue;
+    const long long row = ((long long)bg * splits + split) * RS + r;
+#pragma unroll
+    for (int c = 0; c < ACC / 4; ++c)
+      *reinterpret_cast<float2*>(o_part + row * D + 8 * c + 2 * quad) =
+          make_float2(o[4 * c + 2 * hh], o[4 * c + 2 * hh + 1]);
+    if (quad == 0) m_part[row] = m[hh], l_part[row] = l[hh];
+  }
+
+  // the combine, folded: the last block of this row tile to finish merges
+  // every split's partials in split order (the order, and so the bits, do
+  // not depend on which block is last) and clears its arrival count for the
+  // next launch.  The barrier makes the block's partials visible to thread
+  // 0, whose fence then publishes them before its arrival; the last block's
+  // thread 0 fences again before the block reads the others' partials.
+  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
+  int* count = arrivals + (long long)bg * gridDim.x + blockIdx.x;
+  if (tid == 0) {
+    __threadfence();
+    const bool last = atomicAdd(count, 1) == splits - 1;
+    if (last) __threadfence();
+    flags[3] = last;
+  }
+  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
+  if (!flags[3]) return;
+  // warp wq merges rows r0 + wq, r0 + wq + 4, ...; lane its PER columns;
+  // every split's loads in flight at once, 8 splits at a time
+  constexpr int PER = D / 32;
+  using Vec = typename std::conditional<PER == 4, float4, float2>::type;
+  for (int r = r0 + wq; r < min(r0 + ROWS, RS); r += CONSUMERS / 32) {
+    const long long first = (long long)bg * splits * RS + r;  // split 0's row
+    float mx = NEG_INF;
+    for (int s0 = 0; s0 < splits; s0 += 8) {
+      float ms[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) ms[i] = __ldcg(m_part + first + min(s0 + i, splits - 1) * RS);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) mx = fmaxf(mx, ms[i]);  // a repeated last split changes nothing
+    }
+    float lt = 0.f, ot[PER];
+#pragma unroll
+    for (int c = 0; c < PER; ++c) ot[c] = 0.f;
+    for (int s0 = 0; s0 < splits; s0 += 8) {
+      float ms[8], ls[8];
+      Vec os[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const long long row = first + min(s0 + i, splits - 1) * RS;
+        ms[i] = __ldcg(m_part + row), ls[i] = __ldcg(l_part + row);
+        os[i] = __ldcg(reinterpret_cast<const Vec*>(o_part + row * D) + lane);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (s0 + i >= splits) break;
+        const float w = expf(__fsub_rn(ms[i], mx));
+        lt = fmaf(w, ls[i], lt);
+        const float* o_i = reinterpret_cast<const float*>(&os[i]);
+#pragma unroll
+        for (int c = 0; c < PER; ++c) ot[c] = fmaf(w, o_i[c], ot[c]);
+      }
+    }
+    const float li = lt == 0.f ? 1.f : lt;
+    bf16* dst = out + ((long long)bg * RS + r) * D + lane * PER;
+#pragma unroll
+    for (int c = 0; c < PER; c += 2)
+      *reinterpret_cast<uint32_t*>(dst + c) =
+          pack_bf16(__fdiv_rn(ot[c], li), __fdiv_rn(ot[c + 1], li));
+  }
+  if (tid == 0) *count = 0;
+}
+
+}  // namespace tc
+
+template <int D, int TR>
+int launch_simt(const void* q, const void* kc, const void* vc, const int* cache_len,
+                const int* q_pos, float* o_part, float* m_part, float* l_part, void* out, int B,
+                int G, int S, int RS, int T_len, int bk, int splits, int per, const long long* st,
+                float scale, cudaStream_t stream) {
+  auto kernel = simt::flash_decode_kernel<float, D, TR>;
+  const long long smem = simt::smem_bytes<D, TR>(bk);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nb = (T_len + bk - 1) / bk;
   dim3 grid((RS + 16 * TR - 1) / (16 * TR), B * G, splits);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), cache_len,
-      q_pos, o_part, m_part, l_part, G, S, RS, T_len, bk, nb, per, st[0], st[1], st[2], st[3],
-      st[4], st[5], scale);
+  kernel<<<grid, attn::THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kc), static_cast<const float*>(vc),
+      cache_len, q_pos, o_part, m_part, l_part, G, S, RS, T_len, bk, nb, per, st[0], st[1], st[2],
+      st[3], st[4], st[5], scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n = (long long)B * G * RS * D;
   const int blocks = static_cast<int>(std::min((n + 255) / 256, 65535LL));
-  flash_decode_combine_kernel<T><<<blocks, 256, 0, stream>>>(o_part, m_part, l_part,
-                                                             static_cast<T*>(out), n, RS, D,
-                                                             splits);
+  simt::flash_decode_combine_kernel<float><<<blocks, 256, 0, stream>>>(
+      o_part, m_part, l_part, static_cast<float*>(out), n, RS, D, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch_tr(int tr, const void* q, const void* kc, const void* vc, const int* cache_len,
+template <int D, int TR>
+int launch_tc(const void* q, const void* kc, const void* vc, const int* cache_len,
               const int* q_pos, float* o_part, float* m_part, float* l_part, void* out, int B,
               int G, int S, int RS, int T_len, int bk, int splits, int per, const long long* st,
-              float scale, cudaStream_t stream) {
-  if (tr == 4)
-    return launch<T, D, 4>(q, kc, vc, cache_len, q_pos, o_part, m_part, l_part, out, B, G, S, RS,
-                           T_len, bk, splits, per, st, scale, stream);
-  if (tr == 1)
-    return launch<T, D, 1>(q, kc, vc, cache_len, q_pos, o_part, m_part, l_part, out, B, G, S, RS,
-                           T_len, bk, splits, per, st, scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+              float scale, cudaStream_t stream, int* arrivals) {
+  using namespace tc;
+  KvMaps maps;
+  if (!cached_kv(&maps.k, kc, B, G, T_len, D, st[0], st[1], st[2], KT) ||
+      !cached_kv(&maps.v, vc, B, G, T_len, D, st[3], st[4], st[5], KT))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_decode_kernel_wgmma<D, TR>;
+  const long long smem = smem_bytes<D, TR>(bk);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nb = (T_len + bk - 1) / bk;
+  dim3 grid((RS + 16 * TR - 1) / (16 * TR), B * G, splits);
+  kernel<<<grid, THREADS, smem, stream>>>(maps, static_cast<const bf16*>(q), cache_len, q_pos,
+                                          o_part, m_part, l_part, static_cast<bf16*>(out),
+                                          arrivals, G, S, RS, T_len, bk, nb, per, scale);
+  return static_cast<int>(cudaGetLastError());  // the kernel merges the splits itself
+}
+
+template <int D, int TR>
+int launch(int dtype, const void* q, const void* kc, const void* vc, const int* cache_len,
+           const int* q_pos, float* o_part, float* m_part, float* l_part, void* out, int B, int G,
+           int S, int RS, int T_len, int bk, int splits, int per, const long long* st,
+           float scale, cudaStream_t stream, int* arrivals) {
+  if (dtype == 0)
+    return launch_simt<D, TR>(q, kc, vc, cache_len, q_pos, o_part, m_part, l_part, out, B, G, S,
+                              RS, T_len, bk, splits, per, st, scale, stream);
+  return launch_tc<D, TR>(q, kc, vc, cache_len, q_pos, o_part, m_part, l_part, out, B, G, S, RS,
+                          T_len, bk, splits, per, st, scale, stream, arrivals);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory the decode kernel needs at row-tile factor tr (1 or 4).
+// Shared memory of one block of the decode kernel at row-tile factor tr (1
+// or 4) and KV block bk: the larger of its two bodies' needs, so that one
+// plan serves both types.
 long long flash_decode_smem_bytes(int D, int tr, int bk) {
-  if (D == 128) return tr == 4 ? smem_bytes<128, 4>(bk) : smem_bytes<128, 1>(bk);
-  return tr == 4 ? smem_bytes<64, 4>(bk) : smem_bytes<64, 1>(bk);
+  if (D == 128)
+    return tr == 4 ? std::max(simt::smem_bytes<128, 4>(bk), tc::smem_bytes<128, 4>(bk))
+                   : std::max(simt::smem_bytes<128, 1>(bk), tc::smem_bytes<128, 1>(bk));
+  return tr == 4 ? std::max(simt::smem_bytes<64, 4>(bk), tc::smem_bytes<64, 4>(bk))
+                 : std::max(simt::smem_bytes<64, 1>(bk), tc::smem_bytes<64, 1>(bk));
 }
 
 // out (B, Hq, S, D) contiguous = split-KV decode attention of q (B, Hq, S, D)
@@ -282,28 +710,25 @@ long long flash_decode_smem_bytes(int D, int tr, int bk) {
 // aligned).  cache_len (B,) int32; q_pos (B, S) int32 or null.  Partials
 // o_part (B*G, splits, Hq/G*S, D), m_part and l_part (B*G, splits, Hq/G*S)
 // float32 scratch; split s covers KV blocks [s*per, (s+1)*per).  dtype 0 =
-// float32, 1 = bfloat16; D = 64 or 128; tr = 1 or 4.  Returns a cudaError_t.
+// float32, 1 = bfloat16; D = 64 or 128; tr = 1 or 4.  arrivals: B*G*ceil(Hq/G*S
+// / (16 tr)) int32 zeros on the device, which bfloat16 launches use to find
+// the last block of each row tile (and leave zero); a launch must not
+// overlap another that uses the same ones.  Returns a cudaError_t.
 int flash_decode_fwd(const void* q, const void* kc, const void* vc, const int* cache_len,
                      const int* q_pos, float* o_part, float* m_part, float* l_part, void* out,
                      int dtype, int B, int Hq, int G, int S, int T_len, int D, int bk, int splits,
-                     int per, int tr, const long long* strides, float scale, void* stream) {
+                     int per, int tr, const long long* strides, float scale, void* stream,
+                     int* arrivals) {
   auto s = static_cast<cudaStream_t>(stream);
   const int RS = Hq / G * S;
-  if (dtype == 0 && D == 128)
-    return launch_tr<float, 128>(tr, q, kc, vc, cache_len, q_pos, o_part, m_part, l_part, out, B,
-                                 G, S, RS, T_len, bk, splits, per, strides, scale, s);
-  if (dtype == 0 && D == 64)
-    return launch_tr<float, 64>(tr, q, kc, vc, cache_len, q_pos, o_part, m_part, l_part, out, B,
-                                G, S, RS, T_len, bk, splits, per, strides, scale, s);
-  if (dtype == 1 && D == 128)
-    return launch_tr<__nv_bfloat16, 128>(tr, q, kc, vc, cache_len, q_pos, o_part, m_part, l_part,
-                                         out, B, G, S, RS, T_len, bk, splits, per, strides, scale,
-                                         s);
-  if (dtype == 1 && D == 64)
-    return launch_tr<__nv_bfloat16, 64>(tr, q, kc, vc, cache_len, q_pos, o_part, m_part, l_part,
-                                        out, B, G, S, RS, T_len, bk, splits, per, strides, scale,
-                                        s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  auto run = [&](auto launch_fn) {
+    return launch_fn(dtype, q, kc, vc, cache_len, q_pos, o_part, m_part, l_part, out, B, G, S, RS,
+                     T_len, bk, splits, per, strides, scale, s, arrivals);
+  };
+  if ((dtype != 0 && dtype != 1) || (D != 64 && D != 128) || (tr != 1 && tr != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 128) return tr == 4 ? run(launch<128, 4>) : run(launch<128, 1>);
+  return tr == 4 ? run(launch<64, 4>) : run(launch<64, 1>);
 }
 
 const char* flash_decode_error_string(int code) {

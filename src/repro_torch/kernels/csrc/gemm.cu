@@ -99,11 +99,11 @@
 // needs no host sync); jb is clamped to [0, nb) like the reference's
 // dynamic_slice.  Blocks of the panel outside jb are never touched.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int BM = 128;                // output tile rows (i): two warpgroups of 64
 constexpr int BN = 160;                // output tile columns (j): wgmma n160
@@ -153,37 +153,6 @@ struct Params {
   const int* jb_dev;
   int jb_host;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
 
 __device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map, int c0, int c1,
                                          uint64_t* bar) {
@@ -268,10 +237,6 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[ACC], const uint32_t (&a)[
 // fragment loads below hit 32 different banks.
 __device__ __forceinline__ int swizzled(int x, int k) {
   return x * BK + ((((k >> 2) ^ x) & 7) << 2) + (k & 3);
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
 
 // Keeps the compiler from moving accumulator accesses across wgmma fences.
@@ -658,29 +623,6 @@ cudaError_t dispatch(int a_trans, int b_trans, int loader, const Maps& maps, con
     case 2: return dispatch_loader<true, false, PANEL>(loader, maps, p, grid, s);
     default: return dispatch_loader<true, true, PANEL>(loader, maps, p, grid, s);
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the library
-// needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
-                                                                : nullptr;
-  }();
-  return fn;
 }
 
 // A 2-D map of float32 rows: `inner` floats a row, `rows` rows `stride`

@@ -11,6 +11,11 @@ through the call in place, at global offsets (:func:`flash_attention_carry_cuda`
 Their plain versions are :func:`repro_torch.kernels.ref.flash_attention_ref`
 and :func:`repro_torch.kernels.ref.flash_carry_ref`.
 
+bfloat16 inputs run the tensor-core body: ``q k^T`` and ``p @ v`` on
+``wgmma`` with float32 accumulators, p in :data:`P_PIECES` bf16 pieces,
+:data:`KEY_TILE`-key tiles of K and V by TMA (see the note in the source).
+float32 inputs run the first port's float32 body on the CUDA cores.
+
 The kernel takes float32 or bfloat16 with head dim 64 or 128 (``v`` with the
 same head dim as ``q``).  It reads each operand through its batch, head and
 sequence strides, so the transposed views of the projections need no copy.
@@ -28,10 +33,12 @@ import torch
 from . import build
 
 __all__ = ["flash_attention_cuda", "flash_attention_carry_cuda", "check_attention",
-           "check_carry", "load_library", "KERNEL_DTYPES"]
+           "check_carry", "load_library", "bind", "KERNEL_DTYPES", "KEY_TILE", "P_PIECES"]
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+KEY_TILE = 64  # keys per tile of both bodies: carry chunks starting on its multiples chain bitwise
+P_PIECES = 2  # bf16 pieces of p in the bf16 body's p @ v (hi = bf16(p), lo = bf16(p - hi))
 
 
 def check_attention(q, k, v) -> tuple[int, int, int, int, int, int]:
@@ -77,7 +84,11 @@ def check_on_card(dtypes, head_dims, **tensors) -> torch.device:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on failure."""
-    lib = build.load("flash_attention")
+    return bind(build.load("flash_attention"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument types of its entry points set."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, p]
@@ -92,9 +103,12 @@ def load_library() -> ctypes.CDLL:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True, scale: float | None = None) -> torch.Tensor:
+                         causal: bool = True, scale: float | None = None,
+                         lib: ctypes.CDLL | None = None) -> torch.Tensor:
     """Attention of q (B, Hq, Sq, D) over k, v (B, G, Skv, D) on the card;
-    returns (B, Hq, Sq, D) contiguous in q's dtype."""
+    returns (B, Hq, Sq, D) contiguous in q's dtype.  ``lib`` is the kernel
+    library (default :func:`load_library`; the A/B timer passes another
+    build, bound by :func:`bind`)."""
     B, Hq, G, Sq, Skv, D = check_attention(q, k, v)
     device = check_on_card(KERNEL_DTYPES, HEAD_DIMS, q=q, k=k, v=v)
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=device)
@@ -105,7 +119,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v = _row_aligned(q), _row_aligned(k), _row_aligned(v)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     scale = float(scale if scale is not None else D ** -0.5)
-    lib = load_library()
+    lib = lib or load_library()
     stream = torch.cuda.current_stream(device).cuda_stream
     code = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                    KERNEL_DTYPES[q.dtype], B, Hq, G, Sq, Skv, D, strides, scale,
@@ -137,13 +151,14 @@ def check_carry(carry, B: int, Hq: int, Sq: int, Dv: int) -> None:
 def flash_attention_carry_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, carry, *,
                                q_offset: int = 0, k_offset: int = 0,
                                valid_len: int | None = None, causal: bool = True,
-                               scale: float | None = None):
+                               scale: float | None = None, lib: ctypes.CDLL | None = None):
     """One ring step on the card: merges the attention of q (B, Hq, Sq, D),
     rows at global positions ``q_offset + i``, over the held block k, v
     (B, G, Skv, D), keys at ``k_offset + j`` (those at or past
     ``valid_len`` masked), into ``carry = (acc, m, l)``, float32 contiguous
     tensors on q's device, **in place**; returns the carry.  The kernel does
-    nothing for query tiles that lie wholly before the block (causal)."""
+    nothing for query tiles that lie wholly before the block (causal).
+    ``lib`` as for :func:`flash_attention_cuda`."""
     B, Hq, G, Sq, Skv, D = check_attention(q, k, v)
     device = check_on_card(KERNEL_DTYPES, HEAD_DIMS, q=q, k=k, v=v)
     check_carry(carry, B, Hq, Sq, D)
@@ -162,7 +177,7 @@ def flash_attention_carry_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     q, k, v = _row_aligned(q), _row_aligned(k), _row_aligned(v)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     scale = float(scale if scale is not None else D ** -0.5)
-    lib = load_library()
+    lib = lib or load_library()
     stream = torch.cuda.current_stream(device).cuda_stream
     acc, m, l = carry
     code = lib.flash_attention_carry_fwd(

@@ -11,10 +11,17 @@ plain version is :func:`repro_torch.kernels.ref.flash_decode_ref`.
 The wrapper picks the row tile (16 or 64 rows of the rep*S stacked query
 rows, by how many rows there are and what fits in shared memory) and the
 number of splits of the KV blocks (enough blocks to cover the card twice),
-allocates the splits' float32 partials, and launches the kernel and its
-combine on PyTorch's current stream.  Rows with no visible key at all
-(idle slots) give the reference's mean of v over the padded cache.
+allocates the splits' float32 partials, and launches the kernel on
+PyTorch's current stream.  Rows with no visible key at all (idle slots)
+give the reference's mean of v over the padded cache.
 ``flash_decode_cuda.launches`` counts calls.
+
+bf16 caches run the tensor-core body (both products on ``wgmma``, 64-key
+tiles by TMA into a ring of :data:`STAGES`), which merges the splits itself
+(the last block of each row tile, found with the :func:`arrivals` counts);
+float32 caches run the first port's float32 body and a second, combine
+kernel.  One plan serves both: :func:`smem_bytes` is the larger of the two
+bodies' shared memory.
 """
 from __future__ import annotations
 
@@ -24,12 +31,27 @@ import functools
 import torch
 
 from . import build
-from .flash_attention import HEAD_DIMS, KERNEL_DTYPES, check_on_card
+from .flash_attention import HEAD_DIMS, KERNEL_DTYPES, KEY_TILE, check_on_card
 
-__all__ = ["flash_decode_cuda", "check_decode", "load_library", "plan_launch"]
+__all__ = ["flash_decode_cuda", "check_decode", "load_library", "bind", "plan_launch",
+           "smem_bytes", "arrivals"]
 
 MAX_SMEM = 232448 - 1024  # bytes one block may opt into on Hopper, less static shared memory
 ROW_TILES = (4, 1)  # row-tile factors: 64 or 16 rows per block
+STAGES = 4  # K or V tiles in flight in the bf16 body's ring
+
+
+def smem_bytes(D: int, tr: int, bk: int) -> int:
+    """Shared memory of one block of the decode kernel, ``flash_decode_smem_bytes``
+    of ``csrc/flash_decode.cu`` (the card tests hold the two equal): the
+    larger of the bf16 body's (alignment slack, the block's 16*tr rows of Q,
+    the ring, the block's float32 scores for those rows, barriers) and the float32
+    body's (float32 Q, K/V and score tiles, rows padded by 4)."""
+    keys = -(-bk // KEY_TILE) * KEY_TILE
+    rows = 16 * tr
+    bf16 = 1024 + rows * D * 2 + STAGES * KEY_TILE * D * 2 + 4 * rows * keys + 2 * STAGES * 8 + 16
+    fp32 = 4 * (16 * tr * (D + 4) + KEY_TILE * (D + 4) + 16 * tr * (keys + 4))
+    return max(bf16, fp32)
 
 
 def check_decode(q, k_cache, v_cache, cache_len, q_positions) -> tuple[int, int, int, int, int, int]:
@@ -54,16 +76,34 @@ def check_decode(q, k_cache, v_cache, cache_len, q_positions) -> tuple[int, int,
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on failure."""
-    lib = build.load("flash_decode")
+    return bind(build.load("flash_decode"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument types of its entry points set."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_decode_fwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
-                                     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, p]
+                                     ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, p, p]
     lib.flash_decode_fwd.restype = i
     lib.flash_decode_smem_bytes.argtypes = [i, i, i]
     lib.flash_decode_smem_bytes.restype = ctypes.c_longlong
     lib.flash_decode_error_string.argtypes = [i]
     lib.flash_decode_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_arrivals: dict[torch.device, torch.Tensor] = {}
+
+
+def arrivals(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros on ``device``, kept across calls: the bf16
+    kernel counts its blocks' arrivals there to find the last block of each
+    row tile, which merges the splits and sets its count back to zero.
+    Launches on one stream never overlap, so they can share them."""
+    buf = _arrivals.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _arrivals[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return buf
 
 
 def plan_launch(rows: int, groups: int, nb: int, D: int, bk: int, sms: int,
@@ -84,10 +124,13 @@ def plan_launch(rows: int, groups: int, nb: int, D: int, bk: int, sms: int,
 
 def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                       cache_len: torch.Tensor, *, q_positions: torch.Tensor | None = None,
-                      scale: float | None = None, block: int = 512) -> torch.Tensor:
+                      scale: float | None = None, block: int = 512,
+                      lib: ctypes.CDLL | None = None) -> torch.Tensor:
     """Split-KV decode attention on the card; returns (B, Hq, S, D)
     contiguous in q's dtype.  Caches must have a contiguous head dim and
-    16-byte aligned rows (a layer slice of a stacked cache does)."""
+    16-byte aligned rows (a layer slice of a stacked cache does).  ``lib``
+    is the kernel library (default :func:`load_library`; the A/B timer
+    passes another build, bound by :func:`bind`)."""
     B, Hq, G, S, T, D = check_decode(q, k_cache, v_cache, cache_len, q_positions)
     device = check_on_card(KERNEL_DTYPES, HEAD_DIMS, q=q, k_cache=k_cache, v_cache=v_cache)
     out = torch.empty((B, Hq, S, D), dtype=q.dtype, device=device)
@@ -106,7 +149,7 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     rep = Hq // G
     bk = min(block, T)
     nb = -(-T // bk)
-    lib = load_library()
+    lib = lib or load_library()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     tr, splits, per = plan_launch(rep * S, B * G, nb, D, bk, sms, lib.flash_decode_smem_bytes)
     o_part = torch.empty((B * G, splits, rep * S, D), dtype=torch.float32, device=device)
@@ -119,7 +162,8 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
                                 lens.data_ptr(), None if pos is None else pos.data_ptr(),
                                 o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
                                 out.data_ptr(), KERNEL_DTYPES[q.dtype], B, Hq, G, S, T, D, bk,
-                                splits, per, tr, strides, scale, stream)
+                                splits, per, tr, strides, scale, stream,
+                                arrivals(device, B * G * -(-rep * S // (16 * tr))).data_ptr())
     if code != 0:
         msg = lib.flash_decode_error_string(code).decode()
         raise RuntimeError(f"flash_decode_kernel launch failed: {msg} (cudaError {code})")

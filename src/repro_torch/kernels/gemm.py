@@ -40,7 +40,7 @@ import torch
 from . import build
 
 __all__ = ["gemm_cuda", "gemm_panel_cuda", "gemm_shape", "check_gemm", "check_panel",
-           "parse_majors", "loader_path", "reset_launches", "load_library", "build_log"]
+           "parse_majors", "loader_path", "reset_launches", "load_library"]
 
 
 def parse_majors(majors: str) -> tuple[bool, bool, bool]:
@@ -113,12 +113,6 @@ def _check_contiguous(**tensors) -> None:
     for name, t in tensors.items():
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous buffer, got strides {t.stride()}")
-
-
-def build_log() -> str:
-    """nvcc's output from this process's build (ptxas register and shared
-    memory report), empty when the library was already built."""
-    return build.build_log("gemm")
 
 
 @functools.lru_cache(maxsize=None)

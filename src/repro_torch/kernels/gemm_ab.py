@@ -2,8 +2,9 @@
 
     PYTHONPATH=src python -m repro_torch.kernels.gemm_ab NAME=path/to/gemm.cu [NAME=...]
 
-Each source is built with the port's ``nvcc`` flags into
-``build/torch_kernels/ab/`` (all at once).  Then ``layout_gemm_f32`` and
+Each source is built with the port's ``nvcc`` flags (and ``csrc/`` on the
+include path, for its headers) into ``build/torch_kernels/ab/`` (all at
+once).  Then ``layout_gemm_f32`` and
 ``layout_gemm_panel_f32`` of the checkout's build (``this``) and of each
 source are timed with ``queued_ms`` at the case study's shapes: EXTRALARGE
 and the ragged SUMMA's dims+1, ``I/I/K``, the panel with one block, beside
@@ -31,21 +32,6 @@ from .gemm import LOADERS, loader_path
 from .timing import queued_ms
 
 SHAPES = {"EXTRALARGE": (2048, 2560, 1408), "dims+1": (2049, 2561, 1409)}
-
-
-def _build(sources: dict[str, Path]) -> dict[str, Path]:
-    out = build.BUILD_DIR / "ab"
-    out.mkdir(parents=True, exist_ok=True)
-    nvcc = build._find_nvcc()
-    procs = {name: subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"),
-                                     str(src)], stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-             for name, src in sources.items()}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
-    return {name: out / f"lib{name}.so" for name in sources}
 
 
 def _entry_points(lib: ctypes.CDLL):
@@ -96,8 +82,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     sources = dict(s.split("=", 1) for s in args.sources)
     libs = {"this": build.load("gemm")}
-    libs.update({name: ctypes.CDLL(str(path))
-                 for name, path in _build({n: Path(p) for n, p in sources.items()}).items()})
+    libs.update({name: ctypes.CDLL(str(path)) for name, path in
+                 build.build_variants({n: Path(p) for n, p in sources.items()}).items()})
     g = torch.Generator(device="cuda").manual_seed(0)
     data = {}
     for label, (m, n, k) in SHAPES.items():

@@ -252,3 +252,110 @@ def test_transpose_cuda_matches_plain_version_bitwise(cuda, shape, dtype):
     assert torch.equal(got, ops.transpose_tiled(x, bm=shape[-2], bn=shape[-1], impl="ref"))
     with pytest.raises(ValueError, match="must divide tile"):
         ops.transpose_tiled(torch.zeros((300, 256), device=cuda))
+
+
+def _normalized(carry):
+    acc, _, l = carry
+    return acc / torch.where(l == 0, 1.0, l)[..., None]
+
+
+def test_attention_kernels_are_deterministic(cuda):
+    """Two launches of each bf16 kernel on the same inputs are bitwise
+    equal (no atomics, fixed orders)."""
+    q = _randn((1, 8, 1000, 128), torch.bfloat16, cuda, 30)
+    k = _randn((1, 2, 1000, 128), torch.bfloat16, cuda, 31)
+    v = _randn((1, 2, 1000, 128), torch.bfloat16, cuda, 32)
+    assert torch.equal(ops.flash_attention(q, k, v), ops.flash_attention(q, k, v))
+    state = _plain_carry(1, 8, 1000, 128, cuda)
+    kw = dict(q_offset=1000, k_offset=0, causal=True)
+    first = ops.flash_attention_carry(q, k, v, tuple(t.clone() for t in state), **kw)
+    second = ops.flash_attention_carry(q, k, v, tuple(t.clone() for t in state), **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    kc = _randn((4, 2, 700, 128), torch.bfloat16, cuda, 33)
+    vc = _randn((4, 2, 700, 128), torch.bfloat16, cuda, 34)
+    lens = torch.tensor([700, 1, 0, 350], dtype=torch.int32, device=cuda)
+    qd = _randn((4, 8, 1, 128), torch.bfloat16, cuda, 35)
+    assert torch.equal(ops.flash_decode(qd, kc, vc, lens), ops.flash_decode(qd, kc, vc, lens))
+    torch.cuda.synchronize()
+
+
+def test_attention_kernel_error_against_float64(cuda):
+    """bf16 inputs, 1024 tokens, causal: the float32 acc / l of one carry
+    step over every key (the forward kernel's arithmetic before its bf16
+    output) is within 10x the plain version's error against float64 (p @ v
+    in two bf16 pieces; one piece would be far over)."""
+    Hq, G, S, D = 4, 2, 1024, 128
+    q = _randn((1, Hq, S, D), torch.bfloat16, cuda, 36)
+    k = _randn((1, G, S, D), torch.bfloat16, cuda, 37)
+    v = _randn((1, G, S, D), torch.bfloat16, cuda, 38)
+    mask = torch.ones((S, S), dtype=torch.bool, device=cuda).tril()
+    rep = Hq // G
+    s = (q.double() @ k.double().repeat_interleave(rep, 1).transpose(-1, -2)) * D ** -0.5
+    p = torch.softmax(torch.where(mask, s, torch.full_like(s, -1e30)), dim=-1)
+    exact = p @ v.double().repeat_interleave(rep, 1)
+    kernel = _normalized(ops.flash_attention_carry(q, k, v, None, causal=True))
+    plain = _normalized(ops.flash_attention_carry(q, k, v, None, causal=True, impl="ref"))
+    torch.cuda.synchronize()
+    err = (kernel.double() - exact).abs().max().item()
+    plain_err = (plain.double() - exact).abs().max().item()
+    assert err <= 10 * plain_err, (err, plain_err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_carry_chain_over_1024_key_chunks_is_bitwise(cuda, dtype):
+    """The ring's chunks start at multiples of 1024, a multiple of the
+    64-key tile: three carry steps give the single-shot kernel's bits."""
+    q = _randn((1, 6, 3072, 128), dtype, cuda, 39)
+    k = _randn((1, 2, 3072, 128), dtype, cuda, 40)
+    v = _randn((1, 2, 3072, 128), dtype, cuda, 41)
+    carry = None
+    for c in range(3):
+        blk = slice(c * 1024, (c + 1) * 1024)
+        carry = ops.flash_attention_carry(q, k[:, :, blk], v[:, :, blk], carry, k_offset=c * 1024,
+                                          causal=True)
+    chained = _normalized(carry).to(dtype)
+    single = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(chained, single)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_carry_chain_off_the_key_tile_is_close(cuda, dtype):
+    """Chunks starting at 0, 1000 and 2000 (not multiples of 64): the tiles
+    fall elsewhere, so the chain is only within tolerance of the single-shot
+    kernel, not bitwise."""
+    q = _randn((1, 6, 3000, 128), dtype, cuda, 42)
+    k = _randn((1, 2, 3000, 128), dtype, cuda, 43)
+    v = _randn((1, 2, 3000, 128), dtype, cuda, 44)
+    carry = None
+    for c in range(3):
+        blk = slice(c * 1000, (c + 1) * 1000)
+        carry = ops.flash_attention_carry(q, k[:, :, blk], v[:, :, blk], carry, k_offset=c * 1000,
+                                          causal=True)
+    chained = _normalized(carry).to(dtype)
+    single = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(chained, single, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_cuda_on_a_stacked_cache_that_blocks_do_not_divide(cuda, dtype):
+    """A layer slice of an (L, B, G, T, D) cache with T = 4000 (512-key
+    blocks, the last 416 keys), lengths 4000, 3999, 512 and an idle slot."""
+    L, B, Hq, G, T, D = 2, 4, 24, 8, 4000, 128
+    cache = _randn((2 * L, B, G, T, D), dtype, cuda, 45)
+    q = _randn((B, Hq, 1, D), dtype, cuda, 46)
+    lens = torch.tensor([4000, 3999, 512, 0], dtype=torch.int32, device=cuda)
+    got = ops.flash_decode(q, cache[1], cache[L + 1], lens, block=512)
+    torch.cuda.synchronize()
+    want = ops.flash_decode(q, cache[1], cache[L + 1], lens, block=512, impl="ref")
+    torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_flash_decode_smem_bytes_matches_the_library(cuda):
+    """The wrapper's planning formula is the library's own."""
+    lib = fd.load_library()
+    for D in (64, 128):
+        for tr in (1, 4):
+            for bk in (32, 128, 300, 512, 1024, 4096):
+                assert fd.smem_bytes(D, tr, bk) == lib.flash_decode_smem_bytes(D, tr, bk)
