@@ -27,6 +27,18 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   kernels run, the float32 bound beside it), plain versions and
   ``scaled_dot_product_attention`` (on float32 upcasts, and on the bf16
   tensors as a speed yardstick);
+* tensor-parallel serving at phi4-mini's full width: the same 8 requests
+  through ``Engine(mesh=..., microbatches=2)`` on a one-rank NCCL
+  ``(data, model)`` mesh (``flash_decode`` launched ``n_layers x
+  microbatches`` times a decode step, counted), greedy tokens held against
+  the single-host kernel run except at its near ties, decode tok/s and a
+  decode step's host and device ms beside the single-host step's; 4
+  decode steps of the blocking TP step bitwise equal to the double-buffered
+  one; and ``flash_decode`` at one rank's shapes under a model axis of 2
+  and 4 (12 heads over 4 KV groups, 6 over 2; one microbatch's 2 slots, on
+  views of a whole cache) against its plain version, timed beside its
+  bound and ``scaled_dot_product_attention``.  One card gives the model
+  axis one rank: no reduction crosses a process;
 * the sequence-parallel ring's kernel work at phi4-mini's full width: every
   (rank, step) carry call of a 4-rank ring over 4096 tokens and over a
   ragged 4095 (the schedule of ``_ring_attention_local``, through its own
@@ -88,6 +100,8 @@ DEVICE = "cuda"
 ARCH, SEQ = "phi4-mini-3.8b", 4096  # the forward's model and length
 SLOTS, MAX_LEN, REQUESTS, NEW_TOKENS = 4, 4096, 8, 32  # the serving run
 PROMPT_LENS = (128, 2049)  # seeded prompt lengths: [low, high)
+TP_MICROBATCHES = 2  # microbatches of the TP serving run's decode steps
+TP_SHARD_MODEL_AXES = (2, 4)  # model axes whose per-rank decode shapes are held and timed
 DECODE_LENS = (1, 700, 2049, 4096)  # per-slot cache lengths of the timed decode step
 # bf16 logits of the kernel path against the plain path, 32 layers deep: the
 # attention outputs may round one bf16 ulp apart, and the residual stream
@@ -569,16 +583,18 @@ def serve_prompts(cfg) -> list[list[int]]:
             for _ in range(REQUESTS)]
 
 
-def serve_full_width(cfg, params, Engine, ServeConfig, fd) -> dict:
+def serve_full_width(cfg, params, Engine, ServeConfig, fd) -> tuple[dict, dict]:
     """8 requests (seeded prompts of 128-2048 tokens, 32 new tokens each) on
     4 slots at max_len 4096, through the kernel and through the plain
-    version; greedy tokens compared where the plain run is not a near tie."""
+    version; greedy tokens compared where the plain run is not a near tie.
+    Returns the phase's numbers and the kernel run (its outputs, top-2 gaps
+    and step stats: what the TP serving run is held against)."""
     requests = serve_prompts(cfg)
     scfg = ServeConfig(max_len=MAX_LEN, batch_slots=SLOTS, eos_token=-1)
     runs = {}
     for impl in ("cuda", "ref"):
         engine = Engine(dataclasses.replace(cfg, attn_impl=impl), params, scfg)
-        stats = _instrument(engine, record_gaps=impl == "ref", fd=fd)
+        stats = _instrument(engine, record_gaps=True, fd=fd)
         for rid, prompt in enumerate(requests):
             engine.submit(rid, prompt, NEW_TOKENS)
         fd.flash_decode_cuda.launches = 0
@@ -608,20 +624,8 @@ def serve_full_width(cfg, params, Engine, ServeConfig, fd) -> dict:
                       for i in p["prefill"])
     if prefill_err > LOGIT_TOL:
         raise AssertionError(f"first prefill logits kernel vs plain: {prefill_err} > {LOGIT_TOL}")
-    agree, total, near_ties = 0, 0, []
-    for rid, prompt in enumerate(requests):
-        new_k, new_p = k["done"][rid][len(prompt):], p["done"][rid][len(prompt):]
-        total += NEW_TOKENS
-        for j, (a, b) in enumerate(zip(new_k, new_p)):
-            if a == b:
-                agree += 1
-                continue
-            gap = p["stats"]["gaps"][(rid, len(prompt) + j)]
-            if gap > LOGIT_TOL:
-                raise AssertionError(f"request {rid} token {j}: kernel {a} vs plain {b} with a "
-                                     f"plain top-2 gap of {gap} > {LOGIT_TOL}")
-            near_ties.append({"request": rid, "token": j, "plain_top2_gap": gap})
-            break  # past a divergence the two runs continue different texts
+    agree, near_ties = greedy_agreement(requests, k["done"], p["done"], p["stats"]["gaps"],
+                                        "kernel", "plain")
     st = k["stats"]
     out = dict(requests=REQUESTS, slots=SLOTS, max_len=MAX_LEN, new_tokens=NEW_TOKENS,
                prompt_lens=[len(r) for r in requests], steps=k["steps"],
@@ -630,9 +634,29 @@ def serve_full_width(cfg, params, Engine, ServeConfig, fd) -> dict:
                decode_s=st["decode_s"], decode_tok_s=REQUESTS * NEW_TOKENS / st["decode_s"],
                wall_s=k["wall"], peak_kv_occupancy=st["peak_occupancy"],
                plain_wall_s=p["wall"], first_prefill_logits_max_abs_err=prefill_err,
-               tol=LOGIT_TOL, greedy_agreement=agree / total, divergences_at_near_ties=near_ties)
+               tol=LOGIT_TOL, greedy_agreement=agree, divergences_at_near_ties=near_ties)
     phase("serve", arch=cfg.name, **out)
-    return out
+    return out, k
+
+
+def greedy_agreement(requests, got, want, gaps, got_name: str, want_name: str):
+    """Share of generated tokens of ``got`` equal to ``want``'s, request for
+    request up to the first divergence, and the divergences: each must fall
+    where ``want``'s top-2 logit gap is at most LOGIT_TOL (a near tie), else
+    the run fails.  Past a divergence the two runs continue different texts."""
+    agree, near_ties = 0, []
+    for rid, prompt in enumerate(requests):
+        for j, (a, b) in enumerate(zip(got[rid][len(prompt):], want[rid][len(prompt):])):
+            if a == b:
+                agree += 1
+                continue
+            gap = gaps[(rid, len(prompt) + j)]
+            if gap > LOGIT_TOL:
+                raise AssertionError(f"request {rid} token {j}: {got_name} {a} vs {want_name} "
+                                     f"{b} with a {want_name} top-2 gap of {gap} > {LOGIT_TOL}")
+            near_ties.append({"request": rid, "token": j, f"{want_name}_top2_gap": gap})
+            break
+    return agree / (len(requests) * NEW_TOKENS), near_ties
 
 
 def profile_lm(cfg, params, lm, Engine, ServeConfig) -> None:
@@ -672,35 +696,37 @@ def by_kind(times: dict[str, float]) -> dict[str, float]:
     return out
 
 
-def breakdown_lm(cfg, params, lm, Engine, ServeConfig) -> None:
-    """Where the time goes at full width: for one forward of 4096 tokens and
-    for steady decode steps of the serving run's first batch, the host-clock
-    time of a step, the device time by kind, the kernels launched and the
-    device's idle share.  Each window runs once unprofiled (for the clock)
-    and once under the profiler (for the device times)."""
+def window(fn, n: int) -> dict:
+    """``n`` calls of ``fn`` once unprofiled (the host clock per call) and
+    once under the profiler (device time per call, by kind and by kernel,
+    kernels launched, and the device's idle share of the host time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    def window(fn, n: int) -> dict:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        times = device_kernel_ms(prof)
-        launches = sum(1 for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        busy = sum(times.values()) / n
-        top = sorted(times.items(), key=lambda kv: -kv[1])[:5]
-        return dict(wall_ms=wall, device_ms=busy, idle_share=1 - busy / wall,
-                    kernels_launched=launches / n,
-                    device_ms_by_kind={k: v / n for k, v in by_kind(times).items()},
-                    top_kernels=[(name[:80], ms / n) for name, ms in top])
+    times = device_kernel_ms(prof)
+    launches = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy = sum(times.values()) / n
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:5]
+    return dict(wall_ms=wall, device_ms=busy, idle_share=1 - busy / wall,
+                kernels_launched=launches / n,
+                device_ms_by_kind={k: v / n for k, v in by_kind(times).items()},
+                top_kernels=[(name[:80], ms / n) for name, ms in top])
 
+
+def breakdown_lm(cfg, params, lm, Engine, ServeConfig) -> dict:
+    """Where the time goes at full width: for one forward of 4096 tokens and
+    for steady decode steps of the serving run's first batch, the host-clock
+    time of a step, the device time by kind, the kernels launched and the
+    device's idle share (:func:`window`).  Returns the decode window."""
     g = torch.Generator(device=DEVICE).manual_seed(0)
     tokens = torch.randint(0, cfg.vocab, (1, SEQ), device=DEVICE, generator=g)
     fwd = window(lambda: lm.forward(params, {"tokens": tokens}, cfg), 2)
@@ -716,6 +742,151 @@ def breakdown_lm(cfg, params, lm, Engine, ServeConfig) -> None:
           cache_lens=list(engine.ledger.lengths), **dec)
     del engine
     torch.cuda.empty_cache()
+    return dec
+
+
+def tp_engine(cfg, params, Engine, ServeConfig, mesh, prompts):
+    """The TP serving engine on ``mesh`` with ``prompts`` submitted."""
+    engine = Engine(cfg, params, ServeConfig(max_len=MAX_LEN, batch_slots=SLOTS, eos_token=-1),
+                    mesh=mesh, microbatches=TP_MICROBATCHES)
+    for rid, prompt in enumerate(prompts):
+        engine.submit(rid, prompt, NEW_TOKENS)
+    return engine
+
+
+def serve_tp(cfg, params, Engine, ServeConfig, fd, mesh, single: dict, single_dec: dict) -> dict:
+    """``tp_serve``: the serving run's 8 requests on 4 slots through the
+    tensor-parallel decode step (``microbatches=2``) on a one-rank NCCL
+    ``(data, model)`` mesh: every request finishes, ``flash_decode``
+    launches ``n_layers`` times a prefill chunk and ``n_layers x
+    microbatches`` times a decode step, and the greedy tokens equal the
+    single-host kernel run's (``single``) except at its near ties.  Then
+    decode tok/s and a steady decode step's host and device ms
+    (:func:`window`) beside the single-host run's (``single_dec``)."""
+    requests = serve_prompts(cfg)
+    engine = tp_engine(cfg, params, Engine, ServeConfig, mesh, requests)
+    stats = _instrument(engine, record_gaps=False, fd=fd)
+    fd.flash_decode_cuda.launches = 0
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fd.flash_decode_cuda.launches
+    if sorted(done) != list(range(REQUESTS)) or any(
+            len(done[r]) != len(requests[r]) + NEW_TOKENS for r in range(REQUESTS)):
+        raise AssertionError(f"tp_serve: not every request finished with {NEW_TOKENS} tokens")
+    by_kind = {"prefill": cfg.n_layers * engine.steps["prefill"],
+               "decode": cfg.n_layers * TP_MICROBATCHES * engine.steps["decode"]}
+    if stats["launches"] != by_kind or launches != sum(by_kind.values()):
+        raise AssertionError(f"tp_serve: flash_decode launches {stats['launches']} (total "
+                             f"{launches}) != {by_kind}")
+    agree, near_ties = greedy_agreement(requests, done, single["done"], single["stats"]["gaps"],
+                                        "tp", "single_host")
+    steps = dict(engine.steps)
+    del engine
+    torch.cuda.empty_cache()
+    # a steady decode step of the first batch, as breakdown_lm's single-host window
+    engine = tp_engine(cfg, params, Engine, ServeConfig, mesh, requests[:SLOTS])
+    engine._fill_slots()
+    engine._decode_once()
+    dec = window(engine._decode_once, 8)
+    del engine
+    torch.cuda.empty_cache()
+    out = dict(mesh=dict(mesh.shape), microbatches=TP_MICROBATCHES, requests=REQUESTS,
+               slots=SLOTS, max_len=MAX_LEN, new_tokens=NEW_TOKENS, steps=steps,
+               flash_decode_launches=launches, flash_decode_launches_by_kind=stats["launches"],
+               flash_decode_launches_per_decode_step=stats["launches"]["decode"] / steps["decode"],
+               prefill_s=stats["prefill_s"], decode_s=stats["decode_s"],
+               decode_tok_s=REQUESTS * NEW_TOKENS / stats["decode_s"], wall_s=wall,
+               single_host_decode_tok_s=REQUESTS * NEW_TOKENS / single["stats"]["decode_s"],
+               single_host_wall_s=single["wall"], decode_step=dec,
+               single_host_decode_step={k: single_dec[k] for k in
+                                        ("wall_ms", "device_ms", "idle_share", "kernels_launched")},
+               greedy_agreement_with_single_host=agree, divergences_at_near_ties=near_ties,
+               tol=LOGIT_TOL)
+    phase("tp_serve", arch=cfg.name, **out)
+    return out
+
+
+def check_tp_blocking(cfg, params, Engine, ServeConfig, mesh, make_tp_decode_step,
+                      steps: int = 4) -> None:
+    """``tp_blocking``: from one state after a prefill (3 of the 4 slots
+    resident, one idle), ``steps`` greedy decode steps of the blocking TP
+    step equal the double-buffered step's bitwise: every step's logits, the
+    caches, lengths and positions."""
+    engine = tp_engine(cfg, params, Engine, ServeConfig, mesh, serve_prompts(cfg)[:SLOTS - 1])
+    engine._fill_slots()
+    base = engine.state
+    active = torch.tensor([s.request_id is not None for s in engine.slots], device=DEVICE)
+    first = torch.tensor([[s.tokens[-1] if s.request_id is not None else 0]
+                          for s in engine.slots], device=DEVICE)
+    runs = {}
+    for db in (True, False):
+        step = make_tp_decode_step(cfg, mesh, slots=SLOTS, microbatches=TP_MICROBATCHES,
+                                   double_buffer=db)
+        state = type(base)(caches=type(base.caches)(*(t.clone() for t in base.caches)),
+                           positions=base.positions.clone())
+        tokens, logits = first, []
+        for _ in range(steps):
+            out, state = step(engine.tp_params, state, {"tokens": tokens}, active)
+            logits.append(out)
+            tokens = out[:, -1:, :cfg.vocab].argmax(dim=-1)
+        runs[db] = dict(logits=torch.stack(logits), k=state.caches.k, v=state.caches.v,
+                        length=state.caches.length, positions=state.positions)
+    torch.cuda.synchronize()
+    differ = [name for name in runs[True] if not torch.equal(runs[True][name], runs[False][name])]
+    if differ:
+        raise AssertionError(f"tp decode: blocking != double-buffered in {differ}")
+    if not torch.isfinite(runs[True]["logits"]).all():
+        raise AssertionError("tp decode: logits not finite")
+    phase("tp_blocking", steps=steps, active_slots=int(active.sum()),
+          db_equals_blocking="bitwise", compared=sorted(runs[True]))
+    del engine, runs
+    torch.cuda.empty_cache()
+
+
+def tp_shard_decode(ops, card: str) -> dict:
+    """``tp_shard``: ``flash_decode`` at one rank's shapes of a TP decode
+    step under a model axis of M = 2 and M = 4 (phi4-mini's 24 query heads
+    over 8 KV groups cut to 24/M over 8/M; one microbatch's 2 slots, cache
+    lengths 2049 and 4096 of 4096), on views of a whole cache as the TP
+    step makes them (the last rank's groups of the second microbatch's
+    rows), against the plain version, and timed beside its bound, the plain
+    version and ``scaled_dot_product_attention``."""
+    rows = {}
+    B, S, T, D = SLOTS // TP_MICROBATCHES, 1, MAX_LEN, 128
+    lens = DECODE_LENS[2:]
+    for M in TP_SHARD_MODEL_AXES:
+        Hq, G = 24 // M, 8 // M
+        q = randn((B, Hq, S, D), torch.bfloat16, 110 + M)
+        rows_mb = slice(SLOTS - B, SLOTS)
+        groups = slice(8 - G, 8)
+        kc = randn((SLOTS, 8, T, D), torch.bfloat16, 120 + M)[rows_mb, groups]
+        vc = randn((SLOTS, 8, T, D), torch.bfloat16, 130 + M)[rows_mb, groups]
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        got = ops.flash_decode(q, kc, vc, lens_t)
+        torch.cuda.synchronize()
+        want = ops.flash_decode(q, kc, vc, lens_t, impl="ref")
+        tol = ATTN_TOL[torch.bfloat16]
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        err = (got.float() - want.float()).abs().max().item()
+        mask = torch.arange(T, device=DEVICE)[None, None, None, :] < lens_t[:, None, None, None]
+        qf, kf, vf = q.float(), kc.float(), vc.float()
+        t = time_three(lambda: ops.flash_decode(q, kc, vc, lens_t),
+                       lambda: ops.flash_decode(q, kc, vc, lens_t, impl="ref"),
+                       lambda: library_attention(qf, kf, vf, attn_mask=mask),
+                       lambda: library_attention(q, kc, vc, attn_mask=mask), plain_iters=5)
+        visible = S * sum(min(n, T) for n in lens)
+        kv_bytes = 2 * 2 * G * D * sum(min(n, T) for n in lens)
+        b_ms, b_by, fp32_ms = attn_bound(4 * Hq * visible * D, kv_bytes + 2 * 2 * q.numel())
+        rows[M] = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by, fp32_bound_ms=fp32_ms, **t)
+        check_bound(f"flash_decode tp shard M={M}", rows[M])
+        phase("tp_shard", kernel="flash_decode", model_axis=M, shape=(B, Hq, G, S, T, D),
+              lens=lens, strides=tuple(kc.stride()), dtype="bfloat16", tol=tol, card=card,
+              **rows[M])
+        del q, kc, vc, qf, kf, vf, got, want
+    torch.cuda.empty_cache()
+    return rows
 
 
 def library_attention(q, k, v, **kw):
@@ -1138,6 +1309,7 @@ def main() -> int:
     from repro_torch.models.sharding import ragged_seq_extents
     from repro_torch.models.weights import cast_params
     from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.tp_decode import make_tp_decode_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1246,18 +1418,28 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 8: serving at full width
-    srv = serve_full_width(cfg, params, Engine, ServeConfig, fd)
+    srv, single = serve_full_width(cfg, params, Engine, ServeConfig, fd)
     torch.cuda.empty_cache()
 
     # phase 9: the LM path's kernels under the profiler
     profile_lm(cfg, params, lm, Engine, ServeConfig)
-    breakdown_lm(cfg, params, lm, Engine, ServeConfig)
-    del params
+    single_dec = breakdown_lm(cfg, params, lm, Engine, ServeConfig)
+
+    # phase 9b: tensor-parallel serving on a one-rank NCCL (data, model) mesh
+    device = init_world("cuda")
+    try:
+        tp_mesh = make_mesh((1, 1), ("data", "model"), device=device)
+        tp = serve_tp(cfg, params, Engine, ServeConfig, fd, tp_mesh, single, single_dec)
+        check_tp_blocking(cfg, params, Engine, ServeConfig, tp_mesh, make_tp_decode_step)
+    finally:
+        dist.destroy_process_group()
+    del params, single
     torch.cuda.empty_cache()
 
     # phase 10: attention, carry and transpose kernel times
     rows.update(time_attention_kernels(ops, card, fa.P_PIECES))
     torch.cuda.empty_cache()
+    shards = tp_shard_decode(ops, card)
     rows.update(time_ring_kernels(ops, card, ring_step_offsets, fa.P_PIECES))
 
     gemm_src = "src/repro_torch/kernels/csrc/gemm.cu"
@@ -1278,9 +1460,14 @@ def main() -> int:
                    "replaces": "src/repro/kernels/flash_decode.py:71",
                    "launches": srv["flash_decode_launches"],
                    "launches_by_kind": srv["flash_decode_launches_by_kind"],
+                   "tp_serve_launches": tp["flash_decode_launches"],
+                   "tp_serve_launches_by_kind": tp["flash_decode_launches_by_kind"],
                    "max_abs_err": worst["flash_decode"], **rows[("flash_decode", "decode")],
                    **{f"prefill_chunk_{key}": prefill[key]
                       for key in ("ms", "bound_ms", "bound_by", "fp32_bound_ms", "plain_ms",
+                                  "library_ms", "library_bf16_ms")},
+                   **{f"tp_shard_m{M}_{key}": shards[M][key] for M in TP_SHARD_MODEL_AXES
+                      for key in ("ms", "max_abs_err", "bound_ms", "bound_by", "plain_ms",
                                   "library_ms", "library_bf16_ms")}})
     report.append({"name": "flash_attention_carry", "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -61,6 +61,11 @@ from .dist import (DistTraverser, Mesh, init_world, make_mesh, mpi_cart_traverse
                    mpi_traverser, resolve_device)
 from .collectives import (
     DistBag,
+    all_gather_bag,
+    all_gather_dist,
+    all_gather_start,
+    all_reduce_bag,
+    all_reduce_start,
     broadcast,
     dist_full,
     gather,
@@ -77,7 +82,7 @@ from .collectives import (
 )
 from .plan import CommPlan, bucket, dispatch, halo, intent_of, pipeline, ring, stagger
 from .p2p import (permute, permute_start, ring_shift, ring_shift_start, shard_all_gather_start,
-                  shard_ring_shift, shard_ring_shift_start, wait)
+                  shard_all_reduce_start, shard_ring_shift, shard_ring_shift_start, wait)
 
 __all__ = [
     "LayoutError", "ceil_div", "common_refinement", "ragged_split",
@@ -91,10 +96,11 @@ __all__ = [
     "Pending", "wait_all",
     "DistTraverser", "Mesh", "init_world", "make_mesh", "mpi_cart_traverser", "mpi_traverser",
     "resolve_device",
-    "DistBag", "broadcast", "dist_full", "gather", "gatherv_bag", "grid_extents", "rank_map",
-    "reduce_identity", "reduce_scatter_bag", "reduce_scatter_start", "reduce_scatterv_bag",
-    "reduce_scatterv_start", "scatter", "scatterv_bag",
+    "DistBag", "all_gather_bag", "all_gather_dist", "all_gather_start", "all_reduce_bag",
+    "all_reduce_start", "broadcast", "dist_full", "gather", "gatherv_bag", "grid_extents",
+    "rank_map", "reduce_identity", "reduce_scatter_bag", "reduce_scatter_start",
+    "reduce_scatterv_bag", "reduce_scatterv_start", "scatter", "scatterv_bag",
     "CommPlan", "bucket", "dispatch", "halo", "intent_of", "pipeline", "ring", "stagger",
     "permute", "permute_start", "ring_shift", "ring_shift_start", "shard_all_gather_start",
-    "shard_ring_shift", "shard_ring_shift_start", "wait",
+    "shard_all_reduce_start", "shard_ring_shift", "shard_ring_shift_start", "wait",
 ]

@@ -27,11 +27,12 @@ coordinates.  A communicator of one process moves no data through
 
 Non-blocking collectives
 ------------------------
-``reduce_scatter_start`` and ``reduce_scatterv_start`` issue the operation
-with ``async_op=True`` and return a :class:`repro_torch.core.request.Pending`
-immediately; compute issued between start and
-:meth:`~repro_torch.core.request.Pending.wait` overlaps the transfer.  The
-blocking collectives are literally ``*_start(...).wait()``.
+``all_gather_start``, ``all_reduce_start``, ``reduce_scatter_start`` and
+``reduce_scatterv_start`` issue the operation with ``async_op=True`` and
+return a :class:`repro_torch.core.request.Pending` immediately; compute
+issued between start and :meth:`~repro_torch.core.request.Pending.wait`
+overlaps the transfer.  The blocking collectives are literally
+``*_start(...).wait()``.
 
 Ragged distribution (the MPI v-collectives)
 -------------------------------------------
@@ -50,7 +51,10 @@ prefix sum of the preceding ranks' extents along the rank dim that owns
 MPI                      repro_torch.core
 =======================  ====================================================
 ``MPI_Scatter``          :func:`scatter` (root = communicator rank 0)
-``MPI_Allgather``        :func:`gather` (the root bag lands on every rank)
+``MPI_Allgather``        :func:`all_gather_bag` / :func:`all_gather_dist` /
+                         ``_start`` (a receive layout per rank);
+                         :func:`gather` (the root bag on every rank)
+``MPI_Allreduce``        :func:`all_reduce_bag` / ``_start``
 ``MPI_Bcast``            :func:`broadcast`
 ``MPI_Reduce_scatter``   :func:`reduce_scatter_bag` / ``_start``
 ``MPI_Scatterv``         :func:`scatterv_bag` (extents = counts)
@@ -82,6 +86,11 @@ __all__ = [
     "scatter",
     "gather",
     "broadcast",
+    "all_gather_start",
+    "all_gather_dist",
+    "all_gather_bag",
+    "all_reduce_start",
+    "all_reduce_bag",
     "reduce_scatter_bag",
     "reduce_scatter_start",
     "grid_extents",
@@ -575,6 +584,130 @@ def dist_full(
     data = torch.full(tile_layout.shape, fill, dtype=torch_dtype(tile_layout.dtype),
                       device=dt.mesh.device)
     return DistBag(data, tile_layout, dt, rank_dims)
+
+
+# -----------------------------------------------------------------------------
+# all-gather and all-reduce (MPI_Allgather / MPI_Allreduce)
+# -----------------------------------------------------------------------------
+def all_gather_start(
+    dist_bag: DistBag,
+    root_layout: Layout | Sequence[Layout],
+    *,
+    rank_dim: str | Sequence[str] | None = None,
+) -> Pending:
+    """Non-blocking all-gather (``MPI_Iallgather``): issue the transfer and
+    return a :class:`Pending` whose :meth:`~Pending.wait` hands back a
+    :class:`DistBag` in which every rank of the ``rank_dim`` communicator
+    holds the full gathered structure in its destination layout.
+
+    ``root_layout`` is one layout (every rank declares the same destination)
+    or a sequence of per-rank layouts over the same index space and physical
+    shape (1-D communicators only), indexed by the communicator rank: each
+    rank unpacks the landed tiles into its own.  The bag keeps its full grid
+    distribution: ranks outside ``rank_dim`` hold independent
+    (sub-communicator) results."""
+    rank_dims = _as_rank_dims(dist_bag.dt, rank_dim) if rank_dim is not None \
+        else dist_bag.rank_dims
+    for d in rank_dims:
+        if d not in dist_bag.rank_dims:
+            raise LayoutError(f"bag is not distributed over {d!r} (has {dist_bag.rank_dims})")
+    _require_dense(dist_bag, "all_gather")
+    layouts = [root_layout] if isinstance(root_layout, Layout) else list(root_layout)
+    if len(layouts) > 1 and len(rank_dims) != 1:
+        raise LayoutError("per-rank all_gather layouts need a 1-D communicator")
+    group, members = dist_bag.dt.communicator(rank_dims)
+    if len(layouts) not in (1, len(members)):
+        raise LayoutError(
+            f"all_gather: got {len(layouts)} destination layouts for comm size {len(members)}"
+        )
+    for lay in layouts:
+        _check_scatter_spaces(lay, dist_bag.tile_layout, dist_bag.dt, rank_dims)
+        if lay.shape != layouts[0].shape:
+            raise LayoutError(
+                f"per-rank all_gather layouts must share one physical shape: "
+                f"{lay.shape} != {layouts[0].shape}"
+            )
+    mine = layouts[0] if len(layouts) == 1 else layouts[dist_bag.dt.coord(rank_dims[0])]
+    xfer = _transfer_layout(dist_bag.tile_layout, _all_leaves(dist_bag.dt, rank_dims))
+    tile = dist_bag.data.contiguous()
+    landed = torch.empty((len(members) * tile.numel(),), dtype=tile.dtype, device=tile.device)
+    works = []
+    if len(members) == 1:
+        landed.copy_(tile.view(-1))
+    else:  # flat buffers: the landed tiles in communicator order
+        works.append(dist.all_gather_into_tensor(landed, tile.view(-1), group=group,
+                                                 async_op=True))
+
+    def finish():
+        data = relayout(landed.reshape(xfer.shape), xfer, mine)
+        return DistBag(data, mine, dist_bag.dt, dist_bag.rank_dims)
+
+    return Pending(finish, works, op="all_gather")
+
+
+def all_gather_dist(
+    dist_bag: DistBag,
+    root_layout: Layout | Sequence[Layout],
+    *,
+    rank_dim: str | Sequence[str] | None = None,
+) -> DistBag:
+    """Blocking all-gather returning the per-rank receive buffers as a
+    :class:`DistBag` (``all_gather_start(...).wait()``)."""
+    return all_gather_start(dist_bag, root_layout, rank_dim=rank_dim).wait()
+
+
+def all_gather_bag(dist_bag: DistBag, root_layout: Layout) -> Bag:
+    """Every rank ends with the full structure in ``root_layout``, moved by
+    one ``all_gather`` over the whole communicator grid and unpacked on the
+    receive side (:func:`gather` stays as the oracle)."""
+    return Bag(all_gather_dist(dist_bag, root_layout).data, root_layout)
+
+
+def all_reduce_start(
+    dist_bag: DistBag,
+    op: str = "add",
+    *,
+    rank_dim: str | None = None,
+    out_tile_layout: Layout | None = None,
+) -> Pending:
+    """Non-blocking all-reduce (``MPI_Iallreduce``): issue the reduction and
+    return a :class:`Pending` immediately (see :func:`all_reduce_bag`)."""
+    rank_dim = _check_rank_dim(dist_bag, rank_dim)
+    out_layout = out_tile_layout or dist_bag.tile_layout
+    check_same_space(dist_bag.tile_layout.index_space(), out_layout.index_space(),
+                     what="all_reduce")
+    _uniform_extents_along(dist_bag, rank_dim, "all_reduce")
+    if dist_bag.extents is not None:
+        check_ragged_dims(dist_bag.tile_layout, out_layout, dist_bag.ragged_dims(),
+                          what="all_reduce")
+    red_op = _resolve_reduce(op)
+    group, members = dist_bag.dt.communicator((rank_dim,))
+    R = len(members)
+    # the send datatype: pack into the output layout before the transfer
+    buf = relayout(dist_bag.data, dist_bag.tile_layout, out_layout).clone(
+        memory_format=torch.contiguous_format)
+    works = [dist.all_reduce(buf, op=red_op, group=group, async_op=True)] if R > 1 else []
+
+    def finish():
+        y = buf / R if op == "mean" else buf
+        return DistBag(y, out_layout, dist_bag.dt, dist_bag.rank_dims, extents=dist_bag.extents)
+
+    return Pending(finish, works, op="all_reduce")
+
+
+def all_reduce_bag(
+    dist_bag: DistBag,
+    op: str = "add",
+    *,
+    rank_dim: str | None = None,
+    out_tile_layout: Layout | None = None,
+) -> DistBag:
+    """Reduce tiles elementwise across the ``rank_dim`` communicator; every
+    rank of that communicator ends with the same reduced tile
+    (``MPI_Allreduce``).  ``out_tile_layout`` may differ from the input tile
+    layout: the tile is packed into it before the transfer."""
+    return all_reduce_start(dist_bag, op, rank_dim=rank_dim,
+                            out_tile_layout=out_tile_layout).wait()
 
 
 # -----------------------------------------------------------------------------

@@ -33,9 +33,12 @@ Shard-level forms
 The model stack works on plain per-rank tensors, not bags: the
 sequence-parallel ring attention rotates its KV block along the ``model``
 axis of a :class:`~repro_torch.core.dist.Mesh`.  :func:`shard_ring_shift`,
-:func:`shard_ring_shift_start` and :func:`shard_all_gather_start` take a
-tensor or a tuple of tensors and one named mesh axis; the axis's process
-group is the communicator.  On an axis of one rank they move nothing.
+:func:`shard_ring_shift_start`, :func:`shard_all_gather_start` and
+:func:`shard_all_reduce_start` take a tensor or a tuple of tensors and one
+named mesh axis; the axis's process group is the communicator.  On an axis
+of one rank they move nothing.  The tensor-parallel decode step issues one
+:func:`shard_all_reduce_start` (``MPI_Iallreduce``) per microbatch and block
+stage, and completes it behind the next microbatch's compute.
 
 Ragged bags move at their padded *capacity* (the uniform wire datatype); the
 per-rank valid extents ride the request object's result bag, and a transfer
@@ -65,6 +68,7 @@ __all__ = [
     "shard_ring_shift",
     "shard_ring_shift_start",
     "shard_all_gather_start",
+    "shard_all_reduce_start",
     "wait",
 ]
 
@@ -294,3 +298,19 @@ def shard_all_gather_start(x, axis_name: str, *, mesh, axis: int = 0) -> Pending
         return type(x)(out) if is_seq else out[0]
 
     return Pending(finish, works, op="all_gather")
+
+
+def shard_all_reduce_start(x, axis_name: str, *, mesh) -> Pending:
+    """Issue ``MPI_Iallreduce`` (sum) of ``x`` (a tensor or a tuple of them)
+    over mesh axis ``axis_name`` and return a :class:`Pending` whose
+    ``wait`` gives the sums, in ``x``'s structure.  ``x`` is not modified:
+    the reduction runs in a copy.  On an axis of one rank nothing moves and
+    ``wait`` gives ``x`` itself.  On NCCL, ``wait`` orders the current
+    stream after the reduction (no host sync)."""
+    leaves, is_seq = _leaves(x)
+    R, _, group, _ = _axis(mesh, axis_name)
+    if R == 1:
+        return Pending(lambda: x, op="all_reduce")
+    bufs = [t.clone(memory_format=torch.contiguous_format) for t in leaves]
+    works = [dist.all_reduce(b, op=dist.ReduceOp.SUM, group=group, async_op=True) for b in bufs]
+    return Pending(lambda: type(x)(bufs) if is_seq else bufs[0], works, op="all_reduce")

@@ -51,6 +51,9 @@ def check_attention(q, k, v) -> tuple[int, int, int, int, int, int]:
     Bk, G, Skv, Dk = k.shape
     if Bk != B or Dk != D or tuple(v.shape[:3]) != (B, G, Skv):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if v.shape[-1] != D:  # a v head dim of its own: ROADMAP.md queue 2, item A
+        raise ValueError(f"v head dim {v.shape[-1]} != q/k head dim {D}: the port takes one "
+                         "head dim for q, k and v")
     if G == 0 or Hq % G:
         raise ValueError(f"Hq={Hq} not a multiple of G={G}")
     return B, Hq, G, Sq, Skv, D

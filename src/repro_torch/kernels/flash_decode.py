@@ -64,6 +64,9 @@ def check_decode(q, k_cache, v_cache, cache_len, q_positions) -> tuple[int, int,
     if Bk != B or Dk != D or tuple(v_cache.shape[:3]) != (B, G, T):
         raise ValueError(f"caches {tuple(k_cache.shape)}, {tuple(v_cache.shape)} do not fit "
                          f"q {tuple(q.shape)}")
+    if v_cache.shape[-1] != D:  # a v head dim of its own: ROADMAP.md queue 2, item A
+        raise ValueError(f"v head dim {v_cache.shape[-1]} != q/k head dim {D}: the port takes "
+                         "one head dim for q, k and v")
     if G == 0 or Hq % G:
         raise ValueError(f"Hq={Hq} not a multiple of G={G}")
     if tuple(cache_len.shape) != (B,):

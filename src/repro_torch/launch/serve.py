@@ -5,11 +5,20 @@ Usage:
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
       --requests 8 --max-new 32 --slots 4 --max-len 4096      # on the GPU
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b --smoke --device cpu
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch phi4-mini-3.8b --smoke --device cpu --grid 2x2   # TP decode, 4 gloo ranks
 
 Runs on the GPU unless given ``--device cpu``, and raises without one.
 Prompts are the reference launcher's (``numpy`` seed 0), so both print the
 same requests.  ``--max-steps`` bounds the decode loop; requests still
 resident when the budget runs out are reported as in-flight.
+
+``--grid DxM`` serves with tensor-parallel decode on a ``(data, model)``
+mesh of D*M ranks, ``--microbatches`` per rank's rows (default 2): start
+D*M processes with ``torchrun`` (gloo with ``--device cpu``, NCCL on the
+GPU, one GPU per rank); without it the world is this one process, so only
+``--grid 1x1`` fits.  Every rank serves the same requests; rank 0 prints.
+The reference's ``--fake-devices`` has no counterpart: use ``torchrun``.
 """
 import argparse
 import sys
@@ -29,12 +38,13 @@ def main(argv=None) -> int:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--grid", default=None, metavar="DxM")
+    ap.add_argument("--microbatches", type=int, default=2)
     ap.add_argument("--fake-devices", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.grid or args.fake_devices:
-        raise NotImplementedError("--grid/--fake-devices (explicit tensor-parallel decode) are "
-                                  "not ported yet: ROADMAP.md queue 1, item 8")
+    if args.fake_devices:
+        raise ValueError("--fake-devices has no counterpart in the port: start one process per "
+                         "rank with torchrun (--nproc-per-node D*M) and pass --grid DxM")
     if args.ckpt_dir:
         raise NotImplementedError("--ckpt-dir (checkpoint restore) is not ported yet: "
                                   "ROADMAP.md queue 1, item 11")
@@ -43,16 +53,23 @@ def main(argv=None) -> int:
     import torch
 
     from repro_torch import configs
-    from repro_torch.core.dist import resolve_device
+    from repro_torch.core.dist import init_world, make_mesh, resolve_device
     from repro_torch.models import lm
     from repro_torch.serve.engine import Engine, ServeConfig
 
     device = resolve_device(args.device)
+    mesh, rank = None, 0
+    if args.grid:
+        device = init_world(device)
+        mesh = make_mesh([int(n) for n in args.grid.lower().split("x")], ("data", "model"),
+                         device=device)
+        rank = mesh.rank
     cfg = configs.get(args.arch, smoke=args.smoke)
     params = lm.init_model(cfg, torch.Generator(device=device).manual_seed(0), device=device)
     scfg = ServeConfig(max_len=args.max_len, batch_slots=args.slots,
                        temperature=args.temperature, eos_token=-1)
-    engine = Engine(cfg, params, scfg)
+    engine = Engine(cfg, params, scfg, mesh=mesh,
+                    microbatches=args.microbatches if mesh is not None else 0)
     del params  # the engine keeps its activation-dtype copy
     rng = np.random.default_rng(0)
     t0 = time.time()
@@ -65,6 +82,12 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    if rank != 0:
+        return 0 if len(done) == args.requests else 1
     for rid in sorted(done):
         print(f"[serve] req {rid}: {done[rid]}")
     for rid, toks in sorted(engine.in_flight.items()):
@@ -73,7 +96,8 @@ def main(argv=None) -> int:
     occ = engine.ledger.valid_fraction()
     print(f"[serve] {len(done)} done / {len(engine.in_flight)} in flight, "
           f"{total_new} tokens requested in {dt:.2f}s "
-          f"({total_new/dt:.1f} tok/s, kv occupancy {occ:.2f}) on {device}")
+          f"({total_new/dt:.1f} tok/s, kv occupancy {occ:.2f}) on {device}"
+          + (f", grid {args.grid} x {args.microbatches} microbatches" if mesh is not None else ""))
     return 0 if len(done) == args.requests else 1
 
 

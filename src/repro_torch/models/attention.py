@@ -26,8 +26,8 @@ contiguous chunk of the sequence, and the KV blocks rotate around the
 ``model`` axis with :func:`repro_torch.core.p2p.shard_ring_shift_start`
 issued *before* each step's local attention and waited after it
 (double-buffered, like the SUMMA ring).  The ring branch of a whole-prompt
-prefill chunk waits for the tensor-parallel decode slice (ROADMAP.md
-queue 1 item 8).
+prefill chunk waits for the GSPMD-form decode slice (ROADMAP.md queue 1
+item 8c).
 
 Rounding.  The reference wraps activation-dtype boundaries in ``pin`` (an
 XLA barrier, ``repro/models/numerics.py``) so that the compiler cannot fold

@@ -11,8 +11,9 @@ Under an active ``sp_ring`` recipe (:mod:`repro_torch.models.sharding`) the
 forward is sequence-parallel: each rank keeps its contiguous, padded chunk
 of the residual stream (and its share of the batch over the ``data``
 axes) through every block, and attention runs as the ``model``-axis ring.
-The decode step and the other recipe modes wait for the tensor-parallel
-decode and training slices (ROADMAP.md queue 1 items 8 and 10).
+The decode step and the other recipe modes wait for the GSPMD-form decode
+and training slices (ROADMAP.md queue 1 items 8c and 10); the explicit
+tensor-parallel decode step is :mod:`repro_torch.serve.tp_decode`.
 """
 from __future__ import annotations
 
@@ -120,7 +121,7 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
     if not recipe.sp_ring:
         raise NotImplementedError(
             f"recipe attn_mode={recipe.attn_mode!r} without the ring: the port applies only "
-            "the sp_ring recipe so far (tensor parallelism: ROADMAP.md queue 1, item 8)")
+            "the sp_ring recipe so far (tensor parallelism: ROADMAP.md queue 1, item 8c)")
     mesh = recipe.mesh
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -182,7 +183,7 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     tensors.  ``prefill`` marks a whole-prompt chunk."""
     if current_recipe() is not None:
         raise NotImplementedError("decode_step under a sharding recipe: ROADMAP.md queue 1, "
-                                  "item 8 (tensor-parallel decode)")
+                                  "item 8c (decode under a recipe)")
     positions = state.positions
     S = batch["tokens"].shape[1]
     pos2d = positions[:, None] + torch.arange(S, dtype=positions.dtype,

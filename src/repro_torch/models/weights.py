@@ -7,18 +7,21 @@ weights.  :func:`cast_params` makes the activation-dtype copy of a
 parameter tree once, at load: every use of a weight in the reference casts
 it with ``.astype(x.dtype)``, which gives the same bits as casting once,
 and casting the full-width float32 weights at every use would move about
-23 GB per decode step.
+23 GB per decode step.  :func:`shard_params` cuts this rank's shard of a
+parameter tree out of the whole tree, following a tree of specs such as
+:func:`repro_torch.serve.tp_decode.tp_decode_specs`'s.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.dims import mixed_radix_join, prod
 from repro_torch.core.dist import resolve_device
 
 from .module import tree_map
 
-__all__ = ["params_from_jax", "cast_params"]
+__all__ = ["params_from_jax", "cast_params", "shard_params"]
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -38,3 +41,31 @@ def params_from_jax(tree, *, device="cuda") -> dict:
 def cast_params(params, dtype: torch.dtype) -> dict:
     """A copy of ``params`` with every floating-point leaf in ``dtype``."""
     return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t, params)
+
+
+def shard_params(params, specs, mesh) -> dict:
+    """This rank's shard of ``params``: each leaf cut along every dim whose
+    spec entry (one per dim, as a ``PartitionSpec``'s: a mesh axis, a tuple
+    of them, or ``None``) names mesh axes, to the block at this process's
+    coordinates.  A leaf the mesh does not cut (every named axis of one
+    rank) is a view of the whole tensor, not a copy; a cut leaf is a
+    contiguous copy of its block."""
+    if isinstance(params, dict):
+        missing = set(params) - set(specs)
+        if missing:
+            raise ValueError(f"no spec for parameters {sorted(missing)}")
+        return {k: shard_params(v, specs[k], mesh) for k, v in params.items()}
+    if len(specs) != params.ndim:
+        raise ValueError(f"spec {specs} does not fit a tensor of shape {tuple(params.shape)}")
+    coords, t = mesh.coords(), params
+    for dim, entry in enumerate(specs):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        n = prod(mesh.shape[a] for a in axes)
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split over {axes} ({n})")
+        size = t.shape[dim] // n
+        t = t.narrow(dim, mixed_radix_join([coords[a] for a in axes],
+                                           [mesh.shape[a] for a in axes]) * size, size)
+    return t.contiguous()

@@ -1,1 +1,2 @@
-"""Single-host continuous-batching serving on the port's model stack."""
+"""Continuous-batching serving on the port's model stack: the engine, its KV
+ledger and the tensor-parallel decode step."""

@@ -1,4 +1,5 @@
-"""Single-host continuous-batching engine on the port's dense model.
+"""Continuous-batching engine on the port's dense model, single-host or
+with tensor-parallel decode.
 
 A fixed pool of batch *slots* shares one KV cache allocation tracked by a
 :class:`repro_torch.serve.kv.KVLedger` (per-request lengths over uniform
@@ -9,13 +10,21 @@ request is prefilled into it:
     their last token) as one masked chunk through
     ``lm.decode_step(prefill=True)``, padded to a power of two;
   * **decode** feeds each resident slot's last token through
-    ``lm.decode_step`` and samples the next one.
+    ``lm.decode_step``, or, given a ``(data, model)`` mesh and
+    ``microbatches``, through the explicit tensor-parallel step of
+    :mod:`repro_torch.serve.tp_decode` (per-layer ``Iallreduce`` of the
+    partial projections staggered behind the next microbatch's compute, one
+    ``Iallgather`` of the vocab-sharded logits), and samples the next one.
 
-On a card both go through the split-KV decode kernel.  The engine keeps an
-activation-dtype copy of the weights, made once (``weights.cast_params``).
-The reference's explicit tensor-parallel decode (``mesh`` +
-``microbatches``) and sharding ``recipe`` wait for ROADMAP.md queue 1
-item 8; the ``embeds`` input kind and the non-dense families for item 6.
+Under a mesh every rank runs this same engine loop on the same requests:
+prefill is the single-host program on the whole weights on every rank, as
+in the reference, and every rank gets every slot's logits, so all ranks
+sample the same tokens.  On a card both paths go through the split-KV
+decode kernel.  The engine keeps an activation-dtype copy of the weights,
+made once (``weights.cast_params``), and cuts the rank's TP shard from it
+(``weights.shard_params``; a view when the ``model`` axis has one rank).
+The sharding ``recipe`` waits for ROADMAP.md queue 1 item 8c; the
+``embeds`` input kind and the non-dense families for item 6.
 """
 from __future__ import annotations
 
@@ -25,8 +34,9 @@ import numpy as np
 import torch
 
 from repro_torch.models import lm
-from repro_torch.models.weights import cast_params
+from repro_torch.models.weights import cast_params, shard_params
 from repro_torch.serve.kv import KVLedger
+from repro_torch.serve.tp_decode import make_tp_decode_step, tp_decode_specs
 
 __all__ = ["ServeConfig", "Engine"]
 
@@ -63,27 +73,38 @@ def _reset_slot_rows(caches, i: int) -> None:
 class Engine:
     """Slot-based continuous batching over the shared decode path.
 
-    ``params`` is the model's parameter tree on the device the engine runs
-    on.  Temperature sampling draws from a ``torch.Generator`` seeded from
-    ``ServeConfig.seed`` (its numbers are not JAX's; greedy decoding is what
-    is held against the reference).
+    ``params`` is the model's whole parameter tree on the device the engine
+    runs on.  ``mesh`` (a :class:`repro_torch.core.dist.Mesh` with ``data``
+    and ``model`` axes, on the same device) and ``microbatches`` switch
+    decode to the explicit tensor-parallel step; every rank of the mesh
+    runs the engine on the same requests.  Temperature sampling draws from
+    a ``torch.Generator`` seeded from ``ServeConfig.seed`` (its numbers are
+    not JAX's; greedy decoding is what is held against the reference).
 
     Counters: ``steps`` counts the prefill chunks and decode steps run.
     """
 
     def __init__(self, cfg, params, scfg: ServeConfig, recipe=None, *, mesh=None,
                  microbatches: int = 0, featurizer=None):
-        if recipe is not None or mesh is not None or microbatches:
-            raise NotImplementedError("sharded and tensor-parallel serving are not ported yet: "
-                                      "ROADMAP.md queue 1, item 8")
+        if recipe is not None:
+            raise NotImplementedError("serving under a sharding recipe is not ported yet: "
+                                      "ROADMAP.md queue 1, item 8c")
         if featurizer is not None or cfg.input_kind != "tokens":
             raise NotImplementedError("embeds-input serving is not ported yet: ROADMAP.md "
                                       "queue 1, item 6")
+        if (mesh is None) != (not microbatches):
+            raise ValueError("tensor-parallel decode needs both a (data, model) mesh and "
+                             f"microbatches >= 1 (got mesh={mesh!r}, microbatches={microbatches})")
         self.cfg = cfg
         self.scfg = scfg
         self.device = params["embed"].device
         self.params = cast_params(params, cfg.act_dtype)
         B = scfg.batch_slots
+        self._tp = None
+        if mesh is not None:
+            self._tp = make_tp_decode_step(cfg, mesh, slots=B, microbatches=microbatches,
+                                           attn_impl=cfg.attn_impl)
+            self.tp_params = shard_params(self.params, tp_decode_specs(cfg)[0], mesh)
         self.state = lm.DecodeState(
             caches=lm.init_cache(cfg, B, scfg.max_len, device=self.device),
             positions=torch.zeros((B,), dtype=torch.int32, device=self.device),
@@ -127,9 +148,12 @@ class Engine:
     # ---------------------------------------------------------- internals ----
     def _step(self, tokens: np.ndarray, counts: np.ndarray, *, prefill: bool):
         batch = {"tokens": torch.from_numpy(tokens).to(self.device)}
-        logits, self.state = lm.decode_step(self.params, self.state, batch, self.cfg,
-                                            new_counts=torch.from_numpy(counts).to(self.device),
-                                            prefill=prefill)
+        counts = torch.from_numpy(counts).to(self.device)
+        if self._tp is not None and not prefill:
+            logits, self.state = self._tp(self.tp_params, self.state, batch, counts > 0)
+        else:
+            logits, self.state = lm.decode_step(self.params, self.state, batch, self.cfg,
+                                                new_counts=counts, prefill=prefill)
         self.steps["prefill" if prefill else "decode"] += 1
         return logits
 

@@ -1,0 +1,271 @@
+"""Explicit tensor-parallel decode on the comm layer: the port of
+``src/repro/serve/tp_decode.py``.
+
+The program says exactly which collective moves, when it is issued and
+which compute hides it: the shard-level non-blocking twins
+(:func:`repro_torch.core.p2p.shard_all_reduce_start` /
+``shard_all_gather_start``) on the shared
+:class:`repro_torch.core.request.Pending` request path, scheduled by a
+declared :func:`repro_torch.core.plan.stagger` comm plan.
+
+Per decode step and layer, this rank's rows of the batch are split into
+``microbatches`` independent row groups.  Each microbatch's attention (and
+FFN) produces a *partial* output on this rank's head (or ``d_ff``) shard and
+issues its tensor-parallel ``Iallreduce`` over ``model``; because the
+microbatches are mutually independent, microbatch ``i``'s reduction
+completes behind microbatch ``i+1``'s compute.  With ``microbatches=1``
+every reduction lands on the critical path (the negative control).  The
+token embedding is a gather from this rank's vocab shard plus an all-reduce
+with exactly one nonzero addend, bitwise the plain lookup; the head is
+vocab-sharded, and its logits come back with one ``Iallgather`` along the
+vocab over ``model`` and one along the batch over ``data``, so that every
+rank (each runs the same engine loop) holds every slot's logits.
+
+Per-rank state.  The reference's ``shard_map`` hands back global caches.
+Here every rank holds the global cache allocation, and a step reads and
+writes, in place, only its own block ``k[l, rows_d, groups_m]`` (and
+``v``): the rows of its ``data`` coordinate and the KV groups of its
+``model`` coordinate.  The other blocks go stale on this rank, and nothing
+reads them: the engine's admission prefill (the single-host program on the
+whole weights, on every rank) writes every group of the admitted slots and
+then reads only what it wrote, and it discards its logits; the rows it
+leaves idle keep their entries.  Lengths and positions are replicated: every
+rank advances every row.  A block of the cache is a strided view whose
+rows keep the 16-byte alignment the decode kernel wants, so the kernel
+reads it in place.
+
+Idle rows (``active`` False) do not write the cache and attend over it
+unwritten, as the reference's ``masked_update`` does; their logits are
+never sampled.  ``double_buffer=False`` is the blocking interpretation of
+the same plans, bitwise equal.
+
+Rounding.  The partial output projections (attention ``wo`` and the FFN's
+``w_down`` / ``w_out``) stay float32 through the reduction and are rounded
+to the activation dtype once, after the sum, as the reference's
+``preferred_element_type=float32`` products are: a sum of rounded partials
+is another function.  On the card the form is cuBLAS's bf16 product with a
+float32 output (``torch.mm(..., out_dtype=torch.float32)``): the same
+float32 accumulation as the single-host step's bf16 ``matmul``, without its
+final round.  On the CPU, which has no such product, it is ``torch.matmul``
+on float32 upcasts of the activation-dtype operands: upcasting is exact and
+the product of two bf16 values is exact in float32, so the sum accumulates
+in float32 with no bf16 round.  The reference pins every activation-dtype
+boundary (``models/numerics.py``'s ``pin``) so that XLA cannot fold a
+convert into a float32 neighbour; eager PyTorch rounds every op's output to
+its dtype, so the port has no counterpart.
+
+Scope, the reference's: the dense family, with or without QKV biases (bias
+shards ride the head and KV-group shards and are added between each
+projection and rope); heads, KV groups, ``d_ff`` and ``vocab_padded`` must
+divide the ``model`` axis, and batch slots ``data`` x ``microbatches``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.p2p import shard_all_gather_start, shard_all_reduce_start
+from repro_torch.core.plan import intent_of, stagger
+from repro_torch.models import lm
+from repro_torch.models.attention import (KVCache, _cache_update, _project, apply_rope,
+                                          attention_decode, rope_angles)
+from repro_torch.models.blocks import rmsnorm
+
+__all__ = ["make_tp_decode_step", "tp_decode_specs", "DECODE_TP_PLAN_INTENT"]
+
+# declared overlap intent of the decode schedule
+DECODE_TP_PLAN_INTENT = intent_of("stagger")
+
+
+def _check(cfg, mesh, slots: int, microbatches: int) -> None:
+    if cfg.family != "dense":
+        raise ValueError(f"tp decode supports the dense family, not {cfg.family!r}")
+    if cfg.n_experts:
+        raise ValueError("tp decode: MoE blocks not supported")
+    for name in ("data", "model"):
+        if name not in mesh.shape:
+            raise ValueError(f"tp decode needs a (data, model) mesh, missing {name!r}")
+    msize = mesh.shape["model"]
+    for label, n in (("n_heads", cfg.n_heads), ("n_kv", cfg.n_kv),
+                     ("d_ff", cfg.d_ff), ("vocab_padded", cfg.vocab_padded)):
+        if n % msize:
+            raise ValueError(f"tp decode: {label}={n} must divide model axis {msize}")
+    dsize = mesh.shape["data"]
+    if microbatches < 1 or slots % dsize or (slots // dsize) % microbatches:
+        raise ValueError(
+            f"tp decode: {slots} slots must split over data={dsize} x "
+            f"microbatches={microbatches}"
+        )
+
+
+def tp_decode_specs(cfg, *, stacked: bool = True):
+    """Spec trees (params, cache k/v, cache length) of the explicit TP
+    decode layout: heads, KV groups, FFN hidden and vocab over ``model``,
+    batch slots over ``data``, everything else replicated.  A spec has one
+    entry per tensor dim, a mesh axis or ``None``, as the reference's
+    ``PartitionSpec``; :func:`repro_torch.models.weights.shard_params` cuts
+    a rank's parameters by it."""
+    lead = (None,) if stacked else ()
+    attn = {
+        "wq": (*lead, None, "model", None),
+        "wk": (*lead, None, "model", None),
+        "wv": (*lead, None, "model", None),
+        "wo": (*lead, "model", None, None),
+    }
+    if cfg.qkv_bias:
+        # biases ride the head/KV-group shards of their projections
+        attn["bq"] = (*lead, "model", None)
+        attn["bk"] = (*lead, "model", None)
+        attn["bv"] = (*lead, "model", None)
+    if cfg.ffn_kind == "gelu":
+        ffn = {"w_in": (*lead, None, "model"), "w_out": (*lead, "model", None),
+               "b_in": (*lead, "model"), "b_out": (*lead, None)}
+    else:
+        ffn = {"w_gate": (*lead, None, "model"), "w_up": (*lead, None, "model"),
+               "w_down": (*lead, "model", None)}
+    params = {
+        "final_norm": (None,),
+        "blocks": {"ln1": (*lead, None), "ln2": (*lead, None), "attn": attn, "ffn": ffn},
+        "embed": ("model", None),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = (None, "model")
+    kv = (*lead, "data", "model", None, None)
+    return params, kv, (*lead, "data")
+
+
+def _partial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with ``w`` in x's dtype, accumulated and returned in
+    float32 (the reference's ``preferred_element_type=float32``)."""
+    w = w.to(x.dtype)
+    if x.is_cuda and x.dtype != torch.float32:
+        # cuBLAS's bf16 product with a float32 output: no upcast copies, and
+        # a tensor-core GEMM where float32 operands would take the CUDA cores
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
+def make_tp_decode_step(cfg, mesh, *, slots: int, microbatches: int = 2,
+                        double_buffer: bool = True, attn_impl: str | None = None):
+    """Build this rank's ``step(params, state, batch, active) -> (logits,
+    new_state)``.
+
+    ``params`` is this rank's shard (``shard_params(params,
+    tp_decode_specs(cfg)[0], mesh)``); ``state`` the stacked
+    :class:`repro_torch.models.lm.DecodeState` over all ``slots`` (the
+    global allocation, see the module docstring), whose K/V are updated in
+    place; ``batch`` holds ``tokens`` (B, S) for all slots; ``active`` (B,)
+    bool marks the slots that carry a real token this step.  Returns every
+    slot's (B, S, vocab_padded) logits, the same on every rank.
+    ``attn_impl`` picks the attention path as ``cfg.attn_impl`` does
+    (``None``: the decode kernel on the card, its plain version on the
+    CPU)."""
+    _check(cfg, mesh, slots, microbatches)
+    for axis in ("data", "model"):  # collective: every rank builds the step
+        mesh.create_groups((axis,))
+    M, D = mesh.shape["model"], mesh.shape["data"]
+    coords = mesh.coords()
+    mb = microbatches
+    Bl = slots // D
+    bm = Bl // mb
+    rows_d = slice(coords["data"] * Bl, (coords["data"] + 1) * Bl)
+    gl = cfg.n_kv // M
+    groups = slice(coords["model"] * gl, (coords["model"] + 1) * gl)
+    vl = cfg.vocab_padded // M
+    v0 = coords["model"] * vl
+    act_dt = cfg.act_dtype
+    mbs = [slice(s * bm, (s + 1) * bm) for s in range(mb)]
+
+    def reduce(part, _s):
+        return shard_all_reduce_start(part, "model", mesh=mesh)
+
+    def step(params, state, batch, active):
+        caches = state.caches
+        tokens = batch["tokens"][rows_d]
+        act = active[rows_d]
+        counts = act.to(torch.int32)
+        S = tokens.shape[1]
+        positions = state.positions[rows_d]
+        pos2d = positions[:, None] + torch.arange(S, dtype=positions.dtype,
+                                                  device=positions.device)[None, :]
+
+        # embed: local vocab-shard gather + an all-reduce with one nonzero addend
+        loc = tokens - v0
+        ok = (loc >= 0) & (loc < vl)
+        e = params["embed"].to(act_dt)[loc.clamp(0, vl - 1)]
+        e = torch.where(ok[..., None], e, torch.zeros((), dtype=act_dt, device=e.device))
+        x = shard_all_reduce_start(e, "model", mesh=mesh).wait()
+        xs = [x[r] for r in mbs]
+
+        blocks = params["blocks"]
+        for l in range(cfg.n_layers):
+            p = {k: v[l] for k, v in blocks["attn"].items()}
+            f = {k: v[l] for k, v in blocks["ffn"].items()}
+            ln1, ln2 = blocks["ln1"][l], blocks["ln2"][l]
+            length = caches.length[l, rows_d]
+            kc = caches.k[l, rows_d, groups]  # this rank's block, a view
+            vc = caches.v[l, rows_d, groups]
+
+            def attn_compute(_c, _s, s, p=p, ln1=ln1, length=length, kc=kc, vc=vc):
+                r = mbs[s]
+                xn = rmsnorm(ln1, xs[s])
+                q, k, v = _project(xn, p["wq"]), _project(xn, p["wk"]), _project(xn, p["wv"])
+                if "bq" in p:  # the local bias shards, between projection and rope
+                    q = q + p["bq"].to(xn.dtype)[None, :, None, :]
+                    k = k + p["bk"].to(xn.dtype)[None, :, None, :]
+                    v = v + p["bv"].to(xn.dtype)[None, :, None, :]
+                cos, sin = rope_angles(pos2d[r], cfg.head_dim, cfg.rope_theta)
+                q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+                _cache_update(kc[r], k, length[r], act[r])
+                _cache_update(vc[r], v, length[r], act[r])
+                o = attention_decode(q, kc[r], vc[r], length[r] + counts[r],
+                                     q_positions=pos2d[r], impl=attn_impl, block=cfg.attn_block)
+                B_, h, S_, d = o.shape
+                # this rank's head shard of the output projection: the partial
+                # the transfer stage reduces behind the next microbatch's math
+                return _partial(o.transpose(1, 2).reshape(B_, S_, h * d),
+                                p["wo"].reshape(h * d, -1))
+
+            attn = stagger(mb, transfer=reduce, compute=attn_compute,
+                           epilogue=lambda done, _s: [d.to(act_dt) for d in done],
+                           ).run(None, None, double_buffer=double_buffer)
+            xs = [xs[s] + attn[s] for s in range(mb)]
+
+            if cfg.ffn_kind == "gelu":
+                def ffn_compute(_c, _s, s, f=f, ln2=ln2):
+                    xn = rmsnorm(ln2, xs[s])
+                    h = F.gelu(torch.matmul(xn, f["w_in"].to(xn.dtype)) + f["b_in"].to(xn.dtype),
+                               approximate="tanh")
+                    return _partial(h, f["w_out"])
+
+                def ffn_epilogue(done, _s, f=f):
+                    # round the float32 sum once, then add the replicated bias
+                    return [d.to(act_dt) + f["b_out"].to(act_dt) for d in done]
+            else:
+                def ffn_compute(_c, _s, s, f=f, ln2=ln2):
+                    xn = rmsnorm(ln2, xs[s])
+                    g = torch.matmul(xn, f["w_gate"].to(xn.dtype))
+                    u = torch.matmul(xn, f["w_up"].to(xn.dtype))
+                    return _partial(F.silu(g) * u, f["w_down"])
+
+                def ffn_epilogue(done, _s):
+                    return [d.to(act_dt) for d in done]
+
+            ffn = stagger(mb, transfer=reduce, compute=ffn_compute, epilogue=ffn_epilogue,
+                          ).run(None, None, double_buffer=double_buffer)
+            xs = [xs[s] + ffn[s] for s in range(mb)]
+
+        xn = rmsnorm(params["final_norm"], torch.cat(xs, dim=0))
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        # vocab-sharded head: each rank's logit columns are full dots
+        logits = torch.matmul(xn, head.to(xn.dtype))
+        logits = shard_all_gather_start(logits, "model", mesh=mesh, axis=2).wait()
+        logits = shard_all_gather_start(logits, "data", mesh=mesh, axis=0).wait()
+        adv = active.to(torch.int32)
+        new_len = (caches.length + adv[None, :]).to(caches.length.dtype)
+        new_state = lm.DecodeState(caches=KVCache(caches.k, caches.v, new_len),
+                                   positions=(state.positions + adv).to(state.positions.dtype))
+        return logits, new_state
+
+    return step

@@ -174,8 +174,11 @@ def _collective_inputs(np, L, mesh1, mesh2, C):
     dt1 = C.mpi_traverser("R", C.traverser(rows([("R", 4), ("i", 3), ("j", 5)])), mesh1)
     y = rng.standard_normal((10, 5)).astype(f32)
     bc = rng.standard_normal((3, 4)).astype(f32)
+    # integer values: a sum over four ranks is exact in any order
+    z = rng.integers(-8, 9, (4, 4, 5)).astype(f32)
+    dtz = C.mpi_traverser("R", C.traverser(rows([("R", 4), ("i", 4), ("j", 5)])), mesh1)
     return dict(rows=rows, dt1=dt1, dt2=dt2, grid_root=grid_root, x=x, panel_root=panel_root,
-                p=p, ragged_root=ragged_root, y=y, bc=bc)
+                p=p, ragged_root=ragged_root, y=y, bc=bc, z=z, dtz=dtz)
 
 
 def collective_cases(np, L, C, mesh1, mesh2, to_numpy, tile_of):
@@ -206,7 +209,38 @@ def collective_cases(np, L, C, mesh1, mesh2, to_numpy, tile_of):
     b = C.broadcast(C.bag(rows([("i", 3), ("j", 4)]), k["bc"]), k["dt1"],
                     dst_layout=rows([("j", 4), ("i", 3)]))
     out["broadcast"] = to_numpy(b.data)
+    # all-gather into a receive layout that differs from the sender's, per
+    # rank too; along one dim of the grid
+    Z = C.scatter(C.bag(rows([("R", 4), ("i", 4), ("j", 5)]), k["z"]),
+                  rows([("j", 5), ("i", 4)]), k["dtz"])
+    out["all_gather_bag"] = to_numpy(C.all_gather_bag(Z, rows([("j", 5), ("R", 4), ("i", 4)])).data)
+    la, lb = rows([("R", 4), ("i", 4), ("j", 5)]), rows([("i", 4), ("R", 4), ("j", 5)])
+    out[("all_gather_dist", "per_rank")] = tile_of(C.all_gather_dist(Z, [la, lb, la, lb]))
+    out[("all_gather_dist", "Ri")] = tile_of(
+        C.all_gather_dist(X, rows([("j", 12), ("Ri", 2), ("i", 4)]), rank_dim="Ri"))
+    # all-reduce into another tile layout: over the grid's two-rank column
+    # communicator (random values), and over four ranks (integer values)
+    for op in ("add", "max", "mean"):
+        out[("all_reduce", "Ck", op)] = tile_of(
+            C.all_reduce_bag(X, op, rank_dim="Ck", out_tile_layout=rows([("j", 12), ("i", 4)])))
+    out[("all_reduce", "R", "add")] = tile_of(
+        C.all_reduce_bag(Z, "add", out_tile_layout=rows([("i", 4), ("j", 5)])))
     return out
+
+
+SHARD_REDUCE_AXES = {"tuple_cols": ("grid", "cols"), "r": ("line", "r"), "one": ("line", "one")}
+
+
+def shard_reduce_inputs(np) -> dict:
+    """Per-rank values (leading dim: the 4 ranks) of the shard-level
+    all-reduce checks: a tuple of random values over the grid's two-rank
+    ``cols`` axis, integer values over a four-rank axis (an exact sum in any
+    order), and a tuple over an axis of one rank."""
+    rng = np.random.default_rng(9)
+    a = rng.standard_normal((4, 3, 5)).astype(np.float32)
+    b = rng.standard_normal((4, 6)).astype(np.float32)
+    c = rng.integers(-8, 9, (4, 2, 7)).astype(np.float32)
+    return {"tuple_cols": (a, b), "r": c, "one": (a, c)}
 
 
 def collectives_family() -> dict:
@@ -217,10 +251,24 @@ def collectives_family() -> dict:
     import repro_torch.core as C
     from repro_torch.core import layout as L
 
+    import torch
+
     mesh1 = C.make_mesh((4,), ("r",), device="cpu")
     mesh2 = C.make_mesh((2, 2), ("rows", "cols"), device="cpu")
-    return collective_cases(np, L, C, mesh1, mesh2, lambda t: t.numpy(),
-                            lambda d: d.data.numpy())
+    out = collective_cases(np, L, C, mesh1, mesh2, lambda t: t.numpy(),
+                           lambda d: d.data.numpy())
+    meshes = {"grid": mesh2, "line": C.make_mesh((4, 1), ("r", "one"), device="cpu")}
+    rank = torch.distributed.get_rank()
+    for case, arrays in shard_reduce_inputs(np).items():
+        mesh, axis = SHARD_REDUCE_AXES[case]
+        x = (tuple(torch.from_numpy(a[rank]) for a in arrays) if isinstance(arrays, tuple)
+             else torch.from_numpy(arrays[rank]))
+        got = C.shard_all_reduce_start(x, axis, mesh=meshes[mesh]).wait()
+        if isinstance(got, tuple) != isinstance(x, tuple):
+            raise AssertionError(f"shard_all_reduce_start {case}: structure not kept")
+        for i, t in enumerate(got if isinstance(got, tuple) else (got,)):
+            out[("shard_all_reduce", case, i)] = t.numpy()
+    return out
 
 
 RING_MESHES = [(1, 4), (2, 2)]  # (data, model) meshes of the 4-rank ring checks
@@ -279,4 +327,108 @@ def sp_ring_forward_family(*, models, tokens) -> dict:
                 with use_recipe(recipe):
                     logits, _ = lm.forward(params, {"tokens": torch.from_numpy(toks).long()}, cfg)
                 out[(arch, shape, S)] = logits.numpy()
+    return out
+
+
+TP_REQUESTS = {  # the reference's distributed-engine request lists (tests/test_engine.py)
+    "phi4-mini-3.8b": [(0, [5, 9, 13], 8), (1, [3, 3], 6), (2, [17, 2, 4, 8, 1], 5),
+                       (3, [6], 7), (4, [2, 9, 9, 4], 6), (5, [11, 12], 4),
+                       (6, [8, 8, 8], 5), (7, [400, 2], 6), (8, [30, 40, 50], 4),
+                       (9, [19], 9)],
+    "qwen2.5-32b": [(0, [5, 9, 13], 8), (1, [3, 3], 6), (2, [17, 2, 4, 8, 1], 5),
+                    (3, [6], 7), (4, [2, 9, 9, 4], 6), (5, [11, 12], 4)],
+}
+TP_SLOTS, TP_MAX_LEN, TP_MICROBATCHES = 8, 64, 2
+# what the other ranks' cache blocks are overwritten with: a key or value this
+# large would swamp any attention that saw it, and, being finite, it leaves
+# masked positions at 0 (a NaN there would enter p @ v as 0 * NaN)
+TP_POISON = 1.0e4
+
+
+def tp_decode_family(*, shape, models) -> dict:
+    """Tensor-parallel serving on this gloo rank of a ``shape`` (data, model)
+    mesh, for every ``models[arch]`` (the reference's parameters as numpy):
+    the engine's greedy outputs on :data:`TP_REQUESTS`, plainly and with
+    every cache block of the other ranks' (rows, KV groups) overwritten with
+    :data:`TP_POISON` before each decode step; one TP step from the same state
+    double-buffered and blocking (logits, caches, lengths and positions
+    bitwise equal, or the names that differ); and whether this rank's
+    weight shard, gathered back over the mesh, equals the whole tree bit
+    for bit."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import make_mesh, shard_all_gather_start
+    from repro_torch.models.weights import params_from_jax, shard_params
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.tp_decode import make_tp_decode_step, tp_decode_specs
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    scfg = ServeConfig(max_len=TP_MAX_LEN, batch_slots=TP_SLOTS, eos_token=-1)
+    out: dict = {}
+    for arch, tree in models.items():
+        cfg = dataclasses.replace(configs.get(arch, smoke=True), act_dtype=torch.float32)
+        params = params_from_jax(tree, device="cpu")
+        for poison in (False, True):
+            engine = Engine(cfg, params, scfg, mesh=mesh, microbatches=TP_MICROBATCHES)
+            if poison:  # the blocks this rank's step must never read
+                others = torch.ones((TP_SLOTS, cfg.n_kv), dtype=torch.bool)
+                bl, gl = TP_SLOTS // shape[0], cfg.n_kv // shape[1]
+                d, m = mesh.coords()["data"], mesh.coords()["model"]
+                others[d * bl:(d + 1) * bl, m * gl:(m + 1) * gl] = False
+
+                def poisoned(p, state, batch, active, step=engine._tp, others=others):
+                    state.caches.k[:, others] = TP_POISON
+                    state.caches.v[:, others] = TP_POISON
+                    return step(p, state, batch, active)
+
+                engine._tp = poisoned
+            for rid, prompt, n in TP_REQUESTS[arch]:
+                engine.submit(rid, prompt, n)
+            out[(arch, "tokens_poisoned" if poison else "tokens")] = engine.run()
+
+        # one step from the same state, both interpretations of the plans;
+        # six requests on eight slots leave two slots idle
+        engine = Engine(cfg, params, scfg, mesh=mesh, microbatches=TP_MICROBATCHES)
+        for rid, prompt, n in TP_REQUESTS["qwen2.5-32b"]:
+            engine.submit(rid, prompt, n)
+        engine._fill_slots()
+        tokens = torch.tensor([[s.tokens[-1] if s.request_id is not None else 0]
+                               for s in engine.slots])
+        active = torch.tensor([s.request_id is not None for s in engine.slots])
+        results = {}
+        for db in (True, False):
+            st = engine.state
+            state = type(st)(caches=type(st.caches)(*(t.clone() for t in st.caches)),
+                             positions=st.positions.clone())
+            step = make_tp_decode_step(cfg, mesh, slots=TP_SLOTS, microbatches=TP_MICROBATCHES,
+                                       double_buffer=db)
+            logits, new = step(engine.tp_params, state, {"tokens": tokens}, active)
+            results[db] = {"logits": logits, "k": new.caches.k, "v": new.caches.v,
+                           "length": new.caches.length, "positions": new.positions}
+        out[(arch, "db_vs_blocking")] = sorted(
+            name for name in results[True] if not torch.equal(results[True][name],
+                                                              results[False][name]))
+
+        # the weight cut, gathered back along every cut dim, is the whole tree
+        whole = engine.params
+        specs = tp_decode_specs(cfg)[0]
+        shard = shard_params(whole, specs, mesh)
+        differ = []
+
+        def walk(w, s, sp, name):
+            if isinstance(w, dict):
+                for k in w:
+                    walk(w[k], s[k], sp[k], f"{name}/{k}")
+                return
+            for dim, axis in enumerate(sp):
+                if axis is not None:
+                    s = shard_all_gather_start(s, axis, mesh=mesh, axis=dim).wait()
+            if not torch.equal(s, w):
+                differ.append(name)
+
+        walk(whole, shard, specs, "")
+        out[(arch, "shard_differs")] = differ
     return out

@@ -155,3 +155,32 @@ def test_rope_matches_reference(per_row):
     want = jattn.apply_rope(jnp.asarray(x), jc, js)
     got = tattn.apply_rope(torch.from_numpy(x), tc, ts)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("entry", ["check_attention", "check_decode", "flash_attention",
+                                   "flash_attention_carry", "flash_decode"])
+def test_v_head_dim_other_than_qk_is_refused(entry):
+    """A v head dim Dv != D is refused with ``ValueError`` by both shape
+    checks and so by every attention entry point (the card kernels take one
+    head dim for q, k and v; Dv support is ROADMAP.md queue 2, item A).
+    The reference returns (..., Dv) here."""
+    from repro_torch.kernels.flash_attention import check_attention
+    from repro_torch.kernels.flash_decode import check_decode
+
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((1, 4, 8, 128)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 2, 8, 128)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((1, 2, 8, 64)).astype(np.float32))
+    lens = torch.tensor([8], dtype=torch.int32)
+    want = flash_attention_pallas(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                                  jnp.asarray(v.numpy()), causal=True, interpret=True)
+    assert want.shape == (1, 4, 8, 64)
+    calls = {
+        "check_attention": lambda: check_attention(q, k, v),
+        "check_decode": lambda: check_decode(q, k, v, lens, None),
+        "flash_attention": lambda: tops.flash_attention(q, k, v),
+        "flash_attention_carry": lambda: tops.flash_attention_carry(q, k, v),
+        "flash_decode": lambda: tops.flash_decode(q, k, v, lens),
+    }
+    with pytest.raises(ValueError, match="v head dim 64 != q/k head dim 128"):
+        calls[entry]()

@@ -70,7 +70,9 @@ def test_engine_rejects_what_is_not_ported():
     from repro_torch.models import lm
 
     params = lm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Engine(cfg, params, ServeConfig(), mesh=object(), microbatches=2)
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        Engine(cfg, params, ServeConfig(), recipe=object())
+    with pytest.raises(ValueError, match="microbatches"):
+        Engine(cfg, params, ServeConfig(), mesh=object())
     with pytest.raises(ValueError, match="max_len"):
         Engine(cfg, params, ServeConfig(max_len=16)).submit(0, [3] * 10, 10)

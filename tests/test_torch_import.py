@@ -52,6 +52,7 @@ LM_MODULES = [
     "repro_torch.models.blocks", "repro_torch.models.lm", "repro_torch.models.weights",
     "repro_torch.serve.kv", "repro_torch.serve.engine", "repro_torch.launch.serve",
     "repro_torch.models.sharding", "repro_torch.kernels.relayout",
+    "repro_torch.serve.tp_decode",
 ]
 
 
@@ -144,10 +145,23 @@ def test_serve_cli_serves_on_the_cpu():
 
 
 def test_serve_cli_raises_for_what_is_not_ported():
-    for flags, item in ((["--grid", "2x2"], "item 8"), (["--ckpt-dir", "x"], "item 11")):
+    for flags, item in ((["--fake-devices", "8"], "torchrun"), (["--ckpt-dir", "x"], "item 11")):
         proc = _python("", "-m", "repro_torch.launch.serve", "--arch", "phi4-mini-3.8b",
                        "--smoke", "--device", "cpu", *flags)
         assert proc.returncode != 0 and item in proc.stderr, proc.stderr[-2000:]
     proc = _python("", "-m", "repro_torch.launch.serve", "--arch", "zamba2-7b", "--smoke",
                    "--device", "cpu")
     assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
+
+
+def test_serve_cli_serves_tensor_parallel_on_gloo_ranks():
+    """``--grid 2x2`` under ``torchrun``: 4 gloo ranks serve the same
+    requests with TP decode; rank 0 alone prints them."""
+    proc = _python("", "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
+                   "-m", "repro_torch.launch.serve", "--arch", "phi4-mini-3.8b", "--smoke",
+                   "--device", "cpu", "--grid", "2x2", "--requests", "5", "--slots", "4",
+                   "--max-new", "4")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "[serve] 5 done / 0 in flight, 20 tokens requested" in proc.stdout
+    assert "grid 2x2 x 2 microbatches" in proc.stdout
+    assert proc.stdout.count("[serve] req ") == 5
