@@ -52,6 +52,22 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   of every tensor-core kernel instance are printed.  One card shows
   no ring transfer: the ring's schedule across ranks is checked on gloo CPU
   processes in the tests.
+* the MoE family at phi3.5-moe's full width (d_model 4096, 32 query heads
+  over 8 KV groups, 16 experts of d_ff 6400, top-2; seeded random weights,
+  bf16, 8 of its 32 layers): the two attention kernels at its shapes (GQA
+  4) against their plain versions and timed; a forward of 1 x 4096 tokens
+  (the global capacity dispatch) and of 16 x 256 (the grouped dispatch)
+  through the kernel and through its plain version (routed as the kernel
+  run was, so a near tie of the router cannot flip a discrete choice; the
+  plain router's disagreements are counted), logits held at every token,
+  with ``flash_attention`` launches counted and the device time split into
+  attention, expert GEMMs, routing/scatter and the rest; and serving of 8
+  requests on 4 slots, prefilled token by token (``flash_decode`` in every
+  step, counted), greedy tokens held against the plain run (routed the
+  same way) except at its near ties.  One card gives the ``model`` axis
+  one rank, so the expert-parallel dispatch falls back (with its warning)
+  to the grouped or global one; its all-to-alls are checked on gloo CPU
+  processes in the tests.
 
 Every kernel time (``ms``, ``plain_ms``, ``library_ms``) is device time per
 call from ``repro_torch.kernels.timing.queued_ms`` (calls run back to back
@@ -107,6 +123,11 @@ DECODE_LENS = (1, 700, 2049, 4096)  # per-slot cache lengths of the timed decode
 # attention outputs may round one bf16 ulp apart, and the residual stream
 # carries that to the logits (unit scale: embed std 0.02 over d_model 3072)
 LOGIT_TOL = 0.25
+MOE_ARCH, MOE_DEPTH = "phi3.5-moe-42b-a6.6b", 8  # full width, 8 of its 32 layers
+MOE_FORWARDS = ((1, SEQ), (16, 256))  # (B, S): global capacity dispatch; grouped, G = 16
+MOE_REQUESTS, MOE_NEW_TOKENS, MOE_PROMPT_LENS = 8, 16, (16, 129)  # prompt lengths [low, high)
+MOE_RANGES = {"moe.route": "routing_scatter", "moe.combine": "routing_scatter",
+              "moe.experts": "expert_gemms"}  # the MoE's profiler ranges, by kind
 
 
 def phase(name: str, **fields) -> None:
@@ -144,12 +165,19 @@ def median_ms(fn, *, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def device_kernels(prof) -> list:
+    """A profile's device events that are kernels: not the spans the
+    profiler draws on the device timeline for ``record_function`` ranges
+    (the MoE's ``moe.*`` ranges)."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and e.name not in MOE_RANGES]
+
+
 def device_kernel_ms(prof) -> dict[str, float]:
     """Device milliseconds by kernel name in a profile."""
     out: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for e in device_kernels(prof):
+        out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     return out
 
 
@@ -696,10 +724,11 @@ def by_kind(times: dict[str, float]) -> dict[str, float]:
     return out
 
 
-def window(fn, n: int) -> dict:
+def window(fn, n: int, classify=None) -> dict:
     """``n`` calls of ``fn`` once unprofiled (the host clock per call) and
     once under the profiler (device time per call, by kind and by kernel,
-    kernels launched, and the device's idle share of the host time)."""
+    kernels launched, and the device's idle share of the host time).  The
+    kinds are :func:`by_kind`'s, or ``classify(profile)``'s."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -713,13 +742,15 @@ def window(fn, n: int) -> dict:
             fn()
         torch.cuda.synchronize()
     times = device_kernel_ms(prof)
-    launches = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    launches = len(device_kernels(prof))
+    ours = sorted({name for name in times if any(k in name for k in PORT_ATTN)})
     busy = sum(times.values()) / n
     top = sorted(times.items(), key=lambda kv: -kv[1])[:5]
     return dict(wall_ms=wall, device_ms=busy, idle_share=1 - busy / wall,
                 kernels_launched=launches / n,
-                device_ms_by_kind={k: v / n for k, v in by_kind(times).items()},
-                top_kernels=[(name[:80], ms / n) for name, ms in top])
+                device_ms_by_kind={k: v / n for k, v in
+                                   (classify(prof) if classify else by_kind(times)).items()},
+                top_kernels=[(name[:80], ms / n) for name, ms in top], port_kernels=ours)
 
 
 def breakdown_lm(cfg, params, lm, Engine, ServeConfig) -> dict:
@@ -1272,6 +1303,289 @@ def time_ring_kernels(ops, card: str, ring_step_offsets, pieces: int) -> dict:
     return rows
 
 
+class RouterLog:
+    """Inside the block, record every MoE routing call of the port
+    (``ffn._route``): the experts each token's router chose, in k order,
+    and its margin (the k-th probability minus the next one; a small
+    margin is a near tie).  With ``force`` (another run's log) the i-th call
+    routes as that run's i-th did, its gates taken from this run's
+    probabilities, so a rounding difference cannot flip a discrete choice
+    and the two runs differ only by their arithmetic."""
+
+    def __init__(self, ffn, force=None):
+        self.ffn, self.route, self.force, self.calls = ffn, ffn._route, force, []
+
+    def __enter__(self):
+        route = self.route
+
+        def logged(x, router, top_k):
+            probs, gate_vals, gate_idx = route(x, router, top_k)
+            top = probs.topk(top_k + 1, dim=-1).values
+            self.calls.append((gate_idx, top[..., top_k - 1] - top[..., top_k]))
+            if self.force is not None:
+                gate_idx = self.force[len(self.calls) - 1][0]
+                gate_vals = torch.gather(probs, -1, gate_idx)
+                gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+            return probs, gate_vals, gate_idx
+
+        self.ffn._route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.ffn._route = self.route
+
+
+def router_disagreements(forced: RouterLog, k: int) -> dict:
+    """Where the forced run's own router would have chosen other experts
+    than the run it was forced to follow: the count of (token, layer)
+    decisions, and their margins' largest value (the run diverges from the
+    first one on, so later ones need not be near ties)."""
+    n, margins = 0, []
+    for (own, margin), (other, _) in zip(forced.calls, forced.force, strict=True):
+        differ = (own.reshape(-1, k).sort(-1).values
+                  != other.reshape(-1, k).sort(-1).values).any(-1)
+        n += int(differ.sum())
+        margins += margin.reshape(-1)[differ].tolist()
+    return {"decisions": sum(own.reshape(-1, k).shape[0] for own, _ in forced.calls),
+            "disagreements": n, "max_margin": max(margins, default=None),
+            "min_margin": min(margins, default=None)}
+
+
+def moe_by_kind(prof) -> dict[str, float]:
+    """Device ms of a profile's kernels split into the port's attention
+    kernels, the expert GEMMs and the routing/scatter work (the kernels
+    that start inside the device-timeline span of the MoE's
+    ``moe.experts`` and ``moe.route``/``moe.combine`` ranges; one stream,
+    so no other kernel runs in a span), the other GEMMs (projections,
+    router, head) and the rest."""
+    spans = sorted((e.time_range.start, e.time_range.end, MOE_RANGES[e.name])
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.name in MOE_RANGES)
+    out = {"attention_kernels": 0.0, "expert_gemms": 0.0, "routing_scatter": 0.0,
+           "other_gemms": 0.0, "other": 0.0}
+    for e in device_kernels(prof):
+        t = e.time_range.start
+        kind = ("attention_kernels" if any(k in e.name for k in PORT_ATTN) else
+                next((kind for lo, hi, kind in spans if lo <= t < hi), None)
+                or ("other_gemms" if GEMM_NAMES.search(e.name) else "other"))
+        out[kind] += e.time_range.elapsed_us() / 1e3
+    if not spans:
+        raise AssertionError("the profile holds no device span of the MoE's ranges")
+    return out
+
+
+def moe_model(configs, lm):
+    """``moe_model``: phi3.5-moe at full width, cut to MOE_DEPTH layers,
+    with ``lm.init_model``'s seeded draws, each leaf cast to bf16 as it is
+    made (the float32 tree whole would need 43 GB at once)."""
+    cfg = dataclasses.replace(configs.get(MOE_ARCH), n_layers=MOE_DEPTH)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+
+    def draw(tree):  # init_params' order: sorted keys, one generator
+        if isinstance(tree, dict):
+            return {k: draw(tree[k]) for k in sorted(tree)}
+        return tree.initialize(gen, DEVICE).to(cfg.act_dtype)
+
+    t0 = time.perf_counter()
+    params = draw(lm.build_specs(cfg))
+    torch.cuda.synchronize()
+    phase("moe_model", arch=cfg.name, layers=MOE_DEPTH,
+          published_layers=configs.get(MOE_ARCH).n_layers, d_model=cfg.d_model,
+          heads=(cfg.n_heads, cfg.n_kv, cfg.head_dim), d_ff=cfg.d_ff, experts=cfg.n_experts,
+          top_k=cfg.moe_top_k, vocab=cfg.vocab, params=lm.count_params(cfg),
+          active_params=lm.count_params(cfg, active_only=True), init_s=time.perf_counter() - t0,
+          memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    return cfg, params
+
+
+def moe_forward(cfg, params, lm, fa, ffn) -> dict:
+    """``moe_forward``: the forward of seeded tokens at each (B, S) of
+    MOE_FORWARDS (1 x 4096: the global capacity dispatch, C = 640; 16 x 256:
+    the grouped dispatch, G = 16) through the attention kernel
+    (``flash_attention`` launched once a layer) and through its plain
+    version routed as the kernel run was (:class:`RouterLog`), the logits
+    of every token held to LOGIT_TOL, with the plain router's disagreements
+    counted; forward ms; and where a forward's device time goes
+    (:func:`window`, split by :func:`moe_by_kind`)."""
+    out = {"launches": 0}
+    for B, S in MOE_FORWARDS:
+        g = torch.Generator(device=DEVICE).manual_seed(B)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), device=DEVICE, generator=g)}
+        fa.flash_attention_cuda.launches = 0
+        with RouterLog(ffn) as log:
+            logits, aux = lm.forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        launches = fa.flash_attention_cuda.launches
+        fa.flash_attention_cuda.launches = 0
+        with RouterLog(ffn, force=log.calls) as forced:
+            ref_logits, ref_aux = lm.forward(params, batch,
+                                             dataclasses.replace(cfg, attn_impl="ref"))
+        torch.cuda.synchronize()
+        if (launches, fa.flash_attention_cuda.launches) != (cfg.n_layers, 0):
+            raise AssertionError(f"flash_attention launches {launches} (plain run "
+                                 f"{fa.flash_attention_cuda.launches}) != {cfg.n_layers}")
+        if logits.shape != (B, S, cfg.vocab_padded) or not torch.isfinite(logits).all():
+            raise AssertionError(f"moe forward logits {tuple(logits.shape)} not finite/expected")
+        err = (logits[..., :cfg.vocab].float() - ref_logits[..., :cfg.vocab].float()).abs().max()
+        err = err.item()
+        if err > LOGIT_TOL:
+            raise AssertionError(f"moe forward {B}x{S} logits kernel vs plain: {err} > {LOGIT_TOL}")
+        out["launches"] += launches
+        del logits, ref_logits
+        forward_ms = median_ms(lambda: lm.forward(params, batch, cfg), iters=3, warmup=1)
+        brk = window(lambda: lm.forward(params, batch, cfg), 2, classify=moe_by_kind)
+        if not any("flash_attention_kernel_wgmma" in n for n in brk["port_kernels"]):
+            raise AssertionError(f"the profiled forward ran no flash_attention_kernel_wgmma: "
+                                 f"{brk['port_kernels']}")
+        row = dict(B=B, S=S, dispatch="grouped" if B % cfg.moe_groups == 0 else "global",
+                   flash_attention_launches=launches, forward_ms=forward_ms,
+                   tokens_per_s=B * S / forward_ms * 1e3, aux=float(aux), plain_aux=float(ref_aux),
+                   logits_max_abs_err=err, tol=LOGIT_TOL,
+                   plain_router=router_disagreements(forced, cfg.moe_top_k), breakdown=brk)
+        phase("moe_forward", arch=cfg.name, **row)
+        out[(B, S)] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_serve(cfg, params, Engine, ServeConfig, fd, ffn) -> dict:
+    """``moe_serve``: MOE_REQUESTS requests (seeded prompts of 16-128
+    tokens, MOE_NEW_TOKENS new tokens each) on SLOTS slots of MAX_LEN
+    positions, through the decode kernel, then through its plain version
+    routed as the kernel run was (:class:`RouterLog`; both runs take the
+    same steps).  The MoE family prefills token by token, so
+    ``flash_decode`` launches once a layer in every step.  Greedy tokens
+    equal the plain run's except at its near ties (top-2 gap <=
+    LOGIT_TOL).  Then a steady decode step of 4 resident requests
+    (:func:`window`)."""
+    rng = np.random.default_rng(0)
+    requests = [rng.integers(2, cfg.vocab, size=int(rng.integers(*MOE_PROMPT_LENS))).tolist()
+                for _ in range(MOE_REQUESTS)]
+    scfg = ServeConfig(max_len=MAX_LEN, batch_slots=SLOTS, eos_token=-1)
+    runs, log = {}, None
+    for impl in (None, "ref"):
+        engine = Engine(dataclasses.replace(cfg, attn_impl=impl), params, scfg)
+        stats = _instrument(engine, record_gaps=True, fd=fd)
+        for rid, prompt in enumerate(requests):
+            engine.submit(rid, prompt, MOE_NEW_TOKENS)
+        fd.flash_decode_cuda.launches = 0
+        t0 = time.perf_counter()
+        with RouterLog(ffn, force=None if log is None else log.calls) as log:
+            done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fd.flash_decode_cuda.launches
+        if sorted(done) != list(range(MOE_REQUESTS)) or any(
+                len(done[r]) != len(requests[r]) + MOE_NEW_TOKENS for r in range(MOE_REQUESTS)):
+            raise AssertionError(f"moe_serve {impl}: not every request finished")
+        steps = dict(engine.steps)
+        expected = cfg.n_layers * (steps["prefill"] + steps["decode"]) if impl is None else 0
+        if launches != expected or stats["launches"]["prefill"] != (
+                cfg.n_layers * steps["prefill"] if impl is None else 0):
+            raise AssertionError(f"moe_serve {impl}: flash_decode launches {launches} "
+                                 f"({stats['launches']}) != {expected}")
+        runs[impl] = dict(done=done, stats=stats, steps=steps, wall=wall, launches=launches,
+                          log=log)
+        del engine
+        torch.cuda.empty_cache()
+    k, p = runs[None], runs["ref"]
+    agree, near_ties = 0, []
+    for rid, prompt in enumerate(requests):
+        for j, (a, b) in enumerate(zip(k["done"][rid][len(prompt):], p["done"][rid][len(prompt):])):
+            if a == b:
+                agree += 1
+                continue
+            gap = p["stats"]["gaps"][(rid, len(prompt) + j)]
+            if gap > LOGIT_TOL:
+                raise AssertionError(f"moe_serve request {rid} token {j}: kernel {a} vs plain "
+                                     f"{b} with a plain top-2 gap of {gap} > {LOGIT_TOL}")
+            near_ties.append({"request": rid, "token": j, "plain_top2_gap": gap})
+            break
+    # a steady decode step of the first 4 requests, outside the runs above
+    engine = Engine(cfg, params, scfg)
+    for rid, prompt in enumerate(requests[:SLOTS]):
+        engine.submit(rid, prompt, 4 * MOE_NEW_TOKENS)
+    engine._fill_slots()
+    engine._decode_once()
+    fd.flash_decode_cuda.launches = 0
+    dec = window(engine._decode_once, 8, classify=moe_by_kind)
+    if not any("flash_decode_kernel_wgmma" in n for n in dec["port_kernels"]):
+        raise AssertionError(f"the profiled decode steps ran no flash_decode_kernel_wgmma: "
+                             f"{dec['port_kernels']}")
+    if fd.flash_decode_cuda.launches != 2 * 8 * cfg.n_layers:
+        raise AssertionError(f"moe decode window: flash_decode launches "
+                             f"{fd.flash_decode_cuda.launches} != {2 * 8 * cfg.n_layers}")
+    cache_lens = list(engine.ledger.lengths)
+    del engine
+    torch.cuda.empty_cache()
+    st = k["stats"]
+    out = dict(requests=MOE_REQUESTS, slots=SLOTS, max_len=MAX_LEN, new_tokens=MOE_NEW_TOKENS,
+               prompt_lens=[len(r) for r in requests], steps=k["steps"],
+               flash_decode_launches=k["launches"], flash_decode_launches_by_kind=st["launches"],
+               prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+               serve_decode_tok_s=MOE_REQUESTS * MOE_NEW_TOKENS / st["decode_s"],
+               wall_s=k["wall"], plain_wall_s=p["wall"], decode_step=dec,
+               decode_step_cache_lens=cache_lens, decode_tok_s=SLOTS / dec["wall_ms"] * 1e3,
+               greedy_agreement=agree / (MOE_REQUESTS * MOE_NEW_TOKENS),
+               divergences_at_near_ties=near_ties, tol=LOGIT_TOL,
+               plain_router=router_disagreements(p["log"], cfg.moe_top_k))
+    phase("moe_serve", arch=cfg.name, **out)
+    return out
+
+
+def time_moe_attention(ops, card: str, pieces: int) -> dict:
+    """Both attention kernels at phi3.5-moe's shapes (32 query heads over 8
+    KV groups, GQA 4; bf16): against the plain version, and timed beside
+    the bound, the plain version and ``scaled_dot_product_attention``."""
+    rows, tol = {}, ATTN_TOL[torch.bfloat16]
+    B, Hq, G, S, D = 1, 32, 8, SEQ, 128
+    q, k, v = (randn(shape, torch.bfloat16, 150 + i) for i, shape in
+               enumerate(((B, Hq, S, D), (B, G, S, D), (B, G, S, D))))
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = ops.flash_attention(q, k, v, impl="ref")
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    err = (got.float() - want.float()).abs().max().item()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    t = time_three(lambda: ops.flash_attention(q, k, v),
+                   lambda: ops.flash_attention(q, k, v, impl="ref"),
+                   lambda: library_attention(qf, kf, vf, is_causal=True),
+                   lambda: library_attention(q, k, v, is_causal=True))
+    flops = 4 * B * Hq * S * S * D / 2
+    b_ms, b_by, fp32_ms = attn_bound(flops, 2 * (2 * q.numel() + k.numel() + v.numel()),
+                                     products=1 + pieces)
+    rows["flash_attention"] = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                                   fp32_bound_ms=fp32_ms, **t)
+    check_bound("flash_attention gqa4", rows["flash_attention"])
+    phase("time", kernel="flash_attention", arch=MOE_ARCH, shape=(B, Hq, G, S, D), causal=True,
+          dtype="bfloat16", tol=tol, card=card, **rows["flash_attention"])
+    del q, k, v, qf, kf, vf, got, want
+    dims = (SLOTS, 32, 8, 1, MAX_LEN, 128)
+    q, kc, vc, lens_t, _ = decode_inputs(*dims, torch.bfloat16, lens=DECODE_LENS, seed=160)
+    got = ops.flash_decode(q, kc, vc, lens_t)
+    torch.cuda.synchronize()
+    want = ops.flash_decode(q, kc, vc, lens_t, impl="ref")
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    err = (got.float() - want.float()).abs().max().item()
+    mask = torch.arange(MAX_LEN, device=DEVICE)[None, None, None, :] < lens_t[:, None, None, None]
+    qf, kf, vf = q.float(), kc.float(), vc.float()
+    t = time_three(lambda: ops.flash_decode(q, kc, vc, lens_t),
+                   lambda: ops.flash_decode(q, kc, vc, lens_t, impl="ref"),
+                   lambda: library_attention(qf, kf, vf, attn_mask=mask),
+                   lambda: library_attention(q, kc, vc, attn_mask=mask), plain_iters=5)
+    visible = sum(min(n, MAX_LEN) for n in DECODE_LENS)
+    b_ms, b_by, fp32_ms = attn_bound(4 * 32 * visible * 128,
+                                     2 * 2 * 8 * 128 * visible + 2 * 2 * q.numel())
+    rows["flash_decode"] = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                                fp32_bound_ms=fp32_ms, **t)
+    check_bound("flash_decode gqa4", rows["flash_decode"])
+    phase("time", kernel="flash_decode", arch=MOE_ARCH, case="decode", shape=dims,
+          lens=DECODE_LENS, dtype="bfloat16", tol=tol, card=card, **rows["flash_decode"])
+    del q, kc, vc, qf, kf, vf, got, want, mask
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_instances(log: str, kernel: str = r"layout_gemm\w*?kernel") -> dict:
     """ptxas's registers and spill per instance of the kernels whose names
     match ``kernel``, by name and integer template arguments (the GEMM
@@ -1304,7 +1618,7 @@ def main() -> int:
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import gemm as kernels
     from repro_torch.kernels import ops, relayout
-    from repro_torch.models import lm
+    from repro_torch.models import ffn, lm
     from repro_torch.models.attention import ring_attention_seq, ring_step_offsets
     from repro_torch.models.sharding import ragged_seq_extents
     from repro_torch.models.weights import cast_params
@@ -1441,6 +1755,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     shards = tp_shard_decode(ops, card)
     rows.update(time_ring_kernels(ops, card, ring_step_offsets, fa.P_PIECES))
+    torch.cuda.empty_cache()
+
+    # phase 11: the MoE family, phi3.5-moe at full width (depth cut),
+    # seeded random weights
+    moe_cfg, moe_params = moe_model(configs, lm)
+    moe_fwd = moe_forward(moe_cfg, moe_params, lm, fa, ffn)
+    moe_srv = moe_serve(moe_cfg, moe_params, Engine, ServeConfig, fd, ffn)
+    del moe_params
+    torch.cuda.empty_cache()
+    moe_attn = time_moe_attention(ops, card, fa.P_PIECES)
+    gqa4 = ("ms", "max_abs_err", "bound_ms", "bound_by", "plain_ms", "library_ms",
+            "library_bf16_ms")
 
     gemm_src = "src/repro_torch/kernels/csrc/gemm.cu"
     report = []
@@ -1453,7 +1779,10 @@ def main() -> int:
                    "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                    "replaces": "src/repro/kernels/flash_attention.py:169",
                    "launches": fwd["launches"], "max_abs_err": worst["flash_attention"],
-                   "error_vs_float64_ratio": accuracy["kernel"], **rows["flash_attention"]})
+                   "error_vs_float64_ratio": accuracy["kernel"],
+                   "moe_forward_launches": moe_fwd["launches"],
+                   **{f"moe_gqa4_{key}": moe_attn["flash_attention"][key] for key in gqa4},
+                   **rows["flash_attention"]})
     prefill = rows[("flash_decode", "prefill_chunk")]
     report.append({"name": "flash_decode", "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -1462,6 +1791,8 @@ def main() -> int:
                    "launches_by_kind": srv["flash_decode_launches_by_kind"],
                    "tp_serve_launches": tp["flash_decode_launches"],
                    "tp_serve_launches_by_kind": tp["flash_decode_launches_by_kind"],
+                   "moe_serve_launches": moe_srv["flash_decode_launches"],
+                   **{f"moe_gqa4_{key}": moe_attn["flash_decode"][key] for key in gqa4},
                    "max_abs_err": worst["flash_decode"], **rows[("flash_decode", "decode")],
                    **{f"prefill_chunk_{key}": prefill[key]
                       for key in ("ms", "bound_ms", "bound_by", "fp32_bound_ms", "plain_ms",

@@ -9,6 +9,8 @@ from .base import ArchConfig
 _MODULES = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "qwen2.5-32b": "qwen2_5_32b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
+    "arctic-480b": "arctic_480b",
 }
 
 # the reference's other architectures, by the ROADMAP.md queue-1 item that
@@ -17,8 +19,6 @@ _LATER = {
     "minicpm3-4b": "item 6 (MLA family)",
     "internlm2-20b": "item 6 (its config file; the dense family is ported)",
     "llama-3.2-vision-11b": "item 6 (VLM family)",
-    "phi3.5-moe-42b-a6.6b": "item 9 (MoE)",
-    "arctic-480b": "item 9 (MoE)",
     "rwkv6-3b": "item 6 (SSM family)",
     "zamba2-7b": "item 6 (hybrid family)",
     "musicgen-large": "item 6 (audio family, embeds input)",

@@ -66,6 +66,13 @@ from .collectives import (
     all_gather_start,
     all_reduce_bag,
     all_reduce_start,
+    all_to_all_bag,
+    all_to_all_start,
+    all_to_allv_bag,
+    all_to_allv_start,
+    all_gatherv_bag,
+    all_gatherv_dist,
+    all_gatherv_start,
     broadcast,
     dist_full,
     gather,
@@ -97,7 +104,9 @@ __all__ = [
     "DistTraverser", "Mesh", "init_world", "make_mesh", "mpi_cart_traverser", "mpi_traverser",
     "resolve_device",
     "DistBag", "all_gather_bag", "all_gather_dist", "all_gather_start", "all_reduce_bag",
-    "all_reduce_start", "broadcast", "dist_full", "gather", "gatherv_bag", "grid_extents",
+    "all_reduce_start", "all_to_all_bag", "all_to_all_start", "all_to_allv_bag",
+    "all_to_allv_start", "all_gatherv_bag", "all_gatherv_dist", "all_gatherv_start",
+    "broadcast", "dist_full", "gather", "gatherv_bag", "grid_extents",
     "rank_map", "reduce_identity", "reduce_scatter_bag", "reduce_scatter_start",
     "reduce_scatterv_bag", "reduce_scatterv_start", "scatter", "scatterv_bag",
     "CommPlan", "bucket", "dispatch", "halo", "intent_of", "pipeline", "ring", "stagger",

@@ -27,8 +27,9 @@ coordinates.  A communicator of one process moves no data through
 
 Non-blocking collectives
 ------------------------
-``all_gather_start``, ``all_reduce_start``, ``reduce_scatter_start`` and
-``reduce_scatterv_start`` issue the operation with ``async_op=True`` and
+``all_gather_start``, ``all_reduce_start``, ``reduce_scatter_start``,
+``reduce_scatterv_start``, ``all_to_all_start``, ``all_gatherv_start`` and
+``all_to_allv_start`` issue the operation with ``async_op=True`` and
 return a :class:`repro_torch.core.request.Pending` immediately; compute
 issued between start and :meth:`~repro_torch.core.request.Pending.wait`
 overlaps the transfer.  The blocking collectives are literally
@@ -60,6 +61,10 @@ MPI                      repro_torch.core
 ``MPI_Scatterv``         :func:`scatterv_bag` (extents = counts)
 ``MPI_Gatherv``          :func:`gatherv_bag`
 ``Reduce_scatter`` (v)   :func:`reduce_scatterv_bag` / ``_start``
+``MPI_Alltoall``         :func:`all_to_all_bag` / ``_start`` (the reshard)
+``MPI_Allgatherv``       :func:`all_gatherv_bag` / ``_dist`` / ``_start``
+``MPI_Alltoallv``        :func:`all_to_allv_bag` / ``_start`` (split sizes =
+                         the counts table; zero counts allowed)
 =======================  ====================================================
 """
 from __future__ import annotations
@@ -98,6 +103,13 @@ __all__ = [
     "gatherv_bag",
     "reduce_scatterv_bag",
     "reduce_scatterv_start",
+    "all_to_all_start",
+    "all_to_all_bag",
+    "all_gatherv_start",
+    "all_gatherv_dist",
+    "all_gatherv_bag",
+    "all_to_allv_start",
+    "all_to_allv_bag",
     "reduce_identity",
     "dist_full",
     "rank_map",
@@ -1074,6 +1086,349 @@ def reduce_scatterv_bag(
         op=op,
         rank_dim=rank_dim,
     ).wait()
+
+
+# -----------------------------------------------------------------------------
+# all-to-all and the ragged all-gather / all-to-all (MPI_Alltoall /
+# MPI_Allgatherv / MPI_Alltoallv)
+# -----------------------------------------------------------------------------
+def _issue_all_to_all_pieces(pieces: Sequence[torch.Tensor], recv_shapes: Sequence[tuple],
+                             dt: DistTraverser, rank_dim: str) -> tuple[list, list]:
+    """Send ``pieces[j]`` to communicator rank ``j`` and land rank ``j``'s
+    piece for this process in a buffer of ``recv_shapes[j]``: one
+    ``all_to_all_single`` with per-rank split sizes (``MPI_Ialltoallv``), so
+    only the pieces' own elements cross the wire and an empty piece moves
+    nothing.  Returns the landing buffers and the Work handles (none for a
+    one-process communicator)."""
+    group, members = dt.communicator((rank_dim,))
+    if len(members) == 1:
+        return [pieces[0].clone(memory_format=torch.contiguous_format)], []
+    send = torch.cat([p.reshape(-1) for p in pieces])
+    sizes = [prod(s) for s in recv_shapes]
+    landed = torch.empty((sum(sizes),), dtype=send.dtype, device=send.device)
+    work = dist.all_to_all_single(landed, send, output_split_sizes=sizes,
+                                  input_split_sizes=[p.numel() for p in pieces],
+                                  group=group, async_op=True)
+    return [t.view(s) for t, s in zip(landed.split(sizes), recv_shapes)], [work]
+
+
+def all_to_all_start(
+    dist_bag: DistBag,
+    out_tile_layout: Layout,
+    *,
+    split_dim: str,
+    concat_dim: str,
+    rank_dim: str | None = None,
+) -> Pending:
+    """Non-blocking all-to-all (``MPI_Ialltoall``): issue the reshard and
+    return a :class:`Pending` immediately (see :func:`all_to_all_bag`)."""
+    _require_dense(dist_bag, "all_to_all (use all_to_allv_bag for ragged tiles)")
+    if split_dim == concat_dim:
+        raise LayoutError("all_to_all: split_dim and concat_dim must differ")
+    rank_dim = _check_rank_dim(dist_bag, rank_dim)
+    R = dist_bag.dt.comm_size(rank_dim)
+    in_space = dist_bag.tile_layout.index_space()
+    out_space = out_tile_layout.index_space()
+    expected = dict(out_space)
+    for d in (split_dim, concat_dim):
+        if d not in expected:
+            raise LayoutError(f"dim {d!r} missing from output space {out_space}")
+    if in_space.get(split_dim) != out_space[split_dim] * R:
+        raise LayoutError(
+            f"all_to_all: split dim {split_dim!r} must shrink by comm size {R}: "
+            f"{in_space.get(split_dim)} -> {out_space[split_dim]}"
+        )
+    if in_space.get(concat_dim, -1) * R != out_space[concat_dim]:
+        raise LayoutError(
+            f"all_to_all: concat dim {concat_dim!r} must grow by comm size {R}: "
+            f"{in_space.get(concat_dim)} -> {out_space[concat_dim]}"
+        )
+    expected[split_dim] = out_space[split_dim] * R
+    expected[concat_dim] = out_space[concat_dim] // R
+    check_same_space(in_space, expected, what="all_to_all")
+    # one exchanged piece in a canonical dense layout (the endpoint
+    # relayouts absorb any order): block j of split_dim goes to rank j, and
+    # the piece from rank j becomes block j of concat_dim
+    piece = _dense_layout(
+        dist_bag.tile_layout.dtype,
+        [(d, out_space[split_dim] if d == split_dim else in_space[d]) for d in in_space],
+    )
+    blk = _fresh_axis_name(piece, "__aa")
+    send_l = _block_over(piece, split_dim, blk, R)
+    recv_l = _block_over(piece, concat_dim, blk, R)
+    stacked = relayout(dist_bag.data, dist_bag.tile_layout, send_l)
+    landed, works = _issue_all_to_all_pieces(list(stacked.unbind(0)), [piece.shape] * R,
+                                             dist_bag.dt, rank_dim)
+
+    def finish():
+        y = torch.stack(landed).reshape(recv_l.shape)
+        return DistBag(relayout(y, recv_l, out_tile_layout), out_tile_layout, dist_bag.dt,
+                       dist_bag.rank_dims)
+
+    return Pending(finish, works, op="all_to_all")
+
+
+def all_to_all_bag(
+    dist_bag: DistBag,
+    out_tile_layout: Layout,
+    *,
+    split_dim: str,
+    concat_dim: str,
+    rank_dim: str | None = None,
+) -> DistBag:
+    """``MPI_Alltoall`` along the ``rank_dim`` communicator: each rank splits
+    its tile into R blocks of ``split_dim``, sends block ``j`` to rank ``j``,
+    and concatenates the received blocks (in rank order) along
+    ``concat_dim``.  The layout-agnostic reshard primitive: a bag tiled
+    along one logical dim becomes tiled along another, with both endpoint
+    tile layouts chosen freely.  Checks first: ``split_dim`` shrinks by R,
+    ``concat_dim`` grows by R, everything else matches."""
+    return all_to_all_start(dist_bag, out_tile_layout, split_dim=split_dim,
+                            concat_dim=concat_dim, rank_dim=rank_dim).wait()
+
+
+def _gatherv_cat_dim(dist_bag: DistBag, pos: int, root_space: Mapping[str, int],
+                     what: str) -> str:
+    """The ragged dim whose extents the rank dim at grid position ``pos``
+    tiles (per-sub-communicator counts): candidates from separability,
+    disambiguated by the root-space sum and by unique ownership."""
+    cands = _ragged_owner_candidates(dist_bag)
+    matches = [d for d, ps in cands.items()
+               if pos in ps and sum(_dim_extent_list(dist_bag, d, pos)) == root_space.get(d)]
+    if len(matches) > 1:
+        unique = [d for d in matches if cands[d] == [pos]]
+        matches = unique or matches
+    if len(matches) != 1:
+        raise LayoutError(
+            f"{what}: cannot identify the ragged dim tiled by rank dim "
+            f"{dist_bag.rank_dims[pos]!r} (candidates: {sorted(matches)} of "
+            f"ragged dims {sorted(cands)})"
+        )
+    return matches[0]
+
+
+def all_gatherv_start(
+    dist_bag: DistBag,
+    root_layout: Layout,
+    *,
+    rank_dim: str | Sequence[str] | None = None,
+) -> Pending:
+    """Non-blocking ragged all-gather (``MPI_Iallgatherv``) along one rank
+    dim: issue the transfer and return a :class:`Pending` whose
+    :meth:`~Pending.wait` hands back a :class:`DistBag` in which every rank
+    of the communicator holds the tiles' valid regions concatenated in rank
+    order, in ``root_layout``.
+
+    The padded capacity tiles cross the wire (one ``all_gather``); the
+    static extents table, the same on every rank, gives the valid slices
+    the receiver concatenates.  On a communicator grid the gather runs
+    along the named rank dim (required unless the bag has one); the other
+    grid dims act as independent sub-communicators, and dims they tile stay
+    ragged at capacity in the result and keep their extents."""
+    rank_dims = _as_rank_dims(dist_bag.dt, rank_dim) if rank_dim is not None \
+        else dist_bag.rank_dims
+    for d in rank_dims:
+        if d not in dist_bag.rank_dims:
+            raise LayoutError(f"bag is not distributed over {d!r} (has {dist_bag.rank_dims})")
+    if dist_bag.extents is None:
+        raise LayoutError("all_gatherv: bag is dense (no extents); use all_gather_*")
+    if len(rank_dims) != 1:
+        raise LayoutError("all_gatherv gathers along one rank dim per call; name it "
+                          f"explicitly on the grid {dist_bag.rank_dims}")
+    (rd,) = rank_dims
+    pos = dist_bag.rank_dims.index(rd)
+    root_space = root_layout.index_space()
+    cat_dim = _gatherv_cat_dim(dist_bag, pos, root_space, "all_gatherv")
+    exts = _dim_extent_list(dist_bag, cat_dim, pos)
+    # dims tiled by the other grid dims ride through at capacity; their
+    # extents must not vary along ``rd``
+    other_ragged = tuple(d for d in dist_bag.ragged_dims() if d != cat_dim)
+    rest_ext = tuple(tuple(p for p in entry if p[0] != cat_dim) for entry in dist_bag.extents)
+    if other_ragged:
+        _uniform_extents_along(dataclasses.replace(dist_bag, extents=rest_ext), rd,
+                               "all_gatherv (other ragged dims)")
+    expected = dict(dist_bag.tile_layout.index_space())
+    expected[cat_dim] = sum(exts)
+    check_same_space(root_space, expected, what="all_gatherv(root, sum of tiles)")
+    check_ragged_dims(dist_bag.tile_layout, dist_bag.tile_layout, (cat_dim,),
+                      what="all_gatherv")
+    check_ragged_dims(root_layout, root_layout, other_ragged, what="all_gatherv(out)")
+    ax = dist_bag.tile_layout.axis_index(dist_bag.tile_layout.dim_axes(cat_dim)[0])
+    full_l = dist_bag.tile_layout.resize_dim(cat_dim, sum(exts))
+    group, members = dist_bag.dt.communicator((rd,))
+    tile = dist_bag.data.contiguous()
+    landed = torch.empty((len(members) * tile.numel(),), dtype=tile.dtype, device=tile.device)
+    works = []
+    if len(members) == 1:
+        landed.copy_(tile.view(-1))
+    else:  # flat buffers: the landed tiles in communicator order
+        works.append(dist.all_gather_into_tensor(landed, tile.view(-1), group=group,
+                                                 async_op=True))
+
+    def finish():
+        tiles = landed.view((len(members),) + tuple(tile.shape))
+        full = torch.cat([tiles[r].narrow(ax, 0, e) for r, e in enumerate(exts)], dim=ax)
+        return DistBag(relayout(full, full_l, root_layout), root_layout, dist_bag.dt,
+                       dist_bag.rank_dims, extents=rest_ext if other_ragged else None)
+
+    return Pending(finish, works, op="all_gatherv")
+
+
+def all_gatherv_dist(
+    dist_bag: DistBag,
+    root_layout: Layout,
+    *,
+    rank_dim: str | Sequence[str] | None = None,
+) -> DistBag:
+    """Blocking ragged all-gather returning the per-rank receive buffers
+    (``all_gatherv_start(...).wait()``)."""
+    return all_gatherv_start(dist_bag, root_layout, rank_dim=rank_dim).wait()
+
+
+def all_gatherv_bag(dist_bag: DistBag, root_layout: Layout) -> Bag:
+    """``MPI_Allgatherv``: every rank ends with the full structure (the
+    ragged tiles' valid regions concatenated in rank order) in
+    ``root_layout``.  On a communicator grid this gathers along every rank
+    dim in turn (one sub-communicator all-gather per grid dim, a
+    dimension-ordered ``MPI_Allgatherv`` over a Cartesian communicator), so
+    each grid dim must tile its own ragged dim."""
+    root_space = root_layout.index_space()
+    db = dist_bag
+    for i, rd in enumerate(dist_bag.rank_dims):
+        if i == len(dist_bag.rank_dims) - 1:
+            target = root_layout
+        else:
+            cat_dim = _gatherv_cat_dim(db, db.rank_dims.index(rd), root_space, "all_gatherv")
+            space = dict(db.tile_layout.index_space())
+            space[cat_dim] = root_space[cat_dim]
+            target = _dense_layout(root_layout.dtype, list(space.items()))
+        db = all_gatherv_dist(db, target, rank_dim=rd)
+    return Bag(db.data, root_layout)
+
+
+def all_to_allv_start(
+    dist_bag: DistBag,
+    out_tile_layout: Layout,
+    *,
+    split_dim: str,
+    concat_dim: str,
+    split_extents: Sequence[int],
+    rank_dim: str | None = None,
+) -> Pending:
+    """Non-blocking ragged all-to-all (``MPI_Ialltoallv``): issue the
+    reshard and return a :class:`Pending` immediately.
+
+    The ragged transpose-reshard: a bag tiled raggedly along ``concat_dim``
+    (its extents table) becomes tiled raggedly along ``split_dim``
+    (``split_extents``, zeros allowed).  Rank ``r`` sends the
+    ``(split_extents[j], my concat extent)`` valid sub-block to rank ``j``;
+    the split sizes of the one ``all_to_all_single`` are those counts, so
+    no padding crosses the wire.  The receiver places rank ``j``'s block at
+    its concat displacement (the prefix sum of the extents) in a
+    zero-padded ``split_dim`` capacity tile.  On a communicator grid the
+    exchange runs along the named ``rank_dim`` sub-communicators; dims tiled
+    by the other grid dims ride through at capacity and keep their
+    extents."""
+    if split_dim == concat_dim:
+        raise LayoutError("all_to_allv: split_dim and concat_dim must differ")
+    rank_dim = _check_rank_dim(dist_bag, rank_dim)
+    pos = dist_bag.rank_dims.index(rank_dim)
+    R = dist_bag.dt.comm_size(rank_dim)
+    split_extents = tuple(int(e) for e in split_extents)
+    if len(split_extents) != R:
+        raise LayoutError(f"all_to_allv: {len(split_extents)} split extents for comm size {R}")
+    if min(split_extents) < 0:
+        raise LayoutError(f"all_to_allv: negative split extents {split_extents}")
+    if dist_bag.extents is None:
+        raise LayoutError(
+            "all_to_allv: input must be ragged along concat_dim (use all_to_all for dense)")
+    cands = _ragged_owner_candidates(dist_bag)
+    if concat_dim not in cands or pos not in cands[concat_dim]:
+        raise LayoutError(
+            f"all_to_allv: input must be ragged along {concat_dim!r} over "
+            f"{rank_dim!r} (ragged dims: {sorted(cands)})"
+        )
+    if split_dim in cands:
+        raise LayoutError(
+            f"all_to_allv: split dim {split_dim!r} must be dense in the input "
+            f"(ragged dims: {sorted(cands)})"
+        )
+    other_ragged = tuple(d for d in dist_bag.ragged_dims() if d != concat_dim)
+    for d in other_ragged:
+        if cands[d] == [pos]:
+            raise LayoutError(
+                f"all_to_allv: ragged dim {d!r} varies along {rank_dim!r}; only "
+                f"{concat_dim!r} may (other ragged dims belong to other grid dims)"
+            )
+    concat_exts = _dim_extent_list(dist_bag, concat_dim, pos)
+    in_space = dist_bag.tile_layout.index_space()
+    out_space = out_tile_layout.index_space()
+    X_total = sum(split_extents)
+    if in_space.get(split_dim) != X_total:
+        raise LayoutError(
+            f"all_to_allv: split dim {split_dim!r} extent {in_space.get(split_dim)} "
+            f"!= split extents sum {X_total}"
+        )
+    cap_s = out_space.get(split_dim)
+    if cap_s is None or max(split_extents) > cap_s:
+        raise LayoutError(
+            f"all_to_allv: split extents {split_extents} exceed output capacity {cap_s}")
+    C_total = sum(concat_exts)
+    if out_space.get(concat_dim) != C_total:
+        raise LayoutError(
+            f"all_to_allv: concat dim {concat_dim!r} output extent "
+            f"{out_space.get(concat_dim)} != concat extents sum {C_total}"
+        )
+    expected = {d: s for d, s in in_space.items() if d not in (split_dim, concat_dim)}
+    expected[split_dim] = cap_s
+    expected[concat_dim] = C_total
+    check_same_space(out_space, expected, what="all_to_allv")
+    check_ragged_dims(dist_bag.tile_layout, out_tile_layout,
+                      (split_dim, concat_dim) + other_ragged, what="all_to_allv")
+    rest = [(d, s) for d, s in in_space.items() if d not in (split_dim, concat_dim)]
+    mid_in = _dense_layout(dist_bag.tile_layout.dtype,
+                           rest + [(split_dim, X_total), (concat_dim, in_space[concat_dim])])
+    mid_out = _dense_layout(out_tile_layout.dtype,
+                            rest + [(split_dim, cap_s), (concat_dim, C_total)])
+    me = dist_bag.dt.coord(rank_dim)
+    x = relayout(dist_bag.data, dist_bag.tile_layout, mid_in)
+    x = x.narrow(-1, 0, concat_exts[me])  # this rank's valid concat extent
+    offs = _prefix_sums(split_extents)
+    pieces = [x.narrow(-2, offs[j], split_extents[j]) for j in range(R)]
+    lead = tuple(s for _, s in rest)
+    landed, works = _issue_all_to_all_pieces(
+        pieces, [lead + (split_extents[me], concat_exts[j]) for j in range(R)],
+        dist_bag.dt, rank_dim)
+    new_ext = []
+    for coords in itertools.product(*(range(s) for s in dist_bag.grid_shape)):
+        entry = [p for p in dist_bag.extents[dist_bag.flat_rank(coords)] if p[0] != concat_dim]
+        entry.append((split_dim, split_extents[coords[pos]]))
+        new_ext.append(tuple(entry))
+
+    def finish():
+        full = torch.zeros(mid_out.shape, dtype=x.dtype, device=x.device)
+        full.narrow(-2, 0, split_extents[me]).copy_(torch.cat(landed, dim=-1))
+        return DistBag(relayout(full, mid_out, out_tile_layout), out_tile_layout, dist_bag.dt,
+                       dist_bag.rank_dims, extents=tuple(new_ext))
+
+    return Pending(finish, works, op="all_to_allv")
+
+
+def all_to_allv_bag(
+    dist_bag: DistBag,
+    out_tile_layout: Layout,
+    *,
+    split_dim: str,
+    concat_dim: str,
+    split_extents: Sequence[int],
+    rank_dim: str | None = None,
+) -> DistBag:
+    """``MPI_Alltoallv``: reshard a bag tiled raggedly along ``concat_dim``
+    into one tiled raggedly along ``split_dim`` (see
+    :func:`all_to_allv_start`); blocking = ``all_to_allv_start(...).wait()``."""
+    return all_to_allv_start(dist_bag, out_tile_layout, split_dim=split_dim,
+                             concat_dim=concat_dim, split_extents=split_extents,
+                             rank_dim=rank_dim).wait()
 
 
 # -----------------------------------------------------------------------------

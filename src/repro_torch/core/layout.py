@@ -48,6 +48,8 @@ __all__ = [
     "set_length",
     "fix_dim",
     "torch_dtype",
+    "layout_dtype",
+    "BFLOAT16",
 ]
 
 
@@ -269,6 +271,10 @@ _TORCH_DTYPES = {
     np.dtype(np.uint8): torch.uint8,
     np.dtype(np.bool_): torch.bool,
 }
+# numpy has no bfloat16: the layouts of bf16 tensors carry this 2-byte stand-in
+# (it does not compare equal to the reference's ml_dtypes bfloat16)
+BFLOAT16 = np.dtype([("bfloat16", np.uint16)])
+_TORCH_DTYPES[BFLOAT16] = torch.bfloat16
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -278,6 +284,15 @@ def torch_dtype(dtype) -> torch.dtype:
     if dt not in _TORCH_DTYPES:
         raise LayoutError(f"no torch dtype for layout dtype {dt}")
     return _TORCH_DTYPES[dt]
+
+
+def layout_dtype(dtype: torch.dtype) -> np.dtype:
+    """The layout element dtype of a ``torch.dtype`` (:data:`BFLOAT16` for
+    ``torch.bfloat16``)."""
+    for dt, t in _TORCH_DTYPES.items():
+        if t == dtype:
+            return dt
+    raise LayoutError(f"no layout dtype for torch dtype {dtype}")
 
 
 def scalar(dtype) -> Layout:

@@ -1,10 +1,10 @@
-"""Decoder block of the dense LM: pre-norm GQA attention + FFN.
+"""Decoder block of the dense and MoE LMs: pre-norm GQA attention + FFN
+(SwiGLU, the GELU MLP, or the top-k MoE).
 
 The reference scans stacked layer parameters with ``lax.scan``; the port
 keeps the stacked ``(L, ...)`` layout and loops over the layer index
 (``repro_torch.models.lm``).  The MLA, VLM cross-attention, SSM and hybrid
-blocks wait for their families' slices (ROADMAP queue 1 item 6), MoE for
-item 9.
+blocks wait for their families' slices (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -38,8 +38,9 @@ def attn_block_specs(cfg) -> dict:
                                qkv_bias=cfg.qkv_bias, dtype=dt),
     }
     if cfg.ffn_kind == "moe":
-        raise NotImplementedError("MoE FFN is not ported yet: ROADMAP.md queue 1, item 9")
-    if cfg.ffn_kind == "gelu":
+        s["ffn"] = ffn_mod.moe_specs(cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                     dense_residual=cfg.moe_dense_residual, dtype=dt)
+    elif cfg.ffn_kind == "gelu":
         s["ffn"] = ffn_mod.gelu_mlp_specs(cfg.d_model, cfg.d_ff, dt)
     else:
         s["ffn"] = ffn_mod.swiglu_specs(cfg.d_model, cfg.d_ff, dt)
@@ -47,19 +48,30 @@ def attn_block_specs(cfg) -> dict:
 
 
 def attn_block(p, x, cfg, *, cache=None, positions=None, new_counts=None, prefill=False,
-               idle_read_chunk=None, seq_len=None):
-    """Pre-norm attention + FFN.  Returns ``(x, new_cache)``; the cache, if
-    given, is updated in place.  Under a sequence-parallel recipe ``x`` is
-    this rank's chunk and ``seq_len`` the valid length of the whole
-    sequence (see :func:`repro_torch.models.attention.gqa_attention`)."""
+               idle_read_chunk=None, shard=None):
+    """Pre-norm attention + FFN.  Returns ``(x, new_cache, aux_loss)``; the
+    cache, if given, is updated in place, and the aux loss is the MoE's
+    (the float 0.0 for the other FFNs: no kernel for a dense layer).  Under a sequence-parallel recipe ``x`` is this
+    rank's block of the token grid that ``shard`` (a
+    :class:`repro_torch.models.sharding.TokenShard`) describes (see
+    :func:`repro_torch.models.attention.gqa_attention` and
+    :func:`repro_torch.models.ffn.moe_ffn`)."""
     h, new_cache = attn.gqa_attention(
         p["attn"], rmsnorm(p["ln1"], x),
         n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
         rope_theta=cfg.rope_theta, positions=positions, cache=cache,
         attn_impl=cfg.attn_impl, block=cfg.attn_block,
         new_counts=new_counts, prefill=prefill, idle_read_chunk=idle_read_chunk,
-        seq_len=seq_len,
+        seq_len=None if shard is None else shard.S,
     )
     x = x + h
-    fn = ffn_mod.gelu_mlp if cfg.ffn_kind == "gelu" else ffn_mod.swiglu
-    return x + fn(p["ffn"], rmsnorm(p["ln2"], x)), new_cache
+    aux = 0.0
+    if cfg.ffn_kind == "moe":
+        f, aux = ffn_mod.moe_ffn(p["ffn"], rmsnorm(p["ln2"], x), n_experts=cfg.n_experts,
+                                 top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+                                 groups=cfg.moe_groups, dispatch=cfg.moe_dispatch, shard=shard)
+    elif cfg.ffn_kind == "gelu":
+        f = ffn_mod.gelu_mlp(p["ffn"], rmsnorm(p["ln2"], x))
+    else:
+        f = ffn_mod.swiglu(p["ffn"], rmsnorm(p["ln2"], x))
+    return x + f, new_cache, aux

@@ -1,18 +1,70 @@
-"""Feed-forward family of the dense LM: SwiGLU and the GELU MLP.
+"""Feed-forward family: SwiGLU, the GELU MLP, and the top-k MoE (with
+arctic's optional parallel dense residual branch).
 
-The products are plain ``torch.matmul`` in the activation dtype: in the
-reference they sit outside any Pallas kernel (XLA's dots).  MoE
-(``moe_ffn`` and the expert-parallel dispatch) waits for ROADMAP queue 1
-item 9.
+The products are plain ``torch.matmul``/``bmm`` in the activation dtype: in
+the reference they sit outside any Pallas kernel (XLA's dots and einsums).
+
+MoE dispatch modes
+------------------
+All three share the router (softmax top-k, renormalized gates) and the
+capacity-based slotting (slot = expert base + running per-expert counter;
+overflowing choices drop; GShard aux loss).  They differ in where the
+routed tokens go:
+
+``dense`` (:func:`moe_ffn` with ``groups <= 1``)
+    One global ``(E*C, m)`` scatter buffer; the running counter spans every
+    token.  Decode (S == 1) always takes this mode, dropless (C = T).
+``grouped`` (``groups > 1``, GShard-style, :func:`_moe_grouped`)
+    Tokens split into G groups along the batch, each with its own capacity
+    and slot counter.
+``expert-parallel`` (``dispatch="ep"``, :func:`moe_expert_parallel`)
+    Experts split over the ``model`` ranks in a ragged ceil-split
+    (:func:`repro_torch.models.sharding.ragged_expert_extents`: E need not
+    divide the axis), tokens over the (data, model) ranks.  The
+    per-(rank, expert) counts table, the ``MPI_Alltoallv`` counts, drives
+    a ragged :func:`repro_torch.core.collectives.all_to_allv_start` to the
+    owner ranks, the expert GEMMs run on the resident rows only, and the
+    inverse all-to-all brings the rows back, the two legs scheduled by a
+    :func:`repro_torch.core.plan.dispatch` comm plan double-buffered over
+    expert groups.
+
+Routing takes the top k as k rounds of a masked ``argmax`` (ties to the
+lowest index, as ``jax.lax.top_k``); ``torch.topk`` leaves the order of
+ties unspecified.  The scatter into the expert buffers is ``index_add_``:
+each kept choice owns its slot, and a dropped choice adds a zero row, so
+the sum does not depend on the order of the adds.
+
+The dense and grouped paths mark their three stages with profiler ranges,
+``moe.route`` (router, top-k, slots and the scatter into the expert
+buffer), ``moe.experts`` (the expert GEMMs) and ``moe.combine`` (the
+gather back and the gate-weighted sum), so a ``torch.profiler`` trace can
+split a forward's device time by stage; outside a profile a range costs a
+few microseconds of host time.
 """
 from __future__ import annotations
 
+import dataclasses
+import warnings
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
+
+from repro_torch.core.collectives import (DistBag, all_reduce_start, all_to_allv_start,
+                                          grid_extents, rank_map)
+from repro_torch.core.dims import ceil_div, prod
+from repro_torch.core.dist import mpi_cart_traverser, mpi_traverser
+from repro_torch.core.layout import layout_dtype, scalar, vector
+from repro_torch.core.plan import dispatch as dispatch_plan, intent_of
+from repro_torch.core.traverser import traverser
 
 from .module import pspec
+from .sharding import current_recipe, ragged_expert_extents
 
-__all__ = ["swiglu_specs", "swiglu", "gelu_mlp_specs", "gelu_mlp"]
+__all__ = ["swiglu_specs", "swiglu", "gelu_mlp_specs", "gelu_mlp", "moe_specs", "moe_ffn",
+           "moe_ep_counts", "moe_ep_schedule", "moe_comm_model", "moe_expert_parallel",
+           "MOE_DISPATCH_PLAN_INTENT"]
 
 
 def swiglu_specs(d_model: int, d_ff: int, dtype=torch.float32) -> dict:
@@ -42,3 +94,462 @@ def gelu_mlp(p, x):
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu(torch.matmul(x, p["w_in"].to(x.dtype)) + p["b_in"].to(x.dtype), approximate="tanh")
     return torch.matmul(h, p["w_out"].to(x.dtype)) + p["b_out"].to(x.dtype)
+
+
+# ------------------------------------------------------------------- MoE ----
+
+def moe_specs(d_model: int, d_ff: int, n_experts: int, *, dense_residual: bool = False,
+              dtype=torch.float32) -> dict:
+    s = {
+        "router": pspec(("m", d_model), ("e", n_experts), dtype=dtype, scale=0.02),
+        "w_gate": pspec(("e", n_experts), ("m", d_model), ("f", d_ff), dtype=dtype, fan_in=("m",)),
+        "w_up": pspec(("e", n_experts), ("m", d_model), ("f", d_ff), dtype=dtype, fan_in=("m",)),
+        "w_down": pspec(("e", n_experts), ("f", d_ff), ("m", d_model), dtype=dtype,
+                        fan_in=("f",)),
+    }
+    if dense_residual:
+        s["residual"] = swiglu_specs(d_model, d_ff, dtype)
+    return s
+
+
+def _topk(probs, k: int):
+    """Top-k along the last dim as k masked ``argmax`` rounds: the lowest
+    index wins a tie, as in ``jax.lax.top_k``."""
+    vals, idxs = [], []
+    cur = probs
+    for _ in range(k):
+        i = torch.argmax(cur, dim=-1, keepdim=True)
+        vals.append(torch.gather(cur, -1, i))
+        idxs.append(i)
+        cur = cur.scatter(-1, i, float("-inf"))
+    return torch.cat(vals, dim=-1), torch.cat(idxs, dim=-1)
+
+
+def _route(x, router, top_k: int):
+    """``(probs, gate values, expert indices)`` of tokens ``x (..., m)``:
+    float32 softmax over the router logits, top-k, gates renormalized."""
+    logits = torch.matmul(x, router.to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = _topk(probs, top_k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def _positions(gate_idx, E: int):
+    """Each choice's running position in its expert: the number of earlier
+    choices (token-major, then k) of the same expert, over the
+    second-to-last dim of ``gate_idx (..., T, k)``."""
+    *lead, T, k = gate_idx.shape
+    # (..., E, T*k): the running count is a scan along the inner dim (on the
+    # card a scan along the outer dim of 16 columns is the slower kernel)
+    flat = F.one_hot(gate_idx, E).reshape(*lead, T * k, E).transpose(-1, -2).contiguous()
+    pos = flat.cumsum(-1) - flat
+    return (pos * flat).sum(-2).reshape(gate_idx.shape)
+
+
+def _top1_load(gate_idx, E: int):
+    """Float32 count of tokens whose first choice is each expert."""
+    first = gate_idx[..., 0].reshape(-1)
+    return torch.zeros((E,), dtype=torch.float32, device=first.device).index_add_(
+        0, first, torch.ones(first.shape, dtype=torch.float32, device=first.device))
+
+
+def _experts(be, wg, wu, wd):
+    """SwiGLU of every expert on its rows: ``be (E, C, m)`` -> ``(E, C, m)``."""
+    g = torch.bmm(be, wg.to(be.dtype))
+    u = torch.bmm(be, wu.to(be.dtype))
+    return torch.bmm(F.silu(g) * u, wd.to(be.dtype))
+
+
+def _combine(rows, slot, gate_vals, w):
+    """Each token's output: its choices' expert rows, weighted by the gates
+    of the kept choices, summed over k."""
+    T, k = slot.shape
+    yt = rows[slot.reshape(-1)].reshape(T, k, rows.shape[-1])
+    return (yt * (gate_vals.to(rows.dtype) * w)[..., None]).sum(dim=1)
+
+
+def moe_ffn(p, x, *, n_experts: int, top_k: int = 2, capacity_factor: float = 1.25,
+            aux_loss_weight: float = 0.01, groups: int = 0, dispatch: str = "auto",
+            shard=None):
+    """x (B, S, m) -> ``(y (B, S, m), aux_loss scalar)``, the reference's
+    ``moe_ffn``.
+
+    Capacity C = round(top_k * T / E * capacity_factor) (at least top_k);
+    overflowing choices are dropped (Switch/GShard); the aux loss is the
+    GShard load-balancing loss.  ``groups > 1`` with S > 1 and B a multiple
+    of it is grouped dispatch (:func:`_moe_grouped`); S == 1 (decode) is
+    dropless, C = T.
+
+    ``shard`` (a :class:`repro_torch.models.sharding.TokenShard`) says that
+    ``x`` is this rank's block of a token grid under an ``sp_ring`` recipe,
+    and the result is this rank's block of the output.
+    ``dispatch="ep"`` then runs :func:`moe_expert_parallel` on the block
+    when the recipe can host it.  When it cannot (see
+    :func:`_ep_ineligible`), and for ``dispatch="auto"``, the hidden states
+    are gathered over the token ranks and every rank computes the whole
+    grid's dense or grouped dispatch, as the reference computes it: one
+    capacity and one running counter over all B*S tokens, so each rank
+    keeps and drops the same tokens as a single process would.  A rank
+    routing its own block with a local capacity would drop other tokens.
+    The fallback from ``"ep"`` warns, as the reference does."""
+    if dispatch not in ("auto", "ep"):
+        raise ValueError(f"moe_ffn: unknown dispatch {dispatch!r} (have 'auto', 'ep')")
+    B, S = (shard.B, shard.S) if shard is not None else x.shape[:2]
+    if dispatch == "ep":
+        recipe = current_recipe()
+        if recipe is not None and shard is None:
+            why = "the whole token grid is on this process (no token shard)"
+        else:
+            why = _ep_ineligible(recipe, B, S)
+        if why is None:
+            return moe_expert_parallel(p, x, n_experts=n_experts, top_k=top_k,
+                                       capacity_factor=capacity_factor,
+                                       aux_loss_weight=aux_loss_weight, recipe=recipe)
+        warnings.warn(f"moe_ffn: dispatch='ep' requested but {why}; falling back to the "
+                      "dense/grouped capacity dispatch", stacklevel=2)
+    if shard is not None:
+        y, aux = moe_ffn(p, shard.gather(x), n_experts=n_experts, top_k=top_k,
+                         capacity_factor=capacity_factor, aux_loss_weight=aux_loss_weight,
+                         groups=groups)
+        return shard.local(y), aux
+    if groups and groups > 1 and S > 1 and B % groups == 0:
+        return _moe_grouped(p, x, n_experts=n_experts, top_k=top_k,
+                            capacity_factor=capacity_factor,
+                            aux_loss_weight=aux_loss_weight, groups=groups)
+    m = x.shape[-1]
+    E, T = n_experts, B * S
+    # decode: dropless (C = T lets any routing fit), so serving never drops
+    C = T if S == 1 else int(max(top_k, round(top_k * T / E * capacity_factor)))
+    xt = x.reshape(T, m)
+    with record_function("moe.route"):
+        probs, gate_vals, gate_idx = _route(xt, p["router"], top_k)
+        aux = E * torch.sum(probs.mean(dim=0) * (_top1_load(gate_idx, E) / T)) * aux_loss_weight
+        pos = _positions(gate_idx, E)  # (T, k)
+        w = (pos < C).to(x.dtype)  # dispatch weight (0 drops the overflow)
+        slot = gate_idx * C + pos.clamp_max(C - 1)
+        buf = x.new_zeros((E * C, m)).index_add_(
+            0, slot.reshape(-1), (xt[:, None, :] * w[..., None]).reshape(T * top_k, m))
+    with record_function("moe.experts"):
+        ye = _experts(buf.view(E, C, m), p["w_gate"], p["w_up"], p["w_down"])
+    with record_function("moe.combine"):
+        y = _combine(ye.view(E * C, m), slot, gate_vals, w).reshape(B, S, m)
+    if "residual" in p:
+        y = y + swiglu(p["residual"], x)
+    return y, aux
+
+
+def _moe_grouped(p, x, *, n_experts: int, top_k: int, capacity_factor: float,
+                 aux_loss_weight: float, groups: int):
+    """Grouped-dispatch MoE: tokens ``(G, Tg, m)``, each group with its own
+    capacity ``Cg`` and running counter, buffers ``(G, E, Cg, m)``."""
+    B, S, m = x.shape
+    E, G, T = n_experts, groups, B * S
+    Tg = T // G
+    Cg = int(max(top_k, round(top_k * Tg / E * capacity_factor)))
+    xg = x.reshape(G, Tg, m)
+    with record_function("moe.route"):
+        probs, gate_vals, gate_idx = _route(xg, p["router"], top_k)  # (G, Tg, E), (G, Tg, k)
+        # the aux loss over the whole batch (the same statistic as ungrouped)
+        aux = E * torch.sum(probs.reshape(T, E).mean(dim=0) * (_top1_load(gate_idx, E) / T)) \
+            * aux_loss_weight
+        pos = _positions(gate_idx, E)  # the counter runs over Tg only
+        w = (pos < Cg).to(x.dtype)
+        group0 = torch.arange(G, device=x.device)[:, None, None] * (E * Cg)
+        slot = (group0 + gate_idx * Cg + pos.clamp_max(Cg - 1)).reshape(T, top_k)
+        buf = x.new_zeros((G * E * Cg, m)).index_add_(
+            0, slot.reshape(-1), (xg[:, :, None, :] * w[..., None]).reshape(T * top_k, m))
+    with record_function("moe.experts"):
+        # batched over E: (G, E, Cg, m) -> (E, G*Cg, m), each expert's weights read once
+        be = buf.view(G, E, Cg, m).transpose(0, 1).reshape(E, G * Cg, m)
+        ye = _experts(be, p["w_gate"], p["w_up"], p["w_down"]).view(E, G, Cg, m).transpose(0, 1)
+    with record_function("moe.combine"):
+        y = _combine(ye.reshape(G * E * Cg, m), slot, gate_vals.reshape(T, top_k),
+                     w.reshape(T, top_k)).reshape(B, S, m)
+    if "residual" in p:
+        y = y + swiglu(p["residual"], x)
+    return y, aux
+
+
+# ------------------------------------------------- expert-parallel MoE ----
+# Declared overlap intent of the dispatch comm plan.
+MOE_DISPATCH_PLAN_INTENT = intent_of("dispatch")
+
+
+def _ep_ineligible(recipe, B: int, S: int) -> str | None:
+    """Why the expert-parallel path cannot run under ``recipe`` for a
+    ``(B, S)`` token grid (None = it can)."""
+    if recipe is None:
+        return "no active sharding recipe"
+    mesh = recipe.mesh
+    if "model" not in mesh.axis_names or mesh.shape["model"] <= 1:
+        return "recipe has no model axis of size > 1 to shard experts over"
+    if not recipe.batch_axes:
+        return "recipe has no data/pod axes to shard tokens over"
+    if S == 1:
+        return "decode (S == 1) stays on the dense dropless path"
+    R = mesh.shape["model"]
+    D = prod(mesh.shape[a] for a in recipe.batch_axes)
+    if B % D or S % R:
+        return (f"token grid (B={B}, S={S}) does not divide the "
+                f"(data={D}, model={R}) mesh")
+    return None
+
+
+def moe_ep_counts(E: int, tokens_per_shard: int, top_k: int,
+                  capacity_factor: float) -> tuple[int, ...]:
+    """Balanced static counts table: per-expert capacity *per token shard*
+    (the ``MPI_Alltoallv`` sendcounts each source rank contributes)."""
+    c = int(max(1, round(top_k * tokens_per_shard * capacity_factor / E)))
+    return (c,) * E
+
+
+@dataclasses.dataclass(frozen=True)
+class _EpGroup:
+    """One plan step: a contiguous slice of every rank's local expert range."""
+    lo: int               # local expert index range [lo, hi) on every rank
+    hi: int
+    gsz: int              # hi - lo (expert slots batched per GEMM)
+    gbase: int            # first packed row of this group in the scatter buffer
+    Sg: int               # routed rows per source shard (= sum of se)
+    se: tuple[int, ...]   # dispatch split extents: rows for each dest rank
+    cap_s: int            # wire capacity per (source, dest) block = max(se)
+    c_max: int            # max per-expert count in this group (GEMM row cap)
+    fwd: np.ndarray       # (R, gsz*R*c_max) arrived-row gather table (-1 = pad)
+    inv: np.ndarray       # (R, R*cap_s) GEMM-output repack table (-1 = pad)
+
+
+@dataclasses.dataclass(frozen=True)
+class _EpSchedule:
+    E: int
+    R: int
+    cap_e: int
+    e_exts: tuple[int, ...]
+    counts: tuple[int, ...]
+    Q: int                        # total packed rows per source shard
+    comb_base: np.ndarray         # (E,) packed-row base per expert
+    groups: tuple[_EpGroup, ...]  # nonempty groups only, in packed order
+
+
+def moe_ep_schedule(E: int, R: int, counts, n_groups: int) -> _EpSchedule:
+    """Host-side plan of the expert-parallel exchange.
+
+    Experts split contiguously over the R model ranks
+    (:func:`ragged_expert_extents`); each rank's local range splits into
+    ``n_groups`` plan steps.  Rows pack in (group, dest rank, local expert,
+    slot) order, so one group is a contiguous slice of the scatter buffer
+    and the combine legs' outputs concatenate back into exactly that order.
+    ``counts[e]`` may be zero (zero-token experts ride through as zero
+    split extents); groups whose total is zero are dropped from the step
+    list."""
+    cap_e, e_exts = ragged_expert_extents(E, R)
+    n_groups = max(1, min(int(n_groups), cap_e))
+    cap_g = ceil_div(cap_e, n_groups)
+    counts = tuple(int(c) for c in counts)
+    if len(counts) != E:
+        raise ValueError(f"moe_ep_schedule: {len(counts)} counts for {E} experts")
+    if min(counts) < 0:
+        raise ValueError("moe_ep_schedule: negative counts")
+
+    comb_base = np.zeros((E,), np.int64)
+    groups: list[_EpGroup] = []
+    off = 0
+    for gi in range(n_groups):
+        lo, hi = gi * cap_g, min((gi + 1) * cap_g, cap_e)
+        if lo >= hi:
+            continue
+        gsz = hi - lo
+        gbase = off
+        se = []
+        c_max = 0
+        for j in range(R):
+            sj = 0
+            for l in range(lo, min(hi, e_exts[j])):
+                e = j * cap_e + l
+                comb_base[e] = off
+                off += counts[e]
+                sj += counts[e]
+                c_max = max(c_max, counts[e])
+            se.append(sj)
+        Sg = off - gbase
+        if Sg == 0:
+            continue
+        cap_s = max(se)
+        fwd = np.full((R, gsz, R, c_max), -1, np.int64)
+        inv = np.full((R, R, cap_s), -1, np.int64)
+        for j in range(R):
+            rowbase = 0
+            for lrel in range(gsz):
+                l = lo + lrel
+                if l >= e_exts[j]:
+                    continue
+                e = j * cap_e + l
+                for c in range(counts[e]):
+                    for r in range(R):
+                        fwd[j, lrel, r, c] = r * cap_s + rowbase + c
+                        inv[j, r, rowbase + c] = (lrel * R + r) * c_max + c
+                rowbase += counts[e]
+        groups.append(_EpGroup(
+            lo=lo, hi=hi, gsz=gsz, gbase=gbase, Sg=Sg, se=tuple(se),
+            cap_s=cap_s, c_max=c_max,
+            fwd=fwd.reshape(R, gsz * R * c_max).astype(np.int32),
+            inv=inv.reshape(R, R * cap_s).astype(np.int32),
+        ))
+    return _EpSchedule(E=E, R=R, cap_e=cap_e, e_exts=e_exts, counts=counts,
+                       Q=off, comb_base=comb_base, groups=tuple(groups))
+
+
+def moe_comm_model(sched: _EpSchedule, *, d_model: int, itemsize: int,
+                   dense_capacity: int | None = None) -> dict:
+    """Modeled all-to-all bytes of one expert-parallel MoE call, per shard.
+
+    ``wire_bytes`` counts each leg's R padded ``(cap_s, m)`` blocks, the
+    reference's wire convention; ``valid_bytes`` the counts table's routed
+    rows (``Sg`` per shard per leg), what this port's split sizes put on
+    the wire.  ``dense_capacity`` (the dense path's global C) adds the
+    replication the dense modes pay instead: every model rank materializes
+    the full ``(E*C, m)`` buffer."""
+    wire = sum(2 * sched.R * g.cap_s * d_model * itemsize for g in sched.groups)
+    valid = sum(2 * g.Sg * d_model * itemsize for g in sched.groups)
+    out = {
+        "wire_bytes": wire,
+        "valid_bytes": valid,
+        "valid_fractions": {"all-to-all": (valid / wire) if wire else 1.0},
+    }
+    if dense_capacity is not None:
+        out["dense_replication_bytes"] = (
+            2 * (sched.R - 1) * sched.E * dense_capacity * d_model * itemsize)
+    return out
+
+
+def _take_rows(rows, idx):
+    """``rows[idx]`` with a zero row wherever ``idx`` is -1."""
+    return torch.cat([rows, rows.new_zeros((1, rows.shape[-1]))])[idx]
+
+
+def moe_expert_parallel(p, x, *, n_experts: int, top_k: int = 2,
+                        capacity_factor: float = 1.25, aux_loss_weight: float = 0.01,
+                        recipe=None, n_groups: int = 0, counts=None,
+                        double_buffer: bool = True):
+    """Expert-parallel MoE as one rank's program (see the module docstring).
+
+    ``x (Bd, Sr, m)`` is this rank's token shard: batch rows ``[d*Bd,
+    (d+1)*Bd)`` and positions ``[r*Sr, (r+1)*Sr)`` at the rank's ``data``
+    coordinate(s) ``d`` and ``model`` coordinate ``r`` (the ``sp_ring``
+    forward's chunk when S divides the ring).  Routing and the slot
+    assignment run on the shard against the static ``counts`` table
+    (per-expert capacity per source shard, zeros allowed).  Per expert
+    group the packed rows go by :func:`all_to_allv_start` over ``model`` to
+    the experts' owners, :func:`rank_map` runs the owner's expert GEMMs on
+    the rows that arrived, through the ``fwd``/``inv`` tables, and the
+    combine all-to-all brings them back; a :func:`dispatch` comm plan
+    schedules both legs, double-buffered over groups
+    (``double_buffer=False`` is the blocking form, bitwise the same).
+    Parameters stay whole on every rank; each rank reads a view of its own
+    experts.  The aux loss's per-expert sums run over every token, so one
+    all-reduce over the token ranks carries them, issued before the
+    dispatch and waited after it.  Returns this shard's ``(y (Bd, Sr, m),
+    aux)``."""
+    r = recipe or current_recipe()
+    Bd, Sr, m = x.shape
+    if r is None:
+        raise ValueError("moe_expert_parallel: no active sharding recipe")
+    mesh = r.mesh
+    R = int(mesh.shape.get("model", 1))
+    bax = tuple(r.batch_axes)
+    D = prod(mesh.shape[a] for a in bax)
+    why = _ep_ineligible(r, Bd * D, Sr * R)
+    if why:
+        raise ValueError(f"moe_expert_parallel: {why}")
+    E, Tl = n_experts, Bd * Sr
+    if counts is None:
+        counts = moe_ep_counts(E, Tl, top_k, capacity_factor)
+    cap_e, e_exts = ragged_expert_extents(E, R)
+    sched = moe_ep_schedule(E, R, counts, n_groups or min(2, cap_e))
+    if not sched.groups:
+        raise ValueError("moe_expert_parallel: all-zero counts table")
+    dev = x.device
+
+    xt = x.reshape(Tl, m)
+    probs, gate_vals, gate_idx = _route(xt, p["router"], top_k)
+    # the aux loss's sums over every token: one all-reduce over the token
+    # ranks, in flight while the experts run
+    f32 = scalar(np.float32) ^ vector("e", 2 * E)
+    tok = mpi_traverser("T", traverser(scalar(np.float32) ^ vector("T", D * R)), mesh,
+                        axes=bax + ("model",))
+    stats = all_reduce_start(DistBag(torch.cat([probs.sum(0), _top1_load(gate_idx, E)]),
+                                     f32, tok, ("T",)))
+
+    # shard-local slot assignment against the packed static counts table
+    counts_t = torch.tensor(sched.counts, device=dev)
+    pos = _positions(gate_idx, E)
+    cnt_k = counts_t[gate_idx]
+    w = (pos < cnt_k).to(x.dtype)
+    slot = torch.tensor(sched.comb_base, device=dev)[gate_idx] + torch.minimum(
+        pos, (cnt_k - 1).clamp_min(0))
+    # a dropped choice of a zero-count expert past the last packed row adds
+    # (and reads) a zero-weighted row: keep its index inside the buffer
+    slot = slot.clamp_max(sched.Q - 1)
+    buf = x.new_zeros((sched.Q, m)).index_add_(
+        0, slot.reshape(-1), (xt[:, None, :] * w[..., None]).reshape(Tl * top_k, m))
+
+    el = layout_dtype(x.dtype)
+    dt = mpi_cart_traverser({"D": bax, "M": ("model",)},
+                            traverser(scalar(el) ^ vector("D", D) ^ vector("M", R)), mesh)
+    in_ext = grid_extents(dt, ("D", "M"), {"M": ("r", (1,) * R)})
+    j = dt.coord("M")
+    steps = []
+    for g in sched.groups:
+        lo = j * cap_e + g.lo  # this rank's experts of the group: views, no copy
+        n_real = max(0, min(g.hi, e_exts[j]) - g.lo)
+        steps.append({
+            "g": g,
+            "in_tile": scalar(el) ^ vector("em", m) ^ vector("q", g.Sg) ^ vector("r", 1),
+            "out_tile": scalar(el) ^ vector("em", m) ^ vector("q", g.cap_s) ^ vector("r", R),
+            "out_ext": grid_extents(dt, ("D", "M"), {"M": ("q", g.se)}),
+            "n_real": n_real,
+            "w": tuple(p[k][lo:lo + n_real] for k in ("w_gate", "w_up", "w_down")),
+            "fwd": torch.from_numpy(g.fwd[j].astype(np.int64)).to(dev),
+            "inv": torch.from_numpy(g.inv[j].astype(np.int64)).to(dev),
+        })
+
+    def transfer(state, s):
+        st = steps[s]
+        g = st["g"]
+        blk = state[g.gbase:g.gbase + g.Sg].reshape(1, g.Sg, m)
+        db = DistBag(blk, st["in_tile"], dt, ("D", "M"), extents=in_ext)
+        return all_to_allv_start(db, st["out_tile"], split_dim="q", concat_dim="r",
+                                 split_extents=g.se, rank_dim="M")
+
+    def compute(carry, arrived, s):
+        st = steps[s]
+        g = st["g"]
+
+        def gemm(rank, xb):
+            rows = xb.data.reshape(R * g.cap_s, m)
+            # this rank's experts of the group only: ``inv`` never reads a
+            # slot past its last one (a trailing rank may own none)
+            xe = _take_rows(rows, st["fwd"]).view(g.gsz, R * g.c_max, m)[:st["n_real"]]
+            ye = _experts(xe, *st["w"]).reshape(-1, m)
+            return _take_rows(ye, st["inv"]).view(R, g.cap_s, m)
+
+        return rank_map(gemm, dt, arrived, out_tile_layout=st["out_tile"], rank_dim=("D", "M"),
+                        out_extents=st["out_ext"])
+
+    def combine(res, s):
+        return all_to_allv_start(res, steps[s]["in_tile"], split_dim="r", concat_dim="q",
+                                 split_extents=(1,) * R, rank_dim="M")
+
+    def epilogue(done, state):
+        return torch.cat([d.data.reshape(-1, m) for d in done])
+
+    plan = dispatch_plan(len(steps), transfer=transfer, compute=compute, combine=combine,
+                         epilogue=epilogue)
+    routed = plan.run(buf, None, double_buffer=double_buffer)  # (Q, m)
+    y = _combine(routed, slot, gate_vals, w).reshape(Bd, Sr, m)
+    if "residual" in p:
+        y = y + swiglu(p["residual"], x)
+    T = Tl * D * R
+    sums = stats.wait().data
+    aux = E * torch.sum((sums[:E] / T) * (sums[E:] / T)) * aux_loss_weight
+    return y, aux

@@ -1,45 +1,44 @@
-"""The dense language model: embeddings -> block stack -> head, with the
-full-sequence forward and the serving decode step.
+"""The dense and MoE language models: embeddings -> block stack -> head,
+with the full-sequence forward and the serving decode step.
 
 Layer parameters, like the reference's, are stacked on a leading ``l`` dim
 (``params["blocks"]`` leaves are ``(L, ...)``), and so are the caches; the
 reference's ``lax.scan`` over them becomes a Python loop over the layer
-index.  Families other than ``dense`` and the ``embeds`` input kind wait
-for their slices (ROADMAP.md queue 1 item 6).
+index.  Families other than ``dense`` and ``moe`` and the ``embeds`` input
+kind wait for their slices (ROADMAP.md queue 1 item 6).
 
 Under an active ``sp_ring`` recipe (:mod:`repro_torch.models.sharding`) the
 forward is sequence-parallel: each rank keeps its contiguous, padded chunk
 of the residual stream (and its share of the batch over the ``data``
 axes) through every block, and attention runs as the ``model``-axis ring.
+A MoE block routes the chunk by expert parallelism (``moe_dispatch="ep"``)
+where the recipe's grid fits, else by the whole grid's dispatch
+(:func:`repro_torch.models.ffn.moe_ffn`).
 The decode step and the other recipe modes wait for the GSPMD-form decode
 and training slices (ROADMAP.md queue 1 items 8c and 10); the explicit
 tensor-parallel decode step is :mod:`repro_torch.serve.tp_decode`.
 """
 from __future__ import annotations
 
-import math
 from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.core.dims import mixed_radix_join
 from repro_torch.core.dist import resolve_device
-from repro_torch.core.p2p import shard_all_gather_start
 
 from . import attention as attn_mod
 from . import blocks as blk
 from .module import init_params, pspec, stack_specs, tree_map, tree_size
-from .sharding import current_recipe, fit_spec, ragged_seq_extents
+from .sharding import current_recipe, token_shard
 
 __all__ = ["build_specs", "count_params", "embed_inputs", "lm_logits", "forward",
            "DecodeState", "init_cache", "decode_step", "init_model"]
 
 
-def _require_dense(cfg) -> None:
-    if cfg.family != "dense":
-        item = "item 9" if cfg.family == "moe" else "item 6"
+def _require_ported(cfg) -> None:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet: ROADMAP.md "
-                                  f"queue 1, {item}")
+                                  "queue 1, item 6")
     if cfg.input_kind != "tokens":
         raise NotImplementedError(f"input_kind {cfg.input_kind!r} is not ported yet: "
                                   "ROADMAP.md queue 1, item 6")
@@ -48,7 +47,7 @@ def _require_dense(cfg) -> None:
 # ================================================================= specs ====
 
 def build_specs(cfg) -> dict:
-    _require_dense(cfg)
+    _require_ported(cfg)
     dt = cfg.param_dtype
     specs: dict[str, Any] = {
         "embed": pspec(("v", cfg.vocab_padded), ("m", cfg.d_model), dtype=dt, init="embed"),
@@ -62,9 +61,13 @@ def build_specs(cfg) -> dict:
 
 
 def count_params(cfg, *, active_only: bool = False) -> int:
-    """Total parameter count (dense: every parameter is active)."""
-    del active_only
-    return tree_size(build_specs(cfg))
+    """Total parameter count, or with ``active_only`` the count a token
+    uses: the MoE's unchosen experts' weights left out."""
+    n = tree_size(build_specs(cfg))
+    if active_only and cfg.n_experts:
+        per_expert = 3 * cfg.d_model * cfg.d_ff  # gate/up/down
+        n -= (cfg.n_experts - cfg.moe_top_k) * per_expert * cfg.n_layers
+    return int(n)
 
 
 # ============================================================= embeddings ====
@@ -72,7 +75,7 @@ def count_params(cfg, *, active_only: bool = False) -> int:
 def embed_inputs(params, batch, cfg, *, positions=None):
     """batch -> (B, S, m) activations in cfg.act_dtype."""
     del positions  # only the embeds input kind adds position features
-    _require_dense(cfg)
+    _require_ported(cfg)
     return params["embed"].to(cfg.act_dtype)[batch["tokens"]]
 
 
@@ -92,7 +95,8 @@ def _layer(tree, i: int):
 
 def forward(params, batch, cfg, *, positions=None):
     """Full-sequence forward (prefill without cache).  Returns
-    ``(logits, aux_loss)``; the aux loss is 0 (MoE is not ported).
+    ``(logits, aux_loss)``; the aux loss sums the MoE blocks' (0 for the
+    dense family).
 
     Under an active ``sp_ring`` recipe every rank takes the whole batch
     and returns the whole ``(B, S, V)`` logits, the same on every rank; in
@@ -101,9 +105,11 @@ def forward(params, batch, cfg, *, positions=None):
     if recipe is not None:
         return _forward_sp_ring(params, batch, cfg, recipe, positions)
     x = embed_inputs(params, batch, cfg)
+    aux = 0.0
     for i in range(cfg.n_layers):
-        x, _ = blk.attn_block(_layer(params["blocks"], i), x, cfg, positions=positions)
-    return lm_logits(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+        x, _, a = blk.attn_block(_layer(params["blocks"], i), x, cfg, positions=positions)
+        aux = aux + a
+    return lm_logits(params, x, cfg), torch.as_tensor(aux, dtype=torch.float32, device=x.device)
 
 
 def _forward_sp_ring(params, batch, cfg, recipe, positions):
@@ -117,37 +123,27 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
     is the ring, with the padded keys masked.  The final hidden states are
     gathered along ``model`` and the batch axes, the padding dropped, and
     the head applied to the whole (B, S, m) on every rank, so all ranks
-    return the same logits."""
+    return the same logits (and the same aux loss)."""
     if not recipe.sp_ring:
         raise NotImplementedError(
             f"recipe attn_mode={recipe.attn_mode!r} without the ring: the port applies only "
             "the sp_ring recipe so far (tensor parallelism: ROADMAP.md queue 1, item 8c)")
-    mesh = recipe.mesh
     tokens = batch["tokens"]
     B, S = tokens.shape
-    R = mesh.shape.get("model", 1)
-    coords = mesh.coords()
-    entry = fit_spec(recipe.spec("tokens")[:1], (B,), mesh)[0]
-    batch_axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
-    sizes = [mesh.shape[a] for a in batch_axes]
-    n_rows = B // math.prod(sizes)
-    row0 = mixed_radix_join([coords[a] for a in batch_axes], sizes) * n_rows
-    cap, _ = ragged_seq_extents(S, R)
-    r = coords.get("model", 0)
+    shard = token_shard(recipe, B, S)
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
-    pad = R * cap - S
+    pad = recipe.mesh.shape.get("model", 1) * shard.cap - S
     pos = torch.cat([positions, positions[-1] + 1 + torch.arange(pad, device=tokens.device)])
-    chunk = slice(r * cap, (r + 1) * cap)
-    tok = torch.nn.functional.pad(tokens[row0:row0 + n_rows], (0, pad))[:, chunk]
-    x = embed_inputs(params, {"tokens": tok}, cfg)
+    chunk = slice(shard.chunk * shard.cap, (shard.chunk + 1) * shard.cap)
+    x = embed_inputs(params, {"tokens": shard.local(tokens)}, cfg)
+    aux = 0.0
     for i in range(cfg.n_layers):
-        x, _ = blk.attn_block(_layer(params["blocks"], i), x, cfg, positions=pos[chunk],
-                              seq_len=S)
-    x = shard_all_gather_start(x, "model", mesh=mesh, axis=1).wait()[:, :S] if R > 1 else x
-    for a in reversed(batch_axes):  # innermost batch axis first
-        x = shard_all_gather_start(x, a, mesh=mesh, axis=0).wait()
-    return lm_logits(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+        x, _, a = blk.attn_block(_layer(params["blocks"], i), x, cfg, positions=pos[chunk],
+                                 shard=shard)
+        aux = aux + a
+    return (lm_logits(params, shard.gather(x), cfg),
+            torch.as_tensor(aux, dtype=torch.float32, device=x.device))
 
 
 # ================================================================ caching ====
@@ -159,7 +155,7 @@ class DecodeState(NamedTuple):
 
 def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda") -> attn_mod.KVCache:
     """Stacked per-layer KV cache in act_dtype, zero lengths."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     device = resolve_device(device)
     shape = (cfg.n_layers, batch_size, cfg.n_kv, max_len, cfg.head_dim)
     return attn_mod.KVCache(
@@ -197,9 +193,9 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     lengths = []
     for i in range(cfg.n_layers):
         c = attn_mod.KVCache(caches.k[i], caches.v[i], caches.length[i])
-        x, new_c = blk.attn_block(_layer(params["blocks"], i), x, cfg, cache=c,
-                                  positions=pos2d, new_counts=new_counts, prefill=prefill,
-                                  idle_read_chunk=idle_read)
+        x, new_c, _ = blk.attn_block(_layer(params["blocks"], i), x, cfg, cache=c,
+                                     positions=pos2d, new_counts=new_counts, prefill=prefill,
+                                     idle_read_chunk=idle_read)
         lengths.append(new_c.length)
     new_caches = attn_mod.KVCache(caches.k, caches.v, torch.stack(lengths))
     logits = lm_logits(params, x, cfg)

@@ -16,10 +16,13 @@ the batch over the ``data`` axes, under the sequence-parallel ring mode
 (``attn_mode="sp_ring"``, :func:`repro_torch.models.lm.forward`): every rank
 keeps its contiguous, padded chunk of the residual stream through the
 blocks and the attention runs as a double-buffered ring of KV blocks
-(:func:`repro_torch.models.attention.ring_attention_seq`).  Parameters stay
-whole on every rank; the FSDP and tensor-parallel weight bindings are
-derived here and applied by the training and tensor-parallel decode
-slices (ROADMAP.md queue 1).
+(:func:`repro_torch.models.attention.ring_attention_seq`).  A MoE block
+takes the chunk (:class:`TokenShard` says which block of the token grid it
+is) by expert parallelism or by the whole grid's dispatch
+(:func:`repro_torch.models.ffn.moe_ffn`).  Parameters stay whole on every
+rank; the FSDP and tensor-parallel weight bindings are derived here and
+applied by the training and tensor-parallel decode slices (ROADMAP.md
+queue 1).
 
 Sequence lengths need not divide the ring: :func:`ragged_seq_extents`
 pads the sequence to R equal capacity chunks (trailing ranks hold short,
@@ -33,8 +36,14 @@ import math
 import warnings
 from typing import Any, Mapping
 
+import torch
+
+from repro_torch.core.dims import mixed_radix_join
+from repro_torch.core.p2p import shard_all_gather_start
+
 __all__ = ["Recipe", "make_recipe", "use_recipe", "current_recipe", "fit_spec",
-           "ragged_seq_extents", "PRIORITY"]
+           "ragged_seq_extents", "ragged_expert_extents", "TokenShard", "token_shard",
+           "PRIORITY"]
 
 Spec = tuple  # one entry per dim: a mesh axis, a tuple of them, or None
 
@@ -50,6 +59,18 @@ def ragged_seq_extents(S: int, R: int) -> tuple[int, tuple[int, ...]]:
         raise ValueError(f"ragged_seq_extents({S}, {R}): sizes must be positive")
     cap = -(-S // R)
     return cap, tuple(max(0, min(cap, S - r * cap)) for r in range(R))
+
+
+def ragged_expert_extents(E: int, R: int) -> tuple[int, tuple[int, ...]]:
+    """Ragged expert ownership over an R-rank model axis: ``(cap, extents)``.
+
+    Contiguous ceil-split of the expert table: rank ``r`` owns experts
+    ``[r*cap, min((r+1)*cap, E))``, so ``E`` need not divide the axis and
+    trailing ranks own fewer (possibly zero) experts.  This is the per-rank
+    side of the expert-parallel ``MPI_Alltoallv`` counts table: the
+    dispatch leg's split extent for a destination rank sums the token
+    counts of exactly these experts."""
+    return ragged_seq_extents(E, R)
 
 
 # priority for param-dim conflicts (earlier wins a contested mesh axis)
@@ -203,3 +224,54 @@ def use_recipe(recipe: Recipe | None):
 
 def current_recipe() -> Recipe | None:
     return _CURRENT[-1] if _CURRENT else None
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenShard:
+    """This rank's block of a ``(B, S)`` token grid under an ``sp_ring``
+    recipe: batch rows ``[row0, row0 + n_rows)`` (the batch split over
+    ``batch_axes``; none, and every row, when they do not divide it) and
+    sequence chunk ``chunk`` of the ``R = |model|`` chunks of ``cap``
+    positions the sequence pads to (:func:`ragged_seq_extents`)."""
+
+    mesh: Any
+    batch_axes: tuple[str, ...]
+    B: int
+    S: int
+    cap: int
+    row0: int
+    n_rows: int
+    chunk: int
+
+    def gather(self, x):
+        """The whole ``(B, S, ...)`` grid from every rank's ``(n_rows, cap,
+        ...)`` block, padding dropped; the same on every rank."""
+        if self.mesh.shape.get("model", 1) > 1:
+            x = shard_all_gather_start(x, "model", mesh=self.mesh, axis=1).wait()
+        x = x[:, :self.S]
+        for a in reversed(self.batch_axes):  # innermost batch axis first
+            x = shard_all_gather_start(x, a, mesh=self.mesh, axis=0).wait()
+        return x
+
+    def local(self, y):
+        """This rank's ``(n_rows, cap, ...)`` block of a whole ``(B, S, ...)``
+        grid, zero-padded past ``S``."""
+        y = y[self.row0:self.row0 + self.n_rows]
+        R = self.mesh.shape.get("model", 1)
+        y = torch.nn.functional.pad(y, [0, 0] * (y.ndim - 2) + [0, R * self.cap - self.S])
+        return y[:, self.chunk * self.cap:(self.chunk + 1) * self.cap]
+
+
+def token_shard(recipe: Recipe, B: int, S: int) -> TokenShard:
+    """This process's :class:`TokenShard` of a ``(B, S)`` token grid under
+    ``recipe`` (the ``tokens`` spec's batch axes, where they divide B)."""
+    mesh = recipe.mesh
+    entry = fit_spec(recipe.spec("tokens")[:1], (B,), mesh)[0]
+    batch_axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+    sizes = [mesh.shape[a] for a in batch_axes]
+    n_rows = B // math.prod(sizes)
+    coords = mesh.coords()
+    row0 = mixed_radix_join([coords[a] for a in batch_axes], sizes) * n_rows
+    cap, _ = ragged_seq_extents(S, mesh.shape.get("model", 1))
+    return TokenShard(mesh=mesh, batch_axes=batch_axes, B=B, S=S, cap=cap, row0=row0,
+                      n_rows=n_rows, chunk=coords.get("model", 0))

@@ -1,5 +1,5 @@
-"""Continuous-batching engine on the port's dense model, single-host or
-with tensor-parallel decode.
+"""Continuous-batching engine on the port's dense and MoE models,
+single-host, or with tensor-parallel decode for the dense family.
 
 A fixed pool of batch *slots* shares one KV cache allocation tracked by a
 :class:`repro_torch.serve.kv.KVLedger` (per-request lengths over uniform
@@ -8,7 +8,10 @@ request is prefilled into it:
 
   * **admission-time prefill** runs the newly admitted prompts (all but
     their last token) as one masked chunk through
-    ``lm.decode_step(prefill=True)``, padded to a power of two;
+    ``lm.decode_step(prefill=True)``, padded to a power of two; the MoE
+    family prefills token by token, as the reference does, because a chunk
+    would go through the capacity dispatch and could drop tokens that the
+    dropless decode step keeps;
   * **decode** feeds each resident slot's last token through
     ``lm.decode_step``, or, given a ``(data, model)`` mesh and
     ``microbatches``, through the explicit tensor-parallel step of
@@ -24,7 +27,7 @@ decode kernel.  The engine keeps an activation-dtype copy of the weights,
 made once (``weights.cast_params``), and cuts the rank's TP shard from it
 (``weights.shard_params``; a view when the ``model`` axis has one rank).
 The sharding ``recipe`` waits for ROADMAP.md queue 1 item 8c; the
-``embeds`` input kind and the non-dense families for item 6.
+``embeds`` input kind and the other families for item 6.
 """
 from __future__ import annotations
 
@@ -39,6 +42,10 @@ from repro_torch.serve.kv import KVLedger
 from repro_torch.serve.tp_decode import make_tp_decode_step, tp_decode_specs
 
 __all__ = ["ServeConfig", "Engine"]
+
+# families whose decode step takes multi-token chunks exactly; the MoE's
+# capacity dispatch could drop a chunk's tokens, so it prefills per token
+_CHUNK_FAMILIES = ("dense",)
 
 
 @dataclasses.dataclass
@@ -95,6 +102,8 @@ class Engine:
         if (mesh is None) != (not microbatches):
             raise ValueError("tensor-parallel decode needs both a (data, model) mesh and "
                              f"microbatches >= 1 (got mesh={mesh!r}, microbatches={microbatches})")
+        if mesh is not None and cfg.n_experts:
+            raise ValueError("tensor-parallel decode: MoE blocks not supported")
         self.cfg = cfg
         self.scfg = scfg
         self.device = params["embed"].device
@@ -174,22 +183,34 @@ class Engine:
 
     def _prefill(self, newly) -> None:
         """Admission-time batched prefill of all newly filled slots, as one
-        chunk padded to a power of two; only the target slots write their
-        cache rows (``new_counts``)."""
+        chunk padded to a power of two, or for the MoE family one token of
+        every feed a step; only the target slots write their cache rows
+        (``new_counts``)."""
         B = self.scfg.batch_slots
         feeds = [(i, prompt[:-1]) for i, prompt in newly if len(prompt) > 1]
         if not feeds:
             return
         S = max(len(f) for _, f in feeds)
-        S = min(self.scfg.max_len, 1 << (S - 1).bit_length())  # bucket, like the reference
-        buf = np.zeros((B, S), np.int64)
-        counts = np.zeros((B,), np.int32)
-        for i, feed in feeds:
-            buf[i, : len(feed)] = feed
-            counts[i] = len(feed)
-        self._step(buf, counts, prefill=True)
-        for i, feed in feeds:
-            self.ledger.advance(i, len(feed))
+        if self.cfg.family in _CHUNK_FAMILIES:
+            S = min(self.scfg.max_len, 1 << (S - 1).bit_length())  # bucket, like the reference
+            buf = np.zeros((B, S), np.int64)
+            counts = np.zeros((B,), np.int32)
+            for i, feed in feeds:
+                buf[i, : len(feed)] = feed
+                counts[i] = len(feed)
+            self._step(buf, counts, prefill=True)
+            for i, feed in feeds:
+                self.ledger.advance(i, len(feed))
+            return
+        for t in range(S):
+            buf = np.zeros((B, 1), np.int64)
+            counts = np.zeros((B,), np.int32)
+            for i, feed in feeds:
+                if t < len(feed):
+                    buf[i, 0] = feed[t]
+                    counts[i] = 1
+                    self.ledger.advance(i, 1)
+            self._step(buf, counts, prefill=True)
 
     def _decode_once(self) -> None:
         B = self.scfg.batch_slots

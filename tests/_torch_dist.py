@@ -432,3 +432,225 @@ def tp_decode_family(*, shape, models) -> dict:
         walk(whole, shard, specs, "")
         out[(arch, "shard_differs")] = differ
     return out
+
+
+def vcollective_cases(np, L, C, mesh1, mesh2, to_numpy, tile_of):
+    """Run the all-to-all, ragged all-gather and ragged all-to-all in either
+    package (4 ranks: a 1-D mesh ``r`` and a 2x2 grid) and return ``{case:
+    this rank's tile as numpy, the replicated root, or an extents table}``.
+    The cases are the reference's own tests of them at 4 ranks, with zero
+    split extents added."""
+    f32 = np.float32
+    out = {}
+
+    def rows(items):  # row-major layout over (dim, extent) pairs, outer first
+        layout = L.scalar(f32)
+        for d, n in reversed(items):
+            layout = layout ^ L.vector(d, n)
+        return layout
+
+    line = C.mpi_traverser("R", C.traverser(rows([("R", 4)])), mesh1)
+    grid = C.mpi_cart_traverser([("Ri", "rows"), ("Ck", "cols")],
+                                C.traverser(rows([("Ri", 2), ("Ck", 2)])), mesh2)
+
+    # MPI_Alltoall: tiles split along i, received blocks concatenated along j
+    N, M = 8, 16
+    root = C.bag(rows([("j", M), ("i", N)]) ^ L.into_blocks("j", "R", num_blocks=4),
+                 np.arange(N * M, dtype=f32).reshape(M, N))
+    db = C.scatter(root, rows([("j", M // 4), ("i", N)]),
+                   C.mpi_traverser("R", C.traverser(root), mesh1))
+    aa = C.all_to_all_bag(db, rows([("i", N // 4), ("j", M)]), split_dim="i", concat_dim="j")
+    out["all_to_all"] = tile_of(aa)
+    out[("all_to_all", "start")] = tile_of(C.all_to_all_start(
+        db, rows([("j", M), ("i", N // 4)]), split_dim="i", concat_dim="j").wait())
+
+    # MPI_Allgatherv on the line: into two root layouts, bag and per-rank buffers
+    N, M = 4, 11
+    col = rows([("j", M), ("i", N)])
+    cap, exts = C.ragged_split(M, 4)
+    db = C.scatterv_bag(C.bag(col, np.arange(N * M, dtype=f32) * 0.5),
+                        rows([("i", N), ("j", cap)]), line, {"R": ("j", exts)})
+    for name, dest in (("col", col), ("row", rows([("i", N), ("j", M)]))):
+        out[("all_gatherv_bag", name)] = to_numpy(C.all_gatherv_bag(db, dest).data)
+        got = C.all_gatherv_start(db, dest).wait()
+        out[("all_gatherv_dist", name)] = tile_of(got)
+        out[("all_gatherv_dist_extents", name)] = got.extents
+
+    # MPI_Alltoallv on the line: j-ragged -> i-ragged, balanced and with
+    # zero split extents, and the round trip back
+    NI, NJ = 11, 13
+    A = np.arange(NI * NJ, dtype=f32).reshape(NI, NJ)
+    cap_j, ej = C.ragged_split(NJ, 4)
+    in_tile = rows([("i", NI), ("j", cap_j)])
+    db = C.scatterv_bag(C.bag(rows([("i", NI), ("j", NJ)]), A), in_tile, line, {"R": ("j", ej)})
+    for name, ei in (("balanced", C.ragged_split(NI, 4)[1]), ("zeros", (5, 0, 6, 0))):
+        res = C.all_to_allv_bag(db, rows([("i", max(ei)), ("j", NJ)]), split_dim="i",
+                                concat_dim="j", split_extents=ei)
+        out[("all_to_allv", name)], out[("all_to_allv_extents", name)] = tile_of(res), res.extents
+        back = C.all_to_allv_start(res, in_tile, split_dim="j", concat_dim="i",
+                                   split_extents=ej).wait()
+        out[("all_to_allv_back", name)] = tile_of(back)
+        out[("all_to_allv_back_extents", name)] = back.extents
+
+    # MPI_Allgatherv over the grid: full, and partial along Ck
+    NI, NK = 7, 10
+    lay = rows([("i", NI), ("k", NK)])
+    cap_i, ei = C.ragged_split(NI, 2)
+    cap_k, ek = C.ragged_split(NK, 2)
+    db = C.scatterv_bag(C.bag(lay, np.arange(NI * NK, dtype=f32).reshape(NI, NK)),
+                        rows([("i", cap_i), ("k", cap_k)]), grid,
+                        {"Ri": ("i", ei), "Ck": ("k", ek)})
+    for name, dest in (("ik", lay), ("ki", rows([("k", NK), ("i", NI)]))):
+        out[("all_gatherv_grid", name)] = to_numpy(C.all_gatherv_bag(db, dest).data)
+    part = C.all_gatherv_dist(db, rows([("i", cap_i), ("k", NK)]), rank_dim="Ck")
+    out["all_gatherv_grid_partial"] = tile_of(part)
+    out["all_gatherv_grid_partial_extents"] = part.extents
+
+    # MPI_Alltoallv along one grid dim (k <-> m inside every row
+    # sub-communicator, i riding through), and back; m balanced and with
+    # an empty block
+    NI, NK, NM = 7, 10, 9
+    A = np.arange(NI * NK * NM, dtype=f32).reshape(NI, NK, NM)
+    cap_m, em = C.ragged_split(NM, 2)
+    in_tile = rows([("i", cap_i), ("k", cap_k), ("m", NM)])
+    db = C.scatterv_bag(C.bag(rows([("i", NI), ("k", NK), ("m", NM)]), A), in_tile, grid,
+                        {"Ri": ("i", ei), "Ck": ("k", ek)})
+    for name, em_ in (("balanced", em), ("zeros", (NM, 0))):
+        res = C.all_to_allv_bag(db, rows([("i", cap_i), ("k", NK), ("m", max(em_))]),
+                                split_dim="m", concat_dim="k", split_extents=em_, rank_dim="Ck")
+        out[("all_to_allv_grid", name)] = tile_of(res)
+        out[("all_to_allv_grid_extents", name)] = res.extents
+        back = C.all_to_allv_bag(res, in_tile, split_dim="k", concat_dim="m",
+                                 split_extents=ek, rank_dim="Ck")
+        out[("all_to_allv_grid_back", name)] = tile_of(back)
+        out[("all_to_allv_grid_back_extents", name)] = back.extents
+    return out
+
+
+def vcollectives_family() -> dict:
+    """:func:`vcollective_cases` on this gloo rank, plus the checks that
+    refuse ill-typed calls before any data moves."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.core import layout as L
+
+    mesh1 = C.make_mesh((4,), ("r",), device="cpu")
+    mesh2 = C.make_mesh((2, 2), ("rows", "cols"), device="cpu")
+    out = vcollective_cases(np, L, C, mesh1, mesh2, lambda t: t.numpy(),
+                            lambda d: d.data.numpy())
+    vec = L.scalar(np.float32) ^ L.vector("i", 8) ^ L.vector("j", 4)
+    dt = C.mpi_traverser("R", C.traverser(L.scalar(np.float32) ^ L.vector("R", 4)), mesh1)
+    db = C.DistBag(C.dist_full(dt, vec).data, vec, dt, ("R",))
+    refused = []
+    for call in (lambda: C.all_to_all_bag(db, vec, split_dim="i", concat_dim="i"),
+                 lambda: C.all_gatherv_dist(db, vec),
+                 lambda: C.all_to_allv_bag(db, vec, split_dim="i", concat_dim="j",
+                                           split_extents=(2, 2, 2, 2))):
+        try:
+            call()
+        except C.LayoutError:
+            refused.append(True)
+        else:
+            refused.append(False)
+    out["refused"] = refused
+    return out
+
+
+MOE_EP_MESH = (2, 2)  # (data, model) mesh of the expert-parallel checks
+
+
+def moe_ep_family(*, params, x, cases, bf16_cases) -> dict:
+    """``moe_expert_parallel`` on this gloo rank of a :data:`MOE_EP_MESH`
+    mesh: for every ``cases[name] = (params key, counts or None)``, this
+    rank's ``(y, aux)`` double-buffered and whether the blocking run is
+    bitwise the same, and for the cases named in ``bf16_cases`` its ``y``
+    with bf16 weights and activations; and ``moe_ffn`` on this rank's block under the
+    recipe, by EP and by the gathered fallback, with the fallback's
+    warnings counted."""
+    import warnings
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import make_mesh
+    from repro_torch.models import ffn
+    from repro_torch.models.sharding import make_recipe, token_shard, use_recipe
+    from repro_torch.models.weights import cast_params, params_from_jax
+
+    mesh = make_mesh(MOE_EP_MESH, ("data", "model"), device="cpu")
+    cfg = configs.get("phi3.5-moe-42b-a6.6b", smoke=True)
+    recipe = make_recipe(cfg, mesh)
+    trees = {name: params_from_jax(tree, device="cpu") for name, tree in params.items()}
+    xs = torch.from_numpy(x)
+    B, S, _ = xs.shape
+    D, R = MOE_EP_MESH
+    d, r = mesh.coords()["data"], mesh.coords()["model"]
+    local = xs[d * (B // D):(d + 1) * (B // D), r * (S // R):(r + 1) * (S // R)]
+    out: dict = {}
+    with use_recipe(recipe):
+        for name, (key, counts) in cases.items():
+            p = trees[key]
+            E = p["router"].shape[-1]
+            runs = [ffn.moe_expert_parallel(p, local, n_experts=E, top_k=2, counts=counts,
+                                            n_groups=2, double_buffer=db)
+                    for db in (True, False)]
+            out[name] = tuple(t.numpy() for t in runs[0])
+            out[(name, "blocking_equal")] = all(torch.equal(a, b)
+                                                for a, b in zip(runs[0], runs[1]))
+        for name in bf16_cases:
+            key, counts = cases[name]
+            p = cast_params(trees[key], torch.bfloat16)
+            y, _ = ffn.moe_expert_parallel(p, local.to(torch.bfloat16),
+                                           n_experts=p["router"].shape[-1], top_k=2,
+                                           counts=counts, n_groups=2)
+            out[(name, "bf16")] = y.float().numpy()
+        p = trees["phi"]
+        for name, Sx in (("ffn_ep", S), ("ffn_ragged", S - 1)):
+            shard = token_shard(recipe, B, Sx)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                y, aux = ffn.moe_ffn(p, shard.local(xs[:, :Sx]), n_experts=4, top_k=2,
+                                     dispatch="ep", shard=shard)
+            out[name] = (y.numpy(), aux.numpy())
+            out[(name, "warnings")] = sum("falling back" in str(w.message) for w in caught)
+    return out
+
+
+MOE_RING_MESHES = [(2, 2), (1, 4)]
+
+
+def moe_sp_ring_family(*, models, tokens) -> dict:
+    """``lm.forward`` under ``make_recipe(cfg, mesh, attn_mode="sp_ring")`` on
+    this gloo rank for every mesh of :data:`MOE_RING_MESHES`, every
+    ``models[name] = (arch, config overrides, the reference's parameters
+    as numpy)`` and every ``tokens[S]``: the logits, the aux loss, and how
+    many fallback warnings the forward raised."""
+    import dataclasses
+    import warnings
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.weights import params_from_jax
+
+    out: dict = {}
+    meshes = {shape: make_mesh(shape, ("data", "model"), device="cpu")
+              for shape in MOE_RING_MESHES}
+    for name, (arch, overrides, tree) in models.items():
+        cfg = dataclasses.replace(configs.get(arch, smoke=True), act_dtype=torch.float32,
+                                  **overrides)
+        params = params_from_jax(tree, device="cpu")
+        for shape, mesh in meshes.items():
+            recipe = make_recipe(cfg, mesh, attn_mode="sp_ring")
+            for S, toks in tokens.items():
+                with use_recipe(recipe), warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    logits, aux = lm.forward(params, {"tokens": torch.from_numpy(toks).long()},
+                                             cfg)
+                out[(name, shape, S)] = (logits.numpy(), aux.numpy(),
+                                         sum("falling back" in str(w.message) for w in caught))
+    return out

@@ -52,7 +52,8 @@ LM_MODULES = [
     "repro_torch.models.blocks", "repro_torch.models.lm", "repro_torch.models.weights",
     "repro_torch.serve.kv", "repro_torch.serve.engine", "repro_torch.launch.serve",
     "repro_torch.models.sharding", "repro_torch.kernels.relayout",
-    "repro_torch.serve.tp_decode",
+    "repro_torch.serve.tp_decode", "repro_torch.configs.phi3_5_moe_42b",
+    "repro_torch.configs.arctic_480b",
 ]
 
 
