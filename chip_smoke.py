@@ -68,6 +68,20 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   one rank, so the expert-parallel dispatch falls back (with its warning)
   to the grouped or global one; its all-to-alls are checked on gloo CPU
   processes in the tests.
+* the MLA family at minicpm3-4b's full width and depth (62 layers, d_model
+  2560, 40 heads, q/kv latent ranks 768/256; seeded random weights, bf16,
+  about 8.2 GB): the flash-attention kernel's (96, 64) instances (q/k of
+  d_nope + d_rope = 96, v of d_v = 64) against their plain version at the
+  forward's shape and at a ragged 4095, against float64 (at most 10x the
+  plain version's error) and against themselves (bitwise), timed beside
+  their bound and ``scaled_dot_product_attention`` (the backend it picks
+  named); a forward of 1 x 4096 tokens (``flash_attention`` launched
+  once a layer) held against its plain path at every token, with its
+  device time by kind; and serving of 8 requests on 4 slots through the
+  absorbed latent-cache decode (no kernel, as in the reference: whole-prompt
+  chunks and decode steps in plain products), greedy tokens held against
+  the plain run except at near ties and each first prefill chunk's logits
+  against the decompressed forward of the same prompt.
 
 Every kernel time (``ms``, ``plain_ms``, ``library_ms``) is device time per
 call from ``repro_torch.kernels.timing.queued_ms`` (calls run back to back
@@ -128,6 +142,12 @@ MOE_FORWARDS = ((1, SEQ), (16, 256))  # (B, S): global capacity dispatch; groupe
 MOE_REQUESTS, MOE_NEW_TOKENS, MOE_PROMPT_LENS = 8, 16, (16, 129)  # prompt lengths [low, high)
 MOE_RANGES = {"moe.route": "routing_scatter", "moe.combine": "routing_scatter",
               "moe.experts": "expert_gemms"}  # the MoE's profiler ranges, by kind
+MLA_ARCH = "minicpm3-4b"  # full width and depth: 4.08 B parameters, 8.2 GB in bf16
+# the MLA serving run: phi4-mini's requests (prompts of 128-2048 tokens, 32
+# new) on 4 slots of 4096 positions; the absorbed whole-prompt chunk holds
+# float32 scores of (4, 40, 2048, 4096), 5.4 GB a live tensor, beside the
+# weights
+MLA_RAGGED = 4095  # the (96, 64) instance's ragged case: Sq = Skv = 4095
 
 
 def phase(name: str, **fields) -> None:
@@ -440,15 +460,18 @@ def randn(shape, dtype, seed: int) -> torch.Tensor:
     return torch.randn(shape, device=DEVICE, generator=g).to(dtype)
 
 
-def attn_bound(flops: float, nbytes: float, *, products: int = 2) -> tuple[float, str, float]:
+def attn_bound(flops: float, nbytes: float, *, products: int = 2,
+               pv_flops: float | None = None) -> tuple[float, str, float]:
     """Least time for attention work of ``flops`` operations in the
-    reference's two float32 products (q k^T and p @ v, ``flops / 2`` each)
-    and ``nbytes`` bytes: the bf16 kernels run ``products`` bf16 products
-    of ``flops / 2`` operations on the tensor cores (q k^T once, p @ v once
-    per piece of p), over the bf16 peak, or the bytes over the memory rate,
-    whichever is larger; and, beside it, the float32 CUDA-core bound
-    (``flops`` over the float32 peak, or the bytes)."""
-    t_ops, t_bytes = products * flops / 2 / BF16_PEAK, nbytes / HBM_RATE
+    reference's two float32 products (q k^T and p @ v; p @ v's share is
+    ``pv_flops``, by default ``flops / 2``: v with q's head dim) and
+    ``nbytes`` bytes: the bf16 kernels run q k^T once and p @ v once per
+    piece of p (``products - 1`` pieces) on the tensor cores, over the bf16
+    peak, or the bytes over the memory rate, whichever is larger; and,
+    beside it, the float32 CUDA-core bound (``flops`` over the float32
+    peak, or the bytes)."""
+    pv = flops / 2 if pv_flops is None else pv_flops
+    t_ops, t_bytes = (flops + (products - 2) * pv) / BF16_PEAK, nbytes / HBM_RATE
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
             max(flops / FP32_PEAK, t_bytes) * 1e3)
 
@@ -744,13 +767,16 @@ def window(fn, n: int, classify=None) -> dict:
     times = device_kernel_ms(prof)
     launches = len(device_kernels(prof))
     ours = sorted({name for name in times if any(k in name for k in PORT_ATTN)})
+    library = sorted({name for name in times
+                      if LIBRARY_ATTN.search(name) and not any(k in name for k in PORT_ATTN)})
     busy = sum(times.values()) / n
     top = sorted(times.items(), key=lambda kv: -kv[1])[:5]
     return dict(wall_ms=wall, device_ms=busy, idle_share=1 - busy / wall,
                 kernels_launched=launches / n,
                 device_ms_by_kind={k: v / n for k, v in
                                    (classify(prof) if classify else by_kind(times)).items()},
-                top_kernels=[(name[:80], ms / n) for name, ms in top], port_kernels=ours)
+                top_kernels=[(name[:80], ms / n) for name, ms in top], port_kernels=ours,
+                library_attention=library)
 
 
 def breakdown_lm(cfg, params, lm, Engine, ServeConfig) -> dict:
@@ -1084,12 +1110,13 @@ def check_carry_chain(ops) -> None:
 
 
 def exact_attention(q, k, v) -> torch.Tensor:
-    """Causal attention of q (1, Hq, S, D) over k, v (1, G, S, D) in float64,
-    head by head: the function the kernels approximate."""
+    """Causal attention of q (1, Hq, S, D) over k (1, G, S, D) and v
+    (1, G, S, Dv) in float64, head by head: the function the kernels
+    approximate."""
     _, Hq, S, D = q.shape
     rep = Hq // k.shape[1]
     mask = torch.ones((S, S), dtype=torch.bool, device=DEVICE).tril()
-    out = torch.empty(q.shape, dtype=torch.float64, device=DEVICE)
+    out = torch.empty((*q.shape[:-1], v.shape[-1]), dtype=torch.float64, device=DEVICE)
     for h in range(Hq):
         s = (q[0, h].double() @ k[0, h // rep].double().T) * D ** -0.5
         p = torch.softmax(torch.where(mask, s, torch.full_like(s, -1e30)), dim=-1)
@@ -1374,11 +1401,9 @@ def moe_by_kind(prof) -> dict[str, float]:
     return out
 
 
-def moe_model(configs, lm):
-    """``moe_model``: phi3.5-moe at full width, cut to MOE_DEPTH layers,
-    with ``lm.init_model``'s seeded draws, each leaf cast to bf16 as it is
-    made (the float32 tree whole would need 43 GB at once)."""
-    cfg = dataclasses.replace(configs.get(MOE_ARCH), n_layers=MOE_DEPTH)
+def seeded_params(cfg, lm) -> dict:
+    """``lm.init_model``'s seeded draws, each leaf cast to the activation
+    dtype as it is made (a float32 tree whole needs twice the memory)."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
 
     def draw(tree):  # init_params' order: sorted keys, one generator
@@ -1386,8 +1411,16 @@ def moe_model(configs, lm):
             return {k: draw(tree[k]) for k in sorted(tree)}
         return tree.initialize(gen, DEVICE).to(cfg.act_dtype)
 
+    return draw(lm.build_specs(cfg))
+
+
+def moe_model(configs, lm):
+    """``moe_model``: phi3.5-moe at full width, cut to MOE_DEPTH layers,
+    with :func:`seeded_params` (the float32 tree whole would need 43 GB at
+    once)."""
+    cfg = dataclasses.replace(configs.get(MOE_ARCH), n_layers=MOE_DEPTH)
     t0 = time.perf_counter()
-    params = draw(lm.build_specs(cfg))
+    params = seeded_params(cfg, lm)
     torch.cuda.synchronize()
     phase("moe_model", arch=cfg.name, layers=MOE_DEPTH,
           published_layers=configs.get(MOE_ARCH).n_layers, d_model=cfg.d_model,
@@ -1586,6 +1619,197 @@ def time_moe_attention(ops, card: str, pieces: int) -> dict:
     return rows
 
 
+def check_mla_kernel(ops, card: str, pieces: int) -> dict:
+    """``mla_kernel``: the flash-attention kernel's (96, 64) instances at
+    minicpm3's forward shape (q/k 1x40x4096x96, v 1x40x4096x64, causal, GQA
+    1) and at a ragged 4095, bf16 and float32, against the plain version;
+    the bf16 output against float64 (at most ACCURACY_RATIO times the plain
+    version's error; both outputs are rounded to bf16); two launches
+    bitwise equal; and the bf16 time beside the bound (q k^T once, p @ v
+    once a piece of p), the plain version and ``scaled_dot_product_attention``
+    (the backend it picks at this shape named)."""
+    from torch.nn.attention import SDPBackend
+
+    rows = {}
+    H, D, Dv = 40, 96, 64
+    for label, S in (("forward", SEQ), ("ragged", MLA_RAGGED)):
+        for dt in (torch.bfloat16, torch.float32):
+            q, k = randn((1, H, S, D), dt, 170), randn((1, H, S, D), dt, 171)
+            v = randn((1, H, S, Dv), dt, 172)
+            got = ops.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            want = ops.flash_attention(q, k, v, impl="ref")
+            if got.shape != (1, H, S, Dv):
+                raise AssertionError(f"mla kernel output {tuple(got.shape)}")
+            torch.testing.assert_close(got, want, rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
+            err = (got.float() - want.float()).abs().max().item()
+            bitwise = torch.equal(got, ops.flash_attention(q, k, v))
+            if not bitwise:
+                raise AssertionError(f"mla kernel {label} {dt}: two launches differ")
+            row = dict(max_abs_err=err, tol=ATTN_TOL[dt], two_launches="bitwise")
+            if label == "forward" and dt == torch.bfloat16:
+                exact = exact_attention(q, k, v)
+                errs = {"kernel": (got.double() - exact).abs().max().item(),
+                        "plain": (want.double() - exact).abs().max().item(),
+                        "kernel_mean": (got.double() - exact).abs().mean().item(),
+                        "plain_mean": (want.double() - exact).abs().mean().item()}
+                ratio = errs["kernel"] / errs["plain"]
+                if ratio > ACCURACY_RATIO:
+                    raise AssertionError(f"mla kernel error against float64 over "
+                                         f"{ACCURACY_RATIO}x the plain version's: {errs}")
+                del exact
+                qf, kf, vf = q.float(), k.float(), v.float()
+                t = time_three(lambda: ops.flash_attention(q, k, v),
+                               lambda: ops.flash_attention(q, k, v, impl="ref"),
+                               lambda: library_attention(qf, kf, vf, is_causal=True),
+                               lambda: library_attention(q, k, v, is_causal=True))
+                qk, pv = 2 * H * S * S * D / 2, 2 * H * S * S * Dv / 2
+                nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
+                b_ms, b_by, fp32_ms = attn_bound(qk + pv, nbytes, products=1 + pieces,
+                                                 pv_flops=pv)
+                row.update(error_vs_float64=errs, error_vs_float64_ratio=ratio,
+                           limit=ACCURACY_RATIO, bound_ms=b_ms, bound_by=b_by,
+                           fp32_bound_ms=fp32_ms, tflops=(qk + pv) / t["ms"] / 1e9,
+                           library_bf16_backend=SDPBackend(torch._fused_sdp_choice(
+                               q, k, v, is_causal=True, enable_gqa=True)).name,
+                           **t)
+                check_bound("flash_attention (96, 64)", row)
+                del qf, kf, vf
+            rows[(label, str(dt))] = row
+            phase("mla_kernel", kernel="flash_attention", case=label, shape=(1, H, H, S, D, Dv),
+                  causal=True, dtype=str(dt), card=card, **row)
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return rows[("forward", str(torch.bfloat16))]
+
+
+def mla_model(configs, lm):
+    """``mla_model``: minicpm3-4b at full width and depth with
+    :func:`seeded_params` (bf16, about 8.2 GB)."""
+    cfg = configs.get(MLA_ARCH)
+    t0 = time.perf_counter()
+    params = seeded_params(cfg, lm)
+    torch.cuda.synchronize()
+    phase("mla_model", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+          heads=cfg.n_heads, ranks=(cfg.mla_q_rank, cfg.mla_kv_rank),
+          head_dims=(cfg.mla_d_nope, cfg.mla_d_rope, cfg.mla_d_v), d_ff=cfg.d_ff,
+          vocab=cfg.vocab, params=lm.count_params(cfg), init_s=time.perf_counter() - t0,
+          memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    return cfg, params
+
+
+def mla_forward(cfg, params, lm, fa) -> dict:
+    """``mla_forward``: the forward of 1 x SEQ seeded tokens through the
+    kernel (``flash_attention`` launched once a layer, the profiled forward
+    on ``flash_attention_kernel_wgmma`` and no library attention kernel)
+    and through its plain version, logits held to LOGIT_TOL at every token;
+    forward ms; and where its device time goes (:func:`window`)."""
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, SEQ), device=DEVICE, generator=g)}
+    fa.flash_attention_cuda.launches = 0
+    logits, _ = lm.forward(params, batch, cfg)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention_cuda.launches
+    fa.flash_attention_cuda.launches = 0
+    ref_logits, _ = lm.forward(params, batch, dataclasses.replace(cfg, attn_impl="ref"))
+    torch.cuda.synchronize()
+    if (launches, fa.flash_attention_cuda.launches) != (cfg.n_layers, 0):
+        raise AssertionError(f"mla forward: flash_attention launches {launches} (plain run "
+                             f"{fa.flash_attention_cuda.launches}) != {cfg.n_layers}")
+    if logits.shape != (1, SEQ, cfg.vocab_padded) or not torch.isfinite(logits).all():
+        raise AssertionError(f"mla forward logits {tuple(logits.shape)} not finite/expected")
+    err = (logits[..., :cfg.vocab].float() - ref_logits[..., :cfg.vocab].float()).abs().max()
+    err = err.item()
+    if err > LOGIT_TOL:
+        raise AssertionError(f"mla forward logits kernel vs plain: {err} > {LOGIT_TOL}")
+    scale = ref_logits[..., :cfg.vocab].float().abs().max().item()
+    del logits, ref_logits
+    torch.cuda.empty_cache()
+    forward_ms = median_ms(lambda: lm.forward(params, batch, cfg), iters=3, warmup=1)
+    brk = window(lambda: lm.forward(params, batch, cfg), 2)
+    if not any("flash_attention_kernel_wgmma" in n for n in brk["port_kernels"]):
+        raise AssertionError(f"the profiled mla forward ran no flash_attention_kernel_wgmma: "
+                             f"{brk['port_kernels']}")
+    if brk["library_attention"]:
+        raise AssertionError(f"library attention kernels ran: {brk['library_attention']}")
+    out = dict(tokens=SEQ, flash_attention_launches=launches, forward_ms=forward_ms,
+               tokens_per_s=SEQ / forward_ms * 1e3, logits_max_abs_err=err, tol=LOGIT_TOL,
+               logit_scale=scale, breakdown=brk)
+    phase("mla_forward", arch=cfg.name, **out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_serve(cfg, params, lm, Engine, ServeConfig, fa, fd) -> dict:
+    """``mla_serve``: REQUESTS requests (:func:`serve_prompts`, NEW_TOKENS
+    new tokens each) on SLOTS slots of MAX_LEN positions through the
+    absorbed decode (whole-prompt chunks and decode steps; no attention
+    kernel launches, as in the reference), run with the kernels' default
+    and with ``attn_impl="ref"``: greedy tokens equal except at the plain
+    run's near ties.  Each slot's first prefill chunk's logits at its last
+    prompt position are held to LOGIT_TOL against the decompressed forward
+    (through the kernel) of the same prompt.  Then a steady decode step of
+    4 resident requests (:func:`window`)."""
+    requests = serve_prompts(cfg)
+    scfg = ServeConfig(max_len=MAX_LEN, batch_slots=SLOTS, eos_token=-1)
+    runs = {}
+    for impl in (None, "ref"):
+        engine = Engine(dataclasses.replace(cfg, attn_impl=impl), params, scfg)
+        stats = _instrument(engine, record_gaps=True, fd=fd)
+        for rid, prompt in enumerate(requests):
+            engine.submit(rid, prompt, NEW_TOKENS)
+        fa.flash_attention_cuda.launches = fd.flash_decode_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if sorted(done) != list(range(REQUESTS)) or any(
+                len(done[r]) != len(requests[r]) + NEW_TOKENS for r in range(REQUESTS)):
+            raise AssertionError(f"mla_serve {impl}: not every request finished")
+        launches = (fa.flash_attention_cuda.launches, fd.flash_decode_cuda.launches)
+        if launches != (0, 0):
+            raise AssertionError(f"mla_serve {impl}: the absorbed decode launched attention "
+                                 f"kernels {launches}")
+        runs[impl] = dict(done=done, stats=stats, steps=dict(engine.steps), wall=wall,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del engine
+        torch.cuda.empty_cache()
+    k, p = runs[None], runs["ref"]
+    agree, near_ties = greedy_agreement(requests, k["done"], p["done"], p["stats"]["gaps"],
+                                        "kernel", "plain")
+    # the absorbed chunk against the decompressed forward of the same prompts
+    absorbed_err = 0.0
+    for slot, last in k["stats"]["first_prefill"].items():
+        feed = torch.tensor(requests[slot][:-1], device=DEVICE)[None, :]
+        want = lm.forward(params, {"tokens": feed}, cfg)[0][0, -1, :cfg.vocab].float()
+        absorbed_err = max(absorbed_err, (last[:cfg.vocab].float() - want).abs().max().item())
+    if absorbed_err > LOGIT_TOL:
+        raise AssertionError(f"mla prefill chunk (absorbed) vs forward (decompressed) logits: "
+                             f"{absorbed_err} > {LOGIT_TOL}")
+    engine = Engine(cfg, params, scfg)
+    for rid, prompt in enumerate(requests[:SLOTS]):
+        engine.submit(rid, prompt, NEW_TOKENS)
+    engine._fill_slots()
+    engine._decode_once()
+    dec = window(engine._decode_once, 8)
+    cache_lens = list(engine.ledger.lengths)
+    del engine
+    torch.cuda.empty_cache()
+    st = k["stats"]
+    out = dict(requests=REQUESTS, slots=SLOTS, max_len=MAX_LEN, new_tokens=NEW_TOKENS,
+               prompt_lens=[len(r) for r in requests], steps=k["steps"],
+               attention_kernel_launches=0, prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+               serve_decode_tok_s=REQUESTS * NEW_TOKENS / st["decode_s"], wall_s=k["wall"],
+               plain_wall_s=p["wall"], peak_memory_gb=k["peak_gb"],
+               peak_kv_occupancy=st["peak_occupancy"], decode_step=dec,
+               decode_step_cache_lens=cache_lens, decode_tok_s=SLOTS / dec["wall_ms"] * 1e3,
+               greedy_agreement=agree, divergences_at_near_ties=near_ties,
+               absorbed_vs_forward_logits_max_abs_err=absorbed_err, tol=LOGIT_TOL)
+    phase("mla_serve", arch=cfg.name, **out)
+    return out
+
+
 def kernel_instances(log: str, kernel: str = r"layout_gemm\w*?kernel") -> dict:
     """ptxas's registers and spill per instance of the kernels whose names
     match ``kernel``, by name and integer template arguments (the GEMM
@@ -1651,6 +1875,8 @@ def main() -> int:
           ptxas=kernel_instances(build.build_log("gemm")))
     attn_ptxas = {name: kernel_instances(build.build_log(name), rf"{name}_kernel_wgmma")
                   for name in ("flash_attention", "flash_decode")}
+    attn_ptxas["flash_attention_float32"] = kernel_instances(build.build_log("flash_attention"),
+                                                             "flash_attention_kernel")
     phase("attention_instances", ptxas=attn_ptxas)
 
     # phase 2: kernels against their plain versions
@@ -1768,6 +1994,15 @@ def main() -> int:
     gqa4 = ("ms", "max_abs_err", "bound_ms", "bound_by", "plain_ms", "library_ms",
             "library_bf16_ms")
 
+    # phase 12: the MLA family, minicpm3-4b at full width and depth, seeded
+    # random weights; the kernel's (96, 64) instances first
+    mla_attn = check_mla_kernel(ops, card, fa.P_PIECES)
+    mla_cfg, mla_params = mla_model(configs, lm)
+    mla_fwd = mla_forward(mla_cfg, mla_params, lm, fa)
+    mla_serve(mla_cfg, mla_params, lm, Engine, ServeConfig, fa, fd)
+    del mla_params
+    torch.cuda.empty_cache()
+
     gemm_src = "src/repro_torch/kernels/csrc/gemm.cu"
     report = []
     for name, replaces in (("gemm", "src/repro/kernels/gemm.py:80"),
@@ -1782,6 +2017,9 @@ def main() -> int:
                    "error_vs_float64_ratio": accuracy["kernel"],
                    "moe_forward_launches": moe_fwd["launches"],
                    **{f"moe_gqa4_{key}": moe_attn["flash_attention"][key] for key in gqa4},
+                   "mla_forward_launches": mla_fwd["flash_attention_launches"],
+                   **{f"mla_96_64_{key}": mla_attn[key] for key in
+                      (*gqa4, "error_vs_float64_ratio", "library_bf16_backend")},
                    **rows["flash_attention"]})
     prefill = rows[("flash_decode", "prefill_chunk")]
     report.append({"name": "flash_decode", "route": "cuda",

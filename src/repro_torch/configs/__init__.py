@@ -11,13 +11,13 @@ _MODULES = {
     "qwen2.5-32b": "qwen2_5_32b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
     "arctic-480b": "arctic_480b",
+    "minicpm3-4b": "minicpm3_4b",
+    "internlm2-20b": "internlm2_20b",
 }
 
 # the reference's other architectures, by the ROADMAP.md queue-1 item that
 # ports their family
 _LATER = {
-    "minicpm3-4b": "item 6 (MLA family)",
-    "internlm2-20b": "item 6 (its config file; the dense family is ported)",
     "llama-3.2-vision-11b": "item 6 (VLM family)",
     "rwkv6-3b": "item 6 (SSM family)",
     "zamba2-7b": "item 6 (hybrid family)",

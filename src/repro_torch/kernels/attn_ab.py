@@ -7,11 +7,15 @@
 
 Each ``NAME=FA,FD`` names a ``flash_attention.cu`` and a ``flash_decode.cu``
 (with ``csrc/`` on the include path for their headers), built with the
-port's ``nvcc`` flags into ``build/torch_kernels/ab/``, all at once.  The
-checkout's build (``this``) and each named one are timed with
-``queued_ms`` through the port's own wrappers (their ``lib`` argument) at the
-paths' bf16 shapes: the forward (q 1x24x4096x128, k/v 1x8x4096x128,
-causal), the off-diagonal carry step of a 4-rank ring over those tokens
+port's ``nvcc`` flags into ``build/torch_kernels/ab/``, all at once.  A
+named ``flash_attention.cu`` must have the checkout's C entry points (a
+``flash_attention_fwd`` that takes the v head dim ``Dv`` after ``D``): the
+wrappers bind every build alike.  The checkout's build (``this``) and each
+named one are timed with ``queued_ms`` through the port's own wrappers
+(their ``lib`` argument) at the paths' bf16 shapes: the forward (q
+1x24x4096x128, k/v 1x8x4096x128, causal), MLA's forward (q/k
+1x40x4096x96, v 1x40x4096x64, causal: the (96, 64) instance), the
+off-diagonal carry step of a 4-rank ring over the first forward's tokens
 (rank 1, step 1: 1024 rows x 1024 keys), a decode step (4 slots, cache
 4096, lengths 1, 700, 2049, 4096) and a prefill chunk (4 x 2048 queries,
 lengths 2047, 1000, 300, 0, the last slot idle).  The builds take turns,
@@ -58,7 +62,7 @@ def _decode_case(dims, lens, start, seed: int):
 
 
 def cases() -> dict:
-    """``{label: (run(libs) -> output, plain() -> output)}`` at the four
+    """``{label: (run(libs) -> output, plain() -> output)}`` at the five
     shapes, on seeded inputs.  The carry step updates one state in place
     call after call (the same work each time); its first call starts from
     the plain version's state."""
@@ -81,9 +85,13 @@ def cases() -> dict:
         return fa.flash_attention_carry_cuda(qr, kb, vb, carry[libs], lib=libs[0], **kw)[0]
 
     dec, pre = _decode_case(**DECODE, seed=40), _decode_case(**PREFILL, seed=40)
+    mq, mk, mv = _randn((1, 40, SEQ, 96), 3), _randn((1, 40, SEQ, 96), 4), \
+        _randn((1, 40, SEQ, 64), 5)
     return {
         "forward": (lambda libs: fa.flash_attention_cuda(q, k, v, lib=libs[0]),
                     lambda: ops.flash_attention(q, k, v, impl="ref")),
+        "mla_forward": (lambda libs: fa.flash_attention_cuda(mq, mk, mv, lib=libs[0]),
+                        lambda: ops.flash_attention(mq, mk, mv, impl="ref")),
         "carry_off_diagonal": (
             run_carry, lambda: ops.flash_attention_carry(qr, kb, vb, state, impl="ref", **kw)[0]),
         "decode_step": (lambda libs: fd.flash_decode_cuda(*dec[:4], q_positions=dec[4],

@@ -4,10 +4,13 @@
 // wgmma descriptors that read it, and the two bf16 products with float32
 // accumulators, S = Q K^T and O += P V.
 //
-// Layout.  A tile of R rows x D bf16 (q rows, or KT keys) is stored as D/64
-// "boxes", each R rows x 128 bytes (64 values), box b holding columns
-// 64b..64b+63, with TMA's 128-byte swizzle: the 16-byte chunk c of row r
-// sits at chunk c ^ (r % 8).  Every box starts on 1 KB.  The products read
+// Layout.  A tile of R rows x D bf16 (q rows, or KT keys) is stored as
+// ceil(D/64) "boxes", each R rows x 128 bytes (64 values), box b holding
+// columns 64b..64b+63, with TMA's 128-byte swizzle: the 16-byte chunk c of
+// row r sits at chunk c ^ (r % 8).  Every box starts on 1 KB.  A head dim
+// that 64 does not divide (96) leaves the last box part empty: TMA fills
+// the columns past D with zeros, and no product reads them (Q K^T runs
+// D/16 k16 steps).  The products read
 // it through wgmma descriptors in the same swizzle mode:
 //   * K-major (Q as A, K as B of Q K^T; the contraction runs along D, which
 //     is contiguous): 8-row groups 1 KB apart (SBO); the k16 step kk starts
@@ -43,15 +46,19 @@ constexpr int BOX = 64;        // bf16 values in one 128-byte swizzled row
 constexpr int ROW_BYTES = 128;
 constexpr float NEG_INF = -1e30f;  // the reference's finite mask value
 
-// Bytes of an R-row tile of D columns in the boxed layout.
-__host__ __device__ constexpr int tile_bytes(int rows, int D) { return rows * D * 2; }
+// Boxes of a D-column tile, and the bytes of an R-row tile in the boxed
+// layout (whole boxes: a TMA load writes every column of its box).
+__host__ __device__ constexpr int boxes(int D) { return (D + BOX - 1) / BOX; }
+__host__ __device__ constexpr int tile_bytes(int rows, int D) {
+  return rows * boxes(D) * ROW_BYTES;
+}
 
 // A (B, G, S, D) bf16 operand as a TMA map: dimension 0 is D, the other
 // three are the sequence, group and batch axes ordered by stride (TMA
 // reads any order; sorting keeps every stride at least the one inside
 // it); `at` says which map dimension holds each.  Boxes are 64 values x
-// `rows` sequence positions; positions past the operand's end read as
-// zeros.
+// `rows` sequence positions; positions past the operand's end, and
+// columns past D, read as zeros.
 struct KvMap {
   CUtensorMap map;
   int at_seq, at_group, at_batch;
@@ -107,7 +114,7 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const KvMap& m, in
   const int c2 = m.at_seq == 2 ? pos : m.at_group == 2 ? group : batch;
   const int c3 = m.at_seq == 3 ? pos : m.at_group == 3 ? group : batch;
 #pragma unroll
-  for (int b = 0; b < D / BOX; ++b)
+  for (int b = 0; b < boxes(D); ++b)
     asm volatile(
         "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
         "[%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst + b * rows * ROW_BYTES)),

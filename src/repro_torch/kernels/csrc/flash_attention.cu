@@ -13,6 +13,9 @@
 // the finite -1e30, not -inf; a row whose l is 0 is divided by 1; the
 // output is acc / l, an IEEE division as the reference's, in q's type.
 // GQA: query head h reads KV head h / (Hq / G) in place, with no repeat.
+// v has a head dim of its own, Dv, and the output is (B, Hq, Sq, Dv), as
+// the reference's: instances (D, Dv) = (64, 64), (128, 128) and, for MLA's
+// forward (q/k of d_nope + d_rope = 96, v of d_v = 64), (96, 64).
 //
 // Two bodies, one per input type.
 //
@@ -61,13 +64,21 @@
 //     reference's `diag_ok`), and the grid puts the longest query tiles
 //     first, so the last wave is short tiles.
 //
+// The (96, 64) instance.  96 is not a multiple of the 64-column box: q and
+// K tiles take two boxes, the second half empty (TMA zero-fills K's columns
+// 96-127, q's are never written), and Q K^T runs D / 16 = 6 k16 steps, so
+// no empty column costs tensor work; P V, the output accumulators, the V
+// stage of the ring and the epilogue are sized by Dv (one box, N = 64).
+// Its work at MLA's shape is 4/7 in Q K^T, so it is bound by operations
+// like the others.
+//
 // float32 (flash_attention_kernel; no model path runs attention in float32
-// on the card): the body of the first port, unchanged, on the CUDA cores in
-// FFMA (attn_tiles.cuh): q is scaled by `scale` in float32 first; a block
-// owns 64 query rows and walks 64-key tiles loaded synchronously into
-// float32 shared-memory tiles; each of 256 threads computes a 4x4 score
-// micro-tile and a 4 x D/16 slice of the output.  Bound: float32
-// operations (67 TFLOP/s on an H100 SXM).
+// on the card): the body of the first port on the CUDA cores in FFMA
+// (attn_tiles.cuh): q is scaled by `scale` in float32 first; a block owns
+// 64 query rows and walks 64-key tiles loaded synchronously into float32
+// shared-memory tiles (K of D columns, V of Dv); each of 256 threads
+// computes a 4x4 score micro-tile and a 4 x Dv/16 slice of the output.
+// Bound: float32 operations (67 TFLOP/s on an H100 SXM).
 //
 // The carry form (`flash_attention_carry_pallas`, one step of the
 // sequence-parallel ring) is the same body with two template flags, as the
@@ -104,9 +115,9 @@ using namespace attn;
 constexpr int TR = 4;
 constexpr int BR = 16 * TR;  // query rows per block
 
-template <int D>
+template <int D, int DV>
 constexpr int smem_bytes() {
-  return 4 * (3 * BR * (D + 4) + BR * (KT + 4));  // Q, K, V tiles + P tile
+  return 4 * (BR * (D + 4) + KT * (D + 4) + KT * (DV + 4) + BR * (KT + 4));  // Q, K, V, P tiles
 }
 
 // Operand strides in elements: q's, k's and v's batch/head/sequence strides.
@@ -114,18 +125,18 @@ struct Strides {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs;
 };
 
-template <typename T, int D, bool HAS_CARRY, bool EMIT_STATE>
+template <typename T, int D, int DV, bool HAS_CARRY, bool EMIT_STATE>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        T* __restrict__ out, float* acc_st, float* m_st, float* l_st, int Hq,
                        int group, int Sq, int Skv, Strides st, float scale, bool causal,
                        int q_off, int k_off, int valid_len) {
-  constexpr int DPT = D / 16;
+  constexpr int DPT = DV / 16;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + BR * (D + 4);
   float* Vs = Ks + KT * (D + 4);
-  float* Ps = Vs + KT * (D + 4);
+  float* Ps = Vs + KT * (DV + 4);
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int q0 = blockIdx.x * BR;
@@ -147,7 +158,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
       const long long row = (long long)bh * Sq + r;
       m[i] = m_st[row], l[i] = l_st[row];
 #pragma unroll
-      for (int e = 0; e < DPT; ++e) o[i][e] = acc_st[row * D + out_col(e, tx)];
+      for (int e = 0; e < DPT; ++e) o[i][e] = acc_st[row * DV + out_col(e, tx)];
     } else {
       m[i] = NEG_INF, l[i] = 0.f;
 #pragma unroll
@@ -158,7 +169,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   for (int k0 = 0; k0 < kend; k0 += KT) {
     __syncthreads();  // the previous tile's readers are done
     load_tile<T, D>(Ks, kp + k0 * st.ks, st.ks, KT, Skv - k0, 1.f, tid);
-    load_tile<T, D>(Vs, vp + k0 * st.vs, st.vs, KT, Skv - k0, 1.f, tid);
+    load_tile<T, DV>(Vs, vp + k0 * st.vs, st.vs, KT, Skv - k0, 1.f, tid);
     __syncthreads();
 
     float s[TR][4];
@@ -188,7 +199,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
       for (int e = 0; e < DPT; ++e) o[i][e] *= alpha;
     }
     __syncthreads();
-    pv_tile<D, TR>(o, Ps, KT + 4, Vs, KT, ty, tx);
+    pv_tile<DV, TR>(o, Ps, KT + 4, Vs, KT, ty, tx);
   }
 
 #pragma unroll
@@ -198,11 +209,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
     const long long row = (long long)bh * Sq + r;
     if (EMIT_STATE) {
 #pragma unroll
-      for (int e = 0; e < DPT; ++e) acc_st[row * D + out_col(e, tx)] = o[i][e];
+      for (int e = 0; e < DPT; ++e) acc_st[row * DV + out_col(e, tx)] = o[i][e];
       if (tx == 0) m_st[row] = m[i], l_st[row] = l[i];
     } else {
       const float li = l[i] == 0.f ? 1.f : l[i];  // guard fully masked rows
-      T* dst = out + row * D;
+      T* dst = out + row * DV;
 #pragma unroll
       for (int e = 0; e < DPT; ++e) dst[out_col(e, tx)] = from_f32<T>(__fdiv_rn(o[i][e], li));
     }
@@ -226,27 +237,29 @@ constexpr int CONSUMER_REGS = 232;
 constexpr int PIECES = 2;                // bf16 pieces of p in P @ V
 static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 65536, "setmaxnreg within 64K");
 
-template <int D>
+template <int D, int DV>
 constexpr int smem_bytes() {
   // alignment slack, Q, the ring of K and V tiles, 3 barriers a stage
-  return 1024 + tile_bytes(ROWS, D) + STAGES * 2 * tile_bytes(KT, D) + STAGES * 3 * 8;
+  return 1024 + tile_bytes(ROWS, D) + STAGES * (tile_bytes(KT, D) + tile_bytes(KT, DV)) +
+         STAGES * 3 * 8;
 }
 
-template <int D, bool HAS_CARRY, bool EMIT_STATE>
+template <int D, int DV, bool HAS_CARRY, bool EMIT_STATE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __restrict__ q,
                              long long qb, long long qh, long long qs, bf16* __restrict__ out,
                              float* acc_st, float* m_st, float* l_st, int Hq, int group, int Sq,
                              int Skv, float scale, bool causal, int q_off, int k_off,
                              int valid_len) {
-  constexpr int ACC = D / 2;  // output accumulators a thread holds
-  constexpr int TILE = tile_bytes(KT, D);
+  constexpr int ACC = DV / 2;  // output accumulators a thread holds
+  constexpr int TILE_K = tile_bytes(KT, D), TILE_V = tile_bytes(KT, DV);
+  constexpr int STAGE = TILE_K + TILE_V;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
   unsigned char* Qs = smem;
-  unsigned char* ring = Qs + tile_bytes(ROWS, D);  // stage s: K at 2s, V at 2s + 1
-  uint64_t* full_k = reinterpret_cast<uint64_t*>(ring + STAGES * 2 * TILE);
+  unsigned char* ring = Qs + tile_bytes(ROWS, D);  // stage s: K, then V
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
   uint64_t* full_v = full_k + STAGES;
   uint64_t* empty = full_v + STAGES;
 
@@ -275,10 +288,10 @@ flash_attention_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % STAGES;
         mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);  // the first round passes at once
-        mbar_expect_tx(&full_k[s], TILE);
-        load_tile<D>(ring + 2 * s * TILE, maps.k, t * KT, g, b, KT, &full_k[s]);
-        mbar_expect_tx(&full_v[s], TILE);
-        load_tile<D>(ring + (2 * s + 1) * TILE, maps.v, t * KT, g, b, KT, &full_v[s]);
+        mbar_expect_tx(&full_k[s], TILE_K);
+        load_tile<D>(ring + s * STAGE, maps.k, t * KT, g, b, KT, &full_k[s]);
+        mbar_expect_tx(&full_v[s], TILE_V);
+        load_tile<DV>(ring + s * STAGE + TILE_K, maps.v, t * KT, g, b, KT, &full_v[s]);
       }
     }
     return;
@@ -303,7 +316,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __
       m[hh] = m_st[row], l[hh] = l_st[row];
 #pragma unroll
       for (int c = 0; c < ACC / 4; ++c) {
-        const float2 x = *reinterpret_cast<const float2*>(acc_st + row * D + 8 * c + 2 * quad);
+        const float2 x = *reinterpret_cast<const float2*>(acc_st + row * DV + 8 * c + 2 * quad);
         o[4 * c + 2 * hh] = x.x, o[4 * c + 2 * hh + 1] = x.y;
       }
     } else {
@@ -326,19 +339,19 @@ flash_attention_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __
     if (lane == 0) mbar_arrive(&empty[t % STAGES]);
   };
   auto start_qk = [&](int t) {
-    const unsigned char* Ks = ring + 2 * (t % STAGES) * TILE;
+    const unsigned char* Ks = ring + (t % STAGES) * STAGE;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
       wgmma_qk(sc, desc_k(Qw, ROWS, kk), desc_k(Ks, KT, kk), kk > 0);
     wgmma_commit();
   };
   auto start_pv = [&](int t) {
-    const unsigned char* Vs = ring + (2 * (t % STAGES) + 1) * TILE;
+    const unsigned char* Vs = ring + (t % STAGES) * STAGE + TILE_K;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int pc = PIECES - 1; pc >= 0; --pc)  // the small pieces first
-        wgmma_pv<D>(pv, pa[pc][kk], desc_v(Vs, kk), kk > 0 || pc < PIECES - 1);
+        wgmma_pv<DV>(pv, pa[pc][kk], desc_v(Vs, kk), kk > 0 || pc < PIECES - 1);
     wgmma_commit();
   };
   auto add_pv = [&]() {  // o = o * alpha + P V, once P V has landed
@@ -463,14 +476,14 @@ flash_attention_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __
     if (EMIT_STATE) {
 #pragma unroll
       for (int c = 0; c < ACC / 4; ++c)
-        *reinterpret_cast<float2*>(acc_st + row * D + 8 * c + 2 * quad) =
+        *reinterpret_cast<float2*>(acc_st + row * DV + 8 * c + 2 * quad) =
             make_float2(o[4 * c + 2 * hh], o[4 * c + 2 * hh + 1]);
       if (quad == 0) m_st[row] = m[hh], l_st[row] = l[hh];
     } else {
       const float li = l[hh] == 0.f ? 1.f : l[hh];  // guard fully masked rows
 #pragma unroll
       for (int c = 0; c < ACC / 4; ++c)
-        *reinterpret_cast<uint32_t*>(out + row * D + 8 * c + 2 * quad) =
+        *reinterpret_cast<uint32_t*>(out + row * DV + 8 * c + 2 * quad) =
             pack_bf16(__fdiv_rn(o[4 * c + 2 * hh], li), __fdiv_rn(o[4 * c + 2 * hh + 1], li));
     }
   }
@@ -479,13 +492,13 @@ flash_attention_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __
 }  // namespace tc
 
 
-template <typename T, int D, bool CARRY>
+template <typename T, int D, int DV, bool CARRY>
 int launch(const void* q, const void* k, const void* v, void* out, float* acc, float* m, float* l,
            int B, int Hq, int G, int Sq, int Skv, const long long* st, float scale, int causal,
            int q_off, int k_off, int valid_len, cudaStream_t stream) {
   using namespace simt;
-  auto kernel = flash_attention_kernel<T, D, CARRY, CARRY>;
-  constexpr int smem = smem_bytes<D>();
+  auto kernel = flash_attention_kernel<T, D, DV, CARRY, CARRY>;
+  constexpr int smem = smem_bytes<D, DV>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Strides strides{st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]};
@@ -497,17 +510,17 @@ int launch(const void* q, const void* k, const void* v, void* out, float* acc, f
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool CARRY>
+template <int D, int DV, bool CARRY>
 int launch_tc(const void* q, const void* k, const void* v, void* out, float* acc, float* m,
               float* l, int B, int Hq, int G, int Sq, int Skv, const long long* st, float scale,
               int causal, int q_off, int k_off, int valid_len, cudaStream_t stream) {
   using namespace tc;
   KvMaps maps;
   if (!cached_kv(&maps.k, k, B, G, Skv, D, st[3], st[4], st[5], KT) ||
-      !cached_kv(&maps.v, v, B, G, Skv, D, st[6], st[7], st[8], KT))
+      !cached_kv(&maps.v, v, B, G, Skv, DV, st[6], st[7], st[8], KT))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_attention_kernel_wgmma<D, CARRY, CARRY>;
-  constexpr int smem = smem_bytes<D>();
+  auto kernel = flash_attention_kernel_wgmma<D, DV, CARRY, CARRY>;
+  constexpr int smem = smem_bytes<D, DV>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(B * Hq, (Sq + ROWS - 1) / ROWS);
@@ -517,24 +530,29 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, float* acc
   return static_cast<int>(cudaGetLastError());
 }
 
+// The (D, Dv) instances: (64, 64) and (128, 128) in both forms, (96, 64)
+// (MLA) in the forward form only.
 template <bool CARRY>
 int dispatch(const void* q, const void* k, const void* v, void* out, float* acc, float* m,
-             float* l, int dtype, int B, int Hq, int G, int Sq, int Skv, int D,
+             float* l, int dtype, int B, int Hq, int G, int Sq, int Skv, int D, int Dv,
              const long long* st, float scale, int causal, int q_off, int k_off, int valid_len,
              void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128, CARRY>(q, k, v, out, acc, m, l, B, Hq, G, Sq, Skv, st, scale,
-                                     causal, q_off, k_off, valid_len, s);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64, CARRY>(q, k, v, out, acc, m, l, B, Hq, G, Sq, Skv, st, scale,
-                                    causal, q_off, k_off, valid_len, s);
-  if (dtype == 1 && D == 128)
-    return launch_tc<128, CARRY>(q, k, v, out, acc, m, l, B, Hq, G, Sq, Skv, st, scale, causal,
-                                 q_off, k_off, valid_len, s);
-  if (dtype == 1 && D == 64)
-    return launch_tc<64, CARRY>(q, k, v, out, acc, m, l, B, Hq, G, Sq, Skv, st, scale, causal,
-                                q_off, k_off, valid_len, s);
+#define FA_LAUNCH(DD, DDV)                                                                    \
+  if (D == DD && Dv == DDV)                                                                   \
+    return dtype == 0 ? launch<float, DD, DDV, CARRY>(q, k, v, out, acc, m, l, B, Hq, G, Sq,  \
+                                                      Skv, st, scale, causal, q_off, k_off,   \
+                                                      valid_len, s)                           \
+                      : launch_tc<DD, DDV, CARRY>(q, k, v, out, acc, m, l, B, Hq, G, Sq, Skv, \
+                                                  st, scale, causal, q_off, k_off, valid_len, \
+                                                  s);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  FA_LAUNCH(128, 128)
+  FA_LAUNCH(64, 64)
+  if constexpr (!CARRY) {
+    FA_LAUNCH(96, 64)
+  }
+#undef FA_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -542,27 +560,29 @@ int dispatch(const void* q, const void* k, const void* v, void* out, float* acc,
 
 extern "C" {
 
-// out (B, Hq, Sq, D) contiguous = attention of q (B, Hq, Sq, D) over k, v
-// (B, G, Skv, D), each given by its batch/head/sequence strides in elements
-// (st = q's 3, k's 3, v's 3; head dim contiguous, rows 16-byte aligned).
-// dtype 0 = float32, 1 = bfloat16; D = 64 or 128.  Returns a cudaError_t.
+// out (B, Hq, Sq, Dv) contiguous = attention of q (B, Hq, Sq, D) over k
+// (B, G, Skv, D) and v (B, G, Skv, Dv), each given by its batch/head/sequence
+// strides in elements (st = q's 3, k's 3, v's 3; head dim contiguous, rows
+// 16-byte aligned).  dtype 0 = float32, 1 = bfloat16; (D, Dv) = (64, 64),
+// (128, 128) or (96, 64).  Returns a cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, int dtype, int B,
-                        int Hq, int G, int Sq, int Skv, int D, const long long* strides,
+                        int Hq, int G, int Sq, int Skv, int D, int Dv, const long long* strides,
                         float scale, int causal, void* stream) {
-  return dispatch<false>(q, k, v, out, nullptr, nullptr, nullptr, dtype, B, Hq, G, Sq, Skv, D,
+  return dispatch<false>(q, k, v, out, nullptr, nullptr, nullptr, dtype, B, Hq, G, Sq, Skv, D, Dv,
                          strides, scale, causal, 0, 0, INT_MAX, stream);
 }
 
 // One ring step: the state acc (B, Hq, Sq, D), m and l (B, Hq, Sq), float32
 // contiguous, is updated in place by the attention of q (global rows
 // q_off + i) over k, v (global keys k_off + j; keys at or past valid_len
-// masked).  Operands as for flash_attention_fwd.  Returns a cudaError_t.
+// masked).  Operands as for flash_attention_fwd, with Dv = D = 64 or 128.
+// Returns a cudaError_t.
 int flash_attention_carry_fwd(const void* q, const void* k, const void* v, float* acc, float* m,
                               float* l, int dtype, int B, int Hq, int G, int Sq, int Skv, int D,
                               const long long* strides, float scale, int causal, int q_off,
                               int k_off, int valid_len, void* stream) {
-  return dispatch<true>(q, k, v, nullptr, acc, m, l, dtype, B, Hq, G, Sq, Skv, D, strides, scale,
-                        causal, q_off, k_off, valid_len, stream);
+  return dispatch<true>(q, k, v, nullptr, acc, m, l, dtype, B, Hq, G, Sq, Skv, D, D, strides,
+                        scale, causal, q_off, k_off, valid_len, stream);
 }
 
 const char* flash_attention_error_string(int code) {

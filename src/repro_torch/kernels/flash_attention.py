@@ -3,11 +3,12 @@
 ``csrc/flash_attention.cu`` replaces the reference's Pallas kernels
 ``flash_attention_pallas`` and ``flash_attention_carry_pallas``
 (``src/repro/kernels/flash_attention.py``): blockwise online-softmax
-attention of q (B, Hq, Sq, D) over k/v (B, G, Skv, D), causal (top-left
-aligned) or not, all arithmetic float32, output in q's dtype
-(:func:`flash_attention_cuda`); and one step of the sequence-parallel ring,
-the same body threading the unnormalized float32 state ``(acc, m, l)``
-through the call in place, at global offsets (:func:`flash_attention_carry_cuda`).
+attention of q (B, Hq, Sq, D) over k (B, G, Skv, D) and v (B, G, Skv, Dv),
+causal (top-left aligned) or not, all arithmetic float32, output
+(B, Hq, Sq, Dv) in q's dtype (:func:`flash_attention_cuda`); and one step of
+the sequence-parallel ring, the same body threading the unnormalized float32
+state ``(acc, m, l)`` through the call in place, at global offsets
+(:func:`flash_attention_carry_cuda`).
 Their plain versions are :func:`repro_torch.kernels.ref.flash_attention_ref`
 and :func:`repro_torch.kernels.ref.flash_carry_ref`.
 
@@ -16,9 +17,12 @@ bfloat16 inputs run the tensor-core body: ``q k^T`` and ``p @ v`` on
 :data:`KEY_TILE`-key tiles of K and V by TMA (see the note in the source).
 float32 inputs run the first port's float32 body on the CUDA cores.
 
-The kernel takes float32 or bfloat16 with head dim 64 or 128 (``v`` with the
-same head dim as ``q``).  It reads each operand through its batch, head and
-sequence strides, so the transposed views of the projections need no copy.
+The forward takes float32 or bfloat16 with head dims ``(D, Dv)`` of
+:data:`FORWARD_HEAD_DIMS`: 64 or 128 for q, k and v, or q/k of 96 with v of
+64 (MLA's forward).  The carry form takes one head dim, 64 or 128, for q, k
+and v (:func:`check_carry_head_dims`).  It reads each operand through its
+batch, head and sequence strides, so the transposed views of the
+projections need no copy.
 It launches on PyTorch's current stream and never synchronises; a build or
 launch failure raises.  ``flash_attention_cuda.launches`` and
 ``flash_attention_carry_cuda.launches`` count launches.
@@ -33,17 +37,20 @@ import torch
 from . import build
 
 __all__ = ["flash_attention_cuda", "flash_attention_carry_cuda", "check_attention",
-           "check_carry", "load_library", "bind", "KERNEL_DTYPES", "KEY_TILE", "P_PIECES"]
+           "check_carry", "check_carry_head_dims", "load_library", "bind", "KERNEL_DTYPES",
+           "FORWARD_HEAD_DIMS", "KEY_TILE", "P_PIECES"]
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128)  # the carry form's, for q, k and v alike
+FORWARD_HEAD_DIMS = ((64, 64), (128, 128), (96, 64))  # the forward's (D, Dv)
 KEY_TILE = 64  # keys per tile of both bodies: carry chunks starting on its multiples chain bitwise
 P_PIECES = 2  # bf16 pieces of p in the bf16 body's p @ v (hi = bf16(p), lo = bf16(p - hi))
 
 
 def check_attention(q, k, v) -> tuple[int, int, int, int, int, int]:
-    """``(B, Hq, G, Sq, Skv, D)`` of an attention call; raises ``ValueError``
-    on shapes that do not fit together."""
+    """``(B, Hq, G, Sq, Skv, D)`` of an attention call (v's head dim may
+    differ from D); raises ``ValueError`` on shapes that do not fit
+    together."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"q, k, v must be (B, H, S, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -51,12 +58,18 @@ def check_attention(q, k, v) -> tuple[int, int, int, int, int, int]:
     Bk, G, Skv, Dk = k.shape
     if Bk != B or Dk != D or tuple(v.shape[:3]) != (B, G, Skv):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
-    if v.shape[-1] != D:  # a v head dim of its own: ROADMAP.md queue 2, item A
-        raise ValueError(f"v head dim {v.shape[-1]} != q/k head dim {D}: the port takes one "
-                         "head dim for q, k and v")
     if G == 0 or Hq % G:
         raise ValueError(f"Hq={Hq} not a multiple of G={G}")
     return B, Hq, G, Sq, Skv, D
+
+
+def check_carry_head_dims(q, v) -> None:
+    """Raises ``ValueError`` unless v's head dim is q's: the carry form
+    takes one head dim (a v head dim of its own there: ROADMAP.md queue 2,
+    item A)."""
+    if v.shape[-1] != q.shape[-1]:
+        raise ValueError(f"v head dim {v.shape[-1]} != q/k head dim {q.shape[-1]}: the carry "
+                         "form takes one head dim for q, k and v")
 
 
 def _row_aligned(t: torch.Tensor) -> torch.Tensor:
@@ -71,7 +84,9 @@ def _row_aligned(t: torch.Tensor) -> torch.Tensor:
 
 def check_on_card(dtypes, head_dims, **tensors) -> torch.device:
     """The common device of ``tensors``; raises unless all lie on one CUDA
-    device with one dtype the kernel takes and a head dim it takes."""
+    device with one dtype the kernel takes and a head dim it takes.
+    ``head_dims`` is a tuple of head dims for every operand, or ``None``
+    (the caller checks them)."""
     first = next(iter(tensors.values()))
     for name, t in tensors.items():
         if not t.is_cuda or t.device != first.device:
@@ -79,7 +94,7 @@ def check_on_card(dtypes, head_dims, **tensors) -> torch.device:
         if t.dtype != first.dtype or t.dtype not in dtypes:
             raise TypeError(f"{name}: the kernel takes one of {list(dtypes)} for all operands, "
                             f"got {t.dtype} (q is {first.dtype})")
-        if t.shape[-1] not in head_dims:
+        if head_dims is not None and t.shape[-1] not in head_dims:
             raise ValueError(f"{name}: the kernel takes head dims {head_dims}, got {t.shape[-1]}")
     return first.device
 
@@ -93,7 +108,7 @@ def load_library() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` with the argument types of its entry points set."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
+    lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
                                         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, p]
     lib.flash_attention_fwd.restype = i
     lib.flash_attention_carry_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
@@ -108,13 +123,19 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, scale: float | None = None,
                          lib: ctypes.CDLL | None = None) -> torch.Tensor:
-    """Attention of q (B, Hq, Sq, D) over k, v (B, G, Skv, D) on the card;
-    returns (B, Hq, Sq, D) contiguous in q's dtype.  ``lib`` is the kernel
+    """Attention of q (B, Hq, Sq, D) over k (B, G, Skv, D) and v
+    (B, G, Skv, Dv) on the card, ``(D, Dv)`` one of
+    :data:`FORWARD_HEAD_DIMS`; returns (B, Hq, Sq, Dv) contiguous in q's
+    dtype.  ``scale`` defaults to ``D ** -0.5``.  ``lib`` is the kernel
     library (default :func:`load_library`; the A/B timer passes another
     build, bound by :func:`bind`)."""
     B, Hq, G, Sq, Skv, D = check_attention(q, k, v)
-    device = check_on_card(KERNEL_DTYPES, HEAD_DIMS, q=q, k=k, v=v)
-    out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=device)
+    Dv = v.shape[-1]
+    device = check_on_card(KERNEL_DTYPES, None, q=q, k=k, v=v)
+    if (D, Dv) not in FORWARD_HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims (D, Dv) in {FORWARD_HEAD_DIMS}, "
+                         f"got ({D}, {Dv})")
+    out = torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=device)
     if out.numel() == 0:
         return out
     if Skv == 0:
@@ -125,8 +146,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = lib or load_library()
     stream = torch.cuda.current_stream(device).cuda_stream
     code = lib.flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                   KERNEL_DTYPES[q.dtype], B, Hq, G, Sq, Skv, D, strides, scale,
-                                   int(causal), stream)
+                                   KERNEL_DTYPES[q.dtype], B, Hq, G, Sq, Skv, D, Dv, strides,
+                                   scale, int(causal), stream)
     if code != 0:
         msg = lib.flash_attention_error_string(code).decode()
         raise RuntimeError(f"flash_attention_kernel launch failed: {msg} (cudaError {code})")
@@ -163,6 +184,7 @@ def flash_attention_carry_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     nothing for query tiles that lie wholly before the block (causal).
     ``lib`` as for :func:`flash_attention_cuda`."""
     B, Hq, G, Sq, Skv, D = check_attention(q, k, v)
+    check_carry_head_dims(q, v)
     device = check_on_card(KERNEL_DTYPES, HEAD_DIMS, q=q, k=k, v=v)
     check_carry(carry, B, Hq, Sq, D)
     for name, t in zip(("acc", "m", "l"), carry):

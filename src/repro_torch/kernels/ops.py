@@ -15,8 +15,8 @@ from __future__ import annotations
 import torch
 
 from . import ref as _ref
-from .flash_attention import (check_attention, check_carry, flash_attention_carry_cuda,
-                              flash_attention_cuda)
+from .flash_attention import (check_attention, check_carry, check_carry_head_dims,
+                              flash_attention_carry_cuda, flash_attention_cuda)
 from .flash_decode import check_decode, flash_decode_cuda
 from .gemm import check_gemm, check_panel, gemm_cuda, gemm_panel_cuda
 from .relayout import check_transpose, transpose_cuda
@@ -67,10 +67,11 @@ def gemm_panel(a, b, panel, jb, *, majors: str = "I/I/K", impl: str | None = Non
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
                     block: int = 512, impl: str | None = None):
-    """Blockwise online-softmax attention of q (B, Hq, Sq, D) over k, v
-    (B, G, Skv, D): the reference's ``flash_attention_pallas``.  Causal is
-    top-left aligned.  ``block`` is the plain version's KV block (the
-    result does not depend on it beyond float32 rounding)."""
+    """Blockwise online-softmax attention of q (B, Hq, Sq, D) over k
+    (B, G, Skv, D) and v (B, G, Skv, Dv), returning (B, Hq, Sq, Dv): the
+    reference's ``flash_attention_pallas``.  Causal is top-left aligned.
+    ``block`` is the plain version's KV block (the result does not depend
+    on it beyond float32 rounding)."""
     check_attention(q, k, v)
     impl = impl or default_impl(q)
     if impl == "ref":
@@ -115,13 +116,15 @@ def flash_attention_carry(q, k, v, carry=None, *, q_offset: int = 0, k_offset: i
     ``k_offset + j``, threading the unnormalized float32 state
     ``carry = (acc, m, l)`` (``None`` starts from ``(0, -1e30, 0)``).  Keys
     at or past ``valid_len`` are masked.  Returns the new ``(acc, m, l)``;
-    the caller normalizes ``acc / l`` after the last step.
+    the caller normalizes ``acc / l`` after the last step.  v takes q's
+    head dim here (:func:`check_carry_head_dims`).
 
     On the card the kernel updates the carry **in place** (a carry not
     already float32 and contiguous is copied first); when a gradient is
     wanted it writes fresh tensors instead and differentiates through
     :class:`_CarryStep`."""
     B, Hq, _, Sq, _, _ = check_attention(q, k, v)
+    check_carry_head_dims(q, v)
     Dv = v.shape[-1]
     if carry is not None:
         check_carry(carry, B, Hq, Sq, Dv)

@@ -1,4 +1,6 @@
-"""GQA attention (RoPE, optional QKV bias) of the dense LM, and its KV cache.
+"""GQA attention (RoPE, optional QKV bias) of the dense LM and its KV cache;
+MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2 style) and its
+latent cache.
 
 Attention dispatch
 ------------------
@@ -18,6 +20,11 @@ decode      ``flash_decode_kernel`` + combine   ``flash_decode_ref``
 ``attn_impl="jnp"`` selects, for decode, the reference's dense path (all
 scores at once, probabilities normalized and *then* rounded to the cache
 dtype); on the seq and ring paths it means the plain version.
+
+MLA's full-sequence path is the seq path with q/k of ``d_nope + d_rope``
+and v of ``d_v`` (96 and 64 for minicpm3: the kernel's ``(96, 64)``
+instance); its decode is the reference's absorbed form in plain PyTorch
+products (no kernel, as in the reference).
 
 Under an active ``sp_ring`` recipe (:mod:`repro_torch.models.sharding`) with
 more than one rank on the ``model`` axis, the seq path becomes the
@@ -53,9 +60,9 @@ from repro_torch.kernels.ref import NEG_INF
 from .module import pspec
 from .sharding import current_recipe, ragged_seq_extents
 
-__all__ = ["rope_angles", "apply_rope", "gqa_specs", "attention_seq", "attention_decode",
-           "ring_step_offsets", "ring_attention_seq", "KVCache", "gqa_attention",
-           "idle_rows_read_chunk"]
+__all__ = ["rope_angles", "apply_rope", "gqa_specs", "mla_specs", "attention_seq",
+           "attention_decode", "ring_step_offsets", "ring_attention_seq", "KVCache",
+           "gqa_attention", "idle_rows_read_chunk", "MLACache", "mla_attention"]
 
 
 # ------------------------------------------------------------------ RoPE ----
@@ -97,6 +104,22 @@ def gqa_specs(d_model: int, n_heads: int, n_kv: int, head_dim: int, *, qkv_bias:
         s["bk"] = pspec(("g", n_kv), ("d", head_dim), dtype=dtype, init="zeros")
         s["bv"] = pspec(("g", n_kv), ("d", head_dim), dtype=dtype, init="zeros")
     return s
+
+
+def mla_specs(d_model: int, n_heads: int, *, q_rank: int, kv_rank: int, d_nope: int, d_rope: int,
+              d_v: int, dtype=torch.float32) -> dict:
+    return {
+        "wdq": pspec(("m", d_model), ("q", q_rank), dtype=dtype, fan_in=("m",)),
+        "wuq": pspec(("q", q_rank), ("h", n_heads), ("c", d_nope + d_rope), dtype=dtype,
+                     fan_in=("q",)),
+        "wdkv": pspec(("m", d_model), ("k", kv_rank), dtype=dtype, fan_in=("m",)),
+        "wkr": pspec(("m", d_model), ("r", d_rope), dtype=dtype, fan_in=("m",)),
+        "wuk": pspec(("k", kv_rank), ("h", n_heads), ("n", d_nope), dtype=dtype, fan_in=("k",)),
+        "wuv": pspec(("k", kv_rank), ("h", n_heads), ("w", d_v), dtype=dtype, fan_in=("k",)),
+        "wo": pspec(("h", n_heads), ("w", d_v), ("m", d_model), dtype=dtype, fan_in=("h", "w")),
+        "q_norm": pspec(("q", q_rank), dtype=dtype, init="ones"),
+        "kv_norm": pspec(("k", kv_rank), dtype=dtype, init="ones"),
+    }
 
 
 # ------------------------------------------------------------------ cores ----
@@ -295,20 +318,11 @@ def gqa_attention(p, x, *, n_heads: int, n_kv: int, head_dim: int, rope_theta: f
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cache is not None:
-        adv = S if new_counts is None else new_counts
-        active = None if new_counts is None else new_counts > 0
-        _cache_update(cache.k, k, cache.length, active)
-        _cache_update(cache.v, v, cache.length, active)
-        new_len = cache.length + adv
-        kc, vc = cache.k, cache.v
-        if active is not None and (idle_read_chunk if idle_read_chunk is not None else
-                                   idle_rows_read_chunk(cache.length, new_counts, kc.shape[2], S)):
-            # the reference writes every row's chunk, attends, and then
-            # restores the idle rows (lm._mask_rows): those idle rows attend
-            # over a copy of the cache with their chunk written
-            kc, vc = kc.clone(), vc.clone()
-            _cache_update(kc, k, cache.length, None)
-            _cache_update(vc, v, cache.length, None)
+        new_len = cache.length + (S if new_counts is None else new_counts)
+        kc, vc = (t.transpose(1, 2) for t in _write_chunk(
+            [(cache.k.transpose(1, 2), k.transpose(1, 2)),
+             (cache.v.transpose(1, 2), v.transpose(1, 2))],
+            cache.length, new_counts, idle_read_chunk))
         q_pos = positions if positions.ndim == 2 else None
         o = attention_decode(q, kc, vc, new_len, q_positions=q_pos, impl=attn_impl, block=block)
         return _out_proj(o, p["wo"]), KVCache(cache.k, cache.v, new_len.to(cache.length.dtype))
@@ -335,19 +349,133 @@ def idle_rows_read_chunk(length: torch.Tensor, new_counts: torch.Tensor, T: int,
     return bool(((new_counts == 0) & ((seen == 0) | (start < seen))).any())
 
 
-def _cache_update(cache: torch.Tensor, new: torch.Tensor, length: torch.Tensor,
-                  active: torch.Tensor | None) -> None:
-    """Write the S new steps of each row at its own ``length[b] % T``, in
-    place, as the reference's vmapped ``dynamic_update_slice`` does: the
-    start is clamped so that the S steps fit (``min(length % T, T - S)``).
-    Rows with ``active[b] == False`` are left as they were (the reference
-    writes them and restores them, ``lm._mask_rows``).  No host sync."""
-    B, G, T, D = cache.shape
-    S = new.shape[2]
+def _seq_cache_update(cache: torch.Tensor, new: torch.Tensor, length: torch.Tensor,
+                      active: torch.Tensor | None) -> None:
+    """Write the S new steps ``new`` (B, S, ...) of each row into ``cache``
+    (B, T, ...) at the row's own ``length[b] % T``, in place, as the
+    reference's vmapped ``dynamic_update_slice`` does: the start is clamped
+    so that the S steps fit (``min(length % T, T - S)``).  Rows with
+    ``active[b] == False`` are left as they were (the reference writes them
+    and restores them, ``lm._mask_rows``).  No host sync."""
+    B, T = cache.shape[:2]
+    S = new.shape[1]
     start = torch.clamp(length.long() % T, max=T - S)
     t_idx = start[:, None] + torch.arange(S, device=cache.device)  # (B, S)
     b_idx = torch.arange(B, device=cache.device)[:, None]
-    vals = new.to(cache.dtype).transpose(1, 2)  # (B, S, G, D), the indexed layout
+    vals = new.to(cache.dtype)
     if active is not None:
-        vals = torch.where(active.reshape(B, 1, 1, 1), vals, cache[b_idx, :, t_idx])
-    cache[b_idx, :, t_idx] = vals
+        vals = torch.where(active.reshape((B,) + (1,) * (new.ndim - 1)), vals, cache[b_idx, t_idx])
+    cache[b_idx, t_idx] = vals
+
+
+def _cache_update(cache: torch.Tensor, new: torch.Tensor, length: torch.Tensor,
+                  active: torch.Tensor | None) -> None:
+    """:func:`_seq_cache_update` of a (B, G, T, D) K/V cache with new
+    (B, G, S, D), in place."""
+    _seq_cache_update(cache.transpose(1, 2), new.transpose(1, 2), length, active)
+
+
+def _write_chunk(pairs, length: torch.Tensor, new_counts, idle_read_chunk: bool | None) -> list:
+    """A decode step's cache writes: each ``(cache (B, T, ...), new (B, S,
+    ...))`` pair's chunk goes into the cache in place, rows with a count of
+    0 left as they were.  Returns what the step attends over: the caches,
+    or, when an idle row would read its own chunk (:func:`idle_rows_read_chunk`,
+    or the caller's answer ``idle_read_chunk``), copies with every row's
+    chunk written.  The reference writes every row's chunk, attends, and
+    then restores the idle rows (``lm._mask_rows``): its idle rows attend
+    over the written chunk."""
+    active = None if new_counts is None else new_counts > 0
+    for cache, new in pairs:
+        _seq_cache_update(cache, new, length, active)
+    reads = [cache for cache, _ in pairs]
+    if active is None:
+        return reads
+    T, S = reads[0].shape[1], pairs[0][1].shape[1]
+    if idle_read_chunk if idle_read_chunk is not None else \
+            idle_rows_read_chunk(length, new_counts, T, S):
+        reads = [cache.clone() for cache in reads]
+        for read, (_, new) in zip(reads, pairs):
+            _seq_cache_update(read, new, length, None)
+    return reads
+
+
+# ---------------------------------------------------------------- MLA op ----
+
+class MLACache(NamedTuple):
+    c: torch.Tensor  # (B, T, kv_rank) compressed latent
+    kr: torch.Tensor  # (B, T, d_rope) shared rope key
+    length: torch.Tensor  # (B,) int32
+
+
+def _rms(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """MLA's RMS norm of its latents, the reference's ``_rms``: the mean
+    square in float32, x times its rsqrt (a float32 product) rounded to x's
+    dtype, then times the weight in x's dtype.  Not the block's
+    :func:`repro_torch.models.blocks.rmsnorm` (eps 1e-5)."""
+    v = x.float().square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(v + eps)).to(x.dtype) * w.to(x.dtype)
+
+
+def mla_attention(p, x, *, n_heads: int, d_nope: int, d_rope: int, d_v: int,
+                  rope_theta: float = 10000.0, positions=None, cache: MLACache | None = None,
+                  attn_impl: str | None = None, block: int = 512, new_counts=None,
+                  prefill: bool = False, idle_read_chunk: bool | None = None):
+    """Multi-head latent attention, x (B,S,m) -> (B,S,m), the reference's
+    ``mla_attention``.  Returns ``(out, new_cache)``.
+
+    Without a cache (forward): per-head K/V decompressed from the latent,
+    ``k = [k_nope, kr]`` and ``q = [q_nope, q_rope]`` of ``d_nope + d_rope``
+    and v of ``d_v``, through :func:`attention_seq` (on the card the
+    flash-attention kernel's ``(96, 64)`` instance at minicpm3's dims).
+
+    With a cache (decode and whole-prompt chunks): the absorbed form.
+    ``wuk`` is absorbed into q, whose scores against the latent cache ``c``
+    and the rope-key cache ``kr`` are summed in float32 and scaled by
+    ``(d_nope + d_rope) ** -0.5``; cache slot ``t`` is visible iff
+    ``t < length + count`` and, with (B,S) ``positions``, ``t <=
+    positions[b, j]``; then softmax, ``p @ c``, ``wuv`` and ``wo``.  The
+    caches are updated **in place** and idle rows (count 0) keep theirs, as
+    in :func:`gqa_attention`."""
+    del prefill, n_heads, d_v  # the shapes come from the weights
+    B, S, _ = x.shape
+    dt = x.dtype
+    cq = _rms(torch.matmul(x, p["wdq"].to(dt)), p["q_norm"])
+    q = _project(cq, p["wuq"])  # (B, H, S, d_nope + d_rope)
+    q_nope, q_rope = q[..., :d_nope], q[..., d_nope:]
+    c = _rms(torch.matmul(x, p["wdkv"].to(dt)), p["kv_norm"])  # (B, S, kv_rank)
+    kr = torch.matmul(x, p["wkr"].to(dt))  # (B, S, d_rope)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    cos, sin = rope_angles(positions, d_rope, rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    kr = apply_rope(kr[:, None], cos, sin)[:, 0]
+
+    if cache is None:
+        k_nope, v = _project(c, p["wuk"]), _project(c, p["wuv"])
+        H = k_nope.shape[1]
+        k = torch.cat([k_nope, kr[:, None].expand(B, H, S, d_rope)], dim=-1)
+        o = attention_seq(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True,
+                          impl=attn_impl, block=block)
+        return _out_proj(o, p["wo"]), None
+
+    # ---- absorbed decode ----
+    new_len = cache.length + (S if new_counts is None else new_counts)
+    cc, krc = _write_chunk([(cache.c, c), (cache.kr, kr)], cache.length, new_counts,
+                           idle_read_chunk)
+    H, T = q.shape[1], cc.shape[1]
+    # wuk absorbed into q: (B,H,S,n) @ (H,n,k) -> (B,H,S,k)
+    q_abs = torch.matmul(q_nope, p["wuk"].to(dt).permute(1, 2, 0))
+    ccf = cc.float()
+    s = torch.bmm(q_abs.float().reshape(B, H * S, -1), ccf.transpose(1, 2))
+    s += torch.bmm(q_rope.float().reshape(B, H * S, -1), krc.float().transpose(1, 2))
+    s = s.reshape(B, H, S, T).mul_((d_nope + d_rope) ** -0.5)
+    t = torch.arange(T, device=x.device)
+    mask = t < new_len.reshape(B, 1, 1, 1)
+    if positions.ndim == 2:  # per-row chunk causality: slot t visible to query j iff t <= pos
+        mask = mask & (t <= positions.reshape(B, 1, S, 1))
+    pr = torch.softmax(s.masked_fill_(~mask, NEG_INF), dim=-1)
+    del s
+    o_lat = torch.bmm(pr.reshape(B, H * S, T), ccf).reshape(B, H, S, -1).to(dt)
+    del pr
+    o = torch.matmul(o_lat, p["wuv"].to(dt).permute(1, 0, 2))  # (B,H,S,k) @ (H,k,w)
+    return _out_proj(o, p["wo"]), MLACache(cache.c, cache.kr, new_len.to(cache.length.dtype))

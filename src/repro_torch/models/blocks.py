@@ -1,9 +1,10 @@
-"""Decoder block of the dense and MoE LMs: pre-norm GQA attention + FFN
-(SwiGLU, the GELU MLP, or the top-k MoE).
+"""Decoder blocks: the dense and MoE LMs' pre-norm GQA attention + FFN
+(SwiGLU, the GELU MLP, or the top-k MoE), and the MLA family's pre-norm
+multi-head latent attention + SwiGLU.
 
 The reference scans stacked layer parameters with ``lax.scan``; the port
 keeps the stacked ``(L, ...)`` layout and loops over the layer index
-(``repro_torch.models.lm``).  The MLA, VLM cross-attention, SSM and hybrid
+(``repro_torch.models.lm``).  The VLM cross-attention, SSM and hybrid
 blocks wait for their families' slices (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
@@ -14,7 +15,8 @@ from . import attention as attn
 from . import ffn as ffn_mod
 from .module import pspec
 
-__all__ = ["norm_spec", "rmsnorm", "attn_block_specs", "attn_block"]
+__all__ = ["norm_spec", "rmsnorm", "attn_block_specs", "attn_block", "mla_block_specs",
+           "mla_block"]
 
 
 def norm_spec(d: int, dtype=torch.float32):
@@ -75,3 +77,32 @@ def attn_block(p, x, cfg, *, cache=None, positions=None, new_counts=None, prefil
     else:
         f = ffn_mod.swiglu(p["ffn"], rmsnorm(p["ln2"], x))
     return x + f, new_cache, aux
+
+
+def mla_block_specs(cfg) -> dict:
+    dt = cfg.param_dtype
+    return {
+        "ln1": norm_spec(cfg.d_model, dt),
+        "ln2": norm_spec(cfg.d_model, dt),
+        "attn": attn.mla_specs(cfg.d_model, cfg.n_heads, q_rank=cfg.mla_q_rank,
+                               kv_rank=cfg.mla_kv_rank, d_nope=cfg.mla_d_nope,
+                               d_rope=cfg.mla_d_rope, d_v=cfg.mla_d_v, dtype=dt),
+        "ffn": ffn_mod.swiglu_specs(cfg.d_model, cfg.d_ff, dt),
+    }
+
+
+def mla_block(p, x, cfg, *, cache=None, positions=None, new_counts=None, prefill=False,
+              idle_read_chunk=None):
+    """Pre-norm MLA + SwiGLU.  Returns ``(x, new_cache, aux_loss)``, the aux
+    loss the float 0.0; the latent caches, if given, are updated in place
+    (:func:`repro_torch.models.attention.mla_attention`)."""
+    h, new_cache = attn.mla_attention(
+        p["attn"], rmsnorm(p["ln1"], x),
+        n_heads=cfg.n_heads, d_nope=cfg.mla_d_nope, d_rope=cfg.mla_d_rope, d_v=cfg.mla_d_v,
+        rope_theta=cfg.rope_theta, positions=positions, cache=cache,
+        attn_impl=cfg.attn_impl, block=cfg.attn_block,
+        new_counts=new_counts, prefill=prefill, idle_read_chunk=idle_read_chunk,
+    )
+    x = x + h
+    f = ffn_mod.swiglu(p["ffn"], rmsnorm(p["ln2"], x))
+    return x + f, new_cache, 0.0

@@ -1,11 +1,12 @@
-"""The dense and MoE language models: embeddings -> block stack -> head,
-with the full-sequence forward and the serving decode step.
+"""The dense, MoE and MLA language models: embeddings -> block stack ->
+head, with the full-sequence forward and the serving decode step.
 
 Layer parameters, like the reference's, are stacked on a leading ``l`` dim
-(``params["blocks"]`` leaves are ``(L, ...)``), and so are the caches; the
+(``params["blocks"]`` leaves are ``(L, ...)``), and so are the caches (K/V
+for ``dense`` and ``moe``, the latent ``c``/``kr`` for ``mla``); the
 reference's ``lax.scan`` over them becomes a Python loop over the layer
-index.  Families other than ``dense`` and ``moe`` and the ``embeds`` input
-kind wait for their slices (ROADMAP.md queue 1 item 6).
+index.  The other families and the ``embeds`` input kind wait for their
+slices (ROADMAP.md queue 1 item 6).
 
 Under an active ``sp_ring`` recipe (:mod:`repro_torch.models.sharding`) the
 forward is sequence-parallel: each rank keeps its contiguous, padded chunk
@@ -14,9 +15,10 @@ axes) through every block, and attention runs as the ``model``-axis ring.
 A MoE block routes the chunk by expert parallelism (``moe_dispatch="ep"``)
 where the recipe's grid fits, else by the whole grid's dispatch
 (:func:`repro_torch.models.ffn.moe_ffn`).
-The decode step and the other recipe modes wait for the GSPMD-form decode
-and training slices (ROADMAP.md queue 1 items 8c and 10); the explicit
-tensor-parallel decode step is :mod:`repro_torch.serve.tp_decode`.
+The decode step, the MLA family under a recipe and the other recipe modes
+wait for the GSPMD-form decode and training slices (ROADMAP.md queue 1
+items 8c and 10); the explicit tensor-parallel decode step is
+:mod:`repro_torch.serve.tp_decode`.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ __all__ = ["build_specs", "count_params", "embed_inputs", "lm_logits", "forward"
 
 
 def _require_ported(cfg) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "mla"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet: ROADMAP.md "
                                   "queue 1, item 6")
     if cfg.input_kind != "tokens":
@@ -52,7 +54,8 @@ def build_specs(cfg) -> dict:
     specs: dict[str, Any] = {
         "embed": pspec(("v", cfg.vocab_padded), ("m", cfg.d_model), dtype=dt, init="embed"),
         "final_norm": blk.norm_spec(cfg.d_model, dt),
-        "blocks": stack_specs(blk.attn_block_specs(cfg), cfg.n_layers),
+        "blocks": stack_specs((blk.mla_block_specs if cfg.family == "mla"
+                               else blk.attn_block_specs)(cfg), cfg.n_layers),
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = pspec(("m", cfg.d_model), ("v", cfg.vocab_padded), dtype=dt,
@@ -91,6 +94,11 @@ def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def _block(cfg):
+    """The family's block function."""
+    return blk.mla_block if cfg.family == "mla" else blk.attn_block
+
+
 # ================================================================ forward ====
 
 def forward(params, batch, cfg, *, positions=None):
@@ -105,9 +113,10 @@ def forward(params, batch, cfg, *, positions=None):
     if recipe is not None:
         return _forward_sp_ring(params, batch, cfg, recipe, positions)
     x = embed_inputs(params, batch, cfg)
+    block = _block(cfg)
     aux = 0.0
     for i in range(cfg.n_layers):
-        x, _, a = blk.attn_block(_layer(params["blocks"], i), x, cfg, positions=positions)
+        x, _, a = block(_layer(params["blocks"], i), x, cfg, positions=positions)
         aux = aux + a
     return lm_logits(params, x, cfg), torch.as_tensor(aux, dtype=torch.float32, device=x.device)
 
@@ -128,6 +137,9 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
         raise NotImplementedError(
             f"recipe attn_mode={recipe.attn_mode!r} without the ring: the port applies only "
             "the sp_ring recipe so far (tensor parallelism: ROADMAP.md queue 1, item 8c)")
+    if cfg.family == "mla":
+        raise NotImplementedError("the MLA family under a sharding recipe: ROADMAP.md queue 1, "
+                                  "items 8c and 10")
     tokens = batch["tokens"]
     B, S = tokens.shape
     shard = token_shard(recipe, B, S)
@@ -149,20 +161,28 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
 # ================================================================ caching ====
 
 class DecodeState(NamedTuple):
-    caches: attn_mod.KVCache  # k/v (L, B, G, T, D), length (L, B)
+    # KVCache: k/v (L, B, G, T, D); MLACache: c (L, B, T, kv_rank), kr (L, B, T, d_rope);
+    # both with length (L, B)
+    caches: attn_mod.KVCache | attn_mod.MLACache
     positions: torch.Tensor  # (B,) int32 next position
 
 
-def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda") -> attn_mod.KVCache:
-    """Stacked per-layer KV cache in act_dtype, zero lengths."""
+def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda"):
+    """Stacked per-layer cache in act_dtype, zero lengths: K/V, or for the
+    MLA family the latent and rope-key caches."""
     _require_ported(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch_size, cfg.n_kv, max_len, cfg.head_dim)
-    return attn_mod.KVCache(
-        k=torch.zeros(shape, dtype=cfg.act_dtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.act_dtype, device=device),
-        length=torch.zeros((cfg.n_layers, batch_size), dtype=torch.int32, device=device),
-    )
+    L, B, dt = cfg.n_layers, batch_size, cfg.act_dtype
+    length = torch.zeros((L, B), dtype=torch.int32, device=device)
+    if cfg.family == "mla":
+        return attn_mod.MLACache(
+            c=torch.zeros((L, B, max_len, cfg.mla_kv_rank), dtype=dt, device=device),
+            kr=torch.zeros((L, B, max_len, cfg.mla_d_rope), dtype=dt, device=device),
+            length=length,
+        )
+    shape = (L, B, cfg.n_kv, max_len, cfg.head_dim)
+    return attn_mod.KVCache(k=torch.zeros(shape, dtype=dt, device=device),
+                            v=torch.zeros(shape, dtype=dt, device=device), length=length)
 
 
 def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
@@ -176,7 +196,9 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     K/V and length, and do not advance; their logits are the reference's
     (see :func:`repro_torch.models.attention.gqa_attention`).  The K/V caches are updated **in
     place** (the state's tensors are the new state's); the lengths are new
-    tensors.  ``prefill`` marks a whole-prompt chunk."""
+    tensors.  ``prefill`` marks a whole-prompt chunk.  The MLA family runs
+    the absorbed form against its latent caches
+    (:func:`repro_torch.models.attention.mla_attention`)."""
     if current_recipe() is not None:
         raise NotImplementedError("decode_step under a sharding recipe: ROADMAP.md queue 1, "
                                   "item 8c (decode under a recipe)")
@@ -187,17 +209,18 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     adv = S if new_counts is None else new_counts
     x = embed_inputs(params, batch, cfg)
     caches = state.caches
+    T = caches[0].shape[-2]  # k (L, B, G, T, D) or c (L, B, T, kv_rank)
     # every layer's lengths are the same: ask once per step, not per layer
     idle_read = None if new_counts is None else attn_mod.idle_rows_read_chunk(
-        caches.length[0], new_counts, caches.k.shape[3], S)
+        caches.length[0], new_counts, T, S)
+    block = _block(cfg)
     lengths = []
     for i in range(cfg.n_layers):
-        c = attn_mod.KVCache(caches.k[i], caches.v[i], caches.length[i])
-        x, new_c, _ = blk.attn_block(_layer(params["blocks"], i), x, cfg, cache=c,
-                                     positions=pos2d, new_counts=new_counts, prefill=prefill,
-                                     idle_read_chunk=idle_read)
+        c = type(caches)(*(t[i] for t in caches))
+        x, new_c, _ = block(_layer(params["blocks"], i), x, cfg, cache=c, positions=pos2d,
+                            new_counts=new_counts, prefill=prefill, idle_read_chunk=idle_read)
         lengths.append(new_c.length)
-    new_caches = attn_mod.KVCache(caches.k, caches.v, torch.stack(lengths))
+    new_caches = caches._replace(length=torch.stack(lengths))
     logits = lm_logits(params, x, cfg)
     return logits, DecodeState(caches=new_caches, positions=(positions + adv).to(positions.dtype))
 

@@ -1,7 +1,8 @@
-"""Continuous-batching engine on the port's dense and MoE models,
+"""Continuous-batching engine on the port's dense, MoE and MLA models,
 single-host, or with tensor-parallel decode for the dense family.
 
-A fixed pool of batch *slots* shares one KV cache allocation tracked by a
+A fixed pool of batch *slots* shares one cache allocation (K/V, or MLA's
+latent and rope-key caches) tracked by a
 :class:`repro_torch.serve.kv.KVLedger` (per-request lengths over uniform
 capacity tiles).  Finished sequences free their slot and the next queued
 request is prefilled into it:
@@ -23,7 +24,8 @@ Under a mesh every rank runs this same engine loop on the same requests:
 prefill is the single-host program on the whole weights on every rank, as
 in the reference, and every rank gets every slot's logits, so all ranks
 sample the same tokens.  On a card both paths go through the split-KV
-decode kernel.  The engine keeps an activation-dtype copy of the weights,
+decode kernel (the MLA family's absorbed decode runs no kernel, as in the
+reference).  The engine keeps an activation-dtype copy of the weights,
 made once (``weights.cast_params``), and cuts the rank's TP shard from it
 (``weights.shard_params``; a view when the ``model`` axis has one rank).
 The sharding ``recipe`` waits for ROADMAP.md queue 1 item 8c; the
@@ -45,7 +47,7 @@ __all__ = ["ServeConfig", "Engine"]
 
 # families whose decode step takes multi-token chunks exactly; the MoE's
 # capacity dispatch could drop a chunk's tokens, so it prefills per token
-_CHUNK_FAMILIES = ("dense",)
+_CHUNK_FAMILIES = ("dense", "mla")
 
 
 @dataclasses.dataclass
@@ -67,13 +69,15 @@ class _Slot:
 def _kv_bytes_per_pos(cfg) -> int:
     """Cache bytes one sequence position costs across all layers."""
     item = torch.empty((), dtype=cfg.act_dtype).element_size()
+    if cfg.family == "mla":
+        return cfg.n_layers * (cfg.mla_kv_rank + cfg.mla_d_rope) * item
     return 2 * cfg.n_layers * cfg.n_kv * cfg.head_dim * item
 
 
 def _reset_slot_rows(caches, i: int) -> None:
     """Release slot ``i`` for a new request, in place: zero its ``length``
-    rows.  The K/V payload stays; the attention mask never reads past the
-    length."""
+    rows.  The K/V (or latent) payload stays; the attention mask never
+    reads past the length."""
     caches.length[:, i] = 0
 
 

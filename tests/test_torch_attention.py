@@ -160,10 +160,11 @@ def test_rope_matches_reference(per_row):
 @pytest.mark.parametrize("entry", ["check_attention", "check_decode", "flash_attention",
                                    "flash_attention_carry", "flash_decode"])
 def test_v_head_dim_other_than_qk_is_refused(entry):
-    """A v head dim Dv != D is refused with ``ValueError`` by both shape
-    checks and so by every attention entry point (the card kernels take one
-    head dim for q, k and v; Dv support is ROADMAP.md queue 2, item A).
-    The reference returns (..., Dv) here."""
+    """A v head dim Dv != D: the forward takes it as the reference does
+    (``check_attention`` passes and ``flash_attention`` returns (..., Dv)
+    equal to the reference's Pallas kernel in interpret mode), while the
+    carry form and decode refuse it with ``ValueError`` (ROADMAP.md queue 2,
+    item A)."""
     from repro_torch.kernels.flash_attention import check_attention
     from repro_torch.kernels.flash_decode import check_decode
 
@@ -175,10 +176,16 @@ def test_v_head_dim_other_than_qk_is_refused(entry):
     want = flash_attention_pallas(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
                                   jnp.asarray(v.numpy()), causal=True, interpret=True)
     assert want.shape == (1, 4, 8, 64)
+    if entry == "check_attention":
+        assert check_attention(q, k, v) == (1, 4, 2, 8, 8, 128)
+        return
+    if entry == "flash_attention":
+        got = tops.flash_attention(q, k, v)
+        assert got.shape == (1, 4, 8, 64)
+        _close(got, want, "float32")
+        return
     calls = {
-        "check_attention": lambda: check_attention(q, k, v),
         "check_decode": lambda: check_decode(q, k, v, lens, None),
-        "flash_attention": lambda: tops.flash_attention(q, k, v),
         "flash_attention_carry": lambda: tops.flash_attention_carry(q, k, v),
         "flash_decode": lambda: tops.flash_decode(q, k, v, lens),
     }

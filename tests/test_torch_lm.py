@@ -25,7 +25,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.models import lm as tlm
 from repro_torch.models.weights import params_from_jax
 
-ARCHS = ["phi4-mini-3.8b", "qwen2.5-32b"]
+ARCHS = ["phi4-mini-3.8b", "qwen2.5-32b", "internlm2-20b"]
 TOL = 1e-4
 
 
