@@ -97,6 +97,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -148,6 +149,34 @@ MLA_ARCH = "minicpm3-4b"  # full width and depth: 4.08 B parameters, 8.2 GB in b
 # float32 scores of (4, 40, 2048, 4096), 5.4 GB a live tensor, beside the
 # weights
 MLA_RAGGED = 4095  # the (96, 64) instance's ragged case: Sq = Skv = 4095
+# training at phi4-mini's full width, depth cut 32 -> 8: float32 masters,
+# gradients, both Adam moments and the microbatch sum of 1.42 B parameters
+# are 28.4 GB, the head's float32 logits and their gradient about 10 GB, and
+# the plain backward's recompute of one layer about 6 GB; full depth would
+# need 61 GB for the optimizer's state alone
+TRAIN_DEPTH, TRAIN_BATCH, TRAIN_MICROBATCHES, TRAIN_STEPS = 8, 2, 2, 3  # batch of 2 x SEQ
+TRAIN_LR = 3e-4
+# kernel path against the plain attention path, bf16 activations, one step:
+# the loss, a mean over 8192 tokens, to 2e-3 relative; each gradient leaf to
+# 5e-2 relative (Frobenius): the two runs' activations and cotangents round
+# one bf16 ulp (2^-8) apart wherever the attention output does, every
+# gradient is a sum over 8192 tokens of such products, and 8 layers carry
+# the differences on (a margin of 10x over one ulp)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 2e-3, 5e-2
+# the ZeRO step against make_train_step on the same parameters and batch:
+# the forward is the same (loss 1e-6), the gradients are summed with
+# atomics (the embedding's backward) and the norm by bucket (1e-4); Adam's
+# first update is nearly sign(g) * lr, so an element whose gradient is near
+# 0 may move by up to 2 * lr between two correct runs: every element within
+# 2 * lr, and at most 1e-4 of them more than lr / 100 apart
+ZERO_LOSS_RTOL, ZERO_NORM_RTOL, ZERO_FAR_SHARE = 1e-6, 1e-4, 1e-4
+# the sp_ring step on a one-rank mesh against the no-recipe step: the ring's
+# one carry step is bitwise the single-shot kernel forward (loss 1e-6); the
+# two backward recomputes (carry and single-shot plain versions) sum in other
+# orders and round q, k, v's gradients to bf16, one bf16 ulp apart at most
+RING_LOSS_RTOL, RING_NORM_RTOL = 1e-6, 5e-3
+TRAIN_RANGES = {"attn.recompute": "backward_recompute",
+                "train.optimizer": "optimizer"}  # the training step's profiler ranges
 
 
 def phase(name: str, **fields) -> None:
@@ -188,9 +217,10 @@ def median_ms(fn, *, iters: int = 20, warmup: int = 3) -> float:
 def device_kernels(prof) -> list:
     """A profile's device events that are kernels: not the spans the
     profiler draws on the device timeline for ``record_function`` ranges
-    (the MoE's ``moe.*`` ranges)."""
+    (the MoE's ``moe.*`` ranges, the training step's)."""
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False) and e.name not in MOE_RANGES]
+            and not getattr(e, "is_user_annotation", False) and e.name not in MOE_RANGES
+            and e.name not in TRAIN_RANGES]
 
 
 def device_kernel_ms(prof) -> dict[str, float]:
@@ -1810,6 +1840,227 @@ def mla_serve(cfg, params, lm, Engine, ServeConfig, fa, fd) -> dict:
     return out
 
 
+def train_config(configs):
+    """phi4-mini-3.8b at full width, TRAIN_DEPTH of its 32 layers (bf16
+    activations, remat ``block``: the config's own)."""
+    return dataclasses.replace(configs.get(ARCH), n_layers=TRAIN_DEPTH)
+
+
+def train_batch(cfg, step: int = 0) -> dict:
+    """``data.pipeline.make_batch`` of TRAIN_BATCH x SEQ tokens on the card."""
+    from repro_torch.data.pipeline import ShapeCell, make_batch
+    from repro_torch.launch.train import to_device
+
+    cell = ShapeCell("train", seq_len=SEQ, global_batch=TRAIN_BATCH, kind="train")
+    return to_device(make_batch(cfg, cell, step), DEVICE)
+
+
+def train_launcher(cfg) -> dict:
+    """``train``'s launcher part: TRAIN_STEPS steps through
+    ``launch/train.py``'s own loop (``run``), at full width and cut depth: a
+    first run of TRAIN_STEPS - 1 steps writes its checkpoint, a second run
+    restores it and takes the last step."""
+    import shutil
+
+    from repro_torch.launch import train as launcher
+
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    flags = ["--arch", ARCH, "--device", DEVICE, "--seq-len", str(SEQ), "--global-batch",
+             str(TRAIN_BATCH), "--microbatches", str(TRAIN_MICROBATCHES), "--lr", str(TRAIN_LR),
+             "--ckpt-dir", str(ckpt), "--log-every", "1"]
+    t0 = time.perf_counter()
+    first = launcher.run(launcher.parse_args(flags + ["--steps", str(TRAIN_STEPS - 1)]), cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    second = launcher.run(launcher.parse_args(flags + ["--steps", str(TRAIN_STEPS)]), cfg)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    losses = first["loss"] + second["loss"]
+    if second["start_step"] != TRAIN_STEPS - 1 or len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"the launcher did not restore its checkpoint: {first}, {second}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"training losses not finite: {losses}")
+    step_s = first["seconds"][1:] + second["seconds"]  # the first step builds and warms up
+    out = dict(steps=TRAIN_STEPS, restored_at=second["start_step"], losses=losses,
+               step_seconds=first["seconds"] + second["seconds"],
+               tokens_per_s=TRAIN_BATCH * SEQ / float(np.median(step_s)),
+               peak_memory_gb=peak, seconds=seconds)
+    phase("train_launcher", arch=cfg.name, layers=cfg.n_layers, **out)
+    return out
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """``|a - b| / |b|`` in float32 Frobenius norms."""
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+def train_grads(cfg, params, batch, fa, trainer, tree_leaves) -> tuple:
+    """``train``'s gradient checks: one step's loss and gradients through the
+    attention kernel (``flash_attention`` launched 2 microbatches x layers
+    x (forward + remat's recompute) times, every leaf finite and nonzero),
+    held against the same step through the plain attention.  Returns the
+    kernel run's ``(loss, grads)``."""
+    fa.flash_attention_cuda.launches = 0
+    loss, _, grads = trainer._accum_loss_grads(params, batch, cfg, TRAIN_MICROBATCHES)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention_cuda.launches
+    expected = TRAIN_MICROBATCHES * cfg.n_layers * 2
+    if launches != expected:
+        raise AssertionError(f"flash_attention launches in a training step {launches} != "
+                             f"{expected}")
+    leaves = tree_leaves(grads)
+    for i, g in enumerate(leaves):
+        if g.dtype != torch.float32 or not torch.isfinite(g).all() or not g.abs().sum() > 0:
+            raise AssertionError(f"gradient leaf {i} {tuple(g.shape)} is not a finite, nonzero "
+                                 f"float32 tensor")
+    plain_cfg = dataclasses.replace(cfg, attn_impl="ref")
+    plain_loss, _, plain = trainer._accum_loss_grads(params, batch, plain_cfg,
+                                                     TRAIN_MICROBATCHES)
+    loss_err = abs(loss.item() - plain_loss.item()) / abs(plain_loss.item())
+    errs = [rel_err(a, b) for a, b in zip(leaves, tree_leaves(plain))]
+    del plain
+    if loss_err > TRAIN_LOSS_RTOL or max(errs) > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"kernel vs plain training step: loss {loss_err} (tol "
+                             f"{TRAIN_LOSS_RTOL}), gradients {errs} (tol {TRAIN_GRAD_RTOL})")
+    out = dict(flash_attention_launches=launches, expected=expected, loss=loss.item(),
+               plain_loss=plain_loss.item(), loss_rel_err=loss_err, grad_rel_err_max=max(errs),
+               grad_rel_err_median=float(np.median(errs)), leaves=len(leaves),
+               tol=dict(loss=TRAIN_LOSS_RTOL, grads=TRAIN_GRAD_RTOL))
+    phase("train_grads", arch=cfg.name, **out)
+    return loss, grads, out
+
+
+def train_by_kind(prof) -> dict[str, float]:
+    """Device ms of a training step's kernels: the port's attention kernel,
+    the plain backward's recompute and the optimizer (the kernels inside the
+    device spans of TRAIN_RANGES; one stream), cuBLAS GEMMs and the rest."""
+    spans = sorted((e.time_range.start, e.time_range.end, TRAIN_RANGES[e.name])
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.name in TRAIN_RANGES)
+    out = {"attention_kernel": 0.0, "backward_recompute": 0.0, "gemm": 0.0, "optimizer": 0.0,
+           "other": 0.0}
+    for e in device_kernels(prof):
+        t = e.time_range.start
+        kind = ("attention_kernel" if any(k in e.name for k in PORT_ATTN) else
+                next((kind for lo, hi, kind in spans if lo <= t < hi), None)
+                or ("gemm" if GEMM_NAMES.search(e.name) else "other"))
+        out[kind] += e.time_range.elapsed_us() / 1e3
+    if {kind for *_, kind in spans} != set(TRAIN_RANGES.values()):
+        raise AssertionError(f"the profile lacks a training range: {spans[:4]}")
+    return out
+
+
+def train_breakdown(cfg, params, batch, trainer, optimizer) -> dict:
+    """``train``'s window: after a warm-up step, one ``make_train_step``
+    step unprofiled (host clock) and one under the profiler (device time by
+    kind, idle share), with the step's peak memory."""
+    ocfg = optimizer.OptConfig(lr=TRAIN_LR)
+    step = trainer.make_train_step(cfg, None, ocfg, microbatches=TRAIN_MICROBATCHES)
+    opt = optimizer.init_opt_state(params, ocfg)
+    torch.cuda.reset_peak_memory_stats()
+    step(params, opt, batch)  # the allocator maps the step's memory once
+    win = window(lambda: step(params, opt, batch), 1, classify=train_by_kind)
+    win["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    phase("breakdown", arch=cfg.name, window="train_step", layers=cfg.n_layers,
+          tokens=TRAIN_BATCH * SEQ, microbatches=TRAIN_MICROBATCHES, **win)
+    return win
+
+
+def zero_train(cfg, params, batch, grads, trainer, optimizer, tree_leaves, mesh) -> dict:
+    """``zero_train``: ``make_zero_train_step`` on a one-rank NCCL ``data``
+    mesh held against ``make_train_step`` on the same parameters and batch
+    (see ZERO_*), and the ZeRO update's blocking plan against its
+    double-buffered one, bitwise, both fed the same gradients (``grads``,
+    the kernel run's): the embedding's backward adds with atomics, so two
+    backward runs need not agree bitwise."""
+    ocfg = optimizer.OptConfig(lr=TRAIN_LR)
+    base, m_base = params_and_metrics(trainer.make_train_step(
+        cfg, None, ocfg, microbatches=TRAIN_MICROBATCHES)(
+            params, optimizer.init_opt_state(params, ocfg), batch))
+    base = [t.cpu() for t in tree_leaves(base)]  # on the host: the card holds the next step
+    buckets = trainer.zero_train_buckets(cfg, bucket_bytes=4 << 20, ranks=1)
+    zstep = trainer.make_zero_train_step(cfg, mesh, ocfg, microbatches=TRAIN_MICROBATCHES)
+    t0 = time.perf_counter()
+    zero, m_zero = params_and_metrics(zstep(
+        params, optimizer.init_zero_opt_state(params, buckets, ocfg), batch))
+    torch.cuda.synchronize()
+    zero_s = time.perf_counter() - t0
+    loss_err = abs(m_zero["loss"].item() - m_base["loss"].item()) / m_base["loss"].item()
+    norm_err = abs(m_zero["grad_norm"].item() - m_base["grad_norm"].item()) / \
+        m_base["grad_norm"].item()
+    lr = m_base["lr"].item()
+    worst, far, total = 0.0, 0, 0
+    for a, b in zip(tree_leaves(zero), base):
+        d = (a.cpu() - b).abs()
+        worst = max(worst, d.max().item())
+        far += int((d > lr / 100).sum())
+        total += d.numel()
+    del base, zero
+    if loss_err > ZERO_LOSS_RTOL or norm_err > ZERO_NORM_RTOL or worst > 2 * lr * (1 + 1e-3) \
+            or far > ZERO_FAR_SHARE * total:
+        raise AssertionError(f"ZeRO step vs make_train_step: loss {loss_err}, norm {norm_err}, "
+                             f"max |dp| {worst} (2 lr = {2 * lr}), {far} of {total} elements "
+                             "more than lr / 100 apart")
+    runs = []
+    for db in (True, False):
+        update = trainer.make_zero_update(cfg, mesh, ocfg, double_buffer=db)
+        new = update(params, optimizer.init_zero_opt_state(params, buckets, ocfg), grads)[0]
+        runs.append([t.cpu() for t in tree_leaves(new)])
+        del new
+        if len(runs) == 2:
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                raise AssertionError("the ZeRO update's blocking plan is not bitwise its "
+                                     "double-buffered one")
+    del runs
+    out = dict(buckets=len(buckets), loss_rel_err=loss_err, grad_norm_rel_err=norm_err,
+               max_abs_param_diff=worst, two_lr=2 * lr, elements_over_lr_100=far,
+               elements=total, blocking_equal_double_buffered="bitwise (same gradients)",
+               step_s=zero_s, tol=dict(loss=ZERO_LOSS_RTOL, grad_norm=ZERO_NORM_RTOL,
+                                       far_share=ZERO_FAR_SHARE))
+    phase("zero_train", arch=cfg.name, mesh=dict(mesh.shape), backend="nccl", **out)
+    return out, m_base
+
+
+def params_and_metrics(step_result) -> tuple:
+    """A train step's new parameters and metrics (its optimizer state let go)."""
+    return step_result[0], step_result[2]
+
+
+def sp_ring_train(cfg, params, batch, m_base, fa, trainer, optimizer, make_recipe,
+                  mesh) -> dict:
+    """``sp_ring_train``: one ``make_train_step`` step under the ``sp_ring``
+    recipe on a one-rank NCCL ``(data, model)`` mesh: the ring's carry kernel
+    launched once a layer and microbatch in the forward and again in remat's
+    recompute (its gradient through ``_CarryStep``), held against the
+    no-recipe step's metrics ``m_base`` (see RING_*)."""
+    ocfg = optimizer.OptConfig(lr=TRAIN_LR)
+    recipe = make_recipe(cfg, mesh, attn_mode="sp_ring")
+    fa.flash_attention_cuda.launches = fa.flash_attention_carry_cuda.launches = 0
+    t0 = time.perf_counter()
+    m_ring = trainer.make_train_step(cfg, recipe, ocfg, microbatches=TRAIN_MICROBATCHES)(
+        params, optimizer.init_opt_state(params, ocfg), batch)[2]
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    carry, single = fa.flash_attention_carry_cuda.launches, fa.flash_attention_cuda.launches
+    expected = TRAIN_MICROBATCHES * cfg.n_layers * 2
+    if carry != expected or single != 0:
+        raise AssertionError(f"sp_ring step launched the carry kernel {carry} times (expected "
+                             f"{expected}) and the single-shot kernel {single} times")
+    loss_err = abs(m_ring["loss"].item() - m_base["loss"].item()) / m_base["loss"].item()
+    norm_err = abs(m_ring["grad_norm"].item() - m_base["grad_norm"].item()) / \
+        m_base["grad_norm"].item()
+    if loss_err > RING_LOSS_RTOL or norm_err > RING_NORM_RTOL:
+        raise AssertionError(f"sp_ring step vs no recipe: loss {loss_err}, grad norm {norm_err}")
+    out = dict(flash_attention_carry_launches=carry, expected=expected, loss=m_ring["loss"].item(),
+               loss_rel_err=loss_err, grad_norm=m_ring["grad_norm"].item(),
+               grad_norm_rel_err=norm_err, step_s=ring_s,
+               tol=dict(loss=RING_LOSS_RTOL, grad_norm=RING_NORM_RTOL))
+    phase("sp_ring_train", arch=cfg.name, mesh=dict(mesh.shape), backend="nccl", **out)
+    return out
+
+
 def kernel_instances(log: str, kernel: str = r"layout_gemm\w*?kernel") -> dict:
     """ptxas's registers and spill per instance of the kernels whose names
     match ``kernel``, by name and integer template arguments (the GEMM
@@ -1828,9 +2079,15 @@ def kernel_instances(log: str, kernel: str = r"layout_gemm\w*?kernel") -> dict:
 
 
 def main() -> int:
+    run_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs a GPU", file=sys.stderr)
         return 1
+    # the training phases hold float32 masters, moments and gradients of 1.42 B
+    # parameters beside a step's activations: segments that grow in place keep
+    # freed blocks usable for the next, larger tensors (read at the first
+    # allocation)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     sys.path.insert(0, str(ROOT / "src"))
     import torch.distributed as dist
 
@@ -1844,10 +2101,12 @@ def main() -> int:
     from repro_torch.kernels import ops, relayout
     from repro_torch.models import ffn, lm
     from repro_torch.models.attention import ring_attention_seq, ring_step_offsets
-    from repro_torch.models.sharding import ragged_seq_extents
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.models.sharding import make_recipe, ragged_seq_extents
     from repro_torch.models.weights import cast_params
     from repro_torch.serve.engine import Engine, ServeConfig
     from repro_torch.serve.tp_decode import make_tp_decode_step
+    from repro_torch.train import optimizer, trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2003,6 +2262,37 @@ def main() -> int:
     del mla_params
     torch.cuda.empty_cache()
 
+    # phase 13: training at phi4-mini's full width, TRAIN_DEPTH layers: the
+    # launcher's loop with a checkpoint, a step's device time by kind, the
+    # gradients through the kernel against the plain attention, the ZeRO
+    # step and the sp_ring step on one-rank NCCL meshes
+    t0 = time.perf_counter()
+    train_cfg = train_config(configs)
+    launch = train_launcher(train_cfg)
+    torch.cuda.empty_cache()
+    train_params = lm.init_model(train_cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                                 device=DEVICE)
+    batch = train_batch(train_cfg)
+    tbreak = train_breakdown(train_cfg, train_params, batch, trainer, optimizer)
+    torch.cuda.empty_cache()
+    _, train_g, tgrad = train_grads(train_cfg, train_params, batch, fa, trainer, tree_leaves)
+    torch.cuda.empty_cache()
+    device = init_world("cuda")
+    try:
+        zero, m_base = zero_train(train_cfg, train_params, batch, train_g, trainer, optimizer,
+                                  tree_leaves, make_mesh((1,), ("data",), device=device))
+        del train_g
+        torch.cuda.empty_cache()
+        ring = sp_ring_train(train_cfg, train_params, batch, m_base, fa, trainer, optimizer,
+                             make_recipe, make_mesh((1, 1), ("data", "model"), device=device))
+    finally:
+        dist.destroy_process_group()
+    del train_params
+    torch.cuda.empty_cache()
+    phase("training", seconds=time.perf_counter() - t0, launcher_peak_memory_gb=
+          launch["peak_memory_gb"], step_peak_memory_gb=tbreak["peak_memory_gb"],
+          zero_step_s=zero["step_s"], sp_ring_step_s=ring["step_s"])
+
     gemm_src = "src/repro_torch/kernels/csrc/gemm.cu"
     report = []
     for name, replaces in (("gemm", "src/repro/kernels/gemm.py:80"),
@@ -2020,6 +2310,7 @@ def main() -> int:
                    "mla_forward_launches": mla_fwd["flash_attention_launches"],
                    **{f"mla_96_64_{key}": mla_attn[key] for key in
                       (*gqa4, "error_vs_float64_ratio", "library_bf16_backend")},
+                   "train_launches": tgrad["flash_attention_launches"],
                    **rows["flash_attention"]})
     prefill = rows[("flash_decode", "prefill_chunk")]
     report.append({"name": "flash_decode", "route": "cuda",
@@ -2042,6 +2333,7 @@ def main() -> int:
                    "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                    "replaces": "src/repro/kernels/flash_attention.py:229",
                    "launches": carry_launches, "max_abs_err": worst["flash_attention_carry"],
+                   "train_launches": ring["flash_attention_carry_launches"],
                    "chain_error_vs_float64_ratio": accuracy["chain"],
                    **rows[("flash_attention_carry", "off_diagonal")]})
     report.append({"name": "transpose_tiled", "route": "cuda",
@@ -2050,6 +2342,7 @@ def main() -> int:
                    "launches": transpose_launches, "max_abs_err": 0.0, **rows["transpose"]})
     for row in report:
         check_bound(row["name"], row)
+    phase("run", seconds=time.perf_counter() - run_t0)
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -86,10 +86,13 @@ from .collectives import (
     reduce_scatterv_start,
     scatter,
     scatterv_bag,
+    shard_all_gatherv_start,
+    shard_reduce_scatterv_start,
 )
 from .plan import CommPlan, bucket, dispatch, halo, intent_of, pipeline, ring, stagger
 from .p2p import (permute, permute_start, ring_shift, ring_shift_start, shard_all_gather_start,
-                  shard_all_reduce_start, shard_ring_shift, shard_ring_shift_start, wait)
+                  shard_all_reduce_start, shard_reduce_scatter_start, shard_ring_shift,
+                  shard_ring_shift_start, wait)
 
 __all__ = [
     "LayoutError", "ceil_div", "common_refinement", "ragged_split",
@@ -109,7 +112,9 @@ __all__ = [
     "broadcast", "dist_full", "gather", "gatherv_bag", "grid_extents",
     "rank_map", "reduce_identity", "reduce_scatter_bag", "reduce_scatter_start",
     "reduce_scatterv_bag", "reduce_scatterv_start", "scatter", "scatterv_bag",
+    "shard_all_gatherv_start", "shard_reduce_scatterv_start",
     "CommPlan", "bucket", "dispatch", "halo", "intent_of", "pipeline", "ring", "stagger",
     "permute", "permute_start", "ring_shift", "ring_shift_start", "shard_all_gather_start",
-    "shard_all_reduce_start", "shard_ring_shift", "shard_ring_shift_start", "wait",
+    "shard_all_reduce_start", "shard_reduce_scatter_start", "shard_ring_shift",
+    "shard_ring_shift_start", "wait",
 ]

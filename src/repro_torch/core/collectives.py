@@ -66,6 +66,15 @@ MPI                      repro_torch.core
 ``MPI_Alltoallv``        :func:`all_to_allv_bag` / ``_start`` (split sizes =
                          the counts table; zero counts allowed)
 =======================  ====================================================
+
+Shard-level v-collectives
+-------------------------
+The ZeRO train step (:mod:`repro_torch.train.trainer`) moves plain flat
+gradient and parameter buffers, not bags: :func:`shard_reduce_scatterv_start`
+(``MPI_Ireduce_scatter`` of a ``(R * cap,)`` buffer with a ``recvcounts``
+table) and :func:`shard_all_gatherv_start` (``MPI_Iallgatherv`` of ``(cap,)``
+capacity shards) take a tensor or a tuple of them and one named mesh axis,
+like the shard-level forms of :mod:`repro_torch.core.p2p`.
 """
 from __future__ import annotations
 
@@ -113,6 +122,8 @@ __all__ = [
     "reduce_identity",
     "dist_full",
     "rank_map",
+    "shard_reduce_scatterv_start",
+    "shard_all_gatherv_start",
 ]
 
 _REDUCERS = {
@@ -1470,3 +1481,100 @@ def rank_map(
     out_layout = out_tile_layout or dist_bags[0].tile_layout
     return DistBag(out_arr.reshape(out_layout.shape), out_layout, dt, rank_dims,
                    extents=out_extents)
+
+
+# -----------------------------------------------------------------------------
+# shard-level forms (plain per-rank tensors along one mesh axis)
+# -----------------------------------------------------------------------------
+def _mesh_axis(mesh, axis_name: str) -> tuple[int, int, object, tuple[int, ...]]:
+    """``(R, my coordinate, process group, member global ranks)`` of this
+    process's communicator along ``axis_name``; creates the axis's groups
+    on first use (collective: every rank reaches it at the same point)."""
+    if axis_name not in mesh.shape:
+        raise LayoutError(f"mesh has no axis {axis_name!r} (has {mesh.axis_names})")
+    mesh.create_groups((axis_name,))
+    return (mesh.shape[axis_name], mesh.coords()[axis_name], mesh.group((axis_name,)),
+            mesh.members((axis_name,)))
+
+
+def _shard_leaves(x) -> tuple[list[torch.Tensor], bool]:
+    """``x``'s tensors and whether it was a tuple/list of them."""
+    if isinstance(x, (tuple, list)):
+        return list(x), True
+    return [x], False
+
+
+def _check_flat_extents(n: int, extents: Sequence[int], what: str) -> int:
+    """Validate a flat recvcounts table against an ``R * cap`` buffer; returns
+    the per-rank capacity."""
+    R = len(extents)
+    if R == 0 or n % R:
+        raise LayoutError(f"{what}: flat size {n} must be R * cap for R={R} ranks")
+    cap = n // R
+    for r, e in enumerate(extents):
+        if not 0 <= int(e) <= cap:
+            raise LayoutError(f"{what}: extents[{r}]={e} outside [0, cap={cap}]")
+    return cap
+
+
+def shard_reduce_scatterv_start(x, axis_name: str, *, extents: Sequence[int], mesh) -> Pending:
+    """Issue ``MPI_Ireduce_scatter`` (sum) of flat padded buffers over mesh
+    axis ``axis_name``: each of ``x`` (a ``(R * cap,)`` tensor or a tuple of
+    them) is summed over the axis's ranks and rank ``r`` receives its own
+    ``(cap,)`` slice, of which the leading ``extents[r]`` elements are valid
+    payload (the ``recvcounts`` table,
+    :func:`repro_torch.models.sharding.ragged_grad_extents`).  The
+    capacity-pad tail is zeros by construction
+    (:func:`repro_torch.train.buckets.pack_bucket`), inert under the sum.
+    ``x`` is not modified.  On an axis of one rank nothing moves and ``wait``
+    gives ``x`` itself.  The ZeRO train step issues one per gradient bucket,
+    every bucket in flight before any wait (:func:`repro_torch.core.plan.bucket`)."""
+    leaves, is_seq = _shard_leaves(x)
+    R, _, group, _ = _mesh_axis(mesh, axis_name)
+    if len(extents) != R:
+        raise LayoutError(f"shard_reduce_scatterv_start: {len(extents)} extents for an axis "
+                          f"of {R} ranks")
+    for t in leaves:
+        if t.ndim != 1:
+            raise LayoutError(f"shard_reduce_scatterv_start: a flat buffer is 1-D, got shape "
+                              f"{tuple(t.shape)}")
+        _check_flat_extents(t.shape[0], extents, "shard_reduce_scatterv_start")
+    if R == 1:
+        return Pending(lambda: x, op="reduce_scatterv")
+    outs, works = [], []
+    for t in leaves:
+        out = torch.empty((t.shape[0] // R,), dtype=t.dtype, device=t.device)
+        works.append(dist.reduce_scatter_tensor(out, t.contiguous(), op=dist.ReduceOp.SUM,
+                                                group=group, async_op=True))
+        outs.append(out)
+    return Pending(lambda: type(x)(outs) if is_seq else outs[0], works, op="reduce_scatterv")
+
+
+def shard_all_gatherv_start(x, axis_name: str, *, extents: Sequence[int], mesh) -> Pending:
+    """Issue ``MPI_Iallgatherv`` of flat capacity shards over mesh axis
+    ``axis_name``: every rank's ``(cap,)`` shard of ``x`` (a tensor or a
+    tuple of them), concatenated in rank order into the whole ``(R * cap,)``
+    buffer, of which rank ``r``'s slice carries ``extents[r]`` valid
+    elements (counts; the displacements are the ``r * cap`` capacity
+    offsets).  On an axis of one rank nothing moves and ``wait`` gives ``x``
+    itself.  The ZeRO train step's return leg: each updated parameter
+    shard is regathered for the next forward."""
+    leaves, is_seq = _shard_leaves(x)
+    R, _, group, _ = _mesh_axis(mesh, axis_name)
+    if len(extents) != R:
+        raise LayoutError(f"shard_all_gatherv_start: {len(extents)} extents for an axis of "
+                          f"{R} ranks")
+    for t in leaves:
+        if t.ndim != 1:
+            raise LayoutError(f"shard_all_gatherv_start: a capacity shard is 1-D, got shape "
+                              f"{tuple(t.shape)}")
+        _check_flat_extents(t.shape[0] * R, extents, "shard_all_gatherv_start")
+    if R == 1:
+        return Pending(lambda: x, op="all_gatherv")
+    outs, works = [], []
+    for t in leaves:
+        out = torch.empty((R * t.shape[0],), dtype=t.dtype, device=t.device)
+        works.append(dist.all_gather_into_tensor(out, t.contiguous(), group=group,
+                                                 async_op=True))
+        outs.append(out)
+    return Pending(lambda: type(x)(outs) if is_seq else outs[0], works, op="all_gatherv")

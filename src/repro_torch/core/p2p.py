@@ -33,9 +33,10 @@ Shard-level forms
 The model stack works on plain per-rank tensors, not bags: the
 sequence-parallel ring attention rotates its KV block along the ``model``
 axis of a :class:`~repro_torch.core.dist.Mesh`.  :func:`shard_ring_shift`,
-:func:`shard_ring_shift_start`, :func:`shard_all_gather_start` and
-:func:`shard_all_reduce_start` take a tensor or a tuple of tensors and one
-named mesh axis; the axis's process group is the communicator.  On an axis
+:func:`shard_ring_shift_start`, :func:`shard_all_gather_start`,
+:func:`shard_all_reduce_start` and :func:`shard_reduce_scatter_start` take a
+tensor or a tuple of tensors and one named mesh axis; the axis's process
+group is the communicator.  On an axis
 of one rank they move nothing.  The tensor-parallel decode step issues one
 :func:`shard_all_reduce_start` (``MPI_Iallreduce``) per microbatch and block
 stage, and completes it behind the next microbatch's compute.
@@ -55,6 +56,8 @@ import torch
 import torch.distributed as dist
 
 from .collectives import DistBag
+from .collectives import _mesh_axis as _axis
+from .collectives import _shard_leaves as _leaves
 from .dims import LayoutError, check_same_space
 from .layout import Layout
 from .relayout import check_ragged_dims, relayout
@@ -69,6 +72,7 @@ __all__ = [
     "shard_ring_shift_start",
     "shard_all_gather_start",
     "shard_all_reduce_start",
+    "shard_reduce_scatter_start",
     "wait",
 ]
 
@@ -222,22 +226,6 @@ def wait(*pending: Pending):
 # -----------------------------------------------------------------------------
 # shard-level forms (plain per-rank tensors along one mesh axis)
 # -----------------------------------------------------------------------------
-def _leaves(x) -> tuple[list[torch.Tensor], bool]:
-    """``x``'s tensors and whether it was a tuple/list of them."""
-    if isinstance(x, (tuple, list)):
-        return list(x), True
-    return [x], False
-
-
-def _axis(mesh, axis_name: str) -> tuple[int, int, object, tuple[int, ...]]:
-    """``(R, my coordinate, process group, member global ranks)`` of this
-    process's communicator along ``axis_name``; creates the axis's groups
-    on first use (collective: every rank reaches it at the same point)."""
-    if axis_name not in mesh.shape:
-        raise LayoutError(f"mesh has no axis {axis_name!r} (has {mesh.axis_names})")
-    mesh.create_groups((axis_name,))
-    return (mesh.shape[axis_name], mesh.coords()[axis_name], mesh.group((axis_name,)),
-            mesh.members((axis_name,)))
 
 
 def shard_ring_shift_start(x, axis_name: str, shift: int = 1, *, mesh) -> Pending:
@@ -246,12 +234,16 @@ def shard_ring_shift_start(x, axis_name: str, shift: int = 1, *, mesh) -> Pendin
     ``r - shift``'s value (mod R).  Returns a :class:`Pending` whose
     ``wait`` gives the received value, in ``x``'s structure.  The
     double-buffered ring attention issues this before a step's local
-    attention and waits after it, like the SUMMA ring's panel rotation."""
+    attention and waits after it, like the SUMMA ring's panel rotation.
+    When grad mode is on and a tensor of ``x`` requires grad, the received
+    value is differentiable: its backward shifts the cotangent the other way
+    around the ring (training through the ring)."""
     leaves, is_seq = _leaves(x)
     R, me, group, members = _axis(mesh, axis_name)
     if shift % R == 0:
         return Pending(lambda: x, op="ring_shift")
     dst, src = members[(me + shift) % R], members[(me - shift) % R]
+    linked = torch.is_grad_enabled() and any(t.requires_grad for t in leaves)
     sent = [t.contiguous() for t in leaves]
     landed = [torch.empty_like(t) for t in sent]
     ops = []
@@ -261,10 +253,32 @@ def shard_ring_shift_start(x, axis_name: str, shift: int = 1, *, mesh) -> Pendin
     works = dist.batch_isend_irecv(ops)
 
     def finish():
+        out = landed
+        if linked:  # the cotangents go back the other way around the ring
+            out = list(_ShiftGrad.apply((axis_name, shift, mesh), landed, *leaves))
         sent.clear()  # the sends are complete: their buffers may go
-        return type(x)(landed) if is_seq else landed[0]
+        return type(x)(out) if is_seq else out[0]
 
     return Pending(finish, works, op="ring_shift")
+
+
+class _ShiftGrad(torch.autograd.Function):
+    """The gradient of a ring shift: links the landed tensors to the sent
+    ones, and in the backward shifts the landed tensors' cotangents back by
+    ``-shift`` (rank ``r``'s cotangent goes to the rank it received from).
+    Every rank of the axis runs the same backward, so the sends match."""
+
+    @staticmethod
+    def forward(ctx, meta, landed, *sent):
+        ctx.meta = meta
+        return tuple(landed)
+
+    @staticmethod
+    def backward(ctx, *d_landed):
+        axis_name, shift, mesh = ctx.meta
+        d_sent = shard_ring_shift_start(tuple(d.contiguous() for d in d_landed), axis_name,
+                                        -shift, mesh=mesh).wait()
+        return (None, None, *d_sent)
 
 
 def shard_ring_shift(x, axis_name: str, shift: int = 1, *, mesh):
@@ -314,3 +328,35 @@ def shard_all_reduce_start(x, axis_name: str, *, mesh) -> Pending:
     bufs = [t.clone(memory_format=torch.contiguous_format) for t in leaves]
     works = [dist.all_reduce(b, op=dist.ReduceOp.SUM, group=group, async_op=True) for b in bufs]
     return Pending(lambda: type(x)(bufs) if is_seq else bufs[0], works, op="all_reduce")
+
+
+def shard_reduce_scatter_start(x, axis_name: str, *, mesh, axis: int = 0) -> Pending:
+    """Issue ``MPI_Ireduce_scatter`` (sum) of ``x`` (a tensor or a tuple of
+    them) over mesh axis ``axis_name``: the per-rank partials are summed and
+    rank ``r`` receives block ``r`` of the sum along ``axis`` (the
+    reference's ``tiled=True``); ``x``'s size along ``axis`` must divide
+    into the axis's R ranks.  ``x`` is not modified.  On an axis of one rank
+    nothing moves and ``wait`` gives ``x`` itself."""
+    leaves, is_seq = _leaves(x)
+    R, _, group, _ = _axis(mesh, axis_name)
+    for t in leaves:
+        if t.shape[axis] % R:
+            raise LayoutError(f"shard_reduce_scatter_start: dim {axis} of {tuple(t.shape)} "
+                              f"does not split over {R} ranks")
+    if R == 1:
+        return Pending(lambda: x, op="reduce_scatter")
+    outs, works = [], []
+    for t in leaves:
+        moved = t.movedim(axis, 0).contiguous()  # block r is a contiguous run
+        out = torch.empty((moved.shape[0] // R,) + tuple(moved.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        works.append(dist.reduce_scatter_tensor(out.view(-1), moved.view(-1),
+                                                op=dist.ReduceOp.SUM, group=group,
+                                                async_op=True))
+        outs.append(out)
+
+    def finish():
+        out = [o.movedim(0, axis) for o in outs]
+        return type(x)(out) if is_seq else out[0]
+
+    return Pending(finish, works, op="reduce_scatter")

@@ -24,7 +24,11 @@ and v (:func:`check_carry_head_dims`).  It reads each operand through its
 batch, head and sequence strides, so the transposed views of the
 projections need no copy.
 It launches on PyTorch's current stream and never synchronises; a build or
-launch failure raises.  ``flash_attention_cuda.launches`` and
+launch failure raises.  The wrappers write through ``ctypes``, so their
+results carry no autograd history: with grad mode on, an input that
+requires grad raises ``TypeError`` (:func:`refuse_grad`), and the gradient
+goes through the ``autograd.Function`` classes of
+:mod:`repro_torch.kernels.ops`.  ``flash_attention_cuda.launches`` and
 ``flash_attention_carry_cuda.launches`` count launches.
 """
 from __future__ import annotations
@@ -37,7 +41,8 @@ import torch
 from . import build
 
 __all__ = ["flash_attention_cuda", "flash_attention_carry_cuda", "check_attention",
-           "check_carry", "check_carry_head_dims", "load_library", "bind", "KERNEL_DTYPES",
+           "check_carry", "check_carry_head_dims", "refuse_grad", "load_library", "bind",
+           "KERNEL_DTYPES",
            "FORWARD_HEAD_DIMS", "KEY_TILE", "P_PIECES"]
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,6 +75,19 @@ def check_carry_head_dims(q, v) -> None:
     if v.shape[-1] != q.shape[-1]:
         raise ValueError(f"v head dim {v.shape[-1]} != q/k head dim {q.shape[-1]}: the carry "
                          "form takes one head dim for q, k and v")
+
+
+def refuse_grad(kernel: str, **tensors) -> None:
+    """Raises ``TypeError`` when grad mode is on and one of ``tensors``
+    requires grad: a kernel's wrapper writes its result through ``ctypes``,
+    so the result would silently cut the autograd graph."""
+    if not torch.is_grad_enabled():
+        return
+    wanted = [name for name, t in tensors.items() if t is not None and t.requires_grad]
+    if wanted:
+        raise TypeError(f"{kernel} has no gradient, but {', '.join(wanted)} requires grad: "
+                        "call it under torch.no_grad(), or through kernels.ops where the op "
+                        "has an autograd.Function")
 
 
 def _row_aligned(t: torch.Tensor) -> torch.Tensor:
@@ -129,6 +147,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtype.  ``scale`` defaults to ``D ** -0.5``.  ``lib`` is the kernel
     library (default :func:`load_library`; the A/B timer passes another
     build, bound by :func:`bind`)."""
+    refuse_grad("flash_attention_kernel", q=q, k=k, v=v)
     B, Hq, G, Sq, Skv, D = check_attention(q, k, v)
     Dv = v.shape[-1]
     device = check_on_card(KERNEL_DTYPES, None, q=q, k=k, v=v)
@@ -183,6 +202,8 @@ def flash_attention_carry_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     tensors on q's device, **in place**; returns the carry.  The kernel does
     nothing for query tiles that lie wholly before the block (causal).
     ``lib`` as for :func:`flash_attention_cuda`."""
+    refuse_grad("flash_attention_kernel (carry)", q=q, k=k, v=v,
+                **dict(zip(("acc", "m", "l"), carry)))
     B, Hq, G, Sq, Skv, D = check_attention(q, k, v)
     check_carry_head_dims(q, v)
     device = check_on_card(KERNEL_DTYPES, HEAD_DIMS, q=q, k=k, v=v)

@@ -31,7 +31,7 @@ import functools
 import torch
 
 from . import build
-from .flash_attention import HEAD_DIMS, KERNEL_DTYPES, KEY_TILE, check_on_card
+from .flash_attention import HEAD_DIMS, KERNEL_DTYPES, KEY_TILE, check_on_card, refuse_grad
 
 __all__ = ["flash_decode_cuda", "check_decode", "load_library", "bind", "plan_launch",
            "smem_bytes", "arrivals"]
@@ -134,6 +134,7 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     16-byte aligned rows (a layer slice of a stacked cache does).  ``lib``
     is the kernel library (default :func:`load_library`; the A/B timer
     passes another build, bound by :func:`bind`)."""
+    refuse_grad("flash_decode_kernel", q=q, k_cache=k_cache, v_cache=v_cache)
     B, Hq, G, S, T, D = check_decode(q, k_cache, v_cache, cache_len, q_positions)
     device = check_on_card(KERNEL_DTYPES, HEAD_DIMS, q=q, k_cache=k_cache, v_cache=v_cache)
     out = torch.empty((B, Hq, S, D), dtype=q.dtype, device=device)

@@ -38,6 +38,7 @@ import functools
 import torch
 
 from . import build
+from .flash_attention import refuse_grad
 
 __all__ = ["gemm_cuda", "gemm_panel_cuda", "gemm_shape", "check_gemm", "check_panel",
            "parse_majors", "loader_path", "reset_launches", "load_library"]
@@ -151,6 +152,7 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor | None = None,
               majors: str = "I/I/K", out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``C = A @ B (+ acc)`` on the card; ``acc`` is a previous C buffer in
     the output orientation.  Float32 operands and output only."""
+    refuse_grad("layout_gemm_kernel", a=a, b=b, acc=acc)
     a_trans, b_trans, c_trans = parse_majors(majors)
     M, N, K = check_gemm(a, b, acc, majors)
     _check_on_card(a.device, a=a, b=b, acc=acc)
@@ -179,6 +181,7 @@ def gemm_panel_cuda(a: torch.Tensor, b: torch.Tensor, panel: torch.Tensor, jb, *
     kernel reads on the device (no host sync).  It is clamped to the panel's
     blocks like the reference's ``dynamic_slice``.
     """
+    refuse_grad("layout_gemm_panel_kernel", a=a, b=b, panel=panel)
     a_trans, b_trans, c_trans = parse_majors(majors)
     M, N, K, nb = check_panel(a, b, panel, majors)
     _check_on_card(a.device, a=a, b=b, panel=panel)

@@ -25,6 +25,11 @@ __all__ = ["default_impl", "gemm", "gemm_panel", "flash_attention", "flash_atten
            "flash_decode", "transpose_tiled"]
 
 
+# the profiler range around the attention backward's recompute through the
+# plain versions, which a device-time breakdown reads
+RECOMPUTE_RANGE = "attn.recompute"
+
+
 def default_impl(x: torch.Tensor) -> str:
     return "cuda" if x.is_cuda else "ref"
 
@@ -65,20 +70,50 @@ def gemm_panel(a, b, panel, jb, *, majors: str = "I/I/K", impl: str | None = Non
     raise ValueError(f"unknown impl {impl!r} (use 'cuda' or 'ref')")
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The single-shot attention with a gradient: the forward is the kernel;
+    the backward recomputes the attention through its plain version under
+    ``torch.autograd`` and pulls the cotangent back, as :class:`_CarryStep`
+    does for a ring step (the reference's ``_carry_step_vjp`` design: the
+    reference has no backward kernel).  ``kw`` (causal, scale, the plain
+    version's block) gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = kw
+        return flash_attention_cuda(q, k, v, causal=kw["causal"], scale=kw["scale"])
+
+    @staticmethod
+    def backward(ctx, d_out):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad(), torch.profiler.record_function(RECOMPUTE_RANGE):
+            out = _ref.flash_attention_ref(*inputs, **ctx.kw)
+            grads = torch.autograd.grad(out, inputs, d_out)
+        return (*grads, None)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
                     block: int = 512, impl: str | None = None):
     """Blockwise online-softmax attention of q (B, Hq, Sq, D) over k
     (B, G, Skv, D) and v (B, G, Skv, Dv), returning (B, Hq, Sq, Dv): the
     reference's ``flash_attention_pallas``.  Causal is top-left aligned.
     ``block`` is the plain version's KV block (the result does not depend
-    on it beyond float32 rounding)."""
+    on it beyond float32 rounding).
+
+    On the card, when a gradient is wanted (grad mode on and q, k or v
+    requiring grad) the kernel runs inside :class:`_FlashAttention`, whose
+    backward recomputes through the plain version; the kernel's own result
+    carries no autograd history."""
     check_attention(q, k, v)
     impl = impl or default_impl(q)
     if impl == "ref":
         return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale, block=block)
-    if impl == "cuda":
-        return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
-    raise ValueError(f"unknown impl {impl!r} (use 'cuda' or 'ref')")
+    if impl != "cuda":
+        raise ValueError(f"unknown impl {impl!r} (use 'cuda' or 'ref')")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, dict(causal=causal, scale=scale, block=block))
+    return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
 
 
 class _CarryStep(torch.autograd.Function):
@@ -98,7 +133,7 @@ class _CarryStep(torch.autograd.Function):
     def backward(ctx, d_acc, d_m, d_l):
         inputs = [t.detach().requires_grad_(t.is_floating_point())
                   for t in ctx.saved_tensors]
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function(RECOMPUTE_RANGE):
             q, k, v, acc, m, l = inputs
             out = _ref.flash_carry_ref(q, k, v, (acc, m, l), **ctx.kw)
             pairs = [(o, g) for o, g in zip(out, (d_acc, d_m, d_l)) if g is not None]

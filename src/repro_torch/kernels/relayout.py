@@ -22,6 +22,7 @@ import math
 import torch
 
 from . import build
+from .flash_attention import refuse_grad
 
 __all__ = ["transpose_cuda", "check_transpose", "load_library"]
 
@@ -56,6 +57,7 @@ def load_library() -> ctypes.CDLL:
 def transpose_cuda(x: torch.Tensor) -> torch.Tensor:
     """``(..., M, N) -> (..., N, M)`` on the card, contiguous, bitwise; a
     non-contiguous ``x`` is made contiguous first."""
+    refuse_grad("transpose_kernel", x=x)
     if not x.is_cuda:
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.element_size() not in ELEMENT_SIZES:

@@ -26,8 +26,8 @@ and v of ``d_v`` (96 and 64 for minicpm3: the kernel's ``(96, 64)``
 instance); its decode is the reference's absorbed form in plain PyTorch
 products (no kernel, as in the reference).
 
-Under an active ``sp_ring`` recipe (:mod:`repro_torch.models.sharding`) with
-more than one rank on the ``model`` axis, the seq path becomes the
+Under an active ``sp_ring`` recipe (:mod:`repro_torch.models.sharding`) the
+seq path becomes the
 sequence-parallel ring (:func:`ring_attention_seq`): every rank holds its
 contiguous chunk of the sequence, and the KV blocks rotate around the
 ``model`` axis with :func:`repro_torch.core.p2p.shard_ring_shift_start`
@@ -214,16 +214,19 @@ def ring_attention_seq(q, k, v, *, mesh, axis_name: str = "model", causal: bool 
 
 
 def _ring_applicable(recipe, q, k) -> bool:
-    """The sp ring runs when the recipe asks for it and the shapes ring: a
-    model axis of more than one rank (any sequence length: ragged lengths
-    run as padded capacity chunks with masked keys)."""
+    """The sp ring runs when the recipe asks for it and the shapes ring (any
+    sequence length: ragged lengths run as padded capacity chunks with
+    masked keys).  A model axis of one rank runs the ring's one step, the
+    carry kernel, where the reference's GSPMD program has nothing to ring:
+    the same attention, and one card drives the ring's kernel and its
+    gradient."""
     if recipe is None or not recipe.sp_ring or recipe.attn_mode != "sp":
         return False
     if "model" not in recipe.mesh.shape:
         return False
     R = recipe.mesh.shape["model"]
     S = q.shape[2]
-    return R > 1 and S >= 1 and k.shape[2] == S and q.shape[1] % k.shape[1] == 0
+    return R >= 1 and S >= 1 and k.shape[2] == S and q.shape[1] % k.shape[1] == 0
 
 
 def attention_decode(q, k_cache, v_cache, cache_len, *, q_positions=None,
@@ -286,8 +289,8 @@ def gqa_attention(p, x, *, n_heads: int, n_kv: int, head_dim: int, rope_theta: f
                   seq_len: int | None = None):
     """x (B,S,m) -> (B,S,m).  ``cache`` switches to decode mode.
 
-    Under an active ``sp_ring`` recipe whose ``model`` axis has R > 1 ranks,
-    the full-sequence path runs :func:`_ring_attention_local`: ``x`` is then
+    Under an active ``sp_ring`` recipe over R ranks of ``model``, the
+    full-sequence path runs :func:`_ring_attention_local`: ``x`` is then
     this rank's chunk of a sequence padded to R chunks, ``positions`` its
     absolute positions and ``seq_len`` the sequence's valid length (keys
     past it are padding).

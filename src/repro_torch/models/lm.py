@@ -16,24 +16,35 @@ A MoE block routes the chunk by expert parallelism (``moe_dispatch="ep"``)
 where the recipe's grid fits, else by the whole grid's dispatch
 (:func:`repro_torch.models.ffn.moe_ffn`).
 The decode step, the MLA family under a recipe and the other recipe modes
-wait for the GSPMD-form decode and training slices (ROADMAP.md queue 1
-items 8c and 10); the explicit tensor-parallel decode step is
-:mod:`repro_torch.serve.tp_decode`.
+wait for the GSPMD-form decode slice (ROADMAP.md queue 1 item 8c); the
+explicit tensor-parallel decode step is :mod:`repro_torch.serve.tp_decode`.
+
+Training (:func:`loss_fn`, :mod:`repro_torch.train.trainer`) differentiates
+the float32 parameters themselves: every use casts a weight to the
+activation dtype (``w.to(x.dtype)``), so the gradients come back float32,
+as JAX's do.  ``cfg.remat == "block"`` checkpoints each block
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` per scanned
+block) when a gradient is being taken.  Under an ``sp_ring`` recipe the
+gradients come out whole on every rank: the ring's transfers and the final
+gather are differentiable, and the parameters used by this rank's chunk
+sum their partial gradients over the ranks
+(:meth:`repro_torch.models.sharding.TokenShard.partial`).
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.dist import resolve_device
 
 from . import attention as attn_mod
 from . import blocks as blk
-from .module import init_params, pspec, stack_specs, tree_map, tree_size
+from .module import init_params, pspec, stack_specs, tree_leaves, tree_map, tree_size
 from .sharding import current_recipe, token_shard
 
-__all__ = ["build_specs", "count_params", "embed_inputs", "lm_logits", "forward",
+__all__ = ["build_specs", "count_params", "embed_inputs", "lm_logits", "forward", "loss_fn",
            "DecodeState", "init_cache", "decode_step", "init_model"]
 
 
@@ -95,8 +106,13 @@ def _layer(tree, i: int):
 
 
 def _block(cfg):
-    """The family's block function."""
-    return blk.mla_block if cfg.family == "mla" else blk.attn_block
+    """The family's block function, checkpointed when ``cfg.remat`` is
+    ``"block"`` and a gradient is being taken (the reference's
+    ``_maybe_remat``): its activations are recomputed in the backward."""
+    block = blk.mla_block if cfg.family == "mla" else blk.attn_block
+    if cfg.remat != "block" or not torch.is_grad_enabled():
+        return block
+    return lambda *args, **kw: checkpoint(block, *args, use_reentrant=False, **kw)
 
 
 # ================================================================ forward ====
@@ -140,6 +156,11 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
     if cfg.family == "mla":
         raise NotImplementedError("the MLA family under a sharding recipe: ROADMAP.md queue 1, "
                                   "items 8c and 10")
+    if cfg.family == "moe" and torch.is_grad_enabled() and \
+            any(t.requires_grad for t in tree_leaves(params)):
+        raise NotImplementedError("gradients through the MoE family under a sharding recipe "
+                                  "(its dispatch collectives have no backward): ROADMAP.md "
+                                  "queue 1, item 8c")
     tokens = batch["tokens"]
     B, S = tokens.shape
     shard = token_shard(recipe, B, S)
@@ -148,14 +169,37 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
     pad = recipe.mesh.shape.get("model", 1) * shard.cap - S
     pos = torch.cat([positions, positions[-1] + 1 + torch.arange(pad, device=tokens.device)])
     chunk = slice(shard.chunk * shard.cap, (shard.chunk + 1) * shard.cap)
-    x = embed_inputs(params, {"tokens": shard.local(tokens)}, cfg)
+    x = embed_inputs({"embed": shard.partial(params["embed"])},
+                     {"tokens": shard.local(tokens)}, cfg)
+    blocks = tree_map(shard.partial, params["blocks"])
+    block = _block(cfg)
     aux = 0.0
     for i in range(cfg.n_layers):
-        x, _, a = blk.attn_block(_layer(params["blocks"], i), x, cfg, positions=pos[chunk],
-                                 shard=shard)
+        x, _, a = block(_layer(blocks, i), x, cfg, positions=pos[chunk], shard=shard)
         aux = aux + a
     return (lm_logits(params, shard.gather(x), cfg),
             torch.as_tensor(aux, dtype=torch.float32, device=x.device))
+
+
+# ================================================================== loss ====
+
+def loss_fn(params, batch, cfg):
+    """Next-token cross-entropy (+ the MoE aux loss) of ``batch``
+    (``tokens`` and ``labels`` (B, S), the labels already shifted by the
+    pipeline; an optional float ``loss_mask``).  Returns ``(loss,
+    metrics)``: the loss a float32 scalar with its graph, the metrics
+    (``nll``, ``aux``, ``ppl_proxy``) detached float32 scalars."""
+    logits, aux = forward(params, batch, cfg)
+    labels = batch["labels"].long()
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(logz) if mask is None else mask.float()
+    nll = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    loss = nll + aux
+    nll, aux = nll.detach(), aux.detach()
+    return loss, {"nll": nll, "aux": aux, "ppl_proxy": torch.exp(torch.clamp(nll, max=20.0))}
 
 
 # ================================================================ caching ====

@@ -20,7 +20,7 @@ import torch
 from repro_torch.core.layout import Layout, scalar, torch_dtype, vector
 
 __all__ = ["ParamSpec", "pspec", "init_params", "stack_specs", "tree_size", "tree_map",
-           "tree_leaves"]
+           "tree_leaves", "tree_unflatten"]
 
 _NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
                  torch.float16: np.float16}
@@ -90,6 +90,19 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree shaped like ``tree`` whose leaves are ``leaves``, taken in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(tree)
 
 
 def stack_specs(tree, num: int, dim: str = "l"):

@@ -21,8 +21,10 @@ takes the chunk (:class:`TokenShard` says which block of the token grid it
 is) by expert parallelism or by the whole grid's dispatch
 (:func:`repro_torch.models.ffn.moe_ffn`).  Parameters stay whole on every
 rank; the FSDP and tensor-parallel weight bindings are derived here and
-applied by the training and tensor-parallel decode slices (ROADMAP.md
-queue 1).
+wait for the GSPMD-form slice (ROADMAP.md queue 1, item 8c).  Training
+under the recipe differentiates through the ring and the final gather and
+sums each parameter's partial gradients over the ranks
+(:meth:`TokenShard.partial`).
 
 Sequence lengths need not divide the ring: :func:`ragged_seq_extents`
 pads the sequence to R equal capacity chunks (trailing ranks hold short,
@@ -39,11 +41,11 @@ from typing import Any, Mapping
 import torch
 
 from repro_torch.core.dims import mixed_radix_join
-from repro_torch.core.p2p import shard_all_gather_start
+from repro_torch.core.p2p import shard_all_gather_start, shard_all_reduce_start
 
 __all__ = ["Recipe", "make_recipe", "use_recipe", "current_recipe", "fit_spec",
-           "ragged_seq_extents", "ragged_expert_extents", "TokenShard", "token_shard",
-           "PRIORITY"]
+           "ragged_seq_extents", "ragged_expert_extents", "ragged_grad_extents", "TokenShard",
+           "token_shard", "PRIORITY"]
 
 Spec = tuple  # one entry per dim: a mesh axis, a tuple of them, or None
 
@@ -71,6 +73,20 @@ def ragged_expert_extents(E: int, R: int) -> tuple[int, tuple[int, ...]]:
     dispatch leg's split extent for a destination rank sums the token
     counts of exactly these experts."""
     return ragged_seq_extents(E, R)
+
+
+def ragged_grad_extents(n: int, R: int) -> tuple[int, tuple[int, ...]]:
+    """Ragged 1/R shards of a flattened gradient bucket: ``(cap, extents)``.
+
+    Contiguous ceil-split of the ``n``-element flat buffer the ZeRO train
+    step reduce-scatters over the ``data`` axis: rank ``r`` owns elements
+    ``[r*cap, min((r+1)*cap, n))`` of the reduced gradient (and the matching
+    optimizer-state shard), the bucket pads to ``R*cap`` on the wire, and
+    the extents are the ``MPI_Reduce_scatter`` ``recvcounts`` table
+    (:func:`repro_torch.core.collectives.shard_reduce_scatterv_start`).
+    ``n`` need not divide the axis: trailing ranks update short, possibly
+    empty, shards."""
+    return ragged_seq_extents(n, R)
 
 
 # priority for param-dim conflicts (earlier wins a contested mesh axis)
@@ -245,13 +261,35 @@ class TokenShard:
 
     def gather(self, x):
         """The whole ``(B, S, ...)`` grid from every rank's ``(n_rows, cap,
-        ...)`` block, padding dropped; the same on every rank."""
+        ...)`` block, padding dropped; the same on every rank.
+
+        Differentiable for a consumer that every rank runs alike (the LM
+        head and its loss): the backward hands this rank its own block of
+        the cotangent (:meth:`local`), which is the whole gradient of that
+        block because every rank's cotangent is the same."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _GatherGrid.apply(self, x)
+        return self._gather(x)
+
+    def _gather(self, x):
         if self.mesh.shape.get("model", 1) > 1:
             x = shard_all_gather_start(x, "model", mesh=self.mesh, axis=1).wait()
         x = x[:, :self.S]
         for a in reversed(self.batch_axes):  # innermost batch axis first
             x = shard_all_gather_start(x, a, mesh=self.mesh, axis=0).wait()
         return x
+
+    def partial(self, t):
+        """``t``, a tensor every rank holds whole (a parameter), as used by
+        this rank's block of the grid.  The forward is the identity; the
+        backward sums the cotangent over the ranks that hold the other
+        blocks (``model`` and the split batch axes), so a parameter's
+        gradient comes out whole on every rank: the transpose of a
+        replicated operand's broadcast, which GSPMD inserts by itself."""
+        if not (torch.is_grad_enabled() and t.requires_grad):
+            return t
+        axes = tuple(a for a in ("model",) + self.batch_axes if self.mesh.shape.get(a, 1) > 1)
+        return _SumPartials.apply(self.mesh, axes, t) if axes else t
 
     def local(self, y):
         """This rank's ``(n_rows, cap, ...)`` block of a whole ``(B, S, ...)``
@@ -275,3 +313,34 @@ def token_shard(recipe: Recipe, B: int, S: int) -> TokenShard:
     cap, _ = ragged_seq_extents(S, mesh.shape.get("model", 1))
     return TokenShard(mesh=mesh, batch_axes=batch_axes, B=B, S=S, cap=cap, row0=row0,
                       n_rows=n_rows, chunk=coords.get("model", 0))
+
+
+class _GatherGrid(torch.autograd.Function):
+    """:meth:`TokenShard.gather` with a gradient: the backward is this
+    rank's own block of the cotangent (:meth:`TokenShard.local`)."""
+
+    @staticmethod
+    def forward(ctx, shard, x):
+        ctx.shard = shard
+        return shard._gather(x)
+
+    @staticmethod
+    def backward(ctx, d):
+        return None, ctx.shard.local(d)
+
+
+class _SumPartials(torch.autograd.Function):
+    """The identity, whose backward sums the cotangent over mesh axes
+    (:meth:`TokenShard.partial`), through the comm layer's
+    ``MPI_Iallreduce``."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, t):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, d):
+        for a in ctx.axes:
+            d = shard_all_reduce_start(d, a, mesh=ctx.mesh).wait()
+        return None, None, d

@@ -10,6 +10,9 @@ and casting the full-width float32 weights at every use would move about
 23 GB per decode step.  :func:`shard_params` cuts this rank's shard of a
 parameter tree out of the whole tree, following a tree of specs such as
 :func:`repro_torch.serve.tp_decode.tp_decode_specs`'s.
+:func:`opt_state_from_jax` does for the reference's optimizer state what
+:func:`params_from_jax` does for its parameters, so that both packages can
+start from a mid-training state.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from repro_torch.core.dist import resolve_device
 
 from .module import tree_map
 
-__all__ = ["params_from_jax", "cast_params", "shard_params"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "cast_params", "shard_params"]
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -36,6 +39,34 @@ def params_from_jax(tree, *, device="cuda") -> dict:
     port's parameters on ``device``, leaf for leaf, dtypes kept."""
     dev = resolve_device(device)
     return tree_map(lambda a: _tensor(a, dev), tree)
+
+
+def opt_state_from_jax(state, *, device="cuda", buckets=None, rank: int | None = None):
+    """The reference's ``OptState`` as numpy (its fields ``step``, ``mu``,
+    ``nu``, ``err`` as a mapping or a named tuple) as the port's
+    :class:`repro_torch.train.optimizer.OptState` on ``device``.  Per-leaf
+    moments (trees) carry over leaf for leaf.  ZeRO-flat moments (a tuple
+    of ``(padded,)`` buffers, one per bucket) are cut to rank ``rank``'s
+    ``(cap,)`` shards of ``buckets``, the state the port's ZeRO step keeps
+    on that rank."""
+    from repro_torch.train.optimizer import OptState
+
+    fields = dict(state) if isinstance(state, dict) else state._asdict()
+    dev = resolve_device(device)
+
+    def moments(m):
+        if isinstance(m, dict):
+            return params_from_jax(m, device=dev)
+        flats = tuple(_tensor(a, dev) for a in m)
+        if buckets is None:
+            return flats
+        if len(flats) != len(buckets) or rank is None:
+            raise ValueError(f"{len(flats)} flat moments for {len(buckets)} buckets, rank {rank}")
+        return tuple(f[rank * b.cap:(rank + 1) * b.cap].clone() for f, b in zip(flats, buckets))
+
+    return OptState(step=_tensor(np.asarray(fields["step"], dtype=np.int32), dev),
+                    mu=moments(fields["mu"]), nu=moments(fields["nu"]),
+                    err=moments(fields["err"]) if len(fields["err"]) else ())
 
 
 def cast_params(params, dtype: torch.dtype) -> dict:

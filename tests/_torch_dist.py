@@ -654,3 +654,220 @@ def moe_sp_ring_family(*, models, tokens) -> dict:
                 out[(name, shape, S)] = (logits.numpy(), aux.numpy(),
                                          sum("falling back" in str(w.message) for w in caught))
     return out
+
+
+# ----------------------------------------------------------------- training
+
+def train_collective_inputs(np, world: int) -> dict:
+    """Every rank's inputs (leading dim: the ranks) of the training
+    collectives' checks, integer-valued floats (exact sums in any order):
+    flat ``(R * cap,)`` buffers with ragged and zero extents, zero past each
+    rank's extent as a packed bucket is, for the reduce-scatterv; ``(cap,)``
+    shards for the all-gatherv; a tensor to reduce-scatter along each axis."""
+    rng = np.random.default_rng(31 + world)
+    cap = 5
+    extents = {2: (5, 2), 4: (5, 5, 3, 0)}[world]
+    flat = rng.integers(-9, 10, (world, world * cap)).astype(np.float32)
+    size = sum(extents)
+    flat[:, size:] = 0.0  # the capacity-pad tail of a packed bucket
+    flat2 = rng.integers(-9, 10, (world, world * cap)).astype(np.float32)
+    flat2[:, size:] = 0.0
+    shards = rng.integers(-9, 10, (world, cap)).astype(np.float32)
+    dense = rng.integers(-9, 10, (world, 3, world * 2, 4)).astype(np.float32)
+    return {"extents": extents, "flat": flat, "flat2": flat2, "shards": shards, "dense": dense}
+
+
+def train_collectives_family() -> dict:
+    """``shard_reduce_scatterv_start`` (a tensor and a tuple), ``shard_all_gatherv_start``
+    and ``shard_reduce_scatter_start`` (along axes 0 and 1) on this gloo rank
+    of a one-axis ``data`` mesh, and whether ill-fitting tables raise."""
+    import numpy as np
+    import torch
+
+    import repro_torch.core as C
+
+    world = torch.distributed.get_world_size()
+    rank = torch.distributed.get_rank()
+    mesh = C.make_mesh((world,), ("data",), device="cpu")
+    ins = train_collective_inputs(np, world)
+    ext = ins["extents"]
+    t = lambda a: torch.from_numpy(a[rank].copy())
+    out: dict = {}
+    x = t(ins["flat"])
+    out["rsv"] = C.shard_reduce_scatterv_start(x, "data", extents=ext, mesh=mesh).wait().numpy()
+    out["rsv_input_kept"] = bool(torch.equal(x, t(ins["flat"])))
+    pair = C.shard_reduce_scatterv_start((x, t(ins["flat2"])), "data", extents=ext,
+                                         mesh=mesh).wait()
+    out["rsv_tuple"] = tuple(p.numpy() for p in pair)
+    out["agv"] = C.shard_all_gatherv_start(t(ins["shards"]), "data", extents=ext,
+                                           mesh=mesh).wait().numpy()
+    for axis in (0, 1):
+        dense = t(ins["dense"])
+        if axis == 0:
+            dense = dense.transpose(0, 1).contiguous()  # (world * 2, 3, 4)
+        out[("rs", axis)] = C.shard_reduce_scatter_start(dense, "data", mesh=mesh,
+                                                         axis=axis).wait().numpy()
+    refused = []
+    for call in (lambda: C.shard_reduce_scatterv_start(x[:-1], "data", extents=ext, mesh=mesh),
+                 lambda: C.shard_reduce_scatterv_start(x, "data", extents=(99,) * world,
+                                                       mesh=mesh),
+                 lambda: C.shard_all_gatherv_start(t(ins["shards"]), "data",
+                                                   extents=ext[:-1], mesh=mesh),
+                 lambda: C.shard_reduce_scatter_start(torch.zeros(3, world + 1), "data",
+                                                      mesh=mesh, axis=1)):
+        try:
+            call()
+        except C.LayoutError:
+            refused.append(True)
+        else:
+            refused.append(False)
+    out["refused"] = refused
+    return out
+
+
+def _opt_config(torch_mod, kw):
+    return torch_mod.OptConfig(**kw)
+
+
+def zero_train_family(*, params, batch, cfg_overrides, ocfg, bucket_bytes, steps,
+                      microbatches, grads=None) -> dict:
+    """``make_zero_train_step`` on this gloo rank of a one-axis ``data``
+    mesh over the world: ``steps`` steps from the reference's parameters
+    (numpy) on the global ``batch``, double-buffered and blocking: the
+    parameters, this rank's moment shards, the metrics of every step, the
+    bucket extents, and the order in which the first step issued and waited
+    its reduce-scatters.  With ``grads`` (one list of gradient leaves a
+    step, numpy), also the update alone (``make_zero_update``) fed those
+    gradients: rank 0 hands in R times them and the other ranks zeros, so
+    the reduced mean is exactly the given gradient."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import make_mesh
+    from repro_torch.models.module import tree_leaves, tree_unflatten
+    from repro_torch.models.weights import params_from_jax
+    from repro_torch.train import optimizer, trainer
+
+    world = torch.distributed.get_world_size()
+    mesh = make_mesh((world,), ("data",), device="cpu")
+    rank = mesh.coords()["data"]
+    cfg = dataclasses.replace(configs.get("phi4-mini-3.8b", smoke=True),
+                              act_dtype=torch.float32, **cfg_overrides)
+    oc = optimizer.OptConfig(**ocfg)
+    buckets = trainer.zero_train_buckets(cfg, bucket_bytes=bucket_bytes, ranks=world)
+    tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    log: list = []
+    issue = trainer.shard_reduce_scatterv_start
+
+    def logged(*a, **kw):  # record the issue and the wait of every reduce-scatter
+        pend = issue(*a, **kw)
+        n = sum(1 for e in log if e[0] == "issue")
+        log.append(("issue", n))
+        wait = pend.wait
+
+        def logged_wait():
+            log.append(("wait", n))
+            return wait()
+
+        pend.wait = logged_wait
+        return pend
+
+    def state(p, o):
+        return {"params": [t.numpy() for t in tree_leaves(p)],
+                "mu": [t.numpy() for t in o.mu], "nu": [t.numpy() for t in o.nu],
+                "err": [t.numpy() for t in o.err], "step": int(o.step)}
+
+    out: dict = {"extents": [b.extents for b in buckets]}
+    for db in (True, False):
+        p = params_from_jax(params, device="cpu")
+        o = optimizer.init_zero_opt_state(p, buckets, oc)
+        step = trainer.make_zero_train_step(cfg, mesh, oc, microbatches=microbatches,
+                                            bucket_bytes=bucket_bytes, double_buffer=db)
+        metrics = []
+        for s in range(steps):
+            if db and s == 0:
+                trainer.shard_reduce_scatterv_start = logged
+            try:
+                p, o, m = step(p, o, tb)
+            finally:
+                trainer.shard_reduce_scatterv_start = issue
+            metrics.append({k: v.numpy() for k, v in m.items()})
+        out[db] = {**state(p, o), "metrics": metrics}
+    out["log"] = log
+    if grads is not None:
+        p = params_from_jax(params, device="cpu")
+        o = optimizer.init_zero_opt_state(p, buckets, oc)
+        update = trainer.make_zero_update(cfg, mesh, oc, bucket_bytes=bucket_bytes)
+        norms = []
+        for g in grads:
+            mine = [torch.from_numpy(a) * world if rank == 0 else torch.zeros(a.shape)
+                    for a in g]
+            p, o, gnorm = update(p, o, tree_unflatten(p, mine))
+            norms.append(float(gnorm))
+        out["update"] = {**state(p, o), "grad_norm": norms}
+    return out
+
+
+SP_RING_TRAIN_MESHES = {2: [(1, 2)], 4: [(1, 4), (2, 2)]}
+
+
+def sp_ring_train_family(*, params, batches, ocfg) -> dict:
+    """Training under ``make_recipe(cfg, mesh, attn_mode="sp_ring")`` on this
+    gloo rank, for every mesh of :data:`SP_RING_TRAIN_MESHES` of the world
+    and every ``batches[S]`` (numpy tokens and labels): the loss and
+    gradients (``_accum_loss_grads``) and one ``make_train_step`` step
+    (its metrics, and whether its parameters are bitwise AdamW's on the
+    gradients above); and the differentiable ring shift's and
+    gather's backward on their own."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import make_mesh, shard_ring_shift_start
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.models.sharding import make_recipe, token_shard
+    from repro_torch.models.weights import params_from_jax
+    from repro_torch.train import optimizer, trainer
+
+    world = torch.distributed.get_world_size()
+    rank = torch.distributed.get_rank()
+    cfg = dataclasses.replace(configs.get("phi4-mini-3.8b", smoke=True), act_dtype=torch.float32)
+    oc = optimizer.OptConfig(**ocfg)
+    p0 = params_from_jax(params, device="cpu")
+    out: dict = {}
+    for shape in SP_RING_TRAIN_MESHES[world]:
+        mesh = make_mesh(shape, ("data", "model"), device="cpu")
+        recipe = make_recipe(cfg, mesh, attn_mode="sp_ring")
+        for S, (toks, labels) in batches.items():
+            b = {"tokens": torch.from_numpy(toks).long(), "labels": torch.from_numpy(labels).long()}
+            from repro_torch.models.sharding import use_recipe
+            with use_recipe(recipe):
+                loss, _, grads = trainer._accum_loss_grads(p0, b, cfg, 1)
+            out[(shape, S, "loss")] = float(loss)
+            out[(shape, S, "grads")] = [g.numpy() for g in tree_leaves(grads)]
+            new_p, _, m = trainer.make_train_step(cfg, recipe, oc)(
+                p0, optimizer.init_opt_state(p0, oc), b)
+            fed, _, _ = optimizer.apply_updates(p0, grads, optimizer.init_opt_state(p0, oc), oc)
+            out[(shape, S, "step")] = ({k: float(v) for k, v in m.items()}, all(
+                torch.equal(a, c) for a, c in zip(tree_leaves(new_p), tree_leaves(fed))))
+        # the shift's backward: rank r's x reaches rank r + 1, whose weight
+        # is its cotangent
+        R, r = shape[1], mesh.coords()["model"]
+        x = torch.full((2, 3), float(rank + 1), requires_grad=True)
+        y = shard_ring_shift_start((x, 2 * x), "model", 1, mesh=mesh).wait()
+        (y[0] * (10 * r + 1) + y[1] * (100 * r + 7)).sum().backward()
+        out[(shape, "shift_grad")] = x.grad.numpy()
+        # the gather's backward: this rank's block of the (same on every
+        # rank) cotangent
+        B, S = 2, 7
+        shard = token_shard(recipe, B, S)
+        W = torch.from_numpy(np.random.default_rng(5).standard_normal((B, S, 3)).astype(np.float32))
+        xl = torch.zeros((shard.n_rows, shard.cap, 3), requires_grad=True)
+        (shard.gather(xl) * W).sum().backward()
+        out[(shape, "gather_grad")] = (xl.grad.numpy(), shard.local(W).numpy())
+        out[(shape, "coords")] = (mesh.coords()["data"], r, R)
+    return out

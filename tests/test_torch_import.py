@@ -53,7 +53,9 @@ LM_MODULES = [
     "repro_torch.serve.kv", "repro_torch.serve.engine", "repro_torch.launch.serve",
     "repro_torch.models.sharding", "repro_torch.kernels.relayout",
     "repro_torch.serve.tp_decode", "repro_torch.configs.phi3_5_moe_42b",
-    "repro_torch.configs.arctic_480b",
+    "repro_torch.configs.arctic_480b", "repro_torch.train.optimizer",
+    "repro_torch.train.buckets", "repro_torch.train.trainer", "repro_torch.data.pipeline",
+    "repro_torch.ckpt.manager", "repro_torch.launch.train", "repro_torch.examples.train_lm",
 ]
 
 
