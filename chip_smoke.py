@@ -82,6 +82,25 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   chunks and decode steps in plain products), greedy tokens held against
   the plain run except at near ties and each first prefill chunk's logits
   against the decompressed forward of the same prompt.
+* the hybrid and SSM families: the flash-attention kernel's (112, 112)
+  and the flash-decode kernel's D = 112 instances (zamba2-7b's shared
+  attention: q/k/v 1x32x4096x112 causal; an MHA decode step of 5 slots of
+  a 4096-position cache, one wrapped past it) against their plain
+  versions, float64 and themselves, timed beside their bounds and
+  ``scaled_dot_product_attention``; zamba2-7b (81 layers: 68 Mamba2 blocks
+  and 13 applications of one shared attention block, 5.74 B parameters)
+  and rwkv6-3b (32 RWKV6 layers, 3.07 B) at full width and depth, seeded
+  bf16 weights: a 1 x 4096 forward (zamba2's through 13 kernel launches,
+  held against its plain path at every token) with its device time split
+  into the attention kernel, the SSM's scan work (the ``ssm.scan`` ranges),
+  cuBLAS GEMMs and the rest; 6 requests on 4 slots (two slots reused, the
+  recurrent state zeroed), prefilled token by token, zamba2's through the
+  decode kernel (13 launches a step) with greedy tokens held against its
+  plain run except at near ties and the TMA map cache's hit rate; a steady
+  decode step's host and device time; decode against the forward at
+  float32 on the card for both (depth cut, the reference's 5e-3); and
+  one zamba2 training step (13 of 81 layers) through the kernel against
+  the plain attention's.
 
 Every kernel time (``ms``, ``plain_ms``, ``library_ms``) is device time per
 call from ``repro_torch.kernels.timing.queued_ms`` (calls run back to back
@@ -155,6 +174,10 @@ MLA_RAGGED = 4095  # the (96, 64) instance's ragged case: Sq = Skv = 4095
 # the plain backward's recompute of one layer about 6 GB; full depth would
 # need 61 GB for the optimizer's state alone
 TRAIN_DEPTH, TRAIN_BATCH, TRAIN_MICROBATCHES, TRAIN_STEPS = 8, 2, 2, 3  # batch of 2 x SEQ
+# the launcher's run (its checkpoint written and restored: 17 GB and nearly
+# two minutes at 8 layers on an H100) at half the depth, to keep the whole
+# run near half its time limit
+LAUNCHER_DEPTH = 4
 TRAIN_LR = 3e-4
 # kernel path against the plain attention path, bf16 activations, one step:
 # the loss, a mean over 8192 tokens, to 2e-3 relative; each gradient leaf to
@@ -177,6 +200,43 @@ ZERO_LOSS_RTOL, ZERO_NORM_RTOL, ZERO_FAR_SHARE = 1e-6, 1e-4, 1e-4
 RING_LOSS_RTOL, RING_NORM_RTOL = 1e-6, 5e-3
 TRAIN_RANGES = {"attn.recompute": "backward_recompute",
                 "train.optimizer": "optimizer"}  # the training step's profiler ranges
+HYBRID_ARCH = "zamba2-7b"  # full width and depth: 5.74 B parameters, 11.5 GB in bf16
+SSM_ARCH = "rwkv6-3b"  # full width and depth: 3.07 B parameters, 6.1 GB in bf16
+# the hybrid's and the SSM's serving run: 5 requests (seeded prompts of
+# 32-96 tokens, 16 new each) on SLOTS slots of MAX_LEN, so a slot serves a
+# second request after a release; both families prefill token by token
+# (zamba2: 0.1-0.2 s a token on an H100), so the prompts stay short
+RECURRENT_REQUESTS, RECURRENT_NEW_TOKENS, RECURRENT_PROMPT_LENS = 5, 16, (32, 97)
+# the D = 112 decode step at zamba2's shape (MHA, 32 heads): 5 slots of a
+# 4096-position ring buffer, the last wrapped past it (every slot valid, the
+# query at position 5999)
+HYBRID_DECODE_LENS = (1, 700, 2049, 4096, 6000)
+# decode against the forward at float32 on the card, the reference's own
+# test of these families (tests/test_decode.py: 5e-3), at full width with
+# the depth cut (zamba2: 2 super-blocks and a tail block; rwkv6: 4 layers)
+# and, for rwkv6, the chunk cut to 16 as the reference's test cuts it: its
+# chunked form clamps each within-chunk factor to exp(+-30) on its own, so
+# where a chunk's decay passes e^-30 (about 30 steps of the seeded init's
+# e^-1) a score becomes e^-30 * e^30 = 1 in place of a small one, in the
+# reference as in the port (ROADMAP.md §3)
+RECURRENT_CHECK = {"zamba2-7b": 13, "rwkv6-3b": 4}
+RECURRENT_CHECK_CHUNK = {"zamba2-7b": 64, "rwkv6-3b": 16}
+RECURRENT_CHECK_TOKENS, RECURRENT_TOL = 128, 5e-3
+# one training step of zamba2 at full width, depth cut 81 -> 13 (2
+# super-blocks and a tail block, 1.28 B parameters: float32 masters,
+# gradients and both moments 20.5 GB), 1 x SEQ tokens, against the same
+# step through the plain attention (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL)
+HYBRID_TRAIN_DEPTH = 13
+SCAN_RANGES = {"ssm.scan": "ssm_scan"}  # models/ssm.py:SCAN_RANGE, the mixers' recurrent work
+# zamba2's bf16 logits through the kernel against the plain path, every
+# token: the 13 attention outputs may round one bf16 ulp apart, and 81
+# layers of random weights amplify any such difference (on an H100 a one-ulp
+# nudge of the plain path's attention outputs moves its logits by about 5%
+# relative, and the kernel path's differ by as much).  So the control is
+# measured in the run: the kernel path's relative (Frobenius) distance from
+# the plain path at most HYBRID_LOGIT_MARGIN times the plain path's distance
+# from itself with every attention output nudged one bf16 ulp up or down
+HYBRID_LOGIT_MARGIN = 2.0
 
 
 def phase(name: str, **fields) -> None:
@@ -220,7 +280,7 @@ def device_kernels(prof) -> list:
     (the MoE's ``moe.*`` ranges, the training step's)."""
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False) and e.name not in MOE_RANGES
-            and e.name not in TRAIN_RANGES]
+            and e.name not in TRAIN_RANGES and e.name not in SCAN_RANGES]
 
 
 def device_kernel_ms(prof) -> dict[str, float]:
@@ -720,7 +780,8 @@ def serve_full_width(cfg, params, Engine, ServeConfig, fd) -> tuple[dict, dict]:
     return out, k
 
 
-def greedy_agreement(requests, got, want, gaps, got_name: str, want_name: str):
+def greedy_agreement(requests, got, want, gaps, got_name: str, want_name: str, *,
+                     new_tokens: int = NEW_TOKENS):
     """Share of generated tokens of ``got`` equal to ``want``'s, request for
     request up to the first divergence, and the divergences: each must fall
     where ``want``'s top-2 logit gap is at most LOGIT_TOL (a near tie), else
@@ -737,7 +798,7 @@ def greedy_agreement(requests, got, want, gaps, got_name: str, want_name: str):
                                      f"{b} with a {want_name} top-2 gap of {gap} > {LOGIT_TOL}")
             near_ties.append({"request": rid, "token": j, f"{want_name}_top2_gap": gap})
             break
-    return agree / (len(requests) * NEW_TOKENS), near_ties
+    return agree / (len(requests) * new_tokens), near_ties
 
 
 def profile_lm(cfg, params, lm, Engine, ServeConfig) -> None:
@@ -1408,27 +1469,33 @@ def router_disagreements(forced: RouterLog, k: int) -> dict:
             "min_margin": min(margins, default=None)}
 
 
-def moe_by_kind(prof) -> dict[str, float]:
+def by_ranges(prof, ranges: dict[str, str], *, attention: str = "attention_kernels",
+              gemm: str = "gemm") -> dict[str, float]:
     """Device ms of a profile's kernels split into the port's attention
-    kernels, the expert GEMMs and the routing/scatter work (the kernels
-    that start inside the device-timeline span of the MoE's
-    ``moe.experts`` and ``moe.route``/``moe.combine`` ranges; one stream,
-    so no other kernel runs in a span), the other GEMMs (projections,
-    router, head) and the rest."""
-    spans = sorted((e.time_range.start, e.time_range.end, MOE_RANGES[e.name])
+    kernels, the kinds of ``ranges`` (profiler range name -> kind: the
+    kernels that start inside a range's device span; one stream, so no
+    other kernel runs in a span), the GEMMs outside them and the rest.
+    Raises unless every kind's range has a device span."""
+    spans = sorted((e.time_range.start, e.time_range.end, ranges[e.name])
                    for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and e.name in MOE_RANGES)
-    out = {"attention_kernels": 0.0, "expert_gemms": 0.0, "routing_scatter": 0.0,
-           "other_gemms": 0.0, "other": 0.0}
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.name in ranges)
+    out = {attention: 0.0, **{kind: 0.0 for kind in ranges.values()}, gemm: 0.0, "other": 0.0}
     for e in device_kernels(prof):
         t = e.time_range.start
-        kind = ("attention_kernels" if any(k in e.name for k in PORT_ATTN) else
+        kind = (attention if any(k in e.name for k in PORT_ATTN) else
                 next((kind for lo, hi, kind in spans if lo <= t < hi), None)
-                or ("other_gemms" if GEMM_NAMES.search(e.name) else "other"))
+                or (gemm if GEMM_NAMES.search(e.name) else "other"))
         out[kind] += e.time_range.elapsed_us() / 1e3
-    if not spans:
-        raise AssertionError("the profile holds no device span of the MoE's ranges")
+    if {kind for *_, kind in spans} != set(ranges.values()):
+        raise AssertionError(f"the profile lacks a device span of {sorted(ranges)}: {spans[:4]}")
     return out
+
+
+def moe_by_kind(prof) -> dict[str, float]:
+    """:func:`by_ranges` of the MoE's ``moe.experts`` and
+    ``moe.route``/``moe.combine`` ranges: attention kernels, expert GEMMs,
+    routing/scatter, the other GEMMs (projections, router, head), the rest."""
+    return by_ranges(prof, MOE_RANGES, gemm="other_gemms")
 
 
 def seeded_params(cfg, lm) -> dict:
@@ -1933,23 +2000,10 @@ def train_grads(cfg, params, batch, fa, trainer, tree_leaves) -> tuple:
 
 
 def train_by_kind(prof) -> dict[str, float]:
-    """Device ms of a training step's kernels: the port's attention kernel,
-    the plain backward's recompute and the optimizer (the kernels inside the
-    device spans of TRAIN_RANGES; one stream), cuBLAS GEMMs and the rest."""
-    spans = sorted((e.time_range.start, e.time_range.end, TRAIN_RANGES[e.name])
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and e.name in TRAIN_RANGES)
-    out = {"attention_kernel": 0.0, "backward_recompute": 0.0, "gemm": 0.0, "optimizer": 0.0,
-           "other": 0.0}
-    for e in device_kernels(prof):
-        t = e.time_range.start
-        kind = ("attention_kernel" if any(k in e.name for k in PORT_ATTN) else
-                next((kind for lo, hi, kind in spans if lo <= t < hi), None)
-                or ("gemm" if GEMM_NAMES.search(e.name) else "other"))
-        out[kind] += e.time_range.elapsed_us() / 1e3
-    if {kind for *_, kind in spans} != set(TRAIN_RANGES.values()):
-        raise AssertionError(f"the profile lacks a training range: {spans[:4]}")
-    return out
+    """:func:`by_ranges` of a training step's TRAIN_RANGES: the attention
+    kernel, the plain backward's recompute, the optimizer, cuBLAS GEMMs and
+    the rest."""
+    return by_ranges(prof, TRAIN_RANGES, attention="attention_kernel")
 
 
 def train_breakdown(cfg, params, batch, trainer, optimizer) -> dict:
@@ -2058,6 +2112,404 @@ def sp_ring_train(cfg, params, batch, m_base, fa, trainer, optimizer, make_recip
                grad_norm_rel_err=norm_err, step_s=ring_s,
                tol=dict(loss=RING_LOSS_RTOL, grad_norm=RING_NORM_RTOL))
     phase("sp_ring_train", arch=cfg.name, mesh=dict(mesh.shape), backend="nccl", **out)
+    return out
+
+
+def scan_by_kind(prof) -> dict[str, float]:
+    """:func:`by_ranges` of the SSM mixers' ``ssm.scan`` ranges: the
+    attention kernels, the mixers' recurrent work (the conv, the decays,
+    the chunked products and the state loop, the norms), cuBLAS GEMMs (the
+    projections and the head) and the rest."""
+    return by_ranges(prof, SCAN_RANGES)
+
+
+def check_hybrid_kernels(ops, card: str, pieces: int) -> dict:
+    """``hybrid_kernel``: the flash-attention kernel's (112, 112) instances
+    at zamba2's forward shape (q/k/v 1x32x4096x112, causal, MHA) and the
+    flash-decode kernel's D = 112 instances at its decode step (MHA, 32
+    heads; 5 slots of a 4096-position cache, lengths HYBRID_DECODE_LENS,
+    the last wrapped past it: every slot valid and the query past T), bf16
+    and float32, against their plain versions; two launches bitwise equal;
+    the bf16 forward against float64 (at most ACCURACY_RATIO times the plain
+    version's error) and the bf16 decode's per-block rounding
+    (:func:`rounding_margins`); the bf16 times beside their bounds, the
+    plain versions and ``scaled_dot_product_attention``."""
+    from torch.nn.attention import SDPBackend
+
+    rows = {}
+    H, D = 32, 112
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (randn((1, H, SEQ, D), dt, 180 + i) for i in range(3))
+        got = ops.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = ops.flash_attention(q, k, v, impl="ref")
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
+        if not torch.equal(got, ops.flash_attention(q, k, v)):
+            raise AssertionError(f"flash_attention (112, 112) {dt}: two launches differ")
+        row = dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
+                   tol=ATTN_TOL[dt], two_launches="bitwise")
+        if dt == torch.bfloat16:
+            exact = exact_attention(q, k, v)
+            errs = {"kernel": (got.double() - exact).abs().max().item(),
+                    "plain": (want.double() - exact).abs().max().item()}
+            ratio = errs["kernel"] / errs["plain"]
+            if ratio > ACCURACY_RATIO:
+                raise AssertionError(f"flash_attention (112, 112) error against float64 over "
+                                     f"{ACCURACY_RATIO}x the plain version's: {errs}")
+            del exact
+            qf, kf, vf = q.float(), k.float(), v.float()
+            t = time_three(lambda: ops.flash_attention(q, k, v),
+                           lambda: ops.flash_attention(q, k, v, impl="ref"),
+                           lambda: library_attention(qf, kf, vf, is_causal=True),
+                           lambda: library_attention(q, k, v, is_causal=True))
+            flops = 4 * H * SEQ * SEQ * D / 2
+            b_ms, b_by, fp32_ms = attn_bound(flops, 2 * 4 * q.numel(), products=1 + pieces)
+            row.update(error_vs_float64=errs, error_vs_float64_ratio=ratio,
+                       limit=ACCURACY_RATIO, bound_ms=b_ms, bound_by=b_by,
+                       fp32_bound_ms=fp32_ms, tflops=flops / t["ms"] / 1e9,
+                       library_bf16_backend=SDPBackend(torch._fused_sdp_choice(
+                           q, k, v, is_causal=True)).name, **t)
+            check_bound("flash_attention (112, 112)", row)
+            del qf, kf, vf
+        rows[("flash_attention", dt)] = row
+        phase("hybrid_kernel", kernel="flash_attention", shape=(1, H, H, SEQ, D, D),
+              causal=True, dtype=str(dt), card=card, **row)
+        del q, k, v, got, want
+    lens = HYBRID_DECODE_LENS
+    dims = (len(lens), H, H, 1, MAX_LEN, D)
+    for dt in (torch.bfloat16, torch.float32):
+        q, kc, vc, lens_t, _ = decode_inputs(*dims, dt, lens=lens, seed=190)
+        pos = (lens_t - 1)[:, None]  # each slot's own position; the wrapped one's past T
+        got = ops.flash_decode(q, kc, vc, lens_t, q_positions=pos)
+        torch.cuda.synchronize()
+        want = ops.flash_decode(q, kc, vc, lens_t, q_positions=pos, impl="ref")
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
+        if not torch.equal(got, ops.flash_decode(q, kc, vc, lens_t, q_positions=pos)):
+            raise AssertionError(f"flash_decode D = 112 {dt}: two launches differ")
+        row = dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
+                   tol=ATTN_TOL[dt], two_launches="bitwise")
+        if dt == torch.bfloat16:
+            row["mean_abs_diff_from"] = rounding_margins(ops, got, want, q, kc, vc, lens_t, pos,
+                                                         lens_t > 0)
+            T = MAX_LEN
+            t_idx = torch.arange(T, device=DEVICE)
+            mask = (t_idx[None, None, None, :] < lens_t.clamp(max=T)[:, None, None, None]) & \
+                (t_idx[None, None, None, :] <= pos[:, None, :, None])
+            qf, kf, vf = q.float(), kc.float(), vc.float()
+            t = time_three(lambda: ops.flash_decode(q, kc, vc, lens_t, q_positions=pos),
+                           lambda: ops.flash_decode(q, kc, vc, lens_t, q_positions=pos,
+                                                    impl="ref"),
+                           lambda: library_attention(qf, kf, vf, attn_mask=mask),
+                           lambda: library_attention(q, kc, vc, attn_mask=mask), plain_iters=5)
+            visible = sum(min(n, T) for n in lens)  # one query a slot sees its slot's keys
+            b_ms, b_by, fp32_ms = attn_bound(4 * H * visible * D,
+                                             2 * 2 * H * D * visible + 2 * 2 * q.numel())
+            row.update(bound_ms=b_ms, bound_by=b_by, fp32_bound_ms=fp32_ms, **t)
+            check_bound("flash_decode D = 112", row)
+            del qf, kf, vf, mask
+        rows[("flash_decode", dt)] = row
+        phase("hybrid_kernel", kernel="flash_decode", shape=dims, lens=lens, dtype=str(dt),
+              card=card, **row)
+        del q, kc, vc, got, want
+    torch.cuda.empty_cache()
+    return {name: rows[(name, torch.bfloat16)] for name in ("flash_attention", "flash_decode")}
+
+
+class nudged_attention:
+    """Inside the block, the plain attention's outputs (``ops.flash_attention``
+    with ``impl="ref"``) each move one ulp of their dtype up or down, by a
+    seeded coin: the plain path perturbed by as much as a kernel that rounds
+    its output one ulp apart could move it."""
+
+    def __init__(self, seed: int):
+        self.gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.ops, self.orig = ops, ops.flash_attention
+
+        def nudged(q, k, v, **kw):
+            o = self.orig(q, k, v, **kw)
+            up = torch.rand(o.shape, device=o.device, generator=self.gen) < 0.5
+            return torch.nextafter(o, torch.where(up, float("inf"), float("-inf")).to(o.dtype))
+
+        ops.flash_attention = nudged
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.orig
+
+
+def recurrent_model(configs, lm, name: str):
+    """``recurrent_model``: ``name`` at full width and depth with
+    :func:`seeded_params` (bf16)."""
+    cfg = configs.get(name)
+    t0 = time.perf_counter()
+    params = seeded_params(cfg, lm)
+    torch.cuda.synchronize()
+    phase("recurrent_model", arch=cfg.name, family=cfg.family, layers=cfg.n_layers,
+          d_model=cfg.d_model, heads=(cfg.n_heads, cfg.n_kv, cfg.head_dim), d_ff=cfg.d_ff,
+          vocab=cfg.vocab, params=lm.count_params(cfg), init_s=time.perf_counter() - t0,
+          memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    return cfg, params
+
+
+def recurrent_forward(cfg, params, lm, fa, fd) -> dict:
+    """``hybrid_forward`` / ``ssm_forward``: the forward of 1 x SEQ seeded
+    tokens; the hybrid's through the kernel (``flash_attention`` launched
+    once a shared application, the profiled forward on
+    ``flash_attention_kernel_wgmma`` and no library attention kernel) and
+    through its plain version, logits at every token held within
+    HYBRID_LOGIT_MARGIN of the one-ulp control (:func:`nudged_attention`); the
+    SSM's launches no attention kernel.  Forward ms, peak memory, and where
+    the device time goes (:func:`window` by :func:`scan_by_kind`)."""
+    hybrid = cfg.family == "hybrid"
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, SEQ), device=DEVICE, generator=g)}
+    fa.flash_attention_cuda.launches = fd.flash_decode_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    logits, _ = lm.forward(params, batch, cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = (fa.flash_attention_cuda.launches, fd.flash_decode_cuda.launches)
+    expected = (lm.hybrid_dims(cfg)[0] if hybrid else 0, 0)
+    if launches != expected:
+        raise AssertionError(f"{cfg.name} forward: attention launches {launches} != {expected}")
+    if logits.shape != (1, SEQ, cfg.vocab_padded) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{cfg.name} forward logits {tuple(logits.shape)} not finite")
+    out = dict(tokens=SEQ, flash_attention_launches=launches[0], peak_memory_gb=peak)
+    if hybrid:
+        fa.flash_attention_cuda.launches = 0
+        ref_logits, _ = lm.forward(params, batch, dataclasses.replace(cfg, attn_impl="ref"))
+        torch.cuda.synchronize()
+        if fa.flash_attention_cuda.launches:
+            raise AssertionError("the plain hybrid forward launched the kernel")
+        got, want = logits[..., :cfg.vocab].float(), ref_logits[..., :cfg.vocab].float()
+        del logits, ref_logits
+        with nudged_attention(seed=11):
+            nudged = lm.forward(params, batch, dataclasses.replace(cfg, attn_impl="ref"))[0]
+        control = rel_err(nudged[..., :cfg.vocab], want)
+        del nudged
+        rel = rel_err(got, want)
+        if rel > HYBRID_LOGIT_MARGIN * control:
+            raise AssertionError(f"{cfg.name} forward logits kernel vs plain: relative error "
+                                 f"{rel} > {HYBRID_LOGIT_MARGIN} x the one-ulp control {control}")
+        diff = (got - want).abs()
+        out.update(logits_rel_err=rel, one_ulp_control_rel_err=control,
+                   margin=HYBRID_LOGIT_MARGIN,
+                   logits_max_abs_err=diff.max().item(),
+                   logits_abs_err_p999=diff.flatten()[::97].quantile(0.999).item(),
+                   logit_scale=want.abs().max().item(),
+                   argmax_agreement=(got.argmax(-1) == want.argmax(-1)).float().mean().item())
+        del got, want, diff
+    else:
+        del logits
+    torch.cuda.empty_cache()
+    forward_ms = median_ms(lambda: lm.forward(params, batch, cfg), iters=3, warmup=1)
+    brk = window(lambda: lm.forward(params, batch, cfg), 2, classify=scan_by_kind)
+    if hybrid and not any("flash_attention_kernel_wgmma" in n for n in brk["port_kernels"]):
+        raise AssertionError(f"the profiled hybrid forward ran no flash_attention_kernel_wgmma: "
+                             f"{brk['port_kernels']}")
+    if brk["library_attention"] or (not hybrid and brk["port_kernels"]):
+        raise AssertionError(f"{cfg.name}: attention kernels {brk['port_kernels']} "
+                             f"{brk['library_attention']}")
+    out.update(forward_ms=forward_ms, tokens_per_s=SEQ / forward_ms * 1e3, breakdown=brk)
+    phase("hybrid_forward" if hybrid else "ssm_forward", arch=cfg.name, **out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_prompts(cfg) -> list[list[int]]:
+    rng = np.random.default_rng(1)
+    return [rng.integers(2, cfg.vocab, size=int(rng.integers(*RECURRENT_PROMPT_LENS))).tolist()
+            for _ in range(RECURRENT_REQUESTS)]
+
+
+def recurrent_serve(cfg, params, lm, Engine, ServeConfig, fd) -> dict:
+    """``hybrid_serve`` / ``ssm_serve``: RECURRENT_REQUESTS requests on
+    SLOTS slots of MAX_LEN positions, prefilled token by token; more
+    requests than slots, so slots are released and reused (their recurrent
+    state zeroed).  The hybrid runs through the decode kernel
+    (``flash_decode`` launched once a shared application every step,
+    counted by step kind) and through its plain version: greedy tokens equal
+    except at the plain run's near ties, first prefill logits to LOGIT_TOL;
+    the TMA map cache's hits and misses over the kernel run.  The SSM runs
+    no kernel.  Then a steady decode step of SLOTS resident requests, their
+    prompts cut to the shortest length (:func:`window` by
+    :func:`scan_by_kind`)."""
+    hybrid = cfg.family == "hybrid"
+    per_step = lm.hybrid_dims(cfg)[0] if hybrid else 0
+    requests = recurrent_prompts(cfg)
+    scfg = ServeConfig(max_len=MAX_LEN, batch_slots=SLOTS, eos_token=-1)
+    runs = {}
+    for impl in ((None, "ref") if hybrid else (None,)):
+        engine = Engine(dataclasses.replace(cfg, attn_impl=impl), params, scfg)
+        stats = _instrument(engine, record_gaps=True, fd=fd)
+        for rid, prompt in enumerate(requests):
+            engine.submit(rid, prompt, RECURRENT_NEW_TOKENS)
+        maps = fd.map_cache_stats()
+        fd.flash_decode_cuda.launches = 0
+        t0 = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fd.flash_decode_cuda.launches
+        maps = {k: v - maps[k] for k, v in fd.map_cache_stats().items()}
+        if sorted(done) != list(range(RECURRENT_REQUESTS)) or any(
+                len(done[r]) != len(requests[r]) + RECURRENT_NEW_TOKENS
+                for r in range(RECURRENT_REQUESTS)):
+            raise AssertionError(f"{cfg.name} serve {impl}: not every request finished")
+        by_kind = {kind: per_step * engine.steps[kind] if impl is None else 0
+                   for kind in ("prefill", "decode")}
+        if launches != sum(by_kind.values()) or stats["launches"] != by_kind:
+            raise AssertionError(f"{cfg.name} serve {impl}: flash_decode launches {launches}, "
+                                 f"by kind {stats['launches']} != {by_kind}")
+        runs[impl] = dict(done=done, stats=stats, steps=dict(engine.steps), wall=wall,
+                          launches=launches, maps=maps)
+        del engine
+        torch.cuda.empty_cache()
+    k = runs[None]
+    st = k["stats"]
+    out = dict(requests=RECURRENT_REQUESTS, slots=SLOTS, max_len=MAX_LEN,
+               new_tokens=RECURRENT_NEW_TOKENS, prompt_lens=[len(r) for r in requests],
+               slot_reuses=RECURRENT_REQUESTS - SLOTS, steps=k["steps"],
+               flash_decode_launches=k["launches"], flash_decode_launches_by_kind=st["launches"],
+               prefill_s=st["prefill_s"],
+               prefill_s_per_token=st["prefill_s"] / k["steps"]["prefill"],
+               decode_s=st["decode_s"],
+               serve_decode_tok_s=RECURRENT_REQUESTS * RECURRENT_NEW_TOKENS / st["decode_s"],
+               wall_s=k["wall"], peak_kv_occupancy=st["peak_occupancy"])
+    if hybrid:
+        p = runs["ref"]
+        prefill_err = max((k["stats"]["first_prefill"][i] - p["stats"]["first_prefill"][i])
+                          .float().abs().max().item() for i in p["stats"]["first_prefill"])
+        if prefill_err > LOGIT_TOL:
+            raise AssertionError(f"{cfg.name} first prefill logits kernel vs plain: "
+                                 f"{prefill_err} > {LOGIT_TOL}")
+        agree, near_ties = greedy_agreement(requests, k["done"], p["done"], p["stats"]["gaps"],
+                                            "kernel", "plain", new_tokens=RECURRENT_NEW_TOKENS)
+        lookups = k["maps"]["hits"] + k["maps"]["misses"]
+        out.update(plain_wall_s=p["wall"], first_prefill_logits_max_abs_err=prefill_err,
+                   tol=LOGIT_TOL, greedy_agreement=agree, divergences_at_near_ties=near_ties,
+                   tma_map_cache=dict(k["maps"], hit_rate=k["maps"]["hits"] / max(lookups, 1)))
+    engine = Engine(cfg, params, scfg)
+    for rid, prompt in enumerate(requests[:SLOTS]):  # the shortest prompt's length each
+        engine.submit(rid, prompt[:RECURRENT_PROMPT_LENS[0]], RECURRENT_NEW_TOKENS)
+    engine._fill_slots()
+    engine._decode_once()
+    fd.flash_decode_cuda.launches = 0
+    dec = window(engine._decode_once, 8, classify=scan_by_kind)
+    if fd.flash_decode_cuda.launches != 2 * 8 * per_step:
+        raise AssertionError(f"{cfg.name} decode steps: flash_decode launches "
+                             f"{fd.flash_decode_cuda.launches} != {2 * 8 * per_step}")
+    if hybrid and not any("flash_decode_kernel_wgmma" in n for n in dec["port_kernels"]):
+        raise AssertionError(f"the profiled hybrid decode ran no flash_decode_kernel_wgmma: "
+                             f"{dec['port_kernels']}")
+    out.update(decode_step=dec, decode_step_cache_lens=list(engine.ledger.lengths),
+               decode_tok_s=SLOTS / dec["wall_ms"] * 1e3)
+    del engine
+    torch.cuda.empty_cache()
+    phase("hybrid_serve" if hybrid else "ssm_serve", arch=cfg.name, **out)
+    return out
+
+
+def recurrent_decode_vs_forward(configs, lm, name: str) -> dict:
+    """``recurrent_check``: ``name`` at full width, float32 activations,
+    the depth cut to RECURRENT_CHECK[name] layers and the chunk to
+    RECURRENT_CHECK_CHUNK[name]: the logits of
+    RECURRENT_CHECK_TOKENS decode steps of one token (the exact recurrence
+    and, for the hybrid, the float32 decode kernel over the ring-buffer
+    cache) against the forward over the same tokens (the chunked form and
+    the float32 forward kernel), to RECURRENT_TOL, the reference's own
+    tolerance for these families."""
+    cfg = dataclasses.replace(configs.get(name), n_layers=RECURRENT_CHECK[name],
+                              act_dtype=torch.float32, ssm_chunk=RECURRENT_CHECK_CHUNK[name])
+    params = lm.init_model(cfg, torch.Generator(device=DEVICE).manual_seed(6), device=DEVICE)
+    B, S = 2, RECURRENT_CHECK_TOKENS
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (B, S), device=DEVICE, generator=g)
+    full, _ = lm.forward(params, {"tokens": tokens}, cfg)
+    state = lm.DecodeState(lm.init_cache(cfg, B, S, device=DEVICE),
+                           torch.zeros((B,), dtype=torch.int32, device=DEVICE))
+    steps = []
+    for t in range(S):
+        logits, state = lm.decode_step(params, state, {"tokens": tokens[:, t:t + 1]}, cfg)
+        steps.append(logits)
+    err = (torch.cat(steps, dim=1) - full).abs().max().item()
+    scale = full.abs().max().item()
+    if not err <= RECURRENT_TOL:
+        raise AssertionError(f"{name} float32 decode vs forward: {err} > {RECURRENT_TOL}")
+    out = dict(layers=cfg.n_layers, chunk=cfg.ssm_chunk, tokens=S, batch=B, max_abs_err=err,
+               tol=RECURRENT_TOL, logit_scale=scale)
+    phase("recurrent_check", arch=name, dtype="float32", **out)
+    del params, full, state, steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_train(configs, lm, fa, trainer, optimizer, tree_leaves) -> dict:
+    """``hybrid_train``: zamba2 at full width, HYBRID_TRAIN_DEPTH layers
+    (float32 masters, bf16 activations, remat by super-block and block): one
+    ``make_train_step`` step of 1 x SEQ tokens after a warm-up step, its
+    seconds and peak memory; its gradients through the (112, 112) kernel
+    (``flash_attention`` launched once a shared application in the forward
+    and once more in remat's recompute; the backward recomputes through the
+    plain version), every leaf finite and nonzero but the LoRAs' ``lora_a``
+    (zero while ``lora_b`` is at its zero initialisation), held against the
+    same gradients through the plain attention."""
+    cfg = dataclasses.replace(configs.get(HYBRID_ARCH), n_layers=HYBRID_TRAIN_DEPTH)
+    params = lm.init_model(cfg, torch.Generator(device=DEVICE).manual_seed(8), device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    toks = torch.randint(0, cfg.vocab, (1, SEQ + 1), device=DEVICE, generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    fa.flash_attention_cuda.launches = 0
+    loss, _, grads = trainer._accum_loss_grads(params, batch, cfg, 1)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention_cuda.launches
+    expected = 2 * lm.hybrid_dims(cfg)[0]
+    if launches != expected:
+        raise AssertionError(f"hybrid training step: flash_attention launches {launches} != "
+                             f"{expected}")
+    leaves = tree_leaves(grads)
+    # lora_a's gradient goes through lora_b, which starts at zero
+    zero_at_init = grads["shared_lora"]["lora_a"]
+    for i, leaf in enumerate(leaves):
+        nonzero = bool(leaf.abs().sum() > 0)
+        if not torch.isfinite(leaf).all() or nonzero == (leaf is zero_at_init):
+            raise AssertionError(f"hybrid gradient leaf {i} {tuple(leaf.shape)}: not finite, or "
+                                 f"nonzero {nonzero} where {leaf is not zero_at_init} is due")
+    plain_loss, _, plain = trainer._accum_loss_grads(
+        params, batch, dataclasses.replace(cfg, attn_impl="ref"), 1)
+    loss_err = abs(loss.item() - plain_loss.item()) / abs(plain_loss.item())
+    errs = [rel_err(a, b) for a, b in zip(leaves, tree_leaves(plain))]
+    del grads, plain, leaves
+    torch.cuda.empty_cache()
+    if loss_err > TRAIN_LOSS_RTOL or max(errs) > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"hybrid kernel vs plain training step: loss {loss_err}, "
+                             f"gradients {max(errs)}")
+    ocfg = optimizer.OptConfig(lr=TRAIN_LR)
+    step = trainer.make_train_step(cfg, None, ocfg)
+    opt = optimizer.init_opt_state(params, ocfg)
+    torch.cuda.reset_peak_memory_stats()
+    step(params, opt, batch)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_params, _, metrics = step(params, opt, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    if not np.isfinite(metrics["loss"].item()) or not np.isfinite(metrics["grad_norm"].item()):
+        raise AssertionError(f"hybrid training step metrics not finite: {metrics}")
+    out = dict(layers=cfg.n_layers, params=lm.count_params(cfg), tokens=SEQ,
+               flash_attention_launches=launches, expected=expected, loss=loss.item(),
+               plain_loss=plain_loss.item(), loss_rel_err=loss_err, grad_rel_err_max=max(errs),
+               grad_rel_err_median=float(np.median(errs)),
+               tol=dict(loss=TRAIN_LOSS_RTOL, grads=TRAIN_GRAD_RTOL), step_s=step_s,
+               tokens_per_s=SEQ / step_s, grad_norm=metrics["grad_norm"].item(),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    phase("hybrid_train", arch=cfg.name, **out)
+    del params, new_params, opt
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2268,7 +2720,7 @@ def main() -> int:
     # step and the sp_ring step on one-rank NCCL meshes
     t0 = time.perf_counter()
     train_cfg = train_config(configs)
-    launch = train_launcher(train_cfg)
+    launch = train_launcher(dataclasses.replace(train_cfg, n_layers=LAUNCHER_DEPTH))
     torch.cuda.empty_cache()
     train_params = lm.init_model(train_cfg, torch.Generator(device=DEVICE).manual_seed(0),
                                  device=DEVICE)
@@ -2293,6 +2745,31 @@ def main() -> int:
           launch["peak_memory_gb"], step_peak_memory_gb=tbreak["peak_memory_gb"],
           zero_step_s=zero["step_s"], sp_ring_step_s=ring["step_s"])
 
+    # phase 14: the hybrid and SSM families: the kernels' head dim of 112
+    # (zamba2's shared attention) against their plain versions and timed;
+    # zamba2-7b and rwkv6-3b at full width and depth (seeded bf16 weights):
+    # forwards of 1 x SEQ tokens and serving with reused slots, zamba2's
+    # through the kernels and held against its plain path; decode against
+    # the forward at float32; one zamba2 training step
+    t0 = time.perf_counter()
+    hyb_attn = check_hybrid_kernels(ops, card, fa.P_PIECES)
+    recurrent = {}
+    for name in (HYBRID_ARCH, SSM_ARCH):
+        rcfg, rparams = recurrent_model(configs, lm, name)
+        recurrent[name] = (recurrent_forward(rcfg, rparams, lm, fa, fd),
+                           recurrent_serve(rcfg, rparams, lm, Engine, ServeConfig, fd))
+        del rparams
+        torch.cuda.empty_cache()
+    checks = {name: recurrent_decode_vs_forward(configs, lm, name) for name in RECURRENT_CHECK}
+    hyb_train = hybrid_train(configs, lm, fa, trainer, optimizer, tree_leaves)
+    hyb_fwd, hyb_srv = recurrent[HYBRID_ARCH]
+    phase("recurrent_families", seconds=time.perf_counter() - t0,
+          decode_vs_forward_max_abs_err={k: v["max_abs_err"] for k, v in checks.items()},
+          hybrid_forward_ms=hyb_fwd["forward_ms"], ssm_forward_ms=recurrent[SSM_ARCH][0][
+              "forward_ms"], hybrid_decode_tok_s=hyb_srv["decode_tok_s"],
+          ssm_decode_tok_s=recurrent[SSM_ARCH][1]["decode_tok_s"],
+          hybrid_train_step_s=hyb_train["step_s"])
+
     gemm_src = "src/repro_torch/kernels/csrc/gemm.cu"
     report = []
     for name, replaces in (("gemm", "src/repro/kernels/gemm.py:80"),
@@ -2311,6 +2788,10 @@ def main() -> int:
                    **{f"mla_96_64_{key}": mla_attn[key] for key in
                       (*gqa4, "error_vs_float64_ratio", "library_bf16_backend")},
                    "train_launches": tgrad["flash_attention_launches"],
+                   "hybrid_forward_launches": hyb_fwd["flash_attention_launches"],
+                   "hybrid_train_launches": hyb_train["flash_attention_launches"],
+                   **{f"zamba2_112_{key}": hyb_attn["flash_attention"][key] for key in
+                      (*gqa4, "error_vs_float64_ratio", "library_bf16_backend")},
                    **rows["flash_attention"]})
     prefill = rows[("flash_decode", "prefill_chunk")]
     report.append({"name": "flash_decode", "route": "cuda",
@@ -2321,6 +2802,9 @@ def main() -> int:
                    "tp_serve_launches": tp["flash_decode_launches"],
                    "tp_serve_launches_by_kind": tp["flash_decode_launches_by_kind"],
                    "moe_serve_launches": moe_srv["flash_decode_launches"],
+                   "hybrid_serve_launches": hyb_srv["flash_decode_launches"],
+                   "hybrid_serve_launches_by_kind": hyb_srv["flash_decode_launches_by_kind"],
+                   **{f"zamba2_112_{key}": hyb_attn["flash_decode"][key] for key in gqa4},
                    **{f"moe_gqa4_{key}": moe_attn["flash_decode"][key] for key in gqa4},
                    "max_abs_err": worst["flash_decode"], **rows[("flash_decode", "decode")],
                    **{f"prefill_chunk_{key}": prefill[key]

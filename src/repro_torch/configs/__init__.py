@@ -13,14 +13,14 @@ _MODULES = {
     "arctic-480b": "arctic_480b",
     "minicpm3-4b": "minicpm3_4b",
     "internlm2-20b": "internlm2_20b",
+    "zamba2-7b": "zamba2_7b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 # the reference's other architectures, by the ROADMAP.md queue-1 item that
 # ports their family
 _LATER = {
     "llama-3.2-vision-11b": "item 6 (VLM family)",
-    "rwkv6-3b": "item 6 (SSM family)",
-    "zamba2-7b": "item 6 (hybrid family)",
     "musicgen-large": "item 6 (audio family, embeds input)",
 }
 

@@ -6,7 +6,9 @@
 // One block has 256 threads in a 16 x 16 grid: ty = tid / 16 owns TR
 // consecutive query rows (ty*TR .. ty*TR+TR-1) of a BR = 16*TR row tile,
 // tx = tid % 16 owns keys tx, tx+16, tx+32, tx+48 of a 64-key tile and the
-// DPT = D/16 head-dim columns col(e) = (e/4)*64 + tx*4 + e%4 of the output.  The same thread
+// DPT = D/16 head-dim columns col(e) = (e/4)*64 + tx*4 + e%4 of the output
+// (D a multiple of 64: a head dim that is not, 112, runs on a V tile and
+// an output padded to the next multiple of 64 with zero columns).  The same thread
 // therefore holds a row's scores, its softmax state and its output columns,
 // so rescaling the output never leaves registers; a row's reductions are
 // shuffles among the 16 lanes that share ty (one half of a warp).
@@ -43,17 +45,19 @@ template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
 
 // Copies `rows` rows of D elements (row r at src + r*stride, r < valid;
-// zeros past it) into a float32 tile with pitch D+4, times `mul`.  16-byte
-// global loads; the caller guarantees 16-byte alignment of every row.
-template <typename T, int D>
+// zeros past it) into a float32 tile of W >= D columns (columns D..W-1
+// zero) with pitch W+4, times `mul`.  16-byte global loads; the caller
+// guarantees 16-byte alignment of every row.
+template <typename T, int D, int W = D>
 __device__ __forceinline__ void load_tile(float* tile, const T* src, long long stride, int rows,
                                           int valid, float mul, int tid) {
   constexpr int PER = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int CHUNKS = D / PER;      // loads per row
+  constexpr int CHUNKS = W / PER;      // loads per row
+  static_assert(D % PER == 0 && W % PER == 0 && W >= D, "whole 16-byte loads");
   for (int c = tid; c < rows * CHUNKS; c += THREADS) {
     const int r = c / CHUNKS, d = (c % CHUNKS) * PER;
     float v[PER];
-    if (r < valid) {
+    if (r < valid && (W == D || d < D)) {
       const uint4 raw = *reinterpret_cast<const uint4*>(src + r * stride + d);
       const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
@@ -62,7 +66,7 @@ __device__ __forceinline__ void load_tile(float* tile, const T* src, long long s
 #pragma unroll
       for (int i = 0; i < PER; ++i) v[i] = 0.f;
     }
-    float* dst = tile + r * (D + 4) + d;
+    float* dst = tile + r * (W + 4) + d;
 #pragma unroll
     for (int i = 0; i < PER; i += 4)
       *reinterpret_cast<float4*>(dst + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);

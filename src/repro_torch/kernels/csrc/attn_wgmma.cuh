@@ -8,9 +8,10 @@
 // ceil(D/64) "boxes", each R rows x 128 bytes (64 values), box b holding
 // columns 64b..64b+63, with TMA's 128-byte swizzle: the 16-byte chunk c of
 // row r sits at chunk c ^ (r % 8).  Every box starts on 1 KB.  A head dim
-// that 64 does not divide (96) leaves the last box part empty: TMA fills
-// the columns past D with zeros, and no product reads them (Q K^T runs
-// D/16 k16 steps).  The products read
+// that 64 does not divide (96, 112) leaves the last box part empty: TMA fills
+// the columns past D with zeros, and Q K^T reads none of them (it runs
+// D/16 k16 steps); P V over a V head dim of 112 runs N = 128 over the
+// zero columns 112-127 and drops them.  The products read
 // it through wgmma descriptors in the same swizzle mode:
 //   * K-major (Q as A, K as B of Q K^T; the contraction runs along D, which
 //     is contiguous): 8-row groups 1 KB apart (SBO); the k16 step kk starts
@@ -278,6 +279,16 @@ struct MapKey {
   }
 };
 
+// Lookups that found their map, and maps encoded, since the library loaded.
+struct MapCacheStats {
+  long long hits = 0, misses = 0;
+};
+
+inline MapCacheStats& map_cache_stats() {
+  static MapCacheStats stats;
+  return stats;
+}
+
 inline bool cached_kv(KvMap* out, const void* base, int B, int G, int S, int D, long long sb,
                       long long sg, long long ss, int rows) {
   constexpr int N = 16;
@@ -288,8 +299,10 @@ inline bool cached_kv(KvMap* out, const void* base, int B, int G, int S, int D, 
   for (int i = 0; i < used; ++i)
     if (keys[i] == key) {
       *out = maps[i];
+      ++map_cache_stats().hits;
       return true;
     }
+  ++map_cache_stats().misses;
   if (!encode_kv(out, base, B, G, S, D, sb, sg, ss, rows)) return false;
   keys[next] = key;
   maps[next] = *out;

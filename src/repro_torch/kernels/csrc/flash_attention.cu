@@ -15,7 +15,8 @@
 // GQA: query head h reads KV head h / (Hq / G) in place, with no repeat.
 // v has a head dim of its own, Dv, and the output is (B, Hq, Sq, Dv), as
 // the reference's: instances (D, Dv) = (64, 64), (128, 128) and, for MLA's
-// forward (q/k of d_nope + d_rope = 96, v of d_v = 64), (96, 64).
+// forward (q/k of d_nope + d_rope = 96, v of d_v = 64), (96, 64), and for
+// zamba2-7b's shared attention block (112, 112).
 //
 // Two bodies, one per input type.
 //
@@ -72,6 +73,15 @@
 // Its work at MLA's shape is 4/7 in Q K^T, so it is bound by operations
 // like the others.
 //
+// The (112, 112) instance (zamba2-7b's shared attention block).  112 =
+// 64 + 48: q, K and V tiles take two boxes each, TMA zero-filling columns
+// 112-127 of K and V (the maps' inner extent is 112); Q K^T runs 7 k16
+// steps, so no empty column costs it; P V runs wgmma m64n128k16 over V's
+// zero columns (16 of 128 of its products wasted) and the epilogue stores
+// 112 columns.  Shared memory, registers and the pipeline are the
+// (128, 128) instance's.  The float32 body pads V's tile and the output
+// to 128 columns the same way.
+//
 // float32 (flash_attention_kernel; no model path runs attention in float32
 // on the card): the body of the first port on the CUDA cores in FFMA
 // (attn_tiles.cuh): q is scaled by `scale` in float32 first; a block owns
@@ -115,9 +125,17 @@ using namespace attn;
 constexpr int TR = 4;
 constexpr int BR = 16 * TR;  // query rows per block
 
+// V's tile and the output are padded to a multiple of 64 columns (the
+// thread-to-column map of attn_tiles.cuh); the padding is zero and never
+// stored.
+template <int DV>
+__host__ __device__ constexpr int padded() {
+  return (DV + 63) / 64 * 64;
+}
+
 template <int D, int DV>
 constexpr int smem_bytes() {
-  return 4 * (BR * (D + 4) + KT * (D + 4) + KT * (DV + 4) + BR * (KT + 4));  // Q, K, V, P tiles
+  return 4 * (BR * (D + 4) + KT * (D + 4) + KT * (padded<DV>() + 4) + BR * (KT + 4));  // Q, K, V, P
 }
 
 // Operand strides in elements: q's, k's and v's batch/head/sequence strides.
@@ -131,12 +149,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
                        T* __restrict__ out, float* acc_st, float* m_st, float* l_st, int Hq,
                        int group, int Sq, int Skv, Strides st, float scale, bool causal,
                        int q_off, int k_off, int valid_len) {
-  constexpr int DPT = DV / 16;
+  constexpr int DVP = padded<DV>(), DPT = DVP / 16;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + BR * (D + 4);
   float* Vs = Ks + KT * (D + 4);
-  float* Ps = Vs + KT * (DV + 4);
+  float* Ps = Vs + KT * (DVP + 4);
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int q0 = blockIdx.x * BR;
@@ -158,7 +176,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
       const long long row = (long long)bh * Sq + r;
       m[i] = m_st[row], l[i] = l_st[row];
 #pragma unroll
-      for (int e = 0; e < DPT; ++e) o[i][e] = acc_st[row * DV + out_col(e, tx)];
+      for (int e = 0; e < DPT; ++e) {
+        const int col = out_col(e, tx);
+        o[i][e] = DVP == DV || col < DV ? acc_st[row * DV + col] : 0.f;
+      }
     } else {
       m[i] = NEG_INF, l[i] = 0.f;
 #pragma unroll
@@ -169,7 +190,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   for (int k0 = 0; k0 < kend; k0 += KT) {
     __syncthreads();  // the previous tile's readers are done
     load_tile<T, D>(Ks, kp + k0 * st.ks, st.ks, KT, Skv - k0, 1.f, tid);
-    load_tile<T, DV>(Vs, vp + k0 * st.vs, st.vs, KT, Skv - k0, 1.f, tid);
+    load_tile<T, DV, DVP>(Vs, vp + k0 * st.vs, st.vs, KT, Skv - k0, 1.f, tid);
     __syncthreads();
 
     float s[TR][4];
@@ -199,7 +220,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
       for (int e = 0; e < DPT; ++e) o[i][e] *= alpha;
     }
     __syncthreads();
-    pv_tile<DV, TR>(o, Ps, KT + 4, Vs, KT, ty, tx);
+    pv_tile<DVP, TR>(o, Ps, KT + 4, Vs, KT, ty, tx);
   }
 
 #pragma unroll
@@ -209,13 +230,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
     const long long row = (long long)bh * Sq + r;
     if (EMIT_STATE) {
 #pragma unroll
-      for (int e = 0; e < DPT; ++e) acc_st[row * DV + out_col(e, tx)] = o[i][e];
+      for (int e = 0; e < DPT; ++e)
+        if (DVP == DV || out_col(e, tx) < DV) acc_st[row * DV + out_col(e, tx)] = o[i][e];
       if (tx == 0) m_st[row] = m[i], l_st[row] = l[i];
     } else {
       const float li = l[i] == 0.f ? 1.f : l[i];  // guard fully masked rows
       T* dst = out + row * DV;
 #pragma unroll
-      for (int e = 0; e < DPT; ++e) dst[out_col(e, tx)] = from_f32<T>(__fdiv_rn(o[i][e], li));
+      for (int e = 0; e < DPT; ++e)
+        if (DVP == DV || out_col(e, tx) < DV) dst[out_col(e, tx)] = from_f32<T>(__fdiv_rn(o[i][e], li));
     }
   }
 }
@@ -251,7 +274,8 @@ flash_attention_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __
                              float* acc_st, float* m_st, float* l_st, int Hq, int group, int Sq,
                              int Skv, float scale, bool causal, int q_off, int k_off,
                              int valid_len) {
-  constexpr int ACC = DV / 2;  // output accumulators a thread holds
+  constexpr int NV = boxes(DV) * BOX;  // P V's N: DV, or 128 for 112 (zero columns dropped)
+  constexpr int ACC = NV / 2;  // output accumulators a thread holds
   constexpr int TILE_K = tile_bytes(KT, D), TILE_V = tile_bytes(KT, DV);
   constexpr int STAGE = TILE_K + TILE_V;
   extern __shared__ unsigned char smem_raw[];
@@ -316,7 +340,9 @@ flash_attention_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __
       m[hh] = m_st[row], l[hh] = l_st[row];
 #pragma unroll
       for (int c = 0; c < ACC / 4; ++c) {
-        const float2 x = *reinterpret_cast<const float2*>(acc_st + row * DV + 8 * c + 2 * quad);
+        const float2 x = 8 * c < DV
+            ? *reinterpret_cast<const float2*>(acc_st + row * DV + 8 * c + 2 * quad)
+            : make_float2(0.f, 0.f);
         o[4 * c + 2 * hh] = x.x, o[4 * c + 2 * hh + 1] = x.y;
       }
     } else {
@@ -351,7 +377,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int pc = PIECES - 1; pc >= 0; --pc)  // the small pieces first
-        wgmma_pv<DV>(pv, pa[pc][kk], desc_v(Vs, kk), kk > 0 || pc < PIECES - 1);
+        wgmma_pv<NV>(pv, pa[pc][kk], desc_v(Vs, kk), kk > 0 || pc < PIECES - 1);
     wgmma_commit();
   };
   auto add_pv = [&]() {  // o = o * alpha + P V, once P V has landed
@@ -475,14 +501,14 @@ flash_attention_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __
     const long long row = (long long)bh * Sq + r;
     if (EMIT_STATE) {
 #pragma unroll
-      for (int c = 0; c < ACC / 4; ++c)
+      for (int c = 0; c < DV / 8; ++c)
         *reinterpret_cast<float2*>(acc_st + row * DV + 8 * c + 2 * quad) =
             make_float2(o[4 * c + 2 * hh], o[4 * c + 2 * hh + 1]);
       if (quad == 0) m_st[row] = m[hh], l_st[row] = l[hh];
     } else {
       const float li = l[hh] == 0.f ? 1.f : l[hh];  // guard fully masked rows
 #pragma unroll
-      for (int c = 0; c < ACC / 4; ++c)
+      for (int c = 0; c < DV / 8; ++c)
         *reinterpret_cast<uint32_t*>(out + row * DV + 8 * c + 2 * quad) =
             pack_bf16(__fdiv_rn(o[4 * c + 2 * hh], li), __fdiv_rn(o[4 * c + 2 * hh + 1], li));
     }
@@ -531,7 +557,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, float* acc
 }
 
 // The (D, Dv) instances: (64, 64) and (128, 128) in both forms, (96, 64)
-// (MLA) in the forward form only.
+// (MLA) and (112, 112) (zamba2's shared attention) in the forward form
+// only.
 template <bool CARRY>
 int dispatch(const void* q, const void* k, const void* v, void* out, float* acc, float* m,
              float* l, int dtype, int B, int Hq, int G, int Sq, int Skv, int D, int Dv,
@@ -551,6 +578,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, float* acc,
   FA_LAUNCH(64, 64)
   if constexpr (!CARRY) {
     FA_LAUNCH(96, 64)
+    FA_LAUNCH(112, 112)
   }
 #undef FA_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
@@ -564,7 +592,7 @@ extern "C" {
 // (B, G, Skv, D) and v (B, G, Skv, Dv), each given by its batch/head/sequence
 // strides in elements (st = q's 3, k's 3, v's 3; head dim contiguous, rows
 // 16-byte aligned).  dtype 0 = float32, 1 = bfloat16; (D, Dv) = (64, 64),
-// (128, 128) or (96, 64).  Returns a cudaError_t.
+// (128, 128), (96, 64) or (112, 112).  Returns a cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, int dtype, int B,
                         int Hq, int G, int Sq, int Skv, int D, int Dv, const long long* strides,
                         float scale, int causal, void* stream) {

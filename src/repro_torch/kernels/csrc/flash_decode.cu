@@ -88,6 +88,13 @@
 // into the output per tile.  Shared memory at TR = 4, D = 128, bk = 512:
 // 195 KB.
 //
+// Head dims 64, 112 and 128.  112 (zamba2-7b's shared attention block, MHA:
+// one row per (slot, group) in a step) is 64 + 48: K and V tiles take two
+// boxes, TMA zero-filling columns 112-127 (the maps' inner extent is 112);
+// Q K^T runs 7 k16 steps, P V wgmma m64n128k16 over V's zero columns (16 of
+// 128 of its products wasted), and only 112 columns are stored or merged.
+// The float32 body pads V's tile and its output columns to 128 the same way.
+//
 // No atomics on data (only on the arrival counts), one thread per output
 // sum in a fixed order, and a fixed split order in the merge: two launches
 // are bitwise equal.
@@ -109,9 +116,18 @@ using namespace attn;
 
 __host__ __device__ constexpr int score_pitch(int bk) { return (bk + KT - 1) / KT * KT + 4; }
 
+// V's tile and the output are padded to a multiple of 64 columns (the
+// thread-to-column map of attn_tiles.cuh); the padding is zero and never
+// stored.
+template <int D>
+__host__ __device__ constexpr int padded() {
+  return (D + 63) / 64 * 64;
+}
+
 template <int D, int TR>
 constexpr long long smem_bytes(int bk) {
-  return 4LL * (16 * TR * (D + 4) + KT * (D + 4) + 16 * TR * score_pitch(bk));
+  // Q, the K or V tile (V's padded), the scores
+  return 4LL * (16 * TR * (D + 4) + KT * (padded<D>() + 4) + 16 * TR * score_pitch(bk));
 }
 
 template <typename T, int D, int TR>
@@ -122,12 +138,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
                     float* __restrict__ l_part, int G, int S, int RS, int T_len, int bk, int nb,
                     int per, long long skb, long long skg, long long sks, long long svb,
                     long long svg, long long svs, float scale) {
-  constexpr int BR = 16 * TR, DPT = D / 16;
+  constexpr int BR = 16 * TR, DP = padded<D>(), DPT = DP / 16;
   extern __shared__ float4 smem4[];
   const int sp = score_pitch(bk);
   float* Qs = reinterpret_cast<float*>(smem4);
   float* KVs = Qs + BR * (D + 4);
-  float* Ss = KVs + KT * (D + 4);
+  float* Ss = KVs + KT * (DP + 4);
   __shared__ int s_limit, s_seen;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
@@ -235,9 +251,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
     for (int t = 0; t < ntiles; ++t) {
       const int k0 = kb0 + t * KT;
       __syncthreads();  // scores written, previous readers of KVs done
-      load_tile<T, D>(KVs, vp + k0 * svs, svs, KT, kb_end - k0, 1.f, tid);
+      load_tile<T, D, DP>(KVs, vp + k0 * svs, svs, KT, kb_end - k0, 1.f, tid);
       __syncthreads();
-      if (busy) pv_tile<D, TR>(o, Ss + t * KT, sp, KVs, KT, ty, tx);
+      if (busy) pv_tile<DP, TR>(o, Ss + t * KT, sp, KVs, KT, ty, tx);
     }
   }
 
@@ -248,7 +264,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
     if (r >= RS) continue;
     const long long row = ((long long)bg * splits + split) * RS + r;
 #pragma unroll
-    for (int e = 0; e < DPT; ++e) o_part[row * D + out_col(e, tx)] = o[i][e];
+    for (int e = 0; e < DPT; ++e)
+      if (DP == D || out_col(e, tx) < D) o_part[row * D + out_col(e, tx)] = o[i][e];
     if (tx == 0) {
       m_part[row] = m[i];
       l_part[row] = l[i];
@@ -317,7 +334,8 @@ flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __res
                           int G, int S, int RS, int T_len, int bk, int nb, int per, float scale) {
   constexpr int ROWS = 16 * TR;  // query rows of a block
   constexpr int KEEP = 32 * TR;  // threads that hold them (warps 0..TR-1)
-  constexpr int ACC = D / 2;
+  constexpr int NV = boxes(D) * BOX;  // P V's N: D, or 128 for 112 (zero columns dropped)
+  constexpr int ACC = NV / 2;
   constexpr int TILE = tile_bytes(KT, D);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -495,7 +513,7 @@ flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __res
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<D>(oj, pa[kk], desc_v(ring + s * TILE, kk), t > 0 || kk > 0);
+        wgmma_pv<NV>(oj, pa[kk], desc_v(ring + s * TILE, kk), t > 0 || kk > 0);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(oj);
@@ -528,7 +546,7 @@ flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __res
     if (tid < 4) {
       const float li = l[0] == 0.f ? 1.f : l[0];
 #pragma unroll
-      for (int c = 0; c < ACC / 4; ++c)
+      for (int c = 0; c < D / 8; ++c)
         *reinterpret_cast<uint32_t*>(row + 8 * c + 2 * quad) =
             pack_bf16(__fdiv_rn(o[4 * c], li), __fdiv_rn(o[4 * c + 1], li));
     }
@@ -546,7 +564,7 @@ flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __res
       const float li = l[hh] == 0.f ? 1.f : l[hh];
       bf16* dst = out + ((long long)bg * RS + r) * D + 2 * quad;
 #pragma unroll
-      for (int c = 0; c < ACC / 4; ++c)
+      for (int c = 0; c < D / 8; ++c)
         *reinterpret_cast<uint32_t*>(dst + 8 * c) =
             pack_bf16(__fdiv_rn(o[4 * c + 2 * hh], li), __fdiv_rn(o[4 * c + 2 * hh + 1], li));
     }
@@ -559,7 +577,7 @@ flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __res
     if (!keeps || r >= RS) continue;
     const long long row = ((long long)bg * splits + split) * RS + r;
 #pragma unroll
-    for (int c = 0; c < ACC / 4; ++c)
+    for (int c = 0; c < D / 8; ++c)
       *reinterpret_cast<float2*>(o_part + row * D + 8 * c + 2 * quad) =
           make_float2(o[4 * c + 2 * hh], o[4 * c + 2 * hh + 1]);
     if (quad == 0) m_part[row] = m[hh], l_part[row] = l[hh];
@@ -581,10 +599,12 @@ flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __res
   }
   asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
   if (!flags[3]) return;
-  // warp wq merges rows r0 + wq, r0 + wq + 4, ...; lane its PER columns;
-  // every split's loads in flight at once, 8 splits at a time
-  constexpr int PER = D / 32;
-  using Vec = typename std::conditional<PER == 4, float4, float2>::type;
+  // warp wq merges rows r0 + wq, r0 + wq + 4, ...; lane its vectors
+  // lane, lane + 32, ... of VW columns each; every split's loads in flight
+  // at once, 8 splits at a time
+  constexpr int VW = D % 128 == 0 ? 4 : 2;          // floats a vector holds
+  constexpr int NVEC = D / VW, VPL = (NVEC + 31) / 32;  // vectors a row has, a lane takes
+  using Vec = typename std::conditional<VW == 4, float4, float2>::type;
   for (int r = r0 + wq; r < min(r0 + ROWS, RS); r += CONSUMERS / 32) {
     const long long first = (long long)bg * splits * RS + r;  // split 0's row
     float mx = NEG_INF;
@@ -595,34 +615,47 @@ flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __res
 #pragma unroll
       for (int i = 0; i < 8; ++i) mx = fmaxf(mx, ms[i]);  // a repeated last split changes nothing
     }
-    float lt = 0.f, ot[PER];
+    float lt = 0.f, ot[VPL][VW];
 #pragma unroll
-    for (int c = 0; c < PER; ++c) ot[c] = 0.f;
+    for (int v = 0; v < VPL; ++v)
+#pragma unroll
+      for (int c = 0; c < VW; ++c) ot[v][c] = 0.f;
     for (int s0 = 0; s0 < splits; s0 += 8) {
       float ms[8], ls[8];
-      Vec os[8];
+      Vec os[8][VPL];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const long long row = first + min(s0 + i, splits - 1) * RS;
         ms[i] = __ldcg(m_part + row), ls[i] = __ldcg(l_part + row);
-        os[i] = __ldcg(reinterpret_cast<const Vec*>(o_part + row * D) + lane);
+#pragma unroll
+        for (int v = 0; v < VPL; ++v)
+          os[i][v] = lane + 32 * v < NVEC
+              ? __ldcg(reinterpret_cast<const Vec*>(o_part + row * D) + lane + 32 * v)
+              : Vec{};
       }
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         if (s0 + i >= splits) break;
         const float w = expf(__fsub_rn(ms[i], mx));
         lt = fmaf(w, ls[i], lt);
-        const float* o_i = reinterpret_cast<const float*>(&os[i]);
 #pragma unroll
-        for (int c = 0; c < PER; ++c) ot[c] = fmaf(w, o_i[c], ot[c]);
+        for (int v = 0; v < VPL; ++v) {
+          const float* o_i = reinterpret_cast<const float*>(&os[i][v]);
+#pragma unroll
+          for (int c = 0; c < VW; ++c) ot[v][c] = fmaf(w, o_i[c], ot[v][c]);
+        }
       }
     }
     const float li = lt == 0.f ? 1.f : lt;
-    bf16* dst = out + ((long long)bg * RS + r) * D + lane * PER;
 #pragma unroll
-    for (int c = 0; c < PER; c += 2)
-      *reinterpret_cast<uint32_t*>(dst + c) =
-          pack_bf16(__fdiv_rn(ot[c], li), __fdiv_rn(ot[c + 1], li));
+    for (int v = 0; v < VPL; ++v) {
+      if (lane + 32 * v >= NVEC) continue;
+      bf16* dst = out + ((long long)bg * RS + r) * D + (lane + 32 * v) * VW;
+#pragma unroll
+      for (int c = 0; c < VW; c += 2)
+        *reinterpret_cast<uint32_t*>(dst + c) =
+            pack_bf16(__fdiv_rn(ot[v][c], li), __fdiv_rn(ot[v][c + 1], li));
+    }
   }
   if (tid == 0) *count = 0;
 }
@@ -689,19 +722,34 @@ int launch(int dtype, const void* q, const void* kc, const void* vc, const int* 
                           T_len, bk, splits, per, st, scale, stream, arrivals);
 }
 
+// Shared memory of one block of the decode kernel: the larger of its two
+// bodies' needs.
+template <int D, int TR>
+long long smem_of(int bk) {
+  return std::max(simt::smem_bytes<D, TR>(bk), tc::smem_bytes<D, TR>(bk));
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory of one block of the decode kernel at row-tile factor tr (1
-// or 4) and KV block bk: the larger of its two bodies' needs, so that one
-// plan serves both types.
+// Shared memory of one block of the decode kernel at head dim D (64, 112 or
+// 128), row-tile factor tr (1 or 4) and KV block bk: the larger of its two
+// bodies' needs, so that one plan serves both types; -1 for a D or tr the
+// kernel has no instance of.
 long long flash_decode_smem_bytes(int D, int tr, int bk) {
-  if (D == 128)
-    return tr == 4 ? std::max(simt::smem_bytes<128, 4>(bk), tc::smem_bytes<128, 4>(bk))
-                   : std::max(simt::smem_bytes<128, 1>(bk), tc::smem_bytes<128, 1>(bk));
-  return tr == 4 ? std::max(simt::smem_bytes<64, 4>(bk), tc::smem_bytes<64, 4>(bk))
-                 : std::max(simt::smem_bytes<64, 1>(bk), tc::smem_bytes<64, 1>(bk));
+  if (tr != 1 && tr != 4) return -1;
+  if (D == 64) return tr == 4 ? smem_of<64, 4>(bk) : smem_of<64, 1>(bk);
+  if (D == 112) return tr == 4 ? smem_of<112, 4>(bk) : smem_of<112, 1>(bk);
+  if (D == 128) return tr == 4 ? smem_of<128, 4>(bk) : smem_of<128, 1>(bk);
+  return -1;
+}
+
+// Lookups of the bf16 body's cache of TMA maps (16 maps, keyed by buffer
+// and shape) since the library loaded: stats[0] found, stats[1] encoded.
+void flash_decode_map_cache_stats(long long* stats) {
+  stats[0] = attn_tc::map_cache_stats().hits;
+  stats[1] = attn_tc::map_cache_stats().misses;
 }
 
 // out (B, Hq, S, D) contiguous = split-KV decode attention of q (B, Hq, S, D)
@@ -710,7 +758,7 @@ long long flash_decode_smem_bytes(int D, int tr, int bk) {
 // aligned).  cache_len (B,) int32; q_pos (B, S) int32 or null.  Partials
 // o_part (B*G, splits, Hq/G*S, D), m_part and l_part (B*G, splits, Hq/G*S)
 // float32 scratch; split s covers KV blocks [s*per, (s+1)*per).  dtype 0 =
-// float32, 1 = bfloat16; D = 64 or 128; tr = 1 or 4.  arrivals: B*G*ceil(Hq/G*S
+// float32, 1 = bfloat16; D = 64, 112 or 128; tr = 1 or 4.  arrivals: B*G*ceil(Hq/G*S
 // / (16 tr)) int32 zeros on the device, which bfloat16 launches use to find
 // the last block of each row tile (and leave zero); a launch must not
 // overlap another that uses the same ones.  Returns a cudaError_t.
@@ -725,10 +773,12 @@ int flash_decode_fwd(const void* q, const void* kc, const void* vc, const int* c
     return launch_fn(dtype, q, kc, vc, cache_len, q_pos, o_part, m_part, l_part, out, B, G, S, RS,
                      T_len, bk, splits, per, strides, scale, s, arrivals);
   };
-  if ((dtype != 0 && dtype != 1) || (D != 64 && D != 128) || (tr != 1 && tr != 4))
+  if ((dtype != 0 && dtype != 1) || (tr != 1 && tr != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   if (D == 128) return tr == 4 ? run(launch<128, 4>) : run(launch<128, 1>);
-  return tr == 4 ? run(launch<64, 4>) : run(launch<64, 1>);
+  if (D == 112) return tr == 4 ? run(launch<112, 4>) : run(launch<112, 1>);
+  if (D == 64) return tr == 4 ? run(launch<64, 4>) : run(launch<64, 1>);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* flash_decode_error_string(int code) {

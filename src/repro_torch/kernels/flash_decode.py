@@ -14,14 +14,16 @@ number of splits of the KV blocks (enough blocks to cover the card twice),
 allocates the splits' float32 partials, and launches the kernel on
 PyTorch's current stream.  Rows with no visible key at all (idle slots)
 give the reference's mean of v over the padded cache.
-``flash_decode_cuda.launches`` counts calls.
+``flash_decode_cuda.launches`` counts calls.  Head dims are
+:data:`DECODE_HEAD_DIMS`, one for q, k and v.
 
 bf16 caches run the tensor-core body (both products on ``wgmma``, 64-key
 tiles by TMA into a ring of :data:`STAGES`), which merges the splits itself
 (the last block of each row tile, found with the :func:`arrivals` counts);
 float32 caches run the first port's float32 body and a second, combine
 kernel.  One plan serves both: :func:`smem_bytes` is the larger of the two
-bodies' shared memory.
+bodies' shared memory.  The bf16 body keeps the TMA maps it encodes in a
+cache of 16 (:func:`map_cache_stats` counts its hits and misses).
 """
 from __future__ import annotations
 
@@ -31,11 +33,12 @@ import functools
 import torch
 
 from . import build
-from .flash_attention import HEAD_DIMS, KERNEL_DTYPES, KEY_TILE, check_on_card, refuse_grad
+from .flash_attention import KERNEL_DTYPES, KEY_TILE, check_on_card, refuse_grad
 
 __all__ = ["flash_decode_cuda", "check_decode", "load_library", "bind", "plan_launch",
-           "smem_bytes", "arrivals"]
+           "smem_bytes", "arrivals", "map_cache_stats", "DECODE_HEAD_DIMS"]
 
+DECODE_HEAD_DIMS = (64, 112, 128)  # one head dim for q, k and v (112: zamba2's shared block)
 MAX_SMEM = 232448 - 1024  # bytes one block may opt into on Hopper, less static shared memory
 ROW_TILES = (4, 1)  # row-tile factors: 64 or 16 rows per block
 STAGES = 4  # K or V tiles in flight in the bf16 body's ring
@@ -46,11 +49,16 @@ def smem_bytes(D: int, tr: int, bk: int) -> int:
     of ``csrc/flash_decode.cu`` (the card tests hold the two equal): the
     larger of the bf16 body's (alignment slack, the block's 16*tr rows of Q,
     the ring, the block's float32 scores for those rows, barriers) and the float32
-    body's (float32 Q, K/V and score tiles, rows padded by 4)."""
+    body's (float32 Q, K/V and score tiles, rows padded by 4).  A bf16 row
+    takes whole 64-column boxes of 128 bytes, and the float32 body's V tile
+    is padded to a multiple of 64 columns (112 -> 128)."""
     keys = -(-bk // KEY_TILE) * KEY_TILE
     rows = 16 * tr
-    bf16 = 1024 + rows * D * 2 + STAGES * KEY_TILE * D * 2 + 4 * rows * keys + 2 * STAGES * 8 + 16
-    fp32 = 4 * (16 * tr * (D + 4) + KEY_TILE * (D + 4) + 16 * tr * (keys + 4))
+    row_bytes = -(-D // 64) * 128  # bf16 bytes a row takes in the boxed layout
+    v_cols = -(-D // 64) * 64
+    bf16 = (1024 + rows * row_bytes + STAGES * KEY_TILE * row_bytes + 4 * rows * keys
+            + 2 * STAGES * 8 + 16)
+    fp32 = 4 * (16 * tr * (D + 4) + KEY_TILE * (v_cols + 4) + 16 * tr * (keys + 4))
     return max(bf16, fp32)
 
 
@@ -90,9 +98,19 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_decode_fwd.restype = i
     lib.flash_decode_smem_bytes.argtypes = [i, i, i]
     lib.flash_decode_smem_bytes.restype = ctypes.c_longlong
+    lib.flash_decode_map_cache_stats.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    lib.flash_decode_map_cache_stats.restype = None
     lib.flash_decode_error_string.argtypes = [i]
     lib.flash_decode_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def map_cache_stats(lib: ctypes.CDLL | None = None) -> dict[str, int]:
+    """``{"hits": n, "misses": n}``: lookups of the bf16 body's TMA map
+    cache since ``lib`` (default :func:`load_library`) was loaded."""
+    out = (ctypes.c_longlong * 2)()
+    (lib or load_library()).flash_decode_map_cache_stats(out)
+    return {"hits": int(out[0]), "misses": int(out[1])}
 
 
 _arrivals: dict[torch.device, torch.Tensor] = {}
@@ -114,7 +132,7 @@ def plan_launch(rows: int, groups: int, nb: int, D: int, bk: int, sms: int,
     """``(tr, splits, per)``: the row-tile factor (64 rows when there are at
     least 64 and they fit, else 16), and the KV-block splits, each of
     ``per`` consecutive blocks, that give at least two blocks per SM."""
-    fits = [tr for tr in ROW_TILES if smem_bytes(D, tr, bk) <= MAX_SMEM]
+    fits = [tr for tr in ROW_TILES if 0 < smem_bytes(D, tr, bk) <= MAX_SMEM]
     if not fits:
         raise ValueError(f"KV block of {bk} keys needs more shared memory than a block has "
                          f"(D={D}); use a smaller block")
@@ -136,7 +154,8 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     passes another build, bound by :func:`bind`)."""
     refuse_grad("flash_decode_kernel", q=q, k_cache=k_cache, v_cache=v_cache)
     B, Hq, G, S, T, D = check_decode(q, k_cache, v_cache, cache_len, q_positions)
-    device = check_on_card(KERNEL_DTYPES, HEAD_DIMS, q=q, k_cache=k_cache, v_cache=v_cache)
+    device = check_on_card(KERNEL_DTYPES, DECODE_HEAD_DIMS, q=q, k_cache=k_cache,
+                           v_cache=v_cache)
     out = torch.empty((B, Hq, S, D), dtype=q.dtype, device=device)
     if out.numel() == 0:
         return out

@@ -1,22 +1,29 @@
 """Decoder blocks: the dense and MoE LMs' pre-norm GQA attention + FFN
-(SwiGLU, the GELU MLP, or the top-k MoE), and the MLA family's pre-norm
-multi-head latent attention + SwiGLU.
+(SwiGLU, the GELU MLP, or the top-k MoE); the MLA family's pre-norm
+multi-head latent attention + SwiGLU; the SSM family's RWKV6 block (time
+mix, then a token-shifted squared-ReLU channel mix); and the hybrid
+family's Mamba2 block and its shared attention block (zamba2).
 
 The reference scans stacked layer parameters with ``lax.scan``; the port
 keeps the stacked ``(L, ...)`` layout and loops over the layer index
-(``repro_torch.models.lm``).  The VLM cross-attention, SSM and hybrid
-blocks wait for their families' slices (ROADMAP queue 1 item 6).
+(``repro_torch.models.lm``).  The VLM cross-attention block waits for its
+family's slice (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+import torch.nn.functional as F
 
 from . import attention as attn
 from . import ffn as ffn_mod
+from . import ssm as ssm_mod
 from .module import pspec
 
 __all__ = ["norm_spec", "rmsnorm", "attn_block_specs", "attn_block", "mla_block_specs",
-           "mla_block"]
+           "mla_block", "rwkv_block_specs", "RWKVBlockState", "rwkv_block", "mamba_block_specs",
+           "mamba_block", "shared_attn_block_specs", "shared_lora_specs", "shared_attn_block"]
 
 
 def norm_spec(d: int, dtype=torch.float32):
@@ -105,4 +112,117 @@ def mla_block(p, x, cfg, *, cache=None, positions=None, new_counts=None, prefill
     )
     x = x + h
     f = ffn_mod.swiglu(p["ffn"], rmsnorm(p["ln2"], x))
+    return x + f, new_cache, 0.0
+
+
+# ------------------------------------------------------------- RWKV block ----
+
+def rwkv_block_specs(cfg) -> dict:
+    dt = cfg.param_dtype
+    d = cfg.d_model
+    return {
+        "ln1": norm_spec(d, dt),
+        "ln2": norm_spec(d, dt),
+        "time_mix": ssm_mod.rwkv6_specs(d, cfg.n_heads, dtype=dt),
+        # channel mix (token-shifted squared-relu FFN, Finch style)
+        "cm_mix": pspec(("p", 2), ("m", d), dtype=dt, init="zeros"),
+        "cm_k": pspec(("m", d), ("f", cfg.d_ff), dtype=dt, fan_in=("m",)),
+        "cm_v": pspec(("f", cfg.d_ff), ("m", d), dtype=dt, fan_in=("f",)),
+        "cm_r": pspec(("m", d), ("m2", d), dtype=dt, fan_in=("m",)),
+    }
+
+
+class RWKVBlockState(NamedTuple):
+    time: ssm_mod.RWKVState
+    cm_shift: torch.Tensor  # (B, m)
+
+
+def rwkv_block(p, x, cfg, *, state: RWKVBlockState | None = None):
+    """RWKV6 time mix, then the channel mix.  Returns ``(x, new_state,
+    aux_loss)``, the aux loss the float 0.0; the state is new tensors."""
+    h, tstate = ssm_mod.rwkv6_mix(p["time_mix"], rmsnorm(p["ln1"], x), n_heads=cfg.n_heads,
+                                  chunk=cfg.ssm_chunk,
+                                  state=state.time if state is not None else None)
+    x = x + h
+    xn = rmsnorm(p["ln2"], x)
+    prev = state.cm_shift[:, None].to(xn.dtype) if state is not None else \
+        torch.zeros_like(xn[:, :1])
+    xp = torch.cat([prev, xn[:, :-1]], dim=1)
+    mix = p["cm_mix"].to(x.dtype)
+    xk = xn + (xp - xn) * mix[0]
+    xr = xn + (xp - xn) * mix[1]
+    k = torch.square(F.relu(xk @ p["cm_k"].to(x.dtype)))
+    kv = k @ p["cm_v"].to(x.dtype)
+    r = torch.sigmoid(xr @ p["cm_r"].to(x.dtype))
+    return x + r * kv, RWKVBlockState(time=tstate, cm_shift=xn[:, -1]), 0.0
+
+
+# ------------------------------------------------------------ Mamba block ----
+
+def mamba_block_specs(cfg) -> dict:
+    dt = cfg.param_dtype
+    return {
+        "ln": norm_spec(cfg.d_model, dt),
+        "mix": ssm_mod.mamba2_specs(cfg.d_model, d_state=cfg.ssm_state,
+                                    head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
+                                    n_groups=cfg.ssm_groups, dtype=dt),
+    }
+
+
+def mamba_block(p, x, cfg, *, state=None):
+    """Pre-norm Mamba2 with a residual.  Returns ``(x, new_state,
+    aux_loss)``, the aux loss the float 0.0; the state is new tensors."""
+    h, new_state = ssm_mod.mamba2_mix(p["mix"], rmsnorm(p["ln"], x), d_state=cfg.ssm_state,
+                                      head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
+                                      n_groups=cfg.ssm_groups, chunk=cfg.ssm_chunk, state=state)
+    return x + h, new_state, 0.0
+
+
+# --------------------------------------------------- Zamba2 shared block ----
+
+def shared_attn_block_specs(cfg) -> dict:
+    """One shared transformer block; its per-application LoRA is
+    :func:`shared_lora_specs`."""
+    dt = cfg.param_dtype
+    return {
+        "ln1": norm_spec(cfg.d_model, dt),
+        "ln2": norm_spec(cfg.d_model, dt),
+        "attn": attn.gqa_specs(cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim, dtype=dt),
+        "ffn": ffn_mod.swiglu_specs(cfg.d_model, cfg.d_ff, dt),
+    }
+
+
+def shared_lora_specs(cfg, rank: int = 8) -> dict:
+    dt = cfg.param_dtype
+    return {
+        "lora_a": pspec(("m", cfg.d_model), ("r", rank), dtype=dt, scale=0.01),
+        "lora_b": pspec(("r", rank), ("m", cfg.d_model), dtype=dt, init="zeros"),
+    }
+
+
+def shared_attn_block(p_shared, p_lora, x, cfg, *, cache=None, positions=None,
+                      window: int | None = None, new_counts=None, idle_read_chunk=None):
+    """The shared-weight attention block with its per-application LoRA on
+    the block's input, then GQA attention and SwiGLU.  Returns ``(x,
+    new_cache, aux_loss)``, the aux loss the float 0.0; the cache, if
+    given, is updated in place.
+
+    ``window`` is taken and not used, as in the reference: the window acts
+    only through the size of the ring-buffer cache (``lm.init_cache``), so
+    the forward attends over the whole causal prefix.  ``new_counts`` and
+    ``idle_read_chunk`` as for :func:`attn_block`: a row with a count of 0
+    keeps its K/V and length (the reference writes it and restores it
+    after the block, ``lm._mask_rows``)."""
+    del window
+    dt = x.dtype
+    xa = x + (x @ p_lora["lora_a"].to(dt)) @ p_lora["lora_b"].to(dt)
+    h, new_cache = attn.gqa_attention(
+        p_shared["attn"], rmsnorm(p_shared["ln1"], xa),
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
+        rope_theta=cfg.rope_theta, positions=positions, cache=cache,
+        attn_impl=cfg.attn_impl, block=cfg.attn_block,
+        new_counts=new_counts, idle_read_chunk=idle_read_chunk,
+    )
+    x = x + h
+    f = ffn_mod.swiglu(p_shared["ffn"], rmsnorm(p_shared["ln2"], x))
     return x + f, new_cache, 0.0

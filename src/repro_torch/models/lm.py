@@ -1,12 +1,19 @@
-"""The dense, MoE and MLA language models: embeddings -> block stack ->
-head, with the full-sequence forward and the serving decode step.
+"""The dense, MoE, MLA, SSM (rwkv6) and hybrid (zamba2) language models:
+embeddings -> block stack -> head, with the full-sequence forward and the
+serving decode step.
 
 Layer parameters, like the reference's, are stacked on a leading ``l`` dim
 (``params["blocks"]`` leaves are ``(L, ...)``), and so are the caches (K/V
-for ``dense`` and ``moe``, the latent ``c``/``kr`` for ``mla``); the
-reference's ``lax.scan`` over them becomes a Python loop over the layer
-index.  The other families and the ``embeds`` input kind wait for their
-slices (ROADMAP.md queue 1 item 6).
+for ``dense`` and ``moe``, the latent ``c``/``kr`` for ``mla``, the
+recurrent states for ``ssm``); the reference's ``lax.scan`` over them
+becomes a Python loop over the layer index.  The hybrid family stacks its
+Mamba2 blocks by super-block, ``(n_shared, group_m, ...)``, with one LoRA
+per shared application ``(n_shared, ...)``, one unstacked shared attention
+block, and ``n_tail`` trailing Mamba2 blocks; its cache is the Mamba2
+states stacked the same way and the shared block's ring-buffer K/V of
+``min(max_len, shared_window)`` positions a application.  The VLM and
+audio families and the ``embeds`` input kind wait for their slices
+(ROADMAP.md queue 1 item 6).
 
 Under an active ``sp_ring`` recipe (:mod:`repro_torch.models.sharding`) the
 forward is sequence-parallel: each rank keeps its contiguous, padded chunk
@@ -15,16 +22,17 @@ axes) through every block, and attention runs as the ``model``-axis ring.
 A MoE block routes the chunk by expert parallelism (``moe_dispatch="ep"``)
 where the recipe's grid fits, else by the whole grid's dispatch
 (:func:`repro_torch.models.ffn.moe_ffn`).
-The decode step, the MLA family under a recipe and the other recipe modes
-wait for the GSPMD-form decode slice (ROADMAP.md queue 1 item 8c); the
+The decode step, the MLA, SSM and hybrid families under a recipe and the
+other recipe modes wait for the GSPMD-form decode slice (ROADMAP.md queue 1 item 8c); the
 explicit tensor-parallel decode step is :mod:`repro_torch.serve.tp_decode`.
 
 Training (:func:`loss_fn`, :mod:`repro_torch.train.trainer`) differentiates
 the float32 parameters themselves: every use casts a weight to the
 activation dtype (``w.to(x.dtype)``), so the gradients come back float32,
-as JAX's do.  ``cfg.remat == "block"`` checkpoints each block
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` per scanned
-block) when a gradient is being taken.  Under an ``sp_ring`` recipe the
+as JAX's do.  ``cfg.remat == "block"`` checkpoints each block, and the
+hybrid family each super-block too (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint`` per scanned body), when a gradient is being
+taken.  Under an ``sp_ring`` recipe the
 gradients come out whole on every rank: the ring's transfers and the final
 gather are differentiable, and the parameters used by this rank's chunk
 sum their partial gradients over the ranks
@@ -41,15 +49,16 @@ from repro_torch.core.dist import resolve_device
 
 from . import attention as attn_mod
 from . import blocks as blk
+from . import ssm as ssm_mod
 from .module import init_params, pspec, stack_specs, tree_leaves, tree_map, tree_size
 from .sharding import current_recipe, token_shard
 
 __all__ = ["build_specs", "count_params", "embed_inputs", "lm_logits", "forward", "loss_fn",
-           "DecodeState", "init_cache", "decode_step", "init_model"]
+           "DecodeState", "init_cache", "decode_step", "init_model", "hybrid_dims"]
 
 
 def _require_ported(cfg) -> None:
-    if cfg.family not in ("dense", "moe", "mla"):
+    if cfg.family not in ("dense", "moe", "mla", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet: ROADMAP.md "
                                   "queue 1, item 6")
     if cfg.input_kind != "tokens":
@@ -59,18 +68,37 @@ def _require_ported(cfg) -> None:
 
 # ================================================================= specs ====
 
+def hybrid_dims(cfg) -> tuple[int, int, int]:
+    """``(n_shared, group_m, n_tail)`` of the hybrid family: shared
+    applications, Mamba2 blocks before each, and trailing Mamba2 blocks."""
+    n_shared = cfg.n_layers // cfg.shared_every
+    group_m = cfg.shared_every - 1
+    return n_shared, group_m, cfg.n_layers - n_shared - n_shared * group_m
+
+
 def build_specs(cfg) -> dict:
     _require_ported(cfg)
     dt = cfg.param_dtype
     specs: dict[str, Any] = {
         "embed": pspec(("v", cfg.vocab_padded), ("m", cfg.d_model), dtype=dt, init="embed"),
         "final_norm": blk.norm_spec(cfg.d_model, dt),
-        "blocks": stack_specs((blk.mla_block_specs if cfg.family == "mla"
-                               else blk.attn_block_specs)(cfg), cfg.n_layers),
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = pspec(("m", cfg.d_model), ("v", cfg.vocab_padded), dtype=dt,
                                  fan_in=("m",))
+    if cfg.family == "hybrid":
+        n_shared, group_m, n_tail = hybrid_dims(cfg)
+        specs["mamba_blocks"] = stack_specs(
+            stack_specs(blk.mamba_block_specs(cfg), group_m, dim="l2"), n_shared)
+        if n_tail:
+            specs["tail_blocks"] = stack_specs(blk.mamba_block_specs(cfg), n_tail)
+        specs["shared_block"] = blk.shared_attn_block_specs(cfg)
+        specs["shared_lora"] = stack_specs(blk.shared_lora_specs(cfg, cfg.shared_lora_rank),
+                                           n_shared)
+        return specs
+    block_specs = {"mla": blk.mla_block_specs, "ssm": blk.rwkv_block_specs}.get(
+        cfg.family, blk.attn_block_specs)
+    specs["blocks"] = stack_specs(block_specs(cfg), cfg.n_layers)
     return specs
 
 
@@ -105,14 +133,20 @@ def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
-def _block(cfg):
-    """The family's block function, checkpointed when ``cfg.remat`` is
-    ``"block"`` and a gradient is being taken (the reference's
-    ``_maybe_remat``): its activations are recomputed in the backward."""
-    block = blk.mla_block if cfg.family == "mla" else blk.attn_block
+def _remat(fn, cfg):
+    """``fn`` checkpointed when ``cfg.remat`` is ``"block"`` and a gradient
+    is being taken (the reference's ``_maybe_remat``): its activations are
+    recomputed in the backward."""
     if cfg.remat != "block" or not torch.is_grad_enabled():
-        return block
-    return lambda *args, **kw: checkpoint(block, *args, use_reentrant=False, **kw)
+        return fn
+    return lambda *args, **kw: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _block(cfg):
+    """The family's block function (the hybrid's Mamba2 block), under
+    :func:`_remat`."""
+    return _remat({"mla": blk.mla_block, "ssm": blk.rwkv_block,
+                   "hybrid": blk.mamba_block}.get(cfg.family, blk.attn_block), cfg)
 
 
 # ================================================================ forward ====
@@ -131,10 +165,39 @@ def forward(params, batch, cfg, *, positions=None):
     x = embed_inputs(params, batch, cfg)
     block = _block(cfg)
     aux = 0.0
-    for i in range(cfg.n_layers):
-        x, _, a = block(_layer(params["blocks"], i), x, cfg, positions=positions)
-        aux = aux + a
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x, _, _ = block(_layer(params["blocks"], i), x, cfg)
+    elif cfg.family == "hybrid":
+        x = _forward_hybrid(params, x, cfg, positions)
+    else:
+        for i in range(cfg.n_layers):
+            x, _, a = block(_layer(params["blocks"], i), x, cfg, positions=positions)
+            aux = aux + a
     return lm_logits(params, x, cfg), torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+
+
+def _forward_hybrid(params, x, cfg, positions):
+    """The hybrid stack: ``n_shared`` super-blocks of ``group_m`` Mamba2
+    blocks and the shared attention block under that application's LoRA
+    (each super-block, and each Mamba2 block in it, under :func:`_remat`),
+    then the tail's Mamba2 blocks."""
+    n_shared, group_m, n_tail = hybrid_dims(cfg)
+    mamba = _block(cfg)
+
+    def group(p_mamba, p_lora, x):
+        for j in range(group_m):
+            x, _, _ = mamba(_layer(p_mamba, j), x, cfg)
+        x, _, _ = blk.shared_attn_block(params["shared_block"], p_lora, x, cfg,
+                                        positions=positions)
+        return x
+
+    group = _remat(group, cfg)
+    for i in range(n_shared):
+        x = group(_layer(params["mamba_blocks"], i), _layer(params["shared_lora"], i), x)
+    for i in range(n_tail):
+        x, _, _ = mamba(_layer(params["tail_blocks"], i), x, cfg)
+    return x
 
 
 def _forward_sp_ring(params, batch, cfg, recipe, positions):
@@ -156,6 +219,9 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
     if cfg.family == "mla":
         raise NotImplementedError("the MLA family under a sharding recipe: ROADMAP.md queue 1, "
                                   "items 8c and 10")
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(f"the {cfg.family} family under a sharding recipe: ROADMAP.md "
+                                  "queue 1, item 8c")
     if cfg.family == "moe" and torch.is_grad_enabled() and \
             any(t.requires_grad for t in tree_leaves(params)):
         raise NotImplementedError("gradients through the MoE family under a sharding recipe "
@@ -206,17 +272,52 @@ def loss_fn(params, batch, cfg):
 
 class DecodeState(NamedTuple):
     # KVCache: k/v (L, B, G, T, D); MLACache: c (L, B, T, kv_rank), kr (L, B, T, d_rope);
-    # both with length (L, B)
-    caches: attn_mod.KVCache | attn_mod.MLACache
+    # both with length (L, B); RWKVBlockState (ssm) and the hybrid's dict: see init_cache
+    caches: Any
     positions: torch.Tensor  # (B,) int32 next position
 
 
 def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda"):
     """Stacked per-layer cache in act_dtype, zero lengths: K/V, or for the
-    MLA family the latent and rope-key caches."""
+    MLA family the latent and rope-key caches.  The SSM family's is an
+    :class:`blocks.RWKVBlockState` of (L, B, ...) states (the wkv state
+    float32); the hybrid's a dict of the Mamba2 states, ``"mamba"``
+    (n_shared, group_m, B, ...) and ``"tail"`` (n_tail, B, ...) (the ssm
+    state float32), and the shared block's ``"shared"`` :class:`KVCache`
+    (n_shared, B, n_kv, min(max_len, shared_window), head_dim), a ring
+    buffer once a row's length passes its size."""
     _require_ported(cfg)
     device = resolve_device(device)
     L, B, dt = cfg.n_layers, batch_size, cfg.act_dtype
+    if cfg.family == "ssm":
+        H = cfg.n_heads
+        hd = cfg.d_model // H
+        return blk.RWKVBlockState(
+            time=ssm_mod.RWKVState(
+                wkv=torch.zeros((L, B, H, hd, hd), dtype=torch.float32, device=device),
+                shift=torch.zeros((L, B, cfg.d_model), dtype=dt, device=device)),
+            cm_shift=torch.zeros((L, B, cfg.d_model), dtype=dt, device=device))
+    if cfg.family == "hybrid":
+        n_shared, group_m, n_tail = hybrid_dims(cfg)
+        d_inner = cfg.ssm_expand * cfg.d_model
+        H = d_inner // cfg.ssm_head_dim
+        conv_ch = d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+
+        def mstate(*lead):
+            return ssm_mod.MambaState(
+                ssm=torch.zeros((*lead, B, H, cfg.ssm_head_dim, cfg.ssm_state),
+                                dtype=torch.float32, device=device),
+                conv=torch.zeros((*lead, B, 3, conv_ch), dtype=dt, device=device))
+
+        shape = (n_shared, B, cfg.n_kv, min(max_len, cfg.shared_window), cfg.head_dim)
+        out = {"mamba": mstate(n_shared, group_m),
+               "shared": attn_mod.KVCache(
+                   k=torch.zeros(shape, dtype=dt, device=device),
+                   v=torch.zeros(shape, dtype=dt, device=device),
+                   length=torch.zeros((n_shared, B), dtype=torch.int32, device=device))}
+        if n_tail:
+            out["tail"] = mstate(n_tail)
+        return out
     length = torch.zeros((L, B), dtype=torch.int32, device=device)
     if cfg.family == "mla":
         return attn_mod.MLACache(
@@ -237,12 +338,17 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     Every row runs at its own position (``state.positions[b]``) for RoPE and
     the causal mask.  ``new_counts`` (B,) int32 says how many of the chunk's
     S tokens are valid per row: rows with 0 are idle this step, keep their
-    K/V and length, and do not advance; their logits are the reference's
-    (see :func:`repro_torch.models.attention.gqa_attention`).  The K/V caches are updated **in
-    place** (the state's tensors are the new state's); the lengths are new
-    tensors.  ``prefill`` marks a whole-prompt chunk.  The MLA family runs
-    the absorbed form against its latent caches
-    (:func:`repro_torch.models.attention.mla_attention`)."""
+    K/V (or recurrent state) and length, and do not advance; their logits
+    are the reference's (see :func:`repro_torch.models.attention.gqa_attention`),
+    except the hybrid family's, whose reference shared block attends
+    with every row's length advanced and restores the idle rows after.
+    The caches and states are updated **in place** (the state's tensors are
+    the new state's); the lengths are new tensors.  ``prefill`` marks a
+    whole-prompt chunk.  The MLA family runs the absorbed form against its
+    latent caches (:func:`repro_torch.models.attention.mla_attention`); the
+    SSM and hybrid families' recurrent states take the exact recurrence for
+    S <= 4 and the chunked form (S a multiple of ``cfg.ssm_chunk``)
+    otherwise, for every row, as the reference's."""
     if current_recipe() is not None:
         raise NotImplementedError("decode_step under a sharding recipe: ROADMAP.md queue 1, "
                                   "item 8c (decode under a recipe)")
@@ -253,6 +359,14 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     adv = S if new_counts is None else new_counts
     x = embed_inputs(params, batch, cfg)
     caches = state.caches
+    if cfg.family in ("ssm", "hybrid"):
+        active = None if new_counts is None else new_counts > 0
+        if cfg.family == "ssm":
+            x, new_caches = _decode_ssm(params, caches, x, cfg, active)
+        else:
+            x, new_caches = _decode_hybrid(params, caches, x, cfg, pos2d, new_counts, active)
+        return lm_logits(params, x, cfg), DecodeState(
+            caches=new_caches, positions=(positions + adv).to(positions.dtype))
     T = caches[0].shape[-2]  # k (L, B, G, T, D) or c (L, B, T, kv_rank)
     # every layer's lengths are the same: ask once per step, not per layer
     idle_read = None if new_counts is None else attn_mod.idle_rows_read_chunk(
@@ -267,6 +381,63 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     new_caches = caches._replace(length=torch.stack(lengths))
     logits = lm_logits(params, x, cfg)
     return logits, DecodeState(caches=new_caches, positions=(positions + adv).to(positions.dtype))
+
+
+def _state_at(state, idx):
+    """The layer ``idx`` views of a (nested) named tuple of stacked states."""
+    return type(state)(*(_state_at(t, idx) if isinstance(t, tuple) else t[idx] for t in state))
+
+
+def _state_leaves(state) -> list:
+    return [leaf for t in state
+            for leaf in (_state_leaves(t) if isinstance(t, tuple) else [t])]
+
+
+def _store_state(dst, new, active) -> None:
+    """Writes the layer state ``new`` into ``dst`` (views of the stacked
+    state), in place, rows with ``active[b] == False`` kept as they were
+    (the reference's ``_mask_rows``)."""
+    for d, n in zip(_state_leaves(dst), _state_leaves(new)):
+        if active is not None:
+            n = torch.where(active.reshape((-1,) + (1,) * (n.ndim - 1)), n.to(d.dtype), d)
+        d.copy_(n)
+
+
+def _decode_ssm(params, caches, x, cfg, active):
+    for i in range(cfg.n_layers):
+        c = _state_at(caches, i)
+        x, new_c, _ = blk.rwkv_block(_layer(params["blocks"], i), x, cfg, state=c)
+        _store_state(c, new_c, active)
+    return x, caches
+
+
+def _decode_hybrid(params, caches, x, cfg, pos2d, new_counts, active):
+    n_shared, group_m, n_tail = hybrid_dims(cfg)
+    shared = caches["shared"]
+    S = x.shape[1]
+    # every application's lengths are the same: ask once per step
+    idle_read = None if new_counts is None else attn_mod.idle_rows_read_chunk(
+        shared.length[0], new_counts, shared.k.shape[-2], S)
+
+    def mamba(p, c, x):
+        x, new_c, _ = blk.mamba_block(p, x, cfg, state=c)
+        _store_state(c, new_c, active)
+        return x
+
+    lengths = []
+    for i in range(n_shared):
+        p_group = _layer(params["mamba_blocks"], i)
+        for j in range(group_m):
+            x = mamba(_layer(p_group, j), _state_at(caches["mamba"], (i, j)), x)
+        x, new_c, _ = blk.shared_attn_block(
+            params["shared_block"], _layer(params["shared_lora"], i), x, cfg,
+            cache=attn_mod.KVCache(shared.k[i], shared.v[i], shared.length[i]),
+            positions=pos2d, window=cfg.shared_window, new_counts=new_counts,
+            idle_read_chunk=idle_read)
+        lengths.append(new_c.length)
+    for i in range(n_tail):
+        x = mamba(_layer(params["tail_blocks"], i), _state_at(caches["tail"], i), x)
+    return x, {**caches, "shared": shared._replace(length=torch.stack(lengths))}
 
 
 # =============================================================== helpers ====

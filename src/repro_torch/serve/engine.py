@@ -1,5 +1,6 @@
-"""Continuous-batching engine on the port's dense, MoE and MLA models,
-single-host, or with tensor-parallel decode for the dense family.
+"""Continuous-batching engine on the port's dense, MoE, MLA, SSM and
+hybrid models, single-host, or with tensor-parallel decode for the dense
+family.
 
 A fixed pool of batch *slots* shares one cache allocation (K/V, or MLA's
 latent and rope-key caches) tracked by a
@@ -12,7 +13,8 @@ request is prefilled into it:
     ``lm.decode_step(prefill=True)``, padded to a power of two; the MoE
     family prefills token by token, as the reference does, because a chunk
     would go through the capacity dispatch and could drop tokens that the
-    dropless decode step keeps;
+    dropless decode step keeps, and so do the SSM and hybrid families,
+    whose recurrent state would take a chunk's padding;
   * **decode** feeds each resident slot's last token through
     ``lm.decode_step``, or, given a ``(data, model)`` mesh and
     ``microbatches``, through the explicit tensor-parallel step of
@@ -24,12 +26,14 @@ Under a mesh every rank runs this same engine loop on the same requests:
 prefill is the single-host program on the whole weights on every rank, as
 in the reference, and every rank gets every slot's logits, so all ranks
 sample the same tokens.  On a card both paths go through the split-KV
-decode kernel (the MLA family's absorbed decode runs no kernel, as in the
-reference).  The engine keeps an activation-dtype copy of the weights,
+decode kernel (the MLA family's absorbed decode and the SSM family run no
+kernel, as in the reference; the hybrid's shared attention block runs it
+once an application).  A released slot's recurrent state is zeroed before
+its next request (:func:`_reset_slot_rows`).  The engine keeps an activation-dtype copy of the weights,
 made once (``weights.cast_params``), and cuts the rank's TP shard from it
 (``weights.shard_params``; a view when the ``model`` axis has one rank).
 The sharding ``recipe`` waits for ROADMAP.md queue 1 item 8c; the
-``embeds`` input kind and the other families for item 6.
+``embeds`` input kind and the VLM and audio families for item 6.
 """
 from __future__ import annotations
 
@@ -46,7 +50,8 @@ from repro_torch.serve.tp_decode import make_tp_decode_step, tp_decode_specs
 __all__ = ["ServeConfig", "Engine"]
 
 # families whose decode step takes multi-token chunks exactly; the MoE's
-# capacity dispatch could drop a chunk's tokens, so it prefills per token
+# capacity dispatch could drop a chunk's tokens, and recurrent state (ssm,
+# hybrid) would take a chunk's padding, so they prefill per token
 _CHUNK_FAMILIES = ("dense", "mla")
 
 
@@ -67,18 +72,40 @@ class _Slot:
 
 
 def _kv_bytes_per_pos(cfg) -> int:
-    """Cache bytes one sequence position costs across all layers."""
+    """Cache bytes one sequence position costs across all layers (0 for
+    families whose state does not grow with length)."""
     item = torch.empty((), dtype=cfg.act_dtype).element_size()
+    if cfg.family in ("dense", "moe", "audio", "vlm"):
+        return 2 * cfg.n_layers * cfg.n_kv * cfg.head_dim * item
     if cfg.family == "mla":
         return cfg.n_layers * (cfg.mla_kv_rank + cfg.mla_d_rope) * item
-    return 2 * cfg.n_layers * cfg.n_kv * cfg.head_dim * item
+    return 0
+
+
+# a state leaf's batch axis, counted from its trailing end, so that it holds
+# under any stacking of layers and super-blocks; the length-masked payloads
+# (k, v, c, kr) are left as they are
+_BATCH_AXIS_FROM_END = {"length": 1, "wkv": 4, "ssm": 4, "shift": 2, "cm_shift": 2, "conv": 3}
+_MASKED_PAYLOADS = ("k", "v", "c", "kr")
 
 
 def _reset_slot_rows(caches, i: int) -> None:
-    """Release slot ``i`` for a new request, in place: zero its ``length``
-    rows.  The K/V (or latent) payload stays; the attention mask never
-    reads past the length."""
-    caches.length[:, i] = 0
+    """Release slot ``i`` for a new request, in place: zero its rows of
+    every leaf that no cache length masks (the recurrent, shift and conv
+    states, which carry forward, so a released slot's state must not leak
+    into its successor) and of the lengths.  The K/V (or latent) payload
+    stays; the attention mask never reads past the length."""
+    if isinstance(caches, dict):
+        for c in caches.values():
+            _reset_slot_rows(c, i)
+        return
+    for name, x in zip(caches._fields, caches):
+        if isinstance(x, tuple):
+            _reset_slot_rows(x, i)
+        elif name in _BATCH_AXIS_FROM_END:
+            x.select(x.ndim - _BATCH_AXIS_FROM_END[name], i).zero_()
+        elif name not in _MASKED_PAYLOADS:
+            raise ValueError(f"unknown cache leaf {name!r}")
 
 
 class Engine:

@@ -1,0 +1,108 @@
+"""Helpers of the SSM and hybrid families' parity tests: the reference's
+SMOKE weights, seeded, with every constant-initialised leaf (the token-shift
+mixes, decays, bonuses, norm weights, the LoRA's zero ``lora_b``, ...)
+perturbed by seeded noise so that no path of the port is multiplied away,
+carried over to the port with ``params_from_jax``."""
+import dataclasses
+
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro import configs as jconfigs
+from repro.models import lm as jlm
+from repro.serve.engine import Engine as JEngine
+from repro.serve.engine import ServeConfig as JServeConfig
+from repro_torch import configs as tconfigs
+from repro_torch.models.module import tree_leaves
+from repro_torch.models.weights import params_from_jax
+from repro_torch.serve.engine import Engine, ServeConfig
+
+SPREAD = 0.2  # the noise's std on the constant leaves
+
+
+def perturb(tree, seed: int = 1):
+    """``tree`` with seeded noise added to every leaf whose values are all
+    equal (the zeros and ones initialisations)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.size > 1 and np.all(a == a.flat[0]):
+            a = a + SPREAD * rng.standard_normal(a.shape)
+        return jnp.asarray(a.astype(np.float32))
+
+    return jax.tree.map(leaf, tree)
+
+
+def models(arch: str, act: str = "float32", *, attn_impl: str | None = "interpret", **overrides):
+    """(jax cfg, jax params, torch cfg, torch params) of ``arch``'s SMOKE
+    config at ``act`` activations."""
+    jcfg = dataclasses.replace(jconfigs.get(arch, smoke=True), act_dtype=jnp.dtype(act),
+                               attn_impl=attn_impl, **overrides)
+    tcfg = dataclasses.replace(tconfigs.get(arch, smoke=True), act_dtype=getattr(torch, act),
+                               **overrides)
+    jp = perturb(jlm.init_model(jcfg, jax.random.PRNGKey(0)))
+    return jcfg, jp, tcfg, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def tokens(cfg, shape, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, cfg.vocab, size=shape).astype(np.int32)
+
+
+def np_(x) -> np.ndarray:
+    """A torch tensor or a JAX array as float32 numpy."""
+    return np.asarray(x.float()) if isinstance(x, torch.Tensor) else \
+        np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def leaves(tree) -> list:
+    """The leaves of a (nested) named tuple or dict of states, in field order
+    (dicts in sorted key order), for torch and JAX trees alike."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in leaves(t)]
+    return [tree]
+
+
+def assert_grads_close(got, want) -> None:
+    """Every leaf of the port's gradient tree ``got`` against the
+    reference's ``want`` (leaves in the same sorted order) to ``rtol=1e-4``
+    and an ``atol`` of 1e-4 times the leaf's largest magnitude."""
+    for i, (g, w) in enumerate(zip(tree_leaves(got), jax.tree.leaves(want), strict=True)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(np_(g), w, rtol=1e-4, atol=1e-4 * np.abs(w).max(),
+                                   err_msg=f"leaf {i}")
+
+
+# a cache leaf's batch axis, counted from its trailing end (k, v: (B, G, T, D))
+BATCH_AXIS_FROM_END = {"length": 1, "wkv": 4, "ssm": 4, "shift": 2, "cm_shift": 2, "conv": 3,
+                       "k": 4, "v": 4}
+
+
+def named_leaves(tree) -> list:
+    """``(field name, leaf)`` of a port cache tree, in :func:`leaves` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in named_leaves(tree[k])]
+    return [x for f, t in zip(tree._fields, tree)
+            for x in (named_leaves(t) if isinstance(t, tuple) else [(f, t)])]
+
+
+def serve_both(arch, *, slots=2, max_len=64, requests=5, prompt_lens=(1, 12), seed=0,
+               **overrides):
+    """Greedy tokens of the reference's and the port's engines on the same
+    seeded requests; more requests than slots, so slots are released and
+    reused.  Returns (want, got, the port's engine)."""
+    jcfg, jp, tcfg, tp = models(arch, **overrides)
+    jeng = JEngine(jcfg, jp, JServeConfig(max_len=max_len, batch_slots=slots, eos_token=-1))
+    teng = Engine(tcfg, tp, ServeConfig(max_len=max_len, batch_slots=slots, eos_token=-1))
+    rng = np.random.default_rng(seed)
+    for rid in range(requests):
+        prompt = rng.integers(2, 500, size=int(rng.integers(*prompt_lens))).tolist()
+        max_new = int(rng.integers(3, 8))
+        jeng.submit(rid, prompt, max_new)
+        teng.submit(rid, prompt, max_new)
+    return jeng.run(), teng.run(), teng

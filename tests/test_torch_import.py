@@ -152,7 +152,7 @@ def test_serve_cli_raises_for_what_is_not_ported():
         proc = _python("", "-m", "repro_torch.launch.serve", "--arch", "phi4-mini-3.8b",
                        "--smoke", "--device", "cpu", *flags)
         assert proc.returncode != 0 and item in proc.stderr, proc.stderr[-2000:]
-    proc = _python("", "-m", "repro_torch.launch.serve", "--arch", "zamba2-7b", "--smoke",
+    proc = _python("", "-m", "repro_torch.launch.serve", "--arch", "musicgen-large", "--smoke",
                    "--device", "cpu")
     assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
 
