@@ -39,6 +39,21 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   views of a whole cache) against its plain version, timed beside its
   bound and ``scaled_dot_product_attention``.  One card gives the model
   axis one rank: no reduction crosses a process;
+* the sharding recipe's per-rank program at phi4-mini's full width and
+  depth on the same one-rank NCCL ``(data, model)`` mesh, every rank on
+  its shards of the weights (``shard_params_by_recipe``; views on one
+  rank): the forward of 1 x 4096 tokens under ``make_recipe(cfg, mesh,
+  attn_mode="auto")`` (``tp``) and under ``"sp"`` (``flash_attention``
+  once a layer, logits at every token against the no-recipe forward,
+  host and device ms and kernels launched beside the no-recipe forward's);
+  the serving run's 8 requests through ``Engine(recipe=...)``
+  (``flash_decode`` once a layer a step, greedy tokens against the
+  single-host run except at its near ties, a decode step's host and device
+  ms, idle share and kernels launched beside the single-host step's); and
+  one training step under ``tp`` at the training phase's depth against the
+  no-recipe step.  On one card every axis has one rank: the recipe's
+  gathers and reductions move nothing; across ranks they are held on gloo
+  CPU processes in the tests;
 * the sequence-parallel ring's kernel work at phi4-mini's full width: every
   (rank, step) carry call of a 4-rank ring over 4096 tokens and over a
   ragged 4095 (the schedule of ``_ring_attention_local``, through its own
@@ -891,6 +906,133 @@ def breakdown_lm(cfg, params, lm, Engine, ServeConfig) -> dict:
     del engine
     torch.cuda.empty_cache()
     return dec
+
+
+def recipe_forward(cfg, params, lm, fa, mesh, sharding, shard_params_by_recipe) -> dict:
+    """``recipe_forward``: the forward of the forward phase's 1 x SEQ tokens
+    under ``make_recipe(cfg, mesh, attn_mode=...)`` on a one-rank NCCL
+    ``(data, model)`` mesh, ``auto`` (``tp``: the heads divide one rank) and
+    ``sp``, on the rank's shards of the weights (views: every axis has one
+    rank): ``flash_attention`` launched once a layer, logits at every token
+    within LOGIT_TOL of the no-recipe forward (and whether bitwise), and
+    the host and device ms, idle share and kernels launched of a forward
+    (:func:`window`), in turns with the no-recipe forward's (no recipe,
+    ``auto``, ``sp``, no recipe: host times drift between phases)."""
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, SEQ), device=DEVICE, generator=g)}
+    want = lm.forward(params, batch, cfg)[0]
+    specs = lm.build_specs(cfg)
+    keys = ("wall_ms", "device_ms", "idle_share", "kernels_launched")
+    plain = [window(lambda: lm.forward(params, batch, cfg), 2)]
+    out = {}
+    for mode in ("auto", "sp"):
+        recipe = sharding.make_recipe(cfg, mesh, attn_mode=mode)
+        shards = shard_params_by_recipe(params, specs, recipe)
+        fa.flash_attention_cuda.launches = 0
+        with sharding.use_recipe(recipe):
+            got = lm.forward(shards, batch, cfg)[0]
+        torch.cuda.synchronize()
+        launches = fa.flash_attention_cuda.launches
+        if launches != cfg.n_layers:
+            raise AssertionError(f"recipe forward {mode}: flash_attention launches {launches} "
+                                 f"!= {cfg.n_layers}")
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"recipe forward {mode}: logits {tuple(got.shape)} not finite "
+                                 "or not the expected shape")
+        err = (got - want).abs().max().item()
+        bitwise = torch.equal(got, want)
+        del got
+        if err > LOGIT_TOL:
+            raise AssertionError(f"recipe forward {mode} vs no recipe: {err} > {LOGIT_TOL}")
+
+        def fwd(shards=shards, recipe=recipe):
+            with sharding.use_recipe(recipe):
+                lm.forward(shards, batch, cfg)
+
+        out[recipe.attn_mode] = dict(
+            mode=mode, flash_attention_launches=launches, logits_max_abs_err=err,
+            bitwise_equal_no_recipe=bitwise, tol=LOGIT_TOL, forward=window(fwd, 2))
+    plain.append(window(lambda: lm.forward(params, batch, cfg), 2))
+    for attn_mode, row in out.items():
+        row["kernels_launched_vs_no_recipe"] = row["forward"]["kernels_launched"] - \
+            plain[0]["kernels_launched"]
+        phase("recipe_forward", arch=cfg.name, mesh=dict(mesh.shape), backend="nccl",
+              attn_mode=attn_mode, tokens=SEQ,
+              no_recipe_forward=[{k: w[k] for k in keys} for w in plain], **row)
+    del want
+    torch.cuda.empty_cache()
+    return out
+
+
+def recipe_serve(cfg, params, lm, Engine, ServeConfig, fd, mesh, sharding,
+                 shard_params_by_recipe, single: dict) -> dict:
+    """``recipe_serve``: the serving run's 8 requests on 4 slots through
+    ``Engine(recipe=make_recipe(cfg, mesh))`` (``tp``) on a one-rank NCCL
+    mesh, on the rank's shards: every request finishes, ``flash_decode``
+    launches once a layer in every prefill chunk and decode step, and the
+    greedy tokens equal the single-host kernel run's (``single``) except at
+    its near ties.  Then a steady decode step's host and device ms, idle
+    share and kernels launched (:func:`window`) in turns with the
+    single-host engine's on the same requests (single host, recipe,
+    recipe, single host): on one rank the recipe's gathers and reductions
+    move nothing and launch nothing."""
+    requests = serve_prompts(cfg)
+    recipe = sharding.make_recipe(cfg, mesh)
+    shards = shard_params_by_recipe(params, lm.build_specs(cfg), recipe)
+
+    def engine_for(prompts, recipe=recipe):
+        engine = Engine(cfg, params if recipe is None else shards,
+                        ServeConfig(max_len=MAX_LEN, batch_slots=SLOTS, eos_token=-1),
+                        recipe=recipe)
+        for rid, prompt in enumerate(prompts):
+            engine.submit(rid, prompt, NEW_TOKENS)
+        return engine
+
+    engine = engine_for(requests)
+    stats = _instrument(engine, record_gaps=False, fd=fd)
+    fd.flash_decode_cuda.launches = 0
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fd.flash_decode_cuda.launches
+    if sorted(done) != list(range(REQUESTS)) or any(
+            len(done[r]) != len(requests[r]) + NEW_TOKENS for r in range(REQUESTS)):
+        raise AssertionError(f"recipe_serve: not every request finished with {NEW_TOKENS} "
+                             "tokens")
+    by_kind = {kind: cfg.n_layers * engine.steps[kind] for kind in ("prefill", "decode")}
+    if stats["launches"] != by_kind or launches != sum(by_kind.values()):
+        raise AssertionError(f"recipe_serve: flash_decode launches {stats['launches']} (total "
+                             f"{launches}) != {by_kind}")
+    agree, near_ties = greedy_agreement(requests, done, single["done"], single["stats"]["gaps"],
+                                        "recipe", "single_host")
+    steps = dict(engine.steps)
+    del engine
+    torch.cuda.empty_cache()
+    engines = {"single_host": engine_for(requests[:SLOTS], None),
+               "recipe": engine_for(requests[:SLOTS])}
+    for engine in engines.values():
+        engine._fill_slots()
+        engine._decode_once()
+    wins = {name: [] for name in engines}
+    for name in ("single_host", "recipe", "recipe", "single_host"):
+        wins[name].append(window(engines[name]._decode_once, 8))
+    del engines
+    torch.cuda.empty_cache()
+    keys = ("wall_ms", "device_ms", "idle_share", "kernels_launched")
+    out = dict(mesh=dict(mesh.shape), attn_mode=recipe.attn_mode, requests=REQUESTS,
+               slots=SLOTS, max_len=MAX_LEN, new_tokens=NEW_TOKENS, steps=steps,
+               flash_decode_launches=launches, flash_decode_launches_by_kind=stats["launches"],
+               prefill_s=stats["prefill_s"], decode_s=stats["decode_s"],
+               decode_tok_s=REQUESTS * NEW_TOKENS / stats["decode_s"], wall_s=wall,
+               decode_step=[{k: w[k] for k in keys} for w in wins["recipe"]],
+               single_host_decode_step=[{k: w[k] for k in keys} for w in wins["single_host"]],
+               kernels_launched_vs_single_host=wins["recipe"][0]["kernels_launched"] -
+               wins["single_host"][0]["kernels_launched"],
+               greedy_agreement_with_single_host=agree, divergences_at_near_ties=near_ties,
+               tol=LOGIT_TOL)
+    phase("recipe_serve", arch=cfg.name, backend="nccl", **out)
+    return out
 
 
 def tp_engine(cfg, params, Engine, ServeConfig, mesh, prompts):
@@ -2115,6 +2257,45 @@ def sp_ring_train(cfg, params, batch, m_base, fa, trainer, optimizer, make_recip
     return out
 
 
+def recipe_train(cfg, params, batch, m_base, fa, lm, trainer, optimizer, sharding,
+                 shard_params_by_recipe, mesh) -> dict:
+    """``recipe_train``: one ``make_train_step`` step under the ``tp``
+    recipe on a one-rank NCCL ``(data, model)`` mesh, on the rank's shards
+    (views: one rank cuts nothing): ``flash_attention`` launched once a
+    layer and microbatch in the forward and again in remat's recompute, the
+    loss and gradient norm held against the no-recipe step's ``m_base`` to
+    TRAIN_LOSS_RTOL and TRAIN_GRAD_RTOL, the step's seconds and peak
+    memory."""
+    ocfg = optimizer.OptConfig(lr=TRAIN_LR)
+    recipe = sharding.make_recipe(cfg, mesh, attn_mode="tp")
+    shards = shard_params_by_recipe(params, lm.build_specs(cfg), recipe)
+    step = trainer.make_train_step(cfg, recipe, ocfg, microbatches=TRAIN_MICROBATCHES)
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    m = step(shards, optimizer.init_opt_state(shards, ocfg), batch)[2]
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = fa.flash_attention_cuda.launches
+    expected = TRAIN_MICROBATCHES * cfg.n_layers * 2
+    if launches != expected:
+        raise AssertionError(f"tp recipe step launched flash_attention {launches} times, "
+                             f"expected {expected}")
+    loss_err = abs(m["loss"].item() - m_base["loss"].item()) / m_base["loss"].item()
+    norm_err = abs(m["grad_norm"].item() - m_base["grad_norm"].item()) / \
+        m_base["grad_norm"].item()
+    if loss_err > TRAIN_LOSS_RTOL or norm_err > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"tp recipe step vs no recipe: loss {loss_err}, grad norm "
+                             f"{norm_err}")
+    out = dict(attn_mode=recipe.attn_mode, flash_attention_launches=launches, expected=expected,
+               loss=m["loss"].item(), loss_rel_err=loss_err, grad_norm=m["grad_norm"].item(),
+               grad_norm_rel_err=norm_err, step_s=step_s,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, layers=cfg.n_layers,
+               tokens=TRAIN_BATCH * SEQ, tol=dict(loss=TRAIN_LOSS_RTOL, grad_norm=TRAIN_GRAD_RTOL))
+    phase("recipe_train", arch=cfg.name, mesh=dict(mesh.shape), backend="nccl", **out)
+    return out
+
+
 def scan_by_kind(prof) -> dict[str, float]:
     """:func:`by_ranges` of the SSM mixers' ``ssm.scan`` ranges: the
     attention kernels, the mixers' recurrent work (the conv, the decays,
@@ -2554,8 +2735,9 @@ def main() -> int:
     from repro_torch.models import ffn, lm
     from repro_torch.models.attention import ring_attention_seq, ring_step_offsets
     from repro_torch.models.module import tree_leaves
+    from repro_torch.models import sharding
     from repro_torch.models.sharding import make_recipe, ragged_seq_extents
-    from repro_torch.models.weights import cast_params
+    from repro_torch.models.weights import cast_params, shard_params_by_recipe
     from repro_torch.serve.engine import Engine, ServeConfig
     from repro_torch.serve.tp_decode import make_tp_decode_step
     from repro_torch.train import optimizer, trainer
@@ -2676,12 +2858,18 @@ def main() -> int:
     profile_lm(cfg, params, lm, Engine, ServeConfig)
     single_dec = breakdown_lm(cfg, params, lm, Engine, ServeConfig)
 
-    # phase 9b: tensor-parallel serving on a one-rank NCCL (data, model) mesh
+    # phase 9b: tensor-parallel serving on a one-rank NCCL (data, model) mesh,
+    # and the sharding recipe's program (forward under tp and sp, serving)
     device = init_world("cuda")
     try:
         tp_mesh = make_mesh((1, 1), ("data", "model"), device=device)
         tp = serve_tp(cfg, params, Engine, ServeConfig, fd, tp_mesh, single, single_dec)
         check_tp_blocking(cfg, params, Engine, ServeConfig, tp_mesh, make_tp_decode_step)
+        t0 = time.perf_counter()
+        rec_fwd = recipe_forward(cfg, params, lm, fa, tp_mesh, sharding, shard_params_by_recipe)
+        rec_srv = recipe_serve(cfg, params, lm, Engine, ServeConfig, fd, tp_mesh, sharding,
+                               shard_params_by_recipe, single)
+        recipe_s = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     del params, single
@@ -2735,15 +2923,23 @@ def main() -> int:
                                   tree_leaves, make_mesh((1,), ("data",), device=device))
         del train_g
         torch.cuda.empty_cache()
+        train_mesh = make_mesh((1, 1), ("data", "model"), device=device)
         ring = sp_ring_train(train_cfg, train_params, batch, m_base, fa, trainer, optimizer,
-                             make_recipe, make_mesh((1, 1), ("data", "model"), device=device))
+                             make_recipe, train_mesh)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        rec_train = recipe_train(train_cfg, train_params, batch, m_base, fa, lm, trainer,
+                                 optimizer, sharding, shard_params_by_recipe, train_mesh)
+        recipe_s += time.perf_counter() - t1
     finally:
         dist.destroy_process_group()
     del train_params
     torch.cuda.empty_cache()
     phase("training", seconds=time.perf_counter() - t0, launcher_peak_memory_gb=
           launch["peak_memory_gb"], step_peak_memory_gb=tbreak["peak_memory_gb"],
-          zero_step_s=zero["step_s"], sp_ring_step_s=ring["step_s"])
+          zero_step_s=zero["step_s"], sp_ring_step_s=ring["step_s"],
+          recipe_step_s=rec_train["step_s"])
+    phase("recipe_phases", seconds=recipe_s)
 
     # phase 14: the hybrid and SSM families: the kernels' head dim of 112
     # (zamba2's shared attention) against their plain versions and timed;
@@ -2788,6 +2984,9 @@ def main() -> int:
                    **{f"mla_96_64_{key}": mla_attn[key] for key in
                       (*gqa4, "error_vs_float64_ratio", "library_bf16_backend")},
                    "train_launches": tgrad["flash_attention_launches"],
+                   **{f"recipe_{mode}_forward_launches": row["flash_attention_launches"]
+                      for mode, row in rec_fwd.items()},
+                   "recipe_train_launches": rec_train["flash_attention_launches"],
                    "hybrid_forward_launches": hyb_fwd["flash_attention_launches"],
                    "hybrid_train_launches": hyb_train["flash_attention_launches"],
                    **{f"zamba2_112_{key}": hyb_attn["flash_attention"][key] for key in
@@ -2801,6 +3000,8 @@ def main() -> int:
                    "launches_by_kind": srv["flash_decode_launches_by_kind"],
                    "tp_serve_launches": tp["flash_decode_launches"],
                    "tp_serve_launches_by_kind": tp["flash_decode_launches_by_kind"],
+                   "recipe_serve_launches": rec_srv["flash_decode_launches"],
+                   "recipe_serve_launches_by_kind": rec_srv["flash_decode_launches_by_kind"],
                    "moe_serve_launches": moe_srv["flash_decode_launches"],
                    "hybrid_serve_launches": hyb_srv["flash_decode_launches"],
                    "hybrid_serve_launches_by_kind": hyb_srv["flash_decode_launches_by_kind"],

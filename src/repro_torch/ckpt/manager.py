@@ -17,9 +17,16 @@ Format: one directory per step::
 Writes go to ``step_X.tmp-<pid>`` and then ``os.rename`` (atomic on POSIX),
 and ``LATEST`` moves only after a whole write, so a crash mid-write never
 corrupts an earlier checkpoint.  :meth:`CheckpointManager.save_async`
-copies to the host now and writes on a background thread.  Restoring under
-another world size (the reference's elastic reshard) waits for the GSPMD
-bindings (ROADMAP.md queue 1, item 8c).
+copies to the host now and writes on a background thread.
+
+Under a sharding recipe every rank holds its shards: ``save(..., recipe=,
+specs=)`` gathers each leaf that ``specs`` (a tree of
+:class:`~repro_torch.models.module.ParamSpec` over part of the tree, e.g.
+``{"params": lm.build_specs(cfg)}``) declares into its logical whole
+(``weights.gather_params``, collective over the mesh), and rank 0 writes.
+``restore(..., recipe=, specs=)`` cuts each such leaf by the *current*
+recipe, so a checkpoint written under one mesh restores under another
+world size (the reference's elastic reshard).
 """
 from __future__ import annotations
 
@@ -72,8 +79,37 @@ def _to_host(leaf) -> np.ndarray:
     return np.asarray(leaf).copy()
 
 
+def _cut(x, spec, recipe):
+    """This rank's block of the logical leaf ``x`` under ``recipe``."""
+    from repro_torch.models.sharding import recipe_pspecs
+    from repro_torch.models.weights import shard_params
+
+    return shard_params(x, recipe_pspecs(recipe, spec), recipe.mesh)
+
+
 def _digest(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _specs_in_order(tree, specs) -> list:
+    """Each leaf's spec (a ``ParamSpec``, or ``None`` for a leaf no spec
+    declares), in :func:`flatten` order."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in _specs_in_order(
+            tree[k], specs.get(k) if isinstance(specs, dict) else None)]
+    if isinstance(tree, (tuple, list)):
+        subs = specs if isinstance(specs, (tuple, list)) else [None] * len(tree)
+        return [s for t, sp in zip(tree, subs) for s in _specs_in_order(t, sp)]
+    return [specs]
+
+
+def _whole_leaves(tree, recipe, specs) -> list:
+    """``tree``'s leaves, each declared one gathered into its logical whole
+    under ``recipe`` (collective: every rank of the mesh calls it)."""
+    from repro_torch.models.weights import gather_params
+
+    return [gather_params(leaf, spec, recipe) if spec is not None else leaf
+            for leaf, spec in zip(flatten(tree), _specs_in_order(tree, specs))]
 
 
 class CheckpointManager:
@@ -85,14 +121,31 @@ class CheckpointManager:
         self._error: BaseException | None = None
 
     # ------------------------------------------------------------- save ----
-    def save(self, step: int, tree: Any, *, extra: dict | None = None) -> str:
-        """Write ``tree`` as checkpoint ``step`` now; returns its directory."""
-        return self._write(step, [_to_host(leaf) for leaf in flatten(tree)], extra or {})
+    def _host(self, tree, recipe, specs):
+        """The host copies of ``tree``'s logical leaves, or ``None`` on a
+        rank that does not write (under a recipe, all but rank 0)."""
+        if recipe is None:
+            return [_to_host(leaf) for leaf in flatten(tree)]
+        leaves = _whole_leaves(tree, recipe, specs)
+        return [_to_host(leaf) for leaf in leaves] if recipe.mesh.rank == 0 else None
 
-    def save_async(self, step: int, tree: Any, *, extra: dict | None = None) -> None:
-        """Copy ``tree`` to the host now; write it on a background thread."""
+    def save(self, step: int, tree: Any, *, extra: dict | None = None, recipe=None,
+             specs=None) -> str | None:
+        """Write ``tree`` as checkpoint ``step`` now; returns its directory
+        (``None`` on a rank that does not write).  Under ``recipe`` the
+        leaves that ``specs`` declares are this rank's shards (see the
+        module docstring)."""
+        host = self._host(tree, recipe, specs)
+        return None if host is None else self._write(step, host, extra or {})
+
+    def save_async(self, step: int, tree: Any, *, extra: dict | None = None, recipe=None,
+                   specs=None) -> None:
+        """Copy ``tree`` to the host now (gathering shards under
+        ``recipe``); write it on a background thread."""
         self.wait()
-        host = [_to_host(leaf) for leaf in flatten(tree)]
+        host = self._host(tree, recipe, specs)
+        if host is None:
+            return
 
         def work():
             try:
@@ -168,12 +221,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, step: int | None = None, *,
-                verify: bool = True) -> tuple[Any, dict]:
+    def restore(self, template: Any, step: int | None = None, *, verify: bool = True,
+                recipe=None, specs=None) -> tuple[Any, dict]:
         """Restore checkpoint ``step`` (default: the latest) into the
         structure of ``template``: every tensor leaf on the template leaf's
-        device in its dtype.  Returns ``(tree, extra)``; raises ``IOError``
-        when a leaf's hash does not match its manifest."""
+        device in its dtype; under ``recipe`` each leaf that ``specs``
+        declares cut to this rank's shard by the recipe's bindings, whatever
+        mesh wrote it.  Returns ``(tree, extra)``; raises ``IOError`` when a
+        leaf's hash does not match its manifest."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -189,6 +244,18 @@ class CheckpointManager:
         like = flatten(template)
         if len(like) != len(host):
             raise ValueError(f"checkpoint has {len(host)} leaves, template needs {len(like)}")
-        placed = [torch.from_numpy(a).to(device=t.device, dtype=t.dtype)
-                  if isinstance(t, torch.Tensor) else a for a, t in zip(host, like)]
+        leaf_specs = _specs_in_order(template, specs) if recipe is not None else \
+            [None] * len(like)
+        placed = []
+        for a, t, spec in zip(host, like, leaf_specs):
+            if not isinstance(t, torch.Tensor):
+                placed.append(a)
+                continue
+            x = torch.from_numpy(a).to(device=t.device, dtype=t.dtype)
+            if spec is not None:
+                x = _cut(x, spec, recipe)
+            if x.shape != t.shape:
+                raise ValueError(f"checkpoint leaf of shape {tuple(x.shape)} does not fit the "
+                                 f"template's {tuple(t.shape)}")
+            placed.append(x)
         return unflatten(template, placed), manifest.get("extra", {})

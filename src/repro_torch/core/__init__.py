@@ -90,7 +90,8 @@ from .collectives import (
     shard_reduce_scatterv_start,
 )
 from .plan import CommPlan, bucket, dispatch, halo, intent_of, pipeline, ring, stagger
-from .p2p import (permute, permute_start, ring_shift, ring_shift_start, shard_all_gather_start,
+from .p2p import (permute, permute_start, ring_shift, ring_shift_start, send_recv,
+                  shard_all_gather_start,
                   shard_all_reduce_start, shard_reduce_scatter_start, shard_ring_shift,
                   shard_ring_shift_start, wait)
 
@@ -114,7 +115,8 @@ __all__ = [
     "reduce_scatterv_bag", "reduce_scatterv_start", "scatter", "scatterv_bag",
     "shard_all_gatherv_start", "shard_reduce_scatterv_start",
     "CommPlan", "bucket", "dispatch", "halo", "intent_of", "pipeline", "ring", "stagger",
-    "permute", "permute_start", "ring_shift", "ring_shift_start", "shard_all_gather_start",
+    "permute", "permute_start", "ring_shift", "ring_shift_start", "send_recv",
+    "shard_all_gather_start",
     "shard_all_reduce_start", "shard_reduce_scatter_start", "shard_ring_shift",
     "shard_ring_shift_start", "wait",
 ]

@@ -179,6 +179,14 @@ class DistBag:
     # shape of ``tile_layout``; valid elements occupy the leading slice along
     # each ragged dim and the rest is zero padding.  None = dense.
     extents: tuple[tuple[tuple[str, int], ...], ...] | None = None
+    # per-rank tile layouts of a *heterogeneous* bag (a send_recv receiver
+    # keeping its declared layout, an all_gather whose ranks declared
+    # different destination layouts): a tuple over flat ranks (row-major over
+    # ``grid_shape``), the same on every rank.  The buffer keeps the
+    # homogeneous shape of ``tile_layout``; ``tile(r)`` views it through the
+    # rank's own entry, reshaping when that entry's physical shape differs
+    # (the same element count).  None = every rank in ``tile_layout``.
+    tile_layouts: tuple[Layout, ...] | None = None
 
     def __post_init__(self):
         if isinstance(self.rank_dims, str):
@@ -191,6 +199,14 @@ class DistBag:
             raise LayoutError(
                 f"extents table has {len(self.extents)} entries for comm size {self.comm_size}"
             )
+        if self.tile_layouts is not None:
+            if len(self.tile_layouts) != self.comm_size:
+                raise LayoutError(f"tile_layouts has {len(self.tile_layouts)} entries for comm "
+                                  f"size {self.comm_size}")
+            for lay in self.tile_layouts:
+                if prod(lay.shape) != prod(self.tile_layout.shape):
+                    raise LayoutError(f"tile_layouts: layout shape {lay.shape} cannot view a "
+                                      f"slot of shape {self.tile_layout.shape}")
 
     @property
     def comm_size(self) -> int:
@@ -204,6 +220,14 @@ class DistBag:
     def coords(self) -> tuple[int, ...]:
         """This process's grid coordinates along ``rank_dims``."""
         return tuple(self.dt.coord(d) for d in self.rank_dims)
+
+    @property
+    def own_layout(self) -> Layout:
+        """The layout this process's buffer is in (its ``tile_layouts``
+        entry on a heterogeneous bag)."""
+        if self.tile_layouts is None:
+            return self.tile_layout
+        return self.tile_layouts[self.flat_rank(self.coords)]
 
     # -- ragged queries ---------------------------------------------------------
     @property
@@ -253,7 +277,8 @@ class DistBag:
         return _tile_view(self, self.data, flat)
 
 def _tile_view(db: DistBag, data: torch.Tensor, flat: int) -> Bag:
-    b = Bag(data, db.tile_layout)
+    layout = db.tile_layout if db.tile_layouts is None else db.tile_layouts[flat]
+    b = Bag(data.reshape(layout.shape), layout)
     if db.extents is not None and db.extents[flat]:
         b = b.valid_view(dict(db.extents[flat]))
     return b
@@ -472,6 +497,19 @@ def _require_dense(dist_bag: DistBag, what: str) -> None:
         )
 
 
+def _require_homogeneous(dist_bag: DistBag, what: str) -> None:
+    """Guard: a collective on a bag whose ranks hold their tiles in
+    different layouts (``tile_layouts``) would move each rank's bytes as if
+    they were in ``tile_layout``.  The table is the same on every rank, so
+    every rank refuses together, before any transfer is issued: no rank is
+    left waiting in a collective another rank refused."""
+    if dist_bag.tile_layouts is not None:
+        raise LayoutError(
+            f"{what}: bag carries per-rank heterogeneous tile layouts (tile_layouts); "
+            "relayout to a homogeneous bag first"
+        )
+
+
 def _uniform_extents_along(dist_bag: DistBag, rank_dim: str, what: str) -> None:
     """Every member of each ``rank_dim`` sub-communicator must agree on the
     extents (an elementwise reduce across differing valid regions is
@@ -570,6 +608,7 @@ def gather(dist_bag: DistBag, root_layout: Layout) -> Bag:
     """Gather the tiles back into a root bag with ``root_layout`` (any layout
     spanning the same global logical space).  Every rank receives the root
     (``MPI_Allgather``), like the reference's replicated root."""
+    _require_homogeneous(dist_bag, "gather")
     _require_dense(dist_bag, "gather (use gatherv_bag for ragged tiles)")
     _check_scatter_spaces(root_layout, dist_bag.tile_layout, dist_bag.dt, dist_bag.rank_dims)
     xfer = _transfer_layout(dist_bag.tile_layout, _all_leaves(dist_bag.dt, dist_bag.rank_dims))
@@ -629,6 +668,7 @@ def all_gather_start(
     rank unpacks the landed tiles into its own.  The bag keeps its full grid
     distribution: ranks outside ``rank_dim`` hold independent
     (sub-communicator) results."""
+    _require_homogeneous(dist_bag, "all_gather")
     rank_dims = _as_rank_dims(dist_bag.dt, rank_dim) if rank_dim is not None \
         else dist_bag.rank_dims
     for d in rank_dims:
@@ -661,9 +701,19 @@ def all_gather_start(
         works.append(dist.all_gather_into_tensor(landed, tile.view(-1), group=group,
                                                  async_op=True))
 
+    tile_layouts = None
+    if len(layouts) > 1:
+        # the reference's per-rank table: indexed by the full-grid flat rank,
+        # the declarations keyed on the gathered communicator dim expanded
+        # across the other grid coordinates
+        pos = dist_bag.rank_dims.index(rank_dims[0])
+        tile_layouts = tuple(layouts[c[pos]] for c in itertools.product(
+            *(range(s) for s in dist_bag.grid_shape)))
+
     def finish():
         data = relayout(landed.reshape(xfer.shape), xfer, mine)
-        return DistBag(data, mine, dist_bag.dt, dist_bag.rank_dims)
+        return DistBag(data, layouts[0], dist_bag.dt, dist_bag.rank_dims,
+                       tile_layouts=tile_layouts)
 
     return Pending(finish, works, op="all_gather")
 
@@ -695,6 +745,7 @@ def all_reduce_start(
 ) -> Pending:
     """Non-blocking all-reduce (``MPI_Iallreduce``): issue the reduction and
     return a :class:`Pending` immediately (see :func:`all_reduce_bag`)."""
+    _require_homogeneous(dist_bag, "all_reduce")
     rank_dim = _check_rank_dim(dist_bag, rank_dim)
     out_layout = out_tile_layout or dist_bag.tile_layout
     check_same_space(dist_bag.tile_layout.index_space(), out_layout.index_space(),
@@ -747,6 +798,7 @@ def reduce_scatter_start(
     """Non-blocking reduce-scatter (``MPI_Ireduce_scatter``): issue the
     reduce+scatter and return a :class:`Pending` immediately (see
     :func:`reduce_scatter_bag`)."""
+    _require_homogeneous(dist_bag, "reduce_scatter")
     _require_dense(dist_bag, "reduce_scatter (use reduce_scatterv_bag for ragged tiles)")
     rank_dim = _check_rank_dim(dist_bag, rank_dim)
     R = dist_bag.dt.comm_size(rank_dim)
@@ -926,6 +978,7 @@ def gatherv_bag(dist_bag: DistBag, root_layout: Layout) -> Bag:
     tiles.  The inverse of :func:`scatterv_bag` for any ``root_layout`` over
     the same space.
     """
+    _require_homogeneous(dist_bag, "gatherv")
     if dist_bag.extents is None:
         raise LayoutError("gatherv_bag: bag is dense (no extents); use gather")
     root_space = root_layout.index_space()
@@ -983,6 +1036,7 @@ def reduce_scatterv_start(
     their identity; ``max``/``min`` pad with :func:`reduce_identity` and the
     output padding is re-zeroed so the bag's zero-padding contract survives.
     """
+    _require_homogeneous(dist_bag, "reduce_scatterv")
     rank_dim = _check_rank_dim(dist_bag, rank_dim)
     _resolve_reduce(op)
     if scatter_dim in dist_bag.ragged_dims():
@@ -1133,6 +1187,7 @@ def all_to_all_start(
 ) -> Pending:
     """Non-blocking all-to-all (``MPI_Ialltoall``): issue the reshard and
     return a :class:`Pending` immediately (see :func:`all_to_all_bag`)."""
+    _require_homogeneous(dist_bag, "all_to_all")
     _require_dense(dist_bag, "all_to_all (use all_to_allv_bag for ragged tiles)")
     if split_dim == concat_dim:
         raise LayoutError("all_to_all: split_dim and concat_dim must differ")
@@ -1236,6 +1291,7 @@ def all_gatherv_start(
     along the named rank dim (required unless the bag has one); the other
     grid dims act as independent sub-communicators, and dims they tile stay
     ragged at capacity in the result and keep their extents."""
+    _require_homogeneous(dist_bag, "all_gatherv")
     rank_dims = _as_rank_dims(dist_bag.dt, rank_dim) if rank_dim is not None \
         else dist_bag.rank_dims
     for d in rank_dims:
@@ -1340,6 +1396,7 @@ def all_to_allv_start(
     exchange runs along the named ``rank_dim`` sub-communicators; dims tiled
     by the other grid dims ride through at capacity and keep their
     extents."""
+    _require_homogeneous(dist_bag, "all_to_allv")
     if split_dim == concat_dim:
         raise LayoutError("all_to_allv: split_dim and concat_dim must differ")
     rank_dim = _check_rank_dim(dist_bag, rank_dim)
@@ -1476,7 +1533,8 @@ def rank_map(
         rank: Any = dt.coord(rank_dims[0])
     else:
         rank = {d: dt.coord(d) for d in rank_dims}
-    out = fn(rank, *[Bag(db.data, db.tile_layout) for db in dist_bags])
+    out = fn(rank, *[Bag(db.data.reshape(db.own_layout.shape), db.own_layout)
+                     for db in dist_bags])
     out_arr = out.data if isinstance(out, Bag) else out
     out_layout = out_tile_layout or dist_bags[0].tile_layout
     return DistBag(out_arr.reshape(out_layout.shape), out_layout, dt, rank_dims,

@@ -23,6 +23,7 @@ which *issues* the transfer and hands back a
 =============================  ================================================
 MPI                            repro_torch.core
 =============================  ================================================
+``MPI_Send`` / ``MPI_Recv``    :func:`send_recv`
 ``MPI_Sendrecv`` ring          :func:`ring_shift` / :func:`permute`
 ``MPI_Isend``/``Irecv``        :func:`ring_shift_start` / :func:`permute_start`
 ``MPI_Wait`` / ``MPI_Waitall`` :func:`wait` over one or more pending requests
@@ -57,6 +58,7 @@ import torch.distributed as dist
 
 from .collectives import DistBag
 from .collectives import _mesh_axis as _axis
+from .collectives import _require_homogeneous
 from .collectives import _shard_leaves as _leaves
 from .dims import LayoutError, check_same_space
 from .layout import Layout
@@ -68,6 +70,7 @@ __all__ = [
     "ring_shift",
     "permute_start",
     "ring_shift_start",
+    "send_recv",
     "shard_ring_shift",
     "shard_ring_shift_start",
     "shard_all_gather_start",
@@ -108,12 +111,14 @@ def _dst_layout(dist_bag: DistBag, dst_tile_layout: Layout | None) -> Layout:
     return dst
 
 
-def _moved_extents(dist_bag: DistBag, rank_dim: str, pairs: Sequence[tuple[int, int]]):
+def _moved_extents(dist_bag: DistBag, rank_dim: str, pairs: Sequence[tuple[int, int]], *,
+                   keep_bystanders: bool):
     """Extents table after tiles move along ``rank_dim`` per ``pairs``.
 
     The receiving rank adopts the *source's* extents (the counts travel with
     the tile, exactly like an MPI_Recv with the sender's count); ranks no
-    pair sends to drop to zero-extent (``permute``'s zero tiles).
+    pair sends to either keep their own (``send_recv`` bystanders) or drop
+    to zero-extent (``permute``'s zero tiles).
     """
     if dist_bag.extents is None:
         return None
@@ -126,6 +131,8 @@ def _moved_extents(dist_bag: DistBag, rank_dim: str, pairs: Sequence[tuple[int, 
             src_coords = list(coords)
             src_coords[pos] = recv[c]
             new.append(dist_bag.extents[dist_bag.flat_rank(tuple(src_coords))])
+        elif keep_bystanders:
+            new.append(dist_bag.extents[dist_bag.flat_rank(coords)])
         else:
             new.append(tuple((d, 0) for d, _ in dist_bag.extents[dist_bag.flat_rank(coords)]))
     return tuple(new)
@@ -140,6 +147,7 @@ def permute_start(
 ) -> Pending:
     """Non-blocking :func:`permute`: issue the transfer and return a
     :class:`Pending` immediately (``MPI_Isend``/``MPI_Irecv``)."""
+    _require_homogeneous(dist_bag, "permute")
     rank_dim, R = _along(dist_bag, rank_dim)
     pairs = _check_perm(list(perm), R)
     dst = _dst_layout(dist_bag, dst_tile_layout)
@@ -160,7 +168,7 @@ def permute_start(
         if s == me and d != me:
             ops.append(dist.P2POp(dist.isend, packed, members[d], group))
     works = dist.batch_isend_irecv(ops) if ops else []
-    extents = _moved_extents(dist_bag, rank_dim, pairs)
+    extents = _moved_extents(dist_bag, rank_dim, pairs, keep_bystanders=False)
 
     def finish():
         return dataclasses.replace(dist_bag, data=landed, tile_layout=dst, extents=extents)
@@ -212,6 +220,65 @@ def ring_shift(
     and the panel-rotation step of Cannon/SUMMA GEMMs."""
     return ring_shift_start(dist_bag, shift, rank_dim=rank_dim,
                             dst_tile_layout=dst_tile_layout).wait()
+
+
+def send_recv(
+    dist_bag: DistBag,
+    *,
+    src: int,
+    dst: int,
+    rank_dim: str | None = None,
+    dst_tile_layout: Layout | None = None,
+) -> DistBag:
+    """One matched send/recv pair along ``rank_dim`` (``MPI_Send`` /
+    ``MPI_Recv``): rank ``dst`` receives rank ``src``'s tile, every other
+    rank keeps its own.
+
+    ``dst_tile_layout`` is the receiver's declared datatype: it is the
+    *wire* layout of the transfer, and the sender packs into it
+    (``relayout``) before the send.  The receiver *keeps* that layout: its
+    buffer holds the received bytes in the homogeneous slot shape (the same
+    element count), and the result records the layout in
+    ``tile_layouts[dst]`` (only when it differs from the tile layout), so
+    ``out.tile(dst)`` is the received tile in the receiver's own datatype
+    with no unpack.  Ranks other than ``dst`` posted no matching receive:
+    their tiles pass through untouched, bit for bit, in the source layout.
+    On a ragged bag the receiver adopts ``src``'s extents; a bag that
+    already carries ``tile_layouts`` is refused.  The transfer is one
+    ``dist.send``/``dist.recv`` on the ``rank_dim`` communicator, and
+    ``src == dst`` is a local relayout."""
+    rank_dim, R = _along(dist_bag, rank_dim)
+    _check_perm([(src, dst)], R)
+    if dist_bag.tile_layouts is not None:
+        raise LayoutError(
+            "send_recv: bag already carries per-rank heterogeneous layouts; "
+            "relayout to a homogeneous bag first"
+        )
+    wire = _dst_layout(dist_bag, dst_tile_layout)
+    group, members = dist_bag.dt.communicator((rank_dim,))
+    me = dist_bag.dt.coord(rank_dim)
+    data = dist_bag.data
+    slot = dist_bag.tile_layout.shape
+    if me == src:
+        packed = relayout(data, dist_bag.tile_layout, wire).contiguous()
+        if dst == src:
+            data = packed.reshape(slot)
+        else:
+            dist.send(packed, members[dst], group=group)
+    elif me == dst:
+        landed = torch.empty(wire.shape, dtype=data.dtype, device=data.device)
+        dist.recv(landed, members[src], group=group)
+        data = landed.reshape(slot)
+    out = dataclasses.replace(dist_bag, data=data)
+    if wire is not dist_bag.tile_layout and wire != dist_bag.tile_layout:
+        pos = out.rank_dims.index(rank_dim)
+        out = dataclasses.replace(out, tile_layouts=tuple(
+            wire if coords[pos] == dst else dist_bag.tile_layout
+            for coords in itertools.product(*(range(s) for s in out.grid_shape))))
+    if dist_bag.is_ragged:
+        out = dataclasses.replace(out, extents=_moved_extents(dist_bag, rank_dim, [(src, dst)],
+                                                              keep_bystanders=True))
+    return out
 
 
 def wait(*pending: Pending):

@@ -10,18 +10,21 @@ Fault-tolerance model:
     (``python -m repro_torch.launch.train``) from the latest checkpoint.
 
 One process runs ``make_train_step`` with no recipe.  Under ``torchrun``
-the world is a ``(data, model)`` mesh (``model`` 2 when the world size is
-even) and the step runs under ``--attn-mode sp_ring``, every rank computing
-the same update; rank 0 logs and writes the checkpoints.  The other recipe
-modes wait for the GSPMD bindings (ROADMAP.md queue 1, item 8c).  Runs on
-the GPU (NCCL under ``torchrun``) unless given ``--device cpu`` (gloo).
+with more than one process the world is a ``(data, model)`` mesh
+(``model`` 2 when the world size is even, the reference's rule) and the
+step runs under ``make_recipe(cfg, mesh, attn_mode=--attn-mode)``
+(``auto``: ``tp`` where the heads divide ``model``, else ``sp``; or
+``tp``, ``sp``, ``sp_ring``): every rank holds and updates its shards of
+the parameters and the optimizer state; checkpoints hold the logical
+arrays (gathered, rank 0 writes) and restore under any world size.  Runs
+on the GPU (NCCL under ``torchrun``) unless given ``--device cpu`` (gloo).
 
 Usage:
   python -m repro_torch.launch.train --arch phi4-mini-3.8b --smoke --device cpu --steps 3
   python -m repro_torch.launch.train --arch phi4-mini-3.8b --smoke --device cpu \\
       --watchdog --crash-at-step 2 --steps 4
   torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
-      --arch phi4-mini-3.8b --smoke --device cpu --attn-mode sp_ring
+      --arch phi4-mini-3.8b --smoke --device cpu --attn-mode tp
 """
 import argparse
 import os
@@ -48,7 +51,7 @@ def parse_args(argv=None):
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--data", default="synthetic")
     ap.add_argument("--data-path", default=None)
-    ap.add_argument("--attn-mode", default="auto")
+    ap.add_argument("--attn-mode", default="auto", choices=["auto", "tp", "sp", "sp_ring"])
     ap.add_argument("--watchdog", action="store_true", help="supervise + auto-restart")
     ap.add_argument("--heartbeat-timeout", type=float, default=300.0)
     ap.add_argument("--max-restarts", type=int, default=3)
@@ -92,19 +95,15 @@ def watchdog(args, argv) -> int:
 
 def setup(args):
     """``(cfg, device, mesh, rank)``: one process (no mesh), or the world of
-    ``torchrun`` as a ``(data, model)`` mesh, ``model`` 2 when the world
-    size is even."""
+    ``torchrun`` (more than one process) as a ``(data, model)`` mesh,
+    ``model`` 2 when the world size is even."""
     from repro_torch import configs
     from repro_torch.core.dist import init_world, make_mesh, resolve_device
 
     cfg = configs.get(args.arch, smoke=args.smoke)
     device = resolve_device(args.device)
-    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+    if int(os.environ.get("WORLD_SIZE", 1)) == 1 or "RANK" not in os.environ:
         return cfg, device, None, 0
-    if args.attn_mode != "sp_ring":
-        raise NotImplementedError(f"--attn-mode {args.attn_mode!r} across processes: the port "
-                                  "trains under the sp_ring recipe only (the GSPMD bindings: "
-                                  "ROADMAP.md queue 1, item 8c)")
     device = init_world(device)
     import torch.distributed as dist
 
@@ -131,14 +130,14 @@ def run(args, cfg=None) -> dict:
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.data.pipeline import DataConfig, ShapeCell, make_batch
     from repro_torch.models import lm
-    from repro_torch.train.optimizer import OptConfig, init_opt_state
-    from repro_torch.train.trainer import make_train_step
-
     from repro_torch.models.sharding import make_recipe
+    from repro_torch.models.weights import shard_params_by_recipe
+    from repro_torch.train.optimizer import OptConfig, OptState, init_opt_state
+    from repro_torch.train.trainer import make_train_step
 
     arch_cfg, device, mesh, rank = setup(args)
     cfg = cfg or arch_cfg
-    recipe = None if mesh is None else make_recipe(cfg, mesh, attn_mode="sp_ring")
+    recipe = None if mesh is None else make_recipe(cfg, mesh, attn_mode=args.attn_mode)
     cell = ShapeCell("train", seq_len=args.seq_len, global_batch=args.global_batch, kind="train")
     dcfg = DataConfig(source=args.data, path=args.data_path)
     ocfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1), total_steps=args.steps,
@@ -146,15 +145,21 @@ def run(args, cfg=None) -> dict:
     log = print if rank == 0 else (lambda *a, **k: None)
     log(f"[train] arch={cfg.name} device={device} "
         f"mesh={dict(mesh.shape) if mesh else None} "
-        f"attn_mode={recipe.attn_mode + ' (ring)' if recipe else 'n/a'}")
+        f"attn_mode={recipe.attn_mode + (' (ring)' if recipe.sp_ring else '') if recipe else 'n/a'}")
 
     params = lm.init_model(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    specs = lm.build_specs(cfg)
+    if recipe is not None:  # this rank's shards; the checkpoint holds the logical arrays
+        params = shard_params_by_recipe(params, specs, recipe)
     opt = init_opt_state(params, ocfg)
+    layout = {} if recipe is None else dict(recipe=recipe, specs={
+        "params": specs, "opt": OptState(step=None, mu=specs, nu=specs,
+                                         err=specs if opt.err else ())})
     mgr = CheckpointManager(args.ckpt_dir, keep=3)
     start_step = 0
     latest = mgr.latest_step()
     if latest is not None:
-        restored, _ = mgr.restore({"params": params, "opt": opt})
+        restored, _ = mgr.restore({"params": params, "opt": opt}, **layout)
         params, opt = restored["params"], restored["opt"]
         start_step = latest
         log(f"[train] resumed from step {latest}")
@@ -179,9 +184,9 @@ def run(args, cfg=None) -> dict:
             log(f"[train] step {step:5d} loss={record['loss'][-1]:.4f} "
                 f"gnorm={float(metrics['grad_norm']):.3f} lr={float(metrics['lr']):.2e} "
                 f"({time.time() - t_start:.1f}s)", flush=True)
-        if rank == 0 and ((step + 1) % args.ckpt_every == 0 or step == args.steps - 1):
+        if (step + 1) % args.ckpt_every == 0 or step == args.steps - 1:
             mgr.save_async(step + 1, {"params": params, "opt": opt},
-                           extra={"loss": record["loss"][-1]})
+                           extra={"loss": record["loss"][-1]}, **layout)
     mgr.wait()
     if mesh is not None:
         import torch.distributed as dist

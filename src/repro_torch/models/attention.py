@@ -32,9 +32,12 @@ sequence-parallel ring (:func:`ring_attention_seq`): every rank holds its
 contiguous chunk of the sequence, and the KV blocks rotate around the
 ``model`` axis with :func:`repro_torch.core.p2p.shard_ring_shift_start`
 issued *before* each step's local attention and waited after it
-(double-buffered, like the SUMMA ring).  The ring branch of a whole-prompt
-prefill chunk waits for the GSPMD-form decode slice (ROADMAP.md queue 1
-item 8c).
+(double-buffered, like the SUMMA ring).  Under a ``tp`` or plain ``sp``
+recipe, and in decode under any recipe, each rank runs its part of the
+recipe's program (:func:`gqa_attention_placed`): its heads (``tp``) or its
+chunk of the queries (``sp``) through the same kernels, its block of the
+caches, and the collectives that put the results together; a whole-prompt
+prefill chunk under ``sp_ring`` runs the ring over the chunk's fresh Q/K/V.
 
 Rounding.  The reference wraps activation-dtype boundaries in ``pin`` (an
 XLA barrier, ``repro/models/numerics.py``) so that the compiler cannot fold
@@ -58,11 +61,12 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 
 from .module import pspec
-from .sharding import current_recipe, ragged_seq_extents
+from .sharding import current_recipe, partial_product, ragged_seq_extents
 
 __all__ = ["rope_angles", "apply_rope", "gqa_specs", "mla_specs", "attention_seq",
            "attention_decode", "ring_step_offsets", "ring_attention_seq", "KVCache",
-           "gqa_attention", "idle_rows_read_chunk", "MLACache", "mla_attention"]
+           "gqa_attention", "gqa_attention_placed", "idle_rows_read_chunk", "MLACache",
+           "mla_attention"]
 
 
 # ------------------------------------------------------------------ RoPE ----
@@ -339,6 +343,172 @@ def gqa_attention(p, x, *, n_heads: int, n_kv: int, head_dim: int, rope_theta: f
         return _out_proj(o, p["wo"]), None
     o = attention_seq(q, k, v, causal=causal, impl=attn_impl, block=block)
     return _out_proj(o, p["wo"]), None
+
+
+def _kv_for_heads(t: torch.Tensor, h0: int, hl: int, rep: int, g0: int) -> torch.Tensor:
+    """K or V (B, ng, S, D) of groups ``[g0, g0 + ng)`` as read by heads
+    ``[h0, h0 + hl)`` (head ``h`` reads group ``h // rep``): the groups as
+    they are when the heads are whole groups, else one group per head (a
+    head block that cuts a group, where ``n_kv`` does not divide
+    ``model``)."""
+    if h0 % rep == 0 and hl % rep == 0:
+        return t
+    return t[:, [h // rep - g0 for h in range(h0, h0 + hl)]]
+
+
+def gqa_attention_placed(p, x, *, place, n_heads: int, n_kv: int, head_dim: int,
+                         rope_theta: float = 10000.0, positions=None, cache: KVCache | None = None,
+                         causal: bool = True, attn_impl: str | None = None, block: int = 512,
+                         new_counts=None, prefill: bool = False,
+                         idle_read_chunk: bool | None = None):
+    """This rank's part of :func:`gqa_attention` under a ``tp`` or plain
+    ``sp`` recipe (:class:`repro_torch.models.sharding.Placement`).
+
+    ``x`` (Bl, S, m) is this rank's rows, whole over ``model``; ``p`` the
+    layer's weights with their ``m`` dim gathered, their heads (``h``) and
+    KV groups (``g``) cut where the recipe binds them.  Returns ``(out
+    (Bl, S, m), new_cache)``, ``out`` the same on every ``model`` rank.
+
+    * Under ``tp`` (heads over ``model``) the rank runs its heads and the KV
+      groups they read through :func:`attention_seq` /
+      :func:`attention_decode`, and its float32 partial of the output
+      projection is summed over ``model``.  Where ``n_kv`` does not divide
+      ``model`` the groups are whole on every rank and a head block reads
+      the groups its heads map to.
+    * Under plain ``sp`` the rank's chunk of the queries
+      (:func:`ragged_seq_extents`) attends over the whole K/V at its offset
+      (the carry form's offsets, one step from an empty carry; the chunk at
+      offset 0 takes the single-shot kernel, whose top-left causal mask is
+      its own), and the chunks' projected outputs are gathered over
+      ``model``.
+    * Decode (``cache`` this rank's block of the caches, cut by
+      :func:`repro_torch.models.sharding.decode_state_shardings`; its
+      ``length`` (B,), ``positions`` (B, S) and ``new_counts`` (B,) whole): a
+      cache cut by heads runs the heads of its groups and sums the partials;
+      a cache cut by sequence is gathered over ``model``, written as one
+      cache, and each rank keeps its block.  ``prefill`` under an
+      ``sp_ring`` recipe with more than one ``model`` rank (the reference's
+      ``_ring_applicable``) writes the cache and runs the ring over the
+      chunk's fresh Q/K/V.
+    """
+    B, S, _ = x.shape
+    H, G, rep = n_heads, n_kv, n_heads // n_kv
+    M, mr, recipe = place.M, place.mr, place.recipe
+    dt = x.dtype
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    local = place.local_rows
+    pos = local(positions) if positions.ndim == 2 else positions
+    head_cache = cache is not None and M > 1 and cache.k.shape[1] != G
+    seq_cache = (cache is not None and M > 1 and not head_cache
+                 and recipe.spec("cache_kv")[2] == "model")
+    ring = (cache is not None and prefill and M > 1 and recipe.sp_ring
+            and recipe.attn_mode == "sp")
+    seq_split = cache is None and M > 1 and recipe.attn_mode == "sp"
+    # the heads this rank attends with: all of them (sp), its cache's
+    # groups' heads, or its tp head block
+    if ring or seq_split:
+        h0, hl = 0, H
+    elif head_cache:
+        hl = cache.k.shape[1] * rep
+        h0 = mr * hl
+    elif p["wq"].shape[1] != H:
+        hl = p["wq"].shape[1]
+        h0 = mr * hl
+    else:
+        h0, hl = 0, H
+    g0, g1 = h0 // rep, (h0 + hl - 1) // rep + 1  # the groups those heads read
+    # the groups this rank projects: every group where it writes a cache of
+    # every group, or rings every head
+    kg0, kg1 = (0, G) if cache is not None and (ring or not head_cache) else (g0, g1)
+    split = M > 1 and (hl != H or seq_split)
+
+    def take(w, dim, start, n, full):
+        """Block ``[start, start + n)`` of ``w`` along ``dim``: ``w`` itself
+        when it is this rank's block, else sliced from the whole weight,
+        whose gradient then sums over the ``model`` ranks splitting the
+        work."""
+        if w.shape[dim] != full:
+            return w
+        if split:
+            w = place.enter_model(w)
+        return w.narrow(dim, start, n)
+
+    xn = place.enter_model(x) if split else x
+    wq, wo = take(p["wq"], 1, h0, hl, H), take(p["wo"], 0, h0, hl, H)
+    wk, wv = take(p["wk"], 1, kg0, kg1 - kg0, G), take(p["wv"], 1, kg0, kg1 - kg0, G)
+    rows, q_pos = xn, pos
+    if seq_split:
+        cap, _ = ragged_seq_extents(S, M)
+        rows = torch.nn.functional.pad(xn, (0, 0, 0, M * cap - S))[:, mr * cap:(mr + 1) * cap]
+        q_pos = torch.cat([pos, pos[-1] + 1 + torch.arange(M * cap - S, device=x.device)])[
+            mr * cap:(mr + 1) * cap]
+    q, k, v = _project(rows, wq), _project(xn, wk), _project(xn, wv)
+    if "bq" in p:
+        q = q + take(p["bq"], 0, h0, hl, H).to(dt)[None, :, None, :]
+        k = k + take(p["bk"], 0, kg0, kg1 - kg0, G).to(dt)[None, :, None, :]
+        v = v + take(p["bv"], 0, kg0, kg1 - kg0, G).to(dt)[None, :, None, :]
+    cos, sin = rope_angles(pos, head_dim, rope_theta)
+    k = apply_rope(k, cos, sin)
+    q = apply_rope(q, *((cos, sin) if q_pos is pos else rope_angles(q_pos, head_dim,
+                                                                     rope_theta)))
+    new_cache = None
+    if cache is not None:
+        counts = None if new_counts is None else local(new_counts)
+        new_len = cache.length + (S if new_counts is None else new_counts)
+        kw, vw = k, v
+        if head_cache and ring:  # the cache keeps this rank's groups
+            gl = cache.k.shape[1]
+            kw, vw = k[:, mr * gl:(mr + 1) * gl], v[:, mr * gl:(mr + 1) * gl]
+        kc, vc = cache.k, cache.v
+        if seq_cache:  # one whole cache, written as one; this rank keeps its block
+            kc, vc = place.gather_model(kc, 2), place.gather_model(vc, 2)
+        written = (kc, vc)
+        kc, vc = (t.transpose(1, 2) for t in _write_chunk(
+            [(kc.transpose(1, 2), kw.transpose(1, 2)), (vc.transpose(1, 2), vw.transpose(1, 2))],
+            local(cache.length), counts, idle_read_chunk))
+        if seq_cache:
+            T = cache.k.shape[2]
+            for mine, whole in zip((cache.k, cache.v), written):
+                mine.copy_(whole[:, :, mr * T:(mr + 1) * T])
+        new_cache = KVCache(cache.k, cache.v, new_len.to(cache.length.dtype))
+        if not ring:
+            if not head_cache:
+                kc, vc = (_kv_for_heads(t[:, g0:g1], h0, hl, rep, g0) for t in (kc, vc))
+            o = attention_decode(q, kc, vc, local(new_len),
+                                 q_positions=pos if pos.ndim == 2 else None, impl=attn_impl,
+                                 block=block)
+            return _placed_out(o, wo, place, split, dt), new_cache
+    if ring or seq_split:
+        if ring:  # the rank's chunks of the fresh Q/K/V, around the ring
+            cap, _ = ragged_seq_extents(S, M)
+            ql, kl, vl = (torch.nn.functional.pad(t, (0, 0, 0, M * cap - S))[
+                :, :, mr * cap:(mr + 1) * cap] for t in (q, k, v))
+            o = _ring_attention_local(ql, kl, vl, mesh=recipe.mesh, axis_name="model",
+                                      causal=causal, double_buffer=True,
+                                      valid_len=None if S == M * cap else S, impl=attn_impl)
+        elif mr == 0:  # the first chunk: the top-left causal mask is its own
+            o = attention_seq(q, k, v, causal=causal, impl=attn_impl, block=block)
+        else:
+            acc, _, l = ops.flash_attention_carry(
+                q, k, v, None, q_offset=mr * q.shape[2], k_offset=0, causal=causal,
+                scale=head_dim ** -0.5, impl=_kernel_impl(attn_impl))
+            o = (acc / torch.where(l == 0.0, 1.0, l)[..., None]).to(dt)
+        return place.gather_model(_out_proj(o, wo), 1)[:, :S], new_cache
+    o = attention_seq(q, _kv_for_heads(k, h0, hl, rep, g0), _kv_for_heads(v, h0, hl, rep, g0),
+                      causal=causal, impl=attn_impl, block=block)
+    return _placed_out(o, wo, place, split, dt), None
+
+
+def _placed_out(o, wo, place, split: bool, dt):
+    """The output projection of this rank's heads: when the heads are
+    split over ``model``, a float32 partial summed over the ranks and
+    rounded once; else the plain product."""
+    if not split:
+        return _out_proj(o, wo)
+    B, h, S, d = o.shape
+    part = partial_product(o.transpose(1, 2).reshape(B, S, h * d), wo.reshape(h * d, -1))
+    return place.sum_model(part).to(dt)
 
 
 def idle_rows_read_chunk(length: torch.Tensor, new_counts: torch.Tensor, T: int, S: int) -> bool:

@@ -57,14 +57,29 @@ def attn_block_specs(cfg) -> dict:
 
 
 def attn_block(p, x, cfg, *, cache=None, positions=None, new_counts=None, prefill=False,
-               idle_read_chunk=None, shard=None):
+               idle_read_chunk=None, shard=None, place=None):
     """Pre-norm attention + FFN.  Returns ``(x, new_cache, aux_loss)``; the
     cache, if given, is updated in place, and the aux loss is the MoE's
-    (the float 0.0 for the other FFNs: no kernel for a dense layer).  Under a sequence-parallel recipe ``x`` is this
-    rank's block of the token grid that ``shard`` (a
-    :class:`repro_torch.models.sharding.TokenShard`) describes (see
-    :func:`repro_torch.models.attention.gqa_attention` and
-    :func:`repro_torch.models.ffn.moe_ffn`)."""
+    (the float 0.0 for the other FFNs: no kernel for a dense layer).  Under
+    an ``sp_ring`` recipe ``x`` is this rank's block of the token grid that
+    ``shard`` (a :class:`repro_torch.models.sharding.TokenShard`) describes
+    (see :func:`repro_torch.models.attention.gqa_attention` and
+    :func:`repro_torch.models.ffn.moe_ffn`); under a ``tp``/``sp`` recipe
+    ``x`` is this rank's rows and ``place`` (a
+    :class:`repro_torch.models.sharding.Placement`) its part of the
+    recipe's program (:func:`repro_torch.models.attention.gqa_attention_placed`,
+    :func:`repro_torch.models.ffn.ffn_placed`)."""
+    if place is not None:
+        h, new_cache = attn.gqa_attention_placed(
+            p["attn"], rmsnorm(p["ln1"], x), place=place,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta, positions=positions, cache=cache,
+            attn_impl=cfg.attn_impl, block=cfg.attn_block, new_counts=new_counts,
+            prefill=prefill, idle_read_chunk=idle_read_chunk)
+        x = x + h
+        f = ffn_mod.ffn_placed(p["ffn"], rmsnorm(p["ln2"], x), kind=cfg.ffn_kind,
+                               d_ff=cfg.d_ff, place=place)
+        return x + f, new_cache, 0.0
     h, new_cache = attn.gqa_attention(
         p["attn"], rmsnorm(p["ln1"], x),
         n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,

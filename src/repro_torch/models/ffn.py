@@ -60,9 +60,10 @@ from repro_torch.core.plan import dispatch as dispatch_plan, intent_of
 from repro_torch.core.traverser import traverser
 
 from .module import pspec
-from .sharding import current_recipe, ragged_expert_extents
+from .sharding import current_recipe, partial_product, ragged_expert_extents
 
-__all__ = ["swiglu_specs", "swiglu", "gelu_mlp_specs", "gelu_mlp", "moe_specs", "moe_ffn",
+__all__ = ["swiglu_specs", "swiglu", "gelu_mlp_specs", "gelu_mlp", "ffn_placed", "moe_specs",
+           "moe_ffn",
            "moe_ep_counts", "moe_ep_schedule", "moe_comm_model", "moe_expert_parallel",
            "MOE_DISPATCH_PLAN_INTENT"]
 
@@ -94,6 +95,28 @@ def gelu_mlp(p, x):
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu(torch.matmul(x, p["w_in"].to(x.dtype)) + p["b_in"].to(x.dtype), approximate="tanh")
     return torch.matmul(h, p["w_out"].to(x.dtype)) + p["b_out"].to(x.dtype)
+
+
+def ffn_placed(p, x, *, kind: str, d_ff: int, place):
+    """This rank's part of the SwiGLU (``kind="swiglu"``) or GELU MLP
+    (``"gelu"``) under a ``tp``/``sp`` recipe
+    (:class:`repro_torch.models.sharding.Placement`).  Where ``f`` is bound
+    to ``model`` the rank holds its block of the hidden columns: its float32
+    partial of the down projection is summed over ``model`` and rounded
+    once (the GELU's output bias added after); else every rank runs the
+    whole FFN.  ``x`` is whole over ``model``, and so is the result."""
+    w_in = p["w_gate"] if kind == "swiglu" else p["w_in"]
+    if place.M == 1 or w_in.shape[1] == d_ff:
+        return swiglu(p, x) if kind == "swiglu" else gelu_mlp(p, x)
+    xn = place.enter_model(x)
+    if kind == "swiglu":
+        h = F.silu(torch.matmul(xn, p["w_gate"].to(x.dtype))) * \
+            torch.matmul(xn, p["w_up"].to(x.dtype))
+        return place.sum_model(partial_product(h, p["w_down"])).to(x.dtype)
+    h = F.gelu(torch.matmul(xn, p["w_in"].to(x.dtype)) + p["b_in"].to(x.dtype),
+               approximate="tanh")
+    out = place.sum_model(partial_product(h, p["w_out"])).to(x.dtype)
+    return out + p["b_out"].to(x.dtype)
 
 
 # ------------------------------------------------------------------- MoE ----

@@ -15,16 +15,29 @@ states stacked the same way and the shared block's ring-buffer K/V of
 audio families and the ``embeds`` input kind wait for their slices
 (ROADMAP.md queue 1 item 6).
 
-Under an active ``sp_ring`` recipe (:mod:`repro_torch.models.sharding`) the
-forward is sequence-parallel: each rank keeps its contiguous, padded chunk
-of the residual stream (and its share of the batch over the ``data``
-axes) through every block, and attention runs as the ``model``-axis ring.
+Under an active recipe (:mod:`repro_torch.models.sharding`) the
+parameters are this rank's shards (``weights.shard_params_by_recipe``) and
+the program is this rank's part of the recipe's.  Under ``tp`` and plain
+``sp`` (:func:`_forward_placed`, :func:`_decode_placed`) a rank takes its
+rows of the batch, gathers each block's FSDP-cut weights over ``data``
+before the block, keeps the residual stream whole over ``model``, and
+runs its heads (``tp``) or its chunk of the queries (``sp``) and its
+block of the FFN's hidden columns, the partials summed over ``model``; the
+embedding and the head are vocab-sharded (a lookup whose all-reduce has one
+nonzero addend, and logits gathered over ``model`` and the batch axes), so
+every rank returns the whole ``(B, S, V)`` logits.  ``decode_step`` and
+:func:`init_cache` take the caches cut by ``decode_state_shardings``.
+Under ``sp_ring`` the forward is sequence-parallel: each rank keeps its
+contiguous, padded chunk of the residual stream (and its share of the
+batch over the ``data`` axes) through every block, and attention runs as
+the ``model``-axis ring, on whole weights (a cut leaf is gathered first).
 A MoE block routes the chunk by expert parallelism (``moe_dispatch="ep"``)
 where the recipe's grid fits, else by the whole grid's dispatch
-(:func:`repro_torch.models.ffn.moe_ffn`).
-The decode step, the MLA, SSM and hybrid families under a recipe and the
-other recipe modes wait for the GSPMD-form decode slice (ROADMAP.md queue 1 item 8c); the
-explicit tensor-parallel decode step is :mod:`repro_torch.serve.tp_decode`.
+(:func:`repro_torch.models.ffn.moe_ffn`).  The MLA, SSM, hybrid and MoE
+families under ``tp``/``sp`` and in decode under a recipe, MLA, SSM and
+hybrid under ``sp_ring``, and gradients through the MoE family under a
+recipe wait for ROADMAP.md queue 1 item 8c's second PR; the explicit
+tensor-parallel decode step is :mod:`repro_torch.serve.tp_decode`.
 
 Training (:func:`loss_fn`, :mod:`repro_torch.train.trainer`) differentiates
 the float32 parameters themselves: every use casts a weight to the
@@ -32,10 +45,10 @@ activation dtype (``w.to(x.dtype)``), so the gradients come back float32,
 as JAX's do.  ``cfg.remat == "block"`` checkpoints each block, and the
 hybrid family each super-block too (``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint`` per scanned body), when a gradient is being
-taken.  Under an ``sp_ring`` recipe the
-gradients come out whole on every rank: the ring's transfers and the final
-gather are differentiable, and the parameters used by this rank's chunk
-sum their partial gradients over the ranks
+taken.  Under a recipe each rank's gradients are those of its shards: the
+collectives are differentiable (:class:`repro_torch.models.sharding.Placement`),
+and under ``sp_ring`` the parameters used by this rank's chunk sum their
+partial gradients over the ranks
 (:meth:`repro_torch.models.sharding.TokenShard.partial`).
 """
 from __future__ import annotations
@@ -51,7 +64,8 @@ from . import attention as attn_mod
 from . import blocks as blk
 from . import ssm as ssm_mod
 from .module import init_params, pspec, stack_specs, tree_leaves, tree_map, tree_size
-from .sharding import current_recipe, token_shard
+from .sharding import (current_recipe, decode_state_shardings, gather_cut, local_shape,
+                       placement, recipe_pspecs, token_shard)
 
 __all__ = ["build_specs", "count_params", "embed_inputs", "lm_logits", "forward", "loss_fn",
            "DecodeState", "init_cache", "decode_step", "init_model", "hybrid_dims"]
@@ -156,12 +170,15 @@ def forward(params, batch, cfg, *, positions=None):
     ``(logits, aux_loss)``; the aux loss sums the MoE blocks' (0 for the
     dense family).
 
-    Under an active ``sp_ring`` recipe every rank takes the whole batch
-    and returns the whole ``(B, S, V)`` logits, the same on every rank; in
-    between it computes only its own chunk (:func:`_forward_sp_ring`)."""
+    Under an active recipe every rank takes the whole batch and this
+    rank's shards of the parameters, and returns the whole ``(B, S, V)``
+    logits, the same on every rank; in between it computes only its own
+    part (:func:`_forward_placed`, :func:`_forward_sp_ring`)."""
     recipe = current_recipe()
-    if recipe is not None:
+    if recipe is not None and recipe.sp_ring:
         return _forward_sp_ring(params, batch, cfg, recipe, positions)
+    if recipe is not None:
+        return _forward_placed(params, batch, cfg, recipe, positions)
     x = embed_inputs(params, batch, cfg)
     block = _block(cfg)
     aux = 0.0
@@ -212,21 +229,14 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
     gathered along ``model`` and the batch axes, the padding dropped, and
     the head applied to the whole (B, S, m) on every rank, so all ranks
     return the same logits (and the same aux loss)."""
-    if not recipe.sp_ring:
-        raise NotImplementedError(
-            f"recipe attn_mode={recipe.attn_mode!r} without the ring: the port applies only "
-            "the sp_ring recipe so far (tensor parallelism: ROADMAP.md queue 1, item 8c)")
-    if cfg.family == "mla":
-        raise NotImplementedError("the MLA family under a sharding recipe: ROADMAP.md queue 1, "
-                                  "items 8c and 10")
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(f"the {cfg.family} family under a sharding recipe: ROADMAP.md "
-                                  "queue 1, item 8c")
+    if cfg.family in ("mla", "ssm", "hybrid"):
+        raise NotImplementedError(f"the {cfg.family} family under a sharding recipe: "
+                                  f"{_LATER_RECIPE}")
     if cfg.family == "moe" and torch.is_grad_enabled() and \
             any(t.requires_grad for t in tree_leaves(params)):
         raise NotImplementedError("gradients through the MoE family under a sharding recipe "
-                                  "(its dispatch collectives have no backward): ROADMAP.md "
-                                  "queue 1, item 8c")
+                                  f"(its dispatch collectives have no backward): {_LATER_RECIPE}")
+    params = _whole(params, cfg, recipe)
     tokens = batch["tokens"]
     B, S = tokens.shape
     shard = token_shard(recipe, B, S)
@@ -245,6 +255,112 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
         aux = aux + a
     return (lm_logits(params, shard.gather(x), cfg),
             torch.as_tensor(aux, dtype=torch.float32, device=x.device))
+
+
+# ======================================================== under a recipe ====
+
+_LATER_RECIPE = "ROADMAP.md queue 1, item 8c (second PR)"
+_PSPECS: dict = {}
+
+
+def _recipe_pspecs(cfg, recipe):
+    """The recipe's per-leaf specs of ``cfg``'s parameters, one entry per
+    buffer axis (kept per recipe: a decode step asks every step)."""
+    key = (id(recipe), cfg)
+    hit = _PSPECS.get(key)
+    if hit is None or hit[0] is not recipe:
+        hit = _PSPECS[key] = (recipe, build_specs(cfg), recipe_pspecs(recipe, build_specs(cfg)))
+    return hit[1], hit[2]
+
+
+def _whole(params, cfg, recipe):
+    """Whole parameters from this rank's shards under ``recipe`` (a leaf
+    already whole stays as it is): each cut leaf gathered over its axes.
+    The gathers' backward hands a rank its own block of the gradient, which
+    the sp_ring program makes whole on every rank."""
+    specs, pspecs = _recipe_pspecs(cfg, recipe)
+
+    def walk(t, spec, pspec):
+        if isinstance(t, dict):
+            return {k: walk(t[k], spec[k], pspec[k]) for k in t}
+        return t if tuple(t.shape) == spec.shape else gather_cut(t, pspec, recipe.mesh)
+
+    return walk(params, specs, pspecs)
+
+
+def _placed_pspecs(params, cfg, recipe):
+    """The per-leaf specs of a ``tp``/``sp`` program, after checking that
+    the family is ported there and that ``params`` are this rank's shards."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the {cfg.family} family under a {recipe.attn_mode!r} recipe "
+                                  f"or in decode under a recipe: {_LATER_RECIPE}")
+    specs, pspecs = _recipe_pspecs(cfg, recipe)
+
+    def check(t, spec, pspec, name):
+        if isinstance(t, dict):
+            for k in t:
+                check(t[k], spec[k], pspec[k], f"{name}.{k}" if name else k)
+            return
+        want = local_shape(spec.shape, pspec, recipe.mesh)
+        if tuple(t.shape) != want:
+            raise ValueError(f"parameter {name!r} has shape {tuple(t.shape)}, this rank's shard "
+                             f"is {want}: pass weights.shard_params_by_recipe(params, specs, "
+                             "recipe)")
+
+    check(params, specs, pspecs, "")
+    return pspecs
+
+
+def _layer_specs(pspecs):
+    """The per-layer specs of stacked ``(L, ...)`` leaves' specs."""
+    return tree_map(lambda s: s[1:], pspecs)
+
+
+def _embed_placed(params, tokens, cfg, place, pspecs):
+    """This rank's rows' embeddings: a lookup into the vocab block this
+    rank holds, zero elsewhere, summed over ``model`` (one nonzero addend:
+    bitwise the plain lookup); the plain lookup where ``v`` is whole."""
+    emb = place.use(params["embed"], pspecs["embed"]).to(cfg.act_dtype)
+    if emb.shape[0] == cfg.vocab_padded:
+        return emb[tokens]
+    vl = emb.shape[0]
+    loc = tokens - place.mr * vl
+    ok = (loc >= 0) & (loc < vl)
+    e = torch.where(ok[..., None], emb[loc.clamp(0, vl - 1)],
+                    torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return place.sum_model(e)
+
+
+def _head_placed(params, x, cfg, place, pspecs):
+    """The whole ``(B, S, vocab_padded)`` logits from this rank's rows:
+    each rank's vocab block of the head's columns (full dots), gathered
+    over ``model`` and then over the batch axes."""
+    x = blk.rmsnorm(place.use(params["final_norm"], pspecs["final_norm"]), x)
+    if cfg.tie_embeddings:
+        head = place.use(params["embed"], pspecs["embed"]).T
+    else:
+        head = place.use(params["lm_head"], pspecs["lm_head"])
+    if head.shape[1] == cfg.vocab_padded:
+        return place.gather_rows(torch.matmul(x, head.to(x.dtype)))
+    logits = torch.matmul(place.enter_model(x), head.to(x.dtype))
+    return place.gather_rows(place.gather_model(logits, 2))
+
+
+def _forward_placed(params, batch, cfg, recipe, positions):
+    """The forward on this rank of a ``tp`` or plain ``sp`` recipe's mesh
+    (see the module docstring): its rows, each block's weights gathered
+    over ``data`` for the block, the blocks' work split over ``model``."""
+    pspecs = _placed_pspecs(params, cfg, recipe)
+    tokens = batch["tokens"]
+    place = placement(recipe, tokens.shape[0])
+    x = _embed_placed(params, place.local_rows(tokens), cfg, place, pspecs)
+    layer_specs = _layer_specs(pspecs["blocks"])
+    block = _block(cfg)
+    for i in range(cfg.n_layers):
+        p = place.use_tree(_layer(params["blocks"], i), layer_specs)
+        x, _, _ = block(p, x, cfg, positions=positions, place=place)
+    return (_head_placed(params, x, cfg, place, pspecs),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 # ================================================================== loss ====
@@ -285,9 +401,18 @@ def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda"):
     (n_shared, group_m, B, ...) and ``"tail"`` (n_tail, B, ...) (the ssm
     state float32), and the shared block's ``"shared"`` :class:`KVCache`
     (n_shared, B, n_kv, min(max_len, shared_window), head_dim), a ring
-    buffer once a row's length passes its size."""
+    buffer once a row's length passes its size.
+
+    Under an active recipe (the dense family) the K/V are this rank's
+    blocks, cut by :func:`repro_torch.models.sharding.decode_state_shardings`
+    (heads over ``model`` where the KV groups divide it, else the sequence,
+    which ``max_len`` must then divide; rows over the batch axes where they
+    divide ``batch_size``); the lengths are whole."""
     _require_ported(cfg)
     device = resolve_device(device)
+    recipe = current_recipe()
+    if recipe is not None:
+        return _init_cache_placed(cfg, batch_size, max_len, device, recipe)
     L, B, dt = cfg.n_layers, batch_size, cfg.act_dtype
     if cfg.family == "ssm":
         H = cfg.n_heads
@@ -330,6 +455,24 @@ def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda"):
                             v=torch.zeros(shape, dtype=dt, device=device), length=length)
 
 
+def _init_cache_placed(cfg, B: int, max_len: int, device, recipe):
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the {cfg.family} family's decode state under a sharding "
+                                  f"recipe: {_LATER_RECIPE}")
+    M = recipe.mesh.shape.get("model", 1)
+    if _seq_cut_cache(recipe) and max_len % M:
+        raise ValueError(f"max_len {max_len} must divide the model axis ({M}): the recipe cuts "
+                         "the K/V caches along their sequence")
+    shape = (cfg.n_layers, B, cfg.n_kv, max_len, cfg.head_dim)
+    whole = torch.empty(shape, device="meta")
+    spec = decode_state_shardings(recipe, attn_mod.KVCache(whole, whole, whole[..., 0, 0, 0])).k
+    mine = local_shape(shape, spec, recipe.mesh)
+    return attn_mod.KVCache(
+        k=torch.zeros(mine, dtype=cfg.act_dtype, device=device),
+        v=torch.zeros(mine, dtype=cfg.act_dtype, device=device),
+        length=torch.zeros((cfg.n_layers, B), dtype=torch.int32, device=device))
+
+
 def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
                 prefill: bool = False):
     """One serve step: embed the new token(s) ``batch['tokens']`` (B, S), run
@@ -348,10 +491,16 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     latent caches (:func:`repro_torch.models.attention.mla_attention`); the
     SSM and hybrid families' recurrent states take the exact recurrence for
     S <= 4 and the chunked form (S a multiple of ``cfg.ssm_chunk``)
-    otherwise, for every row, as the reference's."""
-    if current_recipe() is not None:
-        raise NotImplementedError("decode_step under a sharding recipe: ROADMAP.md queue 1, "
-                                  "item 8c (decode under a recipe)")
+    otherwise, for every row, as the reference's.
+
+    Under an active recipe (the dense family) ``params`` are this rank's
+    shards and ``state`` holds this rank's blocks of the caches
+    (:func:`init_cache` under the recipe), with the lengths and positions
+    whole; ``batch`` and ``new_counts`` are whole, and so are the returned
+    logits, the same on every rank (:func:`_decode_placed`)."""
+    recipe = current_recipe()
+    if recipe is not None:
+        return _decode_placed(params, state, batch, cfg, recipe, new_counts, prefill)
     positions = state.positions
     S = batch["tokens"].shape[1]
     pos2d = positions[:, None] + torch.arange(S, dtype=positions.dtype,
@@ -381,6 +530,44 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     new_caches = caches._replace(length=torch.stack(lengths))
     logits = lm_logits(params, x, cfg)
     return logits, DecodeState(caches=new_caches, positions=(positions + adv).to(positions.dtype))
+
+
+def _decode_placed(params, state, batch, cfg, recipe, new_counts, prefill):
+    """:func:`decode_step` on this rank of a recipe's mesh: its rows, its
+    blocks of the caches, each block's weights gathered over ``data`` for
+    the block (:func:`repro_torch.models.attention.gqa_attention_placed`);
+    a whole-prompt ``prefill`` chunk under ``sp_ring`` runs the ring."""
+    pspecs = _placed_pspecs(params, cfg, recipe)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    place = placement(recipe, B)
+    positions = state.positions
+    pos2d = positions[:, None] + torch.arange(S, dtype=positions.dtype,
+                                              device=positions.device)[None, :]
+    adv = S if new_counts is None else new_counts
+    x = _embed_placed(params, place.local_rows(tokens), cfg, place, pspecs)
+    caches = state.caches
+    T = caches.k.shape[-2] * (place.M if _seq_cut_cache(recipe) else 1)
+    idle_read = None if new_counts is None else attn_mod.idle_rows_read_chunk(
+        caches.length[0], new_counts, T, S)
+    layer_specs = _layer_specs(pspecs["blocks"])
+    block = _block(cfg)
+    lengths = []
+    for i in range(cfg.n_layers):
+        p = place.use_tree(_layer(params["blocks"], i), layer_specs)
+        c = attn_mod.KVCache(caches.k[i], caches.v[i], caches.length[i])
+        x, new_c, _ = block(p, x, cfg, cache=c, positions=pos2d, new_counts=new_counts,
+                            prefill=prefill, idle_read_chunk=idle_read, place=place)
+        lengths.append(new_c.length)
+    logits = _head_placed(params, x, cfg, place, pspecs)
+    return logits, DecodeState(caches=caches._replace(length=torch.stack(lengths)),
+                               positions=(positions + adv).to(positions.dtype))
+
+
+def _seq_cut_cache(recipe) -> bool:
+    """Whether the recipe cuts the K/V caches along their sequence (the KV
+    groups do not divide ``model``)."""
+    return recipe.mesh.shape.get("model", 1) > 1 and recipe.spec("cache_kv")[2] == "model"
 
 
 def _state_at(state, idx):

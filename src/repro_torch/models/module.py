@@ -3,9 +3,15 @@ algebra (a :class:`~repro_torch.core.layout.Layout` with named dims).
 
 Model code never writes a shape by hand: it declares logical dims
 (``m``=d_model, ``f``=d_ff, ``h``=heads, ``v``=vocab, ``l``=layers, ...)
-and the layout gives the buffer's shape and physical order.  The
-reference's ``param_pspecs``/``param_shardings``/``abstract_params``
-(sharding recipes over a JAX mesh) have no counterpart here.
+and the layout gives the buffer's shape and physical order.  A sharding
+recipe binds dims to mesh axes, and :func:`param_pspecs` derives every
+weight's spec from its layout and the bindings, as the reference's does; a
+spec is a tuple with one entry per buffer axis (a mesh axis, a tuple of
+them, or ``None``), trailing ``None`` entries dropped, the reference's
+``PartitionSpec``.  The reference's ``param_shardings`` and
+``abstract_params`` (``NamedSharding`` and ``ShapeDtypeStruct`` trees) have
+no counterpart: a torch tensor is cut by its spec
+(:func:`repro_torch.models.weights.shard_params_by_recipe`).
 
 Parameter trees are nested dicts whose leaves are :class:`ParamSpec` (the
 declaration) or tensors (the weights).
@@ -17,10 +23,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.dims import LayoutError
 from repro_torch.core.layout import Layout, scalar, torch_dtype, vector
 
 __all__ = ["ParamSpec", "pspec", "init_params", "stack_specs", "tree_size", "tree_map",
-           "tree_leaves", "tree_unflatten"]
+           "tree_leaves", "tree_unflatten", "partition_spec", "param_pspecs"]
 
 _NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
                  torch.float16: np.float16}
@@ -121,3 +128,51 @@ def init_params(tree, generator: torch.Generator, device) -> dict:
 def tree_size(tree) -> int:
     """Total element count of a spec/tensor tree."""
     return sum(int(np.prod(leaf.shape)) for leaf in tree_leaves(tree))
+
+
+def partition_spec(layout: Layout, bindings, *, priority=None) -> tuple:
+    """The spec of a buffer in ``layout`` under dim -> mesh-axis
+    ``bindings`` (the reference's ``repro.core.dist.partition_spec``).
+
+    A binding key names a physical axis or a logical dim that maps to one
+    physical axis; its value is a mesh axis or a tuple of them.  When two
+    dims of one buffer bind the same mesh axis, the one earlier in
+    ``priority`` (default: the bindings' order) takes it and the other
+    replicates.  Unbound axes replicate; trailing ``None`` entries are
+    dropped."""
+    order = list(priority) if priority is not None else list(bindings)
+    order += [k for k in bindings if k not in order]
+    used: set[str] = set()
+    norm: dict[str, tuple[str, ...]] = {}
+    for key in order:
+        val = bindings.get(key)
+        if val is None:
+            continue
+        if any(a.name == key for a in layout.axes):
+            target = key
+        else:
+            daxs = dict(layout.dim_map).get(key)
+            if daxs is None:
+                continue  # the binding does not concern this layout
+            if len(daxs) != 1:
+                raise LayoutError(f"cannot bind blocked dim {key!r} (axes {daxs}) to mesh axes "
+                                  f"{val!r}; bind one of its physical axes instead")
+            target = daxs[0]
+        if target in norm:
+            raise LayoutError(f"axis {target!r} bound twice")
+        val_axes = (val,) if isinstance(val, str) else tuple(val)
+        if any(ax in used for ax in val_axes):
+            continue  # the mesh axis went to a dim earlier in priority
+        used.update(val_axes)
+        norm[target] = val_axes
+    entries = [None if a.name not in norm else
+               (norm[a.name] if len(norm[a.name]) > 1 else norm[a.name][0]) for a in layout.axes]
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def param_pspecs(tree, bindings, priority=None):
+    """The spec tree of a :class:`ParamSpec` tree under ``bindings`` (the
+    reference's ``param_pspecs``): each weight's :func:`partition_spec`."""
+    return tree_map(lambda s: partition_spec(s.layout, bindings, priority=priority), tree)

@@ -10,21 +10,40 @@ entry per tensor dim: a mesh axis name, a tuple of them, or ``None``
 (replicated), as the reference's ``PartitionSpec``.
 
 What the port applies of a recipe.  Placement in the port is explicit, so
-there is no ``shard_act``: the code that runs under a recipe cuts its own
-chunks.  In this slice a recipe distributes the sequence over ``model`` and
-the batch over the ``data`` axes, under the sequence-parallel ring mode
-(``attn_mode="sp_ring"``, :func:`repro_torch.models.lm.forward`): every rank
-keeps its contiguous, padded chunk of the residual stream through the
-blocks and the attention runs as a double-buffered ring of KV blocks
+there is no ``shard_act``: every rank runs its own part of the recipe's
+program and states each transfer (:class:`Placement`).  Parameters are
+cut by the recipe's bindings (:meth:`Recipe.param_pspecs`,
+:func:`repro_torch.models.weights.shard_params_by_recipe`): FSDP over
+``data`` (``m``), tensor parallelism over ``model`` (``v``, ``f``, and
+under ``tp`` the heads ``h`` and KV groups ``g``).  Under ``tp`` and plain
+``sp`` (:func:`repro_torch.models.lm.forward`) a rank takes its rows of the
+batch (split over the ``data`` axes where they divide it), all-gathers a
+block's ``m``-sharded weights over ``data`` before the block and drops
+them after, and keeps the residual stream whole over ``model`` (the
+reference's ``hidden`` spec): attention under ``tp`` runs the rank's heads
+and KV groups, under ``sp`` the rank's chunk of the queries against the
+whole K/V, the FFN runs the rank's ``f`` columns, and each block's float32
+partials are summed with one all-reduce over ``model``.  The head's
+logits come out vocab-sharded and are gathered.  The decode caches are cut
+by :func:`decode_state_shardings`: heads over ``model`` where the KV
+groups divide it, else the sequence.
+
+Under ``sp_ring`` every rank keeps its contiguous, padded chunk of the
+residual stream through the blocks and the attention runs as a
+double-buffered ring of KV blocks
 (:func:`repro_torch.models.attention.ring_attention_seq`).  A MoE block
 takes the chunk (:class:`TokenShard` says which block of the token grid it
 is) by expert parallelism or by the whole grid's dispatch
-(:func:`repro_torch.models.ffn.moe_ffn`).  Parameters stay whole on every
-rank; the FSDP and tensor-parallel weight bindings are derived here and
-wait for the GSPMD-form slice (ROADMAP.md queue 1, item 8c).  Training
-under the recipe differentiates through the ring and the final gather and
-sums each parameter's partial gradients over the ranks
-(:meth:`TokenShard.partial`).
+(:func:`repro_torch.models.ffn.moe_ffn`).  Its weights are used whole: a
+cut leaf is gathered at the start of the forward.  Training under it
+differentiates through the ring and the final gather and sums each
+parameter's partial gradients over the ranks (:meth:`TokenShard.partial`).
+
+Gradients under ``tp``/``sp`` flow through the explicit collectives: the
+backward of an all-reduce of partials is the identity, the backward of an
+FSDP all-gather is a reduce-scatter over ``data`` (a slice when the batch
+is not split there), and a weight held whole by the ranks that split the
+work has its gradient summed over them (:class:`Placement`).
 
 Sequence lengths need not divide the ring: :func:`ragged_seq_extents`
 pads the sequence to R equal capacity chunks (trailing ranks hold short,
@@ -41,11 +60,14 @@ from typing import Any, Mapping
 import torch
 
 from repro_torch.core.dims import mixed_radix_join
-from repro_torch.core.p2p import shard_all_gather_start, shard_all_reduce_start
+from repro_torch.core.p2p import (shard_all_gather_start, shard_all_reduce_start,
+                                  shard_reduce_scatter_start)
 
 __all__ = ["Recipe", "make_recipe", "use_recipe", "current_recipe", "fit_spec",
            "ragged_seq_extents", "ragged_expert_extents", "ragged_grad_extents", "TokenShard",
-           "token_shard", "PRIORITY"]
+           "token_shard", "PRIORITY", "batch_shardings", "decode_state_shardings",
+           "recipe_pspecs", "local_shape", "spec_axes", "partial_product", "Placement",
+           "placement", "all_gather", "all_reduce", "sum_grads", "gather_cut"]
 
 Spec = tuple  # one entry per dim: a mesh axis, a tuple of them, or None
 
@@ -106,6 +128,13 @@ class Recipe:
 
     def spec(self, kind: str) -> Spec | None:
         return self.act_specs.get(kind)
+
+    def param_pspecs(self, spec_tree):
+        """Every weight's spec under the bindings (the reference's
+        ``Recipe.param_pspecs``; trailing ``None`` entries dropped)."""
+        from .module import param_pspecs
+
+        return param_pspecs(spec_tree, self.bindings, priority=PRIORITY)
 
 
 def make_recipe(cfg, mesh, *, attn_mode: str = "auto",
@@ -221,6 +250,112 @@ def fit_spec(spec: Spec, shape: tuple, mesh) -> Spec:
     return tuple(out)
 
 
+def _batch_entry(recipe: Recipe):
+    b = recipe.batch_axes
+    return b if len(b) > 1 else (b[0] if b else None)
+
+
+def batch_shardings(recipe: Recipe, batch) -> dict:
+    """Each leaf's spec of a batch dict (tokens, labels, loss_mask), after
+    :func:`fit_spec`: the reference's ``batch_shardings``, with the spec
+    tuple in place of a ``NamedSharding``."""
+    def one(name, leaf):
+        spec = recipe.spec("tokens") if name in ("tokens", "labels", "loss_mask") else \
+            recipe.spec("hidden") if name == "embeds" else \
+            recipe.spec("enc") if name == "image_embeds" else ()
+        return fit_spec(spec or (), tuple(leaf.shape), recipe.mesh)
+
+    return {name: one(name, leaf) for name, leaf in batch.items()}
+
+
+def decode_state_shardings(recipe: Recipe, state):
+    """Each leaf's spec of a decode state (the stacked caches and states,
+    whole shapes; a tensor on the ``meta`` device will do), after
+    :func:`fit_spec`, in the state's own structure: the reference's
+    ``decode_state_shardings``.  Leading stack dims (layers, super-blocks)
+    replicate; the trailing dims take the recipe's cache and state specs, so
+    the K/V caches shard their heads over ``model`` where the KV groups
+    divide it, else their sequence; lengths and positions replicate."""
+    B = _batch_entry(recipe)
+    kinds = {"k": "cache_kv", "v": "cache_kv", "c": "cache_mla", "kr": "cache_mla",
+             "wkv": "state_rwkv", "ssm": "state_mamba"}
+
+    def one(name, leaf):
+        nd = leaf.ndim
+        if name in kinds:
+            spec = recipe.spec(kinds[name])
+        elif name in ("shift", "cm_shift"):
+            spec = (B, None)
+        elif name == "conv":
+            spec = (B, None, None)
+        else:  # lengths, positions
+            spec = ()
+        spec = (None,) * (nd - len(spec)) + tuple(spec) if spec else ()
+        return fit_spec(spec, tuple(leaf.shape), recipe.mesh)
+
+    def walk(x, name):
+        if isinstance(x, dict):
+            return {k: walk(v, k) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(walk(v, f) for f, v in zip(x._fields, x)))
+        return one(name, x)
+
+    return walk(state, None)
+
+
+def recipe_pspecs(recipe: Recipe, spec_tree):
+    """:meth:`Recipe.param_pspecs` with one entry per buffer axis (what
+    :func:`repro_torch.models.weights.shard_params` cuts by)."""
+    pspecs = recipe.param_pspecs(spec_tree)
+
+    def pad(s, p):
+        return tuple(p) + (None,) * (len(s.shape) - len(p))
+
+    return _map2(pad, spec_tree, pspecs)
+
+
+def _map2(fn, a, b):
+    if isinstance(a, dict):
+        return {k: _map2(fn, a[k], b[k]) for k in a}
+    return fn(a, b)
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """The shape of this rank's block of a ``shape`` buffer cut by ``spec``."""
+    out = []
+    for n, entry in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if entry is not None:
+            axes = (entry,) if isinstance(entry, str) else tuple(entry)
+            n //= math.prod(mesh.shape[a] for a in axes)
+        out.append(n)
+    return tuple(out)
+
+
+def spec_axes(spec) -> tuple:
+    """The mesh axes a spec names, in order."""
+    out = []
+    for entry in spec:
+        if entry is not None:
+            out.extend((entry,) if isinstance(entry, str) else entry)
+    return tuple(out)
+
+
+def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with ``w`` in x's dtype, accumulated and returned in
+    float32 (the reference's ``preferred_element_type=float32``): a
+    tensor-parallel partial, summed over the ranks before it is rounded
+    once to the activation dtype.  On the card, cuBLAS's bf16 product with
+    a float32 output (no upcast copies, and a tensor-core GEMM); on the CPU,
+    or when a gradient is wanted, a product of float32 upcasts (exact:
+    the product of two bf16 values is exact in float32)."""
+    w = w.to(x.dtype)
+    if x.is_cuda and x.dtype != torch.float32 and not (
+            torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
 _CURRENT: list[Recipe] = []
 
 
@@ -267,16 +402,9 @@ class TokenShard:
         head and its loss): the backward hands this rank its own block of
         the cotangent (:meth:`local`), which is the whole gradient of that
         block because every rank's cotangent is the same."""
-        if torch.is_grad_enabled() and x.requires_grad:
-            return _GatherGrid.apply(self, x)
-        return self._gather(x)
-
-    def _gather(self, x):
-        if self.mesh.shape.get("model", 1) > 1:
-            x = shard_all_gather_start(x, "model", mesh=self.mesh, axis=1).wait()
-        x = x[:, :self.S]
+        x = all_gather(x, self.mesh, "model", 1, split=False)[:, :self.S]
         for a in reversed(self.batch_axes):  # innermost batch axis first
-            x = shard_all_gather_start(x, a, mesh=self.mesh, axis=0).wait()
+            x = all_gather(x, self.mesh, a, 0, split=False)
         return x
 
     def partial(self, t):
@@ -286,10 +414,7 @@ class TokenShard:
         blocks (``model`` and the split batch axes), so a parameter's
         gradient comes out whole on every rank: the transpose of a
         replicated operand's broadcast, which GSPMD inserts by itself."""
-        if not (torch.is_grad_enabled() and t.requires_grad):
-            return t
-        axes = tuple(a for a in ("model",) + self.batch_axes if self.mesh.shape.get(a, 1) > 1)
-        return _SumPartials.apply(self.mesh, axes, t) if axes else t
+        return sum_grads(t, self.mesh, ("model",) + self.batch_axes)
 
     def local(self, y):
         """This rank's ``(n_rows, cap, ...)`` block of a whole ``(B, S, ...)``
@@ -304,29 +429,23 @@ def token_shard(recipe: Recipe, B: int, S: int) -> TokenShard:
     """This process's :class:`TokenShard` of a ``(B, S)`` token grid under
     ``recipe`` (the ``tokens`` spec's batch axes, where they divide B)."""
     mesh = recipe.mesh
+    batch_axes, row0, n_rows = _batch_rows(recipe, B)
+    cap, _ = ragged_seq_extents(S, mesh.shape.get("model", 1))
+    return TokenShard(mesh=mesh, batch_axes=batch_axes, B=B, S=S, cap=cap, row0=row0,
+                      n_rows=n_rows, chunk=mesh.coords().get("model", 0))
+
+
+def _batch_rows(recipe: Recipe, B: int) -> tuple[tuple[str, ...], int, int]:
+    """``(batch_axes, row0, n_rows)``: this process's rows of a ``B``-row
+    batch, split over the ``tokens`` spec's batch axes where they divide B
+    (no axes, and every row, otherwise)."""
+    mesh = recipe.mesh
     entry = fit_spec(recipe.spec("tokens")[:1], (B,), mesh)[0]
     batch_axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
     sizes = [mesh.shape[a] for a in batch_axes]
     n_rows = B // math.prod(sizes)
     coords = mesh.coords()
-    row0 = mixed_radix_join([coords[a] for a in batch_axes], sizes) * n_rows
-    cap, _ = ragged_seq_extents(S, mesh.shape.get("model", 1))
-    return TokenShard(mesh=mesh, batch_axes=batch_axes, B=B, S=S, cap=cap, row0=row0,
-                      n_rows=n_rows, chunk=coords.get("model", 0))
-
-
-class _GatherGrid(torch.autograd.Function):
-    """:meth:`TokenShard.gather` with a gradient: the backward is this
-    rank's own block of the cotangent (:meth:`TokenShard.local`)."""
-
-    @staticmethod
-    def forward(ctx, shard, x):
-        ctx.shard = shard
-        return shard._gather(x)
-
-    @staticmethod
-    def backward(ctx, d):
-        return None, ctx.shard.local(d)
+    return batch_axes, mixed_radix_join([coords[a] for a in batch_axes], sizes) * n_rows, n_rows
 
 
 class _SumPartials(torch.autograd.Function):
@@ -344,3 +463,158 @@ class _SumPartials(torch.autograd.Function):
         for a in ctx.axes:
             d = shard_all_reduce_start(d, a, mesh=ctx.mesh).wait()
         return None, None, d
+
+
+# ------------------------------------------------- the per-rank program ----
+
+def _wants_grad(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def all_gather(x, mesh, axis: str, dim: int, *, split: bool):
+    """``x`` gathered over mesh ``axis`` along ``dim`` (rank order).  Its
+    backward: the cotangent reduce-scattered over ``axis`` when the ranks'
+    work is split there (``split``: each holds a partial of the whole
+    cotangent), else this rank's own block of it (every rank holds the
+    whole, the same).  Nothing moves on an axis of one rank."""
+    if mesh.shape.get(axis, 1) == 1:
+        return x
+    if _wants_grad(x):
+        return _Gather.apply(mesh, axis, dim, split, x)
+    return shard_all_gather_start(x, axis, mesh=mesh, axis=dim).wait()
+
+
+def all_reduce(x, mesh, axis: str):
+    """The sum of ``x`` over mesh ``axis`` (tensor-parallel partials); its
+    backward is the identity, every rank holding the whole cotangent."""
+    if mesh.shape.get(axis, 1) == 1:
+        return x
+    if _wants_grad(x):
+        return _Reduce.apply(mesh, axis, x)
+    return shard_all_reduce_start(x, axis, mesh=mesh).wait()
+
+
+def sum_grads(x, mesh, axes):
+    """``x`` as it is, with its cotangent summed over ``axes`` in the
+    backward: where a tensor every rank of ``axes`` holds whole (a weight,
+    or the residual stream entering a tensor-parallel block) feeds work
+    that the ranks split, each rank's cotangent is a partial."""
+    axes = tuple(a for a in axes if mesh.shape.get(a, 1) > 1)
+    if not axes or not _wants_grad(x):
+        return x
+    return _SumPartials.apply(mesh, axes, x)
+
+
+def gather_cut(t, spec, mesh, *, skip=(), split=()):
+    """``t``, this rank's block of a buffer cut by ``spec``, gathered over
+    every mesh axis the spec names but those in ``skip`` (the inverse of
+    the cut: a dim cut over several axes is gathered innermost first).  Its
+    backward (:func:`all_gather`) reduce-scatters over the axes in
+    ``split`` and hands back this rank's block over the others."""
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            for a in reversed((entry,) if isinstance(entry, str) else tuple(entry)):
+                if a not in skip:
+                    t = all_gather(t, mesh, a, dim, split=a in split)
+    return t
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, split, x):
+        ctx.meta = (mesh, axis, dim, split, x.shape[dim])
+        return shard_all_gather_start(x, axis, mesh=mesh, axis=dim).wait()
+
+    @staticmethod
+    def backward(ctx, d):
+        mesh, axis, dim, split, n = ctx.meta
+        if split:
+            d = shard_reduce_scatter_start(d.contiguous(), axis, mesh=mesh, axis=dim).wait()
+        else:
+            d = d.narrow(dim, mesh.coords()[axis] * n, n)
+        return None, None, None, None, d
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, x):
+        return shard_all_reduce_start(x, axis, mesh=mesh).wait()
+
+    @staticmethod
+    def backward(ctx, d):
+        return None, None, d
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """This rank's part of a ``tp`` or plain ``sp`` recipe's program over a
+    ``(B, ...)`` batch: rows ``[row0, row0 + n_rows)`` (the batch split
+    over ``batch_axes``, the ``tokens`` spec's axes where they divide B;
+    none, and every row, otherwise), and the ``model`` axis of ``M`` ranks,
+    this one at ``mr``."""
+
+    recipe: Recipe
+    batch_axes: tuple[str, ...]
+    row0: int
+    n_rows: int
+
+    @property
+    def mesh(self):
+        return self.recipe.mesh
+
+    @property
+    def M(self) -> int:
+        return self.mesh.shape.get("model", 1)
+
+    @property
+    def mr(self) -> int:
+        return self.mesh.coords().get("model", 0)
+
+    def local_rows(self, x):
+        """This rank's rows of a whole ``(B, ...)`` tensor."""
+        return x if not self.batch_axes else x.narrow(0, self.row0, self.n_rows)
+
+    def gather_rows(self, x):
+        """The whole ``(B, ...)`` tensor from every rank's rows; the
+        backward hands each rank its own rows of the cotangent."""
+        for a in reversed(self.batch_axes):  # innermost batch axis first
+            x = all_gather(x, self.mesh, a, 0, split=False)
+        return x
+
+    def use(self, t, spec):
+        """Weight ``t`` (this rank's block, cut by ``spec``) ready for this
+        rank's work: gathered over every axis but ``model`` it is cut over
+        (FSDP), and with its gradient summed over the batch axes that split
+        the work and do not cut it."""
+        t = gather_cut(t, spec, self.mesh, skip=("model",), split=self.batch_axes)
+        return sum_grads(t, self.mesh, [a for a in self.batch_axes if a not in spec_axes(spec)])
+
+    def use_tree(self, tree, specs):
+        if isinstance(tree, dict):
+            return {k: self.use_tree(v, specs[k]) for k, v in tree.items()}
+        return self.use(tree, specs)
+
+    def enter_model(self, x):
+        """``x``, held whole by every ``model`` rank, entering work they
+        split: the cotangent is summed over ``model`` in the backward."""
+        return sum_grads(x, self.mesh, ("model",))
+
+    def sum_model(self, x):
+        return all_reduce(x, self.mesh, "model")
+
+    def gather_model(self, x, dim: int):
+        """The ``model`` ranks' blocks of ``x`` put together along ``dim``;
+        every rank carries on with the same whole tensor, so the backward
+        is this rank's own block of the cotangent."""
+        return all_gather(x, self.mesh, "model", dim, split=False)
+
+
+def placement(recipe: Recipe, B: int) -> Placement:
+    """This process's :class:`Placement` of a ``B``-row batch under
+    ``recipe``.  Creates every mesh axis's process group first, in one
+    order on every rank (group creation is collective)."""
+    mesh = recipe.mesh
+    for a in mesh.axis_names:
+        mesh.create_groups((a,))
+    batch_axes, row0, n_rows = _batch_rows(recipe, B)
+    return Placement(recipe=recipe, batch_axes=batch_axes, row0=row0, n_rows=n_rows)

@@ -9,7 +9,10 @@ it with ``.astype(x.dtype)``, which gives the same bits as casting once,
 and casting the full-width float32 weights at every use would move about
 23 GB per decode step.  :func:`shard_params` cuts this rank's shard of a
 parameter tree out of the whole tree, following a tree of specs such as
-:func:`repro_torch.serve.tp_decode.tp_decode_specs`'s.
+:func:`repro_torch.serve.tp_decode.tp_decode_specs`'s;
+:func:`shard_params_by_recipe` cuts by a sharding recipe's bindings, and
+:func:`gather_params` puts a recipe's shards back together (what a
+checkpoint stores).
 :func:`opt_state_from_jax` does for the reference's optimizer state what
 :func:`params_from_jax` does for its parameters, so that both packages can
 start from a mid-training state.
@@ -24,7 +27,8 @@ from repro_torch.core.dist import resolve_device
 
 from .module import tree_map
 
-__all__ = ["params_from_jax", "opt_state_from_jax", "cast_params", "shard_params"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "cast_params", "shard_params",
+           "shard_params_by_recipe", "gather_params"]
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -100,3 +104,30 @@ def shard_params(params, specs, mesh) -> dict:
         t = t.narrow(dim, mixed_radix_join([coords[a] for a in axes],
                                            [mesh.shape[a] for a in axes]) * size, size)
     return t.contiguous()
+
+
+def shard_params_by_recipe(params, specs, recipe) -> dict:
+    """This rank's shard of the whole parameter tree ``params`` under
+    ``recipe``: each leaf cut by its spec in ``recipe.param_pspecs(specs)``
+    (``specs`` the :class:`~repro_torch.models.module.ParamSpec` tree,
+    ``lm.build_specs(cfg)``), with :func:`shard_params`.  A leaf that only
+    one-rank axes cut stays a view of the whole tensor."""
+    from .sharding import recipe_pspecs
+
+    return shard_params(params, recipe_pspecs(recipe, specs), recipe.mesh)
+
+
+def gather_params(shards, specs, recipe) -> dict:
+    """The whole parameter tree, on every rank, from every rank's
+    :func:`shard_params_by_recipe` shard: each cut dim all-gathered over its
+    mesh axes (the inverse of the cut, bitwise).  Collective: every rank of
+    the mesh calls it."""
+    from .sharding import gather_cut, recipe_pspecs
+
+    def walk(t, spec):
+        if isinstance(t, dict):
+            return {k: walk(t[k], spec[k]) for k in t}
+        with torch.no_grad():
+            return gather_cut(t, spec, recipe.mesh)
+
+    return walk(shards, recipe_pspecs(recipe, specs))

@@ -32,8 +32,17 @@ once an application).  A released slot's recurrent state is zeroed before
 its next request (:func:`_reset_slot_rows`).  The engine keeps an activation-dtype copy of the weights,
 made once (``weights.cast_params``), and cuts the rank's TP shard from it
 (``weights.shard_params``; a view when the ``model`` axis has one rank).
-The sharding ``recipe`` waits for ROADMAP.md queue 1 item 8c; the
-``embeds`` input kind and the VLM and audio families for item 6.
+
+Under a sharding ``recipe`` (the dense family) every rank hands the engine
+its shards of the weights (``weights.shard_params_by_recipe``) and runs
+prefill and decode as ``lm.decode_step`` under the recipe, as the
+reference's ``gspmd_step`` does: the caches are the rank's blocks
+(``lm.init_cache`` under the recipe), the logits come back whole on every
+rank, and all ranks sample the same tokens.  A whole-prompt prefill chunk
+under ``sp_ring`` runs the ring.  The reference's mix of a recipe for
+prefill with the explicit TP decode step is not taken: a ``recipe`` with a
+``mesh`` is refused.  The ``embeds`` input kind and the VLM and audio
+families wait for ROADMAP.md queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import lm
+from repro_torch.models.sharding import use_recipe
 from repro_torch.models.weights import cast_params, shard_params
 from repro_torch.serve.kv import KVLedger
 from repro_torch.serve.tp_decode import make_tp_decode_step, tp_decode_specs
@@ -112,10 +122,13 @@ class Engine:
     """Slot-based continuous batching over the shared decode path.
 
     ``params`` is the model's whole parameter tree on the device the engine
-    runs on.  ``mesh`` (a :class:`repro_torch.core.dist.Mesh` with ``data``
-    and ``model`` axes, on the same device) and ``microbatches`` switch
-    decode to the explicit tensor-parallel step; every rank of the mesh
-    runs the engine on the same requests.  Temperature sampling draws from
+    runs on, or under ``recipe`` (a
+    :class:`repro_torch.models.sharding.Recipe`) this rank's shards of it;
+    every rank of the recipe's mesh runs the engine on the same requests.
+    ``mesh`` (a :class:`repro_torch.core.dist.Mesh` with ``data`` and
+    ``model`` axes, on the same device) and ``microbatches`` switch decode
+    to the explicit tensor-parallel step; every rank of the mesh runs the
+    engine on the same requests.  Temperature sampling draws from
     a ``torch.Generator`` seeded from ``ServeConfig.seed`` (its numbers are
     not JAX's; greedy decoding is what is held against the reference).
 
@@ -124,9 +137,9 @@ class Engine:
 
     def __init__(self, cfg, params, scfg: ServeConfig, recipe=None, *, mesh=None,
                  microbatches: int = 0, featurizer=None):
-        if recipe is not None:
-            raise NotImplementedError("serving under a sharding recipe is not ported yet: "
-                                      "ROADMAP.md queue 1, item 8c")
+        if recipe is not None and (mesh is not None or microbatches):
+            raise ValueError("Engine takes a sharding recipe or the explicit tensor-parallel "
+                             "decode (mesh, microbatches), not both")
         if featurizer is not None or cfg.input_kind != "tokens":
             raise NotImplementedError("embeds-input serving is not ported yet: ROADMAP.md "
                                       "queue 1, item 6")
@@ -137,6 +150,7 @@ class Engine:
             raise ValueError("tensor-parallel decode: MoE blocks not supported")
         self.cfg = cfg
         self.scfg = scfg
+        self.recipe = recipe
         self.device = params["embed"].device
         self.params = cast_params(params, cfg.act_dtype)
         B = scfg.batch_slots
@@ -145,10 +159,10 @@ class Engine:
             self._tp = make_tp_decode_step(cfg, mesh, slots=B, microbatches=microbatches,
                                            attn_impl=cfg.attn_impl)
             self.tp_params = shard_params(self.params, tp_decode_specs(cfg)[0], mesh)
+        with use_recipe(recipe):
+            caches = lm.init_cache(cfg, B, scfg.max_len, device=self.device)
         self.state = lm.DecodeState(
-            caches=lm.init_cache(cfg, B, scfg.max_len, device=self.device),
-            positions=torch.zeros((B,), dtype=torch.int32, device=self.device),
-        )
+            caches=caches, positions=torch.zeros((B,), dtype=torch.int32, device=self.device))
         self.slots = [_Slot() for _ in range(B)]
         self.queue: list[tuple[int, list[int], int]] = []
         self.finished: dict[int, list[int]] = {}
@@ -192,8 +206,9 @@ class Engine:
         if self._tp is not None and not prefill:
             logits, self.state = self._tp(self.tp_params, self.state, batch, counts > 0)
         else:
-            logits, self.state = lm.decode_step(self.params, self.state, batch, self.cfg,
-                                                new_counts=counts, prefill=prefill)
+            with use_recipe(self.recipe):
+                logits, self.state = lm.decode_step(self.params, self.state, batch, self.cfg,
+                                                    new_counts=counts, prefill=prefill)
         self.steps["prefill" if prefill else "decode"] += 1
         return logits
 

@@ -70,6 +70,7 @@ from repro_torch.models import lm
 from repro_torch.models.attention import (KVCache, _cache_update, _project, apply_rope,
                                           attention_decode, rope_angles)
 from repro_torch.models.blocks import rmsnorm
+from repro_torch.models.sharding import partial_product as _partial
 
 __all__ = ["make_tp_decode_step", "tp_decode_specs", "DECODE_TP_PLAN_INTENT"]
 
@@ -132,18 +133,6 @@ def tp_decode_specs(cfg, *, stacked: bool = True):
         params["lm_head"] = (None, "model")
     kv = (*lead, "data", "model", None, None)
     return params, kv, (*lead, "data")
-
-
-def _partial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` with ``w`` in x's dtype, accumulated and returned in
-    float32 (the reference's ``preferred_element_type=float32``)."""
-    w = w.to(x.dtype)
-    if x.is_cuda and x.dtype != torch.float32:
-        # cuBLAS's bf16 product with a float32 output: no upcast copies, and
-        # a tensor-core GEMM where float32 operands would take the CUDA cores
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], w.shape[-1])
-    return torch.matmul(x.float(), w.float())
 
 
 def make_tp_decode_step(cfg, mesh, *, slots: int, microbatches: int = 2,

@@ -98,18 +98,21 @@ def init_zero_opt_state(params, buckets, ocfg: OptConfig) -> OptState:
     )
 
 
-def _quantize_int8(g):
-    scale = torch.clamp(g.abs().max(), min=1e-12) / 127.0
+def _quantize_int8(g, amax=None):
+    scale = torch.clamp(g.abs().max() if amax is None else amax(g.abs().max()),
+                        min=1e-12) / 127.0
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
-def compress_leaf(g, e):
+def compress_leaf(g, e, amax=None):
     """Quantize one leaf's (grad + residual) to int8; returns the
     dequantized grad and the new residual.  The int8 tensor is the
-    compressed representation (per-leaf symmetric scale)."""
+    compressed representation (per-leaf symmetric scale).  ``amax`` maps
+    the shard's largest magnitude to the whole leaf's, for a leaf cut over
+    ranks."""
     x = g.float() + e
-    q, scale = _quantize_int8(x)
+    q, scale = _quantize_int8(x, amax)
     deq = q.float() * scale
     return deq.to(g.dtype), x - deq
 
@@ -140,20 +143,30 @@ def _clip_scale(gnorm, ocfg: OptConfig):
     return torch.clamp(ocfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
 
 
-def apply_updates(params, grads, state: OptState, ocfg: OptConfig):
+def apply_updates(params, grads, state: OptState, ocfg: OptConfig, *, cut=None):
     """One AdamW step over a params tree.  Returns ``(new_params,
-    new_state, metrics)`` with ``metrics = {"grad_norm", "lr"}``."""
+    new_state, metrics)`` with ``metrics = {"grad_norm", "lr"}``.
+
+    ``cut`` (optional) is ``(reduce_sq, amax)`` for a tree of this rank's
+    shards: ``reduce_sq(sums)`` turns the leaves' local sums of squares
+    (in leaf order) into the whole tree's, counting every shard once, and
+    ``amax`` is a tree like ``params`` of each leaf's int8 ``amax``
+    (:func:`compress_leaf`)."""
     err = state.err
     if ocfg.compress == "int8":
-        pairs = tree_map(lambda ge: compress_leaf(*ge), _zip(grads, err))
+        amax = tree_map(lambda _: None, grads) if cut is None else cut[1]
+        pairs = tree_map(lambda gea: compress_leaf(*gea), _zip(grads, err, amax))
         grads = tree_map(lambda pr: pr[0], pairs)
         err = tree_map(lambda pr: pr[1], pairs)
 
     # global-norm clip: the leaves' sums of squares added in leaf order
     leaves = tree_leaves(grads)
-    sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    for g in leaves:
-        sq = sq + torch.sum(torch.square(g.float()))
+    if cut is None:
+        sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for g in leaves:
+            sq = sq + torch.sum(torch.square(g.float()))
+    else:
+        sq = cut[0]([torch.sum(torch.square(g.float())) for g in leaves])
     gnorm = torch.sqrt(sq)
     scale = _clip_scale(gnorm, ocfg)
 

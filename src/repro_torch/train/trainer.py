@@ -5,11 +5,15 @@ and as the explicit ZeRO-2 comm program.  The port of
 
 ``make_train_step(cfg, recipe, ocfg, microbatches=k)`` is the baseline:
 without a recipe it is the single-device step (the numerics oracle); under
-an ``sp_ring`` recipe every rank runs the sequence-parallel forward of
-:func:`repro_torch.models.lm.forward` and its backward (the ring's
-transfers carry the gradient back, the parameters' partial gradients are
-summed over the ranks), so the gradients and the update come out whole,
-and the same, on every rank.
+a recipe every rank runs its part of :func:`repro_torch.models.lm.forward`
+and its backward on its shards of the parameters
+(``weights.shard_params_by_recipe``), the gradients flowing back through
+the explicit collectives (:class:`repro_torch.models.sharding.Placement`;
+under ``sp_ring`` the ring's transfers carry the gradient back and the
+partial gradients are summed over the ranks), so each rank gets the
+gradients of its shards and AdamW updates them; the global clip norm adds
+each shard's squares once.  Under ``sp_ring`` whole parameters are taken
+too, and every rank then computes the same whole update.
 
 ``make_zero_train_step(cfg, mesh, ocfg, ...)`` is the training twin of the
 tensor-parallel decode (:mod:`repro_torch.serve.tp_decode`): one rank's
@@ -40,6 +44,7 @@ float32 masters and stay so: the gradients are float32 (see
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.collectives import shard_all_gatherv_start, shard_reduce_scatterv_start
 from repro_torch.core.p2p import shard_all_reduce_start
@@ -47,7 +52,7 @@ from repro_torch.core.plan import bucket as bucket_plan
 from repro_torch.core.plan import intent_of
 from repro_torch.models import lm
 from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
-from repro_torch.models.sharding import use_recipe
+from repro_torch.models.sharding import recipe_pspecs, spec_axes, use_recipe
 
 from .buckets import assign_buckets, pack_bucket, unpack_bucket
 from .optimizer import (OptConfig, OptState, _clip_scale, _step_scalars, adamw_leaf_update,
@@ -108,11 +113,58 @@ def make_train_step(cfg, recipe, ocfg: OptConfig, *, microbatches: int = 1):
     def train_step(params, opt_state, batch):
         with use_recipe(recipe):
             loss, metrics, grads = _accum_loss_grads(params, batch, cfg, microbatches)
+        cut = None if recipe is None else _shard_cut(params, cfg, recipe)
         with torch.profiler.record_function(OPTIMIZER_RANGE):
-            new_params, new_opt, opt_metrics = apply_updates(params, grads, opt_state, ocfg)
+            new_params, new_opt, opt_metrics = apply_updates(params, grads, opt_state, ocfg,
+                                                             cut=cut)
         return new_params, new_opt, {"loss": loss, **metrics, **opt_metrics}
 
     return train_step
+
+
+def _shard_cut(params, cfg, recipe):
+    """``apply_updates``'s ``cut`` for this rank's shards under ``recipe``
+    (``None`` when no leaf is cut): the leaves' sums of squares added per
+    group of leaves cut over the same mesh axes, each group's sum added
+    over those axes once; and each cut leaf's int8 ``amax``, the largest
+    magnitude over its shards."""
+    mesh = recipe.mesh
+    for a in mesh.axis_names:  # group creation is collective: one order on every rank
+        mesh.create_groups((a,))
+    specs = lm.build_specs(cfg)
+
+    def axes_of(t, spec, pspec):
+        if isinstance(t, dict):
+            return {k: axes_of(t[k], spec[k], pspec[k]) for k in t}
+        if tuple(t.shape) == spec.shape:
+            return ()
+        return tuple(a for a in spec_axes(pspec) if mesh.shape[a] > 1)
+
+    axes = axes_of(params, specs, recipe_pspecs(recipe, specs))
+    leaf_axes = tree_leaves(axes)
+    if not any(leaf_axes):
+        return None
+
+    def reduce_sq(sums):
+        groups: dict = {}
+        for sq, ax in zip(sums, leaf_axes):
+            groups[ax] = groups[ax] + sq if ax in groups else sq
+        total = None
+        for ax, g in groups.items():
+            for a in ax:
+                g = shard_all_reduce_start(g, a, mesh=mesh).wait()
+            total = g if total is None else total + g
+        return total
+
+    def amax_for(ax):
+        def amax(m):
+            m = m.clone()
+            for a in ax:
+                dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.group((a,)))
+            return m
+        return amax if ax else None
+
+    return reduce_sq, tree_map(amax_for, axes)
 
 
 def make_eval_step(cfg, recipe):

@@ -76,7 +76,13 @@ def _main(rank: int, world: int, workdir: str, worker: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{workdir}/rendezvous", rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=120))
     try:
-        result = globals()[worker](**kwargs)
+        if ":" in worker:  # "module:function", a worker of another helper module
+            import importlib
+
+            mod, name = worker.split(":")
+            result = getattr(importlib.import_module(mod), name)(**kwargs)
+        else:
+            result = globals()[worker](**kwargs)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
@@ -870,4 +876,194 @@ def sp_ring_train_family(*, params, batches, ocfg) -> dict:
         (shard.gather(xl) * W).sum().backward()
         out[(shape, "gather_grad")] = (xl.grad.numpy(), shard.local(W).numpy())
         out[(shape, "coords")] = (mesh.coords()["data"], r, R)
+    return out
+
+
+# -----------------------------------------------------------------------------
+# point-to-point: send_recv and the ring laws
+# -----------------------------------------------------------------------------
+P2P_KINDS = ("col", "row", "blocked")
+
+
+def p2p_property_cases() -> list:
+    """Seeded ``(shift, ni, jt, src_kind, mid_kind)`` cases of the ring
+    laws of ``tests/test_p2p_properties.py`` on a 4-rank communicator."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    return [(int(rng.integers(-8, 9)), int(rng.choice([2, 4])), int(rng.choice([1, 2])),
+             P2P_KINDS[int(rng.integers(3))], P2P_KINDS[int(rng.integers(3))])
+            for _ in range(12)]
+
+
+def p2p_cases(np, L, C, mesh1, mesh2, views, is_me) -> dict:
+    """Run ``send_recv`` and the ring laws in either package on 4 ranks and
+    return ``{case: views(result)}``: ``views(dist_bag)`` maps each rank this
+    process can read (every rank in the reference, its own in the port) to
+    ``(tile data as numpy, tile layout's axes and shape)``; and the extents
+    tables.  Refusals record ``True`` when ``LayoutError`` was raised;
+    ``is_me(r)`` says whether this process is rank ``r`` of ``mesh1``."""
+    f32 = np.float32
+
+    def sig(layout):
+        return tuple((a.name, a.size) for a in layout.axes), tuple(layout.dim_map)
+
+    def tile_layout(kind, ni, jt):
+        if kind == "col":
+            return L.scalar(f32) ^ L.vector("i", ni) ^ L.vector("j", jt)
+        if kind == "row":
+            return L.scalar(f32) ^ L.vector("j", jt) ^ L.vector("i", ni)
+        return (L.scalar(f32) ^ L.vector("i", ni) ^ L.vector("j", jt)
+                ^ L.blocked("i", "I2", num_blocks=2))
+
+    def line_bag(ni, jt, kind, R=4):
+        nj = R * jt
+        col = L.scalar(f32) ^ L.vector("i", ni) ^ L.vector("j", nj)
+        root = C.bag(col ^ L.into_blocks("j", "R", num_blocks=R),
+                     np.arange(ni * nj, dtype=f32).reshape(nj, ni) + 1.0)
+        dt = C.mpi_traverser("R", C.traverser(root), mesh1)
+        return C.scatter(root, tile_layout(kind, ni, jt), dt)
+
+    def refused(fn) -> bool:
+        try:
+            fn()
+        except C.LayoutError:
+            return True
+        return False
+
+    out: dict = {}
+    N = 8
+    db = line_bag(N, 2, "col")
+    dst_tile = tile_layout("row", N, 2)
+    # differing endpoint layouts (test_p2p.py:5) and untouched bystanders (:46)
+    for src, dst in ((2, 1), (1, 3), (2, 2), (0, 3)):
+        got = C.send_recv(db, src=src, dst=dst, dst_tile_layout=dst_tile)
+        out[("send_recv", src, dst)] = views(got)
+        out[("send_recv", src, dst, "table")] = (
+            None if got.tile_layouts is None else tuple(sig(t) for t in got.tile_layouts))
+        out[("send_recv", src, dst, "kept")] = got.tile_layout is db.tile_layout
+    same = C.send_recv(db, src=3, dst=0)  # no declared layout: a homogeneous bag
+    out[("send_recv", "same")] = views(same)
+    out[("send_recv", "same", "table")] = same.tile_layouts
+    # along one dim of a 2x2 grid (the row sub-communicators)
+    g = L.scalar(f32) ^ L.vector("i", 4) ^ L.vector("j", 8)
+    groot = C.bag(g ^ L.into_blocks("i", "Ri", num_blocks=2) ^ L.into_blocks("j", "Cj", num_blocks=2),
+                  np.arange(32, dtype=f32).reshape(8, 4) * 0.5)
+    dt2 = C.mpi_cart_traverser([("Ri", "rows"), ("Cj", "cols")], C.traverser(groot), mesh2)
+    gdb = C.scatter(groot, L.scalar(f32) ^ L.vector("i", 2) ^ L.vector("j", 4), dt2)
+    ggot = C.send_recv(gdb, src=0, dst=1, rank_dim="Cj",
+                       dst_tile_layout=L.scalar(f32) ^ L.vector("j", 4) ^ L.vector("i", 2))
+    out[("send_recv", "grid")] = views(ggot)
+    out[("send_recv", "grid", "table")] = tuple(sig(t) for t in ggot.tile_layouts)
+    # a ragged bag: the receiver adopts the sender's extents
+    rows = lambda items: _rows(L, f32, items)
+    dt1 = C.mpi_traverser("R", C.traverser(rows([("R", 4), ("i", 3), ("j", 5)])), mesh1)
+    y = np.random.default_rng(5).standard_normal((10, 5)).astype(f32)
+    Y = C.scatterv_bag(C.bag(rows([("i", 10), ("j", 5)]), y), rows([("i", 3), ("j", 5)]), dt1,
+                       {"R": ("i", (3, 3, 2, 2))})
+    rgot = C.send_recv(Y, src=0, dst=3, dst_tile_layout=rows([("j", 5), ("i", 3)]))
+    out[("send_recv", "ragged")] = views(rgot)
+    out[("send_recv", "ragged", "extents")] = rgot.extents
+    rgot2 = C.send_recv(Y, src=3, dst=1)
+    out[("send_recv", "ragged_back")] = views(rgot2)
+    out[("send_recv", "ragged_back", "extents")] = rgot2.extents
+    # refusals (test_p2p.py:219, :231) and a bag that already has tile_layouts
+    hetero = C.send_recv(db, src=2, dst=1, dst_tile_layout=dst_tile)
+    out[("refuse", "index_space")] = refused(lambda: C.send_recv(
+        db, src=0, dst=1, dst_tile_layout=L.scalar(f32) ^ L.vector("i", N) ^ L.vector("j", 4)))
+    out[("refuse", "duplicate_dst")] = refused(lambda: C.permute(db, [(0, 1), (2, 1)]))
+    out[("refuse", "out_of_range")] = refused(lambda: C.send_recv(db, src=0, dst=4))
+    out[("refuse", "hetero_send_recv")] = refused(lambda: C.send_recv(hetero, src=0, dst=1))
+    # the ring laws (test_p2p_properties.py) over fixed seeded cases
+    for case in p2p_property_cases():
+        shift, ni, jt, src_kind, mid_kind = case
+        b = line_bag(ni, jt, src_kind)
+        mid = tile_layout(mid_kind, ni, jt)
+        fwd = C.ring_shift(b, shift, dst_tile_layout=mid)
+        back = C.ring_shift(fwd, -shift, dst_tile_layout=b.tile_layout)
+        back2 = C.ring_shift(C.ring_shift_start(b, shift, dst_tile_layout=mid).wait(), -shift,
+                             dst_tile_layout=b.tile_layout)
+        plain = C.ring_shift(b, shift)
+        pairs = [(i, (i + 1) % 4) for i in range(3)]
+        fused_p, plain_p = C.permute(b, pairs, dst_tile_layout=mid), C.permute(b, pairs)
+        out[("ring_law", case)] = views(fwd)
+        out[("ring_law", case, "permute")] = views(fused_p)
+        out[("ring_law", case, "holds")] = (
+            back.tile_layout is b.tile_layout
+            and all(np.array_equal(v[0], w[0]) for v, w in zip(views(back).values(),
+                                                               views(b).values()))
+            and all(np.array_equal(v[0], w[0]) for v, w in zip(views(back2).values(),
+                                                               views(b).values()))
+            and all(np.array_equal(v[0], np.asarray(plain.tile(r).to_layout(mid).data))
+                    for r, v in views(fwd).items())
+            and all(np.array_equal(v[0], np.asarray(plain_p.tile(r).to_layout(mid).data))
+                    for r, v in views(fused_p).items()))
+    out["me"] = [r for r in range(4) if is_me(r)]
+    return out
+
+
+def _rows(L, f32, items):
+    layout = L.scalar(f32)
+    for d, n in reversed(items):
+        layout = layout ^ L.vector(d, n)
+    return layout
+
+
+def p2p_family() -> dict:
+    """:func:`p2p_cases` on this gloo rank, then a collective on a
+    heterogeneous bag in every form: each must raise on every rank before
+    any transfer is issued (a rank left in the transfer would hang)."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.core import layout as L
+
+    mesh1 = C.make_mesh((4,), ("r",), device="cpu")
+    mesh2 = C.make_mesh((2, 2), ("rows", "cols"), device="cpu")
+    me = mesh1.coords()["r"]
+
+    def views(d):
+        t = d.tile(d.coords if len(d.coords) > 1 else d.coords[0])
+        r = d.flat_rank(d.coords)
+        return {r: (t.data.numpy(), (tuple((a.name, a.size) for a in t.layout.axes),
+                                     tuple(t.layout.dim_map)))}
+
+    out = p2p_cases(np, L, C, mesh1, mesh2, views, lambda r: r == me)
+    f32 = np.float32
+    col = L.scalar(f32) ^ L.vector("i", 8) ^ L.vector("j", 8)
+    root = C.bag(col ^ L.into_blocks("j", "R", num_blocks=4), np.arange(64, dtype=f32))
+    dt = C.mpi_traverser("R", C.traverser(root), mesh1)
+    db = C.scatter(root, L.scalar(f32) ^ L.vector("i", 8) ^ L.vector("j", 2), dt)
+    hetero = C.send_recv(db, src=2, dst=1,
+                         dst_tile_layout=L.scalar(f32) ^ L.vector("j", 2) ^ L.vector("i", 8))
+    row_root = L.scalar(f32) ^ L.vector("R", 4) ^ L.vector("i", 8) ^ L.vector("j", 2)
+    attempts = {
+        "gather": lambda: C.gather(hetero, col),
+        "all_gather": lambda: C.all_gather_dist(hetero, row_root),
+        "all_reduce": lambda: C.all_reduce_bag(hetero, "add"),
+        "reduce_scatter": lambda: C.reduce_scatter_bag(
+            hetero, L.scalar(f32) ^ L.vector("i", 2) ^ L.vector("j", 2), scatter_dim="i"),
+        "all_to_all": lambda: C.all_to_all_bag(hetero, hetero.tile_layout, split_dim="i",
+                                               concat_dim="j"),
+        "permute": lambda: C.permute(hetero, [(0, 1), (1, 0)]),
+        "ring_shift": lambda: C.ring_shift_start(hetero, 1),
+        "send_recv": lambda: C.send_recv(hetero, src=1, dst=2),
+    }
+    for name, fn in attempts.items():
+        try:
+            fn()
+        except C.LayoutError:
+            out[("hetero_refused", name)] = True
+        else:
+            out[("hetero_refused", name)] = False
+    # the per-rank all-gather records its table as the reference's does
+    Z = C.scatter(C.bag(_rows(L, f32, [("R", 4), ("i", 4), ("j", 5)]),
+                        np.arange(80, dtype=f32)), _rows(L, f32, [("j", 5), ("i", 4)]),
+                  C.mpi_traverser("R", C.traverser(_rows(L, f32, [("R", 4), ("i", 4), ("j", 5)])),
+                                  mesh1))
+    la, lb = (_rows(L, f32, [("R", 4), ("i", 4), ("j", 5)]),
+              _rows(L, f32, [("i", 4), ("R", 4), ("j", 5)]))
+    g = C.all_gather_dist(Z, [la, lb, la, lb])
+    out["all_gather_table"] = (g.tile_layout is la, g.tile_layouts == (la, lb, la, lb),
+                               g.own_layout == (la, lb)[me % 2])
     return out

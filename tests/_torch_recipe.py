@@ -1,0 +1,188 @@
+"""Gloo workers of the sharding-recipe tests (``tests/test_torch_recipe*.py``):
+the dense family's per-rank program under ``tp``, ``sp`` and ``sp_ring``
+recipes on a ``(data, model)`` mesh of 4 (or 2) CPU ranks.  Each runs
+inside a rank of :func:`_torch_dist.run_gloo` (named
+``"_torch_recipe:<worker>"``) and returns numpy results."""
+from __future__ import annotations
+
+RECIPE_MESHES = [(2, 2), (1, 4), (4, 1)]
+RECIPE_MODES = ("tp", "sp")
+RECIPE_ARCHS = {"phi4-mini-3.8b": 32, "qwen2.5-32b": 30}  # arch -> forward sequence length
+RECIPE_BATCH = 4
+PREFILL_COUNTS = (7, 5, 0, 3)  # a whole-prompt chunk of 7: ragged rows, one idle
+
+
+def _model(arch, tree):
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.weights import params_from_jax
+
+    cfg = dataclasses.replace(configs.get(arch, smoke=True), act_dtype=torch.float32)
+    return cfg, params_from_jax(tree, device="cpu")
+
+
+def _shards(cfg, params, recipe):
+    from repro_torch.models import lm
+    from repro_torch.models.weights import shard_params_by_recipe
+
+    return shard_params_by_recipe(params, lm.build_specs(cfg), recipe)
+
+
+def forward_family(*, shape, models, tokens) -> dict:
+    """``lm.forward`` under each recipe mode on this rank of a ``shape``
+    mesh: the whole logits, and whether the shards gathered back are the
+    whole tree bitwise."""
+    import torch
+
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.weights import gather_params
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    out: dict = {}
+    for arch, tree in models.items():
+        cfg, params = _model(arch, tree)
+        for mode in RECIPE_MODES:
+            recipe = make_recipe(cfg, mesh, attn_mode=mode)
+            shards = _shards(cfg, params, recipe)
+            with use_recipe(recipe), torch.no_grad():
+                logits, _ = lm.forward(shards, {"tokens": torch.from_numpy(tokens[arch]).long()},
+                                       cfg)
+            out[(arch, mode)] = logits.numpy()
+            whole = gather_params(shards, lm.build_specs(cfg), recipe)
+            out[(arch, mode, "gathered")] = all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(whole), tree_leaves(params)))
+            out[(arch, mode, "cut")] = any(
+                a.shape != b.shape for a, b in zip(tree_leaves(shards), tree_leaves(params)))
+    return out
+
+
+def serve_family(*, shape, models, requests, slots, max_len, prefill_tokens) -> dict:
+    """``Engine(recipe=...)`` under ``tp``, ``sp`` and ``sp_ring`` on this
+    rank: its greedy outputs; and one whole-prompt prefill chunk of
+    ``lm.decode_step(prefill=True)`` under each mode (ragged rows, one idle
+    row): its logits and the caches gathered back to their whole shape."""
+    import torch
+
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.sharding import (all_gather, decode_state_shardings, make_recipe,
+                                             use_recipe)
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    scfg = ServeConfig(max_len=max_len, batch_slots=slots, eos_token=-1)
+    out: dict = {}
+    for arch, tree in models.items():
+        cfg, params = _model(arch, tree)
+        for mode in RECIPE_MODES + ("sp_ring",):
+            recipe = make_recipe(cfg, mesh, attn_mode=mode)
+            shards = _shards(cfg, params, recipe)
+            engine = Engine(cfg, shards, scfg, recipe=recipe)
+            for rid, prompt, n in requests[arch]:
+                engine.submit(rid, prompt, n)
+            out[(arch, mode, "tokens")] = engine.run()
+            # one prefill chunk from empty caches
+            B, S = prefill_tokens.shape
+            with use_recipe(recipe), torch.no_grad():
+                state = lm.DecodeState(caches=lm.init_cache(cfg, B, 16, device="cpu"),
+                                       positions=torch.zeros((B,), dtype=torch.int32))
+                logits, new = lm.decode_step(
+                    shards, state, {"tokens": torch.from_numpy(prefill_tokens).long()}, cfg,
+                    new_counts=torch.tensor(PREFILL_COUNTS, dtype=torch.int32), prefill=True)
+            whole = torch.empty((cfg.n_layers, B, cfg.n_kv, 16, cfg.head_dim), device="meta")
+            spec = decode_state_shardings(recipe, KVCache(whole, whole, whole)).k
+            caches = []
+            for t in (new.caches.k, new.caches.v):
+                for dim, axis in enumerate(spec):
+                    if axis is not None:
+                        t = all_gather(t, mesh, axis, dim, split=False)
+                caches.append(t.numpy())
+            out[(arch, mode, "prefill")] = (logits.numpy(), *caches, new.caches.length.numpy(),
+                                            new.positions.numpy())
+    return out
+
+
+def train_family(*, shape, params, batch, ocfg, modes) -> dict:
+    """``make_train_step`` under each recipe mode of ``modes`` on this rank:
+    the loss, the gradient norm, the gradients (``_accum_loss_grads``) and
+    the stepped parameters, each gathered back to the whole tree; and
+    whether the int8 compression of the cut gradient leaves equals the
+    whole leaves' compression, cut."""
+    import torch
+
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.models.sharding import make_recipe, recipe_pspecs, use_recipe
+    from repro_torch.models.weights import gather_params, shard_params
+    from repro_torch.train import optimizer, trainer
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    cfg, whole = _model("phi4-mini-3.8b", params)
+    oc = optimizer.OptConfig(**ocfg)
+    b = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    specs = lm.build_specs(cfg)
+    out: dict = {}
+    for mode in modes:
+        recipe = make_recipe(cfg, mesh, attn_mode=mode)
+        shards = _shards(cfg, whole, recipe)
+        with use_recipe(recipe):
+            loss, _, grads = trainer._accum_loss_grads(shards, b, cfg, 1)
+        out[(mode, "loss")] = float(loss)
+        whole_g = gather_params(grads, specs, recipe)
+        out[(mode, "grads")] = [g.numpy() for g in tree_leaves(whole_g)]
+        # int8 compression of a cut leaf: each shard quantized against the
+        # whole leaf's largest magnitude is the whole leaf's quantization, cut
+        cut = trainer._shard_cut(shards, cfg, recipe)
+        amaxes = tree_leaves(cut[1]) if cut else [None] * len(tree_leaves(grads))
+        out[(mode, "int8_cut")] = cut is not None and all(
+            torch.equal(optimizer.compress_leaf(g, torch.zeros_like(g), amax)[0],
+                        shard_params(optimizer.compress_leaf(w, torch.zeros_like(w))[0], ps, mesh))
+            for g, w, amax, ps in zip(tree_leaves(grads), tree_leaves(whole_g), amaxes,
+                                      tree_leaves(recipe_pspecs(recipe, specs))))
+        new_p, _, m = trainer.make_train_step(cfg, recipe, oc)(
+            shards, optimizer.init_opt_state(shards, oc), b)
+        out[(mode, "metrics")] = {k: float(v) for k, v in m.items()}
+        out[(mode, "params")] = [p.numpy() for p in tree_leaves(gather_params(new_p, specs,
+                                                                               recipe))]
+    return out
+
+
+def ckpt_family(*, shape, params, directory, save) -> dict:
+    """Save this rank's shards under a ``shape`` recipe (``save``), or
+    restore the latest checkpoint under it: the restored shards gathered
+    back, and whether each equals this rank's cut of the whole tree."""
+    import torch
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.models.sharding import make_recipe
+    from repro_torch.models.weights import gather_params
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    cfg, whole = _model("phi4-mini-3.8b", params)
+    recipe = make_recipe(cfg, mesh)
+    specs = lm.build_specs(cfg)
+    mine = _shards(cfg, whole, recipe)
+    mgr = CheckpointManager(directory)
+    if save:
+        mgr.save(3, {"params": mine}, extra={"note": "elastic"}, recipe=recipe,
+                 specs={"params": specs})
+        return {"cut": any(a.shape != b.shape for a, b in zip(tree_leaves(mine),
+                                                              tree_leaves(whole)))}
+    template = {"params": mine}
+    restored, extra = mgr.restore(template, recipe=recipe, specs={"params": specs})
+    got = restored["params"]
+    return {"extra": extra,
+            "shards_equal": all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                                    tree_leaves(mine))),
+            "whole": [t.numpy() for t in tree_leaves(gather_params(got, specs, recipe))]}

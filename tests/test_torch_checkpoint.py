@@ -2,7 +2,8 @@
 reference's ``tests/test_checkpoint.py`` (round trip, latest and rotation,
 asynchronous save, corruption detected, a crashed write leaves the earlier
 checkpoint), on trees of tensors, plus the optimizer state's named tuple
-and a bf16 leaf.  Restoring under another world size waits for item 8c."""
+and a bf16 leaf.  Restoring under another world size (the reference's
+``slow`` case) runs on gloo ranks in ``tests/test_torch_recipe_train.py``."""
 import os
 
 import numpy as np

@@ -69,9 +69,21 @@ def test_engine_rejects_what_is_not_ported():
     cfg = tconfigs.get("phi4-mini-3.8b", smoke=True)
     from repro_torch.models import lm
 
+    from repro_torch.models.sharding import make_recipe
+
+    class _Mesh:  # what make_recipe reads of a mesh
+        shape = {"data": 1, "model": 2}
+        axis_names = ("data", "model")
+
     params = lm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        Engine(cfg, params, ServeConfig(), recipe=object())
+    # a recipe serves the dense family; the others wait for item 8c's second PR
+    moe = tconfigs.get("phi3.5-moe-42b-a6.6b", smoke=True)
+    moe_params = lm.init_model(moe, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"item 8c \(second PR\)"):
+        Engine(moe, moe_params, ServeConfig(), recipe=make_recipe(moe, _Mesh()))
+    with pytest.raises(ValueError, match="not both"):
+        Engine(cfg, params, ServeConfig(), recipe=make_recipe(cfg, _Mesh()), mesh=object(),
+               microbatches=1)
     with pytest.raises(ValueError, match="microbatches"):
         Engine(cfg, params, ServeConfig(), mesh=object())
     with pytest.raises(ValueError, match="max_len"):

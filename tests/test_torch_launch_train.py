@@ -1,7 +1,7 @@
 """The training launcher and example on the CPU: three steps; a crash at
 step 2 under the watchdog, restarted from the latest checkpoint, ends with
 the same parameters and optimizer state as an uninterrupted run, bitwise;
-the GPU is the default; the recipe modes not ported raise."""
+the GPU is the default; a recipe mode that does not exist is refused."""
 import os
 import subprocess
 import sys
@@ -65,10 +65,12 @@ def test_train_cli_needs_a_gpu_unless_asked_for_the_cpu():
 
 
 def test_train_cli_refuses_recipe_modes_not_ported(tmp_path):
-    env = {"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "localhost", "MASTER_PORT": "1"}
-    proc = _run(*TRAIN, "--steps", "1", "--ckpt-dir", str(tmp_path), "--attn-mode", "tp",
+    """Every recipe mode is ported (auto, tp, sp, sp_ring); any other is refused
+    before the process joins a world."""
+    env = {"RANK": "0", "WORLD_SIZE": "2", "MASTER_ADDR": "localhost", "MASTER_PORT": "1"}
+    proc = _run(*TRAIN, "--steps", "1", "--ckpt-dir", str(tmp_path), "--attn-mode", "ring",
                 env_extra=env)
-    assert proc.returncode != 0 and "item 8c" in proc.stderr
+    assert proc.returncode != 0 and "invalid choice: 'ring'" in proc.stderr
 
 
 def test_train_cli_trains_under_sp_ring_on_gloo_ranks(tmp_path):
