@@ -83,9 +83,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   one rank, so the expert-parallel dispatch falls back (with its warning)
   to the grouped or global one; its all-to-alls are checked on gloo CPU
   processes in the tests.
-* the MLA family at minicpm3-4b's full width and depth (62 layers, d_model
-  2560, 40 heads, q/kv latent ranks 768/256; seeded random weights, bf16,
-  about 8.2 GB): the flash-attention kernel's (96, 64) instances (q/k of
+* the MLA family at minicpm3-4b's full width (d_model 2560, 40 heads, q/kv
+  latent ranks 768/256; seeded random weights, bf16; 31 of its 62 layers,
+  about 5.2 GB): the flash-attention kernel's (96, 64) instances (q/k of
   d_nope + d_rope = 96, v of d_v = 64) against their plain version at the
   forward's shape and at a ragged 4095, against float64 (at most 10x the
   plain version's error) and against themselves (bitwise), timed beside
@@ -115,7 +115,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   decode step's host and device time; decode against the forward at
   float32 on the card for both (depth cut, the reference's 5e-3); and
   one zamba2 training step (13 of 81 layers) through the kernel against
-  the plain attention's.
+  the plain attention's.  The carry form's (112, 112) instance (zamba2's
+  shared attention under ``sp`` and ``sp_ring``): ring steps over 4 chunks
+  of 1024 tokens (diagonal and off-diagonal, and a ragged 4095) and the
+  ring's one step of the whole sequence against the plain version, bf16
+  and float32, the chain over 1024-key chunks bitwise the single-shot
+  kernel, timed beside its bounds.
+* the SSM and hybrid families under a sharding recipe at full width and
+  depth, on a one-rank NCCL ``(data, model)`` mesh and the rank's shards:
+  zamba2-7b's 1 x 4096 forward under ``tp``, ``sp`` and ``sp_ring`` (the
+  (112, 112) forward instance 13 times, or under ``sp_ring`` the carry
+  instance 13 times) and rwkv6-3b's under ``tp`` and ``sp_ring``, logits
+  against the no-recipe forward (``tp`` bitwise), the host ms of a forward
+  in turns with it (and under ``sp_ring`` a profiled window beside the
+  no-recipe one);
+  ``Engine(recipe=...)`` under ``tp`` on the serving phase's requests (a
+  slot reused), greedy tokens equal to the single-host run's, the host ms
+  of decode steps in turns with the single-host engine's; and zamba2's
+  13-layer training step under ``tp`` against the no-recipe step.
 
 Every kernel time (``ms``, ``plain_ms``, ``library_ms``) is device time per
 call from ``repro_torch.kernels.timing.queued_ms`` (calls run back to back
@@ -177,7 +194,10 @@ MOE_FORWARDS = ((1, SEQ), (16, 256))  # (B, S): global capacity dispatch; groupe
 MOE_REQUESTS, MOE_NEW_TOKENS, MOE_PROMPT_LENS = 8, 16, (16, 129)  # prompt lengths [low, high)
 MOE_RANGES = {"moe.route": "routing_scatter", "moe.combine": "routing_scatter",
               "moe.experts": "expert_gemms"}  # the MoE's profiler ranges, by kind
-MLA_ARCH = "minicpm3-4b"  # full width and depth: 4.08 B parameters, 8.2 GB in bf16
+MLA_ARCH = "minicpm3-4b"  # full width: 4.08 B parameters at its 62 layers, 8.2 GB in bf16
+# its depth cut 62 -> 31 (2.6 B parameters, 5.2 GB), to keep the whole run
+# within its earlier length beside the recurrent recipe phases
+MLA_DEPTH = 31
 # the MLA serving run: phi4-mini's requests (prompts of 128-2048 tokens, 32
 # new) on 4 slots of 4096 positions; the absorbed whole-prompt chunk holds
 # float32 scores of (4, 40, 2048, 4096), 5.4 GB a live tensor, beside the
@@ -190,9 +210,9 @@ MLA_RAGGED = 4095  # the (96, 64) instance's ragged case: Sq = Skv = 4095
 # need 61 GB for the optimizer's state alone
 TRAIN_DEPTH, TRAIN_BATCH, TRAIN_MICROBATCHES, TRAIN_STEPS = 8, 2, 2, 3  # batch of 2 x SEQ
 # the launcher's run (its checkpoint written and restored: 17 GB and nearly
-# two minutes at 8 layers on an H100) at half the depth, to keep the whole
-# run near half its time limit
-LAUNCHER_DEPTH = 4
+# two minutes at 8 layers on an H100) at a quarter of the depth, to keep the
+# whole run near its earlier length
+LAUNCHER_DEPTH = 2
 TRAIN_LR = 3e-4
 # kernel path against the plain attention path, bf16 activations, one step:
 # the loss, a mean over 8192 tokens, to 2e-3 relative; each gradient leaf to
@@ -252,6 +272,22 @@ SCAN_RANGES = {"ssm.scan": "ssm_scan"}  # models/ssm.py:SCAN_RANGE, the mixers' 
 # the plain path at most HYBRID_LOGIT_MARGIN times the plain path's distance
 # from itself with every attention output nudged one bf16 ulp up or down
 HYBRID_LOGIT_MARGIN = 2.0
+# zamba2's shared attention (32 heads, head dim 112) through the carry
+# form's (112, 112) instance: the ring's steps over SEQ tokens in RING_R
+# chunks of 1024 (and a ragged SEQ - 1), and the ring's one step of the
+# whole sequence on one card
+HYBRID_HEADS, HYBRID_HEAD_DIM = 32, 112
+# the recipe phases of the recurrent families on a one-rank NCCL mesh: the
+# modes of the forward, each timed in turns with the no-recipe forward
+RECURRENT_RECIPE_MODES = {"zamba2-7b": ("tp", "sp", "sp_ring"), "rwkv6-3b": ("tp", "sp_ring")}
+# the serving phases' steady decode window: 4 steps (8 before the recurrent
+# recipe phases were added), to keep the run near its length
+RECURRENT_WINDOW_STEPS = 4
+# the steady decode steps timed in turns: 8 steps of prompts cut to 8 tokens
+RECURRENT_RECIPE_STEPS, RECURRENT_RECIPE_PROMPT = 8, 8
+# the dense recipe_serve phase's in-turns windows, 4 decode steps each (8 before
+# the recurrent recipe phases were added), to keep the run near its length
+RECIPE_DECODE_STEPS = 4
 
 
 def phase(name: str, **fields) -> None:
@@ -1016,7 +1052,7 @@ def recipe_serve(cfg, params, lm, Engine, ServeConfig, fd, mesh, sharding,
         engine._decode_once()
     wins = {name: [] for name in engines}
     for name in ("single_host", "recipe", "recipe", "single_host"):
-        wins[name].append(window(engines[name]._decode_once, 8))
+        wins[name].append(window(engines[name]._decode_once, RECIPE_DECODE_STEPS))
     del engines
     torch.cuda.empty_cache()
     keys = ("wall_ms", "device_ms", "idle_share", "kernels_launched")
@@ -1923,9 +1959,9 @@ def check_mla_kernel(ops, card: str, pieces: int) -> dict:
 
 
 def mla_model(configs, lm):
-    """``mla_model``: minicpm3-4b at full width and depth with
-    :func:`seeded_params` (bf16, about 8.2 GB)."""
-    cfg = configs.get(MLA_ARCH)
+    """``mla_model``: minicpm3-4b at full width, MLA_DEPTH layers, with
+    :func:`seeded_params` (bf16)."""
+    cfg = dataclasses.replace(configs.get(MLA_ARCH), n_layers=MLA_DEPTH)
     t0 = time.perf_counter()
     params = seeded_params(cfg, lm)
     torch.cuda.synchronize()
@@ -2422,6 +2458,281 @@ class nudged_attention:
         self.ops.flash_attention = self.orig
 
 
+def hybrid_qkv(S: int, dtype, seed: int, *, pad_to: int | None = None):
+    """zamba2's shared-attention operands over S tokens (q/k/v 1 x 32 x S x
+    112, MHA), zero-padded to ``pad_to`` positions as the ring pads a
+    ragged sequence."""
+    q, k, v = (randn((1, HYBRID_HEADS, S, HYBRID_HEAD_DIM), dtype, seed + i) for i in range(3))
+    if pad_to is not None:
+        q, k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad_to - S)) for x in (q, k, v))
+    return q, k, v
+
+
+def check_hybrid_carry(ops, card: str, ring_step_offsets, ragged_seq_extents,
+                       pieces: int) -> dict:
+    """``hybrid_carry``: the carry form's (112, 112) instance at zamba2's
+    shapes, bf16 and float32, against its plain version: ranks 1 and 3 of a
+    4-rank ring over SEQ tokens and over a ragged SEQ - 1 (padded keys
+    masked by ``valid_len``), each a diagonal step from the empty state and
+    then an off-diagonal step from the state it left (the ring's own offset
+    helper), in acc, m and l; the ring's one step of the whole sequence on
+    one card; carry steps over 4 chunks of 1024 keys chained in block order
+    equal to the single-shot (112, 112) kernel bitwise, causal and not; two
+    launches bitwise equal.  Times (bf16, ``queued_ms``) of the
+    off-diagonal and diagonal steps and of the one-card step beside their
+    bounds (``attn_bound``: the bf16 products, p @ v in ``pieces`` pieces,
+    and the state read and written once) and the plain version's; no
+    PyTorch call returns the unnormalized state."""
+    from repro_torch.kernels.timing import queued_ms
+
+    out, worst = {}, 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        for S in (SEQ, SEQ - 1):
+            cap, _ = ragged_seq_extents(S, RING_R)
+            valid = None if S == RING_R * cap else S
+            q, k, v = hybrid_qkv(S, dt, 200, pad_to=RING_R * cap)
+            errs, calls = {"acc": 0.0, "m": 0.0, "l": 0.0}, 0
+            for rank in (1, RING_R - 1):
+                qr = q[:, :, rank * cap:(rank + 1) * cap]
+                state = plain_carry(qr)
+                for step in (0, 1):  # diagonal, then off-diagonal
+                    q_off, k_off = ring_step_offsets(rank, step, RING_R, cap)
+                    blk = slice(k_off, k_off + cap)
+                    kw = dict(q_offset=q_off, k_offset=k_off, valid_len=valid, causal=True)
+                    want = ops.flash_attention_carry(qr, k[:, :, blk], v[:, :, blk], state,
+                                                     impl="ref", **kw)
+                    got = ops.flash_attention_carry(qr, k[:, :, blk], v[:, :, blk],
+                                                    tuple(t.clone() for t in state), **kw)
+                    torch.cuda.synchronize()
+                    for name, g, w in zip(("acc", "m", "l"), got, want):
+                        torch.testing.assert_close(g, w, rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
+                        errs[name] = max(errs[name], (g - w).abs().max().item())
+                    if step == 1 and not torch.equal(got[0], ops.flash_attention_carry(
+                            qr, k[:, :, blk], v[:, :, blk], tuple(t.clone() for t in state),
+                            **kw)[0]):
+                        raise AssertionError(f"carry (112, 112) {dt}: two launches differ")
+                    state, calls = want, calls + 1
+            if dt == torch.bfloat16:
+                worst = max(worst, *errs.values())
+            phase("hybrid_carry_check", arch=HYBRID_ARCH, ring=RING_R, seq=S, chunk=cap,
+                  valid_len=valid, ranks=(1, RING_R - 1), steps=("diagonal", "off_diagonal"),
+                  dtype=str(dt), calls=calls, max_abs_err=errs, tol=ATTN_TOL[dt],
+                  two_launches="bitwise")
+            del q, k, v
+        q, k, v = hybrid_qkv(SEQ, dt, 210)
+        want = ops.flash_attention_carry(q, k, v, None, impl="ref")
+        got = ops.flash_attention_carry(q, k, v, None)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, w in zip(("acc", "m", "l"), got, want):
+            torch.testing.assert_close(g, w, rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
+            errs[name] = (g - w).abs().max().item()
+        if dt == torch.bfloat16:
+            worst = max(worst, *errs.values())
+        del got, want
+        for causal in (True, False):
+            chained = chain(ops, q, k, v, causal=causal)
+            single = ops.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if not torch.equal(chained, single):
+                raise AssertionError(f"carry chain (112, 112) != single-shot kernel ({dt}, "
+                                     f"causal={causal}): max |diff| "
+                                     f"{(chained.float() - single.float()).abs().max()}")
+        phase("hybrid_carry_chain", shape=tuple(q.shape), chunks=RING_R, dtype=str(dt),
+              one_card_step_max_abs_err=errs, tol=ATTN_TOL[dt],
+              chain_equals_single_shot="bitwise, causal and not")
+        del q, k, v, chained, single
+    cap = SEQ // RING_R
+    q, k, v = hybrid_qkv(SEQ, torch.bfloat16, 220)
+    qr = q[:, :, cap:2 * cap]
+    cases = []
+    for label, step in (("diagonal", 0), ("off_diagonal", 1)):
+        q_off, k_off = ring_step_offsets(1, step, RING_R, cap)
+        cases.append((label, qr, k[:, :, k_off:k_off + cap], v[:, :, k_off:k_off + cap],
+                      dict(q_offset=q_off, k_offset=k_off, causal=True),
+                      cap * (cap + 1) // 2 if step == 0 else cap * cap))
+    cases.append(("one_card_step", q, k, v, dict(causal=True), SEQ * (SEQ + 1) // 2))
+    for label, qq, kb, vb, kw, pairs in cases:
+        carry = plain_carry(qq)
+        t = dict(ms=queued_ms(lambda: ops.flash_attention_carry(qq, kb, vb, carry, **kw)),
+                 plain_ms=queued_ms(lambda: ops.flash_attention_carry(qq, kb, vb, carry,
+                                                                      impl="ref", **kw),
+                                    iters=5 if label == "one_card_step" else 20),
+                 library_ms=None,
+                 call_ms=median_ms(lambda: ops.flash_attention_carry(qq, kb, vb, carry, **kw)))
+        flops = 4 * HYBRID_HEADS * pairs * HYBRID_HEAD_DIM
+        nbytes = 2 * (qq.numel() + kb.numel() + vb.numel()) + \
+            2 * 4 * sum(c.numel() for c in carry)
+        b_ms, b_by, fp32_ms = attn_bound(flops, nbytes, products=1 + pieces)
+        out[label] = dict(bound_ms=b_ms, bound_by=b_by, fp32_bound_ms=fp32_ms, **t)
+        check_bound(f"flash_attention_carry (112, 112) {label}", out[label])
+        phase("time", kernel="flash_attention_carry", arch=HYBRID_ARCH, case=label,
+              q=tuple(qq.shape), kv=tuple(kb.shape), dtype="bfloat16", card=card,
+              library="none: no PyTorch call returns the unnormalized (acc, m, l)",
+              tflops=flops / t["ms"] / 1e9, **out[label])
+        del carry
+    del q, k, v, qr, cases
+    torch.cuda.empty_cache()
+    out["max_abs_err"] = worst
+    return out
+
+
+def host_ms(fn, n: int) -> float:
+    """Host-clock ms per call of ``fn`` over ``n`` calls, the card
+    synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def recurrent_recipe_forward(cfg, params, lm, fa, mesh, sharding, shard_params_by_recipe,
+                             no_recipe_window: dict) -> dict:
+    """``recurrent_recipe_forward``: the forward of the forward phase's 1 x
+    SEQ tokens under ``make_recipe(cfg, mesh, attn_mode=...)`` for each mode
+    of RECURRENT_RECIPE_MODES, on a one-rank NCCL ``(data, model)`` mesh and
+    the rank's shards (views: one rank cuts nothing).  zamba2's shared
+    attention launches the (112, 112) forward instance once an application
+    under ``tp`` and ``sp``, and under ``sp_ring`` the ring's one step, the
+    carry instance, in its place; rwkv6 launches no attention kernel.
+    Logits under ``tp`` equal the no-recipe forward's bitwise (the same
+    program on one rank), the other modes' within LOGIT_TOL (and whether
+    bitwise).  Times, in turns with the no-recipe forward (no recipe, each
+    mode, no recipe): host ms of a forward (:func:`host_ms`, 2 calls); and
+    for ``sp_ring``, the mode whose kernels differ, one forward's window
+    (:func:`window`: host and device ms, idle share, kernels launched,
+    device ms by kind) beside the forward phase's no-recipe window
+    (``no_recipe_window``).  The other modes launch the same kernels on the
+    same operands (bitwise logits) and are not profiled: a profiled forward
+    of these models takes seconds of trace processing."""
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, SEQ), device=DEVICE, generator=g)}
+    want = lm.forward(params, batch, cfg)[0]
+    specs = lm.build_specs(cfg)
+    n_shared = lm.hybrid_dims(cfg)[0] if cfg.family == "hybrid" else 0
+    fns = {"no_recipe": lambda: lm.forward(params, batch, cfg)}
+    out = {}
+    for mode in RECURRENT_RECIPE_MODES[cfg.name]:
+        recipe = sharding.make_recipe(cfg, mesh, attn_mode=mode)
+        shards = shard_params_by_recipe(params, specs, recipe)
+        fa.flash_attention_cuda.launches = fa.flash_attention_carry_cuda.launches = 0
+        with sharding.use_recipe(recipe):
+            got = lm.forward(shards, batch, cfg)[0]
+        torch.cuda.synchronize()
+        launches = (fa.flash_attention_cuda.launches, fa.flash_attention_carry_cuda.launches)
+        expected = (0, n_shared) if mode == "sp_ring" else (n_shared, 0)
+        if launches != expected:
+            raise AssertionError(f"{cfg.name} recipe forward {mode}: (flash_attention, carry) "
+                                 f"launches {launches} != {expected}")
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{cfg.name} recipe forward {mode}: logits {tuple(got.shape)} "
+                                 "not finite or not the expected shape")
+        err = (got - want).abs().max().item()
+        bitwise = torch.equal(got, want)
+        del got
+        if (mode == "tp" and not bitwise) or err > LOGIT_TOL:
+            raise AssertionError(f"{cfg.name} recipe forward {mode} vs no recipe: max |diff| "
+                                 f"{err} (bitwise {bitwise}; tp must be bitwise, the others "
+                                 f"within {LOGIT_TOL})")
+
+        def fwd(shards=shards, recipe=recipe):
+            with sharding.use_recipe(recipe):
+                lm.forward(shards, batch, cfg)
+
+        fns[mode] = fwd
+        out[mode] = dict(flash_attention_launches=launches[0],
+                         flash_attention_carry_launches=launches[1], logits_max_abs_err=err,
+                         bitwise_equal_no_recipe=bitwise, tol=LOGIT_TOL)
+    host = {name: [] for name in fns}
+    for name in ("no_recipe", *out, "no_recipe"):
+        host[name].append(host_ms(fns[name], 2))
+    keys = ("wall_ms", "device_ms", "idle_share", "kernels_launched", "device_ms_by_kind")
+    ring = window(fns["sp_ring"], 1, classify=scan_by_kind)
+    if cfg.family == "hybrid" and not any("flash_attention_kernel_wgmma" in n
+                                          for n in ring["port_kernels"]):
+        raise AssertionError(f"the profiled sp_ring forward ran no flash_attention_kernel_wgmma: "
+                             f"{ring['port_kernels']}")
+    for mode, row in out.items():
+        row.update(host_ms=host[mode], no_recipe_host_ms=host["no_recipe"])
+        if mode == "sp_ring":
+            row.update(forward={k: ring[k] for k in keys},
+                       no_recipe_forward={k: no_recipe_window[k] for k in keys},
+                       kernels_launched_vs_no_recipe=ring["kernels_launched"] -
+                       no_recipe_window["kernels_launched"])
+        phase("recurrent_recipe_forward", arch=cfg.name, mesh=dict(mesh.shape), backend="nccl",
+              attn_mode=mode, tokens=SEQ, **row)
+    del want, fns
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_recipe_serve(cfg, params, lm, Engine, ServeConfig, fd, mesh, sharding,
+                           shard_params_by_recipe, single_done: dict) -> dict:
+    """``recurrent_recipe_serve``: the serving phase's requests through
+    ``Engine(recipe=make_recipe(cfg, mesh, attn_mode="tp"))`` on a one-rank
+    NCCL mesh, on the rank's shards and its blocks of the decode state
+    (prefilled token by token, a slot reused): every request finishes,
+    zamba2's ``flash_decode`` launches once a shared application in every
+    step, and the greedy tokens equal the single-host kernel run's
+    (``single_done``) exactly (the same program on one rank).  Then the
+    host ms of RECURRENT_RECIPE_STEPS steady decode steps (:func:`host_ms`;
+    the first SLOTS prompts cut to RECURRENT_RECIPE_PROMPT tokens) in turns
+    with the single-host engine's on the same requests (single host,
+    recipe, recipe, single host)."""
+    requests = recurrent_prompts(cfg)
+    recipe = sharding.make_recipe(cfg, mesh, attn_mode="tp")
+    shards = shard_params_by_recipe(params, lm.build_specs(cfg), recipe)
+    per_step = lm.hybrid_dims(cfg)[0] if cfg.family == "hybrid" else 0
+    scfg = ServeConfig(max_len=MAX_LEN, batch_slots=SLOTS, eos_token=-1)
+
+    def engine_for(prompts, recipe=recipe):
+        engine = Engine(cfg, params if recipe is None else shards, scfg, recipe=recipe)
+        for rid, prompt in enumerate(prompts):
+            engine.submit(rid, prompt, RECURRENT_NEW_TOKENS)
+        return engine
+
+    engine = engine_for(requests)
+    stats = _instrument(engine, record_gaps=False, fd=fd)
+    fd.flash_decode_cuda.launches = 0
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fd.flash_decode_cuda.launches
+    by_kind = {kind: per_step * engine.steps[kind] for kind in ("prefill", "decode")}
+    if stats["launches"] != by_kind or launches != sum(by_kind.values()):
+        raise AssertionError(f"{cfg.name} recipe serve: flash_decode launches "
+                             f"{stats['launches']} (total {launches}) != {by_kind}")
+    if done != single_done:
+        raise AssertionError(f"{cfg.name} recipe serve: greedy tokens differ from the "
+                             "single-host run's")
+    steps = dict(engine.steps)
+    del engine
+    torch.cuda.empty_cache()
+    short = [r[:RECURRENT_RECIPE_PROMPT] for r in requests[:SLOTS]]
+    engines = {"single_host": engine_for(short, None), "recipe": engine_for(short)}
+    for engine in engines.values():
+        engine._fill_slots()
+        engine._decode_once()
+    host = {name: [] for name in engines}
+    for name in ("single_host", "recipe", "recipe", "single_host"):
+        host[name].append(host_ms(engines[name]._decode_once, RECURRENT_RECIPE_STEPS))
+    del engines
+    torch.cuda.empty_cache()
+    out = dict(mesh=dict(mesh.shape), attn_mode=recipe.attn_mode, requests=len(requests),
+               slots=SLOTS, max_len=MAX_LEN, new_tokens=RECURRENT_NEW_TOKENS,
+               slot_reuses=len(requests) - SLOTS, steps=steps, flash_decode_launches=launches,
+               flash_decode_launches_by_kind=stats["launches"], prefill_s=stats["prefill_s"],
+               decode_s=stats["decode_s"], wall_s=wall,
+               decode_tok_s=len(requests) * RECURRENT_NEW_TOKENS / stats["decode_s"],
+               greedy_tokens_equal_single_host=True, decode_step_host_ms=host["recipe"],
+               single_host_decode_step_host_ms=host["single_host"])
+    phase("recurrent_recipe_serve", arch=cfg.name, backend="nccl", **out)
+    return out
+
+
 def recurrent_model(configs, lm, name: str):
     """``recurrent_model``: ``name`` at full width and depth with
     :func:`seeded_params` (bf16)."""
@@ -2580,10 +2891,11 @@ def recurrent_serve(cfg, params, lm, Engine, ServeConfig, fd) -> dict:
     engine._fill_slots()
     engine._decode_once()
     fd.flash_decode_cuda.launches = 0
-    dec = window(engine._decode_once, 8, classify=scan_by_kind)
-    if fd.flash_decode_cuda.launches != 2 * 8 * per_step:
+    dec = window(engine._decode_once, RECURRENT_WINDOW_STEPS, classify=scan_by_kind)
+    if fd.flash_decode_cuda.launches != 2 * RECURRENT_WINDOW_STEPS * per_step:
         raise AssertionError(f"{cfg.name} decode steps: flash_decode launches "
-                             f"{fd.flash_decode_cuda.launches} != {2 * 8 * per_step}")
+                             f"{fd.flash_decode_cuda.launches} != "
+                             f"{2 * RECURRENT_WINDOW_STEPS * per_step}")
     if hybrid and not any("flash_decode_kernel_wgmma" in n for n in dec["port_kernels"]):
         raise AssertionError(f"the profiled hybrid decode ran no flash_decode_kernel_wgmma: "
                              f"{dec['port_kernels']}")
@@ -2592,6 +2904,7 @@ def recurrent_serve(cfg, params, lm, Engine, ServeConfig, fd) -> dict:
     del engine
     torch.cuda.empty_cache()
     phase("hybrid_serve" if hybrid else "ssm_serve", arch=cfg.name, **out)
+    out["done"] = k["done"]  # the kernel run's tokens, which the recipe run is held to
     return out
 
 
@@ -2629,7 +2942,8 @@ def recurrent_decode_vs_forward(configs, lm, name: str) -> dict:
     return out
 
 
-def hybrid_train(configs, lm, fa, trainer, optimizer, tree_leaves) -> dict:
+def hybrid_train(configs, lm, fa, trainer, optimizer, tree_leaves, sharding,
+                 shard_params_by_recipe, mesh) -> tuple[dict, dict]:
     """``hybrid_train``: zamba2 at full width, HYBRID_TRAIN_DEPTH layers
     (float32 masters, bf16 activations, remat by super-block and block): one
     ``make_train_step`` step of 1 x SEQ tokens after a warm-up step, its
@@ -2638,7 +2952,12 @@ def hybrid_train(configs, lm, fa, trainer, optimizer, tree_leaves) -> dict:
     and once more in remat's recompute; the backward recomputes through the
     plain version), every leaf finite and nonzero but the LoRAs' ``lora_a``
     (zero while ``lora_b`` is at its zero initialisation), held against the
-    same gradients through the plain attention."""
+    same gradients through the plain attention.  Then ``hybrid_recipe_train``:
+    the same step under the ``tp`` recipe on the one-rank NCCL ``mesh``, on
+    the rank's shards (views), after a warm-up step as the no-recipe
+    step's: the forward instance launched as often, its loss and gradient
+    norm against the no-recipe step's (bitwise on one rank, held to
+    TRAIN_LOSS_RTOL and TRAIN_GRAD_RTOL), seconds and peak memory."""
     cfg = dataclasses.replace(configs.get(HYBRID_ARCH), n_layers=HYBRID_TRAIN_DEPTH)
     params = lm.init_model(cfg, torch.Generator(device=DEVICE).manual_seed(8), device=DEVICE)
     g = torch.Generator(device=DEVICE).manual_seed(9)
@@ -2676,22 +2995,57 @@ def hybrid_train(configs, lm, fa, trainer, optimizer, tree_leaves) -> dict:
     step(params, opt, batch)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    new_params, _, metrics = step(params, opt, batch)
+    new_params, new_opt, metrics = step(params, opt, batch)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     if not np.isfinite(metrics["loss"].item()) or not np.isfinite(metrics["grad_norm"].item()):
         raise AssertionError(f"hybrid training step metrics not finite: {metrics}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del new_params, new_opt
+    torch.cuda.empty_cache()
+    recipe = sharding.make_recipe(cfg, mesh, attn_mode="tp")
+    shards = shard_params_by_recipe(params, lm.build_specs(cfg), recipe)
+    rstep = trainer.make_train_step(cfg, recipe, ocfg)
+    torch.cuda.reset_peak_memory_stats()
+    rstep(shards, opt, batch)  # warm-up, as the no-recipe step's
+    torch.cuda.synchronize()
+    fa.flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    m_rec = rstep(shards, opt, batch)[2]
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    rec_launches = fa.flash_attention_cuda.launches
+    if rec_launches != expected:
+        raise AssertionError(f"hybrid tp recipe step: flash_attention launches {rec_launches} "
+                             f"!= {expected}")
+    rec_loss_err = abs(m_rec["loss"].item() - metrics["loss"].item()) / metrics["loss"].item()
+    rec_norm_err = abs(m_rec["grad_norm"].item() - metrics["grad_norm"].item()) / \
+        metrics["grad_norm"].item()
+    if rec_loss_err > TRAIN_LOSS_RTOL or rec_norm_err > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"hybrid tp recipe step vs no recipe: loss {rec_loss_err}, grad "
+                             f"norm {rec_norm_err}")
+    rec = dict(attn_mode=recipe.attn_mode, layers=cfg.n_layers, tokens=SEQ,
+               flash_attention_launches=rec_launches, expected=expected,
+               loss=m_rec["loss"].item(), loss_rel_err=rec_loss_err,
+               grad_norm=m_rec["grad_norm"].item(), grad_norm_rel_err=rec_norm_err,
+               bitwise_equal_no_recipe=bool(m_rec["loss"].item() == metrics["loss"].item() and
+                                            m_rec["grad_norm"].item() ==
+                                            metrics["grad_norm"].item()),
+               step_s=rec_s, no_recipe_step_s=step_s,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               tol=dict(loss=TRAIN_LOSS_RTOL, grad_norm=TRAIN_GRAD_RTOL))
+    phase("hybrid_recipe_train", arch=cfg.name, mesh=dict(mesh.shape), backend="nccl", **rec)
     out = dict(layers=cfg.n_layers, params=lm.count_params(cfg), tokens=SEQ,
                flash_attention_launches=launches, expected=expected, loss=loss.item(),
                plain_loss=plain_loss.item(), loss_rel_err=loss_err, grad_rel_err_max=max(errs),
                grad_rel_err_median=float(np.median(errs)),
                tol=dict(loss=TRAIN_LOSS_RTOL, grads=TRAIN_GRAD_RTOL), step_s=step_s,
                tokens_per_s=SEQ / step_s, grad_norm=metrics["grad_norm"].item(),
-               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+               peak_memory_gb=peak_gb)
     phase("hybrid_train", arch=cfg.name, **out)
-    del params, new_params, opt
+    del params, shards, opt
     torch.cuda.empty_cache()
-    return out
+    return out, rec
 
 
 def kernel_instances(log: str, kernel: str = r"layout_gemm\w*?kernel") -> dict:
@@ -2893,7 +3247,7 @@ def main() -> int:
     gqa4 = ("ms", "max_abs_err", "bound_ms", "bound_by", "plain_ms", "library_ms",
             "library_bf16_ms")
 
-    # phase 12: the MLA family, minicpm3-4b at full width and depth, seeded
+    # phase 12: the MLA family, minicpm3-4b at full width (MLA_DEPTH layers), seeded
     # random weights; the kernel's (96, 64) instances first
     mla_attn = check_mla_kernel(ops, card, fa.P_PIECES)
     mla_cfg, mla_params = mla_model(configs, lm)
@@ -2942,29 +3296,54 @@ def main() -> int:
     phase("recipe_phases", seconds=recipe_s)
 
     # phase 14: the hybrid and SSM families: the kernels' head dim of 112
-    # (zamba2's shared attention) against their plain versions and timed;
+    # (zamba2's shared attention; the forward, decode and carry forms)
+    # against their plain versions and timed;
     # zamba2-7b and rwkv6-3b at full width and depth (seeded bf16 weights):
     # forwards of 1 x SEQ tokens and serving with reused slots, zamba2's
     # through the kernels and held against its plain path; decode against
     # the forward at float32; one zamba2 training step
     t0 = time.perf_counter()
     hyb_attn = check_hybrid_kernels(ops, card, fa.P_PIECES)
-    recurrent = {}
-    for name in (HYBRID_ARCH, SSM_ARCH):
-        rcfg, rparams = recurrent_model(configs, lm, name)
-        recurrent[name] = (recurrent_forward(rcfg, rparams, lm, fa, fd),
-                           recurrent_serve(rcfg, rparams, lm, Engine, ServeConfig, fd))
-        del rparams
-        torch.cuda.empty_cache()
-    checks = {name: recurrent_decode_vs_forward(configs, lm, name) for name in RECURRENT_CHECK}
-    hyb_train = hybrid_train(configs, lm, fa, trainer, optimizer, tree_leaves)
+    hyb_carry = check_hybrid_carry(ops, card, ring_step_offsets, ragged_seq_extents,
+                                   fa.P_PIECES)
+    recurrent, rec_recipe, recurrent_recipe_s = {}, {}, 0.0
+    # phase 15: the SSM and hybrid families under a sharding recipe on a
+    # one-rank NCCL (data, model) mesh, beside the phase's no-recipe runs
+    device = init_world("cuda")
+    try:
+        rmesh = make_mesh((1, 1), ("data", "model"), device=device)
+        for name in (HYBRID_ARCH, SSM_ARCH):
+            rcfg, rparams = recurrent_model(configs, lm, name)
+            recurrent[name] = (recurrent_forward(rcfg, rparams, lm, fa, fd),
+                               recurrent_serve(rcfg, rparams, lm, Engine, ServeConfig, fd))
+            t1 = time.perf_counter()
+            rec_recipe[name] = (
+                recurrent_recipe_forward(rcfg, rparams, lm, fa, rmesh, sharding,
+                                         shard_params_by_recipe,
+                                         recurrent[name][0]["breakdown"]),
+                recurrent_recipe_serve(rcfg, rparams, lm, Engine, ServeConfig, fd, rmesh,
+                                       sharding, shard_params_by_recipe,
+                                       recurrent[name][1]["done"]))
+            recurrent_recipe_s += time.perf_counter() - t1
+            del rparams
+            torch.cuda.empty_cache()
+        checks = {name: recurrent_decode_vs_forward(configs, lm, name)
+                  for name in RECURRENT_CHECK}
+        t1 = time.perf_counter()
+        hyb_train, hyb_rec_train = hybrid_train(configs, lm, fa, trainer, optimizer, tree_leaves,
+                                                sharding, shard_params_by_recipe, rmesh)
+        recurrent_recipe_s += hyb_rec_train["step_s"]
+    finally:
+        dist.destroy_process_group()
+    phase("recurrent_recipe_phases", seconds=recurrent_recipe_s)
     hyb_fwd, hyb_srv = recurrent[HYBRID_ARCH]
     phase("recurrent_families", seconds=time.perf_counter() - t0,
           decode_vs_forward_max_abs_err={k: v["max_abs_err"] for k, v in checks.items()},
           hybrid_forward_ms=hyb_fwd["forward_ms"], ssm_forward_ms=recurrent[SSM_ARCH][0][
               "forward_ms"], hybrid_decode_tok_s=hyb_srv["decode_tok_s"],
           ssm_decode_tok_s=recurrent[SSM_ARCH][1]["decode_tok_s"],
-          hybrid_train_step_s=hyb_train["step_s"])
+          hybrid_train_step_s=hyb_train["step_s"],
+          hybrid_recipe_train_step_s=hyb_rec_train["step_s"])
 
     gemm_src = "src/repro_torch/kernels/csrc/gemm.cu"
     report = []
@@ -2989,6 +3368,9 @@ def main() -> int:
                    "recipe_train_launches": rec_train["flash_attention_launches"],
                    "hybrid_forward_launches": hyb_fwd["flash_attention_launches"],
                    "hybrid_train_launches": hyb_train["flash_attention_launches"],
+                   **{f"hybrid_recipe_{mode}_forward_launches": row["flash_attention_launches"]
+                      for mode, row in rec_recipe[HYBRID_ARCH][0].items() if mode != "sp_ring"},
+                   "hybrid_recipe_train_launches": hyb_rec_train["flash_attention_launches"],
                    **{f"zamba2_112_{key}": hyb_attn["flash_attention"][key] for key in
                       (*gqa4, "error_vs_float64_ratio", "library_bf16_backend")},
                    **rows["flash_attention"]})
@@ -3005,6 +3387,8 @@ def main() -> int:
                    "moe_serve_launches": moe_srv["flash_decode_launches"],
                    "hybrid_serve_launches": hyb_srv["flash_decode_launches"],
                    "hybrid_serve_launches_by_kind": hyb_srv["flash_decode_launches_by_kind"],
+                   "hybrid_recipe_serve_launches":
+                   rec_recipe[HYBRID_ARCH][1]["flash_decode_launches"],
                    **{f"zamba2_112_{key}": hyb_attn["flash_decode"][key] for key in gqa4},
                    **{f"moe_gqa4_{key}": moe_attn["flash_decode"][key] for key in gqa4},
                    "max_abs_err": worst["flash_decode"], **rows[("flash_decode", "decode")],
@@ -3019,6 +3403,12 @@ def main() -> int:
                    "replaces": "src/repro/kernels/flash_attention.py:229",
                    "launches": carry_launches, "max_abs_err": worst["flash_attention_carry"],
                    "train_launches": ring["flash_attention_carry_launches"],
+                   "hybrid_recipe_sp_ring_forward_launches":
+                   rec_recipe[HYBRID_ARCH][0]["sp_ring"]["flash_attention_carry_launches"],
+                   "zamba2_112_max_abs_err": hyb_carry["max_abs_err"],
+                   **{f"zamba2_112_{case}_{key}": hyb_carry[case][key]
+                      for case in ("off_diagonal", "diagonal", "one_card_step")
+                      for key in ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms")},
                    "chain_error_vs_float64_ratio": accuracy["chain"],
                    **rows[("flash_attention_carry", "off_diagonal")]})
     report.append({"name": "transpose_tiled", "route": "cuda",

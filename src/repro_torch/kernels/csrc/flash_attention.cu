@@ -80,7 +80,12 @@
 // zero columns (16 of 128 of its products wasted) and the epilogue stores
 // 112 columns.  Shared memory, registers and the pipeline are the
 // (128, 128) instance's.  The float32 body pads V's tile and the output
-// to 128 columns the same way.
+// to 128 columns the same way.  The carry form at (112, 112) keeps the
+// state acc (B, Hq, Sq, 112) in device memory while a thread's P V
+// accumulators span 128 columns: HAS_CARRY loads columns 112-127 as zero
+// (only columns below Dv are read) and EMIT_STATE stores only the first
+// Dv / 8 column pairs of a row, so the padding never reaches the next
+// row's state; the state update of a padding column is 0 * alpha + 0.
 //
 // float32 (flash_attention_kernel; no model path runs attention in float32
 // on the card): the body of the first port on the CUDA cores in FFMA
@@ -556,8 +561,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, float* acc
   return static_cast<int>(cudaGetLastError());
 }
 
-// The (D, Dv) instances: (64, 64) and (128, 128) in both forms, (96, 64)
-// (MLA) and (112, 112) (zamba2's shared attention) in the forward form
+// The (D, Dv) instances: (64, 64), (128, 128) and (112, 112) (zamba2's
+// shared attention) in both forms, (96, 64) (MLA) in the forward form
 // only.
 template <bool CARRY>
 int dispatch(const void* q, const void* k, const void* v, void* out, float* acc, float* m,
@@ -576,10 +581,8 @@ int dispatch(const void* q, const void* k, const void* v, void* out, float* acc,
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   FA_LAUNCH(128, 128)
   FA_LAUNCH(64, 64)
-  if constexpr (!CARRY) {
-    FA_LAUNCH(96, 64)
-    FA_LAUNCH(112, 112)
-  }
+  FA_LAUNCH(112, 112)
+  if constexpr (!CARRY) FA_LAUNCH(96, 64)
 #undef FA_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -603,7 +606,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, 
 // One ring step: the state acc (B, Hq, Sq, D), m and l (B, Hq, Sq), float32
 // contiguous, is updated in place by the attention of q (global rows
 // q_off + i) over k, v (global keys k_off + j; keys at or past valid_len
-// masked).  Operands as for flash_attention_fwd, with Dv = D = 64 or 128.
+// masked).  Operands as for flash_attention_fwd, with Dv = D = 64, 112 or
+// 128.
 // Returns a cudaError_t.
 int flash_attention_carry_fwd(const void* q, const void* k, const void* v, float* acc, float* m,
                               float* l, int dtype, int B, int Hq, int G, int Sq, int Skv, int D,

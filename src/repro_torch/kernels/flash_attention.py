@@ -19,8 +19,9 @@ float32 inputs run the first port's float32 body on the CUDA cores.
 
 The forward takes float32 or bfloat16 with head dims ``(D, Dv)`` of
 :data:`FORWARD_HEAD_DIMS`: 64, 112 (zamba2's shared attention) or 128 for
-q, k and v, or q/k of 96 with v of 64 (MLA's forward).  The carry form takes one head dim, 64 or 128, for q, k
-and v (:func:`check_carry_head_dims`).  It reads each operand through its
+q, k and v, or q/k of 96 with v of 64 (MLA's forward).  The carry form takes one head dim,
+64, 112 or 128 (:data:`HEAD_DIMS`), for q, k and v
+(:func:`check_carry_head_dims`).  It reads each operand through its
 batch, head and sequence strides, so the transposed views of the
 projections need no copy.
 It launches on PyTorch's current stream and never synchronises; a build or
@@ -46,7 +47,7 @@ __all__ = ["flash_attention_cuda", "flash_attention_carry_cuda", "check_attentio
            "FORWARD_HEAD_DIMS", "KEY_TILE", "P_PIECES"]
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)  # the carry form's, for q, k and v alike
+HEAD_DIMS = (64, 112, 128)  # the carry form's, for q, k and v alike
 FORWARD_HEAD_DIMS = ((64, 64), (128, 128), (96, 64), (112, 112))  # the forward's (D, Dv)
 KEY_TILE = 64  # keys per tile of both bodies: carry chunks starting on its multiples chain bitwise
 P_PIECES = 2  # bf16 pieces of p in the bf16 body's p @ v (hi = bf16(p), lo = bf16(p - hi))

@@ -424,15 +424,7 @@ def gqa_attention_placed(p, x, *, place, n_heads: int, n_kv: int, head_dim: int,
     split = M > 1 and (hl != H or seq_split)
 
     def take(w, dim, start, n, full):
-        """Block ``[start, start + n)`` of ``w`` along ``dim``: ``w`` itself
-        when it is this rank's block, else sliced from the whole weight,
-        whose gradient then sums over the ``model`` ranks splitting the
-        work."""
-        if w.shape[dim] != full:
-            return w
-        if split:
-            w = place.enter_model(w)
-        return w.narrow(dim, start, n)
+        return place.block(w, dim, start, n, full, split=split)
 
     xn = place.enter_model(x) if split else x
     wq, wo = take(p["wq"], 1, h0, hl, H), take(p["wo"], 0, h0, hl, H)

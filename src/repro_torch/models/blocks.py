@@ -2,7 +2,9 @@
 (SwiGLU, the GELU MLP, or the top-k MoE); the MLA family's pre-norm
 multi-head latent attention + SwiGLU; the SSM family's RWKV6 block (time
 mix, then a token-shifted squared-ReLU channel mix); and the hybrid
-family's Mamba2 block and its shared attention block (zamba2).
+family's Mamba2 block and its shared attention block (zamba2).  All but
+the MLA block take ``place`` (their part of a ``tp``/``sp`` recipe's
+program) and ``shard`` (their chunk of the sequence under ``sp_ring``).
 
 The reference scans stacked layer parameters with ``lax.scan``; the port
 keeps the stacked ``(L, ...)`` layout and loops over the layer index
@@ -20,6 +22,7 @@ from . import attention as attn
 from . import ffn as ffn_mod
 from . import ssm as ssm_mod
 from .module import pspec
+from .sharding import partial_product
 
 __all__ = ["norm_spec", "rmsnorm", "attn_block_specs", "attn_block", "mla_block_specs",
            "mla_block", "rwkv_block_specs", "RWKVBlockState", "rwkv_block", "mamba_block_specs",
@@ -152,12 +155,34 @@ class RWKVBlockState(NamedTuple):
     cm_shift: torch.Tensor  # (B, m)
 
 
-def rwkv_block(p, x, cfg, *, state: RWKVBlockState | None = None):
+def _whole_sequence(block, p, x, cfg, shard, **kw):
+    """``block`` under an ``sp_ring`` recipe: this rank's chunk ``x`` of
+    the sequence gathered over ``model``, the block run over the whole
+    sequence of the rank's rows (its scans and token shifts read across
+    the chunks), and this rank's chunk of the result kept
+    (:meth:`repro_torch.models.sharding.TokenShard.gather_seq`)."""
+    y, _, aux = block(p, shard.gather_seq(x), cfg, **kw)
+    return shard.local_seq(y), None, aux
+
+
+def rwkv_block(p, x, cfg, *, state: RWKVBlockState | None = None, place=None, shard=None):
     """RWKV6 time mix, then the channel mix.  Returns ``(x, new_state,
-    aux_loss)``, the aux loss the float 0.0; the state is new tensors."""
-    h, tstate = ssm_mod.rwkv6_mix(p["time_mix"], rmsnorm(p["ln1"], x), n_heads=cfg.n_heads,
-                                  chunk=cfg.ssm_chunk,
-                                  state=state.time if state is not None else None)
+    aux_loss)``, the aux loss the float 0.0; the state is new tensors.
+    Under a ``tp``/``sp`` recipe ``x`` is this rank's rows and ``place``
+    its part of the program: the time mix by heads
+    (:func:`repro_torch.models.ssm.rwkv6_mix_placed`), the channel mix's
+    ``f`` columns where the recipe cuts them, the partials summed over
+    ``model``; ``state`` is then this rank's block.  Under ``sp_ring``
+    (``shard``) the block runs over the gathered sequence."""
+    if shard is not None:
+        return _whole_sequence(rwkv_block, p, x, cfg, shard)
+    tm = state.time if state is not None else None
+    if place is not None:
+        h, tstate = ssm_mod.rwkv6_mix_placed(p["time_mix"], rmsnorm(p["ln1"], x), place=place,
+                                             n_heads=cfg.n_heads, chunk=cfg.ssm_chunk, state=tm)
+    else:
+        h, tstate = ssm_mod.rwkv6_mix(p["time_mix"], rmsnorm(p["ln1"], x), n_heads=cfg.n_heads,
+                                      chunk=cfg.ssm_chunk, state=tm)
     x = x + h
     xn = rmsnorm(p["ln2"], x)
     prev = state.cm_shift[:, None].to(xn.dtype) if state is not None else \
@@ -166,8 +191,13 @@ def rwkv_block(p, x, cfg, *, state: RWKVBlockState | None = None):
     mix = p["cm_mix"].to(x.dtype)
     xk = xn + (xp - xn) * mix[0]
     xr = xn + (xp - xn) * mix[1]
-    k = torch.square(F.relu(xk @ p["cm_k"].to(x.dtype)))
-    kv = k @ p["cm_v"].to(x.dtype)
+    if place is not None and place.M > 1 and p["cm_k"].shape[1] != cfg.d_ff:
+        # this rank's f columns: a float32 partial summed over model
+        k = torch.square(F.relu(place.enter_model(xk) @ p["cm_k"].to(x.dtype)))
+        kv = place.sum_model(partial_product(k, p["cm_v"])).to(x.dtype)
+    else:
+        k = torch.square(F.relu(xk @ p["cm_k"].to(x.dtype)))
+        kv = k @ p["cm_v"].to(x.dtype)
     r = torch.sigmoid(xr @ p["cm_r"].to(x.dtype))
     return x + r * kv, RWKVBlockState(time=tstate, cm_shift=xn[:, -1]), 0.0
 
@@ -184,12 +214,19 @@ def mamba_block_specs(cfg) -> dict:
     }
 
 
-def mamba_block(p, x, cfg, *, state=None):
+def mamba_block(p, x, cfg, *, state=None, place=None, shard=None):
     """Pre-norm Mamba2 with a residual.  Returns ``(x, new_state,
-    aux_loss)``, the aux loss the float 0.0; the state is new tensors."""
-    h, new_state = ssm_mod.mamba2_mix(p["mix"], rmsnorm(p["ln"], x), d_state=cfg.ssm_state,
-                                      head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
-                                      n_groups=cfg.ssm_groups, chunk=cfg.ssm_chunk, state=state)
+    aux_loss)``, the aux loss the float 0.0; the state is new tensors.
+    ``place`` and ``shard`` as for :func:`rwkv_block`
+    (:func:`repro_torch.models.ssm.mamba2_mix_placed`)."""
+    if shard is not None:
+        return _whole_sequence(mamba_block, p, x, cfg, shard)
+    kw = dict(d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
+              n_groups=cfg.ssm_groups, chunk=cfg.ssm_chunk, state=state)
+    if place is not None:
+        h, new_state = ssm_mod.mamba2_mix_placed(p["mix"], rmsnorm(p["ln"], x), place=place, **kw)
+    else:
+        h, new_state = ssm_mod.mamba2_mix(p["mix"], rmsnorm(p["ln"], x), **kw)
     return x + h, new_state, 0.0
 
 
@@ -216,7 +253,8 @@ def shared_lora_specs(cfg, rank: int = 8) -> dict:
 
 
 def shared_attn_block(p_shared, p_lora, x, cfg, *, cache=None, positions=None,
-                      window: int | None = None, new_counts=None, idle_read_chunk=None):
+                      window: int | None = None, new_counts=None, idle_read_chunk=None,
+                      place=None, shard=None):
     """The shared-weight attention block with its per-application LoRA on
     the block's input, then GQA attention and SwiGLU.  Returns ``(x,
     new_cache, aux_loss)``, the aux loss the float 0.0; the cache, if
@@ -227,17 +265,25 @@ def shared_attn_block(p_shared, p_lora, x, cfg, *, cache=None, positions=None,
     the forward attends over the whole causal prefix.  ``new_counts`` and
     ``idle_read_chunk`` as for :func:`attn_block`: a row with a count of 0
     keeps its K/V and length (the reference writes it and restores it
-    after the block, ``lm._mask_rows``)."""
+    after the block, ``lm._mask_rows``).  ``place`` and ``shard`` as for
+    :func:`attn_block`; the LoRA acts on the block's input, whole over
+    ``model``, on every rank."""
     del window
     dt = x.dtype
     xa = x + (x @ p_lora["lora_a"].to(dt)) @ p_lora["lora_b"].to(dt)
-    h, new_cache = attn.gqa_attention(
-        p_shared["attn"], rmsnorm(p_shared["ln1"], xa),
-        n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-        rope_theta=cfg.rope_theta, positions=positions, cache=cache,
-        attn_impl=cfg.attn_impl, block=cfg.attn_block,
-        new_counts=new_counts, idle_read_chunk=idle_read_chunk,
-    )
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
+              rope_theta=cfg.rope_theta, positions=positions, cache=cache,
+              attn_impl=cfg.attn_impl, block=cfg.attn_block,
+              new_counts=new_counts, idle_read_chunk=idle_read_chunk)
+    if place is not None:
+        h, new_cache = attn.gqa_attention_placed(p_shared["attn"], rmsnorm(p_shared["ln1"], xa),
+                                                 place=place, **kw)
+        x = x + h
+        f = ffn_mod.ffn_placed(p_shared["ffn"], rmsnorm(p_shared["ln2"], x), kind="swiglu",
+                               d_ff=cfg.d_ff, place=place)
+        return x + f, new_cache, 0.0
+    h, new_cache = attn.gqa_attention(p_shared["attn"], rmsnorm(p_shared["ln1"], xa),
+                                      seq_len=None if shard is None else shard.S, **kw)
     x = x + h
     f = ffn_mod.swiglu(p_shared["ffn"], rmsnorm(p_shared["ln2"], x))
     return x + f, new_cache, 0.0

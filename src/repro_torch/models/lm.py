@@ -33,11 +33,18 @@ batch over the ``data`` axes) through every block, and attention runs as
 the ``model``-axis ring, on whole weights (a cut leaf is gathered first).
 A MoE block routes the chunk by expert parallelism (``moe_dispatch="ep"``)
 where the recipe's grid fits, else by the whole grid's dispatch
-(:func:`repro_torch.models.ffn.moe_ffn`).  The MLA, SSM, hybrid and MoE
-families under ``tp``/``sp`` and in decode under a recipe, MLA, SSM and
-hybrid under ``sp_ring``, and gradients through the MoE family under a
-recipe wait for ROADMAP.md queue 1 item 8c's second PR; the explicit
-tensor-parallel decode step is :mod:`repro_torch.serve.tp_decode`.
+(:func:`repro_torch.models.ffn.moe_ffn`).  The SSM and hybrid families
+run under every mode: under ``tp``/``sp`` their mixers by heads
+(:func:`repro_torch.models.ssm.rwkv6_mix_placed`,
+:func:`repro_torch.models.ssm.mamba2_mix_placed`; the recurrent states in
+decode are the rank's blocks), and under ``sp_ring`` each recurrent block
+runs over the sequence gathered over ``model`` and keeps the rank's chunk
+(the reference's GSPMD program does the same), while zamba2's shared
+attention rings.  The MLA and MoE families under ``tp``/``sp`` and in
+decode under a recipe, MLA under ``sp_ring``, and gradients through the
+MoE family under a recipe wait for ROADMAP.md queue 1 item 8c's third PR;
+the explicit tensor-parallel decode step is
+:mod:`repro_torch.serve.tp_decode`.
 
 Training (:func:`loss_fn`, :mod:`repro_torch.train.trainer`) differentiates
 the float32 parameters themselves: every use casts a weight to the
@@ -194,26 +201,32 @@ def forward(params, batch, cfg, *, positions=None):
     return lm_logits(params, x, cfg), torch.as_tensor(aux, dtype=torch.float32, device=x.device)
 
 
-def _forward_hybrid(params, x, cfg, positions):
+def _forward_hybrid(params, x, cfg, positions, *, place=None, pspecs=None, shard=None):
     """The hybrid stack: ``n_shared`` super-blocks of ``group_m`` Mamba2
     blocks and the shared attention block under that application's LoRA
     (each super-block, and each Mamba2 block in it, under :func:`_remat`),
-    then the tail's Mamba2 blocks."""
+    then the tail's Mamba2 blocks.  Under a ``tp``/``sp`` recipe
+    (``place``, ``pspecs``) each block's weights are gathered over ``data``
+    for it (the shared block's once); under ``sp_ring`` (``shard``) the
+    blocks take this rank's chunk."""
     n_shared, group_m, n_tail = hybrid_dims(cfg)
     mamba = _block(cfg)
+    kw = dict(place=place, shard=shard)
+    use = _user(place, pspecs)
+    shared = use(params["shared_block"], "shared_block", 0)
 
     def group(p_mamba, p_lora, x):
         for j in range(group_m):
-            x, _, _ = mamba(_layer(p_mamba, j), x, cfg)
-        x, _, _ = blk.shared_attn_block(params["shared_block"], p_lora, x, cfg,
-                                        positions=positions)
+            x, _, _ = mamba(use(_layer(p_mamba, j), "mamba_blocks", 2), x, cfg, **kw)
+        x, _, _ = blk.shared_attn_block(shared, use(p_lora, "shared_lora", 1), x, cfg,
+                                        positions=positions, **kw)
         return x
 
     group = _remat(group, cfg)
     for i in range(n_shared):
         x = group(_layer(params["mamba_blocks"], i), _layer(params["shared_lora"], i), x)
     for i in range(n_tail):
-        x, _, _ = mamba(_layer(params["tail_blocks"], i), x, cfg)
+        x, _, _ = mamba(use(_layer(params["tail_blocks"], i), "tail_blocks", 1), x, cfg, **kw)
     return x
 
 
@@ -229,7 +242,7 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
     gathered along ``model`` and the batch axes, the padding dropped, and
     the head applied to the whole (B, S, m) on every rank, so all ranks
     return the same logits (and the same aux loss)."""
-    if cfg.family in ("mla", "ssm", "hybrid"):
+    if cfg.family == "mla":
         raise NotImplementedError(f"the {cfg.family} family under a sharding recipe: "
                                   f"{_LATER_RECIPE}")
     if cfg.family == "moe" and torch.is_grad_enabled() and \
@@ -247,19 +260,26 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
     chunk = slice(shard.chunk * shard.cap, (shard.chunk + 1) * shard.cap)
     x = embed_inputs({"embed": shard.partial(params["embed"])},
                      {"tokens": shard.local(tokens)}, cfg)
-    blocks = tree_map(shard.partial, params["blocks"])
-    block = _block(cfg)
     aux = 0.0
-    for i in range(cfg.n_layers):
-        x, _, a = block(_layer(blocks, i), x, cfg, positions=pos[chunk], shard=shard)
-        aux = aux + a
+    if cfg.family == "hybrid":
+        stacks = ("mamba_blocks", "tail_blocks", "shared_block", "shared_lora")
+        x = _forward_hybrid({k: tree_map(shard.partial, params[k]) for k in stacks if k in params},
+                            x, cfg, pos[chunk], shard=shard)
+    else:
+        blocks = tree_map(shard.partial, params["blocks"])
+        block = _block(cfg)
+        kw = {} if cfg.family == "ssm" else {"positions": pos[chunk]}
+        for i in range(cfg.n_layers):
+            x, _, a = block(_layer(blocks, i), x, cfg, shard=shard, **kw)
+            aux = aux + a
     return (lm_logits(params, shard.gather(x), cfg),
             torch.as_tensor(aux, dtype=torch.float32, device=x.device))
 
 
 # ======================================================== under a recipe ====
 
-_LATER_RECIPE = "ROADMAP.md queue 1, item 8c (second PR)"
+_LATER_RECIPE = "ROADMAP.md queue 1, item 8c (third PR)"
+_PLACED_FAMILIES = ("dense", "ssm", "hybrid")  # ported under tp/sp and in decode
 _PSPECS: dict = {}
 
 
@@ -291,7 +311,7 @@ def _whole(params, cfg, recipe):
 def _placed_pspecs(params, cfg, recipe):
     """The per-leaf specs of a ``tp``/``sp`` program, after checking that
     the family is ported there and that ``params`` are this rank's shards."""
-    if cfg.family != "dense":
+    if cfg.family not in _PLACED_FAMILIES:
         raise NotImplementedError(f"the {cfg.family} family under a {recipe.attn_mode!r} recipe "
                                   f"or in decode under a recipe: {_LATER_RECIPE}")
     specs, pspecs = _recipe_pspecs(cfg, recipe)
@@ -354,11 +374,15 @@ def _forward_placed(params, batch, cfg, recipe, positions):
     tokens = batch["tokens"]
     place = placement(recipe, tokens.shape[0])
     x = _embed_placed(params, place.local_rows(tokens), cfg, place, pspecs)
-    layer_specs = _layer_specs(pspecs["blocks"])
-    block = _block(cfg)
-    for i in range(cfg.n_layers):
-        p = place.use_tree(_layer(params["blocks"], i), layer_specs)
-        x, _, _ = block(p, x, cfg, positions=positions, place=place)
+    if cfg.family == "hybrid":
+        x = _forward_hybrid(params, x, cfg, positions, place=place, pspecs=pspecs)
+    else:
+        layer_specs = _layer_specs(pspecs["blocks"])
+        block = _block(cfg)
+        kw = {} if cfg.family == "ssm" else {"positions": positions}
+        for i in range(cfg.n_layers):
+            p = place.use_tree(_layer(params["blocks"], i), layer_specs)
+            x, _, _ = block(p, x, cfg, place=place, **kw)
     return (_head_placed(params, x, cfg, place, pspecs),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -403,17 +427,26 @@ def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda"):
     (n_shared, B, n_kv, min(max_len, shared_window), head_dim), a ring
     buffer once a row's length passes its size.
 
-    Under an active recipe (the dense family) the K/V are this rank's
-    blocks, cut by :func:`repro_torch.models.sharding.decode_state_shardings`
-    (heads over ``model`` where the KV groups divide it, else the sequence,
-    which ``max_len`` must then divide; rows over the batch axes where they
-    divide ``batch_size``); the lengths are whole."""
+    Under an active recipe (the dense, SSM and hybrid families) every leaf
+    is this rank's block, cut by
+    :func:`repro_torch.models.sharding.decode_state_shardings`: the K/V by
+    heads over ``model`` where the KV groups divide it, else by sequence
+    (whose length must then divide ``model``), the recurrent states by
+    heads (else RWKV's value columns, Mamba2's head dim), rows over the
+    batch axes where they divide ``batch_size``; the shifts and conv
+    windows are whole over ``model``, and the lengths whole."""
     _require_ported(cfg)
     device = resolve_device(device)
     recipe = current_recipe()
     if recipe is not None:
         return _init_cache_placed(cfg, batch_size, max_len, device, recipe)
-    L, B, dt = cfg.n_layers, batch_size, cfg.act_dtype
+    return _init_cache_whole(cfg, batch_size, max_len, device)
+
+
+def _init_cache_whole(cfg, B: int, max_len: int, device: torch.device):
+    """:func:`init_cache`'s whole state on ``device`` (the ``meta`` device
+    gives the shapes alone)."""
+    L, dt = cfg.n_layers, cfg.act_dtype
     if cfg.family == "ssm":
         H = cfg.n_heads
         hd = cfg.d_model // H
@@ -456,21 +489,27 @@ def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda"):
 
 
 def _init_cache_placed(cfg, B: int, max_len: int, device, recipe):
-    if cfg.family != "dense":
+    """This rank's blocks of :func:`init_cache`'s state, each leaf zeros of
+    its local shape under :func:`repro_torch.models.sharding.decode_state_shardings`."""
+    if cfg.family not in _PLACED_FAMILIES:
         raise NotImplementedError(f"the {cfg.family} family's decode state under a sharding "
                                   f"recipe: {_LATER_RECIPE}")
     M = recipe.mesh.shape.get("model", 1)
-    if _seq_cut_cache(recipe) and max_len % M:
-        raise ValueError(f"max_len {max_len} must divide the model axis ({M}): the recipe cuts "
-                         "the K/V caches along their sequence")
-    shape = (cfg.n_layers, B, cfg.n_kv, max_len, cfg.head_dim)
-    whole = torch.empty(shape, device="meta")
-    spec = decode_state_shardings(recipe, attn_mod.KVCache(whole, whole, whole[..., 0, 0, 0])).k
-    mine = local_shape(shape, spec, recipe.mesh)
-    return attn_mod.KVCache(
-        k=torch.zeros(mine, dtype=cfg.act_dtype, device=device),
-        v=torch.zeros(mine, dtype=cfg.act_dtype, device=device),
-        length=torch.zeros((cfg.n_layers, B), dtype=torch.int32, device=device))
+    T = min(max_len, cfg.shared_window) if cfg.family == "hybrid" else max_len
+    if cfg.family != "ssm" and _seq_cut_cache(recipe) and T % M:
+        raise ValueError(f"the K/V caches' {T} positions must divide the model axis ({M}): the "
+                         "recipe cuts them along their sequence")
+    whole = _init_cache_whole(cfg, B, max_len, torch.device("meta"))
+    specs = decode_state_shardings(recipe, whole)
+
+    def mine(t, spec):
+        if isinstance(t, dict):
+            return {k: mine(t[k], spec[k]) for k in t}
+        if isinstance(t, tuple):
+            return type(t)(*(mine(a, b) for a, b in zip(t, spec)))
+        return torch.zeros(local_shape(t.shape, spec, recipe.mesh), dtype=t.dtype, device=device)
+
+    return mine(whole, specs)
 
 
 def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
@@ -493,8 +532,9 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     S <= 4 and the chunked form (S a multiple of ``cfg.ssm_chunk``)
     otherwise, for every row, as the reference's.
 
-    Under an active recipe (the dense family) ``params`` are this rank's
-    shards and ``state`` holds this rank's blocks of the caches
+    Under an active recipe (the dense, SSM and hybrid families) ``params``
+    are this rank's shards and ``state`` holds this rank's blocks of the
+    caches and states
     (:func:`init_cache` under the recipe), with the lengths and positions
     whole; ``batch`` and ``new_counts`` are whole, and so are the returned
     logits, the same on every rank (:func:`_decode_placed`)."""
@@ -547,6 +587,15 @@ def _decode_placed(params, state, batch, cfg, recipe, new_counts, prefill):
     adv = S if new_counts is None else new_counts
     x = _embed_placed(params, place.local_rows(tokens), cfg, place, pspecs)
     caches = state.caches
+    if cfg.family in ("ssm", "hybrid"):
+        active = None if new_counts is None else place.local_rows(new_counts) > 0
+        if cfg.family == "ssm":
+            x, new_caches = _decode_ssm(params, caches, x, cfg, active, place=place, pspecs=pspecs)
+        else:
+            x, new_caches = _decode_hybrid(params, caches, x, cfg, pos2d, new_counts, active,
+                                           place=place, pspecs=pspecs)
+        return _head_placed(params, x, cfg, place, pspecs), DecodeState(
+            caches=new_caches, positions=(positions + adv).to(positions.dtype))
     T = caches.k.shape[-2] * (place.M if _seq_cut_cache(recipe) else 1)
     idle_read = None if new_counts is None else attn_mod.idle_rows_read_chunk(
         caches.length[0], new_counts, T, S)
@@ -590,40 +639,69 @@ def _store_state(dst, new, active) -> None:
         d.copy_(n)
 
 
-def _decode_ssm(params, caches, x, cfg, active):
+def _user(place, pspecs):
+    """``use(tree, name, depth)``: layer weights of ``params[name]`` (a
+    ``depth``-times stacked tree) ready for this rank's work under
+    ``place`` (gathered over ``data``), or as they are without one."""
+    def use(tree, name, depth):
+        if place is None:
+            return tree
+        specs = pspecs[name]
+        for _ in range(depth):
+            specs = _layer_specs(specs)
+        return place.use_tree(tree, specs)
+
+    return use
+
+
+def _decode_ssm(params, caches, x, cfg, active, *, place=None, pspecs=None):
+    """The SSM stack's decode step; under ``place`` the states are this
+    rank's blocks and ``x`` its rows."""
+    use = _user(place, pspecs)
     for i in range(cfg.n_layers):
         c = _state_at(caches, i)
-        x, new_c, _ = blk.rwkv_block(_layer(params["blocks"], i), x, cfg, state=c)
+        x, new_c, _ = blk.rwkv_block(use(_layer(params["blocks"], i), "blocks", 1), x, cfg,
+                                     state=c, place=place)
         _store_state(c, new_c, active)
     return x, caches
 
 
-def _decode_hybrid(params, caches, x, cfg, pos2d, new_counts, active):
+def _decode_hybrid(params, caches, x, cfg, pos2d, new_counts, active, *, place=None,
+                   pspecs=None):
+    """The hybrid stack's decode step; under ``place`` the states and the
+    shared block's K/V are this rank's blocks and ``x`` its rows, while
+    ``pos2d``, ``new_counts`` and the lengths are whole."""
     n_shared, group_m, n_tail = hybrid_dims(cfg)
+    use = _user(place, pspecs)
     shared = caches["shared"]
     S = x.shape[1]
+    T = shared.k.shape[-2] * (place.M if place is not None and _seq_cut_cache(place.recipe)
+                              else 1)
     # every application's lengths are the same: ask once per step
     idle_read = None if new_counts is None else attn_mod.idle_rows_read_chunk(
-        shared.length[0], new_counts, shared.k.shape[-2], S)
+        shared.length[0], new_counts, T, S)
 
     def mamba(p, c, x):
-        x, new_c, _ = blk.mamba_block(p, x, cfg, state=c)
+        x, new_c, _ = blk.mamba_block(p, x, cfg, state=c, place=place)
         _store_state(c, new_c, active)
         return x
 
+    p_shared = use(params["shared_block"], "shared_block", 0)
     lengths = []
     for i in range(n_shared):
         p_group = _layer(params["mamba_blocks"], i)
         for j in range(group_m):
-            x = mamba(_layer(p_group, j), _state_at(caches["mamba"], (i, j)), x)
+            x = mamba(use(_layer(p_group, j), "mamba_blocks", 2),
+                      _state_at(caches["mamba"], (i, j)), x)
         x, new_c, _ = blk.shared_attn_block(
-            params["shared_block"], _layer(params["shared_lora"], i), x, cfg,
+            p_shared, use(_layer(params["shared_lora"], i), "shared_lora", 1), x, cfg,
             cache=attn_mod.KVCache(shared.k[i], shared.v[i], shared.length[i]),
             positions=pos2d, window=cfg.shared_window, new_counts=new_counts,
-            idle_read_chunk=idle_read)
+            idle_read_chunk=idle_read, place=place)
         lengths.append(new_c.length)
     for i in range(n_tail):
-        x = mamba(_layer(params["tail_blocks"], i), _state_at(caches["tail"], i), x)
+        x = mamba(use(_layer(params["tail_blocks"], i), "tail_blocks", 1),
+                  _state_at(caches["tail"], i), x)
     return x, {**caches, "shared": shared._replace(length=torch.stack(lengths))}
 
 

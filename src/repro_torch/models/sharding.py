@@ -67,7 +67,7 @@ __all__ = ["Recipe", "make_recipe", "use_recipe", "current_recipe", "fit_spec",
            "ragged_seq_extents", "ragged_expert_extents", "ragged_grad_extents", "TokenShard",
            "token_shard", "PRIORITY", "batch_shardings", "decode_state_shardings",
            "recipe_pspecs", "local_shape", "spec_axes", "partial_product", "Placement",
-           "placement", "all_gather", "all_reduce", "sum_grads", "gather_cut"]
+           "placement", "all_gather", "all_reduce", "sum_stat", "sum_grads", "gather_cut"]
 
 Spec = tuple  # one entry per dim: a mesh axis, a tuple of them, or None
 
@@ -419,7 +419,22 @@ class TokenShard:
     def local(self, y):
         """This rank's ``(n_rows, cap, ...)`` block of a whole ``(B, S, ...)``
         grid, zero-padded past ``S``."""
-        y = y[self.row0:self.row0 + self.n_rows]
+        return self.local_seq(y[self.row0:self.row0 + self.n_rows])
+
+    def gather_seq(self, x):
+        """The whole ``(n_rows, S, ...)`` sequence of this rank's rows from
+        every ``model`` rank's ``(n_rows, cap, ...)`` chunk, padding dropped:
+        the input of a recurrent mixer, which scans the whole sequence on
+        every rank (the reference's GSPMD program gathers it so).  Each rank
+        keeps only its chunk of what it computes from it
+        (:meth:`local_seq`), so its cotangent is a partial: the backward
+        reduce-scatters it over ``model``."""
+        return all_gather(x, self.mesh, "model", 1, split=True)[:, :self.S]
+
+    def local_seq(self, y):
+        """This rank's ``(n_rows, cap, ...)`` chunk of a whole ``(n_rows, S,
+        ...)`` sequence of its rows, zero-padded past ``S``: the inverse of
+        :meth:`gather_seq`."""
         R = self.mesh.shape.get("model", 1)
         y = torch.nn.functional.pad(y, [0, 0] * (y.ndim - 2) + [0, R * self.cap - self.S])
         return y[:, self.chunk * self.cap:(self.chunk + 1) * self.cap]
@@ -519,6 +534,18 @@ def gather_cut(t, spec, mesh, *, skip=(), split=()):
     return t
 
 
+def sum_stat(x, mesh, axis: str):
+    """The sum of ``x`` over mesh ``axis``, where each rank goes on to use
+    the sum in work of its own (a norm's sum of squares over a dim the ranks
+    cut): every rank's cotangent of the sum is a partial, so the backward
+    sums them too."""
+    if mesh.shape.get(axis, 1) == 1:
+        return x
+    if _wants_grad(x):
+        return _ReduceStat.apply(mesh, axis, x)
+    return shard_all_reduce_start(x, axis, mesh=mesh).wait()
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mesh, axis, dim, split, x):
@@ -543,6 +570,18 @@ class _Reduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d):
         return None, None, d
+
+
+class _ReduceStat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, x):
+        ctx.meta = (mesh, axis)
+        return shard_all_reduce_start(x, axis, mesh=mesh).wait()
+
+    @staticmethod
+    def backward(ctx, d):
+        mesh, axis = ctx.meta
+        return None, None, shard_all_reduce_start(d.contiguous(), axis, mesh=mesh).wait()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -607,6 +646,31 @@ class Placement:
         every rank carries on with the same whole tensor, so the backward
         is this rank's own block of the cotangent."""
         return all_gather(x, self.mesh, "model", dim, split=False)
+
+    def sum_model_stat(self, x):
+        """:func:`sum_stat` over ``model``: a float32 per-row statistic of
+        the columns this rank holds, summed over the ranks that hold the
+        others (the Mamba2 gated norm's sum of squares)."""
+        return sum_stat(x, self.mesh, "model")
+
+    def block(self, t, dim: int, start: int, n: int, full: int, *, split: bool):
+        """Block ``[start, start + n)`` along ``dim`` of a weight of ``full``
+        entries there, ``t`` as this rank holds it: whole, or cut over
+        ``model`` in rank order.  ``split``: the ``model`` ranks take
+        different blocks (each weight's cotangent is then a partial);
+        else every rank runs the same work on the same block.
+
+        A cut that is already the block is used as it is; another cut is
+        gathered first (its backward reduce-scatters where ``split``, else
+        takes this rank's block); a whole weight is sliced, its gradient
+        summed over ``model`` where ``split``."""
+        if t.shape[dim] != full:
+            if split and t.shape[dim] == n and start == self.mr * n:
+                return t
+            t = all_gather(t, self.mesh, "model", dim, split=split)
+        elif split:
+            t = self.enter_model(t)
+        return t if n == full else t.narrow(dim, start, n)
 
 
 def placement(recipe: Recipe, B: int) -> Placement:

@@ -33,12 +33,14 @@ its next request (:func:`_reset_slot_rows`).  The engine keeps an activation-dty
 made once (``weights.cast_params``), and cuts the rank's TP shard from it
 (``weights.shard_params``; a view when the ``model`` axis has one rank).
 
-Under a sharding ``recipe`` (the dense family) every rank hands the engine
-its shards of the weights (``weights.shard_params_by_recipe``) and runs
-prefill and decode as ``lm.decode_step`` under the recipe, as the
-reference's ``gspmd_step`` does: the caches are the rank's blocks
-(``lm.init_cache`` under the recipe), the logits come back whole on every
-rank, and all ranks sample the same tokens.  A whole-prompt prefill chunk
+Under a sharding ``recipe`` (the dense, SSM and hybrid families) every
+rank hands the engine its shards of the weights
+(``weights.shard_params_by_recipe``) and runs prefill and decode as
+``lm.decode_step`` under the recipe, as the reference's ``gspmd_step``
+does: the caches and recurrent states are the rank's blocks
+(``lm.init_cache`` under the recipe; a released slot's rows are zeroed on
+the rank that holds them), the logits come back whole on every rank, and
+all ranks sample the same tokens.  A whole-prompt prefill chunk
 under ``sp_ring`` runs the ring.  The reference's mix of a recipe for
 prefill with the explicit TP decode step is not taken: a ``recipe`` with a
 ``mesh`` is refused.  The ``embeds`` input kind and the VLM and audio
@@ -52,7 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import lm
-from repro_torch.models.sharding import use_recipe
+from repro_torch.models.sharding import placement, use_recipe
 from repro_torch.models.weights import cast_params, shard_params
 from repro_torch.serve.kv import KVLedger
 from repro_torch.serve.tp_decode import make_tp_decode_step, tp_decode_specs
@@ -99,21 +101,33 @@ _BATCH_AXIS_FROM_END = {"length": 1, "wkv": 4, "ssm": 4, "shift": 2, "cm_shift":
 _MASKED_PAYLOADS = ("k", "v", "c", "kr")
 
 
-def _reset_slot_rows(caches, i: int) -> None:
+def _reset_slot_rows(caches, i: int, rows: tuple[int, int, int] | None = None) -> None:
     """Release slot ``i`` for a new request, in place: zero its rows of
     every leaf that no cache length masks (the recurrent, shift and conv
     states, which carry forward, so a released slot's state must not leak
     into its successor) and of the lengths.  The K/V (or latent) payload
-    stays; the attention mask never reads past the length."""
+    stays; the attention mask never reads past the length.
+
+    ``rows`` ``(B, row0, n_rows)``: a sharding recipe's batch axes cut the
+    B slots, and a leaf that holds ``n_rows < B`` rows holds this rank's
+    slots ``[row0, row0 + n_rows)``: slot ``i`` is zeroed there at its
+    local row, or nowhere when it lives on another rank; a leaf of B rows
+    (the lengths) is whole."""
     if isinstance(caches, dict):
         for c in caches.values():
-            _reset_slot_rows(c, i)
+            _reset_slot_rows(c, i, rows)
         return
     for name, x in zip(caches._fields, caches):
         if isinstance(x, tuple):
-            _reset_slot_rows(x, i)
+            _reset_slot_rows(x, i, rows)
         elif name in _BATCH_AXIS_FROM_END:
-            x.select(x.ndim - _BATCH_AXIS_FROM_END[name], i).zero_()
+            axis = x.ndim - _BATCH_AXIS_FROM_END[name]
+            j = i
+            if rows is not None and x.shape[axis] != rows[0]:
+                j = i - rows[1]
+                if not 0 <= j < rows[2]:
+                    continue
+            x.select(axis, j).zero_()
         elif name not in _MASKED_PAYLOADS:
             raise ValueError(f"unknown cache leaf {name!r}")
 
@@ -161,6 +175,10 @@ class Engine:
             self.tp_params = shard_params(self.params, tp_decode_specs(cfg)[0], mesh)
         with use_recipe(recipe):
             caches = lm.init_cache(cfg, B, scfg.max_len, device=self.device)
+        self._rows = None
+        if recipe is not None:  # the slots this rank's blocks of the states hold
+            place = placement(recipe, B)
+            self._rows = (B, place.row0, place.n_rows)
         self.state = lm.DecodeState(
             caches=caches, positions=torch.zeros((B,), dtype=torch.int32, device=self.device))
         self.slots = [_Slot() for _ in range(B)]
@@ -221,7 +239,7 @@ class Engine:
                 slot.request_id = rid
                 slot.tokens = list(prompt)
                 slot.remaining = max_new
-                _reset_slot_rows(self.state.caches, i)
+                _reset_slot_rows(self.state.caches, i, self._rows)
                 self.state.positions[i] = 0
                 newly.append((i, prompt))
         if newly:

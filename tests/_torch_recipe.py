@@ -1,6 +1,6 @@
 """Gloo workers of the sharding-recipe tests (``tests/test_torch_recipe*.py``):
-the dense family's per-rank program under ``tp``, ``sp`` and ``sp_ring``
-recipes on a ``(data, model)`` mesh of 4 (or 2) CPU ranks.  Each runs
+the dense, SSM and hybrid families' per-rank program under ``tp``, ``sp``
+and ``sp_ring`` recipes on a ``(data, model)`` mesh of 4 (or 2) CPU ranks.  Each runs
 inside a rank of :func:`_torch_dist.run_gloo` (named
 ``"_torch_recipe:<worker>"``) and returns numpy results."""
 from __future__ import annotations
@@ -10,6 +10,9 @@ RECIPE_MODES = ("tp", "sp")
 RECIPE_ARCHS = {"phi4-mini-3.8b": 32, "qwen2.5-32b": 30}  # arch -> forward sequence length
 RECIPE_BATCH = 4
 PREFILL_COUNTS = (7, 5, 0, 3)  # a whole-prompt chunk of 7: ragged rows, one idle
+RECURRENT_ARCHS = ("rwkv6-3b", "zamba2-7b")  # the SSM and hybrid families, SMOKE configs
+RECURRENT_MODES = ("tp", "sp", "sp_ring")
+RECURRENT_SEQ = 32  # two of the SMOKE configs' 16-token scan chunks
 
 
 def _model(arch, tree):
@@ -186,3 +189,165 @@ def ckpt_family(*, shape, params, directory, save) -> dict:
             "shards_equal": all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
                                                                     tree_leaves(mine))),
             "whole": [t.numpy() for t in tree_leaves(gather_params(got, specs, recipe))]}
+
+
+def _recurrent(arch, tree):
+    """The port's float32 SMOKE config of ``arch`` and its parameters from
+    the reference's numpy tree."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.weights import params_from_jax
+
+    cfg = dataclasses.replace(configs.get(arch, smoke=True), act_dtype=torch.float32)
+    return cfg, params_from_jax(tree, device="cpu")
+
+
+def forward_recurrent(*, shape, models, tokens) -> dict:
+    """``lm.forward`` of the SSM and hybrid families under each mode of
+    RECURRENT_MODES on this rank of a ``shape`` mesh: the whole logits,
+    whether the shards gathered back are the whole tree bitwise, and
+    whether any leaf is cut."""
+    import torch
+
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.weights import gather_params
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    out: dict = {}
+    for arch, tree in models.items():
+        cfg, params = _recurrent(arch, tree)
+        for mode in RECURRENT_MODES:
+            recipe = make_recipe(cfg, mesh, attn_mode=mode)
+            shards = _shards(cfg, params, recipe)
+            with use_recipe(recipe), torch.no_grad():
+                logits, _ = lm.forward(shards, {"tokens": torch.from_numpy(tokens[arch]).long()},
+                                       cfg)
+            out[(arch, mode)] = logits.numpy()
+            whole = gather_params(shards, lm.build_specs(cfg), recipe)
+            out[(arch, mode, "gathered")] = all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(whole), tree_leaves(params)))
+            out[(arch, mode, "cut")] = any(
+                a.shape != b.shape for a, b in zip(tree_leaves(shards), tree_leaves(params)))
+    return out
+
+
+def serve_recurrent(*, shape, models, requests, slots, max_len) -> dict:
+    """``Engine(recipe=...)`` of the SSM and hybrid families under each mode
+    of RECURRENT_MODES on this rank: its greedy outputs, and whether every
+    leaf of its decode state has the local shape ``decode_state_shardings``
+    gives it."""
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import decode_state_shardings, local_shape, make_recipe
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    scfg = ServeConfig(max_len=max_len, batch_slots=slots, eos_token=-1)
+    out: dict = {}
+    for arch, tree in models.items():
+        cfg, params = _recurrent(arch, tree)
+        for mode in RECURRENT_MODES:
+            recipe = make_recipe(cfg, mesh, attn_mode=mode)
+            engine = Engine(cfg, _shards(cfg, params, recipe), scfg, recipe=recipe)
+            for rid, prompt, n in requests[arch]:
+                engine.submit(rid, prompt, n)
+            out[(arch, mode, "tokens")] = engine.run()
+            whole = lm.init_cache(cfg, slots, max_len, device="cpu")
+            specs = decode_state_shardings(recipe, whole)
+            mine = _state_leaves(engine.state.caches)
+            out[(arch, mode, "local")] = [tuple(t.shape) for t in mine] == [
+                local_shape(t.shape, s, mesh) for t, s in zip(_state_leaves(whole),
+                                                              _state_leaves(specs))]
+    return out
+
+
+def _state_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _state_leaves(tree[k])]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [x for t in tree for x in _state_leaves(t)]
+    return [tree]
+
+
+def train_recurrent(*, shape, models, batch, ocfg) -> dict:
+    """``make_train_step`` of the SSM and hybrid families under each mode of
+    RECURRENT_MODES on this rank: the gradients (``_accum_loss_grads``),
+    the step's metrics and the stepped parameters, each gathered back to
+    the whole tree."""
+    import torch
+
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.weights import gather_params
+    from repro_torch.train import optimizer, trainer
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    oc = optimizer.OptConfig(**ocfg)
+    out: dict = {}
+    for arch, tree in models.items():
+        cfg, whole = _recurrent(arch, tree)
+        specs = lm.build_specs(cfg)
+        b = {k: torch.from_numpy(v).long() for k, v in batch[arch].items()}
+        for mode in RECURRENT_MODES:
+            recipe = make_recipe(cfg, mesh, attn_mode=mode)
+            shards = _shards(cfg, whole, recipe)
+            with use_recipe(recipe):
+                _, _, grads = trainer._accum_loss_grads(shards, b, cfg, 1)
+            out[(arch, mode, "grads")] = [g.numpy() for g in tree_leaves(
+                gather_params(grads, specs, recipe))]
+            new_p, _, m = trainer.make_train_step(cfg, recipe, oc)(
+                shards, optimizer.init_opt_state(shards, oc), b)
+            out[(arch, mode, "metrics")] = {k: float(v) for k, v in m.items()}
+            out[(arch, mode, "params")] = [
+                p.numpy() for p in tree_leaves(gather_params(new_p, specs, recipe))]
+    return out
+
+
+def recurrent_whole_mixers(*, shape, models, overrides, tokens, steps) -> dict:
+    """The SSM and hybrid families under ``tp`` on this rank of a ``shape``
+    mesh with configs whose mixer heads do not divide ``model``
+    (``overrides``): the forward's logits, and ``steps`` one-token decode
+    steps from empty states (their logits, and each state leaf's local
+    shape against ``decode_state_shardings``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import (decode_state_shardings, local_shape, make_recipe,
+                                             use_recipe)
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    out: dict = {}
+    for arch, tree in models.items():
+        cfg, params = _recurrent(arch, tree)
+        cfg = dataclasses.replace(cfg, **overrides[arch])
+        recipe = make_recipe(cfg, mesh, attn_mode="tp")
+        shards = _shards(cfg, params, recipe)
+        toks = torch.from_numpy(tokens[arch]).long()
+        B = toks.shape[0]
+        with use_recipe(recipe), torch.no_grad():
+            out[(arch, "forward")] = lm.forward(shards, {"tokens": toks}, cfg)[0].numpy()
+            state = lm.DecodeState(lm.init_cache(cfg, B, 16, device="cpu"),
+                                   torch.zeros((B,), dtype=torch.int32))
+            logits = []
+            for t in range(steps):
+                step, state = lm.decode_step(shards, state, {"tokens": toks[:, t:t + 1]}, cfg)
+                logits.append(step.numpy())
+        out[(arch, "decode")] = logits
+        whole = lm.init_cache(cfg, B, 16, device="cpu")
+        specs = decode_state_shardings(recipe, whole)
+        out[(arch, "local")] = [tuple(t.shape) for t in _state_leaves(state.caches)] == [
+            local_shape(t.shape, s, mesh) for t, s in zip(_state_leaves(whole),
+                                                          _state_leaves(specs))]
+        out[(arch, "state_cut")] = [tuple(s) for s in _state_leaves(specs)]
+    return out

@@ -164,13 +164,15 @@ def _plain_carry(B, Hq, S, D, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("valid", [300, 280])
-def test_flash_carry_cuda_matches_plain_version(cuda, dtype, causal, valid):
+@pytest.mark.parametrize("D", [128, 112])
+def test_flash_carry_cuda_matches_plain_version(cuda, dtype, causal, valid, D):
     """Every (rank, step) call of a 3-rank ring over 300 positions in
-    chunks of 100 (ragged row and key tiles), GQA 3, head dim 128; with
-    ``valid = 280`` the last 20 keys are padding.  Each call starts from the
-    plain version's state and is compared in acc, m and l; the carry is
-    updated in place."""
-    B, Hq, G, R, Sl, D = 1, 6, 2, 3, 100, 128
+    chunks of 100 (ragged row and key tiles), GQA 3, head dim 128 or 112
+    (zamba2's; the state's 112 columns beside the kernel's 128-column
+    accumulators); with ``valid = 280`` the last 20 keys are padding.  Each
+    call starts from the plain version's state and is compared in acc, m
+    and l; the carry is updated in place."""
+    B, Hq, G, R, Sl = 1, 6, 2, 3, 100
     q = _randn((B, Hq, R * Sl, D), dtype, cuda, 20)
     k = _randn((B, G, R * Sl, D), dtype, cuda, 21)
     v = _randn((B, G, R * Sl, D), dtype, cuda, 22)
@@ -196,7 +198,7 @@ def test_flash_carry_cuda_matches_plain_version(cuda, dtype, causal, valid):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 112, 128])
 def test_flash_carry_chain_equals_single_shot_bitwise(cuda, dtype, causal, D):
     """Four carry steps over KV chunks of 128 keys in block order,
     normalized as the ring's epilogue does, give the single-shot kernel's
@@ -216,13 +218,14 @@ def test_flash_carry_chain_equals_single_shot_bitwise(cuda, dtype, causal, D):
     assert torch.equal(chained, single)
 
 
-def test_flash_carry_cuda_gradient_matches_plain_version(cuda):
+@pytest.mark.parametrize("D", [64, 112])
+def test_flash_carry_cuda_gradient_matches_plain_version(cuda, D):
     """The kernel route's autograd Function (forward: the kernel on fresh
     copies of the carry; backward: recompute through the plain version)
     against autograd through the plain version, over two chained steps."""
-    q0 = _randn((1, 4, 128, 64), torch.float32, cuda, 26)
-    k0 = _randn((1, 2, 128, 64), torch.float32, cuda, 27)
-    v0 = _randn((1, 2, 128, 64), torch.float32, cuda, 28)
+    q0 = _randn((1, 4, 128, D), torch.float32, cuda, 26)
+    k0 = _randn((1, 2, 128, D), torch.float32, cuda, 27)
+    v0 = _randn((1, 2, 128, D), torch.float32, cuda, 28)
     grads = {}
     for impl in ("cuda", "ref"):
         q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
@@ -302,12 +305,13 @@ def test_attention_kernel_error_against_float64(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_carry_chain_over_1024_key_chunks_is_bitwise(cuda, dtype):
+@pytest.mark.parametrize("D", [128, 112])
+def test_flash_carry_chain_over_1024_key_chunks_is_bitwise(cuda, dtype, D):
     """The ring's chunks start at multiples of 1024, a multiple of the
     64-key tile: three carry steps give the single-shot kernel's bits."""
-    q = _randn((1, 6, 3072, 128), dtype, cuda, 39)
-    k = _randn((1, 2, 3072, 128), dtype, cuda, 40)
-    v = _randn((1, 2, 3072, 128), dtype, cuda, 41)
+    q = _randn((1, 6, 3072, D), dtype, cuda, 39)
+    k = _randn((1, 2, 3072, D), dtype, cuda, 40)
+    v = _randn((1, 2, 3072, D), dtype, cuda, 41)
     carry = None
     for c in range(3):
         blk = slice(c * 1024, (c + 1) * 1024)

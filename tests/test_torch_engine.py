@@ -76,10 +76,11 @@ def test_engine_rejects_what_is_not_ported():
         axis_names = ("data", "model")
 
     params = lm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
-    # a recipe serves the dense family; the others wait for item 8c's second PR
+    # a recipe serves the dense, SSM and hybrid families; MoE and MLA wait for
+    # item 8c's third PR
     moe = tconfigs.get("phi3.5-moe-42b-a6.6b", smoke=True)
     moe_params = lm.init_model(moe, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 8c \(second PR\)"):
+    with pytest.raises(NotImplementedError, match=r"item 8c \(third PR\)"):
         Engine(moe, moe_params, ServeConfig(), recipe=make_recipe(moe, _Mesh()))
     with pytest.raises(ValueError, match="not both"):
         Engine(cfg, params, ServeConfig(), recipe=make_recipe(cfg, _Mesh()), mesh=object(),

@@ -241,6 +241,9 @@ def test_loss_and_grads_match_reference():
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-3b"])
 def test_sharding_recipe_is_refused(arch):
+    """Both families run under a recipe (``tests/test_torch_recipe_recurrent*.py``);
+    what stays refused is the whole tree where a ``tp`` recipe over 2
+    ``model`` ranks wants this rank's shards, with the hint."""
     from repro_torch.models.sharding import make_recipe
 
     class _Mesh:  # what make_recipe reads of a mesh
@@ -249,8 +252,8 @@ def test_sharding_recipe_is_refused(arch):
 
     cfg = tconfigs.get(arch, smoke=True)
     params = tlm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with use_recipe(make_recipe(cfg, _Mesh(), attn_mode="sp_ring")):
-        with pytest.raises(NotImplementedError, match="item 8c"):
+    with use_recipe(make_recipe(cfg, _Mesh(), attn_mode="tp")):
+        with pytest.raises(ValueError, match="shard_params_by_recipe"):
             tlm.forward(params, {"tokens": torch.zeros((1, 16), dtype=torch.long)}, cfg)
 
 
@@ -305,14 +308,18 @@ def test_flash_decode_plain_matches_reference_at_head_dim_112(case, dtype):
 
 def test_card_wrappers_take_head_dim_112_and_the_carry_form_does_not():
     """The card wrappers' head dims (checked before any launch): the forward
-    takes (112, 112), decode 112; the carry form keeps refusing 112 and
-    Dv != D, on either device."""
+    takes (112, 112), decode 112, and the carry form 112 too (zamba2's
+    shared attention under ``sp`` and ``sp_ring``); the carry form keeps
+    refusing Dv != D, on either device."""
     assert (112, 112) in tfa.FORWARD_HEAD_DIMS
     assert tfd.DECODE_HEAD_DIMS == (64, 112, 128)
-    assert 112 not in tfa.HEAD_DIMS
+    assert tfa.HEAD_DIMS == (64, 112, 128)
     q = torch.zeros((1, 2, 8, 112))
     with pytest.raises(ValueError, match="CUDA tensor"):  # the head dim passes, the device not
         tfd.flash_decode_cuda(q, q, q, torch.zeros((1,), dtype=torch.int32))
+    carry = (torch.zeros((1, 2, 8, 112)), torch.zeros((1, 2, 8)), torch.zeros((1, 2, 8)))
+    with pytest.raises(ValueError, match="CUDA tensor"):  # the head dim passes, the device not
+        tfa.flash_attention_carry_cuda(q, q, q, carry)
     with pytest.raises(ValueError, match="head dim"):
         tfa.check_carry_head_dims(q, q[..., :64])
 

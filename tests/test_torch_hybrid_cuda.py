@@ -109,12 +109,35 @@ def test_flash_decode_smem_bytes_at_112(cuda):
         torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
 
 
-def test_carry_form_refuses_112(cuda):
-    q = _randn((1, 2, 64, D), torch.bfloat16, cuda, 8)
-    carry = (torch.zeros((1, 2, 64, D), device=cuda), torch.zeros((1, 2, 64), device=cuda),
-             torch.zeros((1, 2, 64), device=cuda))
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_attention_carry_cuda(q, q, q, carry)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_carry_form_refuses_112(cuda, dtype):
+    """The carry form's (112, 112) instance, once refused, against its plain
+    version: zamba2's ring step shapes cut to 2 heads and chunks of 320
+    keys (ragged 64-key tiles), a diagonal and an off-diagonal step from a
+    nonzero state with a ragged ``valid_len``; the state's columns past
+    112 of the next row are never written (the bytes past the state stay
+    as they were)."""
+    B, H, Sl = 1, 2, 320
+    q = _randn((B, H, 2 * Sl, D), dtype, cuda, 8)
+    k, v = _randn((B, H, 2 * Sl, D), dtype, cuda, 9), _randn((B, H, 2 * Sl, D), dtype, cuda, 10)
+    qr = q[:, :, Sl:]
+    state = ops.flash_attention_carry(qr, k[:, :, :Sl], v[:, :, :Sl], None, q_offset=Sl,
+                                      k_offset=0, impl="ref")
+    for k_off in (0, Sl):  # off-diagonal, then diagonal
+        kw = dict(q_offset=Sl, k_offset=k_off, valid_len=2 * Sl - 37, causal=True)
+        blk = slice(k_off, k_off + Sl)
+        want = ops.flash_attention_carry(qr, k[:, :, blk], v[:, :, blk], state, impl="ref", **kw)
+        acc = torch.full((B * H * Sl * D + 64,), 7.0, device=cuda)  # a guard past the state
+        acc[:-64].copy_(state[0].reshape(-1))
+        carry = (acc[:-64].view(B, H, Sl, D), state[1].clone(), state[2].clone())
+        before = fa.flash_attention_carry_cuda.launches
+        got = fa.flash_attention_carry_cuda(qr, k[:, :, blk], v[:, :, blk], carry, **kw)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_carry_cuda.launches == before + 1
+        assert bool((acc[-64:] == 7.0).all())
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=TOL[dtype], atol=TOL[dtype])
+        state = want
 
 
 def _small_zamba(cuda, act=torch.bfloat16):

@@ -216,7 +216,7 @@ def test_mla_under_a_recipe_is_not_ported(models):
     _, _, tcfg, tp = models
     toks = torch.from_numpy(_tokens(tcfg, (1, 8))).long()
     with use_recipe(make_recipe(tcfg, _Mesh(), attn_mode="sp_ring")):
-        with pytest.raises(NotImplementedError, match=r"item 8c \(second PR\)"):
+        with pytest.raises(NotImplementedError, match=r"item 8c \(third PR\)"):
             tlm.forward(tp, {"tokens": toks}, tcfg)
 
 

@@ -19,8 +19,10 @@ reference's sharded program.
   difference on these inputs (2.3e-6 to 4e-6).  Every rank returns the
   same logits; the shards really are cut, and gathered back they are the
   whole tree bitwise.
-* The families still to port under a recipe refuse, and whole parameters
-  where shards are expected are refused with a hint.
+* The families still to port under a recipe (MoE, MLA) refuse, the SSM
+  and hybrid families under ``tp`` on one rank are the no-recipe forward
+  bitwise (their multi-rank program: ``tests/test_torch_recipe_recurrent*.py``),
+  and whole parameters where shards are expected are refused with a hint.
 """
 import dataclasses
 import pickle
@@ -197,11 +199,24 @@ def test_forward_matches_reference_sharded_program(reference, port, arch, shape,
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "minicpm3-4b", "rwkv6-3b",
                                   "zamba2-7b"])
 def test_families_still_to_port_refuse_tp(arch):
+    """The MoE and MLA families under ``tp`` refuse, citing item 8c's third
+    PR; the SSM and hybrid families run, and on a one-rank ``(1, 1)`` mesh
+    their logits are the no-recipe forward's, bitwise."""
     cfg = tconfigs.get(arch, smoke=True)
     params = tlm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
-    recipe = make_recipe(cfg, _fake_mesh((1, 1)), attn_mode="tp")
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with use_recipe(recipe), pytest.raises(NotImplementedError, match="8c .second PR"):
+    mesh = _fake_mesh((1, 1))
+    mesh.coords = lambda: {"data": 0, "model": 0}
+    mesh.create_groups = lambda axes: None
+    recipe = make_recipe(cfg, mesh, attn_mode="tp")
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(1))
+    if cfg.family in ("ssm", "hybrid"):
+        with torch.no_grad():
+            want, _ = tlm.forward(params, {"tokens": toks}, cfg)
+            with use_recipe(recipe):
+                got, _ = tlm.forward(params, {"tokens": toks}, cfg)
+        assert torch.equal(got, want)
+        return
+    with use_recipe(recipe), pytest.raises(NotImplementedError, match="8c .third PR"):
         tlm.forward(params, {"tokens": toks}, cfg)
 
 

@@ -7,8 +7,11 @@ under ``tp`` and ``sp`` launches ``flash_attention`` once a layer and its
 logits equal the no-recipe forward's bitwise (the same kernels on the same
 operands); a prefill chunk and one decode step of ``lm.decode_step`` under
 the recipe launch ``flash_decode`` once a layer each and equal the
-no-recipe steps bitwise, caches included.  These tests import neither
-``jax`` nor the reference package and skip without a CUDA device.
+no-recipe steps bitwise, caches included.  The hybrid family likewise:
+zamba2-7b at full width (one super-block and a tail block) under ``tp``,
+``sp`` and ``sp_ring`` (the carry instance at (112, 112)), and two decode
+steps under ``tp``.  These tests import neither ``jax`` nor the reference
+package and skip without a CUDA device.
 """
 import dataclasses
 
@@ -88,3 +91,73 @@ def test_recipe_decode_step_on_one_rank_is_the_plain_step(setup, mode):
     for a, b in zip(gs.caches, ws.caches):
         assert torch.equal(a, b)
     assert torch.equal(gs.positions, ws.positions)
+
+
+@pytest.fixture(scope="module")
+def hybrid(setup):
+    """zamba2-7b at full width, one super-block (5 Mamba2 blocks and the
+    shared attention block) and one tail block, bf16."""
+    _, _, mesh = setup
+    cfg = dataclasses.replace(configs.get("zamba2-7b"), n_layers=7)
+    params = cast_params(lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(3),
+                                       device="cuda"), cfg.act_dtype)
+    return cfg, params, mesh
+
+
+@pytest.mark.parametrize("mode", ["tp", "sp", "sp_ring"])
+def test_hybrid_recipe_forward_on_one_rank(hybrid, mode):
+    """zamba2 under each mode on one rank: ``tp`` and ``sp`` launch the
+    (112, 112) forward instance once a shared application and equal the
+    no-recipe forward bitwise; ``sp_ring`` runs the ring's one step, the
+    carry instance at (112, 112) in place of the forward instance, whose
+    chain of one step is the single-shot kernel's bits: bitwise too."""
+    cfg, params, mesh = hybrid
+    recipe = make_recipe(cfg, mesh, attn_mode=mode)
+    shards = shard_params_by_recipe(params, lm.build_specs(cfg), recipe)
+    tokens = torch.randint(0, cfg.vocab, (1, SEQ), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(4))
+    want, _ = lm.forward(params, {"tokens": tokens}, cfg)
+    before = (fa.flash_attention_cuda.launches, fa.flash_attention_carry_cuda.launches)
+    with use_recipe(recipe):
+        got, _ = lm.forward(shards, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    ring = mode == "sp_ring"
+    assert fa.flash_attention_cuda.launches == before[0] + (0 if ring else 1)
+    assert fa.flash_attention_carry_cuda.launches == before[1] + (1 if ring else 0)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+def test_hybrid_recipe_decode_steps_on_one_rank(hybrid):
+    """Two decode steps of zamba2 under ``tp`` on one rank (the D = 112
+    decode instance once a shared application a step, a row idle in the
+    second) equal the no-recipe steps bitwise, states and caches
+    included."""
+    cfg, params, mesh = hybrid
+    recipe = make_recipe(cfg, mesh, attn_mode="tp")
+    shards = shard_params_by_recipe(params, lm.build_specs(cfg), recipe)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    toks = [torch.randint(0, cfg.vocab, (2, 1), device="cuda", generator=g) for _ in range(2)]
+    counts = [torch.tensor(c, dtype=torch.int32, device="cuda") for c in ([1, 1], [1, 0])]
+    runs = []
+    for r in (None, recipe):
+        with use_recipe(r):
+            state = lm.DecodeState(caches=lm.init_cache(cfg, 2, 256, device="cuda"),
+                                   positions=torch.zeros((2,), dtype=torch.int32, device="cuda"))
+            before = fd.flash_decode_cuda.launches
+            logits = []
+            for t, c in zip(toks, counts):
+                out, state = lm.decode_step(params if r is None else shards, state,
+                                            {"tokens": t}, cfg, new_counts=c)
+                logits.append(out)
+            assert fd.flash_decode_cuda.launches == before + 2
+        runs.append((logits, state))
+    (wl, ws), (gl, gs) = runs
+    assert all(torch.equal(a, b) for a, b in zip(gl, wl))
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in leaves(t[k])]
+        return [x for f in t for x in (leaves(f) if isinstance(f, tuple) else [f])]
+
+    assert all(torch.equal(a, b) for a, b in zip(leaves(gs.caches), leaves(ws.caches)))
