@@ -133,6 +133,25 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   slot reused), greedy tokens equal to the single-host run's, the host ms
   of decode steps in turns with the single-host engine's; and zamba2's
   13-layer training step under ``tp`` against the no-recipe step.
+* the MLA and MoE families under a sharding recipe, on a one-rank NCCL
+  ``(data, model)`` mesh and the rank's shards: the carry form's (96, 64)
+  instance (MLA's queries and keys of 96, values and state of 64) at
+  minicpm3-4b's ring shapes (1 x 40 x 1024 diagonal and off-diagonal steps,
+  the one-card step over 1 x 40 x 4096) against its plain version, bf16
+  and float32, the chain over 1024-key chunks and the one-step chain
+  bitwise the (96, 64) forward instance, nothing stored past the state,
+  timed beside its bounds; minicpm3-4b's and phi3.5-moe's 1 x 4096
+  forwards under ``tp``, ``sp`` and ``sp_ring`` (the forward instance once
+  a layer, or under ``sp_ring`` the carry instance in its place), logits
+  bitwise the no-recipe forward's, phi3.5-moe's expert-parallel dispatch
+  falling back (one rank of ``model``) to the capacity dispatch, whose
+  ``moe.*`` ranges the profile must hold, each mode's host and device ms,
+  idle share and kernels beside the no-recipe forward's; each family's
+  first 4 serving requests through ``Engine(recipe=tp)``, tokens equal to
+  the single-host run's, a decode step's window in turns with the
+  single-host engine's; and one ``tp`` training step of each (minicpm3-4b
+  at 8 layers, phi3.5-moe at 1) against the no-recipe step, loss and
+  gradient norm bitwise.
 
 Every kernel time (``ms``, ``plain_ms``, ``library_ms``) is device time per
 call from ``repro_torch.kernels.timing.queued_ms`` (calls run back to back
@@ -288,6 +307,18 @@ RECURRENT_RECIPE_STEPS, RECURRENT_RECIPE_PROMPT = 8, 8
 # the dense recipe_serve phase's in-turns windows, 4 decode steps each (8 before
 # the recurrent recipe phases were added), to keep the run near its length
 RECIPE_DECODE_STEPS = 4
+# minicpm3-4b's attention operands (40 heads, q/k of d_nope + d_rope = 96, v
+# and the carry state of d_v = 64): the carry form's (96, 64) instance
+MLA_HEADS, MLA_D, MLA_DV = 40, 96, 64
+# float32 sentinels after the (96, 64) carry state's last row: a store past
+# its 64 columns a row would land on them
+MLA_SENTINEL, MLA_SENTINEL_TAIL = 12345.0, 4096
+# the recipe training steps of the MLA and MoE families at full width, depth
+# cut: minicpm3-4b 62 -> 8 layers; phi3.5-moe 32 -> 1 (1.30 B parameters a
+# layer and 0.26 B of embedding and head, 16 bytes each with AdamW's moments
+# and the gradients, and the step's new parameters and moments beside the
+# old: about 44 GB at one layer, over the card at two)
+MLA_TRAIN_DEPTH, MOE_TRAIN_DEPTH = 8, 1
 
 
 def phase(name: str, **fields) -> None:
@@ -742,13 +773,13 @@ def _instrument(engine, record_gaps: bool, fd):
              "first_prefill": None, "launches": {"prefill": 0, "decode": 0}}
     step = engine._step
 
-    def timed(tokens, counts, *, prefill):
+    def timed(tokens, counts, *, prefill, **kw):
         owners = {i: (s.request_id, len(s.tokens)) for i, s in enumerate(engine.slots)
                   if s.request_id is not None}
         torch.cuda.synchronize()
         before = fd.flash_decode_cuda.launches
         t0 = time.perf_counter()
-        logits = step(tokens, counts, prefill=prefill)
+        logits = step(tokens, counts, prefill=prefill, **kw)
         torch.cuda.synchronize()
         stats["prefill_s" if prefill else "decode_s"] += time.perf_counter() - t0
         stats["launches"]["prefill" if prefill else "decode"] += \
@@ -1838,7 +1869,7 @@ def moe_serve(cfg, params, Engine, ServeConfig, fd, ffn) -> dict:
                divergences_at_near_ties=near_ties, tol=LOGIT_TOL,
                plain_router=router_disagreements(p["log"], cfg.moe_top_k))
     phase("moe_serve", arch=cfg.name, **out)
-    return out
+    return dict(out, done=k["done"], prompts=requests)
 
 
 def time_moe_attention(ops, card: str, pieces: int) -> dict:
@@ -2082,7 +2113,7 @@ def mla_serve(cfg, params, lm, Engine, ServeConfig, fa, fd) -> dict:
                greedy_agreement=agree, divergences_at_near_ties=near_ties,
                absorbed_vs_forward_logits_max_abs_err=absorbed_err, tol=LOGIT_TOL)
     phase("mla_serve", arch=cfg.name, **out)
-    return out
+    return dict(out, done=k["done"], prompts=requests)
 
 
 def train_config(configs):
@@ -3048,6 +3079,356 @@ def hybrid_train(configs, lm, fa, trainer, optimizer, tree_leaves, sharding,
     return out, rec
 
 
+def mla_carry_state(B: int, H: int, S: int, tail: int = 0):
+    """An empty carry state ``(acc (B, H, S, MLA_DV), m, l)``; with
+    ``tail``, ``acc`` is the head of a float32 buffer whose last ``tail``
+    elements hold the sentinel MLA_SENTINEL, returned as the fourth item, so
+    a store past the state's columns shows."""
+    n = B * H * S * MLA_DV
+    buf = torch.full((n + tail,), MLA_SENTINEL, device=DEVICE)
+    buf[:n] = 0.0
+    return (buf[:n].view(B, H, S, MLA_DV), torch.full((B, H, S), -1e30, device=DEVICE),
+            torch.zeros((B, H, S), device=DEVICE), buf[n:])
+
+
+def check_mla_carry(ops, card: str, ring_step_offsets, pieces: int) -> dict:
+    """``mla_carry_kernel``: the carry form's (96, 64) instance (new in this
+    slice: MLA's queries and keys of 96, values and state of 64) at
+    minicpm3-4b's shapes, bf16 and float32, against its plain version:
+    ranks 1 and 3 of a 4-rank ring over SEQ tokens, a diagonal step from the
+    empty state and then an off-diagonal step from the state it left, in
+    acc, m and l, with MLA_SENTINEL_TAIL float32 sentinels right after the
+    state's last row left untouched; the one-card step of the whole
+    sequence; carry steps over 4 chunks of 1024 keys chained in block order
+    equal to the single-shot (96, 64) forward instance bitwise, and a
+    one-step chain equal to it bitwise, causal and not; two launches
+    bitwise equal.  Times (bf16, ``queued_ms``) of the off-diagonal and
+    diagonal steps and of the one-card step beside their bounds
+    (``attn_bound``: q k^T at 96 columns, p @ v at 64 in ``pieces``
+    pieces, the state read and written once) and the plain version's; no
+    PyTorch call returns the unnormalized state."""
+    from repro_torch.kernels.timing import queued_ms
+
+    H, D, Dv = MLA_HEADS, MLA_D, MLA_DV
+    out, worst = {}, 0.0
+
+    def qkv(S, dt, seed):
+        return randn((1, H, S, D), dt, seed), randn((1, H, S, D), dt, seed + 1), \
+            randn((1, H, S, Dv), dt, seed + 2)
+
+    for dt in (torch.bfloat16, torch.float32):
+        cap = SEQ // RING_R
+        q, k, v = qkv(SEQ, dt, 300)
+        errs, calls = {"acc": 0.0, "m": 0.0, "l": 0.0}, 0
+        for rank in (1, RING_R - 1):
+            qr = q[:, :, rank * cap:(rank + 1) * cap]
+            state = mla_carry_state(1, H, cap)[:3]
+            for step in (0, 1):  # diagonal, then off-diagonal
+                q_off, k_off = ring_step_offsets(rank, step, RING_R, cap)
+                blk = slice(k_off, k_off + cap)
+                kw = dict(q_offset=q_off, k_offset=k_off, causal=True)
+                want = ops.flash_attention_carry(qr, k[:, :, blk], v[:, :, blk], state,
+                                                 impl="ref", **kw)
+                *mine, tail = mla_carry_state(1, H, cap, MLA_SENTINEL_TAIL)
+                for t, src in zip(mine, state):
+                    t.copy_(src)
+                got = ops.flash_attention_carry(qr, k[:, :, blk], v[:, :, blk], tuple(mine), **kw)
+                torch.cuda.synchronize()
+                if got[0].shape != (1, H, cap, Dv):
+                    raise AssertionError(f"carry (96, 64) state {tuple(got[0].shape)}")
+                if not bool((tail == MLA_SENTINEL).all()):
+                    raise AssertionError(f"carry (96, 64) {dt}: the kernel wrote past the "
+                                         "state's 64 columns")
+                for name, g, w in zip(("acc", "m", "l"), got, want):
+                    torch.testing.assert_close(g, w, rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
+                    errs[name] = max(errs[name], (g - w).abs().max().item())
+                if step == 1 and not torch.equal(got[0], ops.flash_attention_carry(
+                        qr, k[:, :, blk], v[:, :, blk], tuple(t.clone() for t in state),
+                        **kw)[0]):
+                    raise AssertionError(f"carry (96, 64) {dt}: two launches differ")
+                state, calls = want, calls + 1
+        if dt == torch.bfloat16:
+            worst = max(worst, *errs.values())
+        phase("mla_carry_kernel", check="ring_steps", arch=MLA_ARCH, ring=RING_R, seq=SEQ,
+              chunk=cap, ranks=(1, RING_R - 1), steps=("diagonal", "off_diagonal"), dtype=str(dt),
+              calls=calls, max_abs_err=errs, tol=ATTN_TOL[dt], two_launches="bitwise",
+              sentinels_past_the_state="untouched")
+        want = ops.flash_attention_carry(q, k, v, None, impl="ref")
+        got = ops.flash_attention_carry(q, k, v, None)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, w in zip(("acc", "m", "l"), got, want):
+            torch.testing.assert_close(g, w, rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
+            errs[name] = (g - w).abs().max().item()
+        if dt == torch.bfloat16:
+            worst = max(worst, *errs.values())
+        del got, want
+        for causal in (True, False):
+            single = ops.flash_attention(q, k, v, causal=causal)
+            for chunks in (RING_R, 1):
+                chained = chain(ops, q, k, v, causal=causal, chunks=chunks)
+                torch.cuda.synchronize()
+                if not torch.equal(chained, single):
+                    raise AssertionError(
+                        f"carry chain of {chunks} (96, 64) != single-shot kernel ({dt}, "
+                        f"causal={causal}): max |diff| "
+                        f"{(chained.float() - single.float()).abs().max()}")
+        phase("mla_carry_kernel", check="chains", shape=(1, H, SEQ, D, Dv), chunks=(RING_R, 1),
+              dtype=str(dt), one_card_step_max_abs_err=errs, tol=ATTN_TOL[dt],
+              chain_equals_single_shot="bitwise, 4 chunks and 1, causal and not")
+        del q, k, v, chained, single
+    cap = SEQ // RING_R
+    q, k, v = qkv(SEQ, torch.bfloat16, 320)
+    qr = q[:, :, cap:2 * cap]
+    cases = []
+    for label, step in (("diagonal", 0), ("off_diagonal", 1)):
+        q_off, k_off = ring_step_offsets(1, step, RING_R, cap)
+        cases.append((label, qr, k[:, :, k_off:k_off + cap], v[:, :, k_off:k_off + cap],
+                      dict(q_offset=q_off, k_offset=k_off, causal=True),
+                      cap * (cap + 1) // 2 if step == 0 else cap * cap))
+    cases.append(("one_card_step", q, k, v, dict(causal=True), SEQ * (SEQ + 1) // 2))
+    for label, qq, kb, vb, kw, pairs in cases:
+        carry = mla_carry_state(1, H, qq.shape[2])[:3]
+        t = dict(ms=queued_ms(lambda: ops.flash_attention_carry(qq, kb, vb, carry, **kw)),
+                 plain_ms=queued_ms(lambda: ops.flash_attention_carry(qq, kb, vb, carry,
+                                                                      impl="ref", **kw),
+                                    iters=5 if label == "one_card_step" else 20),
+                 library_ms=None,
+                 call_ms=median_ms(lambda: ops.flash_attention_carry(qq, kb, vb, carry, **kw)))
+        qk, pv = 2 * H * pairs * D, 2 * H * pairs * Dv
+        nbytes = 2 * (qq.numel() + kb.numel() + vb.numel()) + \
+            2 * 4 * sum(c.numel() for c in carry)
+        b_ms, b_by, fp32_ms = attn_bound(qk + pv, nbytes, products=1 + pieces, pv_flops=pv)
+        out[label] = dict(bound_ms=b_ms, bound_by=b_by, fp32_bound_ms=fp32_ms, **t)
+        check_bound(f"flash_attention_carry (96, 64) {label}", out[label])
+        phase("time", kernel="flash_attention_carry", arch=MLA_ARCH, case=label,
+              q=tuple(qq.shape), kv=tuple(kb.shape), v=tuple(vb.shape), dtype="bfloat16",
+              card=card, library="none: no PyTorch call returns the unnormalized (acc, m, l)",
+              tflops=(qk + pv) / t["ms"] / 1e9, **out[label])
+        del carry
+    del q, k, v, qr, cases
+    torch.cuda.empty_cache()
+    out["max_abs_err"] = worst
+    return out
+
+
+def latent_recipe_forward(cfg, params, lm, fa, mesh, sharding, shard_params_by_recipe,
+                          no_recipe_window: dict, classify=None) -> dict:
+    """``mla_recipe_forward`` / ``moe_recipe_forward``: the forward of 1 x
+    SEQ seeded tokens under ``make_recipe(cfg, mesh, attn_mode=...)`` for
+    ``tp``, ``sp`` and ``sp_ring`` on a one-rank NCCL ``(data, model)`` mesh
+    and the rank's shards (views: one rank cuts nothing).  Every axis has
+    one rank, so the logits equal the no-recipe forward's bitwise: ``tp``
+    and ``sp`` launch the forward instance once a layer, ``sp_ring`` the
+    ring's one carry step in its place.  For the MoE family the recipe's
+    ``ep`` dispatch falls back (a model axis of one rank) with one warning
+    a layer, as in the reference, and ``classify`` (:func:`moe_by_kind`)
+    raises unless the profile holds the capacity dispatch's ``moe.*``
+    ranges.  Times: host ms of a forward (:func:`host_ms`, 2 calls) in turns
+    with the no-recipe forward (no recipe, each mode, no recipe), and each
+    mode's profiled window (:func:`window`: host and device ms, idle share,
+    kernels launched, device ms by kind) beside the family's no-recipe
+    window (``no_recipe_window``)."""
+    import warnings
+
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, SEQ), device=DEVICE, generator=g)}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # ep without a recipe: the same fallback
+        want = lm.forward(params, batch, cfg)[0]
+    specs = lm.build_specs(cfg)
+    fns = {"no_recipe": lambda: lm.forward(params, batch, cfg)}
+    out = {}
+    for mode in ("tp", "sp", "sp_ring"):
+        recipe = sharding.make_recipe(cfg, mesh, attn_mode=mode)
+        shards = shard_params_by_recipe(params, specs, recipe)
+        fa.flash_attention_cuda.launches = fa.flash_attention_carry_cuda.launches = 0
+        with sharding.use_recipe(recipe), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = lm.forward(shards, batch, cfg)[0]
+        torch.cuda.synchronize()
+        fell_back = sum("falling back" in str(w.message) for w in caught)
+        launches = (fa.flash_attention_cuda.launches, fa.flash_attention_carry_cuda.launches)
+        expected = (0, cfg.n_layers) if mode == "sp_ring" else (cfg.n_layers, 0)
+        if launches != expected:
+            raise AssertionError(f"{cfg.name} recipe forward {mode}: (flash_attention, carry) "
+                                 f"launches {launches} != {expected}")
+        want_back = cfg.n_layers if cfg.family == "moe" else 0
+        if fell_back != want_back:
+            raise AssertionError(f"{cfg.name} recipe forward {mode}: {fell_back} ep fallback "
+                                 f"warnings, expected {want_back}")
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{cfg.name} recipe forward {mode}: logits {tuple(got.shape)} "
+                                 "not finite or not the expected shape")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{cfg.name} recipe forward {mode} vs no recipe on one rank: "
+                                 f"max |diff| {(got.float() - want.float()).abs().max().item()} "
+                                 "(must be bitwise)")
+        del got
+
+        def fwd(shards=shards, recipe=recipe):
+            with sharding.use_recipe(recipe), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                lm.forward(shards, batch, cfg)
+
+        fns[mode] = fwd
+        out[mode] = dict(flash_attention_launches=launches[0],
+                         flash_attention_carry_launches=launches[1], ep_fallback_warnings=fell_back,
+                         bitwise_equal_no_recipe=True)
+    host = {name: [] for name in fns}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for name in ("no_recipe", *out, "no_recipe"):
+            host[name].append(host_ms(fns[name], 2))
+    keys = ("wall_ms", "device_ms", "idle_share", "kernels_launched", "device_ms_by_kind")
+    for mode, row in out.items():
+        win = window(fns[mode], 1, classify=classify)
+        if not any("flash_attention_kernel_wgmma" in n for n in win["port_kernels"]):
+            raise AssertionError(f"the profiled {mode} forward ran no "
+                                 f"flash_attention_kernel_wgmma: {win['port_kernels']}")
+        row.update(host_ms=host[mode], no_recipe_host_ms=host["no_recipe"],
+                   forward={k: win[k] for k in keys},
+                   no_recipe_forward={k: no_recipe_window[k] for k in keys},
+                   kernels_launched_vs_no_recipe=win["kernels_launched"] -
+                   no_recipe_window["kernels_launched"])
+        phase(f"{cfg.family}_recipe_forward", arch=cfg.name, layers=cfg.n_layers,
+              mesh=dict(mesh.shape), backend="nccl", attn_mode=mode, tokens=SEQ, **row)
+    del want, fns
+    torch.cuda.empty_cache()
+    return out
+
+
+def latent_recipe_serve(cfg, params, lm, Engine, ServeConfig, fd, mesh, sharding,
+                        shard_params_by_recipe, requests, new_tokens: int, single_done: dict,
+                        decode_launches: int, classify=None) -> dict:
+    """``mla_recipe_serve`` / ``moe_recipe_serve``: the family's serving
+    requests cut to the first SLOTS (admitted together, so each row's tokens
+    are those of the family's serving run) through
+    ``Engine(recipe=make_recipe(cfg, mesh, attn_mode="tp"))`` on a one-rank
+    NCCL mesh, on the rank's shards and its blocks of the decode state:
+    every request finishes, ``flash_decode`` launches ``decode_launches``
+    times a step (the MoE family's layers; none in MLA's absorbed decode),
+    and the greedy tokens equal the single-host run's (``single_done``)
+    exactly (the same program on one rank).  Then a steady decode step's
+    window (:func:`window`, RECIPE_DECODE_STEPS steps) under the recipe and
+    of the single-host engine on the same requests, in turns (single host,
+    recipe, recipe, single host)."""
+    import warnings
+
+    requests = requests[:SLOTS]
+    recipe = sharding.make_recipe(cfg, mesh, attn_mode="tp")
+    shards = shard_params_by_recipe(params, lm.build_specs(cfg), recipe)
+    scfg = ServeConfig(max_len=MAX_LEN, batch_slots=SLOTS, eos_token=-1)
+
+    def engine_for(recipe=recipe, extra: int = 0):
+        engine = Engine(cfg, params if recipe is None else shards, scfg, recipe=recipe)
+        for rid, prompt in enumerate(requests):
+            engine.submit(rid, prompt, new_tokens + extra)
+        return engine
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the ep fallback of every decode step
+        engine = engine_for()
+        stats = _instrument(engine, record_gaps=False, fd=fd)
+        fd.flash_decode_cuda.launches = 0
+        t0 = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fd.flash_decode_cuda.launches
+        steps = dict(engine.steps)
+        by_kind = {kind: decode_launches * steps[kind] for kind in ("prefill", "decode")}
+        if stats["launches"] != by_kind or launches != sum(by_kind.values()):
+            raise AssertionError(f"{cfg.name} recipe serve: flash_decode launches "
+                                 f"{stats['launches']} (total {launches}) != {by_kind}")
+        if done != {rid: single_done[rid] for rid in range(len(requests))}:
+            raise AssertionError(f"{cfg.name} recipe serve: greedy tokens differ from the "
+                                 "single-host run's")
+        del engine
+        torch.cuda.empty_cache()
+        engines = {"single_host": engine_for(None, 64), "recipe": engine_for(extra=64)}
+        for engine in engines.values():
+            engine._fill_slots()
+            engine._decode_once()
+        wins = {name: [] for name in engines}
+        for name in ("single_host", "recipe", "recipe", "single_host"):
+            wins[name].append(window(engines[name]._decode_once, RECIPE_DECODE_STEPS,
+                                     classify=classify))
+    del engines
+    torch.cuda.empty_cache()
+    keys = ("wall_ms", "device_ms", "idle_share", "kernels_launched", "device_ms_by_kind")
+    out = dict(mesh=dict(mesh.shape), attn_mode=recipe.attn_mode, requests=len(requests),
+               slots=SLOTS, max_len=MAX_LEN, new_tokens=new_tokens, steps=steps,
+               flash_decode_launches=launches, flash_decode_launches_by_kind=stats["launches"],
+               prefill_s=stats["prefill_s"], decode_s=stats["decode_s"], wall_s=wall,
+               greedy_tokens_equal_single_host=True,
+               decode_step=[{k: w[k] for k in keys} for w in wins["recipe"]],
+               single_host_decode_step=[{k: w[k] for k in keys} for w in wins["single_host"]])
+    phase(f"{cfg.family}_recipe_serve", arch=cfg.name, layers=cfg.n_layers, backend="nccl",
+          **out)
+    return out
+
+
+def latent_recipe_train(cfg, lm, fa, trainer, optimizer, sharding, shard_params_by_recipe,
+                        mesh, seed: int) -> dict:
+    """``recipe_train_mla`` / ``recipe_train_moe``: ``cfg`` (full width, its
+    depth cut) with seeded float32 masters, one ``make_train_step`` step of
+    1 x SEQ tokens without a recipe and under the ``tp`` recipe on the
+    one-rank NCCL ``mesh`` (the rank's shards: views), each after a warm-up
+    step: ``flash_attention`` launched once a layer in the forward and once
+    more in remat's recompute, the recipe step's loss and gradient norm
+    bitwise the no-recipe step's (every axis one rank: the same program,
+    the MoE's aux loss included), each step's seconds and peak memory."""
+    import warnings
+
+    params = lm.init_model(cfg, torch.Generator(device=DEVICE).manual_seed(seed), device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab, (1, SEQ + 1), device=DEVICE, generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ocfg = optimizer.OptConfig(lr=TRAIN_LR)
+    opt = optimizer.init_opt_state(params, ocfg)
+    recipe = sharding.make_recipe(cfg, mesh, attn_mode="tp")
+    shards = shard_params_by_recipe(params, lm.build_specs(cfg), recipe)
+    expected = 2 * cfg.n_layers
+    rows = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the MoE's ep fallback on one rank
+        for name, rec, p in (("no_recipe", None, params), ("tp", recipe, shards)):
+            step = trainer.make_train_step(cfg, rec, ocfg)
+            torch.cuda.reset_peak_memory_stats()
+            step(p, opt, batch)  # warm-up
+            torch.cuda.synchronize()
+            fa.flash_attention_cuda.launches = 0
+            t0 = time.perf_counter()
+            m = step(p, opt, batch)[2]
+            torch.cuda.synchronize()
+            rows[name] = dict(step_s=time.perf_counter() - t0,
+                              flash_attention_launches=fa.flash_attention_cuda.launches,
+                              loss=m["loss"].item(), grad_norm=m["grad_norm"].item(),
+                              aux=m["aux"].item() if "aux" in m else None,
+                              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+            del m
+            torch.cuda.empty_cache()
+    for name, row in rows.items():
+        if row["flash_attention_launches"] != expected:
+            raise AssertionError(f"{cfg.name} {name} step: flash_attention launches "
+                                 f"{row['flash_attention_launches']} != {expected}")
+        if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])):
+            raise AssertionError(f"{cfg.name} {name} step metrics not finite: {row}")
+    a, b = rows["tp"], rows["no_recipe"]
+    if (a["loss"], a["grad_norm"]) != (b["loss"], b["grad_norm"]):
+        raise AssertionError(f"{cfg.name} tp recipe step vs no recipe on one rank: loss "
+                             f"{a['loss']} vs {b['loss']}, grad norm {a['grad_norm']} vs "
+                             f"{b['grad_norm']} (must be bitwise)")
+    out = dict(layers=cfg.n_layers, params=lm.count_params(cfg), tokens=SEQ,
+               expected_launches=expected, bitwise_equal_no_recipe=True, tp=a, no_recipe=b)
+    phase(f"recipe_train_{cfg.family}", arch=cfg.name, mesh=dict(mesh.shape), backend="nccl",
+          **out)
+    del params, shards, opt
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_instances(log: str, kernel: str = r"layout_gemm\w*?kernel") -> dict:
     """ptxas's registers and spill per instance of the kernels whose names
     match ``kernel``, by name and integer template arguments (the GEMM
@@ -3241,6 +3622,22 @@ def main() -> int:
     moe_cfg, moe_params = moe_model(configs, lm)
     moe_fwd = moe_forward(moe_cfg, moe_params, lm, fa, ffn)
     moe_srv = moe_serve(moe_cfg, moe_params, Engine, ServeConfig, fd, ffn)
+    # phase 11b: the MoE family under a sharding recipe on a one-rank NCCL
+    # (data, model) mesh, beside the phase's no-recipe runs
+    device = init_world("cuda")
+    try:
+        lmesh = make_mesh((1, 1), ("data", "model"), device=device)
+        t1 = time.perf_counter()
+        moe_rec_fwd = latent_recipe_forward(moe_cfg, moe_params, lm, fa, lmesh, sharding,
+                                            shard_params_by_recipe,
+                                            moe_fwd[(1, SEQ)]["breakdown"], classify=moe_by_kind)
+        moe_rec_srv = latent_recipe_serve(moe_cfg, moe_params, lm, Engine, ServeConfig, fd,
+                                          lmesh, sharding, shard_params_by_recipe,
+                                          moe_srv["prompts"], MOE_NEW_TOKENS, moe_srv["done"],
+                                          moe_cfg.n_layers, classify=moe_by_kind)
+        latent_recipe_s = time.perf_counter() - t1
+    finally:
+        dist.destroy_process_group()
     del moe_params
     torch.cuda.empty_cache()
     moe_attn = time_moe_attention(ops, card, fa.P_PIECES)
@@ -3250,9 +3647,25 @@ def main() -> int:
     # phase 12: the MLA family, minicpm3-4b at full width (MLA_DEPTH layers), seeded
     # random weights; the kernel's (96, 64) instances first
     mla_attn = check_mla_kernel(ops, card, fa.P_PIECES)
+    t1 = time.perf_counter()
+    mla_carry = check_mla_carry(ops, card, ring_step_offsets, fa.P_PIECES)
+    latent_recipe_s += time.perf_counter() - t1
     mla_cfg, mla_params = mla_model(configs, lm)
     mla_fwd = mla_forward(mla_cfg, mla_params, lm, fa)
-    mla_serve(mla_cfg, mla_params, lm, Engine, ServeConfig, fa, fd)
+    mla_srv = mla_serve(mla_cfg, mla_params, lm, Engine, ServeConfig, fa, fd)
+    # phase 12b: the MLA family under a sharding recipe on a one-rank NCCL mesh
+    device = init_world("cuda")
+    try:
+        lmesh = make_mesh((1, 1), ("data", "model"), device=device)
+        t1 = time.perf_counter()
+        mla_rec_fwd = latent_recipe_forward(mla_cfg, mla_params, lm, fa, lmesh, sharding,
+                                            shard_params_by_recipe, mla_fwd["breakdown"])
+        latent_recipe_serve(mla_cfg, mla_params, lm, Engine, ServeConfig, fd, lmesh, sharding,
+                            shard_params_by_recipe, mla_srv["prompts"], NEW_TOKENS,
+                            mla_srv["done"], 0)
+        latent_recipe_s += time.perf_counter() - t1
+    finally:
+        dist.destroy_process_group()
     del mla_params
     torch.cuda.empty_cache()
 
@@ -3345,6 +3758,23 @@ def main() -> int:
           hybrid_train_step_s=hyb_train["step_s"],
           hybrid_recipe_train_step_s=hyb_rec_train["step_s"])
 
+    # phase 16: one training step of the MLA and MoE families under the tp
+    # recipe on a one-rank NCCL mesh, beside the no-recipe step
+    device = init_world("cuda")
+    try:
+        t1 = time.perf_counter()
+        tmesh = make_mesh((1, 1), ("data", "model"), device=device)
+        latent_train = {
+            family: latent_recipe_train(
+                dataclasses.replace(configs.get(arch), n_layers=depth), lm, fa, trainer,
+                optimizer, sharding, shard_params_by_recipe, tmesh, seed)
+            for family, arch, depth, seed in (("mla", MLA_ARCH, MLA_TRAIN_DEPTH, 40),
+                                              ("moe", MOE_ARCH, MOE_TRAIN_DEPTH, 50))}
+        latent_recipe_s += time.perf_counter() - t1
+    finally:
+        dist.destroy_process_group()
+    phase("latent_moe_recipe_phases", seconds=latent_recipe_s)
+
     gemm_src = "src/repro_torch/kernels/csrc/gemm.cu"
     report = []
     for name, replaces in (("gemm", "src/repro/kernels/gemm.py:80"),
@@ -3373,6 +3803,11 @@ def main() -> int:
                    "hybrid_recipe_train_launches": hyb_rec_train["flash_attention_launches"],
                    **{f"zamba2_112_{key}": hyb_attn["flash_attention"][key] for key in
                       (*gqa4, "error_vs_float64_ratio", "library_bf16_backend")},
+                   **{f"{fam}_recipe_{mode}_forward_launches": row["flash_attention_launches"]
+                      for fam, rec in (("mla", mla_rec_fwd), ("moe", moe_rec_fwd))
+                      for mode, row in rec.items() if mode != "sp_ring"},
+                   **{f"{fam}_recipe_train_launches": row["tp"]["flash_attention_launches"]
+                      for fam, row in latent_train.items()},
                    **rows["flash_attention"]})
     prefill = rows[("flash_decode", "prefill_chunk")]
     report.append({"name": "flash_decode", "route": "cuda",
@@ -3385,6 +3820,7 @@ def main() -> int:
                    "recipe_serve_launches": rec_srv["flash_decode_launches"],
                    "recipe_serve_launches_by_kind": rec_srv["flash_decode_launches_by_kind"],
                    "moe_serve_launches": moe_srv["flash_decode_launches"],
+                   "moe_recipe_serve_launches": moe_rec_srv["flash_decode_launches"],
                    "hybrid_serve_launches": hyb_srv["flash_decode_launches"],
                    "hybrid_serve_launches_by_kind": hyb_srv["flash_decode_launches_by_kind"],
                    "hybrid_recipe_serve_launches":
@@ -3407,6 +3843,13 @@ def main() -> int:
                    rec_recipe[HYBRID_ARCH][0]["sp_ring"]["flash_attention_carry_launches"],
                    "zamba2_112_max_abs_err": hyb_carry["max_abs_err"],
                    **{f"zamba2_112_{case}_{key}": hyb_carry[case][key]
+                      for case in ("off_diagonal", "diagonal", "one_card_step")
+                      for key in ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms")},
+                   **{f"{fam}_recipe_sp_ring_forward_launches":
+                      rec["sp_ring"]["flash_attention_carry_launches"]
+                      for fam, rec in (("mla", mla_rec_fwd), ("moe", moe_rec_fwd))},
+                   "mla_96_64_max_abs_err": mla_carry["max_abs_err"],
+                   **{f"mla_96_64_{case}_{key}": mla_carry[case][key]
                       for case in ("off_diagonal", "diagonal", "one_card_step")
                       for key in ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms")},
                    "chain_error_vs_float64_ratio": accuracy["chain"],

@@ -119,6 +119,8 @@ __all__ = [
     "all_gatherv_bag",
     "all_to_allv_start",
     "all_to_allv_bag",
+    "all_to_allv_tie",
+    "all_reduce_tie",
     "reduce_identity",
     "dist_full",
     "rank_map",
@@ -1497,6 +1499,75 @@ def all_to_allv_bag(
     return all_to_allv_start(dist_bag, out_tile_layout, split_dim=split_dim,
                              concat_dim=concat_dim, split_extents=split_extents,
                              rank_dim=rank_dim).wait()
+
+
+class _AllToAllvLeg(torch.autograd.Function):
+    """The arrived tile of an ``MPI_Ialltoallv`` leg, tied to the tile that
+    was sent: the forward passes the arrived data through; the backward
+    sends its cotangent back along the reverse leg (split and concat dims
+    swapped, the forward's concat extents as its split extents) and hands
+    it to the sent tile."""
+
+    @staticmethod
+    def forward(ctx, meta, sent, arrived):
+        ctx.meta = meta
+        return arrived.view_as(arrived)
+
+    @staticmethod
+    def backward(ctx, d):
+        (arrived_layout, dt, rank_dims, extents, sent_layout, split_dim, concat_dim,
+         concat_exts, rank_dim) = ctx.meta
+        back = all_to_allv_start(DistBag(d.contiguous(), arrived_layout, dt, rank_dims,
+                                         extents=extents),
+                                 sent_layout, split_dim=concat_dim, concat_dim=split_dim,
+                                 split_extents=concat_exts, rank_dim=rank_dim).wait()
+        return None, back.data, None
+
+
+def all_to_allv_tie(sent: DistBag, arrived: DistBag, *, split_dim: str, concat_dim: str,
+                    rank_dim: str | None = None) -> DistBag:
+    """``arrived``, what ``all_to_allv_start(sent, ..., split_dim=,
+    concat_dim=, rank_dim=)`` delivered, with its data differentiable with
+    respect to ``sent.data``: the backward of a ragged all-to-all is the
+    all-to-all of the cotangent along the reverse leg, with the same
+    extents (the expert-parallel dispatch's backward is its combine leg, and
+    the combine's its dispatch).  The forward's request was issued and
+    waited as the caller's plan chose (double-buffered or blocking); the
+    backward leg is blocking, issued where autograd reaches it, in one
+    order on every rank (the same graph).  Without a gradient to take,
+    ``arrived`` itself."""
+    if not (torch.is_grad_enabled() and sent.data.requires_grad):
+        return arrived
+    rank_dim = _check_rank_dim(sent, rank_dim)
+    pos = sent.rank_dims.index(rank_dim)
+    meta = (arrived.tile_layout, arrived.dt, arrived.rank_dims, arrived.extents,
+            sent.tile_layout, split_dim, concat_dim,
+            tuple(_dim_extent_list(sent, concat_dim, pos)), rank_dim)
+    data = _AllToAllvLeg.apply(meta, sent.data, arrived.data)
+    return DistBag(data, arrived.tile_layout, arrived.dt, arrived.rank_dims,
+                   extents=arrived.extents)
+
+
+class _ReducedTie(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, reduced):
+        return reduced.view_as(reduced)
+
+    @staticmethod
+    def backward(ctx, d):
+        return d, None
+
+
+def all_reduce_tie(local: torch.Tensor, reduced: DistBag) -> DistBag:
+    """``reduced``, the result of ``all_reduce_start`` over a bag whose
+    data is ``local``, with its data differentiable with respect to
+    ``local``: every rank goes on to use the same sum alike (a statistic
+    over every rank's tokens), so each rank's cotangent of the sum is the
+    whole one, and the backward hands it to ``local`` unchanged."""
+    if not (torch.is_grad_enabled() and local.requires_grad):
+        return reduced
+    return DistBag(_ReducedTie.apply(local, reduced.data), reduced.tile_layout, reduced.dt,
+                   reduced.rank_dims, extents=reduced.extents)
 
 
 # -----------------------------------------------------------------------------

@@ -381,10 +381,11 @@ def shard_all_gather_start(x, axis_name: str, *, mesh, axis: int = 0) -> Pending
     return Pending(finish, works, op="all_gather")
 
 
-def shard_all_reduce_start(x, axis_name: str, *, mesh) -> Pending:
-    """Issue ``MPI_Iallreduce`` (sum) of ``x`` (a tensor or a tuple of them)
-    over mesh axis ``axis_name`` and return a :class:`Pending` whose
-    ``wait`` gives the sums, in ``x``'s structure.  ``x`` is not modified:
+def shard_all_reduce_start(x, axis_name: str, *, mesh, op: str = "sum") -> Pending:
+    """Issue ``MPI_Iallreduce`` (``op``: ``"sum"`` or ``"max"``) of ``x`` (a
+    tensor or a tuple of them) over mesh axis ``axis_name`` and return a
+    :class:`Pending` whose ``wait`` gives the reductions, in ``x``'s
+    structure.  ``x`` is not modified:
     the reduction runs in a copy.  On an axis of one rank nothing moves and
     ``wait`` gives ``x`` itself.  On NCCL, ``wait`` orders the current
     stream after the reduction (no host sync)."""
@@ -392,8 +393,9 @@ def shard_all_reduce_start(x, axis_name: str, *, mesh) -> Pending:
     R, _, group, _ = _axis(mesh, axis_name)
     if R == 1:
         return Pending(lambda: x, op="all_reduce")
+    rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     bufs = [t.clone(memory_format=torch.contiguous_format) for t in leaves]
-    works = [dist.all_reduce(b, op=dist.ReduceOp.SUM, group=group, async_op=True) for b in bufs]
+    works = [dist.all_reduce(b, op=rop, group=group, async_op=True) for b in bufs]
     return Pending(lambda: type(x)(bufs) if is_seq else bufs[0], works, op="all_reduce")
 
 

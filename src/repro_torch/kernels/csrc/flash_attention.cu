@@ -71,7 +71,11 @@
 // no empty column costs tensor work; P V, the output accumulators, the V
 // stage of the ring and the epilogue are sized by Dv (one box, N = 64).
 // Its work at MLA's shape is 4/7 in Q K^T, so it is bound by operations
-// like the others.
+// like the others.  Its carry form (MLA under the sequence-parallel
+// recipes) keeps the state acc (B, Hq, Sq, 64) at the state's own width:
+// the P V accumulators are 64 columns, one box, so HAS_CARRY reads and
+// EMIT_STATE writes exactly Dv columns a row (stride Dv), whatever the 128
+// columns of q/K's tiles; nothing past a row's 64 columns is touched.
 //
 // The (112, 112) instance (zamba2-7b's shared attention block).  112 =
 // 64 + 48: q, K and V tiles take two boxes each, TMA zero-filling columns
@@ -561,9 +565,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, float* acc
   return static_cast<int>(cudaGetLastError());
 }
 
-// The (D, Dv) instances: (64, 64), (128, 128) and (112, 112) (zamba2's
-// shared attention) in both forms, (96, 64) (MLA) in the forward form
-// only.
+// The (D, Dv) instances, each in both forms: (64, 64), (128, 128), (112,
+// 112) (zamba2's shared attention) and (96, 64) (MLA).
 template <bool CARRY>
 int dispatch(const void* q, const void* k, const void* v, void* out, float* acc, float* m,
              float* l, int dtype, int B, int Hq, int G, int Sq, int Skv, int D, int Dv,
@@ -582,7 +585,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, float* acc,
   FA_LAUNCH(128, 128)
   FA_LAUNCH(64, 64)
   FA_LAUNCH(112, 112)
-  if constexpr (!CARRY) FA_LAUNCH(96, 64)
+  FA_LAUNCH(96, 64)
 #undef FA_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -603,17 +606,16 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, 
                          strides, scale, causal, 0, 0, INT_MAX, stream);
 }
 
-// One ring step: the state acc (B, Hq, Sq, D), m and l (B, Hq, Sq), float32
-// contiguous, is updated in place by the attention of q (global rows
-// q_off + i) over k, v (global keys k_off + j; keys at or past valid_len
-// masked).  Operands as for flash_attention_fwd, with Dv = D = 64, 112 or
-// 128.
+// One ring step: the state acc (B, Hq, Sq, Dv), m and l (B, Hq, Sq),
+// float32 contiguous, is updated in place by the attention of q (global
+// rows q_off + i) over k, v (global keys k_off + j; keys at or past
+// valid_len masked).  Operands and (D, Dv) as for flash_attention_fwd.
 // Returns a cudaError_t.
 int flash_attention_carry_fwd(const void* q, const void* k, const void* v, float* acc, float* m,
                               float* l, int dtype, int B, int Hq, int G, int Sq, int Skv, int D,
-                              const long long* strides, float scale, int causal, int q_off,
-                              int k_off, int valid_len, void* stream) {
-  return dispatch<true>(q, k, v, nullptr, acc, m, l, dtype, B, Hq, G, Sq, Skv, D, D, strides,
+                              int Dv, const long long* strides, float scale, int causal,
+                              int q_off, int k_off, int valid_len, void* stream) {
+  return dispatch<true>(q, k, v, nullptr, acc, m, l, dtype, B, Hq, G, Sq, Skv, D, Dv, strides,
                         scale, causal, q_off, k_off, valid_len, stream);
 }
 

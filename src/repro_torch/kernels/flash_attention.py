@@ -19,9 +19,10 @@ float32 inputs run the first port's float32 body on the CUDA cores.
 
 The forward takes float32 or bfloat16 with head dims ``(D, Dv)`` of
 :data:`FORWARD_HEAD_DIMS`: 64, 112 (zamba2's shared attention) or 128 for
-q, k and v, or q/k of 96 with v of 64 (MLA's forward).  The carry form takes one head dim,
-64, 112 or 128 (:data:`HEAD_DIMS`), for q, k and v
-(:func:`check_carry_head_dims`).  It reads each operand through its
+q, k and v, or q/k of 96 with v of 64 (MLA's forward).  The carry form takes
+the pairs of :data:`CARRY_HEAD_DIMS`, the same four (MLA's (96, 64) under
+the sequence-parallel recipes; :func:`check_carry_head_dims`), its state
+``acc`` as wide as v.  It reads each operand through its
 batch, head and sequence strides, so the transposed views of the
 projections need no copy.
 It launches on PyTorch's current stream and never synchronises; a build or
@@ -43,12 +44,11 @@ from . import build
 
 __all__ = ["flash_attention_cuda", "flash_attention_carry_cuda", "check_attention",
            "check_carry", "check_carry_head_dims", "refuse_grad", "load_library", "bind",
-           "KERNEL_DTYPES",
-           "FORWARD_HEAD_DIMS", "KEY_TILE", "P_PIECES"]
+           "KERNEL_DTYPES", "FORWARD_HEAD_DIMS", "CARRY_HEAD_DIMS", "KEY_TILE", "P_PIECES"]
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 112, 128)  # the carry form's, for q, k and v alike
 FORWARD_HEAD_DIMS = ((64, 64), (128, 128), (96, 64), (112, 112))  # the forward's (D, Dv)
+CARRY_HEAD_DIMS = ((64, 64), (128, 128), (112, 112), (96, 64))  # the carry form's (D, Dv)
 KEY_TILE = 64  # keys per tile of both bodies: carry chunks starting on its multiples chain bitwise
 P_PIECES = 2  # bf16 pieces of p in the bf16 body's p @ v (hi = bf16(p), lo = bf16(p - hi))
 
@@ -69,13 +69,12 @@ def check_attention(q, k, v) -> tuple[int, int, int, int, int, int]:
     return B, Hq, G, Sq, Skv, D
 
 
-def check_carry_head_dims(q, v) -> None:
-    """Raises ``ValueError`` unless v's head dim is q's: the carry form
-    takes one head dim (a v head dim of its own there: ROADMAP.md queue 2,
-    item A)."""
-    if v.shape[-1] != q.shape[-1]:
-        raise ValueError(f"v head dim {v.shape[-1]} != q/k head dim {q.shape[-1]}: the carry "
-                         "form takes one head dim for q, k and v")
+def check_carry_head_dims(D: int, Dv: int) -> None:
+    """Raises ``ValueError`` unless the card's carry form has an instance
+    at ``(D, Dv)`` (:data:`CARRY_HEAD_DIMS`); its plain version takes any."""
+    if (D, Dv) not in CARRY_HEAD_DIMS:
+        raise ValueError(f"the carry kernel takes head dims (D, Dv) in {CARRY_HEAD_DIMS}, "
+                         f"got ({D}, {Dv})")
 
 
 def refuse_grad(kernel: str, **tensors) -> None:
@@ -130,7 +129,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
                                         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, p]
     lib.flash_attention_fwd.restype = i
-    lib.flash_attention_carry_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+    lib.flash_attention_carry_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                                               ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                                               i, i, i, i, p]
     lib.flash_attention_carry_fwd.restype = i
@@ -198,17 +197,20 @@ def flash_attention_carry_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                scale: float | None = None, lib: ctypes.CDLL | None = None):
     """One ring step on the card: merges the attention of q (B, Hq, Sq, D),
     rows at global positions ``q_offset + i``, over the held block k, v
-    (B, G, Skv, D), keys at ``k_offset + j`` (those at or past
+    (B, G, Skv, D | Dv), keys at ``k_offset + j`` (those at or past
     ``valid_len`` masked), into ``carry = (acc, m, l)``, float32 contiguous
-    tensors on q's device, **in place**; returns the carry.  The kernel does
+    tensors on q's device (``acc`` as wide as v, (B, Hq, Sq, Dv)), **in
+    place**; returns the carry.  ``(D, Dv)`` is one of
+    :data:`CARRY_HEAD_DIMS`.  The kernel does
     nothing for query tiles that lie wholly before the block (causal).
     ``lib`` as for :func:`flash_attention_cuda`."""
     refuse_grad("flash_attention_kernel (carry)", q=q, k=k, v=v,
                 **dict(zip(("acc", "m", "l"), carry)))
     B, Hq, G, Sq, Skv, D = check_attention(q, k, v)
-    check_carry_head_dims(q, v)
-    device = check_on_card(KERNEL_DTYPES, HEAD_DIMS, q=q, k=k, v=v)
-    check_carry(carry, B, Hq, Sq, D)
+    Dv = v.shape[-1]
+    device = check_on_card(KERNEL_DTYPES, None, q=q, k=k, v=v)
+    check_carry_head_dims(D, Dv)
+    check_carry(carry, B, Hq, Sq, Dv)
     for name, t in zip(("acc", "m", "l"), carry):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != device:
             raise ValueError(f"carry {name} must be a contiguous float32 tensor on {device}, "
@@ -229,7 +231,7 @@ def flash_attention_carry_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     acc, m, l = carry
     code = lib.flash_attention_carry_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        KERNEL_DTYPES[q.dtype], B, Hq, G, Sq, Skv, D, strides, scale, int(causal),
+        KERNEL_DTYPES[q.dtype], B, Hq, G, Sq, Skv, D, Dv, strides, scale, int(causal),
         int(q_offset), int(k_offset), valid_len, stream)
     if code != 0:
         msg = lib.flash_attention_error_string(code).decode()

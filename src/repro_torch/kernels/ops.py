@@ -15,8 +15,8 @@ from __future__ import annotations
 import torch
 
 from . import ref as _ref
-from .flash_attention import (check_attention, check_carry, check_carry_head_dims,
-                              flash_attention_carry_cuda, flash_attention_cuda)
+from .flash_attention import (check_attention, check_carry, flash_attention_carry_cuda,
+                              flash_attention_cuda)
 from .flash_decode import check_decode, flash_decode_cuda
 from .gemm import check_gemm, check_panel, gemm_cuda, gemm_panel_cuda
 from .relayout import check_transpose, transpose_cuda
@@ -147,19 +147,20 @@ def flash_attention_carry(q, k, v, carry=None, *, q_offset: int = 0, k_offset: i
                           scale: float | None = None, impl: str | None = None):
     """One carry-state flash step (a ring step of the sequence-parallel
     attention): the resident queries q (B, Hq, Sq, D), at global positions
-    ``q_offset + i``, against the held KV block k, v (B, G, Skv, D), at
-    ``k_offset + j``, threading the unnormalized float32 state
-    ``carry = (acc, m, l)`` (``None`` starts from ``(0, -1e30, 0)``).  Keys
-    at or past ``valid_len`` are masked.  Returns the new ``(acc, m, l)``;
-    the caller normalizes ``acc / l`` after the last step.  v takes q's
-    head dim here (:func:`check_carry_head_dims`).
+    ``q_offset + i``, against the held KV block k (B, G, Skv, D) and v
+    (B, G, Skv, Dv), at ``k_offset + j``, threading the unnormalized float32
+    state ``carry = (acc (B, Hq, Sq, Dv), m, l)`` (``None`` starts from
+    ``(0, -1e30, 0)``).  Keys at or past ``valid_len`` are masked.  Returns
+    the new ``(acc, m, l)``; the caller normalizes ``acc / l`` after the
+    last step.  The card takes the ``(D, Dv)`` pairs of
+    :data:`repro_torch.kernels.flash_attention.CARRY_HEAD_DIMS`; the plain
+    version any.
 
     On the card the kernel updates the carry **in place** (a carry not
     already float32 and contiguous is copied first); when a gradient is
     wanted it writes fresh tensors instead and differentiates through
     :class:`_CarryStep`."""
     B, Hq, _, Sq, _, _ = check_attention(q, k, v)
-    check_carry_head_dims(q, v)
     Dv = v.shape[-1]
     if carry is not None:
         check_carry(carry, B, Hq, Sq, Dv)

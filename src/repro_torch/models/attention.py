@@ -61,12 +61,12 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 
 from .module import pspec
-from .sharding import current_recipe, partial_product, ragged_seq_extents
+from .sharding import all_gather, current_recipe, lse_merge, partial_product, ragged_seq_extents
 
 __all__ = ["rope_angles", "apply_rope", "gqa_specs", "mla_specs", "attention_seq",
            "attention_decode", "ring_step_offsets", "ring_attention_seq", "KVCache",
            "gqa_attention", "gqa_attention_placed", "idle_rows_read_chunk", "MLACache",
-           "mla_attention"]
+           "mla_attention", "mla_attention_placed"]
 
 
 # ------------------------------------------------------------------ RoPE ----
@@ -644,3 +644,208 @@ def mla_attention(p, x, *, n_heads: int, d_nope: int, d_rope: int, d_v: int,
     del pr
     o = torch.matmul(o_lat, p["wuv"].to(dt).permute(1, 0, 2))  # (B,H,S,k) @ (H,k,w)
     return _out_proj(o, p["wo"]), MLACache(cache.c, cache.kr, new_len.to(cache.length.dtype))
+
+
+def _write_block(pairs, length: torch.Tensor, new_counts, idle_read_chunk: bool | None,
+                 T: int, base: int) -> list:
+    """:func:`_write_chunk` on this rank's block of caches cut along their
+    sequence: each ``(cache (B, Tl, ...), new (B, S, ...))`` pair's cache
+    holds the whole cache's positions ``[base, base + Tl)`` of ``T``, and
+    each row's chunk goes to the whole cache's ``min(length % T, T - S) +
+    j``; this rank writes the positions that fall in its block, in place,
+    rows with a count of 0 left as they were.  Returns what the step
+    attends over, as :func:`_write_chunk` does.  No host sync: every
+    position of the block takes its new value or keeps its old one in one
+    pass."""
+    active = None if new_counts is None else new_counts > 0
+    reads = []
+    for cache, new in pairs:
+        B, Tl = cache.shape[:2]
+        S = new.shape[1]
+        start = torch.clamp(length.long() % T, max=T - S)
+        src = base + torch.arange(Tl, device=cache.device)[None, :] - start[:, None]  # (B, Tl)
+        hit = (src >= 0) & (src < S)
+        idx = src.clamp(0, S - 1).reshape(B, Tl, *([1] * (new.ndim - 2))).expand(
+            B, Tl, *new.shape[2:])
+        vals = torch.gather(new.to(cache.dtype), 1, idx)
+        tail = (1,) * (new.ndim - 2)
+        keep = hit if active is None else hit & active[:, None]
+        read = cache
+        if active is not None and (idle_read_chunk if idle_read_chunk is not None else
+                                   idle_rows_read_chunk(length, new_counts, T, S)):
+            read = torch.where(hit.reshape(B, Tl, *tail), vals, cache)
+        cache.copy_(torch.where(keep.reshape(B, Tl, *tail), vals, cache))
+        reads.append(read)
+    return reads
+
+
+def mla_attention_placed(p, x, *, place=None, shard=None, n_heads: int, d_nope: int,
+                         d_rope: int, d_v: int, rope_theta: float = 10000.0, positions=None,
+                         cache: MLACache | None = None, attn_impl: str | None = None,
+                         block: int = 512, new_counts=None, prefill: bool = False,
+                         idle_read_chunk: bool | None = None):
+    """This rank's part of :func:`mla_attention` under a sharding recipe:
+    ``place`` (:class:`repro_torch.models.sharding.Placement`) under ``tp``
+    and plain ``sp``, where ``x`` (Bl, S, m) is this rank's rows, whole over
+    ``model``; ``shard`` (:class:`repro_torch.models.sharding.TokenShard`)
+    under ``sp_ring``, where ``x`` is this rank's chunk of the sequence at
+    absolute ``positions``.  ``p`` has its ``m`` dim gathered and, under
+    ``tp``, its heads (``wuq``, ``wuk``, ``wuv``, ``wo``) cut over ``model``;
+    the down projections, ``wkr`` and the two norms stay whole.  Returns
+    ``(out, new_cache)``, ``out`` the same on every ``model`` rank.
+
+    * ``tp``: the rank projects the latents ``c`` and ``kr`` whole, then its
+      heads' q, ``k_nope`` and v, runs them through :func:`attention_seq`
+      and sums a float32 partial of ``wo`` over ``model``, rounded once.
+    * Plain ``sp``: every rank decompresses K/V for the whole sequence; its
+      chunk of the queries (:func:`ragged_seq_extents`) attends over them,
+      chunk 0 through the single-shot kernel (whose top-left causal mask is
+      its own), chunk r > 0 through one carry step at ``q_offset = r *
+      cap``; the chunks' projected outputs are gathered over ``model``.
+    * ``sp_ring``: the chunk's ``c`` and roped ``kr`` (``kv_rank + d_rope``
+      values a token, against ``2 * H * (d_nope + d_rope)`` for K and V) are
+      gathered over ``model``, K/V decompressed for the whole padded
+      sequence, and the chunk's queries run through one carry step at
+      ``q_offset = r * cap``, ``k_offset = 0``, the padding past the
+      sequence's ``S`` keys masked.  The reference computes this
+      ``attention_seq`` with no ring and lets GSPMD gather.
+    * Decode (``cache``: this rank's rows of the latent caches and its block
+      ``[mr * Tl, (mr + 1) * Tl)`` of their positions,
+      :func:`repro_torch.models.sharding.decode_state_shardings`): the rank
+      writes the new positions that fall in its block, scores every head's
+      absorbed query against its block (under ``tp`` the heads' ``q_abs``
+      and ``q_rope`` gathered over ``model`` first), and the ranks' partial
+      softmaxes merge by their log-sum-exp
+      (:func:`repro_torch.models.sharding.lse_merge`); then ``wuv`` and
+      ``wo`` of the rank's heads.  No rank gathers the whole cache.
+      ``cache.length``, ``positions`` and ``new_counts`` are whole.
+
+    On a ``model`` axis of one rank the program is :func:`mla_attention`'s
+    on the rank's rows (under ``sp_ring``, its one carry step in place of
+    the single-shot kernel)."""
+    del prefill  # a whole-prompt chunk is the absorbed form's, as any chunk
+    if shard is not None:
+        return _mla_ring(p, x, shard=shard, d_nope=d_nope, d_rope=d_rope, rope_theta=rope_theta,
+                         positions=positions, attn_impl=attn_impl)
+    B, S, _ = x.shape
+    H = n_heads
+    M, mr, recipe = place.M, place.mr, place.recipe
+    dt = x.dtype
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    local = place.local_rows
+    pos = local(positions) if positions.ndim == 2 else positions
+    kw = dict(n_heads=H, d_nope=d_nope, d_rope=d_rope, d_v=d_v, rope_theta=rope_theta,
+              attn_impl=attn_impl, block=block, idle_read_chunk=idle_read_chunk)
+    if M == 1:  # every rank of the model axis is this one: the no-recipe program
+        if cache is None:
+            return mla_attention(p, x, positions=pos, **kw)
+        out, _ = mla_attention(p, x, positions=pos,
+                               cache=MLACache(cache.c, cache.kr, local(cache.length)),
+                               new_counts=None if new_counts is None else local(new_counts),
+                               **kw)
+        new_len = cache.length + (S if new_counts is None else new_counts)
+        return out, MLACache(cache.c, cache.kr, new_len.to(cache.length.dtype))
+    heads_cut = p["wuq"].shape[1] != H
+    seq_split = cache is None and recipe.attn_mode == "sp"
+    if cache is None and not heads_cut and not seq_split:  # every rank runs every head
+        return mla_attention(p, x, positions=pos, **kw)
+    hl = p["wuq"].shape[1]
+    h0 = mr * hl if heads_cut else 0
+    # the forward's ranks split heads or query chunks; in decode they split
+    # the cache's positions (and under tp the heads too)
+    split = cache is None or heads_cut
+    xn = place.enter_model(x) if split else x
+
+    def whole(w):  # a weight every rank holds whole, feeding split work
+        return place.enter_model(w) if split else w
+
+    wdq, wdkv, wkr = whole(p["wdq"]), whole(p["wdkv"]), whole(p["wkr"])
+    q_norm, kv_norm = whole(p["q_norm"]), whole(p["kv_norm"])
+    wuq, wuk, wuv = (whole(p[k]) if not heads_cut else p[k] for k in ("wuq", "wuk", "wuv"))
+    wo = whole(p["wo"]) if not heads_cut else p["wo"]
+    c = _rms(torch.matmul(xn, wdkv.to(dt)), kv_norm)  # (Bl, S, kv_rank)
+    kr = torch.matmul(xn, wkr.to(dt))
+    cos, sin = rope_angles(pos, d_rope, rope_theta)
+    kr = apply_rope(kr[:, None], cos, sin)[:, 0]
+    rows, q_pos = xn, pos
+    if seq_split:
+        cap, _ = ragged_seq_extents(S, M)
+        rows = torch.nn.functional.pad(xn, (0, 0, 0, M * cap - S))[:, mr * cap:(mr + 1) * cap]
+        q_pos = torch.cat([pos, pos[-1] + 1 + torch.arange(M * cap - S, device=x.device)])[
+            mr * cap:(mr + 1) * cap]
+    cq = _rms(torch.matmul(rows, wdq.to(dt)), q_norm)
+    q = _project(cq, wuq)  # (Bl, hl, Sq, d_nope + d_rope)
+    q_nope, q_rope = q[..., :d_nope], q[..., d_nope:]
+    q_rope = apply_rope(q_rope, *((cos, sin) if q_pos is pos else
+                                  rope_angles(q_pos, d_rope, rope_theta)))
+    if cache is None:
+        k_nope, v = _project(c, wuk), _project(c, wuv)
+        k = torch.cat([k_nope, kr[:, None].expand(B, hl, S, d_rope)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        if not seq_split:  # tp: this rank's heads
+            o = attention_seq(q, k, v, causal=True, impl=attn_impl, block=block)
+            return _placed_out(o, wo, place, True, dt), None
+        if mr == 0:  # the first chunk: the top-left causal mask is its own
+            o = attention_seq(q, k, v, causal=True, impl=attn_impl, block=block)
+        else:
+            acc, _, l = ops.flash_attention_carry(
+                q, k, v, None, q_offset=mr * q.shape[2], k_offset=0, causal=True,
+                scale=(d_nope + d_rope) ** -0.5, impl=_kernel_impl(attn_impl))
+            o = (acc / torch.where(l == 0.0, 1.0, l)[..., None]).to(dt)
+        return place.gather_model(_out_proj(o, wo), 1)[:, :S], None
+
+    # ---- absorbed decode over this rank's block of the latent caches ----
+    Tl = cache.c.shape[1]
+    T = Tl * M
+    new_len = cache.length + (S if new_counts is None else new_counts)
+    cc, krc = _write_block([(cache.c, c), (cache.kr, kr)], local(cache.length),
+                           None if new_counts is None else local(new_counts), idle_read_chunk,
+                           T, mr * Tl)
+    q_abs = torch.matmul(q_nope, wuk.to(dt).permute(1, 2, 0))  # (Bl, hl, S, kv_rank)
+    if heads_cut:  # every head scores against this rank's block
+        q_abs, q_rope = place.gather_model(q_abs, 1), place.gather_model(q_rope, 1)
+    s = torch.bmm(q_abs.float().reshape(B, H * S, -1), cc.float().transpose(1, 2))
+    s += torch.bmm(q_rope.float().reshape(B, H * S, -1), krc.float().transpose(1, 2))
+    s = s.reshape(B, H, S, Tl).mul_((d_nope + d_rope) ** -0.5)
+    t = mr * Tl + torch.arange(Tl, device=x.device)
+    mask = t < local(new_len).reshape(B, 1, 1, 1)
+    if pos.ndim == 2:  # per-row chunk causality: slot t visible to query j iff t <= pos
+        mask = mask & (t <= pos.reshape(B, 1, S, 1))
+    o_lat = lse_merge(s.masked_fill_(~mask, NEG_INF), cc[:, None], place.mesh, "model")
+    o_lat = o_lat[:, h0:h0 + hl].to(dt)
+    o = torch.matmul(o_lat, wuv.to(dt).permute(1, 0, 2))  # (Bl, hl, S, d_v)
+    return (_placed_out(o, wo, place, heads_cut, dt),
+            MLACache(cache.c, cache.kr, new_len.to(cache.length.dtype)))
+
+
+def _mla_ring(p, x, *, shard, d_nope: int, d_rope: int, rope_theta: float, positions,
+              attn_impl):
+    """:func:`mla_attention_placed` under ``sp_ring``: ``x`` (Bl, cap, m) is
+    this rank's chunk of a sequence padded to R chunks, ``positions`` its
+    absolute positions; whole weights."""
+    B, cap, _ = x.shape
+    dt = x.dtype
+    mesh = shard.mesh
+    R = mesh.shape.get("model", 1)
+    cq = _rms(torch.matmul(x, p["wdq"].to(dt)), p["q_norm"])
+    q = _project(cq, p["wuq"])
+    H = q.shape[1]
+    q_nope, q_rope = q[..., :d_nope], q[..., d_nope:]
+    c = _rms(torch.matmul(x, p["wdkv"].to(dt)), p["kv_norm"])
+    kr = torch.matmul(x, p["wkr"].to(dt))
+    cos, sin = rope_angles(positions, d_rope, rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    kr = apply_rope(kr[:, None], cos, sin)[:, 0]  # at the chunk's absolute positions
+    # the latents of the whole padded sequence: each rank's chunk is its own
+    # queries' only, so the backward reduce-scatters the cotangent
+    c, kr = (all_gather(t, mesh, "model", 1, split=True) for t in (c, kr))
+    Sp = R * cap
+    k = torch.cat([_project(c, p["wuk"]), kr[:, None].expand(B, H, Sp, d_rope)], dim=-1)
+    v = _project(c, p["wuv"])
+    acc, _, l = ops.flash_attention_carry(
+        torch.cat([q_nope, q_rope], dim=-1), k, v, None, q_offset=shard.chunk * cap, k_offset=0,
+        valid_len=None if shard.S == Sp else shard.S, causal=True,
+        scale=(d_nope + d_rope) ** -0.5, impl=_kernel_impl(attn_impl))
+    o = (acc / torch.where(l == 0.0, 1.0, l)[..., None]).to(dt)
+    return _out_proj(o, p["wo"]), None

@@ -2,9 +2,9 @@
 (SwiGLU, the GELU MLP, or the top-k MoE); the MLA family's pre-norm
 multi-head latent attention + SwiGLU; the SSM family's RWKV6 block (time
 mix, then a token-shifted squared-ReLU channel mix); and the hybrid
-family's Mamba2 block and its shared attention block (zamba2).  All but
-the MLA block take ``place`` (their part of a ``tp``/``sp`` recipe's
-program) and ``shard`` (their chunk of the sequence under ``sp_ring``).
+family's Mamba2 block and its shared attention block (zamba2).  Every
+block takes ``place`` (its part of a ``tp``/``sp`` recipe's program) and
+``shard`` (its chunk of the sequence under ``sp_ring``).
 
 The reference scans stacked layer parameters with ``lax.scan``; the port
 keeps the stacked ``(L, ...)`` layout and loops over the layer index
@@ -71,7 +71,8 @@ def attn_block(p, x, cfg, *, cache=None, positions=None, new_counts=None, prefil
     ``x`` is this rank's rows and ``place`` (a
     :class:`repro_torch.models.sharding.Placement`) its part of the
     recipe's program (:func:`repro_torch.models.attention.gqa_attention_placed`,
-    :func:`repro_torch.models.ffn.ffn_placed`)."""
+    :func:`repro_torch.models.ffn.ffn_placed`, the MoE's
+    :func:`repro_torch.models.ffn.moe_placed`)."""
     if place is not None:
         h, new_cache = attn.gqa_attention_placed(
             p["attn"], rmsnorm(p["ln1"], x), place=place,
@@ -80,6 +81,12 @@ def attn_block(p, x, cfg, *, cache=None, positions=None, new_counts=None, prefil
             attn_impl=cfg.attn_impl, block=cfg.attn_block, new_counts=new_counts,
             prefill=prefill, idle_read_chunk=idle_read_chunk)
         x = x + h
+        if cfg.ffn_kind == "moe":
+            f, aux = ffn_mod.moe_placed(
+                p["ffn"], rmsnorm(p["ln2"], x), place=place, n_experts=cfg.n_experts,
+                d_ff=cfg.d_ff, top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+                groups=cfg.moe_groups, dispatch=cfg.moe_dispatch)
+            return x + f, new_cache, aux
         f = ffn_mod.ffn_placed(p["ffn"], rmsnorm(p["ln2"], x), kind=cfg.ffn_kind,
                                d_ff=cfg.d_ff, place=place)
         return x + f, new_cache, 0.0
@@ -117,19 +124,27 @@ def mla_block_specs(cfg) -> dict:
 
 
 def mla_block(p, x, cfg, *, cache=None, positions=None, new_counts=None, prefill=False,
-              idle_read_chunk=None):
+              idle_read_chunk=None, place=None, shard=None):
     """Pre-norm MLA + SwiGLU.  Returns ``(x, new_cache, aux_loss)``, the aux
     loss the float 0.0; the latent caches, if given, are updated in place
-    (:func:`repro_torch.models.attention.mla_attention`)."""
-    h, new_cache = attn.mla_attention(
-        p["attn"], rmsnorm(p["ln1"], x),
-        n_heads=cfg.n_heads, d_nope=cfg.mla_d_nope, d_rope=cfg.mla_d_rope, d_v=cfg.mla_d_v,
-        rope_theta=cfg.rope_theta, positions=positions, cache=cache,
-        attn_impl=cfg.attn_impl, block=cfg.attn_block,
-        new_counts=new_counts, prefill=prefill, idle_read_chunk=idle_read_chunk,
-    )
+    (:func:`repro_torch.models.attention.mla_attention`).  ``place`` and
+    ``shard`` as for :func:`attn_block`
+    (:func:`repro_torch.models.attention.mla_attention_placed`)."""
+    kw = dict(n_heads=cfg.n_heads, d_nope=cfg.mla_d_nope, d_rope=cfg.mla_d_rope,
+              d_v=cfg.mla_d_v, rope_theta=cfg.rope_theta, positions=positions, cache=cache,
+              attn_impl=cfg.attn_impl, block=cfg.attn_block, new_counts=new_counts,
+              prefill=prefill, idle_read_chunk=idle_read_chunk)
+    xn = rmsnorm(p["ln1"], x)
+    if place is not None or shard is not None:
+        h, new_cache = attn.mla_attention_placed(p["attn"], xn, place=place, shard=shard, **kw)
+    else:
+        h, new_cache = attn.mla_attention(p["attn"], xn, **kw)
     x = x + h
-    f = ffn_mod.swiglu(p["ffn"], rmsnorm(p["ln2"], x))
+    if place is not None:
+        f = ffn_mod.ffn_placed(p["ffn"], rmsnorm(p["ln2"], x), kind="swiglu", d_ff=cfg.d_ff,
+                               place=place)
+    else:
+        f = ffn_mod.swiglu(p["ffn"], rmsnorm(p["ln2"], x))
     return x + f, new_cache, 0.0
 
 

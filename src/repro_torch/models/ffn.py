@@ -51,8 +51,9 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from repro_torch.core.collectives import (DistBag, all_reduce_start, all_to_allv_start,
-                                          grid_extents, rank_map)
+from repro_torch.core.collectives import (DistBag, all_reduce_start, all_reduce_tie,
+                                          all_to_allv_start, all_to_allv_tie, grid_extents,
+                                          rank_map)
 from repro_torch.core.dims import ceil_div, prod
 from repro_torch.core.dist import mpi_cart_traverser, mpi_traverser
 from repro_torch.core.layout import layout_dtype, scalar, vector
@@ -60,10 +61,10 @@ from repro_torch.core.plan import dispatch as dispatch_plan, intent_of
 from repro_torch.core.traverser import traverser
 
 from .module import pspec
-from .sharding import current_recipe, partial_product, ragged_expert_extents
+from .sharding import all_reduce, current_recipe, partial_product, ragged_expert_extents
 
 __all__ = ["swiglu_specs", "swiglu", "gelu_mlp_specs", "gelu_mlp", "ffn_placed", "moe_specs",
-           "moe_ffn",
+           "moe_ffn", "moe_placed",
            "moe_ep_counts", "moe_ep_schedule", "moe_comm_model", "moe_expert_parallel",
            "MOE_DISPATCH_PLAN_INTENT"]
 
@@ -235,7 +236,16 @@ def moe_ffn(p, x, *, n_experts: int, top_k: int = 2, capacity_factor: float = 1.
         y, aux = moe_ffn(p, shard.gather(x), n_experts=n_experts, top_k=top_k,
                          capacity_factor=capacity_factor, aux_loss_weight=aux_loss_weight,
                          groups=groups)
-        return shard.local(y), aux
+        if shard.n_rows == B and shard.cap == S:  # this rank's block is the whole grid
+            return shard.local(y), aux
+        # the aux loss from this rank's own tokens' statistics, summed over
+        # the token ranks: each rank's gradient of it is then its own share
+        valid = max(0, min(shard.cap, S - shard.chunk * shard.cap))
+        probs, _, gate_idx = _route(x[:, :valid].reshape(-1, x.shape[-1]), p["router"], top_k)
+        sums = torch.cat([probs.sum(0), _top1_load(gate_idx, n_experts)])
+        for a in ("model",) + shard.batch_axes:
+            sums = all_reduce(sums, shard.mesh, a)
+        return shard.local(y), _aux(sums, B * S, n_experts, aux_loss_weight)
     if groups and groups > 1 and S > 1 and B % groups == 0:
         return _moe_grouped(p, x, n_experts=n_experts, top_k=top_k,
                             capacity_factor=capacity_factor,
@@ -292,6 +302,144 @@ def _moe_grouped(p, x, *, n_experts: int, top_k: int, capacity_factor: float,
     if "residual" in p:
         y = y + swiglu(p["residual"], x)
     return y, aux
+
+
+def _aux(sums, T: int, E: int, aux_loss_weight: float):
+    """The GShard aux loss from the router's per-expert probability sums and
+    top-1 counts over ``T`` tokens, ``sums = [probs sum (E), counts (E)]``."""
+    return E * torch.sum((sums[:E] / T) * (sums[E:] / T)) * aux_loss_weight
+
+
+def moe_placed(p, x, *, place, n_experts: int, d_ff: int, top_k: int = 2,
+               capacity_factor: float = 1.25, aux_loss_weight: float = 0.01, groups: int = 0,
+               dispatch: str = "auto"):
+    """This rank's part of :func:`moe_ffn` under a ``tp``/``sp`` recipe
+    (:class:`repro_torch.models.sharding.Placement`): ``x (Bl, S, m)`` is
+    this rank's rows, whole over ``model``; ``p`` the layer's weights with
+    their ``m`` dim gathered, the experts (``e``) or else their hidden
+    columns (``f``), and the router's ``e``, cut over ``model`` where the
+    recipe binds them.  Returns ``(y (Bl, S, m), aux)``, both the same on
+    every ``model`` rank.
+
+    * ``dispatch="ep"`` where the recipe's grid hosts it
+      (:func:`_ep_ineligible` of the whole ``(B, S)``): the rank's token
+      shard, its rows at positions ``[mr * Sr, (mr + 1) * Sr)``, goes
+      through :func:`moe_expert_parallel`, and the shards' outputs are
+      gathered over ``model`` along the sequence (the reference's ``(D, R,
+      Bd, Sr)`` split).  Elsewhere it falls back with the reference's
+      warning.
+    * Otherwise the capacity dispatch over the tokens the reference routes
+      together: the dense path (one capacity and one running counter over
+      all ``B * S`` tokens) gathers the rows over the batch axes that cut
+      B; the grouped path uses the rank's rows as they are where they form
+      whole groups, else gathers them; decode (S == 1) is dropless, so the
+      rank routes its own rows.  Where ``e`` is cut the rank runs its
+      experts' buffer rows, where ``f`` is cut every expert on its columns;
+      either way a float32 partial of the combine is summed over ``model``
+      and rounded once.  The aux loss comes from the rank's own rows'
+      statistics summed over the batch axes, so each rank's gradient of it
+      is its own rows' share.  On one rank of every axis this is
+      :func:`moe_ffn` itself."""
+    if dispatch not in ("auto", "ep"):
+        raise ValueError(f"moe_placed: unknown dispatch {dispatch!r} (have 'auto', 'ep')")
+    recipe, mesh = place.recipe, place.mesh
+    Bl, S, m = x.shape
+    D = prod(mesh.shape[a] for a in place.batch_axes)
+    B, E = Bl * D, n_experts
+    kw = dict(n_experts=E, top_k=top_k, capacity_factor=capacity_factor,
+              aux_loss_weight=aux_loss_weight)
+    if dispatch == "ep":
+        why = _ep_ineligible(recipe, B, S)
+        if why is None:
+            return _moe_ep_placed(p, x, place=place, d_ff=d_ff, **kw)
+        warnings.warn(f"moe_ffn: dispatch='ep' requested but {why}; falling back to the "
+                      "dense/grouped capacity dispatch", stacklevel=2)
+    El = p["w_gate"].shape[0]
+    split = place.M > 1 and (El != E or p["w_gate"].shape[2] != d_ff)
+    if not split and D == 1:
+        return moe_ffn(p, x, groups=groups, **kw)
+    grouped = bool(groups) and groups > 1 and S > 1 and B % groups == 0
+    gather = S > 1 and D > 1 and (not grouped or Bl % (B // groups))
+    xr = place.gather_rows(x) if gather else x  # the rows routed together
+    Br = xr.shape[0]
+    G = (groups * Br) // B if grouped else 1
+    Tg = Br * S // G
+    if S == 1:  # decode: dropless
+        C = Tg
+    else:
+        C = int(max(top_k, round(top_k * (B * S // (groups if grouped else 1)) / E
+                                 * capacity_factor)))
+    router = place.block(p["router"], 1, 0, E, E, split=False)
+    xg = xr.reshape(G, Tg, m)
+    with record_function("moe.route"):
+        probs, gate_vals, gate_idx = _route(xg, router, top_k)  # (G, Tg, E), (G, Tg, k)
+        own = slice(place.row0 * S, (place.row0 + Bl) * S) if gather else slice(None)
+        sums = torch.cat([probs.reshape(-1, E)[own].sum(0),
+                          _top1_load(gate_idx.reshape(-1, top_k)[own], E)])
+        for a in place.batch_axes:
+            sums = all_reduce(sums, mesh, a)
+        aux = _aux(sums, B * S, E, aux_loss_weight)
+        pos = _positions(gate_idx, E)  # the counter runs over each group's tokens
+        w = (pos < C).to(x.dtype)
+        group0 = torch.arange(G, device=x.device)[:, None, None] * (E * C)
+        slot = group0 + gate_idx * C + pos.clamp_max(C - 1)
+        xe = place.enter_model(xg) if split else xg
+        buf = x.new_zeros((G * E * C, m)).index_add_(
+            0, slot.reshape(-1), (xe[:, :, None, :] * w[..., None]).reshape(-1, m))
+    e0 = place.mr * El if El != E else 0
+    with record_function("moe.experts"):
+        be = buf.view(G, E, C, m)[:, e0:e0 + El].transpose(0, 1).reshape(El, G * C, m)
+        if El == E and split:  # every expert on this rank's hidden columns: a partial
+            h = F.silu(torch.bmm(be, p["w_gate"].to(x.dtype))) * \
+                torch.bmm(be, p["w_up"].to(x.dtype))
+            ye = torch.bmm(h.float(), p["w_down"].float())
+        else:
+            ye = _experts(be, p["w_gate"], p["w_up"], p["w_down"])
+        ye = ye.view(El, G, C, m).transpose(0, 1).reshape(G * El * C, m)
+    with record_function("moe.combine"):
+        mine = (gate_idx >= e0) & (gate_idx < e0 + El)
+        local = (torch.arange(G, device=x.device)[:, None, None] * (El * C)
+                 + (gate_idx - e0).clamp(0, El - 1) * C + pos.clamp_max(C - 1))
+        gv = place.enter_model(gate_vals) if split else gate_vals
+        wk = (gv.to(x.dtype) * (w * mine.to(x.dtype))).reshape(-1, top_k)
+        yt = ye[local.reshape(-1)].reshape(-1, top_k, m)
+        if split:
+            y = (yt.float() * wk.float()[..., None]).sum(dim=1).reshape(Br, S, m)
+        else:
+            y = (yt * wk[..., None]).sum(dim=1).reshape(Br, S, m)
+    if gather:
+        y = place.local_rows(y)
+    if split:
+        y = place.sum_model(y).to(x.dtype)
+    if "residual" in p:
+        y = y + ffn_placed(p["residual"], x, kind="swiglu", d_ff=d_ff, place=place)
+    return y, aux
+
+
+def _moe_ep_placed(p, x, *, place, d_ff: int, n_experts: int, top_k: int,
+                   capacity_factor: float, aux_loss_weight: float):
+    """:func:`moe_placed`'s expert-parallel path: this rank's token shard
+    through :func:`moe_expert_parallel`, on its own experts where ``e`` is
+    cut and on weights gathered over ``model`` otherwise (every rank's work
+    differs, so a gathered weight's gradient is reduce-scattered and a whole
+    one's summed); the shards' outputs gathered over ``model``."""
+    Bl, S, _ = x.shape
+    E, Sr, mr = n_experts, S // place.M, place.mr
+
+    def whole(w, dim, full):
+        return place.block(w, dim, 0, full, full, split=True)
+
+    pe = {"router": whole(p["router"], 1, E)}
+    for k, dim in (("w_gate", 2), ("w_up", 2), ("w_down", 1)):
+        pe[k] = p[k] if p[k].shape[0] != E else whole(p[k], dim, d_ff)
+    if "residual" in p:
+        pe["residual"] = {k: whole(p["residual"][k], dim, d_ff)
+                          for k, dim in (("w_gate", 1), ("w_up", 1), ("w_down", 0))}
+    xs = place.enter_model(x)[:, mr * Sr:(mr + 1) * Sr]
+    y, aux = moe_expert_parallel(pe, xs, n_experts=E, top_k=top_k,
+                                 capacity_factor=capacity_factor,
+                                 aux_loss_weight=aux_loss_weight, recipe=place.recipe)
+    return place.gather_model(y, 1), aux
 
 
 # ------------------------------------------------- expert-parallel MoE ----
@@ -468,11 +616,18 @@ def moe_expert_parallel(p, x, *, n_experts: int, top_k: int = 2,
     combine all-to-all brings them back; a :func:`dispatch` comm plan
     schedules both legs, double-buffered over groups
     (``double_buffer=False`` is the blocking form, bitwise the same).
-    Parameters stay whole on every rank; each rank reads a view of its own
-    experts.  The aux loss's per-expert sums run over every token, so one
-    all-reduce over the token ranks carries them, issued before the
-    dispatch and waited after it.  Returns this shard's ``(y (Bd, Sr, m),
-    aux)``."""
+    Parameters are whole on every rank, each rank reading a view of its own
+    experts, or the expert weights are this rank's ``E / R`` (a recipe
+    cutting ``e`` over ``model``).  The aux loss's per-expert sums run over
+    every token, so one all-reduce over the token ranks carries them,
+    issued before the dispatch and waited after it.  Returns this shard's
+    ``(y (Bd, Sr, m), aux)``.
+
+    Differentiable: each leg's arrived rows are tied to the rows sent
+    (:func:`repro_torch.core.collectives.all_to_allv_tie`, whose backward
+    is the reverse leg), and the aux sums to this rank's own
+    (:func:`repro_torch.core.collectives.all_reduce_tie`: every rank uses
+    the same sums, so the backward is the identity)."""
     r = recipe or current_recipe()
     Bd, Sr, m = x.shape
     if r is None:
@@ -500,8 +655,8 @@ def moe_expert_parallel(p, x, *, n_experts: int, top_k: int = 2,
     f32 = scalar(np.float32) ^ vector("e", 2 * E)
     tok = mpi_traverser("T", traverser(scalar(np.float32) ^ vector("T", D * R)), mesh,
                         axes=bax + ("model",))
-    stats = all_reduce_start(DistBag(torch.cat([probs.sum(0), _top1_load(gate_idx, E)]),
-                                     f32, tok, ("T",)))
+    own_sums = torch.cat([probs.sum(0), _top1_load(gate_idx, E)])
+    stats = all_reduce_start(DistBag(own_sums, f32, tok, ("T",)))
 
     # shard-local slot assignment against the packed static counts table
     counts_t = torch.tensor(sched.counts, device=dev)
@@ -521,9 +676,10 @@ def moe_expert_parallel(p, x, *, n_experts: int, top_k: int = 2,
                             traverser(scalar(el) ^ vector("D", D) ^ vector("M", R)), mesh)
     in_ext = grid_extents(dt, ("D", "M"), {"M": ("r", (1,) * R)})
     j = dt.coord("M")
+    e_base = 0 if p["w_gate"].shape[0] == E else j * cap_e  # the rank's cut of the experts
     steps = []
     for g in sched.groups:
-        lo = j * cap_e + g.lo  # this rank's experts of the group: views, no copy
+        lo = j * cap_e + g.lo - e_base  # this rank's experts of the group: views, no copy
         n_real = max(0, min(g.hi, e_exts[j]) - g.lo)
         steps.append({
             "g": g,
@@ -540,13 +696,15 @@ def moe_expert_parallel(p, x, *, n_experts: int, top_k: int = 2,
         st = steps[s]
         g = st["g"]
         blk = state[g.gbase:g.gbase + g.Sg].reshape(1, g.Sg, m)
-        db = DistBag(blk, st["in_tile"], dt, ("D", "M"), extents=in_ext)
+        db = st["sent"] = DistBag(blk, st["in_tile"], dt, ("D", "M"), extents=in_ext)
         return all_to_allv_start(db, st["out_tile"], split_dim="q", concat_dim="r",
                                  split_extents=g.se, rank_dim="M")
 
     def compute(carry, arrived, s):
         st = steps[s]
         g = st["g"]
+        arrived = all_to_allv_tie(st["sent"], arrived, split_dim="q", concat_dim="r",
+                                  rank_dim="M")
 
         def gemm(rank, xb):
             rows = xb.data.reshape(R * g.cap_s, m)
@@ -560,11 +718,14 @@ def moe_expert_parallel(p, x, *, n_experts: int, top_k: int = 2,
                         out_extents=st["out_ext"])
 
     def combine(res, s):
+        steps[s]["res"] = res
         return all_to_allv_start(res, steps[s]["in_tile"], split_dim="r", concat_dim="q",
                                  split_extents=(1,) * R, rank_dim="M")
 
     def epilogue(done, state):
-        return torch.cat([d.data.reshape(-1, m) for d in done])
+        return torch.cat([all_to_allv_tie(st["res"], d, split_dim="r", concat_dim="q",
+                                          rank_dim="M").data.reshape(-1, m)
+                          for st, d in zip(steps, done)])
 
     plan = dispatch_plan(len(steps), transfer=transfer, compute=compute, combine=combine,
                          epilogue=epilogue)
@@ -573,6 +734,4 @@ def moe_expert_parallel(p, x, *, n_experts: int, top_k: int = 2,
     if "residual" in p:
         y = y + swiglu(p["residual"], x)
     T = Tl * D * R
-    sums = stats.wait().data
-    aux = E * torch.sum((sums[:E] / T) * (sums[E:] / T)) * aux_loss_weight
-    return y, aux
+    return y, _aux(all_reduce_tie(own_sums, stats.wait()).data, T, E, aux_loss_weight)

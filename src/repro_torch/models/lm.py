@@ -40,11 +40,17 @@ run under every mode: under ``tp``/``sp`` their mixers by heads
 decode are the rank's blocks), and under ``sp_ring`` each recurrent block
 runs over the sequence gathered over ``model`` and keeps the rank's chunk
 (the reference's GSPMD program does the same), while zamba2's shared
-attention rings.  The MLA and MoE families under ``tp``/``sp`` and in
-decode under a recipe, MLA under ``sp_ring``, and gradients through the
-MoE family under a recipe wait for ROADMAP.md queue 1 item 8c's third PR;
-the explicit tensor-parallel decode step is
-:mod:`repro_torch.serve.tp_decode`.
+attention rings.  The MLA family runs its heads (``tp``) or its query chunk
+(``sp``) and, under ``sp_ring``, gathers its chunk's latents and runs one
+carry step of its queries over the whole sequence; in decode its latent
+caches are cut by sequence and the ranks' partial softmaxes merge by their
+log-sum-exp (:func:`repro_torch.models.attention.mla_attention_placed`).
+The MoE family's FFN under ``tp``/``sp`` is
+:func:`repro_torch.models.ffn.moe_placed` (expert parallelism where the
+grid hosts it, else the capacity dispatch over the tokens the reference
+routes together, the experts or their columns split over ``model``), and
+its aux loss is summed over the blocks as without a recipe.  The explicit
+tensor-parallel decode step is :mod:`repro_torch.serve.tp_decode`.
 
 Training (:func:`loss_fn`, :mod:`repro_torch.train.trainer`) differentiates
 the float32 parameters themselves: every use casts a weight to the
@@ -70,7 +76,7 @@ from repro_torch.core.dist import resolve_device
 from . import attention as attn_mod
 from . import blocks as blk
 from . import ssm as ssm_mod
-from .module import init_params, pspec, stack_specs, tree_leaves, tree_map, tree_size
+from .module import init_params, pspec, stack_specs, tree_map, tree_size
 from .sharding import (current_recipe, decode_state_shardings, gather_cut, local_shape,
                        placement, recipe_pspecs, token_shard)
 
@@ -242,13 +248,6 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
     gathered along ``model`` and the batch axes, the padding dropped, and
     the head applied to the whole (B, S, m) on every rank, so all ranks
     return the same logits (and the same aux loss)."""
-    if cfg.family == "mla":
-        raise NotImplementedError(f"the {cfg.family} family under a sharding recipe: "
-                                  f"{_LATER_RECIPE}")
-    if cfg.family == "moe" and torch.is_grad_enabled() and \
-            any(t.requires_grad for t in tree_leaves(params)):
-        raise NotImplementedError("gradients through the MoE family under a sharding recipe "
-                                  f"(its dispatch collectives have no backward): {_LATER_RECIPE}")
     params = _whole(params, cfg, recipe)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -278,8 +277,6 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
 
 # ======================================================== under a recipe ====
 
-_LATER_RECIPE = "ROADMAP.md queue 1, item 8c (third PR)"
-_PLACED_FAMILIES = ("dense", "ssm", "hybrid")  # ported under tp/sp and in decode
 _PSPECS: dict = {}
 
 
@@ -310,10 +307,7 @@ def _whole(params, cfg, recipe):
 
 def _placed_pspecs(params, cfg, recipe):
     """The per-leaf specs of a ``tp``/``sp`` program, after checking that
-    the family is ported there and that ``params`` are this rank's shards."""
-    if cfg.family not in _PLACED_FAMILIES:
-        raise NotImplementedError(f"the {cfg.family} family under a {recipe.attn_mode!r} recipe "
-                                  f"or in decode under a recipe: {_LATER_RECIPE}")
+    ``params`` are this rank's shards."""
     specs, pspecs = _recipe_pspecs(cfg, recipe)
 
     def check(t, spec, pspec, name):
@@ -374,6 +368,7 @@ def _forward_placed(params, batch, cfg, recipe, positions):
     tokens = batch["tokens"]
     place = placement(recipe, tokens.shape[0])
     x = _embed_placed(params, place.local_rows(tokens), cfg, place, pspecs)
+    aux = 0.0
     if cfg.family == "hybrid":
         x = _forward_hybrid(params, x, cfg, positions, place=place, pspecs=pspecs)
     else:
@@ -382,9 +377,10 @@ def _forward_placed(params, batch, cfg, recipe, positions):
         kw = {} if cfg.family == "ssm" else {"positions": positions}
         for i in range(cfg.n_layers):
             p = place.use_tree(_layer(params["blocks"], i), layer_specs)
-            x, _, _ = block(p, x, cfg, place=place, **kw)
+            x, _, a = block(p, x, cfg, place=place, **kw)
+            aux = aux + a
     return (_head_placed(params, x, cfg, place, pspecs),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+            torch.as_tensor(aux, dtype=torch.float32, device=x.device))
 
 
 # ================================================================== loss ====
@@ -427,11 +423,11 @@ def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda"):
     (n_shared, B, n_kv, min(max_len, shared_window), head_dim), a ring
     buffer once a row's length passes its size.
 
-    Under an active recipe (the dense, SSM and hybrid families) every leaf
-    is this rank's block, cut by
+    Under an active recipe every leaf is this rank's block, cut by
     :func:`repro_torch.models.sharding.decode_state_shardings`: the K/V by
     heads over ``model`` where the KV groups divide it, else by sequence
-    (whose length must then divide ``model``), the recurrent states by
+    (whose length must then divide ``model``), the MLA family's latent
+    caches by sequence (the same), the recurrent states by
     heads (else RWKV's value columns, Mamba2's head dim), rows over the
     batch axes where they divide ``batch_size``; the shifts and conv
     windows are whole over ``model``, and the lengths whole."""
@@ -491,13 +487,10 @@ def _init_cache_whole(cfg, B: int, max_len: int, device: torch.device):
 def _init_cache_placed(cfg, B: int, max_len: int, device, recipe):
     """This rank's blocks of :func:`init_cache`'s state, each leaf zeros of
     its local shape under :func:`repro_torch.models.sharding.decode_state_shardings`."""
-    if cfg.family not in _PLACED_FAMILIES:
-        raise NotImplementedError(f"the {cfg.family} family's decode state under a sharding "
-                                  f"recipe: {_LATER_RECIPE}")
     M = recipe.mesh.shape.get("model", 1)
     T = min(max_len, cfg.shared_window) if cfg.family == "hybrid" else max_len
-    if cfg.family != "ssm" and _seq_cut_cache(recipe) and T % M:
-        raise ValueError(f"the K/V caches' {T} positions must divide the model axis ({M}): the "
+    if cfg.family != "ssm" and _seq_cut_cache(recipe, cfg) and T % M:
+        raise ValueError(f"the caches' {T} positions must divide the model axis ({M}): the "
                          "recipe cuts them along their sequence")
     whole = _init_cache_whole(cfg, B, max_len, torch.device("meta"))
     specs = decode_state_shardings(recipe, whole)
@@ -532,9 +525,8 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     S <= 4 and the chunked form (S a multiple of ``cfg.ssm_chunk``)
     otherwise, for every row, as the reference's.
 
-    Under an active recipe (the dense, SSM and hybrid families) ``params``
-    are this rank's shards and ``state`` holds this rank's blocks of the
-    caches and states
+    Under an active recipe ``params`` are this rank's shards and ``state``
+    holds this rank's blocks of the caches and states
     (:func:`init_cache` under the recipe), with the lengths and positions
     whole; ``batch`` and ``new_counts`` are whole, and so are the returned
     logits, the same on every rank (:func:`_decode_placed`)."""
@@ -596,7 +588,7 @@ def _decode_placed(params, state, batch, cfg, recipe, new_counts, prefill):
                                            place=place, pspecs=pspecs)
         return _head_placed(params, x, cfg, place, pspecs), DecodeState(
             caches=new_caches, positions=(positions + adv).to(positions.dtype))
-    T = caches.k.shape[-2] * (place.M if _seq_cut_cache(recipe) else 1)
+    T = caches[0].shape[-2] * (place.M if _seq_cut_cache(recipe, cfg) else 1)
     idle_read = None if new_counts is None else attn_mod.idle_rows_read_chunk(
         caches.length[0], new_counts, T, S)
     layer_specs = _layer_specs(pspecs["blocks"])
@@ -604,7 +596,7 @@ def _decode_placed(params, state, batch, cfg, recipe, new_counts, prefill):
     lengths = []
     for i in range(cfg.n_layers):
         p = place.use_tree(_layer(params["blocks"], i), layer_specs)
-        c = attn_mod.KVCache(caches.k[i], caches.v[i], caches.length[i])
+        c = type(caches)(*(t[i] for t in caches))
         x, new_c, _ = block(p, x, cfg, cache=c, positions=pos2d, new_counts=new_counts,
                             prefill=prefill, idle_read_chunk=idle_read, place=place)
         lengths.append(new_c.length)
@@ -613,10 +605,12 @@ def _decode_placed(params, state, batch, cfg, recipe, new_counts, prefill):
                                positions=(positions + adv).to(positions.dtype))
 
 
-def _seq_cut_cache(recipe) -> bool:
-    """Whether the recipe cuts the K/V caches along their sequence (the KV
-    groups do not divide ``model``)."""
-    return recipe.mesh.shape.get("model", 1) > 1 and recipe.spec("cache_kv")[2] == "model"
+def _seq_cut_cache(recipe, cfg=None) -> bool:
+    """Whether the recipe cuts the caches along their sequence: the K/V
+    where the KV groups do not divide ``model``, the MLA family's latent
+    caches always."""
+    kind, dim = ("cache_mla", 1) if cfg is not None and cfg.family == "mla" else ("cache_kv", 2)
+    return recipe.mesh.shape.get("model", 1) > 1 and recipe.spec(kind)[dim] == "model"
 
 
 def _state_at(state, idx):

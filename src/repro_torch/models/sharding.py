@@ -67,7 +67,8 @@ __all__ = ["Recipe", "make_recipe", "use_recipe", "current_recipe", "fit_spec",
            "ragged_seq_extents", "ragged_expert_extents", "ragged_grad_extents", "TokenShard",
            "token_shard", "PRIORITY", "batch_shardings", "decode_state_shardings",
            "recipe_pspecs", "local_shape", "spec_axes", "partial_product", "Placement",
-           "placement", "all_gather", "all_reduce", "sum_stat", "sum_grads", "gather_cut"]
+           "placement", "all_gather", "all_reduce", "sum_stat", "sum_grads", "gather_cut",
+           "lse_merge"]
 
 Spec = tuple  # one entry per dim: a mesh axis, a tuple of them, or None
 
@@ -544,6 +545,24 @@ def sum_stat(x, mesh, axis: str):
     if _wants_grad(x):
         return _ReduceStat.apply(mesh, axis, x)
     return shard_all_reduce_start(x, axis, mesh=mesh).wait()
+
+
+def lse_merge(s, c, mesh, axis: str):
+    """``softmax(s) @ c`` over keys that the ranks of mesh ``axis`` hold in
+    blocks, in float32: ``s (..., Tr)`` this rank's masked float32 scores of
+    its block of keys (masked ones at the finite ``-1e30``), ``c (..., Tr,
+    k)`` their values.  The ranks' partial softmaxes merge by their
+    log-sum-exp: the max is all-reduced first, then each rank's sums
+    ``sum exp(s - max)`` and unnormalized ``exp(s - max) @ c`` in one
+    all-reduce.  A row whose keys are all masked on every rank comes out as
+    the softmax of its ``-1e30`` scores does, the mean of every key's
+    value; on a rank that sees none of a row's keys ``exp(-1e30 - max)``
+    is 0.  The same result on every rank; no gradient (serving)."""
+    mx = shard_all_reduce_start(s.amax(dim=-1, keepdim=True), axis, mesh=mesh, op="max").wait()
+    p = torch.exp(s - mx)
+    part = torch.cat([torch.matmul(p, c.float()), p.sum(dim=-1, keepdim=True)], dim=-1)
+    part = shard_all_reduce_start(part, axis, mesh=mesh).wait()
+    return part[..., :-1] / part[..., -1:]
 
 
 class _Gather(torch.autograd.Function):

@@ -218,7 +218,13 @@ class Engine:
         return self.finished
 
     # ---------------------------------------------------------- internals ----
-    def _step(self, tokens: np.ndarray, counts: np.ndarray, *, prefill: bool):
+    def _step(self, tokens: np.ndarray, counts: np.ndarray, *, prefill: bool,
+              whole_prompt: bool = False):
+        """One step of ``lm.decode_step``; ``prefill`` counts it as a prefill
+        step, and only a ``whole_prompt`` chunk (every active row from
+        position 0) is passed on as ``prefill=True``, which under an
+        ``sp_ring`` recipe rings the chunk's fresh Q/K/V alone: a per-token
+        prefill step attends over its row's cache like a decode step."""
         batch = {"tokens": torch.from_numpy(tokens).to(self.device)}
         counts = torch.from_numpy(counts).to(self.device)
         if self._tp is not None and not prefill:
@@ -226,7 +232,7 @@ class Engine:
         else:
             with use_recipe(self.recipe):
                 logits, self.state = lm.decode_step(self.params, self.state, batch, self.cfg,
-                                                    new_counts=counts, prefill=prefill)
+                                                    new_counts=counts, prefill=whole_prompt)
         self.steps["prefill" if prefill else "decode"] += 1
         return logits
 
@@ -262,7 +268,7 @@ class Engine:
             for i, feed in feeds:
                 buf[i, : len(feed)] = feed
                 counts[i] = len(feed)
-            self._step(buf, counts, prefill=True)
+            self._step(buf, counts, prefill=True, whole_prompt=True)
             for i, feed in feeds:
                 self.ledger.advance(i, len(feed))
             return

@@ -351,3 +351,190 @@ def recurrent_whole_mixers(*, shape, models, overrides, tokens, steps) -> dict:
                                                           _state_leaves(specs))]
         out[(arch, "state_cut")] = [tuple(s) for s in _state_leaves(specs)]
     return out
+
+
+# ------------------------------------------------- the MLA and MoE families
+LATENT_MOE_MODES = ("tp", "sp", "sp_ring")
+
+
+def _named(name, entry):
+    """The port's float32 SMOKE config and parameters of ``entry = (arch,
+    config overrides, the reference's parameters as numpy)``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.weights import params_from_jax
+
+    arch, overrides, tree = entry
+    cfg = dataclasses.replace(configs.get(arch, smoke=True), act_dtype=torch.float32,
+                              **overrides)
+    return cfg, params_from_jax(tree, device="cpu")
+
+
+def forward_named(*, shape, models, tokens, modes=LATENT_MOE_MODES) -> dict:
+    """``lm.forward`` of every ``models[name] = (arch, overrides, tree)``
+    under each mode on this rank of a ``shape`` mesh: the whole logits, the
+    aux loss, how many fallback warnings it raised, whether the shards
+    gathered back are the whole tree bitwise and whether any leaf is cut."""
+    import warnings
+
+    import torch
+
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.weights import gather_params
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    out: dict = {}
+    for name, entry in models.items():
+        cfg, params = _named(name, entry)
+        for mode in modes:
+            recipe = make_recipe(cfg, mesh, attn_mode=mode)
+            shards = _shards(cfg, params, recipe)
+            with use_recipe(recipe), torch.no_grad(), \
+                    warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                logits, aux = lm.forward(shards, {"tokens": torch.from_numpy(tokens[name]).long()},
+                                         cfg)
+            out[(name, mode)] = logits.numpy()
+            out[(name, mode, "aux")] = float(aux)
+            out[(name, mode, "warnings")] = sum("falling back" in str(w.message) for w in caught)
+            whole = gather_params(shards, lm.build_specs(cfg), recipe)
+            out[(name, mode, "gathered")] = all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(whole), tree_leaves(params)))
+            out[(name, mode, "cut")] = any(
+                a.shape != b.shape for a, b in zip(tree_leaves(shards), tree_leaves(params)))
+    return out
+
+
+def serve_named(*, shape, models, requests, slots, max_len, steps,
+                modes=LATENT_MOE_MODES) -> dict:
+    """Under each mode on this rank: ``Engine(recipe=...)``'s greedy outputs
+    of ``requests[name]``, whether every leaf of its decode state has its
+    local shape, and ``lm.decode_step`` from empty caches over ``steps[name]``
+    (a list of ``(tokens (B, S), counts (B,))``, the first a whole-prompt
+    chunk, passed as ``prefill=True`` for the families that prefill in
+    chunks): each step's logits and the caches gathered back whole."""
+    import torch
+
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import (all_gather, decode_state_shardings, local_shape,
+                                             make_recipe, use_recipe)
+    from repro_torch.serve.engine import _CHUNK_FAMILIES, Engine, ServeConfig
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    scfg = ServeConfig(max_len=max_len, batch_slots=slots, eos_token=-1)
+    out: dict = {}
+    for name, entry in models.items():
+        cfg, params = _named(name, entry)
+        for mode in modes:
+            recipe = make_recipe(cfg, mesh, attn_mode=mode)
+            shards = _shards(cfg, params, recipe)
+            engine = Engine(cfg, shards, scfg, recipe=recipe)
+            for rid, prompt, n in requests[name]:
+                engine.submit(rid, prompt, n)
+            out[(name, mode, "tokens")] = engine.run()
+            whole = lm._init_cache_whole(cfg, slots, max_len, torch.device("meta"))
+            specs = decode_state_shardings(recipe, whole)
+            out[(name, mode, "local")] = [tuple(t.shape) for t in _state_leaves(
+                engine.state.caches)] == [local_shape(t.shape, s, mesh) for t, s in
+                                          zip(_state_leaves(whole), _state_leaves(specs))]
+            B = steps[name][0][0].shape[0]
+            logits = []
+            with use_recipe(recipe), torch.no_grad():
+                state = lm.DecodeState(caches=lm.init_cache(cfg, B, 16, device="cpu"),
+                                       positions=torch.zeros((B,), dtype=torch.int32))
+                for i, (toks, counts) in enumerate(steps[name]):
+                    step, state = lm.decode_step(
+                        shards, state, {"tokens": torch.from_numpy(toks).long()}, cfg,
+                        new_counts=torch.from_numpy(counts),
+                        prefill=i == 0 and cfg.family in _CHUNK_FAMILIES)
+                    logits.append(step.numpy())
+            out[(name, mode, "steps")] = logits
+            specs = decode_state_shardings(recipe,
+                                           lm._init_cache_whole(cfg, B, 16, torch.device("meta")))
+            caches = []
+            for t, spec in zip(_state_leaves(state.caches), _state_leaves(specs)):
+                for dim, axis in enumerate(spec):
+                    if axis is not None:
+                        for a in reversed((axis,) if isinstance(axis, str) else axis):
+                            t = all_gather(t, mesh, a, dim, split=False)
+                caches.append(t.numpy())
+            out[(name, mode, "caches")] = caches
+            out[(name, mode, "positions")] = state.positions.numpy()
+    return out
+
+
+def train_named(*, shape, models, batch, ocfg, modes=LATENT_MOE_MODES) -> dict:
+    """``make_train_step`` of every named model under each mode on this
+    rank: the gradients (``_accum_loss_grads``), the step's metrics and the
+    stepped parameters, each gathered back to the whole tree."""
+    import torch
+
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.weights import gather_params
+    from repro_torch.train import optimizer, trainer
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    oc = optimizer.OptConfig(**ocfg)
+    out: dict = {}
+    for name, entry in models.items():
+        cfg, whole = _named(name, entry)
+        specs = lm.build_specs(cfg)
+        b = {k: torch.from_numpy(v).long() for k, v in batch[name].items()}
+        for mode in modes:
+            recipe = make_recipe(cfg, mesh, attn_mode=mode)
+            shards = _shards(cfg, whole, recipe)
+            with use_recipe(recipe):
+                _, _, grads = trainer._accum_loss_grads(shards, b, cfg, 1)
+            out[(name, mode, "grads")] = [g.numpy() for g in tree_leaves(
+                gather_params(grads, specs, recipe))]
+            new_p, _, m = trainer.make_train_step(cfg, recipe, oc)(
+                shards, optimizer.init_opt_state(shards, oc), b)
+            out[(name, mode, "metrics")] = {k: float(v) for k, v in m.items()}
+            out[(name, mode, "params")] = [
+                p.numpy() for p in tree_leaves(gather_params(new_p, specs, recipe))]
+    return out
+
+
+def ep_grads(*, shape, params, x, cot) -> dict:
+    """The gradients of ``sum(moe_expert_parallel(p, x_r) * cot_r) + aux``
+    on this rank of a ``shape`` mesh (``x_r``, ``cot_r`` this rank's token
+    shard of the whole ``x``, ``cot``), with the double-buffered plan and
+    with its blocking form: ``x_r``'s and every parameter's (whole weights,
+    this rank's partial of their gradient), and whether the two forms'
+    gradients are bitwise equal."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import make_mesh
+    from repro_torch.models import ffn
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.weights import params_from_jax
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    recipe = make_recipe(configs.get("phi3.5-moe-42b-a6.6b", smoke=True), mesh)
+    D, R = shape
+    d, r = mesh.coords()["data"], mesh.coords()["model"]
+    B, S, _ = x.shape
+    rows, pos = slice(d * (B // D), (d + 1) * (B // D)), slice(r * (S // R), (r + 1) * (S // R))
+    runs = []
+    for db in (True, False):
+        p = {k: t.requires_grad_() for k, t in params_from_jax(params, device="cpu").items()}
+        xr = torch.from_numpy(x[rows, pos].copy()).requires_grad_()
+        with use_recipe(recipe):
+            y, aux = ffn.moe_expert_parallel(p, xr, n_experts=p["router"].shape[-1], top_k=2,
+                                             capacity_factor=2.0, n_groups=2, double_buffer=db)
+        ((y * torch.from_numpy(cot[rows, pos].copy())).sum() + aux).backward()
+        runs.append([xr.grad] + [t.grad for t in tree_leaves(p)])
+    return {"grads": [g.numpy() for g in runs[0]],
+            "blocking_equal": all(torch.equal(a, b) for a, b in zip(*runs))}

@@ -160,11 +160,12 @@ def test_rope_matches_reference(per_row):
 @pytest.mark.parametrize("entry", ["check_attention", "check_decode", "flash_attention",
                                    "flash_attention_carry", "flash_decode"])
 def test_v_head_dim_other_than_qk_is_refused(entry):
-    """A v head dim Dv != D: the forward takes it as the reference does
-    (``check_attention`` passes and ``flash_attention`` returns (..., Dv)
-    equal to the reference's Pallas kernel in interpret mode), while the
-    carry form and decode refuse it with ``ValueError`` (ROADMAP.md queue 2,
-    item A)."""
+    """A v head dim Dv != D: the forward and the carry form take it as the
+    reference does (``check_attention`` passes, ``flash_attention`` returns
+    (..., Dv) and one carry step from an empty state, normalized, gives the
+    same, each equal to the reference's Pallas kernel in interpret mode),
+    while decode refuses it with ``ValueError`` (ROADMAP.md queue 2, item
+    A)."""
     from repro_torch.kernels.flash_attention import check_attention
     from repro_torch.kernels.flash_decode import check_decode
 
@@ -184,9 +185,13 @@ def test_v_head_dim_other_than_qk_is_refused(entry):
         assert got.shape == (1, 4, 8, 64)
         _close(got, want, "float32")
         return
+    if entry == "flash_attention_carry":
+        acc, _, l = tops.flash_attention_carry(q, k, v)
+        assert acc.shape == (1, 4, 8, 64)
+        _close(acc / torch.where(l == 0, 1.0, l)[..., None], want, "float32")
+        return
     calls = {
         "check_decode": lambda: check_decode(q, k, v, lens, None),
-        "flash_attention_carry": lambda: tops.flash_attention_carry(q, k, v),
         "flash_decode": lambda: tops.flash_decode(q, k, v, lens),
     }
     with pytest.raises(ValueError, match="v head dim 64 != q/k head dim 128"):

@@ -76,12 +76,12 @@ def test_engine_rejects_what_is_not_ported():
         axis_names = ("data", "model")
 
     params = lm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
-    # a recipe serves the dense, SSM and hybrid families; MoE and MLA wait for
-    # item 8c's third PR
-    moe = tconfigs.get("phi3.5-moe-42b-a6.6b", smoke=True)
-    moe_params = lm.init_model(moe, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 8c \(third PR\)"):
-        Engine(moe, moe_params, ServeConfig(), recipe=make_recipe(moe, _Mesh()))
+    # a recipe serves every family; it cuts MLA's latent caches along their
+    # sequence, so a cache length that does not divide the model axis is refused
+    mla = tconfigs.get("minicpm3-4b", smoke=True)
+    mla_params = lm.init_model(mla, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="must divide the model axis"):
+        Engine(mla, mla_params, ServeConfig(max_len=15), recipe=make_recipe(mla, _Mesh()))
     with pytest.raises(ValueError, match="not both"):
         Engine(cfg, params, ServeConfig(), recipe=make_recipe(cfg, _Mesh()), mesh=object(),
                microbatches=1)

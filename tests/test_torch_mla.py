@@ -206,18 +206,22 @@ def test_count_params_matches_reference(smoke):
         assert 4.0e9 < got < 4.2e9
 
 
-def test_mla_under_a_recipe_is_not_ported(models):
-    from repro_torch.models.sharding import make_recipe, use_recipe
+def test_mla_under_a_recipe_runs_and_matches_reference(models, tmp_path):
+    """The call that used to refuse: ``lm.forward`` under an ``sp_ring``
+    recipe with a ``model`` axis of 2, now on 2 gloo ranks, each on its
+    chunk of the sequence, against the reference's single-device forward
+    (its MLA does not ring): the same logits on both ranks, within
+    ``LM_TOL``.  ``tests/test_torch_recipe_mla*.py`` hold every mode."""
+    from _torch_dist import run_gloo
 
-    class _Mesh:  # what make_recipe reads of a mesh
-        shape = {"data": 1, "model": 2}
-        axis_names = ("data", "model")
-
-    _, _, tcfg, tp = models
-    toks = torch.from_numpy(_tokens(tcfg, (1, 8))).long()
-    with use_recipe(make_recipe(tcfg, _Mesh(), attn_mode="sp_ring")):
-        with pytest.raises(NotImplementedError, match=r"item 8c \(third PR\)"):
-            tlm.forward(tp, {"tokens": toks}, tcfg)
+    jcfg, jp, tcfg, _ = models
+    toks = _tokens(tcfg, (1, 8))
+    want = _np(jlm.forward(jp, {"tokens": jnp.asarray(toks)}, jcfg)[0])
+    ranks = run_gloo("_torch_recipe:forward_named", 2, tmp_path, shape=(1, 2),
+                     models={"mla": (ARCH, {}, jax.tree.map(np.asarray, jp))},
+                     tokens={"mla": toks}, modes=("sp_ring",))
+    for got in ranks:
+        np.testing.assert_allclose(got[("mla", "sp_ring")], want, rtol=LM_TOL, atol=LM_TOL)
 
 
 @pytest.mark.parametrize("causal", [True, False])

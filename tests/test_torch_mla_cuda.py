@@ -73,16 +73,16 @@ def test_flash_attention_96_64_reads_strided_views(cuda):
 
 
 def test_other_head_dim_pairs_are_refused(cuda):
-    """The forward takes (64, 64), (128, 128) and (96, 64); the carry form
-    one head dim for q, k and v."""
+    """The forward and the carry form take (64, 64), (128, 128), (112, 112)
+    and (96, 64), and neither (64, 96)."""
     q = _randn((1, 2, 8, 96), torch.bfloat16, cuda, 6)
     v = _randn((1, 2, 8, 64), torch.bfloat16, cuda, 7)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention_cuda(q, q, q)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention_cuda(v, v, q)
-    with pytest.raises(ValueError, match="v head dim 64 != q/k head dim 96"):
-        ops.flash_attention_carry(q, q, v)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention_carry(v, v, q)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -101,3 +101,69 @@ def test_mla_forward_runs_the_kernel_and_matches_plain_path(cuda, dtype):
     want, _ = lm.forward(params, {"tokens": tokens}, dataclasses.replace(cfg, attn_impl="ref"))
     tol = 5e-2 if dtype == torch.bfloat16 else TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _state(B, Hq, Sq, Dv, device, tail=0):
+    """An empty carry state whose acc heads a buffer of ``tail`` sentinels."""
+    n = B * Hq * Sq * Dv
+    buf = torch.full((n + tail,), 7.5, device=device)
+    buf[:n] = 0.0
+    return (buf[:n].view(B, Hq, Sq, Dv), torch.full((B, Hq, Sq), -1e30, device=device),
+            torch.zeros((B, Hq, Sq), device=device)), buf[n:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (B, Hq, G, Sq, Skv, q_offset, k_offset, valid_len, causal)
+    (1, 8, 8, 128, 128, 128, 128, None, True),    # a diagonal ring step
+    (1, 8, 8, 128, 128, 256, 0, None, True),      # an off-diagonal one
+    (2, 6, 2, 77, 100, 64, 0, 150, True),         # ragged tiles, GQA 3, padded keys
+    (1, 4, 1, 33, 70, 0, 0, None, False),         # non-causal, one KV head
+])
+def test_carry_96_64_matches_plain_version(cuda, case, dtype):
+    """The carry form's (96, 64) instance from a nonzero state, against its
+    plain version in acc, m and l; the state is (B, Hq, Sq, 64), and the
+    sentinels after its last row stay untouched."""
+    B, Hq, G, Sq, Skv, q_off, k_off, valid, causal = case
+    q = _randn((B, Hq, Sq, 96), dtype, cuda, 10)
+    k = _randn((B, G, Skv, 96), dtype, cuda, 11)
+    v = _randn((B, G, Skv, 64), dtype, cuda, 12)
+    kw = dict(q_offset=q_off, k_offset=k_off, valid_len=valid, causal=causal)
+    start = ops.flash_attention_carry(q, _randn((B, G, 40, 96), dtype, cuda, 13),
+                                      _randn((B, G, 40, 64), dtype, cuda, 14), None,
+                                      impl="ref", k_offset=0, causal=False)
+    want = ops.flash_attention_carry(q, k, v, start, impl="ref", **kw)
+    state, tail = _state(B, Hq, Sq, 64, cuda, tail=1024)
+    for t, s in zip(state, start):
+        t.copy_(s)
+    before = fa.flash_attention_carry_cuda.launches
+    got = ops.flash_attention_carry(q, k, v, state, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_carry_cuda.launches == before + 1
+    assert got[0].shape == (B, Hq, Sq, 64)
+    assert bool((tail == 7.5).all()), "the kernel wrote past the state's 64 columns"
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_carry_96_64_chain_is_bitwise_the_forward(cuda, causal, dtype):
+    """Carry steps over 4 KV chunks of 128 keys in block order, and one step
+    over the whole sequence, normalized as the ring's epilogue does, equal
+    the (96, 64) forward instance bitwise."""
+    q = _randn((1, 8, 512, 96), dtype, cuda, 20)
+    k = _randn((1, 8, 512, 96), dtype, cuda, 21)
+    v = _randn((1, 8, 512, 64), dtype, cuda, 22)
+    single = ops.flash_attention(q, k, v, causal=causal)
+    for chunks in (4, 1):
+        n = 512 // chunks
+        carry = None
+        for c in range(chunks):
+            carry = ops.flash_attention_carry(q, k[:, :, c * n:(c + 1) * n],
+                                              v[:, :, c * n:(c + 1) * n], carry, k_offset=c * n,
+                                              causal=causal)
+        acc, _, l = carry
+        got = (acc / torch.where(l == 0, 1.0, l)[..., None]).to(dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, single), (chunks, (got.float() - single.float()).abs().max())

@@ -199,9 +199,12 @@ def test_forward_matches_reference_sharded_program(reference, port, arch, shape,
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "minicpm3-4b", "rwkv6-3b",
                                   "zamba2-7b"])
 def test_families_still_to_port_refuse_tp(arch):
-    """The MoE and MLA families under ``tp`` refuse, citing item 8c's third
-    PR; the SSM and hybrid families run, and on a one-rank ``(1, 1)`` mesh
-    their logits are the no-recipe forward's, bitwise."""
+    """Every family runs under ``tp`` (the MoE and MLA families since
+    item 8c's third PR, the SSM and hybrid families before them): on a
+    one-rank ``(1, 1)`` mesh the logits and the aux loss are the no-recipe
+    forward's, bitwise.  ``tests/test_torch_recipe_mla.py`` and
+    ``tests/test_torch_recipe_moe.py`` hold the MLA and MoE families across
+    ranks."""
     cfg = tconfigs.get(arch, smoke=True)
     params = tlm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
     mesh = _fake_mesh((1, 1))
@@ -209,15 +212,12 @@ def test_families_still_to_port_refuse_tp(arch):
     mesh.create_groups = lambda axes: None
     recipe = make_recipe(cfg, mesh, attn_mode="tp")
     toks = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(1))
-    if cfg.family in ("ssm", "hybrid"):
-        with torch.no_grad():
-            want, _ = tlm.forward(params, {"tokens": toks}, cfg)
-            with use_recipe(recipe):
-                got, _ = tlm.forward(params, {"tokens": toks}, cfg)
-        assert torch.equal(got, want)
-        return
-    with use_recipe(recipe), pytest.raises(NotImplementedError, match="8c .third PR"):
-        tlm.forward(params, {"tokens": toks}, cfg)
+    with torch.no_grad():
+        want, want_aux = tlm.forward(params, {"tokens": toks}, cfg)
+        with use_recipe(recipe):
+            got, aux = tlm.forward(params, {"tokens": toks}, cfg)
+    assert torch.equal(got, want)
+    assert torch.equal(aux, want_aux)
 
 
 def test_whole_params_where_shards_are_expected_are_refused():
