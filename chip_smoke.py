@@ -152,6 +152,29 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   single-host engine's; and one ``tp`` training step of each (minicpm3-4b
   at 8 layers, phi3.5-moe at 1) against the no-recipe step, loss and
   gradient norm bitwise.
+* the VLM and audio families at full width and depth, seeded bf16
+  weights: the forward kernel's (128, 128) instance non-causal at the
+  VLM's cross attention (q 1 x 32 x 4096 over the image's k/v 1 x 8 x 1024,
+  and a decode step's 4 x 32 x 1 over 4 x 8 x 1024), its (64, 64) instance
+  at musicgen's causal MHA (1 x 32 x 4096 x 64) and the decode kernel's
+  D = 64 instance at musicgen's decode step (4 slots, one row a group),
+  each against its plain version, float64 and itself, timed beside its
+  bound, its plain version and ``scaled_dot_product_attention``;
+  llama-3.2-vision-11b (40 layers: 8 groups of 4 self-attention blocks and
+  a gated cross-attention block; its gates drawn from U[0.5, 1], since at
+  their zero init the cross path would not show) on 1 x 4096 tokens and a
+  seeded image (40 ``flash_attention`` launches, 8 of them non-causal),
+  logits at every token against the plain path and a second image moving
+  them; 4 rows served through ``lm.init_cache`` and ``lm.decode_step``
+  (a whole-prompt chunk, then 32 greedy steps, each launching
+  ``flash_decode`` 32 times and the cross attention 8 times), greedy
+  tokens against the plain run; musicgen-large (48 layers, ``embeds``
+  input) on 1 x 4096 frames against the plain path, 8 requests through
+  the engine's featurizer on 4 slots (single host and TP on a one-rank
+  NCCL mesh, ``flash_decode`` 48 times a step, 96 under TP); decode
+  against the forward at float32 for both (depth cut, the reference's
+  2e-4); one training step of each (depth cut) against the plain
+  attention's, its seconds and peak memory.
 
 Every kernel time (``ms``, ``plain_ms``, ``library_ms``) is device time per
 call from ``repro_torch.kernels.timing.queued_ms`` (calls run back to back
@@ -319,6 +342,28 @@ MLA_SENTINEL, MLA_SENTINEL_TAIL = 12345.0, 4096
 # and the gradients, and the step's new parameters and moments beside the
 # old: about 44 GB at one layer, over the card at two)
 MLA_TRAIN_DEPTH, MOE_TRAIN_DEPTH = 8, 1
+
+# the VLM and audio families: llama-3.2-vision-11b (40 layers: 8 groups of 4
+# self-attention blocks and a gated cross-attention block over a 1024-position
+# image) and musicgen-large (48 layers, MHA at head dim 64, frame embeddings),
+# full width and depth, seeded bf16 weights; the VLM's cross blocks' gates
+# drawn from GATE_RANGE (their zero init would hide the cross path)
+VLM_ARCH, AUDIO_ARCH, VLM_ENC_LEN = "llama-3.2-vision-11b", "musicgen-large", 1024
+GATE_RANGE = (0.5, 1.0)
+# the VLM served through lm.decode_step: 4 rows, a whole-prompt chunk each
+# (phi4-mini's prompt lengths), then 32 greedy steps; the steady decode
+# windows of both families, 4 steps (phi4-mini's take 8)
+VLM_ROWS, VLM_NEW_TOKENS, VLM_WINDOW_STEPS = 4, 32, 4
+# decode against the forward at float32, full width, depth cut (the VLM to 2
+# groups), at the reference's own tolerance for both families
+# (tests/test_decode.py: 2e-4)
+VLM_CHECK_DEPTH, AUDIO_CHECK_DEPTH, FAMILY_CHECK_TOKENS, FAMILY_DECODE_TOL = 10, 8, 64, 2e-4
+# one training step of each at full width: the VLM at one group (5 layers,
+# 2.14 B parameters: float32 masters, gradients, both moments and the step's
+# new parameters and moments near 60 GB) over 1 x 2048 tokens (its 128256-wide
+# logits and their gradient in float32 are 1 GB a thousand tokens);
+# musicgen-large at 24 of its 48 layers (1.21 B parameters) over 1 x SEQ
+VLM_TRAIN_DEPTH, VLM_TRAIN_SEQ, AUDIO_TRAIN_DEPTH = 5, 2048, 24
 
 
 def phase(name: str, **fields) -> None:
@@ -961,13 +1006,19 @@ def breakdown_lm(cfg, params, lm, Engine, ServeConfig) -> dict:
     tokens = torch.randint(0, cfg.vocab, (1, SEQ), device=DEVICE, generator=g)
     fwd = window(lambda: lm.forward(params, {"tokens": tokens}, cfg), 2)
     phase("breakdown", arch=cfg.name, window="forward", tokens=SEQ, **fwd)
+    return decode_window(cfg, params, Engine, ServeConfig, 8)
 
+
+def decode_window(cfg, params, Engine, ServeConfig, steps: int) -> dict:
+    """``steps`` steady decode steps of the serving run's first SLOTS
+    requests, after their prefill chunk and one decode step
+    (:func:`window`)."""
     engine = Engine(cfg, params, ServeConfig(max_len=MAX_LEN, batch_slots=SLOTS, eos_token=-1))
     for rid, prompt in enumerate(serve_prompts(cfg)[:SLOTS]):
         engine.submit(rid, prompt, NEW_TOKENS)
     engine._fill_slots()  # the prefill chunk, outside the windows
     engine._decode_once()
-    dec = window(engine._decode_once, 8)
+    dec = window(engine._decode_once, steps)
     phase("breakdown", arch=cfg.name, window="decode_step", slots=SLOTS,
           cache_lens=list(engine.ledger.lengths), **dec)
     del engine
@@ -1111,7 +1162,8 @@ def tp_engine(cfg, params, Engine, ServeConfig, mesh, prompts):
     return engine
 
 
-def serve_tp(cfg, params, Engine, ServeConfig, fd, mesh, single: dict, single_dec: dict) -> dict:
+def serve_tp(cfg, params, Engine, ServeConfig, fd, mesh, single: dict, single_dec: dict,
+             window_steps: int = 8) -> dict:
     """``tp_serve``: the serving run's 8 requests on 4 slots through the
     tensor-parallel decode step (``microbatches=2``) on a one-rank NCCL
     ``(data, model)`` mesh: every request finishes, ``flash_decode``
@@ -1146,7 +1198,7 @@ def serve_tp(cfg, params, Engine, ServeConfig, fd, mesh, single: dict, single_de
     engine = tp_engine(cfg, params, Engine, ServeConfig, mesh, requests[:SLOTS])
     engine._fill_slots()
     engine._decode_once()
-    dec = window(engine._decode_once, 8)
+    dec = window(engine._decode_once, window_steps)
     del engine
     torch.cuda.empty_cache()
     out = dict(mesh=dict(mesh.shape), microbatches=TP_MICROBATCHES, requests=REQUESTS,
@@ -1409,18 +1461,22 @@ def check_carry_chain(ops) -> None:
         del q, k, v
 
 
-def exact_attention(q, k, v) -> torch.Tensor:
-    """Causal attention of q (1, Hq, S, D) over k (1, G, S, D) and v
-    (1, G, S, Dv) in float64, head by head: the function the kernels
-    approximate."""
-    _, Hq, S, D = q.shape
+def exact_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """Attention of q (B, Hq, Sq, D) over k (B, G, Skv, D) and v
+    (B, G, Skv, Dv) in float64, row by row and head by head, causal (top-left
+    aligned) or not: the function the kernels approximate."""
+    B, Hq, Sq, D = q.shape
+    Skv = k.shape[2]
     rep = Hq // k.shape[1]
-    mask = torch.ones((S, S), dtype=torch.bool, device=DEVICE).tril()
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=DEVICE)
+    if causal:
+        mask = mask.tril()
     out = torch.empty((*q.shape[:-1], v.shape[-1]), dtype=torch.float64, device=DEVICE)
-    for h in range(Hq):
-        s = (q[0, h].double() @ k[0, h // rep].double().T) * D ** -0.5
-        p = torch.softmax(torch.where(mask, s, torch.full_like(s, -1e30)), dim=-1)
-        out[0, h] = p @ v[0, h // rep].double()
+    for b in range(B):
+        for h in range(Hq):
+            s = (q[b, h].double() @ k[b, h // rep].double().T) * D ** -0.5
+            p = torch.softmax(torch.where(mask, s, torch.full_like(s, -1e30)), dim=-1)
+            out[b, h] = p @ v[b, h // rep].double()
     return out
 
 
@@ -2371,96 +2427,124 @@ def scan_by_kind(prof) -> dict[str, float]:
     return by_ranges(prof, SCAN_RANGES)
 
 
-def check_hybrid_kernels(ops, card: str, pieces: int) -> dict:
-    """``hybrid_kernel``: the flash-attention kernel's (112, 112) instances
-    at zamba2's forward shape (q/k/v 1x32x4096x112, causal, MHA) and the
-    flash-decode kernel's D = 112 instances at its decode step (MHA, 32
-    heads; 5 slots of a 4096-position cache, lengths HYBRID_DECODE_LENS,
-    the last wrapped past it: every slot valid and the query past T), bf16
-    and float32, against their plain versions; two launches bitwise equal;
-    the bf16 forward against float64 (at most ACCURACY_RATIO times the plain
-    version's error) and the bf16 decode's per-block rounding
-    (:func:`rounding_margins`); the bf16 times beside their bounds, the
-    plain versions and ``scaled_dot_product_attention``."""
+def check_forward_instance(ops, card: str, label: str, dims, causal: bool, pieces: int,
+                           seed: int) -> dict:
+    """``kernel_instance``: the forward kernel at ``dims`` (B, Hq, G, Sq, Skv,
+    D), bf16 and float32, against its plain version (ATTN_TOL) and itself
+    (two launches bitwise); the bf16 kernel against float64 (at most
+    ACCURACY_RATIO times the plain version's error); the bf16 time beside
+    its bound, its plain version and ``scaled_dot_product_attention``.
+    Returns the bf16 row."""
     from torch.nn.attention import SDPBackend
 
+    B, Hq, G, Sq, Skv, D = dims
     rows = {}
-    H, D = 32, 112
     for dt in (torch.bfloat16, torch.float32):
-        q, k, v = (randn((1, H, SEQ, D), dt, 180 + i) for i in range(3))
-        got = ops.flash_attention(q, k, v)
+        q = randn((B, Hq, Sq, D), dt, seed)
+        k, v = (randn((B, G, Skv, D), dt, seed + i) for i in (1, 2))
+        got = ops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        want = ops.flash_attention(q, k, v, impl="ref")
+        want = ops.flash_attention(q, k, v, causal=causal, impl="ref")
         torch.testing.assert_close(got, want, rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
-        if not torch.equal(got, ops.flash_attention(q, k, v)):
-            raise AssertionError(f"flash_attention (112, 112) {dt}: two launches differ")
+        if not torch.equal(got, ops.flash_attention(q, k, v, causal=causal)):
+            raise AssertionError(f"flash_attention {label} {dt}: two launches differ")
         row = dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
                    tol=ATTN_TOL[dt], two_launches="bitwise")
         if dt == torch.bfloat16:
-            exact = exact_attention(q, k, v)
+            exact = exact_attention(q, k, v, causal=causal)
             errs = {"kernel": (got.double() - exact).abs().max().item(),
                     "plain": (want.double() - exact).abs().max().item()}
             ratio = errs["kernel"] / errs["plain"]
             if ratio > ACCURACY_RATIO:
-                raise AssertionError(f"flash_attention (112, 112) error against float64 over "
+                raise AssertionError(f"flash_attention {label} error against float64 over "
                                      f"{ACCURACY_RATIO}x the plain version's: {errs}")
             del exact
             qf, kf, vf = q.float(), k.float(), v.float()
-            t = time_three(lambda: ops.flash_attention(q, k, v),
-                           lambda: ops.flash_attention(q, k, v, impl="ref"),
-                           lambda: library_attention(qf, kf, vf, is_causal=True),
-                           lambda: library_attention(q, k, v, is_causal=True))
-            flops = 4 * H * SEQ * SEQ * D / 2
-            b_ms, b_by, fp32_ms = attn_bound(flops, 2 * 4 * q.numel(), products=1 + pieces)
+            t = time_three(lambda: ops.flash_attention(q, k, v, causal=causal),
+                           lambda: ops.flash_attention(q, k, v, causal=causal, impl="ref"),
+                           lambda: library_attention(qf, kf, vf, is_causal=causal),
+                           lambda: library_attention(q, k, v, is_causal=causal))
+            # causal here is Sq == Skv, top-left: half the score matrix
+            flops = 4 * B * Hq * Sq * Skv * D * (0.5 if causal else 1.0)
+            b_ms, b_by, fp32_ms = attn_bound(flops, 2 * (2 * q.numel() + k.numel() + v.numel()),
+                                             products=1 + pieces)
             row.update(error_vs_float64=errs, error_vs_float64_ratio=ratio,
                        limit=ACCURACY_RATIO, bound_ms=b_ms, bound_by=b_by,
                        fp32_bound_ms=fp32_ms, tflops=flops / t["ms"] / 1e9,
                        library_bf16_backend=SDPBackend(torch._fused_sdp_choice(
-                           q, k, v, is_causal=True)).name, **t)
-            check_bound("flash_attention (112, 112)", row)
+                           q, k, v, is_causal=causal)).name, **t)
+            check_bound(f"flash_attention {label}", row)
             del qf, kf, vf
-        rows[("flash_attention", dt)] = row
-        phase("hybrid_kernel", kernel="flash_attention", shape=(1, H, H, SEQ, D, D),
-              causal=True, dtype=str(dt), card=card, **row)
+        rows[dt] = row
+        phase("kernel_instance", kernel="flash_attention", case=label, shape=dims,
+              causal=causal, dtype=str(dt), card=card, **row)
         del q, k, v, got, want
-    lens = HYBRID_DECODE_LENS
-    dims = (len(lens), H, H, 1, MAX_LEN, D)
+    torch.cuda.empty_cache()
+    return rows[torch.bfloat16]
+
+
+def check_decode_instance(ops, card: str, label: str, dims, lens, seed: int, *,
+                          at_last: bool = False) -> dict:
+    """``kernel_instance``: the decode kernel at ``dims`` (B, Hq, G, 1, T, D)
+    with cache lengths ``lens`` (``at_last``: each slot's query at its own
+    last position, a length past T a ring buffer wrapped, every slot
+    valid), bf16 and float32, against its plain version and itself; the
+    bf16 kernel's per-block rounding (:func:`rounding_margins`); the bf16
+    time beside its bound (the bytes of the visible K/V), its plain version
+    and ``scaled_dot_product_attention``.  Returns the bf16 row."""
+    B, Hq, G, S, T, D = dims
+    rows = {}
     for dt in (torch.bfloat16, torch.float32):
-        q, kc, vc, lens_t, _ = decode_inputs(*dims, dt, lens=lens, seed=190)
-        pos = (lens_t - 1)[:, None]  # each slot's own position; the wrapped one's past T
+        q, kc, vc, lens_t, _ = decode_inputs(*dims, dt, lens=lens, seed=seed)
+        pos = (lens_t - 1)[:, None] if at_last else None
         got = ops.flash_decode(q, kc, vc, lens_t, q_positions=pos)
         torch.cuda.synchronize()
         want = ops.flash_decode(q, kc, vc, lens_t, q_positions=pos, impl="ref")
         torch.testing.assert_close(got, want, rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
         if not torch.equal(got, ops.flash_decode(q, kc, vc, lens_t, q_positions=pos)):
-            raise AssertionError(f"flash_decode D = 112 {dt}: two launches differ")
+            raise AssertionError(f"flash_decode {label} {dt}: two launches differ")
         row = dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
                    tol=ATTN_TOL[dt], two_launches="bitwise")
         if dt == torch.bfloat16:
             row["mean_abs_diff_from"] = rounding_margins(ops, got, want, q, kc, vc, lens_t, pos,
                                                          lens_t > 0)
-            T = MAX_LEN
             t_idx = torch.arange(T, device=DEVICE)
-            mask = (t_idx[None, None, None, :] < lens_t.clamp(max=T)[:, None, None, None]) & \
-                (t_idx[None, None, None, :] <= pos[:, None, :, None])
+            mask = t_idx[None, None, None, :] < lens_t.clamp(max=T)[:, None, None, None]
+            if pos is not None:
+                mask = mask & (t_idx[None, None, None, :] <= pos[:, None, :, None])
             qf, kf, vf = q.float(), kc.float(), vc.float()
             t = time_three(lambda: ops.flash_decode(q, kc, vc, lens_t, q_positions=pos),
                            lambda: ops.flash_decode(q, kc, vc, lens_t, q_positions=pos,
                                                     impl="ref"),
                            lambda: library_attention(qf, kf, vf, attn_mask=mask),
                            lambda: library_attention(q, kc, vc, attn_mask=mask), plain_iters=5)
-            visible = sum(min(n, T) for n in lens)  # one query a slot sees its slot's keys
-            b_ms, b_by, fp32_ms = attn_bound(4 * H * visible * D,
-                                             2 * 2 * H * D * visible + 2 * 2 * q.numel())
+            visible = sum(min(n, T) for n in lens)
+            b_ms, b_by, fp32_ms = attn_bound(4 * Hq * S * visible * D,
+                                             2 * 2 * G * D * visible + 2 * 2 * q.numel())
             row.update(bound_ms=b_ms, bound_by=b_by, fp32_bound_ms=fp32_ms, **t)
-            check_bound("flash_decode D = 112", row)
+            check_bound(f"flash_decode {label}", row)
             del qf, kf, vf, mask
-        rows[("flash_decode", dt)] = row
-        phase("hybrid_kernel", kernel="flash_decode", shape=dims, lens=lens, dtype=str(dt),
-              card=card, **row)
+        rows[dt] = row
+        phase("kernel_instance", kernel="flash_decode", case=label, shape=dims, lens=lens,
+              dtype=str(dt), card=card, **row)
         del q, kc, vc, got, want
     torch.cuda.empty_cache()
-    return {name: rows[(name, torch.bfloat16)] for name in ("flash_attention", "flash_decode")}
+    return rows[torch.bfloat16]
+
+
+def check_hybrid_kernels(ops, card: str, pieces: int) -> dict:
+    """The flash-attention kernel's (112, 112) instances
+    at zamba2's forward shape (q/k/v 1x32x4096x112, causal, MHA) and the
+    flash-decode kernel's D = 112 instances at its decode step (MHA, 32
+    heads; 5 slots of a 4096-position cache, lengths HYBRID_DECODE_LENS,
+    the last wrapped past it: every slot valid and the query past T)
+    (:func:`check_forward_instance`, :func:`check_decode_instance`)."""
+    H, D = HYBRID_HEADS, HYBRID_HEAD_DIM
+    return {"flash_attention": check_forward_instance(ops, card, "zamba2_forward",
+                                                      (1, H, H, SEQ, SEQ, D), True, pieces, 180),
+            "flash_decode": check_decode_instance(ops, card, "zamba2_decode_step",
+                                                  (len(HYBRID_DECODE_LENS), H, H, 1, MAX_LEN, D),
+                                                  HYBRID_DECODE_LENS, 190, at_last=True)}
 
 
 class nudged_attention:
@@ -3429,6 +3513,370 @@ def latent_recipe_train(cfg, lm, fa, trainer, optimizer, sharding, shard_params_
     return out
 
 
+class attention_calls:
+    """Inside the block, the forward kernel's launches counted by its causal
+    flag: ``ops``' call of the card wrapper is wrapped, and the wrapper's own
+    ``launches`` counter still counts each launch once."""
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.counts = {"causal": 0, "non_causal": 0}
+
+    def __enter__(self):
+        self.kernel = self.ops.flash_attention_cuda
+
+        def counted(q, k, v, *, causal=True, **kw):
+            out = self.kernel(q, k, v, causal=causal, **kw)
+            self.counts["causal" if causal else "non_causal"] += 1
+            return out
+
+        self.ops.flash_attention_cuda = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention_cuda = self.kernel
+
+
+def check_family_kernels(ops, card: str, pieces: int) -> dict:
+    """``vlm_kernels`` and the audio family's instances: the forward
+    kernel's (128, 128) instance non-causal at the VLM's cross attention
+    (q 1 x 32 x SEQ over the image's k/v 1 x 8 x 1024, and a decode step's
+    VLM_ROWS x 32 x 1 over VLM_ROWS x 8 x 1024: a query tile of one row),
+    its (64, 64) instance at musicgen's causal MHA (1 x 32 x SEQ x 64), and
+    the decode kernel's D = 64 instance at musicgen's decode step (SLOTS
+    slots, 32 heads over 32 groups: one row a group; lengths DECODE_LENS of
+    MAX_LEN).  Each :func:`check_forward_instance` /
+    :func:`check_decode_instance`."""
+    enc = VLM_ENC_LEN
+    return {
+        "cross_forward": check_forward_instance(ops, card, "vlm_cross_forward",
+                                                (1, 32, 8, SEQ, enc, 128), False, pieces, 230),
+        "cross_step": check_forward_instance(ops, card, "vlm_cross_decode_step",
+                                             (VLM_ROWS, 32, 8, 1, enc, 128), False, pieces, 233),
+        "audio_forward": check_forward_instance(ops, card, "audio_forward",
+                                                (1, 32, 32, SEQ, SEQ, 64), True, pieces, 236),
+        "audio_decode": check_decode_instance(ops, card, "audio_decode_step",
+                                              (SLOTS, 32, 32, 1, MAX_LEN, 64), DECODE_LENS, 239),
+    }
+
+
+def open_gates(params, seed: int) -> None:
+    """The VLM's cross blocks' gates drawn from U(GATE_RANGE), seeded, in
+    place of their zero initialisation: at ``tanh(0) = 0`` every cross block
+    passes its input through and the image would not reach the logits."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    lo, hi = GATE_RANGE
+    for name in ("gate_attn", "gate_ffn"):
+        t = params["cross_blocks"][name]
+        params["cross_blocks"][name] = (lo + (hi - lo) * torch.rand(
+            t.shape, device=DEVICE, generator=g)).to(t.dtype)
+
+
+def family_model(configs, lm, name: str):
+    """``family_model``: ``name`` at full width and depth with
+    :func:`seeded_params` (bf16), a VLM's gates opened (:func:`open_gates`)."""
+    cfg = configs.get(name)
+    t0 = time.perf_counter()
+    params = seeded_params(cfg, lm)
+    if cfg.family == "vlm":
+        open_gates(params, 24)
+    torch.cuda.synchronize()
+    phase("family_model", arch=cfg.name, family=cfg.family, layers=cfg.n_layers,
+          d_model=cfg.d_model, heads=(cfg.n_heads, cfg.n_kv, cfg.head_dim), d_ff=cfg.d_ff,
+          vocab=cfg.vocab, input_kind=cfg.input_kind, params=lm.count_params(cfg),
+          gates=GATE_RANGE if cfg.family == "vlm" else None, init_s=time.perf_counter() - t0,
+          memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    return cfg, params
+
+
+def family_batch(cfg, B: int, S: int, seed: int, *, scale: float = 1.0) -> dict:
+    """Seeded inputs of ``cfg``'s kind on the card: token ids, or frames
+    (``embeds``, float32, times ``scale``); a VLM's float32 image."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    if cfg.input_kind == "embeds":
+        return {"embeds": scale * torch.randn((B, S, cfg.d_model), device=DEVICE, generator=g)}
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), device=DEVICE, generator=g)}
+    if cfg.input_kind == "tokens+image":
+        batch["image_embeds"] = scale * torch.randn((B, cfg.enc_len, cfg.enc_dim),
+                                                    device=DEVICE, generator=g)
+    return batch
+
+
+def family_forward(cfg, params, lm, ops, fa) -> dict:
+    """``vlm_forward`` / ``audio_forward``: the forward of 1 x SEQ seeded
+    inputs (the VLM's with a seeded 1 x 1024 x 4096 image) through the
+    kernels (``flash_attention`` once a layer: the VLM's self blocks causal,
+    its cross blocks non-causal) and through their plain versions, logits at
+    every token within LOGIT_TOL; for the VLM, a second image must move the
+    logits by more than LOGIT_TOL (the cross path is live).  Forward ms and
+    where the device time goes (:func:`window`)."""
+    vlm = cfg.family == "vlm"
+    batch = family_batch(cfg, 1, SEQ, 25)
+    fa.flash_attention_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with attention_calls(ops) as calls:
+        logits = lm.forward(params, batch, cfg)[0][..., :cfg.vocab].float()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = fa.flash_attention_cuda.launches
+    n_cross = lm.vlm_dims(cfg)[0] if vlm else 0
+    want_calls = {"causal": cfg.n_layers - n_cross, "non_causal": n_cross}
+    if launches != cfg.n_layers or calls.counts != want_calls:
+        raise AssertionError(f"{cfg.name} forward: flash_attention launches {launches} "
+                             f"{calls.counts} != {cfg.n_layers} {want_calls}")
+    if logits.shape != (1, SEQ, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{cfg.name} forward logits {tuple(logits.shape)} not finite")
+    fa.flash_attention_cuda.launches = 0
+    plain = lm.forward(params, batch, dataclasses.replace(cfg, attn_impl="ref"))[0]
+    torch.cuda.synchronize()
+    if fa.flash_attention_cuda.launches:
+        raise AssertionError(f"{cfg.name}: the plain forward launched the kernel")
+    diff = (logits - plain[..., :cfg.vocab].float()).abs()
+    err = diff.max().item()
+    del plain
+    if err > LOGIT_TOL:
+        raise AssertionError(f"{cfg.name} forward logits kernel vs plain: {err} > {LOGIT_TOL}")
+    out = dict(tokens=SEQ, flash_attention_launches=launches, by_causal_flag=calls.counts,
+               logits_max_abs_err=err, logits_abs_err_p999=diff.flatten()[::97].quantile(
+                   0.999).item(), tol=LOGIT_TOL, logit_scale=logits.abs().max().item(),
+               peak_memory_gb=peak)
+    del diff
+    if vlm:
+        other = dict(batch, image_embeds=family_batch(cfg, 1, 1, 26)["image_embeds"])
+        moved = (lm.forward(params, other, cfg)[0][..., :cfg.vocab].float() - logits).abs()
+        moved = moved.max().item()
+        if not moved > LOGIT_TOL:
+            raise AssertionError(f"{cfg.name}: a second image moved the logits by {moved} <= "
+                                 f"{LOGIT_TOL}; the cross path is not live")
+        out["second_image_moves_logits_by"] = moved
+    del logits
+    torch.cuda.empty_cache()
+    forward_ms = median_ms(lambda: lm.forward(params, batch, cfg), iters=3, warmup=1)
+    brk = window(lambda: lm.forward(params, batch, cfg), 2)
+    if not any("flash_attention_kernel_wgmma" in n for n in brk["port_kernels"]) or \
+            brk["library_attention"]:
+        raise AssertionError(f"{cfg.name} profiled forward: {brk['port_kernels']} "
+                             f"{brk['library_attention']}")
+    out.update(forward_ms=forward_ms, tokens_per_s=SEQ / forward_ms * 1e3, breakdown=brk)
+    phase("vlm_forward" if vlm else "audio_forward", arch=cfg.name, **out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_prompts(cfg) -> list[list[int]]:
+    rng = np.random.default_rng(2)
+    return [rng.integers(2, cfg.vocab, size=int(rng.integers(*PROMPT_LENS))).tolist()
+            for _ in range(VLM_ROWS)]
+
+
+def vlm_generate(cfg, params, lm, fd, fa, prompts, image, impl) -> dict:
+    """The VLM served through ``lm.init_cache`` and ``lm.decode_step``, the
+    way the reference's own test drives it: every row's prompt but its last
+    token as one whole-prompt chunk (``prefill=True``, padded to a power of
+    two, ``new_counts`` the rows' lengths), then VLM_NEW_TOKENS greedy steps
+    of one token a row, each row with its own image every step.  Returns the
+    tokens, each step's top-2 logit gaps, the launches of both kernels per
+    step kind, seconds, and a function that runs one more decode step."""
+    c = dataclasses.replace(cfg, attn_impl=impl)
+    B = len(prompts)
+    state = lm.DecodeState(lm.init_cache(c, B, MAX_LEN, device=DEVICE),
+                           torch.zeros((B,), dtype=torch.int32, device=DEVICE))
+    feeds = [p[:-1] for p in prompts]
+    S = 1 << (max(len(f) for f in feeds) - 1).bit_length()
+    chunk = torch.zeros((B, S), dtype=torch.long)
+    for r, f in enumerate(feeds):
+        chunk[r, :len(f)] = torch.tensor(f)
+    counts = torch.tensor([len(f) for f in feeds], dtype=torch.int32, device=DEVICE)
+    launches = {}
+
+    def counted(kind, fn):
+        torch.cuda.synchronize()
+        before = (fd.flash_decode_cuda.launches, fa.flash_attention_cuda.launches)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        now = (fd.flash_decode_cuda.launches - before[0],
+               fa.flash_attention_cuda.launches - before[1])
+        launches.setdefault(kind, set()).add(now)
+        return out, dt
+
+    (_, state), prefill_s = counted("prefill", lambda: lm.decode_step(
+        params, state, {"tokens": chunk.to(DEVICE), "image_embeds": image}, c,
+        new_counts=counts, prefill=True))
+    out = [list(p) for p in prompts]
+    gaps, decode_s = {}, 0.0
+    ones = torch.ones((B,), dtype=torch.int32, device=DEVICE)
+    last = [p[-1] for p in prompts]
+    for j in range(VLM_NEW_TOKENS):
+        tok = torch.tensor(last, device=DEVICE)[:, None]
+        (logits, state), dt = counted("decode", lambda: lm.decode_step(
+            params, state, {"tokens": tok, "image_embeds": image}, c, new_counts=ones))
+        decode_s += dt
+        top2 = logits[:, -1, :cfg.vocab].float().topk(2, dim=-1)
+        last = top2.indices[:, 0].tolist()
+        for r, gap in enumerate((top2.values[:, 0] - top2.values[:, 1]).tolist()):
+            gaps[(r, len(prompts[r]) + j)] = gap
+            out[r].append(last[r])
+    holder = {"state": state, "last": last}
+
+    def step():
+        tok = torch.tensor(holder["last"], device=DEVICE)[:, None]
+        logits, holder["state"] = lm.decode_step(params, holder["state"],
+                                                 {"tokens": tok, "image_embeds": image}, c,
+                                                 new_counts=ones)
+        holder["last"] = logits[:, -1, :cfg.vocab].argmax(-1).tolist()
+
+    return dict(done=out, gaps=gaps, launches={k: sorted(v) for k, v in launches.items()},
+                prefill_s=prefill_s, decode_s=decode_s, chunk=S, step=step)
+
+
+def vlm_decode(cfg, params, lm, fd, fa) -> dict:
+    """``vlm_decode``: VLM_ROWS rows (seeded prompts of 128-2048 tokens, a
+    seeded image each) served by :func:`vlm_generate` through the kernels
+    (a step launches ``flash_decode`` once a self block and
+    ``flash_attention`` once a cross block, non-causal with Sq = the step's
+    length over the image's 1024 positions) and through their plain
+    versions: greedy tokens equal except at the plain run's near ties.
+    Then a steady decode step's host and device ms, idle share and kernels
+    (:func:`window`)."""
+    prompts = vlm_prompts(cfg)
+    image = family_batch(cfg, VLM_ROWS, 1, 27)["image_embeds"]
+    n_cross, group_self = lm.vlm_dims(cfg)
+    runs = {impl: vlm_generate(cfg, params, lm, fd, fa, prompts, image, impl)
+            for impl in (None, "ref")}
+    k, p = runs[None], runs["ref"]
+    want = {"prefill": [(n_cross * group_self, n_cross)], "decode": [(n_cross * group_self,
+                                                                     n_cross)]}
+    if k["launches"] != want or p["launches"] != {"prefill": [(0, 0)], "decode": [(0, 0)]}:
+        raise AssertionError(f"vlm decode launches (flash_decode, flash_attention) a step: "
+                             f"{k['launches']} (plain {p['launches']}) != {want}")
+    agree, near_ties = greedy_agreement(prompts, k["done"], p["done"], p["gaps"], "kernel",
+                                        "plain", new_tokens=VLM_NEW_TOKENS)
+    fd.flash_decode_cuda.launches = fa.flash_attention_cuda.launches = 0
+    dec = window(k["step"], VLM_WINDOW_STEPS)
+    per_step = (fd.flash_decode_cuda.launches / (2 * VLM_WINDOW_STEPS),
+                fa.flash_attention_cuda.launches / (2 * VLM_WINDOW_STEPS))
+    if per_step != (n_cross * group_self, n_cross):
+        raise AssertionError(f"vlm steady decode step launches {per_step}")
+    out = dict(rows=VLM_ROWS, max_len=MAX_LEN, new_tokens=VLM_NEW_TOKENS,
+               prompt_lens=[len(r) for r in prompts], chunk=k["chunk"],
+               launches_per_step=dict(flash_decode=n_cross * group_self,
+                                      flash_attention_non_causal=n_cross),
+               prefill_s=k["prefill_s"], decode_s=k["decode_s"],
+               decode_tok_s=VLM_ROWS * VLM_NEW_TOKENS / k["decode_s"],
+               plain_decode_s=p["decode_s"], greedy_agreement=agree,
+               divergences_at_near_ties=near_ties, tol=LOGIT_TOL, decode_step=dec)
+    phase("vlm_decode", arch=cfg.name, **out)
+    del runs, k, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_decode_vs_forward(configs, lm, name: str, depth: int) -> dict:
+    """``family_check``: ``name`` at full width, float32 activations, the
+    depth cut to ``depth`` layers, seeded float32 weights (a VLM's gates
+    opened): FAMILY_CHECK_TOKENS one-token (or one-frame) decode steps
+    against the forward over the same inputs, to FAMILY_DECODE_TOL, the
+    reference's own tolerance for these families (``tests/test_decode.py``).
+    The float32 kernels (FFMA bodies) run on both sides."""
+    cfg = dataclasses.replace(configs.get(name), n_layers=depth, act_dtype=torch.float32)
+    params = lm.init_model(cfg, torch.Generator(device=DEVICE).manual_seed(28), device=DEVICE)
+    if cfg.family == "vlm":
+        open_gates(params, 29)
+    B, S = 2, FAMILY_CHECK_TOKENS
+    batch = family_batch(cfg, B, S, 30, scale=0.3)  # the reference test's input scale
+    full = lm.forward(params, batch, cfg)[0]
+    state = lm.DecodeState(lm.init_cache(cfg, B, S, device=DEVICE),
+                           torch.zeros((B,), dtype=torch.int32, device=DEVICE))
+    key = "embeds" if cfg.input_kind == "embeds" else "tokens"
+    steps = []
+    for t in range(S):
+        logits, state = lm.decode_step(params, state, {**batch, key: batch[key][:, t:t + 1]},
+                                       cfg)
+        steps.append(logits)
+    err = (torch.cat(steps, dim=1) - full).abs().max().item()
+    if not err <= FAMILY_DECODE_TOL:
+        raise AssertionError(f"{name} float32 decode vs forward: {err} > {FAMILY_DECODE_TOL}")
+    out = dict(layers=depth, tokens=S, batch=B, max_abs_err=err, tol=FAMILY_DECODE_TOL,
+               logit_scale=full.abs().max().item())
+    phase("family_check", arch=name, dtype="float32", **out)
+    del params, full, state, steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_train(configs, lm, fa, ops, trainer, optimizer, tree_leaves, name: str, depth: int,
+                 seq: int) -> dict:
+    """``vlm_train`` / ``audio_train``: ``name`` at full width, ``depth``
+    layers (float32 masters, bf16 activations, remat by group and block), a
+    pipeline-shaped batch of 1 x ``seq`` (tokens and a seeded image, or
+    frames; labels): one step's gradients through the kernels (every
+    launch counted; the backward recomputes through the plain version),
+    every leaf finite and nonzero, held against the same gradients through
+    the plain attention (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL); then one
+    ``make_train_step`` step after a warm-up step, its seconds and peak
+    memory."""
+    cfg = dataclasses.replace(configs.get(name), n_layers=depth)
+    params = lm.init_model(cfg, torch.Generator(device=DEVICE).manual_seed(31), device=DEVICE)
+    if cfg.family == "vlm":
+        open_gates(params, 32)
+    batch = family_batch(cfg, 1, seq, 33)
+    g = torch.Generator(device=DEVICE).manual_seed(34)
+    batch["labels"] = torch.randint(0, cfg.vocab, (1, seq), device=DEVICE, generator=g)
+    fa.flash_attention_cuda.launches = 0
+    with attention_calls(ops) as calls:
+        loss, _, grads = trainer._accum_loss_grads(params, batch, cfg, 1)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention_cuda.launches
+    if cfg.family == "vlm":  # self blocks run 3 times under nested remat, cross blocks twice
+        n_cross, group_self = lm.vlm_dims(cfg)
+        want = {"causal": 3 * n_cross * group_self, "non_causal": 2 * n_cross}
+    else:
+        want = {"causal": 2 * cfg.n_layers, "non_causal": 0}
+    if calls.counts != want or launches != sum(want.values()):
+        raise AssertionError(f"{name} training step: flash_attention launches {launches} "
+                             f"{calls.counts} != {want}")
+    leaves = tree_leaves(grads)
+    for i, leaf in enumerate(leaves):
+        if leaf.dtype != torch.float32 or not torch.isfinite(leaf).all() or \
+                not leaf.abs().sum() > 0:
+            raise AssertionError(f"{name} gradient leaf {i} {tuple(leaf.shape)} is not a finite, "
+                                 f"nonzero float32 tensor")
+    plain_loss, _, plain = trainer._accum_loss_grads(
+        params, batch, dataclasses.replace(cfg, attn_impl="ref"), 1)
+    loss_err = abs(loss.item() - plain_loss.item()) / abs(plain_loss.item())
+    errs = [rel_err(a, b) for a, b in zip(leaves, tree_leaves(plain))]
+    del grads, plain, leaves
+    torch.cuda.empty_cache()
+    if loss_err > TRAIN_LOSS_RTOL or max(errs) > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"{name} kernel vs plain training step: loss {loss_err}, "
+                             f"gradients {max(errs)}")
+    ocfg = optimizer.OptConfig(lr=TRAIN_LR)
+    step = trainer.make_train_step(cfg, None, ocfg)
+    opt = optimizer.init_opt_state(params, ocfg)
+    torch.cuda.reset_peak_memory_stats()
+    step(params, opt, batch)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_params, new_opt, metrics = step(params, opt, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    if not np.isfinite(metrics["loss"].item()) or not np.isfinite(metrics["grad_norm"].item()):
+        raise AssertionError(f"{name} training step metrics not finite: {metrics}")
+    out = dict(layers=depth, params=lm.count_params(cfg), tokens=seq,
+               flash_attention_launches=launches, by_causal_flag=calls.counts,
+               loss=loss.item(), plain_loss=plain_loss.item(), loss_rel_err=loss_err,
+               grad_rel_err_max=max(errs), grad_rel_err_median=float(np.median(errs)),
+               tol=dict(loss=TRAIN_LOSS_RTOL, grads=TRAIN_GRAD_RTOL), step_s=step_s,
+               tokens_per_s=seq / step_s, grad_norm=metrics["grad_norm"].item(),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    phase("vlm_train" if cfg.family == "vlm" else "audio_train", arch=cfg.name, **out)
+    del params, opt, new_params, new_opt
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_instances(log: str, kernel: str = r"layout_gemm\w*?kernel") -> dict:
     """ptxas's registers and spill per instance of the kernels whose names
     match ``kernel``, by name and integer template arguments (the GEMM
@@ -3775,6 +4223,46 @@ def main() -> int:
         dist.destroy_process_group()
     phase("latent_moe_recipe_phases", seconds=latent_recipe_s)
 
+    # phase 17: the VLM and audio families at full width and depth: the
+    # kernels at their shapes, llama-3.2-vision-11b's forward and decode
+    # through lm.decode_step, musicgen-large's forward and serving (single
+    # host and TP on a one-rank NCCL mesh), decode against the forward at
+    # float32 (depth cut), one training step of each (depth cut)
+    t0 = time.perf_counter()
+    fam_attn = check_family_kernels(ops, card, fa.P_PIECES)
+    vlm_cfg, vlm_params = family_model(configs, lm, VLM_ARCH)
+    vlm_fwd = family_forward(vlm_cfg, vlm_params, lm, ops, fa)
+    vlm_dec = vlm_decode(vlm_cfg, vlm_params, lm, fd, fa)
+    del vlm_params
+    torch.cuda.empty_cache()
+    audio_cfg, audio_params = family_model(configs, lm, AUDIO_ARCH)
+    audio_fwd = family_forward(audio_cfg, audio_params, lm, ops, fa)
+    audio_srv, audio_single = serve_full_width(audio_cfg, audio_params, Engine, ServeConfig, fd)
+    audio_dec = decode_window(audio_cfg, audio_params, Engine, ServeConfig, VLM_WINDOW_STEPS)
+    device = init_world("cuda")
+    try:
+        audio_tp = serve_tp(audio_cfg, audio_params, Engine, ServeConfig, fd,
+                            make_mesh((1, 1), ("data", "model"), device=device), audio_single,
+                            audio_dec, window_steps=VLM_WINDOW_STEPS)
+    finally:
+        dist.destroy_process_group()
+    del audio_params, audio_single
+    torch.cuda.empty_cache()
+    fam_checks = {name: family_decode_vs_forward(configs, lm, name, depth)
+                  for name, depth in ((VLM_ARCH, VLM_CHECK_DEPTH),
+                                      (AUDIO_ARCH, AUDIO_CHECK_DEPTH))}
+    fam_train = {name: family_train(configs, lm, fa, ops, trainer, optimizer, tree_leaves, name,
+                                    depth, seq)
+                 for name, depth, seq in ((VLM_ARCH, VLM_TRAIN_DEPTH, VLM_TRAIN_SEQ),
+                                          (AUDIO_ARCH, AUDIO_TRAIN_DEPTH, SEQ))}
+    phase("vlm_audio_families", seconds=time.perf_counter() - t0,
+          vlm_forward_ms=vlm_fwd["forward_ms"], audio_forward_ms=audio_fwd["forward_ms"],
+          vlm_decode_tok_s=vlm_dec["decode_tok_s"], audio_decode_tok_s=audio_srv["decode_tok_s"],
+          audio_tp_decode_tok_s=audio_tp["decode_tok_s"],
+          decode_vs_forward_max_abs_err={k: v["max_abs_err"] for k, v in fam_checks.items()},
+          train_step_s={k: v["step_s"] for k, v in fam_train.items()},
+          train_peak_memory_gb={k: v["peak_memory_gb"] for k, v in fam_train.items()})
+
     gemm_src = "src/repro_torch/kernels/csrc/gemm.cu"
     report = []
     for name, replaces in (("gemm", "src/repro/kernels/gemm.py:80"),
@@ -3808,6 +4296,18 @@ def main() -> int:
                       for mode, row in rec.items() if mode != "sp_ring"},
                    **{f"{fam}_recipe_train_launches": row["tp"]["flash_attention_launches"]
                       for fam, row in latent_train.items()},
+                   "vlm_forward_launches": vlm_fwd["flash_attention_launches"],
+                   "vlm_forward_launches_by_causal_flag": vlm_fwd["by_causal_flag"],
+                   "vlm_decode_step_launches": vlm_dec["launches_per_step"][
+                       "flash_attention_non_causal"],
+                   "audio_forward_launches": audio_fwd["flash_attention_launches"],
+                   **{f"{fam}_train_launches": fam_train[arch]["flash_attention_launches"]
+                      for fam, arch in (("vlm", VLM_ARCH), ("audio", AUDIO_ARCH))},
+                   **{f"{case}_{key}": fam_attn[name][key]
+                      for case, name in (("vlm_cross", "cross_forward"),
+                                         ("vlm_cross_step", "cross_step"),
+                                         ("musicgen_64_64", "audio_forward"))
+                      for key in (*gqa4, "error_vs_float64_ratio", "library_bf16_backend")},
                    **rows["flash_attention"]})
     prefill = rows[("flash_decode", "prefill_chunk")]
     report.append({"name": "flash_decode", "route": "cuda",
@@ -3827,6 +4327,11 @@ def main() -> int:
                    rec_recipe[HYBRID_ARCH][1]["flash_decode_launches"],
                    **{f"zamba2_112_{key}": hyb_attn["flash_decode"][key] for key in gqa4},
                    **{f"moe_gqa4_{key}": moe_attn["flash_decode"][key] for key in gqa4},
+                   "vlm_decode_step_launches": vlm_dec["launches_per_step"]["flash_decode"],
+                   "audio_serve_launches": audio_srv["flash_decode_launches"],
+                   "audio_serve_launches_by_kind": audio_srv["flash_decode_launches_by_kind"],
+                   "audio_tp_serve_launches": audio_tp["flash_decode_launches"],
+                   **{f"musicgen_d64_{key}": fam_attn["audio_decode"][key] for key in gqa4},
                    "max_abs_err": worst["flash_decode"], **rows[("flash_decode", "decode")],
                    **{f"prefill_chunk_{key}": prefill[key]
                       for key in ("ms", "bound_ms", "bound_by", "fp32_bound_ms", "plain_ms",

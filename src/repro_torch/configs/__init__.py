@@ -1,5 +1,5 @@
 """Configurations of the port: the case study's GEMM sizes and the model
-architectures ported so far.  ``repro_torch.configs.get("phi4-mini-3.8b")``
+architectures.  ``repro_torch.configs.get("phi4-mini-3.8b")``
 resolves an architecture (its published config, or ``smoke=True`` for the
 reduced CPU one)."""
 from importlib import import_module
@@ -15,22 +15,14 @@ _MODULES = {
     "internlm2-20b": "internlm2_20b",
     "zamba2-7b": "zamba2_7b",
     "rwkv6-3b": "rwkv6_3b",
-}
-
-# the reference's other architectures, by the ROADMAP.md queue-1 item that
-# ports their family
-_LATER = {
-    "llama-3.2-vision-11b": "item 6 (VLM family)",
-    "musicgen-large": "item 6 (audio family, embeds input)",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
+    "musicgen-large": "musicgen_large",
 }
 
 ARCH_IDS = list(_MODULES)
 
 
 def get(name: str, *, smoke: bool = False) -> ArchConfig:
-    if name in _LATER:
-        raise NotImplementedError(f"arch {name!r} is not ported yet: ROADMAP.md queue 1, "
-                                  f"{_LATER[name]}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     mod = import_module(f"repro_torch.configs.{_MODULES[name]}")

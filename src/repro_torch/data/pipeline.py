@@ -50,14 +50,18 @@ def _synthetic_tokens(rng: np.random.Generator, B: int, S: int, vocab: int, a: f
 
 
 def make_batch(cfg, shape, step: int, dcfg: DataConfig = DataConfig()) -> dict:
-    """Batch dict for (arch cfg, :class:`ShapeCell`, step): ``tokens`` and
-    ``labels`` (the tokens shifted by one), int32 (B, S).  A pure function
-    of its inputs."""
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(f"input_kind {cfg.input_kind!r} is not ported yet: "
-                                  "ROADMAP.md queue 1, item 6")
+    """Batch dict for (arch cfg, :class:`ShapeCell`, step), a pure function
+    of its inputs.  ``tokens`` input: int32 (B, S) ``tokens`` and
+    ``labels`` (the tokens shifted by one); ``tokens+image`` adds the
+    stub vision frontend's float32 ``image_embeds`` (B, enc_len, enc_dim);
+    ``embeds`` input: the stub codec's float32 ``embeds`` (B, S, d_model)
+    and int32 ``labels``.  Every draw comes from one generator in the
+    reference's order, so the batch is the reference's, bit for bit."""
     B, S = shape.global_batch, shape.seq_len
     rng = np.random.default_rng(np.random.SeedSequence([dcfg.seed, step]))
+    if cfg.input_kind == "embeds":
+        emb = rng.standard_normal((B, S, cfg.d_model), dtype=np.float32)
+        return {"embeds": emb, "labels": rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)}
     if dcfg.source == "memmap":
         data = np.memmap(dcfg.path, dtype=np.int32, mode="r")
         need = B * (S + 1)
@@ -65,17 +69,23 @@ def make_batch(cfg, shape, step: int, dcfg: DataConfig = DataConfig()) -> dict:
         toks = np.asarray(data[start:start + need]).reshape(B, S + 1) % cfg.vocab
     else:
         toks = _synthetic_tokens(rng, B, S, cfg.vocab, dcfg.zipf_a)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.input_kind == "tokens+image":
+        batch["image_embeds"] = rng.standard_normal((B, cfg.enc_len, cfg.enc_dim),
+                                                    dtype=np.float32)
+    return batch
 
 
 def batch_specs(cfg, shape) -> dict:
     """``{name: (shape, numpy dtype)}`` of every model input of a cell."""
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(f"input_kind {cfg.input_kind!r} is not ported yet: "
-                                  "ROADMAP.md queue 1, item 6")
     B = shape.global_batch
     S = shape.seq_len if shape.kind != "decode" else 1
-    out = {"tokens": ((B, S), np.dtype(np.int32))}
+    if cfg.input_kind == "embeds":
+        out = {"embeds": ((B, S, cfg.d_model), np.dtype(np.float32))}
+    else:
+        out = {"tokens": ((B, S), np.dtype(np.int32))}
     if shape.kind == "train":
         out["labels"] = ((B, S), np.dtype(np.int32))
+    if cfg.input_kind == "tokens+image":
+        out["image_embeds"] = ((B, cfg.enc_len, cfg.enc_dim), np.dtype(np.float32))
     return out

@@ -7,11 +7,15 @@ Usage:
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b --smoke --device cpu
   torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
       --arch phi4-mini-3.8b --smoke --device cpu --grid 2x2   # TP decode, 4 gloo ranks
+  python -m repro_torch.launch.serve --arch musicgen-large --smoke --device cpu
 
 Runs on the GPU unless given ``--device cpu``, and raises without one.
 Prompts are the reference launcher's (``numpy`` seed 0), so both print the
-same requests.  ``--max-steps`` bounds the decode loop; requests still
-resident when the budget runs out are reported as in-flight.
+same requests; an ``embeds``-input model (musicgen-large) takes them
+through the engine's featurizer.  The VLM family is refused: the engine
+builds no image batch, as the reference's does not.  ``--max-steps``
+bounds the decode loop; requests still resident when the budget runs out
+are reported as in-flight.
 
 ``--grid DxM`` serves with tensor-parallel decode on a ``(data, model)``
 mesh of D*M ranks, ``--microbatches`` per rank's rows (default 2): start
@@ -55,8 +59,10 @@ def main(argv=None) -> int:
     from repro_torch import configs
     from repro_torch.core.dist import init_world, make_mesh, resolve_device
     from repro_torch.models import lm
-    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.engine import Engine, ServeConfig, check_servable
 
+    cfg = configs.get(args.arch, smoke=args.smoke)
+    check_servable(cfg)
     device = resolve_device(args.device)
     mesh, rank = None, 0
     if args.grid:
@@ -64,7 +70,6 @@ def main(argv=None) -> int:
         mesh = make_mesh([int(n) for n in args.grid.lower().split("x")], ("data", "model"),
                          device=device)
         rank = mesh.rank
-    cfg = configs.get(args.arch, smoke=args.smoke)
     params = lm.init_model(cfg, torch.Generator(device=device).manual_seed(0), device=device)
     scfg = ServeConfig(max_len=args.max_len, batch_slots=args.slots,
                        temperature=args.temperature, eos_token=-1)

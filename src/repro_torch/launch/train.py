@@ -18,6 +18,9 @@ step runs under ``make_recipe(cfg, mesh, attn_mode=--attn-mode)``
 the parameters and the optimizer state; checkpoints hold the logical
 arrays (gathered, rank 0 writes) and restore under any world size.  Runs
 on the GPU (NCCL under ``torchrun``) unless given ``--device cpu`` (gloo).
+The VLM and audio families run under no recipe yet: more than one process,
+or an ``--attn-mode`` other than ``auto``, is refused for them before the
+world forms (:func:`repro_torch.models.lm.refuse_recipe`).
 
 Usage:
   python -m repro_torch.launch.train --arch phi4-mini-3.8b --smoke --device cpu --steps 3
@@ -93,6 +96,11 @@ def watchdog(args, argv) -> int:
 
 # ------------------------------------------------------------------ train ----
 
+def _multi_process() -> bool:
+    """Whether ``torchrun`` started more than one process."""
+    return int(os.environ.get("WORLD_SIZE", 1)) > 1 and "RANK" in os.environ
+
+
 def setup(args):
     """``(cfg, device, mesh, rank)``: one process (no mesh), or the world of
     ``torchrun`` (more than one process) as a ``(data, model)`` mesh,
@@ -102,7 +110,7 @@ def setup(args):
 
     cfg = configs.get(args.arch, smoke=args.smoke)
     device = resolve_device(args.device)
-    if int(os.environ.get("WORLD_SIZE", 1)) == 1 or "RANK" not in os.environ:
+    if not _multi_process():
         return cfg, device, None, 0
     device = init_world(device)
     import torch.distributed as dist
@@ -114,10 +122,12 @@ def setup(args):
 
 
 def to_device(batch: dict, device) -> dict:
-    """A numpy batch as int64 tensors on ``device``."""
+    """A numpy batch on ``device``: token ids and labels as int64 tensors,
+    the ``embeds`` and ``image_embeds`` inputs as float32."""
     import torch
 
-    return {k: torch.from_numpy(v).to(device=device, dtype=torch.long) for k, v in batch.items()}
+    return {k: torch.from_numpy(v).to(device=device, dtype=torch.long if v.dtype.kind in "iu"
+                                      else torch.float32) for k, v in batch.items()}
 
 
 def run(args, cfg=None) -> dict:
@@ -127,6 +137,7 @@ def run(args, cfg=None) -> dict:
     to the loss read, which waits for the device)."""
     import torch
 
+    from repro_torch import configs
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.data.pipeline import DataConfig, ShapeCell, make_batch
     from repro_torch.models import lm
@@ -135,6 +146,8 @@ def run(args, cfg=None) -> dict:
     from repro_torch.train.optimizer import OptConfig, OptState, init_opt_state
     from repro_torch.train.trainer import make_train_step
 
+    if args.attn_mode != "auto" or _multi_process():  # before the world forms
+        lm.refuse_recipe(cfg or configs.get(args.arch, smoke=args.smoke))
     arch_cfg, device, mesh, rank = setup(args)
     cfg = cfg or arch_cfg
     recipe = None if mesh is None else make_recipe(cfg, mesh, attn_mode=args.attn_mode)

@@ -1,6 +1,6 @@
 """GQA attention (RoPE, optional QKV bias) of the dense LM and its KV cache;
 MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2 style) and its
-latent cache.
+latent cache; the VLM's non-causal cross-attention to image states.
 
 Attention dispatch
 ------------------
@@ -24,7 +24,9 @@ dtype); on the seq and ring paths it means the plain version.
 MLA's full-sequence path is the seq path with q/k of ``d_nope + d_rope``
 and v of ``d_v`` (96 and 64 for minicpm3: the kernel's ``(96, 64)``
 instance); its decode is the reference's absorbed form in plain PyTorch
-products (no kernel, as in the reference).
+products (no kernel, as in the reference).  The VLM's cross-attention is
+the seq path, non-causal, with Sq (the text's length, 1 in a decode step)
+over Skv (the image's 1024 positions).
 
 Under an active ``sp_ring`` recipe (:mod:`repro_torch.models.sharding`) the
 seq path becomes the
@@ -66,7 +68,7 @@ from .sharding import all_gather, current_recipe, lse_merge, partial_product, ra
 __all__ = ["rope_angles", "apply_rope", "gqa_specs", "mla_specs", "attention_seq",
            "attention_decode", "ring_step_offsets", "ring_attention_seq", "KVCache",
            "gqa_attention", "gqa_attention_placed", "idle_rows_read_chunk", "MLACache",
-           "mla_attention", "mla_attention_placed"]
+           "mla_attention", "mla_attention_placed", "cross_attn_specs", "cross_attention"]
 
 
 # ------------------------------------------------------------------ RoPE ----
@@ -849,3 +851,34 @@ def _mla_ring(p, x, *, shard, d_nope: int, d_rope: int, rope_theta: float, posit
         scale=(d_nope + d_rope) ** -0.5, impl=_kernel_impl(attn_impl))
     o = (acc / torch.where(l == 0.0, 1.0, l)[..., None]).to(dt)
     return _out_proj(o, p["wo"]), None
+
+
+# ------------------------------------------------------- cross-attention ----
+
+def cross_attn_specs(d_model: int, n_heads: int, n_kv: int, head_dim: int, d_enc: int,
+                     dtype=torch.float32) -> dict:
+    return {
+        "wq": pspec(("m", d_model), ("h", n_heads), ("d", head_dim), dtype=dtype, fan_in=("m",)),
+        "wk": pspec(("x", d_enc), ("g", n_kv), ("d", head_dim), dtype=dtype, fan_in=("x",)),
+        "wv": pspec(("x", d_enc), ("g", n_kv), ("d", head_dim), dtype=dtype, fan_in=("x",)),
+        "wo": pspec(("h", n_heads), ("d", head_dim), ("m", d_model), dtype=dtype,
+                    fan_in=("h", "d")),
+        "q_norm": pspec(("d", head_dim), dtype=dtype, init="ones"),
+        "k_norm": pspec(("d", head_dim), dtype=dtype, init="ones"),
+    }
+
+
+def cross_attention(p, x, enc, *, attn_impl: str | None = None, block: int = 512):
+    """x (B, S, m) attends to the encoder states enc (B, T, d_enc), the
+    reference's ``cross_attention``: q from x and k/v from enc (cast to x's
+    dtype first), each RMS-normed over its head dim (:func:`_rms`), then
+    non-causal attention through :func:`attention_seq` (on the card the
+    flash-attention kernel, with Sq = S over Skv = T) and the ``wo``
+    projection.  No cache: the image's K/V are recomputed at every call,
+    a decode step's too, as the reference does."""
+    q = _rms(_project(x, p["wq"]), p["q_norm"])
+    e = enc.to(x.dtype)
+    k = _rms(_project(e, p["wk"]), p["k_norm"])
+    v = _project(e, p["wv"])
+    o = attention_seq(q, k, v, causal=False, impl=attn_impl, block=block)
+    return _out_proj(o, p["wo"])

@@ -1,15 +1,17 @@
-"""Decoder blocks: the dense and MoE LMs' pre-norm GQA attention + FFN
-(SwiGLU, the GELU MLP, or the top-k MoE); the MLA family's pre-norm
-multi-head latent attention + SwiGLU; the SSM family's RWKV6 block (time
-mix, then a token-shifted squared-ReLU channel mix); and the hybrid
-family's Mamba2 block and its shared attention block (zamba2).  Every
-block takes ``place`` (its part of a ``tp``/``sp`` recipe's program) and
-``shard`` (its chunk of the sequence under ``sp_ring``).
+"""Decoder blocks: the dense, MoE and audio LMs' pre-norm GQA attention +
+FFN (SwiGLU, the GELU MLP, or the top-k MoE); the MLA family's pre-norm
+multi-head latent attention + SwiGLU; the VLM's gated cross-attention
+block (Llama-3.2-Vision style); the SSM family's RWKV6 block (time mix,
+then a token-shifted squared-ReLU channel mix); and the hybrid family's
+Mamba2 block and its shared attention block (zamba2).  Every block but the
+cross-attention block takes ``place`` (its part of a ``tp``/``sp``
+recipe's program) and ``shard`` (its chunk of the sequence under
+``sp_ring``); the VLM family runs under no recipe yet (ROADMAP queue 1
+item 8c).
 
 The reference scans stacked layer parameters with ``lax.scan``; the port
 keeps the stacked ``(L, ...)`` layout and loops over the layer index
-(``repro_torch.models.lm``).  The VLM cross-attention block waits for its
-family's slice (ROADMAP queue 1 item 6).
+(``repro_torch.models.lm``).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from .module import pspec
 from .sharding import partial_product
 
 __all__ = ["norm_spec", "rmsnorm", "attn_block_specs", "attn_block", "mla_block_specs",
-           "mla_block", "rwkv_block_specs", "RWKVBlockState", "rwkv_block", "mamba_block_specs",
+           "mla_block", "cross_block_specs", "cross_block", "rwkv_block_specs", "RWKVBlockState", "rwkv_block", "mamba_block_specs",
            "mamba_block", "shared_attn_block_specs", "shared_lora_specs", "shared_attn_block"]
 
 
@@ -146,6 +148,33 @@ def mla_block(p, x, cfg, *, cache=None, positions=None, new_counts=None, prefill
     else:
         f = ffn_mod.swiglu(p["ffn"], rmsnorm(p["ln2"], x))
     return x + f, new_cache, 0.0
+
+
+# ------------------------------------------------------------ cross block ----
+
+def cross_block_specs(cfg) -> dict:
+    dt = cfg.param_dtype
+    return {
+        "ln1": norm_spec(cfg.d_model, dt),
+        "ln2": norm_spec(cfg.d_model, dt),
+        "attn": attn.cross_attn_specs(cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim,
+                                      cfg.enc_dim, dt),
+        "ffn": ffn_mod.swiglu_specs(cfg.d_model, cfg.d_ff, dt),
+        "gate_attn": pspec(("z", 1), dtype=dt, init="zeros"),
+        "gate_ffn": pspec(("z", 1), dtype=dt, init="zeros"),
+    }
+
+
+def cross_block(p, x, enc, cfg):
+    """The gated cross-attention block (Llama-3.2-Vision style): ``x +
+    tanh(gate_attn) * cross_attention(...)``, then ``x + tanh(gate_ffn) *
+    swiglu(...)``, each gate's tanh in x's dtype.  ``enc`` (B, enc_len,
+    enc_dim) are the image's states; the block keeps no cache."""
+    h = attn.cross_attention(p["attn"], rmsnorm(p["ln1"], x), enc, attn_impl=cfg.attn_impl,
+                             block=cfg.attn_block)
+    x = x + torch.tanh(p["gate_attn"].to(x.dtype)) * h
+    f = ffn_mod.swiglu(p["ffn"], rmsnorm(p["ln2"], x))
+    return x + torch.tanh(p["gate_ffn"].to(x.dtype)) * f
 
 
 # ------------------------------------------------------------- RWKV block ----

@@ -1,6 +1,6 @@
-"""The dense, MoE, MLA, SSM (rwkv6) and hybrid (zamba2) language models:
-embeddings -> block stack -> head, with the full-sequence forward and the
-serving decode step.
+"""The dense, MoE, MLA, VLM (llama-3.2-vision), audio (musicgen), SSM
+(rwkv6) and hybrid (zamba2) language models: embeddings -> block stack ->
+head, with the full-sequence forward and the serving decode step.
 
 Layer parameters, like the reference's, are stacked on a leading ``l`` dim
 (``params["blocks"]`` leaves are ``(L, ...)``), and so are the caches (K/V
@@ -11,9 +11,16 @@ Mamba2 blocks by super-block, ``(n_shared, group_m, ...)``, with one LoRA
 per shared application ``(n_shared, ...)``, one unstacked shared attention
 block, and ``n_tail`` trailing Mamba2 blocks; its cache is the Mamba2
 states stacked the same way and the shared block's ring-buffer K/V of
-``min(max_len, shared_window)`` positions a application.  The VLM and
-audio families and the ``embeds`` input kind wait for their slices
-(ROADMAP.md queue 1 item 6).
+``min(max_len, shared_window)`` positions a application.  The VLM
+family stacks its self-attention blocks by group, ``self_blocks``
+``(n_cross, group_self, ...)``, each group followed by one gated
+cross-attention block ``cross_blocks`` ``(n_cross, ...)`` over the image's
+states ``batch["image_embeds"]`` (the ``tokens+image`` input kind); its
+cache is the self blocks' K/V stacked the same way, and the image's K/V
+are recomputed every step, as the reference does.  The audio family is the
+dense stack (GELU MLP) over the ``embeds`` input kind: the stub codec's
+frame embeddings plus sinusoidal positions (:func:`embed_inputs`), with no
+``embed`` table.
 
 Under an active recipe (:mod:`repro_torch.models.sharding`) the
 parameters are this rank's shards (``weights.shard_params_by_recipe``) and
@@ -49,14 +56,18 @@ The MoE family's FFN under ``tp``/``sp`` is
 :func:`repro_torch.models.ffn.moe_placed` (expert parallelism where the
 grid hosts it, else the capacity dispatch over the tokens the reference
 routes together, the experts or their columns split over ``model``), and
-its aux loss is summed over the blocks as without a recipe.  The explicit
-tensor-parallel decode step is :mod:`repro_torch.serve.tp_decode`.
+its aux loss is summed over the blocks as without a recipe.  The VLM and
+audio families run under no recipe yet: :func:`forward`,
+:func:`init_cache` and :func:`decode_step` refuse them under one (ROADMAP.md
+queue 1, item 8c) before any collective.  The explicit tensor-parallel
+decode step (the dense and audio families) is
+:mod:`repro_torch.serve.tp_decode`.
 
 Training (:func:`loss_fn`, :mod:`repro_torch.train.trainer`) differentiates
 the float32 parameters themselves: every use casts a weight to the
 activation dtype (``w.to(x.dtype)``), so the gradients come back float32,
 as JAX's do.  ``cfg.remat == "block"`` checkpoints each block, and the
-hybrid family each super-block too (``torch.utils.checkpoint``, the
+hybrid and VLM families each super-block too (``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint`` per scanned body), when a gradient is being
 taken.  Under a recipe each rank's gradients are those of its shards: the
 collectives are differentiable (:class:`repro_torch.models.sharding.Placement`),
@@ -66,6 +77,7 @@ partial gradients over the ranks
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import torch
@@ -81,16 +93,29 @@ from .sharding import (current_recipe, decode_state_shardings, gather_cut, local
                        placement, recipe_pspecs, token_shard)
 
 __all__ = ["build_specs", "count_params", "embed_inputs", "lm_logits", "forward", "loss_fn",
-           "DecodeState", "init_cache", "decode_step", "init_model", "hybrid_dims"]
+           "DecodeState", "init_cache", "decode_step", "init_model", "hybrid_dims", "vlm_dims",
+           "refuse_recipe"]
+
+_FAMILIES = ("dense", "moe", "mla", "vlm", "ssm", "hybrid", "audio")
+# the families whose program under a sharding recipe is still to port
+_NO_RECIPE = ("vlm", "audio")
 
 
-def _require_ported(cfg) -> None:
-    if cfg.family not in ("dense", "moe", "mla", "ssm", "hybrid"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet: ROADMAP.md "
-                                  "queue 1, item 6")
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(f"input_kind {cfg.input_kind!r} is not ported yet: "
-                                  "ROADMAP.md queue 1, item 6")
+def refuse_recipe(cfg) -> None:
+    """Raises ``NotImplementedError`` for a family that runs under no
+    sharding recipe yet (the VLM and audio families)."""
+    if cfg.family in _NO_RECIPE:
+        raise NotImplementedError(
+            f"the {cfg.family!r} family under a sharding recipe is not ported yet: ROADMAP.md "
+            "queue 1, item 8c: the VLM and audio families under a recipe")
+
+
+def _active_recipe(cfg):
+    """The active recipe, after refusing a family that runs under none."""
+    recipe = current_recipe()
+    if recipe is not None:
+        refuse_recipe(cfg)
+    return recipe
 
 
 # ================================================================= specs ====
@@ -103,13 +128,25 @@ def hybrid_dims(cfg) -> tuple[int, int, int]:
     return n_shared, group_m, cfg.n_layers - n_shared - n_shared * group_m
 
 
+def vlm_dims(cfg) -> tuple[int, int]:
+    """``(n_cross, group_self)`` of the VLM family: cross-attention blocks,
+    and self-attention blocks before each."""
+    n_cross = cfg.n_layers // cfg.cross_every
+    group_self = cfg.cross_every - 1
+    if cfg.n_layers != n_cross * cfg.cross_every:
+        raise ValueError(f"{cfg.n_layers} layers are not whole groups of cross_every = "
+                         f"{cfg.cross_every}")
+    return n_cross, group_self
+
+
 def build_specs(cfg) -> dict:
-    _require_ported(cfg)
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
     dt = cfg.param_dtype
-    specs: dict[str, Any] = {
-        "embed": pspec(("v", cfg.vocab_padded), ("m", cfg.d_model), dtype=dt, init="embed"),
-        "final_norm": blk.norm_spec(cfg.d_model, dt),
-    }
+    specs: dict[str, Any] = {"final_norm": blk.norm_spec(cfg.d_model, dt)}
+    if cfg.input_kind in ("tokens", "tokens+image"):
+        specs["embed"] = pspec(("v", cfg.vocab_padded), ("m", cfg.d_model), dtype=dt,
+                               init="embed")
     if not cfg.tie_embeddings:
         specs["lm_head"] = pspec(("m", cfg.d_model), ("v", cfg.vocab_padded), dtype=dt,
                                  fan_in=("m",))
@@ -122,6 +159,12 @@ def build_specs(cfg) -> dict:
         specs["shared_block"] = blk.shared_attn_block_specs(cfg)
         specs["shared_lora"] = stack_specs(blk.shared_lora_specs(cfg, cfg.shared_lora_rank),
                                            n_shared)
+        return specs
+    if cfg.family == "vlm":
+        n_cross, group_self = vlm_dims(cfg)
+        specs["self_blocks"] = stack_specs(
+            stack_specs(blk.attn_block_specs(cfg), group_self, dim="l2"), n_cross)
+        specs["cross_blocks"] = stack_specs(blk.cross_block_specs(cfg), n_cross)
         return specs
     block_specs = {"mla": blk.mla_block_specs, "ssm": blk.rwkv_block_specs}.get(
         cfg.family, blk.attn_block_specs)
@@ -141,11 +184,31 @@ def count_params(cfg, *, active_only: bool = False) -> int:
 
 # ============================================================= embeddings ====
 
+def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """positions (...,) -> (..., d) float32 ``[sin, cos]`` features: shared
+    (S,) and per-row (B, S) position grids alike (continuous batching
+    offsets every slot on its own), the reference's ``_sinusoidal``."""
+    half = d // 2
+    scale = torch.tensor(-math.log(10000.0), dtype=torch.float32, device=positions.device)
+    freq = torch.exp(scale * torch.arange(half, dtype=torch.float32, device=positions.device)
+                     / half)
+    ang = positions.to(torch.float32)[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def embed_inputs(params, batch, cfg, *, positions=None):
-    """batch -> (B, S, m) activations in cfg.act_dtype."""
-    del positions  # only the embeds input kind adds position features
-    _require_ported(cfg)
-    return params["embed"].to(cfg.act_dtype)[batch["tokens"]]
+    """batch -> (B, S, m) activations in cfg.act_dtype: the token lookup,
+    or for the ``embeds`` input kind ``batch["embeds"]`` plus sinusoidal
+    features of ``positions`` ((S,) or per row (B, S); default
+    ``arange(S)``), each cast to the activation dtype first and added there,
+    in the reference's order of rounding."""
+    if cfg.input_kind != "embeds":
+        return params["embed"].to(cfg.act_dtype)[batch["tokens"]]
+    x = batch["embeds"].to(cfg.act_dtype)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    pe = _sinusoidal(positions, cfg.d_model).to(cfg.act_dtype)
+    return x + (pe if pe.ndim == 3 else pe[None])
 
 
 def lm_logits(params, x, cfg):
@@ -186,13 +249,14 @@ def forward(params, batch, cfg, *, positions=None):
     Under an active recipe every rank takes the whole batch and this
     rank's shards of the parameters, and returns the whole ``(B, S, V)``
     logits, the same on every rank; in between it computes only its own
-    part (:func:`_forward_placed`, :func:`_forward_sp_ring`)."""
-    recipe = current_recipe()
+    part (:func:`_forward_placed`, :func:`_forward_sp_ring`).  The VLM and
+    audio families refuse a recipe (:func:`refuse_recipe`)."""
+    recipe = _active_recipe(cfg)
     if recipe is not None and recipe.sp_ring:
         return _forward_sp_ring(params, batch, cfg, recipe, positions)
     if recipe is not None:
         return _forward_placed(params, batch, cfg, recipe, positions)
-    x = embed_inputs(params, batch, cfg)
+    x = embed_inputs(params, batch, cfg, positions=positions)
     block = _block(cfg)
     aux = 0.0
     if cfg.family == "ssm":
@@ -200,6 +264,8 @@ def forward(params, batch, cfg, *, positions=None):
             x, _, _ = block(_layer(params["blocks"], i), x, cfg)
     elif cfg.family == "hybrid":
         x = _forward_hybrid(params, x, cfg, positions)
+    elif cfg.family == "vlm":
+        x = _forward_vlm(params, x, batch["image_embeds"], cfg, positions)
     else:
         for i in range(cfg.n_layers):
             x, _, a = block(_layer(params["blocks"], i), x, cfg, positions=positions)
@@ -233,6 +299,25 @@ def _forward_hybrid(params, x, cfg, positions, *, place=None, pspecs=None, shard
         x = group(_layer(params["mamba_blocks"], i), _layer(params["shared_lora"], i), x)
     for i in range(n_tail):
         x, _, _ = mamba(use(_layer(params["tail_blocks"], i), "tail_blocks", 1), x, cfg, **kw)
+    return x
+
+
+def _forward_vlm(params, x, enc, cfg, positions):
+    """The VLM stack: ``n_cross`` groups of ``group_self`` self-attention
+    blocks and one gated cross-attention block over the image's states
+    ``enc`` (each group, and each self block in it, under :func:`_remat`,
+    the reference's ``_maybe_remat`` of its scanned bodies)."""
+    n_cross, group_self = vlm_dims(cfg)
+    block = _block(cfg)
+
+    def group(p_self, p_cross, x):
+        for j in range(group_self):
+            x, _, _ = block(_layer(p_self, j), x, cfg, positions=positions)
+        return blk.cross_block(p_cross, x, enc, cfg)
+
+    group = _remat(group, cfg)
+    for i in range(n_cross):
+        x = group(_layer(params["self_blocks"], i), _layer(params["cross_blocks"], i), x)
     return x
 
 
@@ -387,8 +472,9 @@ def _forward_placed(params, batch, cfg, recipe, positions):
 
 def loss_fn(params, batch, cfg):
     """Next-token cross-entropy (+ the MoE aux loss) of ``batch``
-    (``tokens`` and ``labels`` (B, S), the labels already shifted by the
-    pipeline; an optional float ``loss_mask``).  Returns ``(loss,
+    (``tokens``, or ``embeds`` (B, S, m) for the audio family, and
+    ``labels`` (B, S), the labels already shifted by the pipeline; the
+    VLM's ``image_embeds``; an optional float ``loss_mask``).  Returns ``(loss,
     metrics)``: the loss a float32 scalar with its graph, the metrics
     (``nll``, ``aux``, ``ppl_proxy``) detached float32 scalars."""
     logits, aux = forward(params, batch, cfg)
@@ -408,7 +494,8 @@ def loss_fn(params, batch, cfg):
 
 class DecodeState(NamedTuple):
     # KVCache: k/v (L, B, G, T, D); MLACache: c (L, B, T, kv_rank), kr (L, B, T, d_rope);
-    # both with length (L, B); RWKVBlockState (ssm) and the hybrid's dict: see init_cache
+    # both with length (L, B); RWKVBlockState (ssm), the hybrid's and the VLM's dicts:
+    # see init_cache
     caches: Any
     positions: torch.Tensor  # (B,) int32 next position
 
@@ -421,7 +508,10 @@ def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda"):
     (n_shared, group_m, B, ...) and ``"tail"`` (n_tail, B, ...) (the ssm
     state float32), and the shared block's ``"shared"`` :class:`KVCache`
     (n_shared, B, n_kv, min(max_len, shared_window), head_dim), a ring
-    buffer once a row's length passes its size.
+    buffer once a row's length passes its size.  The VLM's is ``{"self":
+    KVCache}`` of its self blocks' K/V (n_cross, group_self, B, n_kv,
+    max_len, head_dim), lengths (n_cross, group_self, B); its cross blocks
+    keep none.
 
     Under an active recipe every leaf is this rank's block, cut by
     :func:`repro_torch.models.sharding.decode_state_shardings`: the K/V by
@@ -430,10 +520,10 @@ def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda"):
     caches by sequence (the same), the recurrent states by
     heads (else RWKV's value columns, Mamba2's head dim), rows over the
     batch axes where they divide ``batch_size``; the shifts and conv
-    windows are whole over ``model``, and the lengths whole."""
-    _require_ported(cfg)
+    windows are whole over ``model``, and the lengths whole.  The VLM and
+    audio families refuse a recipe (:func:`refuse_recipe`)."""
+    recipe = _active_recipe(cfg)
     device = resolve_device(device)
-    recipe = current_recipe()
     if recipe is not None:
         return _init_cache_placed(cfg, batch_size, max_len, device, recipe)
     return _init_cache_whole(cfg, batch_size, max_len, device)
@@ -472,6 +562,13 @@ def _init_cache_whole(cfg, B: int, max_len: int, device: torch.device):
         if n_tail:
             out["tail"] = mstate(n_tail)
         return out
+    if cfg.family == "vlm":
+        lead = vlm_dims(cfg)
+        shape = (*lead, B, cfg.n_kv, max_len, cfg.head_dim)
+        return {"self": attn_mod.KVCache(
+            k=torch.zeros(shape, dtype=dt, device=device),
+            v=torch.zeros(shape, dtype=dt, device=device),
+            length=torch.zeros((*lead, B), dtype=torch.int32, device=device))}
     length = torch.zeros((L, B), dtype=torch.int32, device=device)
     if cfg.family == "mla":
         return attn_mod.MLACache(
@@ -507,8 +604,11 @@ def _init_cache_placed(cfg, B: int, max_len: int, device, recipe):
 
 def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
                 prefill: bool = False):
-    """One serve step: embed the new token(s) ``batch['tokens']`` (B, S), run
-    every block against the caches and return ``(logits, new DecodeState)``.
+    """One serve step: embed the new token(s) ``batch['tokens']`` (B, S), or
+    the audio family's frames ``batch['embeds']`` (B, S, m) at each row's
+    positions, run every block against the caches and return ``(logits,
+    new DecodeState)``.  The VLM family reads ``batch['image_embeds']``
+    (B, enc_len, enc_dim) every step; its cross blocks keep no cache.
 
     Every row runs at its own position (``state.positions[b]``) for RoPE and
     the causal mask.  ``new_counts`` (B,) int32 says how many of the chunk's
@@ -529,17 +629,23 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     holds this rank's blocks of the caches and states
     (:func:`init_cache` under the recipe), with the lengths and positions
     whole; ``batch`` and ``new_counts`` are whole, and so are the returned
-    logits, the same on every rank (:func:`_decode_placed`)."""
-    recipe = current_recipe()
+    logits, the same on every rank (:func:`_decode_placed`).  The VLM and
+    audio families refuse a recipe (:func:`refuse_recipe`)."""
+    recipe = _active_recipe(cfg)
     if recipe is not None:
         return _decode_placed(params, state, batch, cfg, recipe, new_counts, prefill)
     positions = state.positions
-    S = batch["tokens"].shape[1]
+    S = batch["embeds" if cfg.input_kind == "embeds" else "tokens"].shape[1]
     pos2d = positions[:, None] + torch.arange(S, dtype=positions.dtype,
                                               device=positions.device)[None, :]
     adv = S if new_counts is None else new_counts
-    x = embed_inputs(params, batch, cfg)
+    x = embed_inputs(params, batch, cfg, positions=pos2d)
     caches = state.caches
+    if cfg.family == "vlm":
+        x, new_caches = _decode_vlm(params, caches, x, batch["image_embeds"], cfg, pos2d,
+                                    new_counts, prefill)
+        return lm_logits(params, x, cfg), DecodeState(
+            caches=new_caches, positions=(positions + adv).to(positions.dtype))
     if cfg.family in ("ssm", "hybrid"):
         active = None if new_counts is None else new_counts > 0
         if cfg.family == "ssm":
@@ -562,6 +668,29 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     new_caches = caches._replace(length=torch.stack(lengths))
     logits = lm_logits(params, x, cfg)
     return logits, DecodeState(caches=new_caches, positions=(positions + adv).to(positions.dtype))
+
+
+def _decode_vlm(params, caches, x, enc, cfg, pos2d, new_counts, prefill):
+    """The VLM stack's decode step: each group's self blocks against their
+    K/V (updated in place, idle rows kept), then the group's cross block
+    over ``enc``, which reads no cache."""
+    n_cross, group_self = vlm_dims(cfg)
+    kv = caches["self"]
+    # every block's lengths are the same: ask once per step
+    idle_read = None if new_counts is None else attn_mod.idle_rows_read_chunk(
+        kv.length[0, 0], new_counts, kv.k.shape[-2], x.shape[1])
+    block = _block(cfg)
+    lengths = []
+    for i in range(n_cross):
+        p_self = _layer(params["self_blocks"], i)
+        for j in range(group_self):
+            c = attn_mod.KVCache(kv.k[i, j], kv.v[i, j], kv.length[i, j])
+            x, new_c, _ = block(_layer(p_self, j), x, cfg, cache=c, positions=pos2d,
+                                new_counts=new_counts, prefill=prefill,
+                                idle_read_chunk=idle_read)
+            lengths.append(new_c.length)
+        x = blk.cross_block(_layer(params["cross_blocks"], i), x, enc, cfg)
+    return x, {"self": kv._replace(length=torch.stack(lengths).reshape(kv.length.shape))}
 
 
 def _decode_placed(params, state, batch, cfg, recipe, new_counts, prefill):

@@ -1,12 +1,15 @@
-"""Continuous-batching engine on the port's dense, MoE, MLA, SSM and
-hybrid models, single-host, or with tensor-parallel decode for the dense
-family.
+"""Continuous-batching engine on the port's dense, MoE, MLA, audio, SSM
+and hybrid models, single-host, or with tensor-parallel decode for the
+dense and audio families.
 
 A fixed pool of batch *slots* shares one cache allocation (K/V, or MLA's
 latent and rope-key caches) tracked by a
 :class:`repro_torch.serve.kv.KVLedger` (per-request lengths over uniform
 capacity tiles).  Finished sequences free their slot and the next queued
-request is prefilled into it:
+request is prefilled into it.  The audio family (``embeds`` input) takes
+a request as frame embeddings, token ids or both: ids alone are featurized
+(:func:`_np_sinusoidal`, or the engine's ``featurizer``), and every sampled
+token is featurized to feed the next step.
 
   * **admission-time prefill** runs the newly admitted prompts (all but
     their last token) as one masked chunk through
@@ -43,8 +46,11 @@ the rank that holds them), the logits come back whole on every rank, and
 all ranks sample the same tokens.  A whole-prompt prefill chunk
 under ``sp_ring`` runs the ring.  The reference's mix of a recipe for
 prefill with the explicit TP decode step is not taken: a ``recipe`` with a
-``mesh`` is refused.  The ``embeds`` input kind and the VLM and audio
-families wait for ROADMAP.md queue 1 item 6.
+``mesh`` is refused, and so is a recipe for the audio family (ROADMAP.md
+queue 1, item 8c).  The VLM family is refused: the reference's engine
+builds no ``image_embeds`` batch, so its VLM ``decode_step`` cannot be
+served there (ROADMAP.md §3); the VLM is served through ``lm.init_cache``
+and ``lm.decode_step`` directly.
 """
 from __future__ import annotations
 
@@ -54,17 +60,18 @@ import numpy as np
 import torch
 
 from repro_torch.models import lm
+from repro_torch.models.module import tree_leaves
 from repro_torch.models.sharding import placement, use_recipe
 from repro_torch.models.weights import cast_params, shard_params
 from repro_torch.serve.kv import KVLedger
 from repro_torch.serve.tp_decode import make_tp_decode_step, tp_decode_specs
 
-__all__ = ["ServeConfig", "Engine"]
+__all__ = ["ServeConfig", "Engine", "check_servable"]
 
 # families whose decode step takes multi-token chunks exactly; the MoE's
 # capacity dispatch could drop a chunk's tokens, and recurrent state (ssm,
 # hybrid) would take a chunk's padding, so they prefill per token
-_CHUNK_FAMILIES = ("dense", "mla")
+_CHUNK_FAMILIES = ("dense", "audio", "mla")
 
 
 @dataclasses.dataclass
@@ -81,6 +88,20 @@ class _Slot:
     request_id: int | None = None
     tokens: list = dataclasses.field(default_factory=list)
     remaining: int = 0
+    next_embed: np.ndarray | None = None  # (m,) float32: an embeds model's next feed
+
+
+def _np_sinusoidal(ids, d: int) -> np.ndarray:
+    """The engine's token-id featurizer for ``embeds``-input models, the
+    stand-in for a codec front end (the reference's, in numpy as there):
+    ``[sin, cos]`` of the ids times ``d // 2`` frequencies, float32, so
+    distinct ids map to distinct embeddings and generation depends on the
+    prompt."""
+    ids = np.asarray(ids, np.float32)
+    half = d // 2
+    freq = np.exp(-np.log(10000.0) * np.arange(half, dtype=np.float32) / half)
+    ang = ids[..., None] * freq
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32)
 
 
 def _kv_bytes_per_pos(cfg) -> int:
@@ -132,6 +153,15 @@ def _reset_slot_rows(caches, i: int, rows: tuple[int, int, int] | None = None) -
             raise ValueError(f"unknown cache leaf {name!r}")
 
 
+def check_servable(cfg) -> None:
+    """Raises ``NotImplementedError`` for the VLM family, which the engine
+    does not serve."""
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            "the engine serves no VLM: the reference's engine builds no image_embeds batch "
+            "(ROADMAP.md §3); serve it through lm.init_cache and lm.decode_step")
+
+
 class Engine:
     """Slot-based continuous batching over the shared decode path.
 
@@ -145,18 +175,21 @@ class Engine:
     engine on the same requests.  Temperature sampling draws from
     a ``torch.Generator`` seeded from ``ServeConfig.seed`` (its numbers are
     not JAX's; greedy decoding is what is held against the reference).
+    ``featurizer`` maps a list of token ids to (n, d_model) float32 frame
+    embeddings for an ``embeds``-input model (default
+    :func:`_np_sinusoidal`).
 
     Counters: ``steps`` counts the prefill chunks and decode steps run.
     """
 
     def __init__(self, cfg, params, scfg: ServeConfig, recipe=None, *, mesh=None,
                  microbatches: int = 0, featurizer=None):
+        check_servable(cfg)
         if recipe is not None and (mesh is not None or microbatches):
             raise ValueError("Engine takes a sharding recipe or the explicit tensor-parallel "
                              "decode (mesh, microbatches), not both")
-        if featurizer is not None or cfg.input_kind != "tokens":
-            raise NotImplementedError("embeds-input serving is not ported yet: ROADMAP.md "
-                                      "queue 1, item 6")
+        if recipe is not None:
+            lm.refuse_recipe(cfg)
         if (mesh is None) != (not microbatches):
             raise ValueError("tensor-parallel decode needs both a (data, model) mesh and "
                              f"microbatches >= 1 (got mesh={mesh!r}, microbatches={microbatches})")
@@ -165,7 +198,7 @@ class Engine:
         self.cfg = cfg
         self.scfg = scfg
         self.recipe = recipe
-        self.device = params["embed"].device
+        self.device = tree_leaves(params)[0].device
         self.params = cast_params(params, cfg.act_dtype)
         B = scfg.batch_slots
         self._tp = None
@@ -182,24 +215,39 @@ class Engine:
         self.state = lm.DecodeState(
             caches=caches, positions=torch.zeros((B,), dtype=torch.int32, device=self.device))
         self.slots = [_Slot() for _ in range(B)]
-        self.queue: list[tuple[int, list[int], int]] = []
+        self.queue: list[tuple[int, list[int], np.ndarray | None, int]] = []
         self.finished: dict[int, list[int]] = {}
         self.ledger = KVLedger(slots=B, max_len=scfg.max_len, bytes_per_pos=_kv_bytes_per_pos(cfg))
         self._gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
         self.steps = {"prefill": 0, "decode": 0}
+        self._embeds_in = cfg.input_kind == "embeds"
+        self._featurize = featurizer or (lambda ids: _np_sinusoidal(ids, cfg.d_model))
 
     # ------------------------------------------------------------ public ----
-    def submit(self, request_id: int, prompt: list[int], max_new_tokens: int = 16) -> None:
-        """Queue a request: a token-id prompt and how many tokens to add."""
-        prompt = list(prompt)
-        if not prompt:
+    def submit(self, request_id: int, prompt: list[int] | None = None,
+               max_new_tokens: int = 16, prompt_embeds=None) -> None:
+        """Queue a request: a token-id ``prompt`` and how many tokens to add.
+        An ``embeds``-input model may take ``prompt_embeds`` (P, d_model)
+        instead of the ids, or beside them (they are then the request's
+        leading tokens); ids alone are featurized."""
+        if prompt is None and prompt_embeds is None:
+            raise ValueError("submit needs a prompt and/or prompt_embeds")
+        prompt = list(prompt) if prompt is not None else []
+        if prompt_embeds is not None:
+            prompt_embeds = np.asarray(prompt_embeds, np.float32)
+            if prompt_embeds.ndim != 2 or prompt_embeds.shape[1] != self.cfg.d_model:
+                raise ValueError(f"prompt_embeds must be (P, {self.cfg.d_model})")
+        elif self._embeds_in:
+            prompt_embeds = self._featurize(prompt)
+        plen = len(prompt_embeds) if prompt_embeds is not None else len(prompt)
+        if not plen:
             raise ValueError("submit needs a non-empty prompt")
-        if len(prompt) + max_new_tokens > self.scfg.max_len:
+        if plen + max_new_tokens > self.scfg.max_len:
             raise ValueError(
-                f"request {request_id}: prompt {len(prompt)} + {max_new_tokens} new "
+                f"request {request_id}: prompt {plen} + {max_new_tokens} new "
                 f"exceeds max_len {self.scfg.max_len}"
             )
-        self.queue.append((request_id, prompt, max_new_tokens))
+        self.queue.append((request_id, prompt, prompt_embeds, max_new_tokens))
 
     @property
     def in_flight(self) -> dict[int, list[int]]:
@@ -218,14 +266,16 @@ class Engine:
         return self.finished
 
     # ---------------------------------------------------------- internals ----
-    def _step(self, tokens: np.ndarray, counts: np.ndarray, *, prefill: bool,
+    def _step(self, inputs: np.ndarray, counts: np.ndarray, *, prefill: bool,
               whole_prompt: bool = False):
-        """One step of ``lm.decode_step``; ``prefill`` counts it as a prefill
-        step, and only a ``whole_prompt`` chunk (every active row from
-        position 0) is passed on as ``prefill=True``, which under an
+        """One step of ``lm.decode_step`` on ``inputs``, token ids (B, S) or
+        an ``embeds`` model's frames (B, S, m); ``prefill`` counts it as a
+        prefill step, and only a ``whole_prompt`` chunk (every active row
+        from position 0) is passed on as ``prefill=True``, which under an
         ``sp_ring`` recipe rings the chunk's fresh Q/K/V alone: a per-token
         prefill step attends over its row's cache like a decode step."""
-        batch = {"tokens": torch.from_numpy(tokens).to(self.device)}
+        batch = {"embeds" if self._embeds_in else "tokens":
+                 torch.from_numpy(inputs).to(self.device)}
         counts = torch.from_numpy(counts).to(self.device)
         if self._tp is not None and not prefill:
             logits, self.state = self._tp(self.tp_params, self.state, batch, counts > 0)
@@ -237,33 +287,45 @@ class Engine:
         return logits
 
     def _fill_slots(self) -> None:
-        newly: list[tuple[int, list[int]]] = []
+        newly: list[tuple[int, list[int], np.ndarray | None]] = []
         for i, slot in enumerate(self.slots):
             if slot.request_id is None and self.queue:
-                rid, prompt, max_new = self.queue.pop(0)
-                self.ledger.admit(i, len(prompt), max_new)
+                rid, prompt, embeds, max_new = self.queue.pop(0)
+                self.ledger.admit(i, len(embeds) if embeds is not None else len(prompt),
+                                  max_new)
                 slot.request_id = rid
                 slot.tokens = list(prompt)
                 slot.remaining = max_new
+                slot.next_embed = embeds[-1] if embeds is not None else None
                 _reset_slot_rows(self.state.caches, i, self._rows)
                 self.state.positions[i] = 0
-                newly.append((i, prompt))
+                newly.append((i, prompt, embeds))
         if newly:
             self._prefill(newly)
 
+    def _buffer(self, S: int) -> np.ndarray:
+        """Zeros for a step's inputs: token ids (B, S), or frames (B, S, m)."""
+        B = self.scfg.batch_slots
+        if self._embeds_in:
+            return np.zeros((B, S, self.cfg.d_model), np.float32)
+        return np.zeros((B, S), np.int64)
+
     def _prefill(self, newly) -> None:
-        """Admission-time batched prefill of all newly filled slots, as one
-        chunk padded to a power of two, or for the MoE family one token of
-        every feed a step; only the target slots write their cache rows
+        """Admission-time batched prefill of all newly filled slots (each
+        prompt's ids or frames but the last), as one chunk padded to a power
+        of two, or for the MoE and recurrent families one input of every
+        feed a step; only the target slots write their cache rows
         (``new_counts``)."""
         B = self.scfg.batch_slots
-        feeds = [(i, prompt[:-1]) for i, prompt in newly if len(prompt) > 1]
+        feeds = [(i, embeds[:-1] if embeds is not None else prompt[:-1])
+                 for i, prompt, embeds in newly]
+        feeds = [(i, f) for i, f in feeds if len(f)]
         if not feeds:
             return
         S = max(len(f) for _, f in feeds)
         if self.cfg.family in _CHUNK_FAMILIES:
             S = min(self.scfg.max_len, 1 << (S - 1).bit_length())  # bucket, like the reference
-            buf = np.zeros((B, S), np.int64)
+            buf = self._buffer(S)
             counts = np.zeros((B,), np.int32)
             for i, feed in feeds:
                 buf[i, : len(feed)] = feed
@@ -273,7 +335,7 @@ class Engine:
                 self.ledger.advance(i, len(feed))
             return
         for t in range(S):
-            buf = np.zeros((B, 1), np.int64)
+            buf = self._buffer(1)
             counts = np.zeros((B,), np.int32)
             for i, feed in feeds:
                 if t < len(feed):
@@ -285,11 +347,15 @@ class Engine:
     def _decode_once(self) -> None:
         B = self.scfg.batch_slots
         counts = np.zeros((B,), np.int32)
-        buf = np.zeros((B, 1), np.int64)
+        buf = self._buffer(1)
         for i, slot in enumerate(self.slots):
             if slot.request_id is not None:
                 counts[i] = 1
-                buf[i, 0] = slot.tokens[-1]
+                if self._embeds_in:
+                    buf[i, 0] = (slot.next_embed if slot.next_embed is not None
+                                 else self._featurize([slot.tokens[-1]])[0])
+                else:
+                    buf[i, 0] = slot.tokens[-1]
         logits = self._step(buf, counts, prefill=False)[:, -1, : self.cfg.vocab]  # strip pad
         if self.scfg.temperature > 0:
             probs = torch.softmax(logits.float() / self.scfg.temperature, dim=-1)
@@ -301,6 +367,8 @@ class Engine:
                 continue
             self.ledger.advance(i, 1)
             slot.tokens.append(nxt[i])
+            if self._embeds_in:
+                slot.next_embed = self._featurize([nxt[i]])[0]
             slot.remaining -= 1
             if nxt[i] == self.scfg.eos_token or slot.remaining <= 0:
                 self.finished[slot.request_id] = slot.tokens

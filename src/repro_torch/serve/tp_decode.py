@@ -19,7 +19,10 @@ token embedding is a gather from this rank's vocab shard plus an all-reduce
 with exactly one nonzero addend, bitwise the plain lookup; the head is
 vocab-sharded, and its logits come back with one ``Iallgather`` along the
 vocab over ``model`` and one along the batch over ``data``, so that every
-rank (each runs the same engine loop) holds every slot's logits.
+rank (each runs the same engine loop) holds every slot's logits.  The
+audio family's frames (``embeds``) take the rank's rows plus sinusoidal
+features of their positions, both in the activation dtype, as the
+single-host step's :func:`repro_torch.models.lm.embed_inputs` does.
 
 Per-rank state.  The reference's ``shard_map`` hands back global caches.
 Here every rank holds the global cache allocation, and a step reads and
@@ -54,10 +57,13 @@ boundary (``models/numerics.py``'s ``pin``) so that XLA cannot fold a
 convert into a float32 neighbour; eager PyTorch rounds every op's output to
 its dtype, so the port has no counterpart.
 
-Scope, the reference's: the dense family, with or without QKV biases (bias
-shards ride the head and KV-group shards and are added between each
-projection and rope); heads, KV groups, ``d_ff`` and ``vocab_padded`` must
-divide the ``model`` axis, and batch slots ``data`` x ``microbatches``.
+Scope, the reference's: the dense and audio families, with or without QKV
+biases (bias shards ride the head and KV-group shards and are added between
+each projection and rope), with the SwiGLU or the GELU MLP (its input bias
+cut with its columns, its output bias added once, after the reduction: on
+every rank before it, the sum would count it M times); heads, KV groups,
+``d_ff`` and ``vocab_padded`` must divide the ``model`` axis, and batch
+slots ``data`` x ``microbatches``.
 """
 from __future__ import annotations
 
@@ -79,8 +85,8 @@ DECODE_TP_PLAN_INTENT = intent_of("stagger")
 
 
 def _check(cfg, mesh, slots: int, microbatches: int) -> None:
-    if cfg.family != "dense":
-        raise ValueError(f"tp decode supports the dense family, not {cfg.family!r}")
+    if cfg.family not in ("dense", "audio"):
+        raise ValueError(f"tp decode supports the dense and audio families, not {cfg.family!r}")
     if cfg.n_experts:
         raise ValueError("tp decode: MoE blocks not supported")
     for name in ("data", "model"):
@@ -127,8 +133,9 @@ def tp_decode_specs(cfg, *, stacked: bool = True):
     params = {
         "final_norm": (None,),
         "blocks": {"ln1": (*lead, None), "ln2": (*lead, None), "attn": attn, "ffn": ffn},
-        "embed": ("model", None),
     }
+    if cfg.input_kind != "embeds":
+        params["embed"] = ("model", None)
     if not cfg.tie_embeddings:
         params["lm_head"] = (None, "model")
     kv = (*lead, "data", "model", None, None)
@@ -144,7 +151,8 @@ def make_tp_decode_step(cfg, mesh, *, slots: int, microbatches: int = 2,
     tp_decode_specs(cfg)[0], mesh)``); ``state`` the stacked
     :class:`repro_torch.models.lm.DecodeState` over all ``slots`` (the
     global allocation, see the module docstring), whose K/V are updated in
-    place; ``batch`` holds ``tokens`` (B, S) for all slots; ``active`` (B,)
+    place; ``batch`` holds ``tokens`` (B, S), or the audio family's
+    ``embeds`` (B, S, m), for all slots; ``active`` (B,)
     bool marks the slots that carry a real token this step.  Returns every
     slot's (B, S, vocab_padded) logits, the same on every rank.
     ``attn_impl`` picks the attention path as ``cfg.attn_impl`` does
@@ -165,26 +173,31 @@ def make_tp_decode_step(cfg, mesh, *, slots: int, microbatches: int = 2,
     v0 = coords["model"] * vl
     act_dt = cfg.act_dtype
     mbs = [slice(s * bm, (s + 1) * bm) for s in range(mb)]
+    embeds_in = cfg.input_kind == "embeds"
 
     def reduce(part, _s):
         return shard_all_reduce_start(part, "model", mesh=mesh)
 
-    def step(params, state, batch, active):
-        caches = state.caches
-        tokens = batch["tokens"][rows_d]
-        act = active[rows_d]
-        counts = act.to(torch.int32)
-        S = tokens.shape[1]
-        positions = state.positions[rows_d]
-        pos2d = positions[:, None] + torch.arange(S, dtype=positions.dtype,
-                                                  device=positions.device)[None, :]
-
-        # embed: local vocab-shard gather + an all-reduce with one nonzero addend
-        loc = tokens - v0
+    def embed(params, batch, pos2d):
+        if embeds_in:  # the frames plus sinusoidal positions, in the activation dtype
+            return (batch["embeds"][rows_d].to(act_dt)
+                    + lm._sinusoidal(pos2d, cfg.d_model).to(act_dt))
+        # local vocab-shard gather + an all-reduce with one nonzero addend
+        loc = batch["tokens"][rows_d] - v0
         ok = (loc >= 0) & (loc < vl)
         e = params["embed"].to(act_dt)[loc.clamp(0, vl - 1)]
         e = torch.where(ok[..., None], e, torch.zeros((), dtype=act_dt, device=e.device))
-        x = shard_all_reduce_start(e, "model", mesh=mesh).wait()
+        return shard_all_reduce_start(e, "model", mesh=mesh).wait()
+
+    def step(params, state, batch, active):
+        caches = state.caches
+        act = active[rows_d]
+        counts = act.to(torch.int32)
+        S = batch["embeds" if embeds_in else "tokens"].shape[1]
+        positions = state.positions[rows_d]
+        pos2d = positions[:, None] + torch.arange(S, dtype=positions.dtype,
+                                                  device=positions.device)[None, :]
+        x = embed(params, batch, pos2d)
         xs = [x[r] for r in mbs]
 
         blocks = params["blocks"]

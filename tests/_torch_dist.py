@@ -343,6 +343,10 @@ TP_REQUESTS = {  # the reference's distributed-engine request lists (tests/test_
                        (9, [19], 9)],
     "qwen2.5-32b": [(0, [5, 9, 13], 8), (1, [3, 3], 6), (2, [17, 2, 4, 8, 1], 5),
                     (3, [6], 7), (4, [2, 9, 9, 4], 6), (5, [11, 12], 4)],
+    # the audio family's ids go through the engine's featurizer
+    "musicgen-large": [(0, [5, 9, 13], 8), (1, [3, 3], 6), (2, [17, 2, 4, 8, 1], 5),
+                       (3, [6], 7), (4, [2, 9, 9, 4], 6), (5, [11, 12], 4), (6, [8, 8, 8], 5),
+                       (7, [100, 2], 6), (8, [30, 40, 50], 4), (9, [19], 9)],
 }
 TP_SLOTS, TP_MAX_LEN, TP_MICROBATCHES = 8, 64, 2
 # what the other ranks' cache blocks are overwritten with: a key or value this
@@ -353,7 +357,8 @@ TP_POISON = 1.0e4
 
 def tp_decode_family(*, shape, models) -> dict:
     """Tensor-parallel serving on this gloo rank of a ``shape`` (data, model)
-    mesh, for every ``models[arch]`` (the reference's parameters as numpy):
+    mesh, for every ``models[arch]`` (the reference's parameters as numpy;
+    an ``embeds`` model's requests through the engine's featurizer):
     the engine's greedy outputs on :data:`TP_REQUESTS`, plainly and with
     every cache block of the other ranks' (rows, KV groups) overwritten with
     :data:`TP_POISON` before each decode step; one TP step from the same state
@@ -363,6 +368,7 @@ def tp_decode_family(*, shape, models) -> dict:
     for bit."""
     import dataclasses
 
+    import numpy as np
     import torch
 
     from repro_torch import configs
@@ -401,9 +407,14 @@ def tp_decode_family(*, shape, models) -> dict:
         for rid, prompt, n in TP_REQUESTS["qwen2.5-32b"]:
             engine.submit(rid, prompt, n)
         engine._fill_slots()
-        tokens = torch.tensor([[s.tokens[-1] if s.request_id is not None else 0]
-                               for s in engine.slots])
         active = torch.tensor([s.request_id is not None for s in engine.slots])
+        if cfg.input_kind == "embeds":
+            batch = {"embeds": torch.from_numpy(np.stack([
+                s.next_embed if s.request_id is not None else np.zeros(cfg.d_model, np.float32)
+                for s in engine.slots])[:, None])}
+        else:
+            batch = {"tokens": torch.tensor([[s.tokens[-1] if s.request_id is not None else 0]
+                                             for s in engine.slots])}
         results = {}
         for db in (True, False):
             st = engine.state
@@ -411,7 +422,7 @@ def tp_decode_family(*, shape, models) -> dict:
                              positions=st.positions.clone())
             step = make_tp_decode_step(cfg, mesh, slots=TP_SLOTS, microbatches=TP_MICROBATCHES,
                                        double_buffer=db)
-            logits, new = step(engine.tp_params, state, {"tokens": tokens}, active)
+            logits, new = step(engine.tp_params, state, batch, active)
             results[db] = {"logits": logits, "k": new.caches.k, "v": new.caches.v,
                            "length": new.caches.length, "positions": new.positions}
         out[(arch, "db_vs_blocking")] = sorted(
@@ -813,6 +824,42 @@ def zero_train_family(*, params, batch, cfg_overrides, ocfg, bucket_bytes, steps
             p, o, gnorm = update(p, o, tree_unflatten(p, mine))
             norms.append(float(gnorm))
         out["update"] = {**state(p, o), "grad_norm": norms}
+    return out
+
+
+ZERO_BUCKET_BYTES = 4096  # several buckets at the SMOKE widths, some ragged
+
+
+def zero_step_families(*, models, batches, ocfg) -> dict:
+    """One ``make_zero_train_step`` step on this gloo rank of a one-axis
+    ``data`` mesh over the world, for every ``models[arch]`` (the
+    reference's parameters as numpy, SMOKE config at float32) on the global
+    pipeline batch ``batches[arch]`` (numpy, moved as ``launch/train.py``
+    moves it): the loss, the gradient norm and the stepped parameters."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import make_mesh
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.models.weights import params_from_jax
+    from repro_torch.train import optimizer, trainer
+
+    mesh = make_mesh((torch.distributed.get_world_size(),), ("data",), device="cpu")
+    oc = optimizer.OptConfig(**ocfg)
+    out: dict = {}
+    for arch, tree in models.items():
+        cfg = dataclasses.replace(configs.get(arch, smoke=True), act_dtype=torch.float32)
+        p = params_from_jax(tree, device="cpu")
+        buckets = trainer.zero_train_buckets(cfg, bucket_bytes=ZERO_BUCKET_BYTES,
+                                             ranks=mesh.shape["data"])
+        o = optimizer.init_zero_opt_state(p, buckets, oc)
+        step = trainer.make_zero_train_step(cfg, mesh, oc, bucket_bytes=ZERO_BUCKET_BYTES)
+        p, o, m = step(p, o, to_device(batches[arch], "cpu"))
+        out[arch] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "params": [t.numpy() for t in tree_leaves(p)]}
     return out
 
 

@@ -1,8 +1,9 @@
-"""Helpers of the SSM and hybrid families' parity tests: the reference's
-SMOKE weights, seeded, with every constant-initialised leaf (the token-shift
-mixes, decays, bonuses, norm weights, the LoRA's zero ``lora_b``, ...)
-perturbed by seeded noise so that no path of the port is multiplied away,
-carried over to the port with ``params_from_jax``."""
+"""Helpers of the SSM, hybrid, VLM and audio families' parity tests: the
+reference's SMOKE weights, seeded, with every constant-initialised leaf (the
+token-shift mixes, decays, bonuses, norm weights, the LoRA's zero
+``lora_b``, the GELU's zero biases, ...) perturbed by seeded noise and the
+VLM's cross-attention gates opened, so that no path of the port is
+multiplied away, carried over to the port with ``params_from_jax``."""
 import dataclasses
 
 import numpy as np
@@ -37,15 +38,47 @@ def perturb(tree, seed: int = 1):
     return jax.tree.map(leaf, tree)
 
 
+def open_gates(tree, seed: int = 7):
+    """The VLM's cross blocks with their ``gate_attn``/``gate_ffn`` drawn
+    from U[0.5, 1] (seeded): at their zero init ``tanh(0) = 0`` and every
+    cross block passes its input through, which would hide the cross path
+    (the SMOKE config's gates are single elements, which :func:`perturb`
+    leaves as they are)."""
+    rng = np.random.default_rng(seed)
+    cross = dict(tree["cross_blocks"])
+    for name in ("gate_attn", "gate_ffn"):
+        cross[name] = jnp.asarray(rng.uniform(0.5, 1.0, cross[name].shape).astype(np.float32))
+    return {**tree, "cross_blocks": cross}
+
+
 def models(arch: str, act: str = "float32", *, attn_impl: str | None = "interpret", **overrides):
     """(jax cfg, jax params, torch cfg, torch params) of ``arch``'s SMOKE
-    config at ``act`` activations."""
+    config at ``act`` activations (a VLM's gates opened,
+    :func:`open_gates`)."""
     jcfg = dataclasses.replace(jconfigs.get(arch, smoke=True), act_dtype=jnp.dtype(act),
                                attn_impl=attn_impl, **overrides)
     tcfg = dataclasses.replace(tconfigs.get(arch, smoke=True), act_dtype=getattr(torch, act),
                                **overrides)
     jp = perturb(jlm.init_model(jcfg, jax.random.PRNGKey(0)))
+    if jcfg.family == "vlm":
+        jp = open_gates(jp)
     return jcfg, jp, tcfg, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def inputs(cfg, B: int, S: int, seed: int = 0) -> tuple[dict, dict]:
+    """(reference batch, port batch) of seeded inputs of ``cfg``'s input
+    kind: token ids, frames (``embeds``), and a VLM's ``image_embeds``."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_kind == "embeds":
+        arrays = {"embeds": rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)}
+    else:
+        arrays = {"tokens": rng.integers(0, cfg.vocab, size=(B, S)).astype(np.int32)}
+    if cfg.input_kind == "tokens+image":
+        arrays["image_embeds"] = rng.standard_normal((B, cfg.enc_len, cfg.enc_dim)).astype(
+            np.float32)
+    return ({k: jnp.asarray(v) for k, v in arrays.items()},
+            {k: torch.from_numpy(v).long() if k == "tokens" else torch.from_numpy(v)
+             for k, v in arrays.items()})
 
 
 def tokens(cfg, shape, seed: int = 0) -> np.ndarray:

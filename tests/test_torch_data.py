@@ -1,8 +1,9 @@
 """The port's data pipeline against the reference's: ``make_batch`` gives
 the reference's tokens and labels bitwise for steps 0-3, from the
-synthetic source and from a memmap file; ``batch_specs`` gives the
-reference's shapes and dtypes; both raise for the input kinds not ported
-yet."""
+synthetic source and from a memmap file, and the ``embeds`` (musicgen)
+and ``tokens+image`` (llama-3.2-vision) kinds' frames and images bitwise
+too; ``batch_specs`` gives the reference's shapes and dtypes for every
+input kind."""
 import numpy as np
 import pytest
 
@@ -56,11 +57,40 @@ def test_batch_specs_match_reference(kind):
 
 
 def test_input_kinds_not_ported_raise():
-    import dataclasses
+    """The two input kinds the port once refused (``embeds``,
+    ``tokens+image``) now build a batch, whose leaves, shapes and dtypes are
+    those ``batch_specs`` names (bitwise the reference's: the tests
+    below)."""
+    for arch in ("musicgen-large", "llama-3.2-vision-11b"):
+        cfg = tconfigs.get(arch, smoke=True)
+        _, tc = _cells()
+        got = tpipe.make_batch(cfg, tc, 0)
+        specs = tpipe.batch_specs(cfg, tc)
+        assert sorted(got) == sorted(specs)
+        assert {k: (v.shape, v.dtype) for k, v in got.items()} == specs
 
-    cfg = dataclasses.replace(tconfigs.get("phi4-mini-3.8b", smoke=True), input_kind="embeds")
-    _, tc = _cells()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tpipe.make_batch(cfg, tc, 0)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tpipe.batch_specs(cfg, tc)
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "llama-3.2-vision-11b"])
+@pytest.mark.parametrize("seed", [0, 5])
+def test_embeds_and_image_batches_match_reference_bitwise(arch, seed):
+    """The frames (``embeds``, float32 (B, S, d_model)) and the labels drawn
+    after them, or the tokens and then the image (``image_embeds``, float32
+    (B, enc_len, enc_dim)), from one generator in the reference's order."""
+    jc, tc = _cells()
+    jcfg, tcfg = jconfigs.get(arch, smoke=True), tconfigs.get(arch, smoke=True)
+    for step in range(3):
+        want = jpipe.make_batch(jcfg, jc, step, jpipe.DataConfig(seed=seed))
+        got = tpipe.make_batch(tcfg, tc, step, tpipe.DataConfig(seed=seed))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "llama-3.2-vision-11b"])
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_batch_specs_of_both_kinds_match_reference(arch, kind):
+    jc, tc = _cells(kind)
+    want = jpipe.batch_specs(jconfigs.get(arch, smoke=True), jc)
+    got = tpipe.batch_specs(tconfigs.get(arch, smoke=True), tc)
+    assert {k: (tuple(s.shape), np.dtype(s.dtype)) for k, s in want.items()} == got

@@ -152,9 +152,11 @@ def test_serve_cli_raises_for_what_is_not_ported():
         proc = _python("", "-m", "repro_torch.launch.serve", "--arch", "phi4-mini-3.8b",
                        "--smoke", "--device", "cpu", *flags)
         assert proc.returncode != 0 and item in proc.stderr, proc.stderr[-2000:]
-    proc = _python("", "-m", "repro_torch.launch.serve", "--arch", "musicgen-large", "--smoke",
-                   "--device", "cpu")
+    # the VLM: the engine builds no image batch, as the reference's does not
+    proc = _python("", "-m", "repro_torch.launch.serve", "--arch", "llama-3.2-vision-11b",
+                   "--smoke", "--device", "cpu")
     assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
+    assert "image_embeds" in proc.stderr
 
 
 def test_serve_cli_serves_tensor_parallel_on_gloo_ranks():
