@@ -175,6 +175,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   against the forward at float32 for both (depth cut, the reference's
   2e-4); one training step of each (depth cut) against the plain
   attention's, its seconds and peak memory.
+* the VLM and audio families under a sharding recipe on a one-rank NCCL
+  ``(data, model)`` mesh, on phase 17's model builds: the carry form's
+  (64, 64) and (128, 128) instances at the one-card ring step of
+  musicgen's and the VLM's self attention (1 x 32 x 4096 x 64 causal MHA;
+  1 x 32 x 4096 x 128 over 8 groups) against their plain versions, timed
+  beside their bounds and the plain version, with their registers and
+  spills; both 1 x 4096 forwards under ``tp``, ``sp`` and ``sp_ring``,
+  logits bitwise the no-recipe forward's, the forward instance once a self
+  block and once a cross block (non-causal), or under ``sp_ring`` the carry
+  instance in place of every self block's launch while the cross blocks
+  stay on the forward kernel, each mode's host and device ms beside the
+  no-recipe forward's; the VLM's 4 rows through ``lm.decode_step`` under
+  ``tp``, tokens equal to the no-recipe run's; musicgen's first 4
+  requests (a cut, for the run's length) through ``Engine(recipe=tp)``,
+  tokens equal to the single-host run's;
+  and one ``tp`` training step of each at the no-recipe step's depth (5
+  and 24 layers), loss and gradient norm bitwise the no-recipe step's, its
+  seconds and peak memory.
 
 Every kernel time (``ms``, ``plain_ms``, ``library_ms``) is device time per
 call from ``repro_torch.kernels.timing.queued_ms`` (calls run back to back
@@ -3385,13 +3403,14 @@ def latent_recipe_forward(cfg, params, lm, fa, mesh, sharding, shard_params_by_r
 def latent_recipe_serve(cfg, params, lm, Engine, ServeConfig, fd, mesh, sharding,
                         shard_params_by_recipe, requests, new_tokens: int, single_done: dict,
                         decode_launches: int, classify=None) -> dict:
-    """``mla_recipe_serve`` / ``moe_recipe_serve``: the family's serving
-    requests cut to the first SLOTS (admitted together, so each row's tokens
-    are those of the family's serving run) through
+    """``mla_recipe_serve`` / ``moe_recipe_serve`` / ``audio_recipe_serve``:
+    the family's serving requests cut to the first SLOTS (admitted together,
+    so each row's tokens are those of the family's serving run) through
     ``Engine(recipe=make_recipe(cfg, mesh, attn_mode="tp"))`` on a one-rank
     NCCL mesh, on the rank's shards and its blocks of the decode state:
     every request finishes, ``flash_decode`` launches ``decode_launches``
-    times a step (the MoE family's layers; none in MLA's absorbed decode),
+    times a step (the MoE and audio families' layers; none in MLA's
+    absorbed decode),
     and the greedy tokens equal the single-host run's (``single_done``)
     exactly (the same program on one rank).  Then a steady decode step's
     window (:func:`window`, RECIPE_DECODE_STEPS steps) under the recipe and
@@ -3768,6 +3787,7 @@ def vlm_decode(cfg, params, lm, fd, fa) -> dict:
                plain_decode_s=p["decode_s"], greedy_agreement=agree,
                divergences_at_near_ties=near_ties, tol=LOGIT_TOL, decode_step=dec)
     phase("vlm_decode", arch=cfg.name, **out)
+    out["done"] = k["done"]  # what the recipe's decode is held against
     del runs, k, p
     torch.cuda.empty_cache()
     return out
@@ -3807,7 +3827,7 @@ def family_decode_vs_forward(configs, lm, name: str, depth: int) -> dict:
 
 
 def family_train(configs, lm, fa, ops, trainer, optimizer, tree_leaves, name: str, depth: int,
-                 seq: int) -> dict:
+                 seq: int, mesh, sharding, shard_params_by_recipe) -> dict:
     """``vlm_train`` / ``audio_train``: ``name`` at full width, ``depth``
     layers (float32 masters, bf16 activations, remat by group and block), a
     pipeline-shaped batch of 1 x ``seq`` (tokens and a seeded image, or
@@ -3816,6 +3836,11 @@ def family_train(configs, lm, fa, ops, trainer, optimizer, tree_leaves, name: st
     every leaf finite and nonzero, held against the same gradients through
     the plain attention (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL); then one
     ``make_train_step`` step after a warm-up step, its seconds and peak
+    memory; then ``recipe_train_vlm`` / ``recipe_train_audio``: the same
+    step under ``make_recipe(cfg, mesh, attn_mode="tp")`` on the one-rank
+    NCCL ``mesh`` and the rank's shards of the same parameters (views),
+    after a warm-up step, its loss and gradient norm bitwise the no-recipe
+    step's (every axis one rank: the same program), its seconds and peak
     memory."""
     cfg = dataclasses.replace(configs.get(name), n_layers=depth)
     params = lm.init_model(cfg, torch.Generator(device=DEVICE).manual_seed(31), device=DEVICE)
@@ -3872,7 +3897,214 @@ def family_train(configs, lm, fa, ops, trainer, optimizer, tree_leaves, name: st
                tokens_per_s=seq / step_s, grad_norm=metrics["grad_norm"].item(),
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     phase("vlm_train" if cfg.family == "vlm" else "audio_train", arch=cfg.name, **out)
-    del params, opt, new_params, new_opt
+    del new_params, new_opt
+    torch.cuda.empty_cache()
+    recipe = sharding.make_recipe(cfg, mesh, attn_mode="tp")
+    shards = shard_params_by_recipe(params, lm.build_specs(cfg), recipe)
+    step = trainer.make_train_step(cfg, recipe, ocfg)
+    torch.cuda.reset_peak_memory_stats()
+    step(shards, opt, batch)  # warm-up
+    torch.cuda.synchronize()
+    fa.flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    rec = step(shards, opt, batch)[2]
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    got = (rec["loss"].item(), rec["grad_norm"].item())
+    want = (metrics["loss"].item(), metrics["grad_norm"].item())
+    if got != want:
+        raise AssertionError(f"{name} tp recipe step vs no recipe on one rank: (loss, grad "
+                             f"norm) {got} vs {want} (must be bitwise)")
+    rec_launches = fa.flash_attention_cuda.launches
+    if rec_launches != launches:
+        raise AssertionError(f"{name} tp recipe step: flash_attention launches {rec_launches} "
+                             f"!= the no-recipe step's {launches}")
+    out["recipe"] = dict(mesh=dict(mesh.shape), attn_mode="tp", step_s=rec_s,
+                         no_recipe_step_s=step_s, loss=got[0], no_recipe_loss=want[0],
+                         grad_norm=got[1],
+                         bitwise_equal_no_recipe=True, flash_attention_launches=rec_launches,
+                         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    phase(f"recipe_train_{cfg.family}", arch=cfg.name, layers=depth, tokens=seq,
+          backend="nccl", **out["recipe"])
+    del params, opt, shards, rec, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_recipe_forward(cfg, params, lm, ops, fa, mesh, sharding, shard_params_by_recipe,
+                          no_recipe_window: dict) -> dict:
+    """``vlm_recipe_forward`` / ``audio_recipe_forward``: the family forward
+    phase's 1 x SEQ seeded inputs (the VLM's with its image) under
+    ``make_recipe(cfg, mesh, attn_mode=...)`` for ``tp``, ``sp`` and
+    ``sp_ring`` on a one-rank NCCL ``(data, model)`` mesh and the rank's
+    shards (views: one rank cuts nothing).  Every axis has one rank, so the
+    logits equal the no-recipe forward's bitwise.  Launches by kernel,
+    instance and causal flag: ``tp`` and ``sp`` launch the forward
+    kernel's (D, D) instance once a self block (causal) and once a cross
+    block (non-causal); ``sp_ring`` launches the carry instance's one ring
+    step in place of every self block's causal launch, while the cross
+    blocks stay on the forward kernel.  Times: host ms of a forward
+    (:func:`host_ms`, 2 calls) in turns with the no-recipe forward (no
+    recipe, each mode, no recipe), and each mode's profiled window
+    (:func:`window`) beside the family's no-recipe window
+    (``no_recipe_window``)."""
+    batch = family_batch(cfg, 1, SEQ, 25)  # the family forward phase's inputs
+    want = lm.forward(params, batch, cfg)[0]
+    specs = lm.build_specs(cfg)
+    n_cross = lm.vlm_dims(cfg)[0] if cfg.family == "vlm" else 0
+    n_self = cfg.n_layers - n_cross
+    fns = {"no_recipe": lambda: lm.forward(params, batch, cfg)}
+    out = {}
+    for mode in ("tp", "sp", "sp_ring"):
+        recipe = sharding.make_recipe(cfg, mesh, attn_mode=mode)
+        shards = shard_params_by_recipe(params, specs, recipe)
+        fa.flash_attention_cuda.launches = fa.flash_attention_carry_cuda.launches = 0
+        with sharding.use_recipe(recipe), attention_calls(ops) as calls:
+            got = lm.forward(shards, batch, cfg)[0]
+        torch.cuda.synchronize()
+        ring = mode == "sp_ring"
+        launches = dict(flash_attention=dict(calls.counts),
+                        flash_attention_carry=fa.flash_attention_carry_cuda.launches)
+        expected = dict(flash_attention={"causal": 0 if ring else n_self, "non_causal": n_cross},
+                        flash_attention_carry=n_self if ring else 0)
+        if launches != expected or \
+                fa.flash_attention_cuda.launches != sum(expected["flash_attention"].values()):
+            raise AssertionError(f"{cfg.name} recipe forward {mode}: launches {launches} != "
+                                 f"{expected}")
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{cfg.name} recipe forward {mode}: logits {tuple(got.shape)} "
+                                 "not finite or not the expected shape")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{cfg.name} recipe forward {mode} vs no recipe on one rank: "
+                                 f"max |diff| {(got.float() - want.float()).abs().max().item()} "
+                                 "(must be bitwise)")
+        del got
+
+        def fwd(shards=shards, recipe=recipe):
+            with sharding.use_recipe(recipe):
+                lm.forward(shards, batch, cfg)
+
+        fns[mode] = fwd
+        out[mode] = dict(instance=(cfg.head_dim, cfg.head_dim), launches=launches,
+                         bitwise_equal_no_recipe=True)
+    host = {name: [] for name in fns}
+    for name in ("no_recipe", *out, "no_recipe"):
+        host[name].append(host_ms(fns[name], 2))
+    keys = ("wall_ms", "device_ms", "idle_share", "kernels_launched", "device_ms_by_kind")
+    for mode, row in out.items():
+        win = window(fns[mode], 1)
+        kernel = "flash_attention_kernel_wgmma"
+        if not any(kernel in n for n in win["port_kernels"]) or win["library_attention"]:
+            raise AssertionError(f"{cfg.name} profiled {mode} forward: {win['port_kernels']} "
+                                 f"{win['library_attention']}")
+        row.update(host_ms=host[mode], no_recipe_host_ms=host["no_recipe"],
+                   forward={k: win[k] for k in keys},
+                   no_recipe_forward={k: no_recipe_window[k] for k in keys},
+                   kernels_launched_vs_no_recipe=win["kernels_launched"] -
+                   no_recipe_window["kernels_launched"])
+        phase(f"{cfg.family}_recipe_forward", arch=cfg.name, layers=cfg.n_layers,
+              mesh=dict(mesh.shape), backend="nccl", attn_mode=mode, tokens=SEQ, **row)
+    del want, fns
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_recipe_decode(cfg, params, lm, fd, fa, mesh, sharding, shard_params_by_recipe,
+                      single: dict) -> dict:
+    """``vlm_recipe_decode``: the ``vlm_decode`` phase's VLM_ROWS rows (its
+    prompts and images) through :func:`vlm_generate` with
+    ``make_recipe(cfg, mesh, attn_mode="tp")`` active on a one-rank NCCL
+    mesh, on the rank's shards and its blocks of the cache
+    (``lm.init_cache`` under the recipe): a step launches ``flash_decode``
+    once a self block and ``flash_attention`` once a cross block, and the
+    greedy tokens equal the no-recipe run's (``single``) exactly (the same
+    program on one rank).  Then a steady decode step's window under the
+    recipe beside the phase's no-recipe window."""
+    prompts = vlm_prompts(cfg)
+    image = family_batch(cfg, VLM_ROWS, 1, 27)["image_embeds"]
+    n_cross, group_self = lm.vlm_dims(cfg)
+    recipe = sharding.make_recipe(cfg, mesh, attn_mode="tp")
+    shards = shard_params_by_recipe(params, lm.build_specs(cfg), recipe)
+    with sharding.use_recipe(recipe):
+        run = vlm_generate(cfg, shards, lm, fd, fa, prompts, image, None)
+    want = {kind: [(n_cross * group_self, n_cross)] for kind in ("prefill", "decode")}
+    if run["launches"] != want:
+        raise AssertionError(f"vlm recipe decode launches (flash_decode, flash_attention) a "
+                             f"step: {run['launches']} != {want}")
+    if run["done"] != single["done"]:
+        raise AssertionError("vlm recipe decode: greedy tokens differ from the no-recipe run's")
+
+    def step():
+        with sharding.use_recipe(recipe):
+            run["step"]()
+
+    dec = window(step, VLM_WINDOW_STEPS)
+    keys = ("wall_ms", "device_ms", "idle_share", "kernels_launched", "device_ms_by_kind")
+    out = dict(mesh=dict(mesh.shape), attn_mode=recipe.attn_mode, rows=VLM_ROWS,
+               new_tokens=VLM_NEW_TOKENS, chunk=run["chunk"],
+               launches_per_step=dict(flash_decode=n_cross * group_self,
+                                      flash_attention_non_causal=n_cross),
+               prefill_s=run["prefill_s"], decode_s=run["decode_s"],
+               decode_tok_s=VLM_ROWS * VLM_NEW_TOKENS / run["decode_s"],
+               greedy_tokens_equal_no_recipe=True, decode_step={k: dec[k] for k in keys},
+               no_recipe_decode_step={k: single["decode_step"][k] for k in keys})
+    phase("vlm_recipe_decode", arch=cfg.name, backend="nccl", **out)
+    del run, shards
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_family_carry(ops, card: str, pieces: int, ptxas: dict) -> dict:
+    """``family_carry``: the carry form's (64, 64) and (128, 128) instances
+    at the one-card ring step of musicgen's and the VLM's self attention
+    (the ``sp_ring`` forward on one rank: q/k/v 1 x 32 x SEQ x 64, causal
+    MHA; q 1 x 32 x SEQ x 128 over k/v of 8 KV groups), from the ring's
+    explicit empty state, bf16 and float32, against their plain versions
+    (acc, m and l within ATTN_TOL; two launches bitwise).  The bf16 step's
+    time (``queued_ms``) beside its bound (``attn_bound``: the bf16
+    products, p @ v in ``pieces`` pieces, and the state read and written
+    once), the plain version's time, and the instance's registers and spill
+    stores (``ptxas``); no PyTorch call returns the unnormalized state."""
+    from repro_torch.kernels.timing import queued_ms
+
+    out = {}
+    for label, arch, (G, D) in (("musicgen_64_64", AUDIO_ARCH, (32, 64)),
+                                ("vlm_128_128", VLM_ARCH, (8, 128))):
+        row = dict(ptxas=ptxas[f"flash_attention_kernel_wgmma<{D},{D},1,1>"])
+        for dt in (torch.bfloat16, torch.float32):
+            q = randn((1, 32, SEQ, D), dt, 250)
+            k, v = (randn((1, G, SEQ, D), dt, 251 + i) for i in range(2))
+            carry = plain_carry(q)
+            want = ops.flash_attention_carry(q, k, v, carry, impl="ref")
+            got = ops.flash_attention_carry(q, k, v, tuple(t.clone() for t in carry))
+            torch.cuda.synchronize()
+            errs = {}
+            for name, g, w in zip(("acc", "m", "l"), got, want):
+                torch.testing.assert_close(g, w, rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
+                errs[name] = (g - w).abs().max().item()
+            if not torch.equal(got[0], ops.flash_attention_carry(
+                    q, k, v, tuple(t.clone() for t in carry))[0]):
+                raise AssertionError(f"carry ({D}, {D}) {dt}: two launches differ")
+            row[str(dt)] = dict(max_abs_err=errs, tol=ATTN_TOL[dt], two_launches="bitwise")
+            del got, want
+            if dt == torch.bfloat16:
+                t = dict(ms=queued_ms(lambda: ops.flash_attention_carry(q, k, v, carry)),
+                         plain_ms=queued_ms(lambda: ops.flash_attention_carry(
+                             q, k, v, carry, impl="ref"), iters=5),
+                         library_ms=None,
+                         call_ms=median_ms(lambda: ops.flash_attention_carry(q, k, v, carry)))
+                flops = 4 * 32 * (SEQ * (SEQ + 1) // 2) * D
+                nbytes = 2 * (q.numel() + k.numel() + v.numel()) + \
+                    2 * 4 * sum(c.numel() for c in carry)
+                b_ms, b_by, fp32_ms = attn_bound(flops, nbytes, products=1 + pieces)
+                row.update(bound_ms=b_ms, bound_by=b_by, fp32_bound_ms=fp32_ms,
+                           tflops=flops / t["ms"] / 1e9, max_abs_err=max(errs.values()), **t)
+                check_bound(f"flash_attention_carry ({D}, {D}) one_card_step", row)
+            del q, k, v, carry
+        out[label] = row
+        phase("time", kernel="flash_attention_carry", arch=arch, case="one_card_step",
+              instance=(D, D), q=(1, 32, SEQ, D), kv=(1, G, SEQ, D), dtype="bfloat16", card=card,
+              library="none: no PyTorch call returns the unnormalized (acc, m, l)", **row)
     torch.cuda.empty_cache()
     return out
 
@@ -4227,41 +4459,67 @@ def main() -> int:
     # kernels at their shapes, llama-3.2-vision-11b's forward and decode
     # through lm.decode_step, musicgen-large's forward and serving (single
     # host and TP on a one-rank NCCL mesh), decode against the forward at
-    # float32 (depth cut), one training step of each (depth cut)
+    # float32 (depth cut), one training step of each (depth cut); and
+    # (phase 18) both families under a sharding recipe on a one-rank NCCL
+    # (data, model) mesh beside each no-recipe run, on the same model builds
     t0 = time.perf_counter()
     fam_attn = check_family_kernels(ops, card, fa.P_PIECES)
-    vlm_cfg, vlm_params = family_model(configs, lm, VLM_ARCH)
-    vlm_fwd = family_forward(vlm_cfg, vlm_params, lm, ops, fa)
-    vlm_dec = vlm_decode(vlm_cfg, vlm_params, lm, fd, fa)
-    del vlm_params
-    torch.cuda.empty_cache()
-    audio_cfg, audio_params = family_model(configs, lm, AUDIO_ARCH)
-    audio_fwd = family_forward(audio_cfg, audio_params, lm, ops, fa)
-    audio_srv, audio_single = serve_full_width(audio_cfg, audio_params, Engine, ServeConfig, fd)
-    audio_dec = decode_window(audio_cfg, audio_params, Engine, ServeConfig, VLM_WINDOW_STEPS)
+    fam_carry = check_family_carry(ops, card, fa.P_PIECES, attn_ptxas["flash_attention"])
+    fam_recipe_s = 0.0
     device = init_world("cuda")
     try:
-        audio_tp = serve_tp(audio_cfg, audio_params, Engine, ServeConfig, fd,
-                            make_mesh((1, 1), ("data", "model"), device=device), audio_single,
-                            audio_dec, window_steps=VLM_WINDOW_STEPS)
+        fmesh = make_mesh((1, 1), ("data", "model"), device=device)
+        vlm_cfg, vlm_params = family_model(configs, lm, VLM_ARCH)
+        vlm_fwd = family_forward(vlm_cfg, vlm_params, lm, ops, fa)
+        vlm_dec = vlm_decode(vlm_cfg, vlm_params, lm, fd, fa)
+        t1 = time.perf_counter()
+        vlm_rec_fwd = family_recipe_forward(vlm_cfg, vlm_params, lm, ops, fa, fmesh, sharding,
+                                            shard_params_by_recipe, vlm_fwd["breakdown"])
+        vlm_rec_dec = vlm_recipe_decode(vlm_cfg, vlm_params, lm, fd, fa, fmesh, sharding,
+                                        shard_params_by_recipe, vlm_dec)
+        fam_recipe_s += time.perf_counter() - t1
+        del vlm_params
+        torch.cuda.empty_cache()
+        audio_cfg, audio_params = family_model(configs, lm, AUDIO_ARCH)
+        audio_fwd = family_forward(audio_cfg, audio_params, lm, ops, fa)
+        audio_srv, audio_single = serve_full_width(audio_cfg, audio_params, Engine, ServeConfig,
+                                                   fd)
+        audio_dec = decode_window(audio_cfg, audio_params, Engine, ServeConfig, VLM_WINDOW_STEPS)
+        audio_tp = serve_tp(audio_cfg, audio_params, Engine, ServeConfig, fd, fmesh,
+                            audio_single, audio_dec, window_steps=VLM_WINDOW_STEPS)
+        t1 = time.perf_counter()
+        audio_rec_fwd = family_recipe_forward(audio_cfg, audio_params, lm, ops, fa, fmesh,
+                                              sharding, shard_params_by_recipe,
+                                              audio_fwd["breakdown"])
+        audio_rec_srv = latent_recipe_serve(audio_cfg, audio_params, lm, Engine, ServeConfig,
+                                            fd, fmesh, sharding, shard_params_by_recipe,
+                                            serve_prompts(audio_cfg), NEW_TOKENS,
+                                            audio_single["done"], audio_cfg.n_layers)
+        fam_recipe_s += time.perf_counter() - t1
+        del audio_params, audio_single
+        torch.cuda.empty_cache()
+        fam_checks = {name: family_decode_vs_forward(configs, lm, name, depth)
+                      for name, depth in ((VLM_ARCH, VLM_CHECK_DEPTH),
+                                          (AUDIO_ARCH, AUDIO_CHECK_DEPTH))}
+        fam_train = {name: family_train(configs, lm, fa, ops, trainer, optimizer, tree_leaves,
+                                        name, depth, seq, fmesh, sharding,
+                                        shard_params_by_recipe)
+                     for name, depth, seq in ((VLM_ARCH, VLM_TRAIN_DEPTH, VLM_TRAIN_SEQ),
+                                              (AUDIO_ARCH, AUDIO_TRAIN_DEPTH, SEQ))}
+        fam_recipe_s += sum(v["recipe"]["step_s"] for v in fam_train.values())
     finally:
         dist.destroy_process_group()
-    del audio_params, audio_single
-    torch.cuda.empty_cache()
-    fam_checks = {name: family_decode_vs_forward(configs, lm, name, depth)
-                  for name, depth in ((VLM_ARCH, VLM_CHECK_DEPTH),
-                                      (AUDIO_ARCH, AUDIO_CHECK_DEPTH))}
-    fam_train = {name: family_train(configs, lm, fa, ops, trainer, optimizer, tree_leaves, name,
-                                    depth, seq)
-                 for name, depth, seq in ((VLM_ARCH, VLM_TRAIN_DEPTH, VLM_TRAIN_SEQ),
-                                          (AUDIO_ARCH, AUDIO_TRAIN_DEPTH, SEQ))}
+    phase("vlm_audio_recipe_phases", seconds=fam_recipe_s)
     phase("vlm_audio_families", seconds=time.perf_counter() - t0,
           vlm_forward_ms=vlm_fwd["forward_ms"], audio_forward_ms=audio_fwd["forward_ms"],
           vlm_decode_tok_s=vlm_dec["decode_tok_s"], audio_decode_tok_s=audio_srv["decode_tok_s"],
           audio_tp_decode_tok_s=audio_tp["decode_tok_s"],
           decode_vs_forward_max_abs_err={k: v["max_abs_err"] for k, v in fam_checks.items()},
           train_step_s={k: v["step_s"] for k, v in fam_train.items()},
-          train_peak_memory_gb={k: v["peak_memory_gb"] for k, v in fam_train.items()})
+          train_peak_memory_gb={k: v["peak_memory_gb"] for k, v in fam_train.items()},
+          recipe_train_step_s={k: v["recipe"]["step_s"] for k, v in fam_train.items()},
+          recipe_train_peak_memory_gb={k: v["recipe"]["peak_memory_gb"]
+                                       for k, v in fam_train.items()})
 
     gemm_src = "src/repro_torch/kernels/csrc/gemm.cu"
     report = []
@@ -4303,6 +4561,12 @@ def main() -> int:
                    "audio_forward_launches": audio_fwd["flash_attention_launches"],
                    **{f"{fam}_train_launches": fam_train[arch]["flash_attention_launches"]
                       for fam, arch in (("vlm", VLM_ARCH), ("audio", AUDIO_ARCH))},
+                   **{f"{fam}_recipe_{mode}_forward_launches": row["launches"]["flash_attention"]
+                      for fam, rec in (("vlm", vlm_rec_fwd), ("audio", audio_rec_fwd))
+                      for mode, row in rec.items()},
+                   **{f"{fam}_recipe_train_launches":
+                      fam_train[arch]["recipe"]["flash_attention_launches"]
+                      for fam, arch in (("vlm", VLM_ARCH), ("audio", AUDIO_ARCH))},
                    **{f"{case}_{key}": fam_attn[name][key]
                       for case, name in (("vlm_cross", "cross_forward"),
                                          ("vlm_cross_step", "cross_step"),
@@ -4331,6 +4595,11 @@ def main() -> int:
                    "audio_serve_launches": audio_srv["flash_decode_launches"],
                    "audio_serve_launches_by_kind": audio_srv["flash_decode_launches_by_kind"],
                    "audio_tp_serve_launches": audio_tp["flash_decode_launches"],
+                   "audio_recipe_serve_launches": audio_rec_srv["flash_decode_launches"],
+                   "audio_recipe_serve_launches_by_kind":
+                   audio_rec_srv["flash_decode_launches_by_kind"],
+                   "vlm_recipe_decode_step_launches":
+                   vlm_rec_dec["launches_per_step"]["flash_decode"],
                    **{f"musicgen_d64_{key}": fam_attn["audio_decode"][key] for key in gqa4},
                    "max_abs_err": worst["flash_decode"], **rows[("flash_decode", "decode")],
                    **{f"prefill_chunk_{key}": prefill[key]
@@ -4353,6 +4622,13 @@ def main() -> int:
                    **{f"{fam}_recipe_sp_ring_forward_launches":
                       rec["sp_ring"]["flash_attention_carry_launches"]
                       for fam, rec in (("mla", mla_rec_fwd), ("moe", moe_rec_fwd))},
+                   **{f"{fam}_recipe_sp_ring_forward_launches":
+                      rec["sp_ring"]["launches"]["flash_attention_carry"]
+                      for fam, rec in (("vlm", vlm_rec_fwd), ("audio", audio_rec_fwd))},
+                   **{f"{case}_one_card_step_{key}": fam_carry[case][key]
+                      for case in ("musicgen_64_64", "vlm_128_128")
+                      for key in ("ms", "max_abs_err", "bound_ms", "bound_by", "plain_ms",
+                                  "library_ms", "ptxas")},
                    "mla_96_64_max_abs_err": mla_carry["max_abs_err"],
                    **{f"mla_96_64_{case}_{key}": mla_carry[case][key]
                       for case in ("off_diagonal", "diagonal", "one_card_step")

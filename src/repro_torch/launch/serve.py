@@ -1,5 +1,6 @@
-"""Serving launcher: build a model with seeded random weights and run
-batched generation through the continuous-batching engine.
+"""Serving launcher: build a model with seeded random weights, or restore
+one a training run checkpointed, and run batched generation through the
+continuous-batching engine.
 
 Usage:
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
@@ -8,6 +9,8 @@ Usage:
   torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
       --arch phi4-mini-3.8b --smoke --device cpu --grid 2x2   # TP decode, 4 gloo ranks
   python -m repro_torch.launch.serve --arch musicgen-large --smoke --device cpu
+  python -m repro_torch.launch.serve --arch phi4-mini-3.8b --smoke --device cpu \
+      --ckpt-dir /path/written/by/launch.train
 
 Runs on the GPU unless given ``--device cpu``, and raises without one.
 Prompts are the reference launcher's (``numpy`` seed 0), so both print the
@@ -16,6 +19,13 @@ through the engine's featurizer.  The VLM family is refused: the engine
 builds no image batch, as the reference's does not.  ``--max-steps``
 bounds the decode loop; requests still resident when the budget runs out
 are reported as in-flight.
+
+``--ckpt-dir`` restores the latest checkpoint that
+``repro_torch.launch.train`` wrote there (``{"params", "opt"}``, the
+logical arrays, whatever mesh wrote them) into a template built as the
+trainer builds its own, and serves its parameters; the launcher prints the
+restored step.  Under ``--grid`` every rank restores them and the engine
+cuts its tensor-parallel shard from them.
 
 ``--grid DxM`` serves with tensor-parallel decode on a ``(data, model)``
 mesh of D*M ranks, ``--microbatches`` per rank's rows (default 2): start
@@ -27,6 +37,34 @@ The reference's ``--fake-devices`` has no counterpart: use ``torchrun``.
 import argparse
 import sys
 import time
+
+
+def prompts(cfg, n: int) -> list[list[int]]:
+    """The launcher's ``n`` seeded prompts (``numpy`` seed 0), the
+    reference launcher's."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(2, min(cfg.vocab, 1000), size=rng.integers(3, 10)).tolist()
+            for _ in range(n)]
+
+
+def restore_params(params, ckpt_dir: str):
+    """``(params, step)``: the parameters of the latest checkpoint in
+    ``ckpt_dir``, restored into the structure, devices and dtypes of
+    ``params``.  Training checkpoints carry ``{"params", "opt"}``, so the
+    template pairs ``params`` with the AdamW state the trainer starts from
+    (``init_opt_state``), as the reference's launcher does."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+
+    mgr = CheckpointManager(ckpt_dir)
+    step = mgr.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    restored, _ = mgr.restore({"params": params, "opt": init_opt_state(params, OptConfig())},
+                              step)
+    return restored["params"], step
 
 
 def main(argv=None) -> int:
@@ -49,11 +87,6 @@ def main(argv=None) -> int:
     if args.fake_devices:
         raise ValueError("--fake-devices has no counterpart in the port: start one process per "
                          "rank with torchrun (--nproc-per-node D*M) and pass --grid DxM")
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir (checkpoint restore) is not ported yet: "
-                                  "ROADMAP.md queue 1, item 11")
-
-    import numpy as np
     import torch
 
     from repro_torch import configs
@@ -71,16 +104,18 @@ def main(argv=None) -> int:
                          device=device)
         rank = mesh.rank
     params = lm.init_model(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    if args.ckpt_dir:
+        params, step = restore_params(params, args.ckpt_dir)
+        if rank == 0:
+            print(f"[serve] restored from {step}", flush=True)
     scfg = ServeConfig(max_len=args.max_len, batch_slots=args.slots,
                        temperature=args.temperature, eos_token=-1)
     engine = Engine(cfg, params, scfg, mesh=mesh,
                     microbatches=args.microbatches if mesh is not None else 0)
     del params  # the engine keeps its activation-dtype copy
-    rng = np.random.default_rng(0)
     t0 = time.time()
     total_new = 0
-    for rid in range(args.requests):
-        prompt = rng.integers(2, min(cfg.vocab, 1000), size=rng.integers(3, 10)).tolist()
+    for rid, prompt in enumerate(prompts(cfg, args.requests)):
         engine.submit(rid, prompt, args.max_new)
         total_new += args.max_new
     done = engine.run(max_steps=args.max_steps)

@@ -18,9 +18,8 @@ step runs under ``make_recipe(cfg, mesh, attn_mode=--attn-mode)``
 the parameters and the optimizer state; checkpoints hold the logical
 arrays (gathered, rank 0 writes) and restore under any world size.  Runs
 on the GPU (NCCL under ``torchrun``) unless given ``--device cpu`` (gloo).
-The VLM and audio families run under no recipe yet: more than one process,
-or an ``--attn-mode`` other than ``auto``, is refused for them before the
-world forms (:func:`repro_torch.models.lm.refuse_recipe`).
+Every family trains under every mode; a one-process run takes no recipe
+whatever ``--attn-mode`` says.
 
 Usage:
   python -m repro_torch.launch.train --arch phi4-mini-3.8b --smoke --device cpu --steps 3
@@ -137,7 +136,6 @@ def run(args, cfg=None) -> dict:
     to the loss read, which waits for the device)."""
     import torch
 
-    from repro_torch import configs
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.data.pipeline import DataConfig, ShapeCell, make_batch
     from repro_torch.models import lm
@@ -146,8 +144,6 @@ def run(args, cfg=None) -> dict:
     from repro_torch.train.optimizer import OptConfig, OptState, init_opt_state
     from repro_torch.train.trainer import make_train_step
 
-    if args.attn_mode != "auto" or _multi_process():  # before the world forms
-        lm.refuse_recipe(cfg or configs.get(args.arch, smoke=args.smoke))
     arch_cfg, device, mesh, rank = setup(args)
     cfg = cfg or arch_cfg
     recipe = None if mesh is None else make_recipe(cfg, mesh, attn_mode=args.attn_mode)

@@ -3,11 +3,11 @@ FFN (SwiGLU, the GELU MLP, or the top-k MoE); the MLA family's pre-norm
 multi-head latent attention + SwiGLU; the VLM's gated cross-attention
 block (Llama-3.2-Vision style); the SSM family's RWKV6 block (time mix,
 then a token-shifted squared-ReLU channel mix); and the hybrid family's
-Mamba2 block and its shared attention block (zamba2).  Every block but the
-cross-attention block takes ``place`` (its part of a ``tp``/``sp``
-recipe's program) and ``shard`` (its chunk of the sequence under
-``sp_ring``); the VLM family runs under no recipe yet (ROADMAP queue 1
-item 8c).
+Mamba2 block and its shared attention block (zamba2).  Every block takes
+``place`` (its part of a ``tp``/``sp`` recipe's program), and every block
+but the cross-attention block ``shard`` (its chunk of the sequence under
+``sp_ring``); the cross-attention block runs a chunk as it runs any rows,
+over the whole image of the chunk's rows.
 
 The reference scans stacked layer parameters with ``lax.scan``; the port
 keeps the stacked ``(L, ...)`` layout and loops over the layer index
@@ -27,7 +27,8 @@ from .module import pspec
 from .sharding import partial_product
 
 __all__ = ["norm_spec", "rmsnorm", "attn_block_specs", "attn_block", "mla_block_specs",
-           "mla_block", "cross_block_specs", "cross_block", "rwkv_block_specs", "RWKVBlockState", "rwkv_block", "mamba_block_specs",
+           "mla_block", "cross_block_specs", "cross_block", "rwkv_block_specs", "RWKVBlockState",
+           "rwkv_block", "mamba_block_specs",
            "mamba_block", "shared_attn_block_specs", "shared_lora_specs", "shared_attn_block"]
 
 
@@ -165,15 +166,31 @@ def cross_block_specs(cfg) -> dict:
     }
 
 
-def cross_block(p, x, enc, cfg):
+def cross_block(p, x, enc, cfg, *, place=None, split_queries: bool = False):
     """The gated cross-attention block (Llama-3.2-Vision style): ``x +
     tanh(gate_attn) * cross_attention(...)``, then ``x + tanh(gate_ffn) *
     swiglu(...)``, each gate's tanh in x's dtype.  ``enc`` (B, enc_len,
-    enc_dim) are the image's states; the block keeps no cache."""
-    h = attn.cross_attention(p["attn"], rmsnorm(p["ln1"], x), enc, attn_impl=cfg.attn_impl,
-                             block=cfg.attn_block)
+    enc_dim) are the image's states; the block keeps no cache.  Under a
+    ``tp``/``sp`` recipe ``x`` and ``enc`` are this rank's rows and
+    ``place`` its part of the program: the attention by heads, or by query
+    chunks where ``split_queries`` (plain ``sp``'s forward), through
+    :func:`repro_torch.models.attention.cross_attention_placed`, and the
+    SwiGLU's ``f`` columns (:func:`repro_torch.models.ffn.ffn_placed`); the
+    gates act on the whole sums."""
+    xn = rmsnorm(p["ln1"], x)
+    if place is not None:
+        h = attn.cross_attention_placed(p["attn"], xn, enc, place=place, n_heads=cfg.n_heads,
+                                        n_kv=cfg.n_kv, split_queries=split_queries,
+                                        attn_impl=cfg.attn_impl, block=cfg.attn_block)
+    else:
+        h = attn.cross_attention(p["attn"], xn, enc, attn_impl=cfg.attn_impl,
+                                 block=cfg.attn_block)
     x = x + torch.tanh(p["gate_attn"].to(x.dtype)) * h
-    f = ffn_mod.swiglu(p["ffn"], rmsnorm(p["ln2"], x))
+    xn = rmsnorm(p["ln2"], x)
+    if place is not None:
+        f = ffn_mod.ffn_placed(p["ffn"], xn, kind="swiglu", d_ff=cfg.d_ff, place=place)
+    else:
+        f = ffn_mod.swiglu(p["ffn"], xn)
     return x + torch.tanh(p["gate_ffn"].to(x.dtype)) * f
 
 

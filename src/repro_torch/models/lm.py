@@ -56,12 +56,20 @@ The MoE family's FFN under ``tp``/``sp`` is
 :func:`repro_torch.models.ffn.moe_placed` (expert parallelism where the
 grid hosts it, else the capacity dispatch over the tokens the reference
 routes together, the experts or their columns split over ``model``), and
-its aux loss is summed over the blocks as without a recipe.  The VLM and
-audio families run under no recipe yet: :func:`forward`,
-:func:`init_cache` and :func:`decode_step` refuse them under one (ROADMAP.md
-queue 1, item 8c) before any collective.  The explicit tensor-parallel
-decode step (the dense and audio families) is
-:mod:`repro_torch.serve.tp_decode`.
+its aux loss is summed over the blocks as without a recipe.  The audio
+family takes this rank's rows of the frames (under ``sp_ring`` its chunk of
+them, padded with zero frames) and adds the sinusoid at their absolute
+positions; it has no ``embed`` table, and its untied head is the vocab-cut
+``lm_head``.  The VLM family runs each group's self blocks as the dense
+family's, the nested ``(n_cross, group_self, ...)`` leaves bound with both
+stack dims dropped, and each cross block over this rank's rows of the
+image (the recipe's ``enc`` spec: the whole image on every ``model`` rank)
+by heads (``tp``) or by query chunks (plain ``sp``,
+:func:`repro_torch.models.attention.cross_attention_placed`); under
+``sp_ring`` the chunk's queries attend over the whole image of its rows,
+with no ring.  Its decode caches are the self blocks' K/V alone, cut as the
+dense family's.  The explicit tensor-parallel decode step (the dense and
+audio families) is :mod:`repro_torch.serve.tp_decode`.
 
 Training (:func:`loss_fn`, :mod:`repro_torch.train.trainer`) differentiates
 the float32 parameters themselves: every use casts a weight to the
@@ -93,29 +101,9 @@ from .sharding import (current_recipe, decode_state_shardings, gather_cut, local
                        placement, recipe_pspecs, token_shard)
 
 __all__ = ["build_specs", "count_params", "embed_inputs", "lm_logits", "forward", "loss_fn",
-           "DecodeState", "init_cache", "decode_step", "init_model", "hybrid_dims", "vlm_dims",
-           "refuse_recipe"]
+           "DecodeState", "init_cache", "decode_step", "init_model", "hybrid_dims", "vlm_dims"]
 
 _FAMILIES = ("dense", "moe", "mla", "vlm", "ssm", "hybrid", "audio")
-# the families whose program under a sharding recipe is still to port
-_NO_RECIPE = ("vlm", "audio")
-
-
-def refuse_recipe(cfg) -> None:
-    """Raises ``NotImplementedError`` for a family that runs under no
-    sharding recipe yet (the VLM and audio families)."""
-    if cfg.family in _NO_RECIPE:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family under a sharding recipe is not ported yet: ROADMAP.md "
-            "queue 1, item 8c: the VLM and audio families under a recipe")
-
-
-def _active_recipe(cfg):
-    """The active recipe, after refusing a family that runs under none."""
-    recipe = current_recipe()
-    if recipe is not None:
-        refuse_recipe(cfg)
-    return recipe
 
 
 # ================================================================= specs ====
@@ -211,6 +199,12 @@ def embed_inputs(params, batch, cfg, *, positions=None):
     return x + (pe if pe.ndim == 3 else pe[None])
 
 
+def _input_of(batch, cfg) -> torch.Tensor:
+    """The batch's leading input: token ids (B, S), or the ``embeds`` input
+    kind's frames (B, S, m)."""
+    return batch["embeds" if cfg.input_kind == "embeds" else "tokens"]
+
+
 def lm_logits(params, x, cfg):
     """(B, S, vocab_padded) logits; the tied head is ``x @ embed.T``."""
     x = blk.rmsnorm(params["final_norm"], x)
@@ -249,9 +243,8 @@ def forward(params, batch, cfg, *, positions=None):
     Under an active recipe every rank takes the whole batch and this
     rank's shards of the parameters, and returns the whole ``(B, S, V)``
     logits, the same on every rank; in between it computes only its own
-    part (:func:`_forward_placed`, :func:`_forward_sp_ring`).  The VLM and
-    audio families refuse a recipe (:func:`refuse_recipe`)."""
-    recipe = _active_recipe(cfg)
+    part (:func:`_forward_placed`, :func:`_forward_sp_ring`)."""
+    recipe = current_recipe()
     if recipe is not None and recipe.sp_ring:
         return _forward_sp_ring(params, batch, cfg, recipe, positions)
     if recipe is not None:
@@ -302,18 +295,26 @@ def _forward_hybrid(params, x, cfg, positions, *, place=None, pspecs=None, shard
     return x
 
 
-def _forward_vlm(params, x, enc, cfg, positions):
+def _forward_vlm(params, x, enc, cfg, positions, *, place=None, pspecs=None, shard=None):
     """The VLM stack: ``n_cross`` groups of ``group_self`` self-attention
     blocks and one gated cross-attention block over the image's states
     ``enc`` (each group, and each self block in it, under :func:`_remat`,
-    the reference's ``_maybe_remat`` of its scanned bodies)."""
+    the reference's ``_maybe_remat`` of its scanned bodies).  Under a
+    ``tp``/``sp`` recipe (``place``, ``pspecs``) ``x`` and ``enc`` are this
+    rank's rows and each block's weights are gathered over ``data`` inside
+    its group (a remat's recompute gathers them again); under ``sp_ring``
+    (``shard``) ``x`` is this rank's chunk and ``enc`` its rows' images."""
     n_cross, group_self = vlm_dims(cfg)
     block = _block(cfg)
+    use = _user(place, pspecs)
+    split = place is not None and place.recipe.attn_mode == "sp"
 
     def group(p_self, p_cross, x):
         for j in range(group_self):
-            x, _, _ = block(_layer(p_self, j), x, cfg, positions=positions)
-        return blk.cross_block(p_cross, x, enc, cfg)
+            x, _, _ = block(use(_layer(p_self, j), "self_blocks", 2), x, cfg,
+                            positions=positions, place=place, shard=shard)
+        return blk.cross_block(use(p_cross, "cross_blocks", 1), x, enc, cfg, place=place,
+                               split_queries=split)
 
     group = _remat(group, cfg)
     for i in range(n_cross):
@@ -334,21 +335,30 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
     the head applied to the whole (B, S, m) on every rank, so all ranks
     return the same logits (and the same aux loss)."""
     params = _whole(params, cfg, recipe)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+    inputs = _input_of(batch, cfg)
+    B, S = inputs.shape[:2]
+    dev = inputs.device
     shard = token_shard(recipe, B, S)
     if positions is None:
-        positions = torch.arange(S, device=tokens.device)
+        positions = torch.arange(S, device=dev)
     pad = recipe.mesh.shape.get("model", 1) * shard.cap - S
-    pos = torch.cat([positions, positions[-1] + 1 + torch.arange(pad, device=tokens.device)])
+    pos = torch.cat([positions, positions[-1] + 1 + torch.arange(pad, device=dev)])
     chunk = slice(shard.chunk * shard.cap, (shard.chunk + 1) * shard.cap)
-    x = embed_inputs({"embed": shard.partial(params["embed"])},
-                     {"tokens": shard.local(tokens)}, cfg)
+    if cfg.input_kind == "embeds":  # the chunk's frames (zero past S), sinusoid at pos[chunk]
+        x = embed_inputs(params, {"embeds": shard.local(inputs)}, cfg, positions=pos[chunk])
+    else:
+        x = embed_inputs({"embed": shard.partial(params["embed"])},
+                         {"tokens": shard.local(inputs)}, cfg)
     aux = 0.0
     if cfg.family == "hybrid":
         stacks = ("mamba_blocks", "tail_blocks", "shared_block", "shared_lora")
         x = _forward_hybrid({k: tree_map(shard.partial, params[k]) for k in stacks if k in params},
                             x, cfg, pos[chunk], shard=shard)
+    elif cfg.family == "vlm":  # the image split by the chunk's rows, never by sequence
+        enc = batch["image_embeds"][shard.row0:shard.row0 + shard.n_rows]
+        x = _forward_vlm({k: tree_map(shard.partial, params[k])
+                          for k in ("self_blocks", "cross_blocks")},
+                         x, enc, cfg, pos[chunk], shard=shard)
     else:
         blocks = tree_map(shard.partial, params["blocks"])
         block = _block(cfg)
@@ -415,10 +425,19 @@ def _layer_specs(pspecs):
     return tree_map(lambda s: s[1:], pspecs)
 
 
-def _embed_placed(params, tokens, cfg, place, pspecs):
-    """This rank's rows' embeddings: a lookup into the vocab block this
-    rank holds, zero elsewhere, summed over ``model`` (one nonzero addend:
-    bitwise the plain lookup); the plain lookup where ``v`` is whole."""
+def _embed_placed(params, batch, cfg, place, pspecs, positions=None):
+    """This rank's rows' embeddings.  The ``embeds`` input kind: its rows
+    of the frames plus the sinusoid at ``positions`` ((S,), or whole (B, S)
+    per row), as :func:`embed_inputs`.  Tokens: a lookup into the vocab
+    block this rank holds, zero elsewhere, summed over ``model`` (one
+    nonzero addend: bitwise the plain lookup); the plain lookup where ``v``
+    is whole."""
+    if cfg.input_kind == "embeds":
+        if positions is not None and positions.ndim == 2:
+            positions = place.local_rows(positions)
+        return embed_inputs(params, {"embeds": place.local_rows(batch["embeds"])}, cfg,
+                            positions=positions)
+    tokens = place.local_rows(batch["tokens"])
     emb = place.use(params["embed"], pspecs["embed"]).to(cfg.act_dtype)
     if emb.shape[0] == cfg.vocab_padded:
         return emb[tokens]
@@ -450,12 +469,14 @@ def _forward_placed(params, batch, cfg, recipe, positions):
     (see the module docstring): its rows, each block's weights gathered
     over ``data`` for the block, the blocks' work split over ``model``."""
     pspecs = _placed_pspecs(params, cfg, recipe)
-    tokens = batch["tokens"]
-    place = placement(recipe, tokens.shape[0])
-    x = _embed_placed(params, place.local_rows(tokens), cfg, place, pspecs)
+    place = placement(recipe, _input_of(batch, cfg).shape[0])
+    x = _embed_placed(params, batch, cfg, place, pspecs, positions)
     aux = 0.0
     if cfg.family == "hybrid":
         x = _forward_hybrid(params, x, cfg, positions, place=place, pspecs=pspecs)
+    elif cfg.family == "vlm":
+        x = _forward_vlm(params, x, place.local_rows(batch["image_embeds"]), cfg, positions,
+                         place=place, pspecs=pspecs)
     else:
         layer_specs = _layer_specs(pspecs["blocks"])
         block = _block(cfg)
@@ -520,9 +541,9 @@ def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda"):
     caches by sequence (the same), the recurrent states by
     heads (else RWKV's value columns, Mamba2's head dim), rows over the
     batch axes where they divide ``batch_size``; the shifts and conv
-    windows are whole over ``model``, and the lengths whole.  The VLM and
-    audio families refuse a recipe (:func:`refuse_recipe`)."""
-    recipe = _active_recipe(cfg)
+    windows are whole over ``model``, and the lengths whole; the VLM's self
+    blocks' K/V as the dense family's."""
+    recipe = current_recipe()
     device = resolve_device(device)
     if recipe is not None:
         return _init_cache_placed(cfg, batch_size, max_len, device, recipe)
@@ -629,13 +650,12 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     holds this rank's blocks of the caches and states
     (:func:`init_cache` under the recipe), with the lengths and positions
     whole; ``batch`` and ``new_counts`` are whole, and so are the returned
-    logits, the same on every rank (:func:`_decode_placed`).  The VLM and
-    audio families refuse a recipe (:func:`refuse_recipe`)."""
-    recipe = _active_recipe(cfg)
+    logits, the same on every rank (:func:`_decode_placed`)."""
+    recipe = current_recipe()
     if recipe is not None:
         return _decode_placed(params, state, batch, cfg, recipe, new_counts, prefill)
     positions = state.positions
-    S = batch["embeds" if cfg.input_kind == "embeds" else "tokens"].shape[1]
+    S = _input_of(batch, cfg).shape[1]
     pos2d = positions[:, None] + torch.arange(S, dtype=positions.dtype,
                                               device=positions.device)[None, :]
     adv = S if new_counts is None else new_counts
@@ -670,26 +690,33 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     return logits, DecodeState(caches=new_caches, positions=(positions + adv).to(positions.dtype))
 
 
-def _decode_vlm(params, caches, x, enc, cfg, pos2d, new_counts, prefill):
+def _decode_vlm(params, caches, x, enc, cfg, pos2d, new_counts, prefill, *, place=None,
+                pspecs=None):
     """The VLM stack's decode step: each group's self blocks against their
     K/V (updated in place, idle rows kept), then the group's cross block
-    over ``enc``, which reads no cache."""
+    over ``enc``, which reads no cache.  Under ``place`` the K/V are this
+    rank's blocks and ``x``, ``enc`` its rows, while ``pos2d``,
+    ``new_counts`` and the lengths are whole; the cross blocks split their
+    heads where the recipe cuts them, else run whole on every rank."""
     n_cross, group_self = vlm_dims(cfg)
+    use = _user(place, pspecs)
     kv = caches["self"]
+    T = kv.k.shape[-2] * (place.M if place is not None and _seq_cut_cache(place.recipe) else 1)
     # every block's lengths are the same: ask once per step
     idle_read = None if new_counts is None else attn_mod.idle_rows_read_chunk(
-        kv.length[0, 0], new_counts, kv.k.shape[-2], x.shape[1])
+        kv.length[0, 0], new_counts, T, x.shape[1])
     block = _block(cfg)
     lengths = []
     for i in range(n_cross):
         p_self = _layer(params["self_blocks"], i)
         for j in range(group_self):
             c = attn_mod.KVCache(kv.k[i, j], kv.v[i, j], kv.length[i, j])
-            x, new_c, _ = block(_layer(p_self, j), x, cfg, cache=c, positions=pos2d,
-                                new_counts=new_counts, prefill=prefill,
-                                idle_read_chunk=idle_read)
+            x, new_c, _ = block(use(_layer(p_self, j), "self_blocks", 2), x, cfg, cache=c,
+                                positions=pos2d, new_counts=new_counts, prefill=prefill,
+                                idle_read_chunk=idle_read, place=place)
             lengths.append(new_c.length)
-        x = blk.cross_block(_layer(params["cross_blocks"], i), x, enc, cfg)
+        x = blk.cross_block(use(_layer(params["cross_blocks"], i), "cross_blocks", 1), x, enc,
+                            cfg, place=place)
     return x, {"self": kv._replace(length=torch.stack(lengths).reshape(kv.length.shape))}
 
 
@@ -699,15 +726,19 @@ def _decode_placed(params, state, batch, cfg, recipe, new_counts, prefill):
     the block (:func:`repro_torch.models.attention.gqa_attention_placed`);
     a whole-prompt ``prefill`` chunk under ``sp_ring`` runs the ring."""
     pspecs = _placed_pspecs(params, cfg, recipe)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+    B, S = _input_of(batch, cfg).shape[:2]
     place = placement(recipe, B)
     positions = state.positions
     pos2d = positions[:, None] + torch.arange(S, dtype=positions.dtype,
                                               device=positions.device)[None, :]
     adv = S if new_counts is None else new_counts
-    x = _embed_placed(params, place.local_rows(tokens), cfg, place, pspecs)
+    x = _embed_placed(params, batch, cfg, place, pspecs, pos2d)
     caches = state.caches
+    if cfg.family == "vlm":
+        x, new_caches = _decode_vlm(params, caches, x, place.local_rows(batch["image_embeds"]),
+                                    cfg, pos2d, new_counts, prefill, place=place, pspecs=pspecs)
+        return _head_placed(params, x, cfg, place, pspecs), DecodeState(
+            caches=new_caches, positions=(positions + adv).to(positions.dtype))
     if cfg.family in ("ssm", "hybrid"):
         active = None if new_counts is None else place.local_rows(new_counts) > 0
         if cfg.family == "ssm":

@@ -36,21 +36,21 @@ its next request (:func:`_reset_slot_rows`).  The engine keeps an activation-dty
 made once (``weights.cast_params``), and cuts the rank's TP shard from it
 (``weights.shard_params``; a view when the ``model`` axis has one rank).
 
-Under a sharding ``recipe`` (the dense, SSM and hybrid families) every
+Under a sharding ``recipe`` (every family the engine serves) every
 rank hands the engine its shards of the weights
 (``weights.shard_params_by_recipe``) and runs prefill and decode as
 ``lm.decode_step`` under the recipe, as the reference's ``gspmd_step``
 does: the caches and recurrent states are the rank's blocks
 (``lm.init_cache`` under the recipe; a released slot's rows are zeroed on
 the rank that holds them), the logits come back whole on every rank, and
-all ranks sample the same tokens.  A whole-prompt prefill chunk
-under ``sp_ring`` runs the ring.  The reference's mix of a recipe for
+all ranks sample the same tokens; the audio family's frames enter each
+step whole and every rank takes its rows of them.  A whole-prompt prefill
+chunk under ``sp_ring`` runs the ring.  The reference's mix of a recipe for
 prefill with the explicit TP decode step is not taken: a ``recipe`` with a
-``mesh`` is refused, and so is a recipe for the audio family (ROADMAP.md
-queue 1, item 8c).  The VLM family is refused: the reference's engine
+``mesh`` is refused.  The VLM family is refused: the reference's engine
 builds no ``image_embeds`` batch, so its VLM ``decode_step`` cannot be
 served there (ROADMAP.md §3); the VLM is served through ``lm.init_cache``
-and ``lm.decode_step`` directly.
+and ``lm.decode_step`` directly, under a recipe too.
 """
 from __future__ import annotations
 
@@ -188,8 +188,6 @@ class Engine:
         if recipe is not None and (mesh is not None or microbatches):
             raise ValueError("Engine takes a sharding recipe or the explicit tensor-parallel "
                              "decode (mesh, microbatches), not both")
-        if recipe is not None:
-            lm.refuse_recipe(cfg)
         if (mesh is None) != (not microbatches):
             raise ValueError("tensor-parallel decode needs both a (data, model) mesh and "
                              f"microbatches >= 1 (got mesh={mesh!r}, microbatches={microbatches})")

@@ -109,10 +109,7 @@ def make_train_step(cfg, recipe, ocfg: OptConfig, *, microbatches: int = 1):
     (under ``recipe`` when one is given) and one AdamW step
     (:func:`repro_torch.train.optimizer.apply_updates`).  ``params`` are
     not modified; ``metrics`` holds ``loss``, the loss function's metrics,
-    ``grad_norm`` and ``lr``.  The VLM and audio families refuse a recipe
-    (:func:`repro_torch.models.lm.refuse_recipe`)."""
-    if recipe is not None:
-        lm.refuse_recipe(cfg)
+    ``grad_norm`` and ``lr``."""
 
     def train_step(params, opt_state, batch):
         with use_recipe(recipe):

@@ -84,7 +84,8 @@ def _main(rank: int, world: int, workdir: str, worker: str) -> None:
         else:
             result = globals()[worker](**kwargs)
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():  # a launcher run inside the worker may have ended it
+            dist.destroy_process_group()
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(result, f)
 

@@ -14,6 +14,8 @@ import jax.numpy as jnp
 
 from repro import configs as jconfigs
 from repro.models import lm as jlm
+from repro.train import optimizer as jopt
+from repro.train import trainer as jtr
 from repro.serve.engine import Engine as JEngine
 from repro.serve.engine import ServeConfig as JServeConfig
 from repro_torch import configs as tconfigs
@@ -22,6 +24,8 @@ from repro_torch.models.weights import params_from_jax
 from repro_torch.serve.engine import Engine, ServeConfig
 
 SPREAD = 0.2  # the noise's std on the constant leaves
+RECIPE_BATCH = 4  # the recipe steps' rows (tests/_torch_recipe.py)
+RECIPE_OCFG = dict(lr=1e-3, warmup_steps=0)  # AdamW of the recipe steps
 
 
 def perturb(tree, seed: int = 1):
@@ -139,3 +143,75 @@ def serve_both(arch, *, slots=2, max_len=64, requests=5, prompt_lens=(1, 12), se
         jeng.submit(rid, prompt, max_new)
         teng.submit(rid, prompt, max_new)
     return jeng.run(), teng.run(), teng
+
+
+def recipe_reference_step(arch: str, seq: int, seed: int) -> dict:
+    """The reference's single-device gradients and jitted step of ``arch``'s
+    SMOKE config (float32, :func:`models`) on a seeded batch of
+    ``RECIPE_BATCH`` x ``seq`` of its input kind: tokens shifted into
+    labels, or frames with seeded labels; a VLM's images beside them."""
+    jcfg, jp, _, _ = models(arch, attn_impl=None)
+    jb, _ = inputs(jcfg, RECIPE_BATCH, seq + 1, seed=seed)
+    jb = {k: np.asarray(v) for k, v in jb.items()}
+    if "tokens" in jb:
+        batch = {**jb, "tokens": jb["tokens"][:, :-1], "labels": jb["tokens"][:, 1:]}
+    else:  # frames: their labels are seeded ids
+        labels = np.random.default_rng(seed + 1).integers(0, jcfg.vocab, (RECIPE_BATCH, seq))
+        batch = {"embeds": jb["embeds"][:, :-1], "labels": labels.astype(np.int32)}
+    ocfg = jopt.OptConfig(**RECIPE_OCFG)
+    b = {k: jnp.asarray(v) for k, v in batch.items()}
+    _, grads = jax.value_and_grad(jlm.loss_fn, has_aux=True)(jp, b, jcfg)
+    new_p, _, m = jax.jit(jtr.make_train_step(jcfg, None, ocfg))(
+        jp, jopt.init_opt_state(jp, ocfg), b)
+    return {"tree": (arch, {}, jax.tree.map(np.asarray, jp)), "batch": batch,
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "grads": grads,
+            "params": [np.asarray(p) for p in jax.tree.leaves(new_p)]}
+
+
+def check_recipe_step(want, ranks, name, shape, mode) -> None:
+    """Every rank's recipe step (``_torch_recipe.train_named``) against the
+    reference's: loss ``1e-4``, gradient norm ``rtol=1e-5``, the gradients
+    as :func:`assert_grads_close`, the stepped parameters ``2e-4`` and the
+    same on every rank."""
+    for rank, got in enumerate(ranks):
+        where = f"{name} {shape} {mode} rank {rank}"
+        assert abs(got[(name, mode, "metrics")]["loss"] - want["loss"]) < 1e-4, where
+        np.testing.assert_allclose(got[(name, mode, "metrics")]["grad_norm"], want["grad_norm"],
+                                   rtol=1e-5, err_msg=where)
+        for i, (g, w) in enumerate(zip(got[(name, mode, "grads")], jax.tree.leaves(want["grads"]),
+                                       strict=True)):
+            w = np.asarray(w)
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4 * np.abs(w).max(),
+                                       err_msg=f"{where} grad {i}")
+        assert len(got[(name, mode, "params")]) == len(want["params"])
+        for i, (p, w) in enumerate(zip(got[(name, mode, "params")], want["params"])):
+            np.testing.assert_allclose(p, w, rtol=2e-4, atol=2e-4, err_msg=f"{where} leaf {i}")
+            np.testing.assert_array_equal(p, ranks[0][(name, mode, "params")][i])
+
+
+def reference_greedy(jcfg, jp, prompt, image, counts) -> dict:
+    """The reference's single-device VLM ``decode_step`` over the greedy
+    loop of ``_torch_recipe.decode_greedy``: a whole-prompt chunk
+    ``prompt`` (B, S) with ``counts[0]``, then one-token steps, each row
+    fed its greedy token (``_torch_recipe.greedy_feed``) with ``counts[t]``,
+    every row over its ``image``, from empty 16-position caches."""
+    from _torch_recipe import greedy_feed
+
+    step_fn = jax.jit(lambda p, s, b, c, prefill: jlm.decode_step(p, s, b, jcfg, new_counts=c,
+                                                                  prefill=prefill),
+                      static_argnames="prefill")
+    B = prompt.shape[0]
+    state = jlm.DecodeState(jlm.init_cache(jcfg, B, 16), jnp.zeros((B,), jnp.int32))
+    logits, fed = [], []
+    feed, prev = prompt, prompt[:, 0]
+    for t, c in enumerate(counts):
+        step, state = step_fn(jp, state, {"tokens": jnp.asarray(feed),
+                                          "image_embeds": jnp.asarray(image)},
+                              jnp.asarray(c), prefill=t == 0)
+        logits.append(np.asarray(step))
+        prev = greedy_feed(logits[-1], c, prev, jcfg.vocab)
+        fed.append(prev)
+        feed = prev[:, None]
+    return {"steps": logits, "tokens": np.stack(fed),
+            "caches": [np.asarray(t) for t in jax.tree.leaves(state.caches)],
+            "positions": np.asarray(state.positions)}

@@ -1,6 +1,6 @@
 """Gloo workers of the sharding-recipe tests (``tests/test_torch_recipe*.py``):
-the dense, SSM and hybrid families' per-rank program under ``tp``, ``sp``
-and ``sp_ring`` recipes on a ``(data, model)`` mesh of 4 (or 2) CPU ranks.  Each runs
+every family's per-rank program under ``tp``, ``sp`` and ``sp_ring``
+recipes on a ``(data, model)`` mesh of 4 (or 2) CPU ranks.  Each runs
 inside a rank of :func:`_torch_dist.run_gloo` (named
 ``"_torch_recipe:<worker>"``) and returns numpy results."""
 from __future__ import annotations
@@ -357,6 +357,36 @@ def recurrent_whole_mixers(*, shape, models, overrides, tokens, steps) -> dict:
 LATENT_MOE_MODES = ("tp", "sp", "sp_ring")
 
 
+def _as_batch(x) -> dict:
+    """A worker's numpy inputs as the port's batch: an array of token ids,
+    or a dict of arrays (the integer leaves int64, the frames and images as
+    they are)."""
+    import torch
+
+    if not isinstance(x, dict):
+        x = {"tokens": x}
+    return {k: torch.from_numpy(v).long() if v.dtype.kind in "iu" else torch.from_numpy(v)
+            for k, v in x.items()}
+
+
+def _rows(x) -> int:
+    """The batch size of a worker's numpy inputs (:func:`_as_batch`)."""
+    return (next(iter(x.values())) if isinstance(x, dict) else x).shape[0]
+
+
+def greedy_feed(logits, counts, prev, vocab: int):
+    """Each row's next token after a decode step: the argmax over the
+    ``vocab`` real ids of its last valid position's ``logits`` (B, S, V),
+    or ``prev[r]`` for a row idle in the step (``counts[r] == 0``)."""
+    import numpy as np
+
+    nxt = np.array(prev, dtype=np.int32)
+    for r, n in enumerate(counts):
+        if n:
+            nxt[r] = int(np.argmax(logits[r, n - 1, :vocab]))
+    return nxt
+
+
 def _named(name, entry):
     """The port's float32 SMOKE config and parameters of ``entry = (arch,
     config overrides, the reference's parameters as numpy)``."""
@@ -373,11 +403,13 @@ def _named(name, entry):
     return cfg, params_from_jax(tree, device="cpu")
 
 
-def forward_named(*, shape, models, tokens, modes=LATENT_MOE_MODES) -> dict:
+def forward_named(*, shape, models, tokens, modes=LATENT_MOE_MODES, others=None) -> dict:
     """``lm.forward`` of every ``models[name] = (arch, overrides, tree)``
+    on ``tokens[name]`` (token ids, or a batch dict of any input kind)
     under each mode on this rank of a ``shape`` mesh: the whole logits, the
     aux loss, how many fallback warnings it raised, whether the shards
-    gathered back are the whole tree bitwise and whether any leaf is cut."""
+    gathered back are the whole tree bitwise and whether any leaf is cut;
+    and the logits of ``others[name]`` (another batch), where given."""
     import warnings
 
     import torch
@@ -398,8 +430,10 @@ def forward_named(*, shape, models, tokens, modes=LATENT_MOE_MODES) -> dict:
             with use_recipe(recipe), torch.no_grad(), \
                     warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
-                logits, aux = lm.forward(shards, {"tokens": torch.from_numpy(tokens[name]).long()},
-                                         cfg)
+                logits, aux = lm.forward(shards, _as_batch(tokens[name]), cfg)
+                if others and name in others:
+                    out[(name, mode, "other")] = lm.forward(shards, _as_batch(others[name]),
+                                                            cfg)[0].numpy()
             out[(name, mode)] = logits.numpy()
             out[(name, mode, "aux")] = float(aux)
             out[(name, mode, "warnings")] = sum("falling back" in str(w.message) for w in caught)
@@ -416,15 +450,16 @@ def serve_named(*, shape, models, requests, slots, max_len, steps,
     """Under each mode on this rank: ``Engine(recipe=...)``'s greedy outputs
     of ``requests[name]``, whether every leaf of its decode state has its
     local shape, and ``lm.decode_step`` from empty caches over ``steps[name]``
-    (a list of ``(tokens (B, S), counts (B,))``, the first a whole-prompt
-    chunk, passed as ``prefill=True`` for the families that prefill in
-    chunks): each step's logits and the caches gathered back whole."""
+    (a list of ``(inputs, counts (B,))``, the inputs token ids (B, S) or a
+    batch dict, the first a whole-prompt chunk, passed as ``prefill=True``
+    for the families that prefill in chunks): each step's logits and the
+    caches gathered back whole."""
     import torch
 
     from repro_torch.core import make_mesh
     from repro_torch.models import lm
-    from repro_torch.models.sharding import (all_gather, decode_state_shardings, local_shape,
-                                             make_recipe, use_recipe)
+    from repro_torch.models.sharding import (decode_state_shardings, local_shape, make_recipe,
+                                             use_recipe)
     from repro_torch.serve.engine import _CHUNK_FAMILIES, Engine, ServeConfig
 
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
@@ -444,28 +479,92 @@ def serve_named(*, shape, models, requests, slots, max_len, steps,
             out[(name, mode, "local")] = [tuple(t.shape) for t in _state_leaves(
                 engine.state.caches)] == [local_shape(t.shape, s, mesh) for t, s in
                                           zip(_state_leaves(whole), _state_leaves(specs))]
-            B = steps[name][0][0].shape[0]
+            B = _rows(steps[name][0][0])
             logits = []
             with use_recipe(recipe), torch.no_grad():
                 state = lm.DecodeState(caches=lm.init_cache(cfg, B, 16, device="cpu"),
                                        positions=torch.zeros((B,), dtype=torch.int32))
                 for i, (toks, counts) in enumerate(steps[name]):
                     step, state = lm.decode_step(
-                        shards, state, {"tokens": torch.from_numpy(toks).long()}, cfg,
-                        new_counts=torch.from_numpy(counts),
+                        shards, state, _as_batch(toks), cfg, new_counts=torch.from_numpy(counts),
                         prefill=i == 0 and cfg.family in _CHUNK_FAMILIES)
                     logits.append(step.numpy())
             out[(name, mode, "steps")] = logits
-            specs = decode_state_shardings(recipe,
-                                           lm._init_cache_whole(cfg, B, 16, torch.device("meta")))
-            caches = []
-            for t, spec in zip(_state_leaves(state.caches), _state_leaves(specs)):
-                for dim, axis in enumerate(spec):
-                    if axis is not None:
-                        for a in reversed((axis,) if isinstance(axis, str) else axis):
-                            t = all_gather(t, mesh, a, dim, split=False)
-                caches.append(t.numpy())
-            out[(name, mode, "caches")] = caches
+            out[(name, mode, "caches")] = _whole_state(cfg, B, state.caches, recipe)
+            out[(name, mode, "positions")] = state.positions.numpy()
+    return out
+
+
+def _whole_state(cfg, B: int, caches, recipe) -> list:
+    """The leaves of this rank's blocks of a 16-position decode state of
+    ``B`` rows gathered back whole, as numpy (:func:`_state_leaves` order)."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import all_gather, decode_state_shardings
+
+    specs = decode_state_shardings(recipe, lm._init_cache_whole(cfg, B, 16, torch.device("meta")))
+    out = []
+    for t, spec in zip(_state_leaves(caches), _state_leaves(specs)):
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                for a in reversed((axis,) if isinstance(axis, str) else axis):
+                    t = all_gather(t, recipe.mesh, a, dim, split=False)
+        out.append(t.numpy())
+    return out
+
+
+def decode_greedy(*, shape, models, prompts, counts, image, other_image,
+                  modes=LATENT_MOE_MODES) -> dict:
+    """The VLM family's serving through ``lm.decode_step`` under each mode
+    on this rank of a ``shape`` mesh, on its shards and its blocks of a
+    16-position cache: a whole-prompt chunk of ``prompts[name]`` (B, S)
+    with ``counts[0]`` (``prefill=True``; ragged rows, one idle), then
+    ``len(counts) - 1`` one-token steps, each row fed its greedy token
+    (:func:`greedy_feed`) with ``counts[t]`` (idle rows present), every
+    row over its own ``image``.  Returns each step's logits and fed tokens,
+    the caches gathered back whole, the positions, and the chunk's logits
+    over ``other_image``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import make_recipe, use_recipe
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    out: dict = {}
+    for name, entry in models.items():
+        cfg, params = _named(name, entry)
+        toks = prompts[name]
+        B = toks.shape[0]
+        img, other = torch.from_numpy(image), torch.from_numpy(other_image)
+        for mode in modes:
+            recipe = make_recipe(cfg, mesh, attn_mode=mode)
+            shards = _shards(cfg, params, recipe)
+            logits, fed = [], []
+            with use_recipe(recipe), torch.no_grad():
+                state = lm.DecodeState(caches=lm.init_cache(cfg, B, 16, device="cpu"),
+                                       positions=torch.zeros((B,), dtype=torch.int32))
+                first = {"tokens": torch.from_numpy(toks).long(), "image_embeds": other}
+                out[(name, mode, "other")] = lm.decode_step(
+                    shards, lm.DecodeState(lm.init_cache(cfg, B, 16, device="cpu"),
+                                           state.positions.clone()),
+                    first, cfg, new_counts=torch.from_numpy(counts[0]), prefill=True)[0].numpy()
+                feed = toks
+                prev = toks[:, 0]
+                for t, c in enumerate(counts):
+                    step, state = lm.decode_step(
+                        shards, state, {"tokens": torch.from_numpy(feed).long(),
+                                        "image_embeds": img}, cfg,
+                        new_counts=torch.from_numpy(c), prefill=t == 0)
+                    logits.append(step.numpy())
+                    prev = greedy_feed(logits[-1], c, prev, cfg.vocab)
+                    fed.append(prev)
+                    feed = prev[:, None]
+            out[(name, mode, "steps")] = logits
+            out[(name, mode, "tokens")] = np.stack(fed)
+            out[(name, mode, "caches")] = _whole_state(cfg, B, state.caches, recipe)
             out[(name, mode, "positions")] = state.positions.numpy()
     return out
 
@@ -489,7 +588,7 @@ def train_named(*, shape, models, batch, ocfg, modes=LATENT_MOE_MODES) -> dict:
     for name, entry in models.items():
         cfg, whole = _named(name, entry)
         specs = lm.build_specs(cfg)
-        b = {k: torch.from_numpy(v).long() for k, v in batch[name].items()}
+        b = _as_batch(batch[name])
         for mode in modes:
             recipe = make_recipe(cfg, mesh, attn_mode=mode)
             shards = _shards(cfg, whole, recipe)
@@ -538,3 +637,137 @@ def ep_grads(*, shape, params, x, cot) -> dict:
         runs.append([xr.grad] + [t.grad for t in tree_leaves(p)])
     return {"grads": [g.numpy() for g in runs[0]],
             "blocking_equal": all(torch.equal(a, b) for a, b in zip(*runs))}
+
+
+# ----------------------------------------------- the VLM and audio families
+# the reference's own GSPMD forward under tp and sp on 4 fake devices, every
+# leaf of a batch dict (tokens, the audio family's frames, the VLM's image)
+# placed by its batch_shardings
+_FAMILY_REFERENCE = """
+import dataclasses, pickle, sys
+import numpy as np, jax, jax.numpy as jnp
+import repro.core.compat as compat
+sys.path.insert(0, {tests!r})
+from repro import configs
+from repro.models import lm
+from repro.models.sharding import make_recipe, use_recipe, batch_shardings
+from _torch_recipe import RECIPE_MESHES
+
+with open({inputs!r}, "rb") as f:
+    models, batches = pickle.load(f)
+out = {{}}
+for name, (arch, overrides, tree) in models.items():
+    cfg = dataclasses.replace(configs.get(arch, smoke=True), act_dtype=jnp.float32,
+                              attn_impl="interpret", **overrides)
+    params = jax.tree.map(jnp.asarray, tree)
+    specs = lm.build_specs(cfg)
+    b = {{k: jnp.asarray(v) for k, v in batches[name].items()}}
+    for shape in RECIPE_MESHES:
+        mesh = compat.make_mesh(shape, ("data", "model"))
+        for mode in ("tp", "sp"):
+            r = make_recipe(cfg, mesh, attn_mode=mode)
+            pd = jax.tree.map(lambda x, s: jax.device_put(x, s), params, r.param_shardings(specs))
+            bs = batch_shardings(r, b)
+            bd = {{k: jax.device_put(v, bs[k]) for k, v in b.items()}}
+
+            def f(p, b, r=r):
+                with use_recipe(r):
+                    return lm.forward(p, b, cfg)
+
+            with mesh:
+                logits, aux = jax.jit(f)(pd, bd)
+            out[(name, shape, mode)] = (np.asarray(logits), float(aux))
+with open({path!r}, "wb") as f:
+    pickle.dump(out, f)
+print("OK")
+"""
+
+
+def family_reference(distributed, models, batches, directory) -> dict:
+    """The reference's GSPMD forward of every ``models[name] = (arch,
+    overrides, tree)`` on ``batches[name]`` (a dict of numpy arrays) under
+    ``tp`` and ``sp`` on every mesh of ``RECIPE_MESHES``, in a 4-fake-device
+    subprocess (``distributed``, the tests' fixture): ``{(name, shape,
+    mode): (logits, aux)}``."""
+    import pickle
+
+    from _torch_dist import TESTS
+
+    with open(directory / "inputs.pkl", "wb") as f:
+        pickle.dump((models, batches), f)
+    path = str(directory / "reference.pkl")
+    assert "OK" in distributed(_FAMILY_REFERENCE.format(
+        tests=TESTS, inputs=str(directory / "inputs.pkl"), path=path), devices=4)
+    with open(path, "rb") as f:  # written by the reference subprocess above
+        return pickle.load(f)
+
+
+def family_twin(*, shape, models, batch, train_batch, ocfg, steps=None, requests=None,
+                prompts=None, counts=None, image=None, other_image=None, slots=4,
+                max_len=64) -> dict:
+    """Every program a family runs under a recipe, each mode on this rank
+    of a ``shape`` mesh, in one job: ``lm.forward`` of ``batch``
+    (:func:`forward_named`), one ``make_train_step`` step of
+    ``train_batch`` (:func:`train_named`), and either the engine and
+    ``lm.decode_step`` over ``steps`` (:func:`serve_named`, with
+    ``requests``) or the VLM's greedy decode loop (:func:`decode_greedy`,
+    with ``prompts``)."""
+    out = {"forward": forward_named(shape=shape, models=models, tokens=batch),
+           "train": train_named(shape=shape, models=models, batch=train_batch, ocfg=ocfg)}
+    if requests is not None:
+        out["serve"] = serve_named(shape=shape, models=models, requests=requests, slots=slots,
+                                   max_len=max_len, steps=steps)
+    if prompts is not None:
+        out["decode"] = decode_greedy(shape=shape, models=models, prompts=prompts, counts=counts,
+                                      image=image, other_image=other_image)
+    return out
+
+
+def train_launcher(*, argv) -> dict:
+    """``repro_torch.launch.train``'s run of ``argv`` on this gloo rank, the
+    world the launcher's ``torchrun`` would have made (its record: every
+    step's loss)."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+
+    os.environ.update(RANK=str(dist.get_rank()), WORLD_SIZE=str(dist.get_world_size()))
+    return train.run(train.parse_args(argv))
+
+
+def serve_launcher(*, argv, arch, ckpt_dir, grid, requests, max_new) -> dict:
+    """``repro_torch.launch.serve``'s run of ``argv`` (``--grid`` on this
+    gloo world, the one ``torchrun`` would make) on this rank: its exit code
+    and printed lines; and, on the same rank before it, the parameters its
+    ``restore_params`` gives from ``ckpt_dir`` and an engine's greedy tokens
+    on them (the launcher's ``requests`` prompts, its slots and length, its
+    tensor-parallel decode on the ``grid`` mesh)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.ckpt.manager import flatten
+    from repro_torch.core import make_mesh
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = configs.get(arch, smoke=True)
+    mesh = make_mesh(grid, ("data", "model"), device="cpu")
+    params = lm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    restored, step = serve.restore_params(params, ckpt_dir)
+    engine = Engine(cfg, restored, ServeConfig(max_len=256, batch_slots=4, eos_token=-1),
+                    mesh=mesh, microbatches=2)
+    for rid, prompt in enumerate(serve.prompts(cfg, requests)):
+        engine.submit(rid, prompt, max_new)
+    out = {"step": step, "tokens": engine.run(),
+           "restored": [t.numpy() for t in flatten(restored)]}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out["rc"] = serve.main(argv)
+    out["stdout"] = buf.getvalue()
+    return out

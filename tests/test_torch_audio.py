@@ -39,13 +39,14 @@ from repro.train import trainer as jtr
 from repro_torch import configs as tconfigs
 from repro_torch.models import lm as tlm
 from repro_torch.models.module import tree_leaves
-from repro_torch.models.sharding import make_recipe, use_recipe
 from repro_torch.serve import engine as tengine
 from repro_torch.train import optimizer as topt
 from repro_torch.train import trainer as ttr
 
-from _torch_families import (BATCH_AXIS_FROM_END, assert_grads_close, inputs, leaves, models,
-                             named_leaves, np_, serve_both)
+from _torch_dist import run_gloo
+from _torch_families import (BATCH_AXIS_FROM_END, RECIPE_OCFG, assert_grads_close,
+                             check_recipe_step, inputs, leaves, models, named_leaves, np_,
+                             recipe_reference_step, serve_both)
 
 ARCH = "musicgen-large"
 TOL = 1e-4
@@ -277,42 +278,83 @@ def test_train_step_matches_reference():
                                    err_msg=f"leaf {i}")
 
 
-# -------------------------------------------------------------- refusals ----
+# ------------------------------------------------------ under a recipe ----
 
-class _Mesh:  # what make_recipe reads of a mesh
-    shape = {"data": 1, "model": 2}
-    axis_names = ("data", "model")
+TWIN_MESH = (1, 2)  # a model axis of 2: two of the 4 heads a rank
+TWIN_COUNTS = [(7, 5, 0, 3), (1, 1, 1, 0), (1, 0, 1, 1)]
+
+
+def _twin_requests():
+    rng = np.random.default_rng(141)
+    return [(rid, rng.integers(2, 500, size=int(rng.integers(1, 12))).tolist(),
+             int(rng.integers(3, 8))) for rid in range(5)]
+
+
+@pytest.fixture(scope="module")
+def twin(tmp_path_factory):
+    """The reference's single-device forward, engine, decode steps and
+    train step, and the port's under each mode on 2 gloo ranks of a (1, 2)
+    mesh (one job, ``_torch_recipe.family_twin``)."""
+    ref = recipe_reference_step(ARCH, 12, 140)
+    jcfg, jp, _, _ = models(ARCH)
+    jb, _ = inputs(jcfg, 4, 12, seed=142)
+    rng = np.random.default_rng(143)
+    steps = [({"embeds": rng.standard_normal((4, 7 if t == 0 else 1, jcfg.d_model)).astype(
+        np.float32)}, np.array(c, np.int32)) for t, c in enumerate(TWIN_COUNTS)]
+    jeng = jengine.Engine(jcfg, jp, jengine.ServeConfig(max_len=64, batch_slots=4, eos_token=-1))
+    for rid, prompt, n in _twin_requests():
+        jeng.submit(rid, prompt, n)
+    state = jlm.DecodeState(jlm.init_cache(jcfg, 4, 16), jnp.zeros((4,), jnp.int32))
+    logits = []
+    for t, (frames, counts) in enumerate(steps):
+        step, state = jlm.decode_step(jp, state, {"embeds": jnp.asarray(frames["embeds"])}, jcfg,
+                                      new_counts=jnp.asarray(counts), prefill=t == 0)
+        logits.append(np.asarray(step))
+    want = {"forward": np.asarray(jlm.forward(jp, jb, jcfg)[0]), "train": ref,
+            "tokens": jeng.run(), "steps": logits}
+    ranks = run_gloo("_torch_recipe:family_twin", 2, tmp_path_factory.mktemp("gloo_audio_twin"),
+                     timeout=400, shape=TWIN_MESH, models={"audio": ref["tree"]},
+                     batch={"audio": {k: np.asarray(v) for k, v in jb.items()}},
+                     train_batch={"audio": ref["batch"]}, ocfg=RECIPE_OCFG,
+                     requests={"audio": _twin_requests()}, steps={"audio": steps})
+    return want, ranks
 
 
 @pytest.mark.parametrize("mode", ["tp", "sp", "sp_ring"])
-def test_recipe_is_refused_by_name(mode):
-    """Under a recipe the forward, the cache, the decode step, the recipe
-    training step and ``Engine(recipe=)`` refuse the family, naming ROADMAP
-    item 8c, before any collective (the mesh here has no process group)."""
-    _, _, tcfg, tp = models(ARCH)
-    _, tb = inputs(tcfg, 1, 8)
-    recipe = make_recipe(tcfg, _Mesh(), attn_mode=mode)
-    with use_recipe(recipe):
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            tlm.forward(tp, tb, tcfg)
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            tlm.init_cache(tcfg, 1, 8, device="cpu")
-        state = tlm.DecodeState(None, torch.zeros((1,), dtype=torch.int32))
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            tlm.decode_step(tp, state, tb, tcfg)
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        ttr.make_train_step(tcfg, recipe, topt.OptConfig())
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        tengine.Engine(tcfg, tp, tengine.ServeConfig(max_len=16, batch_slots=2), recipe)
+def test_recipe_runs_by_name(twin, mode):
+    """Under each recipe mode on a (1, 2) mesh the forward, the cache and
+    the decode step (a whole-prompt chunk of frames with an idle row, then
+    one-frame steps), ``Engine(recipe=)`` and the recipe training step run,
+    held against the reference's single-device programs: the forward and
+    each active row's decode logits within ``TOL``, the engine's greedy
+    tokens equal to the reference engine's, the step as
+    ``_torch_families.check_recipe_step`` holds it."""
+    want, ranks = twin
+    check_recipe_step(want["train"], [r["train"] for r in ranks], "audio", TWIN_MESH, mode)
+    for rank, got in enumerate(ranks):
+        where = f"{mode} rank {rank}"
+        _close(got["forward"][("audio", mode)], want["forward"], where)
+        srv = got["serve"]
+        assert srv[("audio", mode, "tokens")] == want["tokens"], where
+        assert srv[("audio", mode, "local")], where
+        for t, (g, w) in enumerate(zip(srv[("audio", mode, "steps")], want["steps"],
+                                       strict=True)):
+            for r, n in enumerate(TWIN_COUNTS[t]):
+                _close(g[r, :n], w[r, :n], f"{where} step {t} row {r}")
 
 
 @pytest.mark.parametrize("arch", [ARCH, "llama-3.2-vision-11b"])
-def test_train_launcher_refuses_a_recipe_mode(arch, tmp_path):
-    """``launch/train.py --attn-mode tp`` refuses both families in the
-    same words, before the world forms."""
+def test_train_launcher_trains_under_a_recipe_mode(arch, tmp_path):
+    """``launch/train.py --attn-mode tp`` on 2 gloo ranks (the world
+    ``torchrun`` would make: a (1, 2) mesh) trains both families under the
+    recipe: every step's loss is the one-process run's (bf16 activations)."""
     from repro_torch.launch import train as tlaunch
 
-    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--attn-mode", "tp", "--steps", "1",
-            "--ckpt-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="item 8c: the VLM and audio families"):
-        tlaunch.main(argv)
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2", "--seq-len", "16",
+            "--global-batch", "2", "--log-every", "1"]
+    ranks = run_gloo("_torch_recipe:train_launcher", 2, tmp_path / "gloo",
+                     argv=argv + ["--attn-mode", "tp", "--ckpt-dir", str(tmp_path / "tp")])
+    one = tlaunch.run(tlaunch.parse_args(argv + ["--ckpt-dir", str(tmp_path / "one")]))
+    for rank, got in enumerate(ranks):
+        assert len(got["loss"]) == 2, rank
+        assert max(abs(a - b) for a, b in zip(got["loss"], one["loss"])) < 1e-3, (got, one)

@@ -56,6 +56,7 @@ LM_MODULES = [
     "repro_torch.configs.arctic_480b", "repro_torch.train.optimizer",
     "repro_torch.train.buckets", "repro_torch.train.trainer", "repro_torch.data.pipeline",
     "repro_torch.ckpt.manager", "repro_torch.launch.train", "repro_torch.examples.train_lm",
+    "repro_torch.examples.quickstart", "repro_torch.examples.serve_lm",
 ]
 
 
@@ -148,10 +149,9 @@ def test_serve_cli_serves_on_the_cpu():
 
 
 def test_serve_cli_raises_for_what_is_not_ported():
-    for flags, item in ((["--fake-devices", "8"], "torchrun"), (["--ckpt-dir", "x"], "item 11")):
-        proc = _python("", "-m", "repro_torch.launch.serve", "--arch", "phi4-mini-3.8b",
-                       "--smoke", "--device", "cpu", *flags)
-        assert proc.returncode != 0 and item in proc.stderr, proc.stderr[-2000:]
+    proc = _python("", "-m", "repro_torch.launch.serve", "--arch", "phi4-mini-3.8b", "--smoke",
+                   "--device", "cpu", "--fake-devices", "8")
+    assert proc.returncode != 0 and "torchrun" in proc.stderr, proc.stderr[-2000:]
     # the VLM: the engine builds no image batch, as the reference's does not
     proc = _python("", "-m", "repro_torch.launch.serve", "--arch", "llama-3.2-vision-11b",
                    "--smoke", "--device", "cpu")

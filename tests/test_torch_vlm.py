@@ -37,14 +37,15 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import blocks as tblk
 from repro_torch.models import lm as tlm
 from repro_torch.models.module import tree_leaves
-from repro_torch.models.sharding import make_recipe, use_recipe
 from repro_torch.models.weights import params_from_jax
 from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.train import optimizer as topt
 from repro_torch.train import trainer as ttr
 
-from _torch_families import (BATCH_AXIS_FROM_END, assert_grads_close, inputs, leaves, models,
-                             named_leaves, np_, open_gates, perturb)
+from _torch_dist import run_gloo
+from _torch_families import (BATCH_AXIS_FROM_END, RECIPE_OCFG, assert_grads_close,
+                             check_recipe_step, inputs, leaves, models, named_leaves, np_,
+                             open_gates, perturb, recipe_reference_step, reference_greedy)
 
 ARCH = "llama-3.2-vision-11b"
 TOL = 1e-4
@@ -271,32 +272,55 @@ def test_checkpoint_round_trips_the_nested_tree(tmp_path):
     assert all(t.dtype == torch.bfloat16 for t in tree_leaves(half))
 
 
-# -------------------------------------------------------------- refusals ----
+# ------------------------------------------------------ under a recipe ----
 
-class _Mesh:  # what make_recipe reads of a mesh
-    shape = {"data": 1, "model": 2}
-    axis_names = ("data", "model")
+TWIN_MESH = (1, 2)  # a model axis of 2: the heads and the KV groups cut in two
+TWIN_COUNTS = [(7, 5, 0, 3), (1, 1, 1, 0), (1, 0, 1, 1)]
+
+
+@pytest.fixture(scope="module")
+def twin(tmp_path_factory):
+    """The reference's single-device forward, greedy decode loop and train
+    step, and the port's under each mode on 2 gloo ranks of a (1, 2) mesh
+    (one job, ``_torch_recipe.family_twin``)."""
+    ref = recipe_reference_step(ARCH, 12, 130)
+    jcfg, jp, _, _ = models(ARCH)
+    jb, _ = inputs(jcfg, 4, 12, seed=131)
+    prompt = np.random.default_rng(132).integers(0, jcfg.vocab, (4, 7)).astype(np.int32)
+    image = np.asarray(_image(jcfg, 4, 133)[0])
+    counts = [np.array(c, np.int32) for c in TWIN_COUNTS]
+    want = {"forward": np.asarray(jlm.forward(jp, jb, jcfg)[0]), "train": ref,
+            "decode": reference_greedy(jcfg, jp, prompt, image, counts)}
+    ranks = run_gloo("_torch_recipe:family_twin", 2, tmp_path_factory.mktemp("gloo_vlm_twin"),
+                     timeout=400, shape=TWIN_MESH, models={"vlm": ref["tree"]},
+                     batch={"vlm": {k: np.asarray(v) for k, v in jb.items()}},
+                     train_batch={"vlm": ref["batch"]}, ocfg=RECIPE_OCFG,
+                     prompts={"vlm": prompt}, counts=counts, image=image,
+                     other_image=np.asarray(_image(jcfg, 4, 134)[0]))
+    return want, ranks
 
 
 @pytest.mark.parametrize("mode", ["tp", "sp", "sp_ring"])
-def test_recipe_is_refused_by_name(mode):
-    """Under a recipe the forward, the cache, the decode step and the
-    recipe training step refuse the family, naming ROADMAP item 8c, before
-    any collective (the mesh here has no process group: a collective would
-    fail otherwise)."""
-    _, _, tcfg, tp = models(ARCH)
-    _, tb = inputs(tcfg, 1, 8)
-    recipe = make_recipe(tcfg, _Mesh(), attn_mode=mode)
-    with use_recipe(recipe):
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            tlm.forward(tp, tb, tcfg)
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            tlm.init_cache(tcfg, 1, 8, device="cpu")
-        state = tlm.DecodeState(None, torch.zeros((1,), dtype=torch.int32))
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            tlm.decode_step(tp, state, tb, tcfg)
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        ttr.make_train_step(tcfg, recipe, topt.OptConfig())
+def test_recipe_runs_by_name(twin, mode):
+    """Under each recipe mode on a (1, 2) mesh the forward, the cache and
+    the decode step (a whole-prompt chunk with an idle row, then greedy
+    steps), and the recipe training step run, held against the
+    reference's single-device programs: the forward within ``TOL``, each
+    active row's decode logits within ``TOL`` and the greedy tokens equal,
+    the step as ``_torch_families.check_recipe_step`` holds it; another
+    image moves the chunk's logits."""
+    want, ranks = twin
+    check_recipe_step(want["train"], [r["train"] for r in ranks], "vlm", TWIN_MESH, mode)
+    for rank, got in enumerate(ranks):
+        where = f"{mode} rank {rank}"
+        _close(got["forward"][("vlm", mode)], want["forward"], where)
+        dec = got["decode"]
+        for t, (g, w) in enumerate(zip(dec[("vlm", mode, "steps")], want["decode"]["steps"],
+                                       strict=True)):
+            for r, n in enumerate(TWIN_COUNTS[t]):
+                _close(g[r, :n], w[r, :n], f"{where} step {t} row {r}")
+        np.testing.assert_array_equal(dec[("vlm", mode, "tokens")], want["decode"]["tokens"])
+        assert _moved(dec[("vlm", mode, "other")], dec[("vlm", mode, "steps")][0]) > 100 * TOL
 
 
 def test_engine_refuses_the_family_with_its_reason():
