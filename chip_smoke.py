@@ -193,6 +193,22 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   and one ``tp`` training step of each at the no-recipe step's depth (5
   and 24 layers), loss and gradient norm bitwise the no-recipe step's, its
   seconds and peak memory.
+* the last parts of the TPU kernels' contracts, reached through ``ops``
+  (no model path runs them; the bf16 GEMMs' launches on the main path are
+  counted, and are 0): the bf16 GEMM kernels (``csrc/gemm_bf16.cu``)
+  in all 8 majors at EXTRALARGE (TMA) and at the ragged dims+1 (plain
+  loads), each launch counted on its loader, with and without acc (bf16
+  or float32) to bf16 and float32 outputs, and the panel (nb = 2, bf16 and
+  float32 panels, jb by value and from the device, the other block
+  bitwise), each against its plain version, against float64 (at most 10x
+  the plain version's error) and bitwise on a rerun, timed at EXTRALARGE
+  beside their bf16 bounds, plain versions and cuBLAS (``torch.matmul``,
+  ``torch.mm(out_dtype=float32)``, ``addmm_``, ``torch.addmm(out_dtype=
+  float32)``); and the decode kernel's
+  (96, 64) instance at minicpm3-4b's widths (40 heads, MHA: a step of 4
+  slots over a 4096-position cache, a 4 x 2048 prefill chunk with an idle
+  slot), bf16 and float32, against its plain version with the per-block
+  rounding margins, timed beside its bound.
 
 Every kernel time (``ms``, ``plain_ms``, ``library_ms``) is device time per
 call from ``repro_torch.kernels.timing.queued_ms`` (calls run back to back
@@ -227,6 +243,15 @@ TF32_PEAK = 495e12  # H100 SXM TF32 on the tensor cores, dense, FLOP/s (data she
 BF16_PEAK = 989e12  # H100 SXM bf16 on the tensor cores, dense, FLOP/s (data sheet)
 SPLIT_PRODUCTS = 3  # the GEMM kernels' split TF32: A_lo B_hi + A_hi B_lo + A_hi B_hi
 ACCURACY_RATIO = 10  # GEMM kernel's error vs float64 at most this times the plain version's
+# the bf16 GEMM kernels vs their plain versions: both sum in float32 (in other
+# orders) and round once, so a bf16 output may be one bf16 ulp apart; a
+# float32 output is held as the float32 kernels' is
+GEMM_BF16_TOL = {torch.bfloat16: dict(rtol=1e-2, atol=1e-2),
+                 torch.float32: dict(rtol=1e-4, atol=1e-3)}
+# (acc dtype, out_dtype) of each bf16 GEMM check: without acc to either
+# output, a bf16 acc to the bf16 output, a float32 acc to a float32 output
+GEMM_BF16_CASES = ((None, None), (None, torch.float32), (torch.bfloat16, None),
+                   (torch.float32, torch.float32))
 UNALIGNED = (2049, 2561, 1409)  # the ragged SUMMA's dims+1: the strided TMA loader
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s (data sheet)
 LIBRARY_GEMM = re.compile(r"cublas|cutlass|xmma|gemm|sm90_|sm80_|ampere_|magma", re.I)
@@ -436,16 +461,21 @@ def device_kernel_ms(prof) -> dict[str, float]:
     return out
 
 
-def bound(m: int, n: int, k: int, *, acc: bool) -> tuple[float, str, float]:
+def bound(m: int, n: int, k: int, *, acc: bool, dtype=torch.float32, out_bytes: int = 4,
+          acc_bytes: int = 4) -> tuple[float, str, float]:
     """Least time for the GEMM kernels' work on the card: bytes (each input
-    read once, the output written once) over the memory rate vs the split
-    scheme's operations (three TF32 products) over the TF32 peak, whichever
-    is larger; and, beside it, the float32 CUDA-core bound (one product
-    over the float32 peak, or the bytes)."""
-    nbytes = 4 * (m * k + k * n + (2 if acc else 1) * m * n)
+    read once, the output written once: A and B in ``dtype``, the output and
+    acc in their own widths) over the memory rate vs the operations over
+    their peak, whichever is larger: float32 operands take the split
+    scheme's three TF32 products over the TF32 peak, bf16 operands one bf16
+    product over the bf16 peak.  Beside it, the float32 CUDA-core bound (one
+    product over the float32 peak, or the bytes)."""
+    nbytes = (torch.finfo(dtype).bits // 8 * (m * k + k * n) + out_bytes * m * n
+              + (acc_bytes * m * n if acc else 0))
     flops = 2 * m * n * k
     t_bytes = nbytes / HBM_RATE
-    t_ops = SPLIT_PRODUCTS * flops / TF32_PEAK + (m * n / FP32_PEAK if acc else 0)
+    per_flop = SPLIT_PRODUCTS / TF32_PEAK if dtype == torch.float32 else 1 / BF16_PEAK
+    t_ops = flops * per_flop + (m * n / FP32_PEAK if acc else 0)
     t_fp32 = (flops + (m * n if acc else 0)) / FP32_PEAK
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations",
             max(t_bytes, t_fp32) * 1e3)
@@ -642,13 +672,16 @@ def check_bound(name: str, row: dict) -> None:
 
 
 def gemm_times(kernel, plain, library) -> dict:
-    """Device times of the kernel, its plain version and the library call,
-    and CUDA-event medians of the kernel's and the library's single calls
-    (host work included)."""
+    """Device times of the kernel, its plain version and the library call
+    (``None`` where no one call computes the function: its times are
+    ``None``), and CUDA-event medians of the kernel's and the library's
+    single calls (host work included)."""
     from repro_torch.kernels.timing import queued_ms
 
-    return dict(ms=queued_ms(kernel), plain_ms=queued_ms(plain), library_ms=queued_ms(library),
-                call_ms=median_ms(kernel), library_call_ms=median_ms(library))
+    return dict(ms=queued_ms(kernel), plain_ms=queued_ms(plain),
+                library_ms=None if library is None else queued_ms(library),
+                call_ms=median_ms(kernel),
+                library_call_ms=None if library is None else median_ms(library))
 
 
 def time_kernels(ops, card: str) -> dict:
@@ -690,6 +723,173 @@ def time_kernels(ops, card: str) -> dict:
     return rows
 
 
+def bf16_buffers(majors: str, m: int, n: int, k: int, *, nb: int = 1, c_dtype=torch.bfloat16,
+                 seed: int = 0):
+    """:func:`buffers` with A and B in bf16 and the C-orientation buffer in
+    ``c_dtype``."""
+    a, b, c = buffers(majors, m, n, k, nb=nb, seed=seed)
+    return a.to(torch.bfloat16), b.to(torch.bfloat16), c.to(c_dtype)
+
+
+def check_gemm_bf16(ops, kernels) -> dict:
+    """The bf16 GEMM kernels against their plain versions, in all 8 majors
+    at EXTRALARGE (the TMA loader) and at the ragged dims+1 (plain loads),
+    each launch counted on the loader expected: ``ops.gemm`` with and
+    without acc (bf16 or float32) and both outputs (:data:`GEMM_BF16_CASES`),
+    and ``ops.gemm_panel`` (nb = 2, bf16 and float32 panels, jb by value and
+    from the device, the other block bitwise).  Each result against the
+    plain version (:data:`GEMM_BF16_TOL`), against a float64 product (at
+    most ACCURACY_RATIO times the plain version's error) and against a
+    second launch (bitwise).  Returns the worst error against the plain
+    version at EXTRALARGE by kernel."""
+    worst = {"gemm_bf16": 0.0, "gemm_panel_bf16": 0.0}
+
+    def held(name, got, want, exact, again) -> dict:
+        torch.testing.assert_close(got, want, **GEMM_BF16_TOL[got.dtype])
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two launches differ")
+        errs = {"kernel": (got.double() - exact).abs().max().item(),
+                "plain": (want.double() - exact).abs().max().item()}
+        if errs["kernel"] > ACCURACY_RATIO * errs["plain"]:
+            raise AssertionError(f"{name}: error against float64 over {ACCURACY_RATIO}x the "
+                                 f"plain version's: {errs}")
+        return dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
+                    error_vs_float64=errs, ratio=errs["kernel"] / errs["plain"])
+
+    for (m, n, k), path in ((EXTRALARGE, "tma"), (UNALIGNED, "plain")):
+        rows = {}
+        for majors in MAJORS:
+            a, b, c = bf16_buffers(majors, m, n, k)
+            exact = logical_f64(a, b, majors)
+            for acc_dtype, out_dtype in GEMM_BF16_CASES:
+                acc = None if acc_dtype is None else c.to(acc_dtype)
+                run = lambda: ops.gemm(a, b, acc, majors=majors, out_dtype=out_dtype)  # noqa: E731
+                kernels.reset_launches()
+                got = run()
+                if kernels.gemm_bf16_cuda.launches_by_path[path] != 1:
+                    raise AssertionError(f"gemm bf16 {majors} {(m, n, k)}: expected the {path} "
+                                         f"loader, got {kernels.gemm_bf16_cuda.launches_by_path}")
+                want = ops.gemm(a, b, acc, majors=majors, out_dtype=out_dtype, impl="ref")
+                torch.cuda.synchronize()
+                label = f"{majors} acc={acc_dtype} out={got.dtype}"
+                rows[label] = held(f"gemm bf16 {label} {(m, n, k)}", got, want,
+                                   exact if acc is None else exact + acc.double(), run())
+            del a, b, c, exact
+        if (m, n, k) == EXTRALARGE:
+            worst["gemm_bf16"] = max(r["max_abs_err"] for r in rows.values())
+        phase("kernel_check", kernel="gemm_bf16", shape=(m, n, k), loader=path,
+              two_launches="bitwise", limit=ACCURACY_RATIO,
+              max_ratio=max(r["ratio"] for r in rows.values()), cases=rows)
+    nb = 2
+    for (m, n, k), path in (((EXTRALARGE[0], EXTRALARGE[1] // nb, EXTRALARGE[2]), "tma"),
+                            ((UNALIGNED[0], UNALIGNED[1] // nb + 1, UNALIGNED[2]), "plain")):
+        rows = {}
+        for majors in MAJORS:
+            for panel_dtype in (torch.bfloat16, torch.float32):
+                a, b, panel = bf16_buffers(majors, m, n, k, nb=nb, c_dtype=panel_dtype)
+                product = logical_f64(a, b, majors)
+                for jb in range(nb):
+                    blk = slice(jb * n, (jb + 1) * n)
+                    keep = torch.ones_like(panel, dtype=torch.bool)
+                    if majors.startswith("J"):
+                        keep[blk, :] = False
+                        block = lambda t: t[blk, :]  # noqa: E731
+                    else:
+                        keep[:, blk] = False
+                        block = lambda t: t[:, blk]  # noqa: E731
+                    exact = block(panel).double() + product
+                    want = ops.gemm_panel(a, b, panel.clone(), jb, majors=majors, impl="ref")
+                    for jb_arg in (jb, torch.tensor([jb], dtype=torch.int32, device="cuda")):
+                        kernels.reset_launches()
+                        got = ops.gemm_panel(a, b, panel.clone(), jb_arg, majors=majors)
+                        if kernels.gemm_panel_bf16_cuda.launches_by_path[path] != 1:
+                            raise AssertionError(
+                                f"gemm_panel bf16 {majors}: expected the {path} loader, got "
+                                f"{kernels.gemm_panel_bf16_cuda.launches_by_path}")
+                        again = ops.gemm_panel(a, b, panel.clone(), jb_arg, majors=majors)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got[keep], panel[keep]):
+                            raise AssertionError(f"gemm_panel bf16 {majors} jb={jb} touched "
+                                                 "other blocks")
+                        where = "device" if isinstance(jb_arg, torch.Tensor) else "host"
+                        label = f"{majors} {panel_dtype} jb={jb} {where}"
+                        rows[label] = held(f"gemm_panel bf16 {label}", block(got), block(want),
+                                           exact, block(again))
+                del a, b, panel, product
+        if path == "tma":
+            worst["gemm_panel_bf16"] = max(r["max_abs_err"] for r in rows.values())
+        phase("kernel_check", kernel="gemm_panel_bf16", shape=(m, n, k, nb), loader=path,
+              untouched_blocks="bitwise", two_launches="bitwise", limit=ACCURACY_RATIO,
+              max_ratio=max(r["ratio"] for r in rows.values()), cases=rows)
+    torch.cuda.empty_cache()
+    return worst
+
+
+def library_gemm_f32(a, b, majors: str) -> torch.Tensor:
+    """:func:`library_gemm` with a float32 output from bf16 operands (one
+    cuBLAS call, ``out_dtype``)."""
+    c_major, a_major, b_major = majors.split("/")
+    al = a.T if a_major == "K" else a
+    bl = b.T if b_major == "J" else b
+    if c_major == "J":
+        return torch.mm(bl.T, al.T, out_dtype=torch.float32)
+    return torch.mm(al, bl, out_dtype=torch.float32)
+
+
+def time_gemm_bf16(ops, card: str) -> dict:
+    """Times of the bf16 GEMM kernels at EXTRALARGE beside their bf16
+    bounds (:func:`bound` with ``dtype``), their plain versions and one
+    cuBLAS call: ``ops.gemm`` to a bf16 output in all 8 majors (beside
+    ``torch.matmul``) and to a float32 output (beside ``torch.mm`` with
+    ``out_dtype``), and ``ops.gemm_panel`` on a bf16 panel of one block
+    (beside ``addmm_``) and on a float32 panel (beside ``torch.addmm`` with
+    ``out_dtype``: the same sum, float32, into a new tensor)."""
+    m, n, k = EXTRALARGE
+    rows = {}
+    for majors in MAJORS:
+        a, b, _ = bf16_buffers(majors, m, n, k)
+        for out_dtype in (None, torch.float32):
+            if out_dtype is not None and majors != "I/I/K":
+                continue
+            library = library_gemm if out_dtype is None else library_gemm_f32
+            row = gemm_times(lambda: ops.gemm(a, b, majors=majors, out_dtype=out_dtype),
+                             lambda: ops.gemm(a, b, majors=majors, out_dtype=out_dtype,
+                                              impl="ref"),
+                             lambda: library(a, b, majors))
+            b_ms, b_by, fp32_ms = bound(m, n, k, acc=False, dtype=torch.bfloat16,
+                                        out_bytes=2 if out_dtype is None else 4)
+            row.update(bound_ms=b_ms, bound_by=b_by, fp32_bound_ms=fp32_ms)
+            check_bound(f"gemm bf16 {majors} out={out_dtype}", row)
+            out = "bfloat16" if out_dtype is None else "float32"
+            if majors == "I/I/K":
+                rows[("gemm_bf16", out)] = row
+            phase("time", kernel="gemm_bf16", majors=majors, shape=(m, n, k), out_dtype=out,
+                  card=card, tflops=2 * m * n * k / row["ms"] / 1e9,
+                  library_tflops=2 * m * n * k / row["library_ms"] / 1e9, **row)
+        del a, b
+    for panel_dtype in (torch.bfloat16, torch.float32):
+        a, b, panel = bf16_buffers("I/I/K", m, n, k, nb=1, c_dtype=panel_dtype)
+        if panel_dtype == torch.bfloat16:
+            library = lambda: panel[:, 0:n].addmm_(a, b)  # noqa: E731
+        else:
+            library = lambda: torch.addmm(panel[:, 0:n], a, b, out_dtype=torch.float32)  # noqa: E731
+        row = gemm_times(lambda: ops.gemm_panel(a, b, panel, 0, majors="I/I/K"),
+                         lambda: ops.gemm_panel(a, b, panel, 0, majors="I/I/K", impl="ref"),
+                         library)
+        width = torch.finfo(panel_dtype).bits // 8
+        b_ms, b_by, fp32_ms = bound(m, n, k, acc=True, dtype=torch.bfloat16, out_bytes=width,
+                                    acc_bytes=width)
+        row.update(bound_ms=b_ms, bound_by=b_by, fp32_bound_ms=fp32_ms)
+        check_bound(f"gemm_panel bf16 panel={panel_dtype}", row)
+        rows[("gemm_panel_bf16", str(panel_dtype).split(".")[1])] = row
+        phase("time", kernel="gemm_panel_bf16", majors="I/I/K", shape=(m, n, k), nb=1,
+              panel_dtype=str(panel_dtype), card=card, tflops=2 * m * n * k / row["ms"] / 1e9,
+              **row)
+        del a, b, panel
+    torch.cuda.empty_cache()
+    return rows
+
+
 def randn(shape, dtype, seed: int) -> torch.Tensor:
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     return torch.randn(shape, device=DEVICE, generator=g).to(dtype)
@@ -711,10 +911,11 @@ def attn_bound(flops: float, nbytes: float, *, products: int = 2,
             max(flops / FP32_PEAK, t_bytes) * 1e3)
 
 
-def decode_inputs(B, Hq, G, S, T, D, dtype, *, lens, start=None, seed=20):
-    """q, caches, lengths and (with ``start``) per-row chunk positions."""
+def decode_inputs(B, Hq, G, S, T, D, dtype, *, lens, start=None, seed=20, Dv=None):
+    """q, caches (v ``Dv`` wide, by default D), lengths and (with ``start``)
+    per-row chunk positions."""
     q = randn((B, Hq, S, D), dtype, seed)
-    kc, vc = randn((B, G, T, D), dtype, seed + 1), randn((B, G, T, D), dtype, seed + 2)
+    kc, vc = randn((B, G, T, D), dtype, seed + 1), randn((B, G, T, Dv or D), dtype, seed + 2)
     lens = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
     pos = None
     if start is not None:
@@ -2502,22 +2703,30 @@ def check_forward_instance(ops, card: str, label: str, dims, causal: bool, piece
 
 
 def check_decode_instance(ops, card: str, label: str, dims, lens, seed: int, *,
-                          at_last: bool = False) -> dict:
-    """``kernel_instance``: the decode kernel at ``dims`` (B, Hq, G, 1, T, D)
-    with cache lengths ``lens`` (``at_last``: each slot's query at its own
-    last position, a length past T a ring buffer wrapped, every slot
-    valid), bf16 and float32, against its plain version and itself; the
-    bf16 kernel's per-block rounding (:func:`rounding_margins`); the bf16
-    time beside its bound (the bytes of the visible K/V), its plain version
-    and ``scaled_dot_product_attention``.  Returns the bf16 row."""
+                          at_last: bool = False, Dv: int | None = None, start=None) -> dict:
+    """``kernel_instance``: the decode kernel at ``dims`` (B, Hq, G, S, T, D),
+    v ``Dv`` wide (by default D), with cache lengths ``lens`` (``at_last``:
+    each slot's one query at its own last position, a length past T a ring
+    buffer wrapped, every slot valid; ``start``: each slot's first query
+    position, a prefill chunk), bf16 and float32, against its plain version
+    and itself; the bf16 kernel's per-block rounding
+    (:func:`rounding_margins`); the bf16 time beside its bound (the bytes
+    of the visible K/V, or the operations its rows' visible keys need),
+    its plain version and ``scaled_dot_product_attention``.  Returns the
+    bf16 row."""
     B, Hq, G, S, T, D = dims
+    Dv = Dv or D
     rows = {}
     for dt in (torch.bfloat16, torch.float32):
-        q, kc, vc, lens_t, _ = decode_inputs(*dims, dt, lens=lens, seed=seed)
-        pos = (lens_t - 1)[:, None] if at_last else None
+        q, kc, vc, lens_t, pos = decode_inputs(*dims, dt, lens=lens, start=start, seed=seed,
+                                               Dv=Dv)
+        if at_last:
+            pos = (lens_t - 1)[:, None]
         got = ops.flash_decode(q, kc, vc, lens_t, q_positions=pos)
         torch.cuda.synchronize()
         want = ops.flash_decode(q, kc, vc, lens_t, q_positions=pos, impl="ref")
+        if got.shape != (B, Hq, S, Dv):
+            raise AssertionError(f"flash_decode {label}: output {tuple(got.shape)}")
         torch.testing.assert_close(got, want, rtol=ATTN_TOL[dt], atol=ATTN_TOL[dt])
         if not torch.equal(got, ops.flash_decode(q, kc, vc, lens_t, q_positions=pos)):
             raise AssertionError(f"flash_decode {label} {dt}: two launches differ")
@@ -2536,18 +2745,44 @@ def check_decode_instance(ops, card: str, label: str, dims, lens, seed: int, *,
                                                     impl="ref"),
                            lambda: library_attention(qf, kf, vf, attn_mask=mask),
                            lambda: library_attention(q, kc, vc, attn_mask=mask), plain_iters=5)
-            visible = sum(min(n, T) for n in lens)
-            b_ms, b_by, fp32_ms = attn_bound(4 * Hq * S * visible * D,
-                                             2 * 2 * G * D * visible + 2 * 2 * q.numel())
+            # the work this run's data needs: each row's visible keys
+            cached = sum(min(n, T) for n in lens)
+            if pos is None:
+                visible = S * cached
+            else:
+                seen = torch.minimum(pos.long() + 1, lens_t[:, None].long().clamp(max=T))
+                visible = int(seen.clamp(min=0).sum())
+            b_ms, b_by, fp32_ms = attn_bound(
+                2 * Hq * visible * (D + Dv),
+                2 * G * (D + Dv) * cached + 2 * (q.numel() + got.numel()),
+                pv_flops=2 * Hq * visible * Dv)
             row.update(bound_ms=b_ms, bound_by=b_by, fp32_bound_ms=fp32_ms, **t)
             check_bound(f"flash_decode {label}", row)
             del qf, kf, vf, mask
         rows[dt] = row
-        phase("kernel_instance", kernel="flash_decode", case=label, shape=dims, lens=lens,
-              dtype=str(dt), card=card, **row)
+        phase("kernel_instance", kernel="flash_decode", case=label, shape=dims, Dv=Dv,
+              lens=lens, start=start, dtype=str(dt), card=card, **row)
         del q, kc, vc, got, want
     torch.cuda.empty_cache()
     return rows[torch.bfloat16]
+
+
+def check_mla_decode(ops, card: str) -> dict:
+    """The decode kernel's (96, 64) instance at minicpm3-4b's widths (40
+    heads, MHA; q/k of d_nope + d_rope = 96, v of d_v = 64): a decode step of
+    4 slots over a 4096-position cache (lengths DECODE_LENS) and a prefill
+    chunk of 4 x 2048 queries (lengths 2047, 1000, 300, 0: two prompts from
+    0, a resident slot, an idle one), each :func:`check_decode_instance`.
+    The model's own decode is the absorbed form, with no kernel; this
+    instance is the reference's ``flash_decode_pallas`` with a v head dim of
+    its own, reached through ``ops.flash_decode``."""
+    H, D, Dv = MLA_HEADS, MLA_D, MLA_DV
+    return {"step": check_decode_instance(ops, card, "mla_decode_step",
+                                          (SLOTS, H, H, 1, MAX_LEN, D), DECODE_LENS, 200, Dv=Dv),
+            "prefill_chunk": check_decode_instance(ops, card, "mla_prefill_chunk",
+                                                   (SLOTS, H, H, 2048, MAX_LEN, D),
+                                                   (2047, 1000, 300, 0), 210, Dv=Dv,
+                                                   start=(0, 0, 300, 0))}
 
 
 def check_hybrid_kernels(ops, card: str, pieces: int) -> dict:
@@ -4166,6 +4401,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     kernels.load_library()
+    kernels.load_bf16_library()
     fa.load_library()
     fd.load_library()
     relayout.load_library()
@@ -4181,6 +4417,9 @@ def main() -> int:
           torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas)
     phase("gemm_instances", dynamic_shared_bytes=kernels.load_library().layout_gemm_smem_bytes(),
           ptxas=kernel_instances(build.build_log("gemm")))
+    phase("gemm_bf16_instances",
+          dynamic_shared_bytes=kernels.load_bf16_library().layout_gemm_bf16_smem_bytes(),
+          ptxas=kernel_instances(build.build_log("gemm_bf16")))
     attn_ptxas = {name: kernel_instances(build.build_log(name), rf"{name}_kernel_wgmma")
                   for name in ("flash_attention", "flash_decode")}
     attn_ptxas["flash_attention_float32"] = kernel_instances(build.build_log("flash_attention"),
@@ -4201,9 +4440,13 @@ def main() -> int:
         calls = drive_main_path(g, mesh1, mesh11)
         main_s = time.perf_counter() - t0
         launches = {"gemm": kernels.gemm_cuda.launches,
-                    "gemm_panel": kernels.gemm_panel_cuda.launches}
+                    "gemm_panel": kernels.gemm_panel_cuda.launches,
+                    "gemm_bf16": kernels.gemm_bf16_cuda.launches,
+                    "gemm_panel_bf16": kernels.gemm_panel_bf16_cuda.launches}
         # 1-D: one gemm per rank per call; SUMMA and ragged SUMMA: R = 1 panel step per call
-        expected = {"gemm": calls["panel1d"], "gemm_panel": calls["summa"] + calls["ragged"]}
+        # (the case study runs in float32: no bf16 GEMM on this path)
+        expected = {"gemm": calls["panel1d"], "gemm_panel": calls["summa"] + calls["ragged"],
+                    "gemm_bf16": 0, "gemm_panel_bf16": 0}
         if launches != expected:
             raise AssertionError(f"main-path launches {launches} != expected {expected}")
         # EXTRALARGE loads through TMA, the ragged dims+1 through the strided TMA
@@ -4223,6 +4466,14 @@ def main() -> int:
     # phase 5: times
     rows = time_kernels(ops, card)
     torch.cuda.empty_cache()
+
+    # phase 5b: the bf16 GEMM kernels (both loaders, all 8 majors) against
+    # their plain versions, float64 and themselves, and their times
+    t0 = time.perf_counter()
+    worst.update(check_gemm_bf16(ops, kernels))
+    rows.update(time_gemm_bf16(ops, card))
+    phase("gemm_bf16", max_abs_err={k: worst[k] for k in ("gemm_bf16", "gemm_panel_bf16")},
+          seconds=time.perf_counter() - t0)
 
     # phase 6: the attention kernels against their plain versions
     t0 = time.perf_counter()
@@ -4327,6 +4578,7 @@ def main() -> int:
     # phase 12: the MLA family, minicpm3-4b at full width (MLA_DEPTH layers), seeded
     # random weights; the kernel's (96, 64) instances first
     mla_attn = check_mla_kernel(ops, card, fa.P_PIECES)
+    mla_dec = check_mla_decode(ops, card)
     t1 = time.perf_counter()
     mla_carry = check_mla_carry(ops, card, ring_step_offsets, fa.P_PIECES)
     latent_recipe_s += time.perf_counter() - t1
@@ -4528,6 +4780,20 @@ def main() -> int:
         row = rows[(name, "EXTRALARGE")]
         report.append({"name": name, "route": "cuda", "source": gemm_src, "replaces": replaces,
                        "launches": launches[name], "max_abs_err": worst[name], **row})
+    # the bf16 kernels: their launches on the main path, counted as the
+    # float32 kernels' are (no path of the repo runs the GEMM in bf16)
+    for name, replaces, other, keys in (
+            ("gemm_bf16", "src/repro/kernels/gemm.py:80", ("gemm_bf16", "float32"),
+             ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms")),
+            ("gemm_panel_bf16", "src/repro/kernels/gemm.py:181", ("gemm_panel_bf16", "float32"),
+             ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms"))):
+        prefix = "float32_out_" if name == "gemm_bf16" else "float32_panel_"
+        report.append({"name": name, "route": "cuda",
+                       "source": "src/repro_torch/kernels/csrc/gemm_bf16.cu",
+                       "replaces": replaces, "operands": "bfloat16", "launches": launches[name],
+                       "launches_on": "no model path: reached through ops on bf16 operands",
+                       "max_abs_err": worst[name], **rows[(name, "bfloat16")],
+                       **{prefix + key: rows[other][key] for key in keys}})
     report.append({"name": "flash_attention", "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                    "replaces": "src/repro/kernels/flash_attention.py:169",
@@ -4601,6 +4867,8 @@ def main() -> int:
                    "vlm_recipe_decode_step_launches":
                    vlm_rec_dec["launches_per_step"]["flash_decode"],
                    **{f"musicgen_d64_{key}": fam_attn["audio_decode"][key] for key in gqa4},
+                   **{f"mla_96_64_{case}_{key}": mla_dec[case][key]
+                      for case in ("step", "prefill_chunk") for key in gqa4},
                    "max_abs_err": worst["flash_decode"], **rows[("flash_decode", "decode")],
                    **{f"prefill_chunk_{key}": prefill[key]
                       for key in ("ms", "bound_ms", "bound_by", "fp32_bound_ms", "plain_ms",

@@ -86,8 +86,9 @@ def build_log(name: str) -> str:
 def build_variants(sources: dict[str, Path]) -> dict[str, Path]:
     """Build ``{name: source}``, other versions of kernel sources (for timing
     them beside the checkout's), with the same flags and ``csrc/`` on the
-    include path, into ``build/torch_kernels/ab/lib<name>.so``, one ``nvcc``
-    each, all at once; returns ``{name: library}``.  Raises if any fails."""
+    include path, into ``build/torch_kernels/ab/lib<name>.so`` (nvcc's output
+    beside it, ``.log``), one ``nvcc`` each, all at once; returns ``{name:
+    library}``.  Raises if any fails."""
     out = BUILD_DIR / "ab"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _find_nvcc()
@@ -100,6 +101,7 @@ def build_variants(sources: dict[str, Path]) -> dict[str, Path]:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
+        libs[name].with_suffix(".log").write_text(log)
     return libs
 
 

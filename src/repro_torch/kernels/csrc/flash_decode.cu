@@ -4,6 +4,7 @@
 //
 // Replaces the TPU kernel `flash_decode_pallas` (`_decode_kernel` and its
 // log-sum-exp combine epilogue) of src/repro/kernels/flash_decode.py.
+// q and K have a head dim D, v and the output one of their own, Dv.
 //
 // What it computes, as the reference does.  The rep = Hq / G query heads of
 // a KV group are stacked into rep*S rows (row r is head r / S, query r % S).
@@ -88,12 +89,21 @@
 // into the output per tile.  Shared memory at TR = 4, D = 128, bk = 512:
 // 195 KB.
 //
-// Head dims 64, 112 and 128.  112 (zamba2-7b's shared attention block, MHA:
+// Head dims (D, Dv) = (64, 64), (112, 112), (128, 128) and (96, 64).  112
+// (zamba2-7b's shared attention block, MHA:
 // one row per (slot, group) in a step) is 64 + 48: K and V tiles take two
 // boxes, TMA zero-filling columns 112-127 (the maps' inner extent is 112);
 // Q K^T runs 7 k16 steps, P V wgmma m64n128k16 over V's zero columns (16 of
 // 128 of its products wasted), and only 112 columns are stored or merged.
 // The float32 body pads V's tile and its output columns to 128 the same way.
+// (96, 64) is MLA's pair (q/k of d_nope + d_rope, v of d_v), as the forward
+// kernel takes it: q and K tiles take two boxes (TMA zero-filling K's
+// columns 96-127, q's never read), Q K^T runs D / 16 = 6 k16 steps; V tiles,
+// P V (N = 64), the partials, the merge and the output are Dv wide.  A ring
+// stage holds the larger of a K and a V tile, each load expects its own
+// tile's bytes, and K's and V's TMA maps are cached apart (the key holds
+// the buffer and its head dim).  The float32 body's K/V tile is as wide as
+// the wider of K's row and V's padded row.
 //
 // No atomics on data (only on the arrival counts), one thread per output
 // sum in a fixed order, and a fixed split order in the merge: two launches
@@ -124,13 +134,19 @@ __host__ __device__ constexpr int padded() {
   return (D + 63) / 64 * 64;
 }
 
-template <int D, int TR>
-constexpr long long smem_bytes(int bk) {
-  // Q, the K or V tile (V's padded), the scores
-  return 4LL * (16 * TR * (D + 4) + KT * (padded<D>() + 4) + 16 * TR * score_pitch(bk));
+// Floats a row of the K or V tile takes: K's D, or V's padded Dv.
+template <int D, int DV>
+__host__ __device__ constexpr int kv_cols() {
+  return D > padded<DV>() ? D : padded<DV>();
 }
 
-template <typename T, int D, int TR>
+template <int D, int DV, int TR>
+constexpr long long smem_bytes(int bk) {
+  // Q, the K or V tile (V's padded), the scores
+  return 4LL * (16 * TR * (D + 4) + KT * (kv_cols<D, DV>() + 4) + 16 * TR * score_pitch(bk));
+}
+
+template <typename T, int D, int DV, int TR>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
                     const int* __restrict__ cache_len, const int* __restrict__ q_pos,
@@ -138,12 +154,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
                     float* __restrict__ l_part, int G, int S, int RS, int T_len, int bk, int nb,
                     int per, long long skb, long long skg, long long sks, long long svb,
                     long long svg, long long svs, float scale) {
-  constexpr int BR = 16 * TR, DP = padded<D>(), DPT = DP / 16;
+  constexpr int BR = 16 * TR, DP = padded<DV>(), DPT = DP / 16;
   extern __shared__ float4 smem4[];
   const int sp = score_pitch(bk);
   float* Qs = reinterpret_cast<float*>(smem4);
   float* KVs = Qs + BR * (D + 4);
-  float* Ss = KVs + KT * (DP + 4);
+  float* Ss = KVs + KT * (kv_cols<D, DV>() + 4);
   __shared__ int s_limit, s_seen;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
@@ -251,7 +267,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
     for (int t = 0; t < ntiles; ++t) {
       const int k0 = kb0 + t * KT;
       __syncthreads();  // scores written, previous readers of KVs done
-      load_tile<T, D, DP>(KVs, vp + k0 * svs, svs, KT, kb_end - k0, 1.f, tid);
+      load_tile<T, DV, DP>(KVs, vp + k0 * svs, svs, KT, kb_end - k0, 1.f, tid);
       __syncthreads();
       if (busy) pv_tile<DP, TR>(o, Ss + t * KT, sp, KVs, KT, ty, tx);
     }
@@ -265,7 +281,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
     const long long row = ((long long)bg * splits + split) * RS + r;
 #pragma unroll
     for (int e = 0; e < DPT; ++e)
-      if (DP == D || out_col(e, tx) < D) o_part[row * D + out_col(e, tx)] = o[i][e];
+      if (DP == DV || out_col(e, tx) < DV) o_part[row * DV + out_col(e, tx)] = o[i][e];
     if (tx == 0) {
       m_part[row] = m[i];
       l_part[row] = l[i];
@@ -273,16 +289,17 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
   }
 }
 
-// out (B*G, RS, D) in T = the log-sum-exp merge of the splits' partials.
+// out (B*G, RS, Dv) in T = the log-sum-exp merge of the splits' partials,
+// each row Dv wide.
 template <typename T>
 __global__ void flash_decode_combine_kernel(const float* __restrict__ o_part,
                                             const float* __restrict__ m_part,
                                             const float* __restrict__ l_part, T* __restrict__ out,
-                                            long long n, int RS, int D, int splits) {
+                                            long long n, int RS, int Dv, int splits) {
   for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x; idx < n;
        idx += (long long)gridDim.x * blockDim.x) {
-    const long long bgr = idx / D;
-    const int d = idx % D;
+    const long long bgr = idx / Dv;
+    const int d = idx % Dv;
     const long long bg = bgr / RS, r = bgr % RS;
     float mx = NEG_INF;
     for (int s = 0; s < splits; ++s) mx = fmaxf(mx, m_part[(bg * splits + s) * RS + r]);
@@ -291,7 +308,7 @@ __global__ void flash_decode_combine_kernel(const float* __restrict__ o_part,
       const long long row = (bg * splits + s) * RS + r;
       const float w = expf(m_part[row] - mx);
       lt += w * l_part[row];
-      ot += w * o_part[row * D + d];
+      ot += w * o_part[row * Dv + d];
     }
     out[idx] = from_f32<T>(ot / (lt == 0.f ? 1.f : lt));
   }
@@ -318,14 +335,20 @@ __host__ __device__ constexpr long long score_floats(int bk) {
   return 16LL * TR * tiles_of(bk) * KT;
 }
 
-template <int D, int TR>
-constexpr long long smem_bytes(int bk) {
-  // alignment slack, Q, the ring, the scores, 2 barriers a stage, 3 flags
-  return 1024 + tile_bytes(16 * TR, D) + STAGES * tile_bytes(KT, D) + 4 * score_floats<TR>(bk) +
-         2 * STAGES * 8 + 16;
+// Bytes of a ring stage: a K tile or a V tile, whichever is larger.
+template <int D, int DV>
+__host__ __device__ constexpr int stage_bytes() {
+  return tile_bytes(KT, D) > tile_bytes(KT, DV) ? tile_bytes(KT, D) : tile_bytes(KT, DV);
 }
 
-template <int D, int TR>
+template <int D, int DV, int TR>
+constexpr long long smem_bytes(int bk) {
+  // alignment slack, Q, the ring, the scores, 2 barriers a stage, 3 flags
+  return 1024 + tile_bytes(16 * TR, D) + STAGES * stage_bytes<D, DV>() +
+         4 * score_floats<TR>(bk) + 2 * STAGES * 8 + 16;
+}
+
+template <int D, int DV, int TR>
 __global__ void __launch_bounds__(THREADS, TR == 1 ? 2 : 1)
 flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __restrict__ q,
                           const int* __restrict__ cache_len, const int* __restrict__ q_pos,
@@ -334,9 +357,10 @@ flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __res
                           int G, int S, int RS, int T_len, int bk, int nb, int per, float scale) {
   constexpr int ROWS = 16 * TR;  // query rows of a block
   constexpr int KEEP = 32 * TR;  // threads that hold them (warps 0..TR-1)
-  constexpr int NV = boxes(D) * BOX;  // P V's N: D, or 128 for 112 (zero columns dropped)
+  constexpr int NV = boxes(DV) * BOX;  // P V's N: Dv, or 128 for 112 (zero columns dropped)
   constexpr int ACC = NV / 2;
-  constexpr int TILE = tile_bytes(KT, D);
+  constexpr int TILE = stage_bytes<D, DV>();  // a ring stage
+  constexpr int TILE_K = tile_bytes(KT, D), TILE_V = tile_bytes(KT, DV);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
@@ -391,19 +415,26 @@ flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __res
   if (tid >= CONSUMERS) {  // the producer: K tiles, then V tiles, of each block
     if (tid == CONSUMERS) {
       int n = 0;
-      auto load = [&](const KvMap& m, int pos) {
+      // the next stage of the ring, once its last tile has been read
+      auto next = [&](int bytes) {
         const int s = n % STAGES;
         mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);  // the first round passes at once
-        mbar_expect_tx(&full[s], TILE);
-        load_tile<D>(ring + s * TILE, m, pos, g, b, KT, &full[s]);
+        mbar_expect_tx(&full[s], bytes);
         ++n;
+        return s;
       };
       for (int j = split * per; j < j_end && j * bk < limit; ++j) {
         const int kb0 = j * bk;
         const int nt = (min(min(kb0 + bk, T_len), limit) - kb0 + KT - 1) / KT;
         if (!blind)
-          for (int t = 0; t < nt; ++t) load(maps.k, kb0 + t * KT);
-        for (int t = 0; t < nt; ++t) load(maps.v, kb0 + t * KT);
+          for (int t = 0; t < nt; ++t) {
+            const int s = next(TILE_K);
+            load_tile<D>(ring + s * TILE, maps.k, kb0 + t * KT, g, b, KT, &full[s]);
+          }
+        for (int t = 0; t < nt; ++t) {
+          const int s = next(TILE_V);
+          load_tile<DV>(ring + s * TILE, maps.v, kb0 + t * KT, g, b, KT, &full[s]);
+        }
       }
     }
     return;
@@ -546,14 +577,15 @@ flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __res
     if (tid < 4) {
       const float li = l[0] == 0.f ? 1.f : l[0];
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c)
+      for (int c = 0; c < DV / 8; ++c)
         *reinterpret_cast<uint32_t*>(row + 8 * c + 2 * quad) =
             pack_bf16(__fdiv_rn(o[4 * c], li), __fdiv_rn(o[4 * c + 1], li));
     }
     asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
     const uint4* src = reinterpret_cast<const uint4*>(row);
-    uint4* dst = reinterpret_cast<uint4*>(out + (long long)bg * RS * D);
-    for (long long i = tid; i < (long long)RS * (D / 8); i += CONSUMERS) dst[i] = src[i % (D / 8)];
+    uint4* dst = reinterpret_cast<uint4*>(out + (long long)bg * RS * DV);
+    for (long long i = tid; i < (long long)RS * (DV / 8); i += CONSUMERS)
+      dst[i] = src[i % (DV / 8)];
     return;
   }
   if (splits == 1) {  // the whole cache in one split: the output itself
@@ -562,9 +594,9 @@ flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __res
       const int r = row0 + 8 * hh;
       if (!keeps || r >= RS) continue;
       const float li = l[hh] == 0.f ? 1.f : l[hh];
-      bf16* dst = out + ((long long)bg * RS + r) * D + 2 * quad;
+      bf16* dst = out + ((long long)bg * RS + r) * DV + 2 * quad;
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c)
+      for (int c = 0; c < DV / 8; ++c)
         *reinterpret_cast<uint32_t*>(dst + 8 * c) =
             pack_bf16(__fdiv_rn(o[4 * c + 2 * hh], li), __fdiv_rn(o[4 * c + 2 * hh + 1], li));
     }
@@ -577,8 +609,8 @@ flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __res
     if (!keeps || r >= RS) continue;
     const long long row = ((long long)bg * splits + split) * RS + r;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
-      *reinterpret_cast<float2*>(o_part + row * D + 8 * c + 2 * quad) =
+    for (int c = 0; c < DV / 8; ++c)
+      *reinterpret_cast<float2*>(o_part + row * DV + 8 * c + 2 * quad) =
           make_float2(o[4 * c + 2 * hh], o[4 * c + 2 * hh + 1]);
     if (quad == 0) m_part[row] = m[hh], l_part[row] = l[hh];
   }
@@ -602,8 +634,8 @@ flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __res
   // warp wq merges rows r0 + wq, r0 + wq + 4, ...; lane its vectors
   // lane, lane + 32, ... of VW columns each; every split's loads in flight
   // at once, 8 splits at a time
-  constexpr int VW = D % 128 == 0 ? 4 : 2;          // floats a vector holds
-  constexpr int NVEC = D / VW, VPL = (NVEC + 31) / 32;  // vectors a row has, a lane takes
+  constexpr int VW = DV % 128 == 0 ? 4 : 2;          // floats a vector holds
+  constexpr int NVEC = DV / VW, VPL = (NVEC + 31) / 32;  // vectors a row has, a lane takes
   using Vec = typename std::conditional<VW == 4, float4, float2>::type;
   for (int r = r0 + wq; r < min(r0 + ROWS, RS); r += CONSUMERS / 32) {
     const long long first = (long long)bg * splits * RS + r;  // split 0's row
@@ -630,7 +662,7 @@ flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __res
 #pragma unroll
         for (int v = 0; v < VPL; ++v)
           os[i][v] = lane + 32 * v < NVEC
-              ? __ldcg(reinterpret_cast<const Vec*>(o_part + row * D) + lane + 32 * v)
+              ? __ldcg(reinterpret_cast<const Vec*>(o_part + row * DV) + lane + 32 * v)
               : Vec{};
       }
 #pragma unroll
@@ -650,7 +682,7 @@ flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __res
 #pragma unroll
     for (int v = 0; v < VPL; ++v) {
       if (lane + 32 * v >= NVEC) continue;
-      bf16* dst = out + ((long long)bg * RS + r) * D + (lane + 32 * v) * VW;
+      bf16* dst = out + ((long long)bg * RS + r) * DV + (lane + 32 * v) * VW;
 #pragma unroll
       for (int c = 0; c < VW; c += 2)
         *reinterpret_cast<uint32_t*>(dst + c) =
@@ -662,13 +694,13 @@ flash_decode_kernel_wgmma(const __grid_constant__ KvMaps maps, const bf16* __res
 
 }  // namespace tc
 
-template <int D, int TR>
+template <int D, int DV, int TR>
 int launch_simt(const void* q, const void* kc, const void* vc, const int* cache_len,
                 const int* q_pos, float* o_part, float* m_part, float* l_part, void* out, int B,
                 int G, int S, int RS, int T_len, int bk, int splits, int per, const long long* st,
                 float scale, cudaStream_t stream) {
-  auto kernel = simt::flash_decode_kernel<float, D, TR>;
-  const long long smem = simt::smem_bytes<D, TR>(bk);
+  auto kernel = simt::flash_decode_kernel<float, D, DV, TR>;
+  const long long smem = simt::smem_bytes<D, DV, TR>(bk);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -680,14 +712,14 @@ int launch_simt(const void* q, const void* kc, const void* vc, const int* cache_
       st[3], st[4], st[5], scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n = (long long)B * G * RS * D;
+  const long long n = (long long)B * G * RS * DV;
   const int blocks = static_cast<int>(std::min((n + 255) / 256, 65535LL));
   simt::flash_decode_combine_kernel<float><<<blocks, 256, 0, stream>>>(
-      o_part, m_part, l_part, static_cast<float*>(out), n, RS, D, splits);
+      o_part, m_part, l_part, static_cast<float*>(out), n, RS, DV, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int TR>
+template <int D, int DV, int TR>
 int launch_tc(const void* q, const void* kc, const void* vc, const int* cache_len,
               const int* q_pos, float* o_part, float* m_part, float* l_part, void* out, int B,
               int G, int S, int RS, int T_len, int bk, int splits, int per, const long long* st,
@@ -695,10 +727,10 @@ int launch_tc(const void* q, const void* kc, const void* vc, const int* cache_le
   using namespace tc;
   KvMaps maps;
   if (!cached_kv(&maps.k, kc, B, G, T_len, D, st[0], st[1], st[2], KT) ||
-      !cached_kv(&maps.v, vc, B, G, T_len, D, st[3], st[4], st[5], KT))
+      !cached_kv(&maps.v, vc, B, G, T_len, DV, st[3], st[4], st[5], KT))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_decode_kernel_wgmma<D, TR>;
-  const long long smem = smem_bytes<D, TR>(bk);
+  auto kernel = flash_decode_kernel_wgmma<D, DV, TR>;
+  const long long smem = smem_bytes<D, DV, TR>(bk);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -710,38 +742,42 @@ int launch_tc(const void* q, const void* kc, const void* vc, const int* cache_le
   return static_cast<int>(cudaGetLastError());  // the kernel merges the splits itself
 }
 
-template <int D, int TR>
+template <int D, int DV, int TR>
 int launch(int dtype, const void* q, const void* kc, const void* vc, const int* cache_len,
            const int* q_pos, float* o_part, float* m_part, float* l_part, void* out, int B, int G,
            int S, int RS, int T_len, int bk, int splits, int per, const long long* st,
            float scale, cudaStream_t stream, int* arrivals) {
   if (dtype == 0)
-    return launch_simt<D, TR>(q, kc, vc, cache_len, q_pos, o_part, m_part, l_part, out, B, G, S,
+    return launch_simt<D, DV, TR>(q, kc, vc, cache_len, q_pos, o_part, m_part, l_part, out, B, G, S,
                               RS, T_len, bk, splits, per, st, scale, stream);
-  return launch_tc<D, TR>(q, kc, vc, cache_len, q_pos, o_part, m_part, l_part, out, B, G, S, RS,
+  return launch_tc<D, DV, TR>(q, kc, vc, cache_len, q_pos, o_part, m_part, l_part, out, B, G, S, RS,
                           T_len, bk, splits, per, st, scale, stream, arrivals);
 }
 
 // Shared memory of one block of the decode kernel: the larger of its two
 // bodies' needs.
-template <int D, int TR>
+template <int D, int DV, int TR>
 long long smem_of(int bk) {
-  return std::max(simt::smem_bytes<D, TR>(bk), tc::smem_bytes<D, TR>(bk));
+  return std::max(simt::smem_bytes<D, DV, TR>(bk), tc::smem_bytes<D, DV, TR>(bk));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory of one block of the decode kernel at head dim D (64, 112 or
-// 128), row-tile factor tr (1 or 4) and KV block bk: the larger of its two
-// bodies' needs, so that one plan serves both types; -1 for a D or tr the
-// kernel has no instance of.
-long long flash_decode_smem_bytes(int D, int tr, int bk) {
+// Shared memory of one block of the decode kernel at head dims (D, Dv)
+// ((64, 64), (112, 112), (128, 128) or (96, 64)), row-tile factor tr (1 or 4)
+// and KV block bk: the larger of its two bodies' needs, so that one plan
+// serves both types; -1 for a pair or tr the kernel has no instance of.
+long long flash_decode_smem_bytes(int D, int tr, int bk, int Dv) {
   if (tr != 1 && tr != 4) return -1;
-  if (D == 64) return tr == 4 ? smem_of<64, 4>(bk) : smem_of<64, 1>(bk);
-  if (D == 112) return tr == 4 ? smem_of<112, 4>(bk) : smem_of<112, 1>(bk);
-  if (D == 128) return tr == 4 ? smem_of<128, 4>(bk) : smem_of<128, 1>(bk);
+#define FD_SMEM(DD, DDV) \
+  if (D == DD && Dv == DDV) return tr == 4 ? smem_of<DD, DDV, 4>(bk) : smem_of<DD, DDV, 1>(bk);
+  FD_SMEM(64, 64)
+  FD_SMEM(112, 112)
+  FD_SMEM(128, 128)
+  FD_SMEM(96, 64)
+#undef FD_SMEM
   return -1;
 }
 
@@ -752,21 +788,22 @@ void flash_decode_map_cache_stats(long long* stats) {
   stats[1] = attn_tc::map_cache_stats().misses;
 }
 
-// out (B, Hq, S, D) contiguous = split-KV decode attention of q (B, Hq, S, D)
-// contiguous over the caches (B, G, T, D) (strides st = k's batch/group/seq,
-// v's batch/group/seq, in elements; head dim contiguous, rows 16-byte
-// aligned).  cache_len (B,) int32; q_pos (B, S) int32 or null.  Partials
-// o_part (B*G, splits, Hq/G*S, D), m_part and l_part (B*G, splits, Hq/G*S)
-// float32 scratch; split s covers KV blocks [s*per, (s+1)*per).  dtype 0 =
-// float32, 1 = bfloat16; D = 64, 112 or 128; tr = 1 or 4.  arrivals: B*G*ceil(Hq/G*S
+// out (B, Hq, S, Dv) contiguous = split-KV decode attention of q (B, Hq, S, D)
+// contiguous over the caches k (B, G, T, D) and v (B, G, T, Dv) (strides st =
+// k's batch/group/seq, v's batch/group/seq, in elements; head dim
+// contiguous, rows 16-byte aligned).  cache_len (B,) int32; q_pos (B, S)
+// int32 or null.  Partials o_part (B*G, splits, Hq/G*S, Dv), m_part and
+// l_part (B*G, splits, Hq/G*S) float32 scratch; split s covers KV blocks
+// [s*per, (s+1)*per).  dtype 0 = float32, 1 = bfloat16; (D, Dv) = (64, 64),
+// (112, 112), (128, 128) or (96, 64); tr = 1 or 4.  arrivals: B*G*ceil(Hq/G*S
 // / (16 tr)) int32 zeros on the device, which bfloat16 launches use to find
 // the last block of each row tile (and leave zero); a launch must not
 // overlap another that uses the same ones.  Returns a cudaError_t.
 int flash_decode_fwd(const void* q, const void* kc, const void* vc, const int* cache_len,
                      const int* q_pos, float* o_part, float* m_part, float* l_part, void* out,
-                     int dtype, int B, int Hq, int G, int S, int T_len, int D, int bk, int splits,
-                     int per, int tr, const long long* strides, float scale, void* stream,
-                     int* arrivals) {
+                     int dtype, int B, int Hq, int G, int S, int T_len, int D, int Dv, int bk,
+                     int splits, int per, int tr, const long long* strides, float scale,
+                     void* stream, int* arrivals) {
   auto s = static_cast<cudaStream_t>(stream);
   const int RS = Hq / G * S;
   auto run = [&](auto launch_fn) {
@@ -775,9 +812,14 @@ int flash_decode_fwd(const void* q, const void* kc, const void* vc, const int* c
   };
   if ((dtype != 0 && dtype != 1) || (tr != 1 && tr != 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D == 128) return tr == 4 ? run(launch<128, 4>) : run(launch<128, 1>);
-  if (D == 112) return tr == 4 ? run(launch<112, 4>) : run(launch<112, 1>);
-  if (D == 64) return tr == 4 ? run(launch<64, 4>) : run(launch<64, 1>);
+#define FD_LAUNCH(DD, DDV)                                                  \
+  if (D == DD && Dv == DDV)                                                 \
+    return tr == 4 ? run(launch<DD, DDV, 4>) : run(launch<DD, DDV, 1>);
+  FD_LAUNCH(128, 128)
+  FD_LAUNCH(112, 112)
+  FD_LAUNCH(64, 64)
+  FD_LAUNCH(96, 64)
+#undef FD_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -239,23 +239,6 @@ __device__ __forceinline__ int swizzled(int x, int k) {
   return x * BK + ((((k >> 2) ^ x) & 7) << 2) + (k & 3);
 }
 
-// Keeps the compiler from moving accumulator accesses across wgmma fences.
-__device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
-#pragma unroll
-  for (int r = 0; r < ACC; ++r) asm volatile("" : "+f"(d[r])::"memory");
-}
-
-// Output tile t of the persistent schedule, rasterised in groups of GROUP_M
-// tile rows so that a round of tiles shares A rows and B columns in L2.
-__device__ __forceinline__ void tile_origin(int t, const Params& p, int& i0, int& j0) {
-  const int per_group = GROUP_M * p.tiles_n;
-  const int first = (t / per_group) * GROUP_M;
-  const int rows = min(p.tiles_m - first, GROUP_M);
-  const int r = t % per_group;
-  i0 = (first + r % rows) * BM;
-  j0 = (r / rows) * BN;
-}
-
 // The row-class layout of a raw k-tile, filled by the strided TMA and by
 // cp.async.  An operand is logical (x, k), x its R-long tile axis; a run
 // is what lies contiguous in its buffer: row x (k = 0..BK-1) when KC, the
@@ -463,7 +446,8 @@ __device__ __forceinline__ void gemm_body(const Maps& maps, const Params& p) {
     // loads k-tile q of the sequence into raw stage q % STAGES
     auto load = [&](int q) {
       int i0, j0;
-      tile_origin(blockIdx.x + (q / k_tiles) * gridDim.x, p, i0, j0);
+      tile_origin<BM, BN, GROUP_M>(blockIdx.x + (q / k_tiles) * gridDim.x, p.tiles_m,
+                                     p.tiles_n, i0, j0);
       const int k0 = (q % k_tiles) * BK;
       float* ra = raw + (q % STAGES) * RAW_STAGE;
       float* rb = ra + RAW_A;
@@ -526,7 +510,7 @@ __device__ __forceinline__ void gemm_body(const Maps& maps, const Params& p) {
   int q = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     int i0, j0;
-    tile_origin(t, p, i0, j0);
+    tile_origin<BM, BN, GROUP_M>(t, p.tiles_m, p.tiles_n, i0, j0);
 #pragma unroll
     for (int r = 0; r < ACC; ++r) d[r] = 0.0f;
     for (int kt = 0; kt < k_tiles; ++kt, ++q) {
@@ -663,16 +647,6 @@ bool encode_operand(CUtensorMap* maps, int loader, const float* base, bool kc, i
       return false;
   }
   return true;
-}
-
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, count = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    return count > 0 ? count : 1;
-  }();
-  return n;
 }
 
 template <bool PANEL>

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (gemm.cu, flash_attention.cu, flash_decode.cu): shared-memory addresses,
-// mbarriers, the wgmma wait, and cuTensorMapEncodeTiled looked up
-// through the CUDA runtime (so no library needs -lcuda).
+// (gemm.cu, gemm_bf16.cu, flash_attention.cu, flash_decode.cu):
+// shared-memory addresses, mbarriers, the wgmma waits and accumulator
+// fence, the GEMMs' persistent schedule, and cuTensorMapEncodeTiled looked
+// up through the CUDA runtime (so no library needs -lcuda).
 #pragma once
 
 #include <cuda.h>
@@ -43,6 +44,43 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Waits until at most N committed groups of wgmma are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator accesses across wgmma fences.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int r = 0; r < N; ++r) asm volatile("" : "+f"(d[r])::"memory");
+}
+
+// Output tile t of a GEMM's persistent schedule of BM x BN tiles,
+// rasterised in groups of GROUP tile rows so that a round of tiles shares
+// A rows and B columns in L2.
+template <int BM, int BN, int GROUP>
+__device__ __forceinline__ void tile_origin(int t, int tiles_m, int tiles_n, int& i0, int& j0) {
+  const int per_group = GROUP * tiles_n;
+  const int first = (t / per_group) * GROUP;
+  const int rows = min(tiles_m - first, GROUP);
+  const int r = t % per_group;
+  i0 = (first + r % rows) * BM;
+  j0 = (r / rows) * BN;
+}
+
+// SMs of the current device: a persistent grid's size.
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count > 0 ? count : 1;
+  }();
+  return n;
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

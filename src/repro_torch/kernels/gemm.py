@@ -25,10 +25,20 @@ rows are 16-byte aligned, four strided ones otherwise) or, for shapes under
 4 in a dimension, through ``cp.async``; the wrapper chooses with
 :func:`loader_path` and passes the choice on.
 
+bf16 operands run two other kernels, in ``csrc/gemm_bf16.cu`` (their own
+library): one bf16 tensor-core product, accumulated in float32, ``acc``
+(bf16 or float32) added in float32 and the output (``out_dtype or
+a.dtype``, bf16 or float32) rounded once, as the reference's kernels do;
+the panel may be bf16 or float32.  Their k-tiles come through TMA when
+A's and B's bases are 16-byte aligned and their rows multiples of 8
+elements, else through plain loads (:func:`loader_path_bf16`).  On the
+card :func:`check_dtypes` refuses what neither takes (float16, operands of
+two dtypes) with a ``TypeError`` that names it.
+
 Each wrapper counts its launches in its ``launches`` attribute, and by loader
-in ``launches_by_path`` (``{"tma": n, "tma_strided": n, "async": n}``,
-summing to ``launches``), so a run can show that it went through the kernel
-and which loader it took.
+in ``launches_by_path`` (``{"tma": n, "tma_strided": n, "async": n}``, or
+``{"tma": n, "plain": n}`` for the bf16 wrappers, summing to ``launches``),
+so a run can show that it went through the kernel and which loader it took.
 """
 from __future__ import annotations
 
@@ -40,8 +50,10 @@ import torch
 from . import build
 from .flash_attention import refuse_grad
 
-__all__ = ["gemm_cuda", "gemm_panel_cuda", "gemm_shape", "check_gemm", "check_panel",
-           "parse_majors", "loader_path", "reset_launches", "load_library"]
+__all__ = ["gemm_cuda", "gemm_panel_cuda", "gemm_bf16_cuda", "gemm_panel_bf16_cuda",
+           "gemm_shape", "check_gemm", "check_panel", "check_dtypes", "parse_majors",
+           "loader_path", "loader_path_bf16", "reset_launches", "load_library",
+           "load_bf16_library", "bind_bf16"]
 
 
 def parse_majors(majors: str) -> tuple[bool, bool, bool]:
@@ -110,6 +122,44 @@ def loader_path(M: int, N: int, K: int, majors: str, a_address: int, b_address: 
     return "tma_strided" if min(M, N, K) >= 4 else "async"
 
 
+BF16_LOADERS = {"plain": 0, "tma": 1}  # the bf16 entry points' loader codes
+
+
+def loader_path_bf16(M: int, N: int, K: int, majors: str, a_address: int,
+                     b_address: int) -> str:
+    """The loader the bf16 kernels take for A and B: ``"tma"`` when K > 0,
+    both byte addresses are 16-byte aligned and both row strides multiples
+    of 8 bf16 elements (16 bytes), the rules of a TMA tensor map; else
+    ``"plain"`` (plain loads, any shape and alignment)."""
+    a_trans, b_trans, _ = parse_majors(majors)
+    lda, ldb = (M if a_trans else K), (K if b_trans else N)
+    aligned = a_address % 16 == 0 and b_address % 16 == 0 and lda % 8 == 0 and ldb % 8 == 0
+    return "tma" if K > 0 and aligned else "plain"
+
+
+def check_dtypes(a, b, other=None, out_dtype=None) -> torch.dtype:
+    """The dtype of A and B for the card's kernels; raises ``TypeError``
+    naming what they do not take.  A and B are float32 or bfloat16, both of
+    one dtype.  float32 operands take a float32 ``other`` (acc or panel)
+    and output only; bfloat16 operands take ``other`` and ``out_dtype`` in
+    bfloat16 or float32."""
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name}: the GEMM kernels take float32 or bfloat16 operands, "
+                            f"got {t.dtype}")
+    if a.dtype != b.dtype:
+        raise TypeError(f"a and b must have one dtype for the GEMM kernels, got {a.dtype} "
+                        f"and {b.dtype}")
+    takes = (torch.float32,) if a.dtype == torch.float32 else (torch.bfloat16, torch.float32)
+    if other is not None and other.dtype not in takes:
+        raise TypeError(f"acc/panel: the GEMM kernels on {a.dtype} operands take "
+                        f"{list(takes)}, got {other.dtype}")
+    if out_dtype is not None and out_dtype not in takes:
+        raise TypeError(f"out_dtype: the GEMM kernels on {a.dtype} operands write "
+                        f"{list(takes)}, got {out_dtype}")
+    return a.dtype
+
+
 def _check_contiguous(**tensors) -> None:
     for name, t in tensors.items():
         if t is not None and not t.is_contiguous():
@@ -132,19 +182,43 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def _check_on_card(device: torch.device, **tensors) -> None:
-    for name, t in tensors.items():
-        if t is None:
-            continue
-        if not t.is_cuda or t.device != device:
+@functools.lru_cache(maxsize=None)
+def load_bf16_library() -> ctypes.CDLL:
+    """Build (if needed) and load the bf16 kernels' library; raises on
+    failure."""
+    return bind_bf16(build.load("gemm_bf16"))
+
+
+def bind_bf16(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of ``csrc/gemm_bf16.cu``, with the argument types of
+    its entry points set."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.layout_gemm_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.layout_gemm_bf16.restype = i
+    lib.layout_gemm_panel_bf16.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p, i, i, i, p]
+    lib.layout_gemm_panel_bf16.restype = i
+    lib.layout_gemm_bf16_smem_bytes.argtypes = []
+    lib.layout_gemm_bf16_smem_bytes.restype = i
+    lib.layout_gemm_bf16_error_string.argtypes = [i]
+    lib.layout_gemm_bf16_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_on_card(device: torch.device, operands: torch.dtype, a, b, other=None,
+                   out_dtype=None) -> None:
+    """Raises unless every tensor lies on ``device`` (``ValueError``) and
+    :func:`check_dtypes` finds A and B of the wrapper's ``operands`` dtype
+    (``TypeError``)."""
+    for name, t in (("a", a), ("b", b), ("acc/panel", other)):
+        if t is not None and (not t.is_cuda or t.device != device):
             raise ValueError(f"{name} must be a CUDA tensor on {device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel computes float32 only, got {t.dtype}")
+    if check_dtypes(a, b, other, out_dtype) != operands:
+        raise TypeError(f"this kernel takes {operands} operands, got {a.dtype}")
 
 
-def _raise_if_failed(lib: ctypes.CDLL, code: int, what: str) -> None:
+def _raise_if_failed(code: int, what: str, error_string) -> None:
     if code != 0:
-        msg = lib.layout_gemm_error_string(code).decode()
+        msg = error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: {msg} (cudaError {code})")
 
 
@@ -155,9 +229,7 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor | None = None,
     refuse_grad("layout_gemm_kernel", a=a, b=b, acc=acc)
     a_trans, b_trans, c_trans = parse_majors(majors)
     M, N, K = check_gemm(a, b, acc, majors)
-    _check_on_card(a.device, a=a, b=b, acc=acc)
-    if out_dtype not in (None, torch.float32):
-        raise TypeError(f"the kernel writes float32 only, got out_dtype={out_dtype}")
+    _check_on_card(a.device, torch.float32, a, b, acc, out_dtype)
     out = torch.empty((N, M) if c_trans else (M, N), dtype=torch.float32, device=a.device)
     if M == 0 or N == 0:
         return out
@@ -167,7 +239,7 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor | None = None,
     path = loader_path(M, N, K, majors, a.data_ptr(), b.data_ptr())
     code = lib.layout_gemm_f32(a.data_ptr(), b.data_ptr(), acc_ptr or None, out.data_ptr(),
                                M, N, K, a_trans, b_trans, c_trans, LOADERS[path], stream)
-    _raise_if_failed(lib, code, "layout_gemm_kernel")
+    _raise_if_failed(code, "layout_gemm_kernel", lib.layout_gemm_error_string)
     gemm_cuda.launches += 1  # type: ignore[attr-defined]
     gemm_cuda.launches_by_path[path] += 1  # type: ignore[attr-defined]
     return out
@@ -184,15 +256,8 @@ def gemm_panel_cuda(a: torch.Tensor, b: torch.Tensor, panel: torch.Tensor, jb, *
     refuse_grad("layout_gemm_panel_kernel", a=a, b=b, panel=panel)
     a_trans, b_trans, c_trans = parse_majors(majors)
     M, N, K, nb = check_panel(a, b, panel, majors)
-    _check_on_card(a.device, a=a, b=b, panel=panel)
-    jb_dev, jb_host = None, 0
-    if isinstance(jb, torch.Tensor):
-        if jb.device != a.device or jb.dtype != torch.int32 or jb.numel() != 1:
-            raise ValueError(f"jb must be one int32 on {a.device}, got {jb.dtype} "
-                             f"{tuple(jb.shape)} on {jb.device}")
-        jb_dev = jb.data_ptr()
-    else:
-        jb_host = int(jb)
+    _check_on_card(a.device, torch.float32, a, b, panel)
+    jb_dev, jb_host = _jb_arg(jb, a.device)
     if M == 0:
         return panel
     lib = load_library()
@@ -202,17 +267,80 @@ def gemm_panel_cuda(a: torch.Tensor, b: torch.Tensor, panel: torch.Tensor, jb, *
     code = lib.layout_gemm_panel_f32(a.data_ptr(), b.data_ptr(), panel.data_ptr(), M, N, K,
                                      a_trans, b_trans, c_trans, ldp, nb, jb_dev, jb_host,
                                      LOADERS[path], stream)
-    _raise_if_failed(lib, code, "layout_gemm_panel_kernel")
+    _raise_if_failed(code, "layout_gemm_panel_kernel", lib.layout_gemm_error_string)
     gemm_panel_cuda.launches += 1  # type: ignore[attr-defined]
     gemm_panel_cuda.launches_by_path[path] += 1  # type: ignore[attr-defined]
     return panel
 
 
+def _jb_arg(jb, device: torch.device) -> tuple[int | None, int]:
+    """``(device pointer or None, host value)`` of a panel's block index."""
+    if isinstance(jb, torch.Tensor):
+        if jb.device != device or jb.dtype != torch.int32 or jb.numel() != 1:
+            raise ValueError(f"jb must be one int32 on {device}, got {jb.dtype} "
+                             f"{tuple(jb.shape)} on {jb.device}")
+        return jb.data_ptr(), 0
+    return None, int(jb)
+
+
+def gemm_bf16_cuda(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor | None = None, *,
+                   majors: str = "I/I/K", out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``C = A @ B (+ acc)`` on the card for bf16 A and B: float32 sums,
+    ``acc`` (bf16 or float32) added after the product, the output in
+    ``out_dtype or a.dtype`` (bf16 or float32), rounded once."""
+    refuse_grad("layout_gemm_bf16_kernel", a=a, b=b, acc=acc)
+    a_trans, b_trans, c_trans = parse_majors(majors)
+    M, N, K = check_gemm(a, b, acc, majors)
+    _check_on_card(a.device, torch.bfloat16, a, b, acc, out_dtype)
+    out_dtype = out_dtype or a.dtype
+    out = torch.empty((N, M) if c_trans else (M, N), dtype=out_dtype, device=a.device)
+    if M == 0 or N == 0:
+        return out
+    lib = load_bf16_library()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    path = loader_path_bf16(M, N, K, majors, a.data_ptr(), b.data_ptr())
+    code = lib.layout_gemm_bf16(a.data_ptr(), b.data_ptr(),
+                                acc.data_ptr() if acc is not None else None, out.data_ptr(),
+                                M, N, K, a_trans, b_trans, c_trans,
+                                acc is not None and acc.dtype == torch.bfloat16,
+                                out_dtype == torch.bfloat16, BF16_LOADERS[path], stream)
+    _raise_if_failed(code, "layout_gemm_bf16_kernel", lib.layout_gemm_bf16_error_string)
+    gemm_bf16_cuda.launches += 1  # type: ignore[attr-defined]
+    gemm_bf16_cuda.launches_by_path[path] += 1  # type: ignore[attr-defined]
+    return out
+
+
+def gemm_panel_bf16_cuda(a: torch.Tensor, b: torch.Tensor, panel: torch.Tensor, jb, *,
+                         majors: str = "I/I/K") -> torch.Tensor:
+    """``panel[j-block jb] += A @ B`` in place on the card for bf16 A and B;
+    the panel (bf16 or float32) is read, added to in float32 and written
+    back rounded once to its dtype.  ``jb`` as for :func:`gemm_panel_cuda`."""
+    refuse_grad("layout_gemm_panel_bf16_kernel", a=a, b=b, panel=panel)
+    a_trans, b_trans, c_trans = parse_majors(majors)
+    M, N, K, nb = check_panel(a, b, panel, majors)
+    _check_on_card(a.device, torch.bfloat16, a, b, panel)
+    jb_dev, jb_host = _jb_arg(jb, a.device)
+    if M == 0:
+        return panel
+    lib = load_bf16_library()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    path = loader_path_bf16(M, N, K, majors, a.data_ptr(), b.data_ptr())
+    code = lib.layout_gemm_panel_bf16(a.data_ptr(), b.data_ptr(), panel.data_ptr(), M, N, K,
+                                      a_trans, b_trans, c_trans, panel.shape[1], nb, jb_dev,
+                                      jb_host, panel.dtype == torch.bfloat16,
+                                      BF16_LOADERS[path], stream)
+    _raise_if_failed(code, "layout_gemm_panel_bf16_kernel", lib.layout_gemm_bf16_error_string)
+    gemm_panel_bf16_cuda.launches += 1  # type: ignore[attr-defined]
+    gemm_panel_bf16_cuda.launches_by_path[path] += 1  # type: ignore[attr-defined]
+    return panel
+
+
 def reset_launches() -> None:
-    """Set every launch count of both wrappers to 0."""
-    for fn in (gemm_cuda, gemm_panel_cuda):
+    """Set every launch count of the four wrappers to 0."""
+    for fn, loaders in ((gemm_cuda, LOADERS), (gemm_panel_cuda, LOADERS),
+                        (gemm_bf16_cuda, BF16_LOADERS), (gemm_panel_bf16_cuda, BF16_LOADERS)):
         fn.launches = 0  # type: ignore[attr-defined]
-        fn.launches_by_path = dict.fromkeys(LOADERS, 0)  # type: ignore[attr-defined]
+        fn.launches_by_path = dict.fromkeys(loaders, 0)  # type: ignore[attr-defined]
 
 
 reset_launches()

@@ -18,7 +18,8 @@ from . import ref as _ref
 from .flash_attention import (check_attention, check_carry, flash_attention_carry_cuda,
                               flash_attention_cuda)
 from .flash_decode import check_decode, flash_decode_cuda
-from .gemm import check_gemm, check_panel, gemm_cuda, gemm_panel_cuda
+from .gemm import (check_dtypes, check_gemm, check_panel, gemm_bf16_cuda, gemm_cuda,
+                   gemm_panel_bf16_cuda, gemm_panel_cuda)
 from .relayout import check_transpose, transpose_cuda
 
 __all__ = ["default_impl", "gemm", "gemm_panel", "flash_attention", "flash_attention_carry",
@@ -42,14 +43,19 @@ def gemm(a, b, acc=None, *, majors: str = "I/I/K", impl: str | None = None, out_
     (buffer (j, i)), A k-major (buffer (k, i)), B j-major (buffer (j, k)).
     ``acc``, if given, is a previous C buffer (same orientation as the
     output) added after the product.  Any M, N, K works; every buffer must
-    be contiguous.
+    be contiguous.  The output is ``out_dtype or a.dtype``.  On the card A
+    and B are float32 or bfloat16, of one dtype (:func:`check_dtypes`
+    raises ``TypeError`` otherwise), and bf16 operands take the bf16
+    kernel.
     """
     check_gemm(a, b, acc, majors)
     impl = impl or default_impl(a)
     if impl == "ref":
         return _ref.gemm_ref(a, b, acc, majors=majors, out_dtype=out_dtype)
     if impl == "cuda":
-        return gemm_cuda(a, b, acc, majors=majors, out_dtype=out_dtype)
+        bf16 = check_dtypes(a, b, acc, out_dtype) == torch.bfloat16
+        return (gemm_bf16_cuda if bf16 else gemm_cuda)(a, b, acc, majors=majors,
+                                                       out_dtype=out_dtype)
     raise ValueError(f"unknown impl {impl!r} (use 'cuda' or 'ref')")
 
 
@@ -59,14 +65,18 @@ def gemm_panel(a, b, panel, jb, *, majors: str = "I/I/K", impl: str | None = Non
 
     ``panel`` spans ``nb`` j-blocks of width N (the logical j extent of
     ``b``) in the C orientation of ``majors``; ``jb`` is an int or a
-    one-element int32 tensor on the operands' device.
+    one-element int32 tensor on the operands' device.  The block is added
+    to in float32 and rounded once to the panel's dtype; dtypes on the card
+    as for :func:`gemm`.
     """
     check_panel(a, b, panel, majors)
     impl = impl or default_impl(a)
     if impl == "ref":
         return _ref.gemm_panel_ref(a, b, panel, jb, majors=majors)
     if impl == "cuda":
-        return gemm_panel_cuda(a, b, panel, jb, majors=majors)
+        bf16 = check_dtypes(a, b, panel) == torch.bfloat16
+        return (gemm_panel_bf16_cuda if bf16 else gemm_panel_cuda)(a, b, panel, jb,
+                                                                   majors=majors)
     raise ValueError(f"unknown impl {impl!r} (use 'cuda' or 'ref')")
 
 
@@ -184,10 +194,13 @@ def flash_attention_carry(q, k, v, carry=None, *, q_offset: int = 0, k_offset: i
 
 def flash_decode(q, k_cache, v_cache, cache_len, *, q_positions=None,
                  scale: float | None = None, block: int = 512, impl: str | None = None):
-    """Split-KV decode attention over the cache: the reference's
-    ``flash_decode_pallas`` with its log-sum-exp combine.  ``block`` is the
-    KV block whose own max each block's probabilities are rounded against
-    (part of the function)."""
+    """Split-KV decode attention of q (B, Hq, S, D) over the caches k
+    (B, G, T, D) and v (B, G, T, Dv), returning (B, Hq, S, Dv): the
+    reference's ``flash_decode_pallas`` with its log-sum-exp combine.
+    ``block`` is the KV block whose own max each block's probabilities are
+    rounded against (part of the function).  The card takes the ``(D, Dv)``
+    pairs of :data:`repro_torch.kernels.flash_decode.DECODE_HEAD_DIMS`; the
+    plain version any."""
     check_decode(q, k_cache, v_cache, cache_len, q_positions)
     impl = impl or default_impl(q)
     if impl == "ref":

@@ -1115,3 +1115,140 @@ def p2p_family() -> dict:
     out["all_gather_table"] = (g.tile_layout is la, g.tile_layouts == (la, lb, la, lb),
                                g.own_layout == (la, lb)[me % 2])
     return out
+
+
+def collective_property_cases() -> dict:
+    """Seeded cases of the laws of ``tests/test_collective_properties.py`` on
+    a 4-rank communicator: ``start_wait`` ``(op, ni, jt, src_kind,
+    out_kind)`` (all-reduce, all-gather), ``rs_a2a`` ``(op, jt, src_kind,
+    out_kind)`` (reduce-scatter, all-to-all), ``wait_all`` ``(src_kind,
+    order)``."""
+    import itertools
+
+    import numpy as np
+
+    rng = np.random.default_rng(31)
+    ops = ("add", "mean", "max", "min")
+    pick = lambda seq: seq[int(rng.integers(len(seq)))]  # noqa: E731
+
+    def distinct(draw, n):  # n different cases, every op among the first four
+        out = []
+        while len(out) < n:
+            case = draw(ops[len(out) % 4])
+            if case not in out:
+                out.append(case)
+        return out
+
+    return {
+        "start_wait": distinct(lambda op: (op, pick((2, 4)), pick((1, 2)), pick(P2P_KINDS),
+                                           pick(P2P_KINDS)), 8),
+        "rs_a2a": distinct(lambda op: (op, pick((1, 2)), pick(P2P_KINDS), pick(("col", "row"))),
+                           8),
+        "wait_all": [(P2P_KINDS[i % 3], order)
+                     for i, order in enumerate(itertools.permutations((0, 1, 2)))],
+    }
+
+
+def collective_properties(np, L, C, mesh, views, cases) -> dict:
+    """Run the non-blocking collective laws in either package on ``mesh``
+    (4 ranks) over ``cases`` (:func:`collective_property_cases`) and return
+    ``{case: views(result)}`` for each blocking result, and ``{(case,
+    "law"): bool}`` for each law: ``*_start(...).wait()`` equals the
+    blocking form bitwise (all-reduce, all-gather, reduce-scatter,
+    all-to-all), the all-gather equals the root gather, and completing
+    three requests of different kinds in any order (or through
+    ``wait_all``) gives the canonical order's buffers.  ``views(dist_bag)``
+    maps each rank this process can read to (tile as numpy, layout
+    signature)."""
+    f32 = np.float32
+    R = 4
+
+    def tile_layout(kind, ni, jt):
+        if kind == "col":
+            return L.scalar(f32) ^ L.vector("i", ni) ^ L.vector("j", jt)
+        if kind == "row":
+            return L.scalar(f32) ^ L.vector("j", jt) ^ L.vector("i", ni)
+        return (L.scalar(f32) ^ L.vector("i", ni) ^ L.vector("j", jt)
+                ^ L.blocked("i", "I2", num_blocks=2))
+
+    def make_db(ni, jt, src_kind):
+        nj = R * jt
+        col = L.scalar(f32) ^ L.vector("i", ni) ^ L.vector("j", nj)
+        # integer values: a sum over the ranks is exact in any order
+        root = C.bag(col ^ L.into_blocks("j", "R", num_blocks=R),
+                     np.arange(ni * nj, dtype=f32) + 1.0)
+        return C.scatter(root, tile_layout(src_kind, ni, jt),
+                         C.mpi_traverser("R", C.traverser(root), mesh))
+
+    def same(a, b) -> bool:
+        va, vb = views(a), views(b)
+        return va.keys() == vb.keys() and all(
+            np.array_equal(va[r][0], vb[r][0]) and va[r][1] == vb[r][1] for r in va)
+
+    out: dict = {}
+    for case in cases["start_wait"]:
+        op, ni, jt, src_kind, out_kind = case
+        db = make_db(ni, jt, src_kind)
+        out_l = tile_layout(out_kind, ni, jt)
+        blocking = C.all_reduce_bag(db, op, out_tile_layout=out_l)
+        started = C.all_reduce_start(db, op, out_tile_layout=out_l).wait()
+        root_l = (L.scalar(f32) ^ L.vector("i", ni) ^ L.vector("j", R * jt)
+                  ^ L.into_blocks("j", "R", num_blocks=R))
+        gathered = C.all_gather_dist(db, root_l)
+        out[("all_reduce", case)] = views(blocking)
+        out[("all_gather", case)] = views(gathered)
+        out[("start_wait", case, "law")] = (
+            same(blocking, started) and same(gathered, C.all_gather_start(db, root_l).wait())
+            and np.array_equal(np.asarray(C.all_gather_bag(db, root_l).data),
+                               np.asarray(C.gather(db, root_l).data)))
+    for case in cases["rs_a2a"]:
+        op, jt, src_kind, out_kind = case
+        ni = 2 * R  # the scattered i extent, ni / R = 2, stays layoutable
+        db = make_db(ni, jt, src_kind)
+        rs_out = tile_layout(out_kind, ni // R, jt)
+        rs = C.reduce_scatter_bag(db, rs_out, scatter_dim="i", op=op)
+        aa_out = tile_layout(out_kind, ni // R, jt * R)
+        aa = C.all_to_all_bag(db, aa_out, split_dim="i", concat_dim="j")
+        out[("reduce_scatter", case)] = views(rs)
+        out[("all_to_all", case)] = views(aa)
+        out[("rs_a2a", case, "law")] = (
+            same(rs, C.reduce_scatter_start(db, rs_out, scatter_dim="i", op=op).wait())
+            and same(aa, C.all_to_all_start(db, aa_out, split_dim="i", concat_dim="j").wait()))
+    for case in cases["wait_all"]:
+        src_kind, order = case
+        ni, jt = 2 * R, 2
+        db = make_db(ni, jt, src_kind)
+        rs_out = tile_layout("col", ni // R, jt)
+
+        def issue():
+            return (C.all_reduce_start(db, "add"),
+                    C.reduce_scatter_start(db, rs_out, scatter_dim="i"),
+                    C.ring_shift_start(db, 1))
+
+        canonical = [p.wait() for p in issue()]
+        pending = list(issue())
+        got = [None, None, None]
+        for idx in order:  # a permuted completion order
+            got[idx] = pending[idx].wait()
+        out[("wait_all", case)] = [views(d) for d in canonical]
+        out[("wait_all", case, "law")] = (
+            all(same(a, b) for a, b in zip(canonical, got))
+            and all(same(a, b) for a, b in zip(canonical, C.wait_all(*issue()))))
+    return out
+
+
+def collective_properties_family(*, cases) -> dict:
+    """:func:`collective_properties` on this gloo rank (a 1-D mesh of 4)."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.core import layout as L
+
+    def views(d):
+        t = d.tile(d.coords[0])
+        return {d.flat_rank(d.coords): (t.data.numpy(),
+                                        (tuple((a.name, a.size) for a in t.layout.axes),
+                                         tuple(t.layout.dim_map)))}
+
+    return collective_properties(np, L, C, C.make_mesh((4,), ("r",), device="cpu"), views,
+                                 cases)

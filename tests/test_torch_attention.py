@@ -157,23 +157,20 @@ def test_rope_matches_reference(per_row):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("entry", ["check_attention", "check_decode", "flash_attention",
-                                   "flash_attention_carry", "flash_decode"])
+@pytest.mark.parametrize("entry", ["check_attention", "flash_attention",
+                                   "flash_attention_carry"])
 def test_v_head_dim_other_than_qk_is_refused(entry):
     """A v head dim Dv != D: the forward and the carry form take it as the
     reference does (``check_attention`` passes, ``flash_attention`` returns
     (..., Dv) and one carry step from an empty state, normalized, gives the
-    same, each equal to the reference's Pallas kernel in interpret mode),
-    while decode refuses it with ``ValueError`` (ROADMAP.md queue 2, item
-    A)."""
+    same, each equal to the reference's Pallas kernel in interpret mode).
+    Decode takes it too: :func:`test_decode_takes_a_v_head_dim_of_its_own`."""
     from repro_torch.kernels.flash_attention import check_attention
-    from repro_torch.kernels.flash_decode import check_decode
 
     rng = np.random.default_rng(7)
     q = torch.from_numpy(rng.standard_normal((1, 4, 8, 128)).astype(np.float32))
     k = torch.from_numpy(rng.standard_normal((1, 2, 8, 128)).astype(np.float32))
     v = torch.from_numpy(rng.standard_normal((1, 2, 8, 64)).astype(np.float32))
-    lens = torch.tensor([8], dtype=torch.int32)
     want = flash_attention_pallas(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
                                   jnp.asarray(v.numpy()), causal=True, interpret=True)
     assert want.shape == (1, 4, 8, 64)
@@ -185,14 +182,31 @@ def test_v_head_dim_other_than_qk_is_refused(entry):
         assert got.shape == (1, 4, 8, 64)
         _close(got, want, "float32")
         return
-    if entry == "flash_attention_carry":
-        acc, _, l = tops.flash_attention_carry(q, k, v)
-        assert acc.shape == (1, 4, 8, 64)
-        _close(acc / torch.where(l == 0, 1.0, l)[..., None], want, "float32")
+    acc, _, l = tops.flash_attention_carry(q, k, v)
+    assert acc.shape == (1, 4, 8, 64)
+    _close(acc / torch.where(l == 0, 1.0, l)[..., None], want, "float32")
+
+
+@pytest.mark.parametrize("entry", ["check_decode", "flash_decode"])
+def test_decode_takes_a_v_head_dim_of_its_own(entry):
+    """Decode with MLA's widths, q/k of 96 and v of 64, as the reference's
+    ``flash_decode_pallas`` takes them (``Dv = v_cache.shape[-1]``):
+    ``check_decode`` returns Dv, and ``flash_decode``'s plain version
+    returns (B, Hq, S, Dv) equal to the reference's kernel in interpret mode
+    (float32, ``TOL``), 3 of 4 KV blocks of 16 holding keys and one row
+    idle."""
+    from repro_torch.kernels.flash_decode import check_decode
+
+    rng = np.random.default_rng(7)
+    jq, q = _normal(rng, (2, 4, 1, 96), "float32")
+    jk, k = _normal(rng, (2, 2, 64, 96), "float32")
+    jv, v = _normal(rng, (2, 2, 64, 64), "float32")
+    lens = np.array([41, 0], np.int32)
+    if entry == "check_decode":
+        assert check_decode(q, k, v, torch.from_numpy(lens), None) == (2, 4, 2, 1, 64, 96, 64)
         return
-    calls = {
-        "check_decode": lambda: check_decode(q, k, v, lens, None),
-        "flash_decode": lambda: tops.flash_decode(q, k, v, lens),
-    }
-    with pytest.raises(ValueError, match="v head dim 64 != q/k head dim 128"):
-        calls[entry]()
+    want = flash_decode_pallas(jq, jk, jv, jnp.asarray(lens), bk=16, interpret=True)
+    assert want.shape == (2, 4, 1, 64)
+    got = tops.flash_decode(q, k, v, torch.from_numpy(lens), block=16)
+    assert got.shape == (2, 4, 1, 64)
+    _close(got, want, "float32")

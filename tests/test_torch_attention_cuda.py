@@ -114,7 +114,7 @@ def test_flash_decode_cuda_rounds_each_block_against_its_own_max(cuda, case):
     lib = fd.load_library()
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     _, _, per = fd.plan_launch(Hq // G * S, B * G, T // bk, D, bk, sms,
-                               lib.flash_decode_smem_bytes)
+                               lambda D, tr, bk: lib.flash_decode_smem_bytes(D, tr, bk, D))
     assert (per > 1) == (case == "blocks_per_split")
     q = _randn((B, Hq, S, D), torch.bfloat16, cuda, 10)
     kc = _randn((B, G, T, D), torch.bfloat16, cuda, 11)
@@ -362,4 +362,4 @@ def test_flash_decode_smem_bytes_matches_the_library(cuda):
     for D in (64, 128):
         for tr in (1, 4):
             for bk in (32, 128, 300, 512, 1024, 4096):
-                assert fd.smem_bytes(D, tr, bk) == lib.flash_decode_smem_bytes(D, tr, bk)
+                assert fd.smem_bytes(D, tr, bk) == lib.flash_decode_smem_bytes(D, tr, bk, D)

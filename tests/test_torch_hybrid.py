@@ -308,12 +308,12 @@ def test_flash_decode_plain_matches_reference_at_head_dim_112(case, dtype):
 
 def test_card_wrappers_take_head_dim_112_and_the_carry_form_does_not():
     """The card wrappers' head dims (checked before any launch): the forward
-    takes (112, 112), decode 112, and the carry form 112 too (zamba2's
+    takes (112, 112), decode (112, 112), and the carry form 112 too (zamba2's
     shared attention under ``sp`` and ``sp_ring``); the carry form refuses
     a (D, Dv) pair it has no instance of, (112, 64), while its plain version
     takes any (``tests/test_torch_carry_dv.py``)."""
     assert (112, 112) in tfa.FORWARD_HEAD_DIMS
-    assert tfd.DECODE_HEAD_DIMS == (64, 112, 128)
+    assert tfd.DECODE_HEAD_DIMS == ((64, 64), (112, 112), (128, 128), (96, 64))
     assert tfa.CARRY_HEAD_DIMS == ((64, 64), (128, 128), (112, 112), (96, 64))
     q = torch.zeros((1, 2, 8, 112))
     with pytest.raises(ValueError, match="CUDA tensor"):  # the head dim passes, the device not

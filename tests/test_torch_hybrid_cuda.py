@@ -97,9 +97,10 @@ def test_flash_decode_smem_bytes_at_112(cuda):
     lib = fd.load_library()
     for tr in (1, 4):
         for bk in (32, 128, 300, 512, 1024):
-            assert lib.flash_decode_smem_bytes(D, tr, bk) == fd.smem_bytes(D, tr, bk)
-            assert lib.flash_decode_smem_bytes(D, tr, bk) >= lib.flash_decode_smem_bytes(64, tr, bk)
-    assert lib.flash_decode_smem_bytes(96, 1, 512) == -1
+            assert lib.flash_decode_smem_bytes(D, tr, bk, D) == fd.smem_bytes(D, tr, bk)
+            assert (lib.flash_decode_smem_bytes(D, tr, bk, D)
+                    >= lib.flash_decode_smem_bytes(64, tr, bk, 64))
+    assert lib.flash_decode_smem_bytes(96, 1, 512, 96) == -1
     for dtype in (torch.float32, torch.bfloat16):
         cache = _randn((2, 2, 4, 1024, D), dtype, cuda, 6)
         q = _randn((2, 16, 8, D), dtype, cuda, 7)  # GQA 4 x 8 queries: 32 rows
