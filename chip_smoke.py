@@ -196,12 +196,16 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 * the last parts of the TPU kernels' contracts, reached through ``ops``
   (no model path runs them; the bf16 GEMMs' launches on the main path are
   counted, and are 0): the bf16 GEMM kernels (``csrc/gemm_bf16.cu``)
-  in all 8 majors at EXTRALARGE (TMA) and at the ragged dims+1 (plain
-  loads), each launch counted on its loader, with and without acc (bf16
-  or float32) to bf16 and float32 outputs, and the panel (nb = 2, bf16 and
+  in all 8 majors at EXTRALARGE (TMA loads and store), at the ragged
+  dims+1 (plain loads, direct stores) and at 2056 x 2568 x 1408 (TMA
+  loads and store, the store clipped at 8-wide edge tiles), each launch
+  counted on its loader and its store, with and without acc (bf16 or
+  float32) to bf16 and float32 outputs, and the panel (nb = 2, bf16 and
   float32 panels, jb by value and from the device, the other block
   bitwise), each against its plain version, against float64 (at most 10x
-  the plain version's error) and bitwise on a rerun, timed at EXTRALARGE
+  the plain version's error) and bitwise on a rerun; acc passed as the
+  output buffer itself bitwise the sum into a new buffer, on either
+  store; timed at EXTRALARGE
   beside their bf16 bounds, plain versions and cuBLAS (``torch.matmul``,
   ``torch.mm(out_dtype=float32)``, ``addmm_``, ``torch.addmm(out_dtype=
   float32)``); and the decode kernel's
@@ -253,6 +257,9 @@ GEMM_BF16_TOL = {torch.bfloat16: dict(rtol=1e-2, atol=1e-2),
 GEMM_BF16_CASES = ((None, None), (None, torch.float32), (torch.bfloat16, None),
                    (torch.float32, torch.float32))
 UNALIGNED = (2049, 2561, 1409)  # the ragged SUMMA's dims+1: the strided TMA loader
+# rows of multiples of 8 (the bf16 GEMMs' TMA loader and store) but 8-wide
+# edge tiles (the store clipped) and an odd count of tile rows (17)
+CLIPPED = (2056, 2568, 1408)
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s (data sheet)
 LIBRARY_GEMM = re.compile(r"cublas|cutlass|xmma|gemm|sm90_|sm80_|ampere_|magma", re.I)
 # attention kernels vs plain versions: bf16 allows one bf16 ulp of the output
@@ -733,15 +740,19 @@ def bf16_buffers(majors: str, m: int, n: int, k: int, *, nb: int = 1, c_dtype=to
 
 def check_gemm_bf16(ops, kernels) -> dict:
     """The bf16 GEMM kernels against their plain versions, in all 8 majors
-    at EXTRALARGE (the TMA loader) and at the ragged dims+1 (plain loads),
-    each launch counted on the loader expected: ``ops.gemm`` with and
-    without acc (bf16 or float32) and both outputs (:data:`GEMM_BF16_CASES`),
-    and ``ops.gemm_panel`` (nb = 2, bf16 and float32 panels, jb by value and
-    from the device, the other block bitwise).  Each result against the
-    plain version (:data:`GEMM_BF16_TOL`), against a float64 product (at
-    most ACCURACY_RATIO times the plain version's error) and against a
-    second launch (bitwise).  Returns the worst error against the plain
-    version at EXTRALARGE by kernel."""
+    at EXTRALARGE (the TMA loader and store), at the ragged dims+1 (plain
+    loads, direct stores) and at :data:`CLIPPED` (TMA loader and store, the
+    store clipped at 8-wide edge tiles, an odd count of tile rows), each
+    launch counted on the loader and the store expected: ``ops.gemm`` with
+    and without acc (bf16 or float32) and both outputs
+    (:data:`GEMM_BF16_CASES`), and ``ops.gemm_panel`` (nb = 2, bf16 and
+    float32 panels, jb by value and from the device, the other block
+    bitwise).  Each result against the plain version
+    (:data:`GEMM_BF16_TOL`), against a float64 product (at most
+    ACCURACY_RATIO times the plain version's error) and against a second
+    launch (bitwise).  Then acc passed as the output buffer itself, on
+    either store, bitwise the sum into a new buffer.  Returns the worst
+    error against the plain version at EXTRALARGE by kernel."""
     worst = {"gemm_bf16": 0.0, "gemm_panel_bf16": 0.0}
 
     def held(name, got, want, exact, again) -> dict:
@@ -756,7 +767,13 @@ def check_gemm_bf16(ops, kernels) -> dict:
         return dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
                     error_vs_float64=errs, ratio=errs["kernel"] / errs["plain"])
 
-    for (m, n, k), path in ((EXTRALARGE, "tma"), (UNALIGNED, "plain")):
+    def counted(name, fn, path, store) -> None:
+        if fn.launches_by_path[path] != 1 or fn.launches_by_store[store] != 1:
+            raise AssertionError(f"{name}: expected the {path} loader and the {store} store, "
+                                 f"got {fn.launches_by_path}, {fn.launches_by_store}")
+
+    for (m, n, k), path, store in ((EXTRALARGE, "tma", "tma"), (UNALIGNED, "plain", "direct"),
+                                   (CLIPPED, "tma", "tma")):
         rows = {}
         for majors in MAJORS:
             a, b, c = bf16_buffers(majors, m, n, k)
@@ -766,23 +783,23 @@ def check_gemm_bf16(ops, kernels) -> dict:
                 run = lambda: ops.gemm(a, b, acc, majors=majors, out_dtype=out_dtype)  # noqa: E731
                 kernels.reset_launches()
                 got = run()
-                if kernels.gemm_bf16_cuda.launches_by_path[path] != 1:
-                    raise AssertionError(f"gemm bf16 {majors} {(m, n, k)}: expected the {path} "
-                                         f"loader, got {kernels.gemm_bf16_cuda.launches_by_path}")
+                label = f"{majors} acc={acc_dtype} out={got.dtype}"
+                counted(f"gemm bf16 {label} {(m, n, k)}", kernels.gemm_bf16_cuda, path, store)
                 want = ops.gemm(a, b, acc, majors=majors, out_dtype=out_dtype, impl="ref")
                 torch.cuda.synchronize()
-                label = f"{majors} acc={acc_dtype} out={got.dtype}"
                 rows[label] = held(f"gemm bf16 {label} {(m, n, k)}", got, want,
                                    exact if acc is None else exact + acc.double(), run())
             del a, b, c, exact
         if (m, n, k) == EXTRALARGE:
             worst["gemm_bf16"] = max(r["max_abs_err"] for r in rows.values())
-        phase("kernel_check", kernel="gemm_bf16", shape=(m, n, k), loader=path,
+        phase("kernel_check", kernel="gemm_bf16", shape=(m, n, k), loader=path, store=store,
               two_launches="bitwise", limit=ACCURACY_RATIO,
               max_ratio=max(r["ratio"] for r in rows.values()), cases=rows)
     nb = 2
-    for (m, n, k), path in (((EXTRALARGE[0], EXTRALARGE[1] // nb, EXTRALARGE[2]), "tma"),
-                            ((UNALIGNED[0], UNALIGNED[1] // nb + 1, UNALIGNED[2]), "plain")):
+    for (m, n, k), path, store in (
+            ((EXTRALARGE[0], EXTRALARGE[1] // nb, EXTRALARGE[2]), "tma", "tma"),
+            ((UNALIGNED[0], UNALIGNED[1] // nb + 1, UNALIGNED[2]), "plain", "direct"),
+            (CLIPPED, "tma", "tma")):
         rows = {}
         for majors in MAJORS:
             for panel_dtype in (torch.bfloat16, torch.float32):
@@ -800,27 +817,55 @@ def check_gemm_bf16(ops, kernels) -> dict:
                     exact = block(panel).double() + product
                     want = ops.gemm_panel(a, b, panel.clone(), jb, majors=majors, impl="ref")
                     for jb_arg in (jb, torch.tensor([jb], dtype=torch.int32, device="cuda")):
+                        where = "device" if isinstance(jb_arg, torch.Tensor) else "host"
+                        label = f"{majors} {panel_dtype} jb={jb} {where}"
                         kernels.reset_launches()
                         got = ops.gemm_panel(a, b, panel.clone(), jb_arg, majors=majors)
-                        if kernels.gemm_panel_bf16_cuda.launches_by_path[path] != 1:
-                            raise AssertionError(
-                                f"gemm_panel bf16 {majors}: expected the {path} loader, got "
-                                f"{kernels.gemm_panel_bf16_cuda.launches_by_path}")
+                        counted(f"gemm_panel bf16 {label} {(m, n, k)}",
+                                kernels.gemm_panel_bf16_cuda, path, store)
                         again = ops.gemm_panel(a, b, panel.clone(), jb_arg, majors=majors)
                         torch.cuda.synchronize()
                         if not torch.equal(got[keep], panel[keep]):
                             raise AssertionError(f"gemm_panel bf16 {majors} jb={jb} touched "
                                                  "other blocks")
-                        where = "device" if isinstance(jb_arg, torch.Tensor) else "host"
-                        label = f"{majors} {panel_dtype} jb={jb} {where}"
                         rows[label] = held(f"gemm_panel bf16 {label}", block(got), block(want),
                                            exact, block(again))
                 del a, b, panel, product
-        if path == "tma":
+        if (m, n, k) == (EXTRALARGE[0], EXTRALARGE[1] // nb, EXTRALARGE[2]):
             worst["gemm_panel_bf16"] = max(r["max_abs_err"] for r in rows.values())
         phase("kernel_check", kernel="gemm_panel_bf16", shape=(m, n, k, nb), loader=path,
-              untouched_blocks="bitwise", two_launches="bitwise", limit=ACCURACY_RATIO,
-              max_ratio=max(r["ratio"] for r in rows.values()), cases=rows)
+              store=store, untouched_blocks="bitwise", two_launches="bitwise",
+              limit=ACCURACY_RATIO, max_ratio=max(r["ratio"] for r in rows.values()), cases=rows)
+    # acc as the output buffer itself (the entry point allows it; the
+    # wrapper always writes a new buffer): the bits of the same sum
+    lib = kernels.load_bf16_library()
+    aliased = {}
+    for (m, n, k), store in ((CLIPPED, "tma"), (UNALIGNED, "direct")):
+        for majors in ("I/I/K", "J/K/J"):
+            a_trans, b_trans, c_trans = kernels.parse_majors(majors)
+            for dtype in (torch.bfloat16, torch.float32):
+                a, b, c = bf16_buffers(majors, m, n, k, c_dtype=dtype)
+                want = ops.gemm(a, b, c, majors=majors, out_dtype=dtype)
+                loader = kernels.loader_path_bf16(m, n, k, majors, a.data_ptr(), b.data_ptr())
+                got = kernels.store_path_bf16(m, n, majors, c.data_ptr(), c.element_size(),
+                                              c.data_ptr(), c.element_size(), loader=loader)
+                if got != store:
+                    raise AssertionError(f"acc as output {majors} {(m, n, k)}: store {got}")
+                bf16 = dtype == torch.bfloat16
+                code = lib.layout_gemm_bf16(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                            c.data_ptr(), m, n, k, a_trans, b_trans, c_trans,
+                                            bf16, bf16, kernels.BF16_LOADERS[loader],
+                                            kernels.BF16_STORES[store],
+                                            torch.cuda.current_stream().cuda_stream)
+                if code:
+                    raise RuntimeError(f"layout_gemm_bf16 failed: cudaError {code}")
+                torch.cuda.synchronize()
+                if not torch.equal(c, want):
+                    raise AssertionError(f"acc as output {majors} {(m, n, k)} {dtype}: not the "
+                                         "bits of the sum into a new buffer")
+                aliased[f"{majors} {(m, n, k)} {dtype}"] = store
+                del a, b, c, want
+    phase("kernel_check", kernel="gemm_bf16", case="acc is the output buffer", bitwise=aliased)
     torch.cuda.empty_cache()
     return worst
 
@@ -836,7 +881,7 @@ def library_gemm_f32(a, b, majors: str) -> torch.Tensor:
     return torch.mm(al, bl, out_dtype=torch.float32)
 
 
-def time_gemm_bf16(ops, card: str) -> dict:
+def time_gemm_bf16(ops, kernels, card: str) -> dict:
     """Times of the bf16 GEMM kernels at EXTRALARGE beside their bf16
     bounds (:func:`bound` with ``dtype``), their plain versions and one
     cuBLAS call: ``ops.gemm`` to a bf16 output in all 8 majors (beside
@@ -852,6 +897,7 @@ def time_gemm_bf16(ops, card: str) -> dict:
             if out_dtype is not None and majors != "I/I/K":
                 continue
             library = library_gemm if out_dtype is None else library_gemm_f32
+            kernels.reset_launches()
             row = gemm_times(lambda: ops.gemm(a, b, majors=majors, out_dtype=out_dtype),
                              lambda: ops.gemm(a, b, majors=majors, out_dtype=out_dtype,
                                               impl="ref"),
@@ -864,6 +910,7 @@ def time_gemm_bf16(ops, card: str) -> dict:
             if majors == "I/I/K":
                 rows[("gemm_bf16", out)] = row
             phase("time", kernel="gemm_bf16", majors=majors, shape=(m, n, k), out_dtype=out,
+                  store=[s for s, c in kernels.gemm_bf16_cuda.launches_by_store.items() if c],
                   card=card, tflops=2 * m * n * k / row["ms"] / 1e9,
                   library_tflops=2 * m * n * k / row["library_ms"] / 1e9, **row)
         del a, b
@@ -873,6 +920,7 @@ def time_gemm_bf16(ops, card: str) -> dict:
             library = lambda: panel[:, 0:n].addmm_(a, b)  # noqa: E731
         else:
             library = lambda: torch.addmm(panel[:, 0:n], a, b, out_dtype=torch.float32)  # noqa: E731
+        kernels.reset_launches()
         row = gemm_times(lambda: ops.gemm_panel(a, b, panel, 0, majors="I/I/K"),
                          lambda: ops.gemm_panel(a, b, panel, 0, majors="I/I/K", impl="ref"),
                          library)
@@ -883,7 +931,9 @@ def time_gemm_bf16(ops, card: str) -> dict:
         check_bound(f"gemm_panel bf16 panel={panel_dtype}", row)
         rows[("gemm_panel_bf16", str(panel_dtype).split(".")[1])] = row
         phase("time", kernel="gemm_panel_bf16", majors="I/I/K", shape=(m, n, k), nb=1,
-              panel_dtype=str(panel_dtype), card=card, tflops=2 * m * n * k / row["ms"] / 1e9,
+              panel_dtype=str(panel_dtype),
+              store=[s for s, c in kernels.gemm_panel_bf16_cuda.launches_by_store.items() if c],
+              card=card, tflops=2 * m * n * k / row["ms"] / 1e9,
               **row)
         del a, b, panel
     torch.cuda.empty_cache()
@@ -4417,8 +4467,10 @@ def main() -> int:
           torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas)
     phase("gemm_instances", dynamic_shared_bytes=kernels.load_library().layout_gemm_smem_bytes(),
           ptxas=kernel_instances(build.build_log("gemm")))
+    bf16_lib = kernels.load_bf16_library()
     phase("gemm_bf16_instances",
-          dynamic_shared_bytes=kernels.load_bf16_library().layout_gemm_bf16_smem_bytes(),
+          dynamic_shared_bytes={store: bf16_lib.layout_gemm_bf16_smem_bytes(code)
+                                for store, code in kernels.BF16_STORES.items()},
           ptxas=kernel_instances(build.build_log("gemm_bf16")))
     attn_ptxas = {name: kernel_instances(build.build_log(name), rf"{name}_kernel_wgmma")
                   for name in ("flash_attention", "flash_decode")}
@@ -4471,7 +4523,7 @@ def main() -> int:
     # their plain versions, float64 and themselves, and their times
     t0 = time.perf_counter()
     worst.update(check_gemm_bf16(ops, kernels))
-    rows.update(time_gemm_bf16(ops, card))
+    rows.update(time_gemm_bf16(ops, kernels, card))
     phase("gemm_bf16", max_abs_err={k: worst[k] for k in ("gemm_bf16", "gemm_panel_bf16")},
           seconds=time.perf_counter() - t0)
 

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (gemm.cu, gemm_bf16.cu, flash_attention.cu, flash_decode.cu):
 // shared-memory addresses, mbarriers, the wgmma waits and accumulator
-// fence, the GEMMs' persistent schedule, and cuTensorMapEncodeTiled looked
-// up through the CUDA runtime (so no library needs -lcuda).
+// fence, 3-D TMA loads and stores and the stores' bulk-group waits, the
+// GEMMs' persistent schedule, and cuTensorMapEncodeTiled looked up through
+// the CUDA runtime (so no library needs -lcuda).
 #pragma once
 
 #include <cuda.h>
@@ -57,6 +58,45 @@ template <int N>
 __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int r = 0; r < N; ++r) asm volatile("" : "+f"(d[r])::"memory");
+}
+
+// A 3-D TMA load of one box into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A 3-D TMA store of one box from shared memory, in the thread's current
+// bulk group; the box is clipped at the tensor map's bounds.  The writes to
+// `src` must be fenced for the async proxy (fence.proxy.async) first.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1),
+               "r"(c2)
+               : "memory");
+}
+
+// Closes the thread's current bulk group of TMA stores.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of the thread's bulk groups still read their shared
+// memory (the source may then be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of the thread's bulk groups are still in flight.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // Output tile t of a GEMM's persistent schedule of BM x BN tiles,

@@ -31,14 +31,19 @@ library): one bf16 tensor-core product, accumulated in float32, ``acc``
 a.dtype``, bf16 or float32) rounded once, as the reference's kernels do;
 the panel may be bf16 or float32.  Their k-tiles come through TMA when
 A's and B's bases are 16-byte aligned and their rows multiples of 8
-elements, else through plain loads (:func:`loader_path_bf16`).  On the
+elements, else through plain loads (:func:`loader_path_bf16`); their
+output tiles go out through shared memory and a TMA store when the loads
+are TMA's and the output's (and acc's) tensor map is legal, else by direct
+stores (:func:`store_path_bf16`).  On the
 card :func:`check_dtypes` refuses what neither takes (float16, operands of
 two dtypes) with a ``TypeError`` that names it.
 
 Each wrapper counts its launches in its ``launches`` attribute, and by loader
 in ``launches_by_path`` (``{"tma": n, "tma_strided": n, "async": n}``, or
 ``{"tma": n, "plain": n}`` for the bf16 wrappers, summing to ``launches``),
-so a run can show that it went through the kernel and which loader it took.
+so a run can show that it went through the kernel and which loader it took;
+the bf16 wrappers count their stores too, in ``launches_by_store``
+(``{"tma": n, "direct": n}``).
 """
 from __future__ import annotations
 
@@ -52,7 +57,7 @@ from .flash_attention import refuse_grad
 
 __all__ = ["gemm_cuda", "gemm_panel_cuda", "gemm_bf16_cuda", "gemm_panel_bf16_cuda",
            "gemm_shape", "check_gemm", "check_panel", "check_dtypes", "parse_majors",
-           "loader_path", "loader_path_bf16", "reset_launches", "load_library",
+           "loader_path", "loader_path_bf16", "store_path_bf16", "reset_launches", "load_library",
            "load_bf16_library", "bind_bf16"]
 
 
@@ -137,6 +142,41 @@ def loader_path_bf16(M: int, N: int, K: int, majors: str, a_address: int,
     return "tma" if K > 0 and aligned else "plain"
 
 
+BF16_STORES = {"direct": 0, "tma": 1}  # the bf16 entry points' store codes
+
+
+def store_path_bf16(M: int, N: int, majors: str, c_address: int, c_itemsize: int,
+                    acc_address: int | None = None, acc_itemsize: int = 0, *,
+                    nb: int = 1, loader: str) -> str:
+    """The store the bf16 kernels take for the output, C or a panel of
+    ``nb`` j-blocks of width N: ``"tma"`` (tiles staged in shared memory,
+    written by a TMA store; acc loaded by TMA the same way) when the
+    operands come through the TMA loader (``loader``, from
+    :func:`loader_path_bf16`) and every tensor map the store needs is
+    legal, else ``"direct"`` (stores from the accumulators, any shape and
+    alignment).  Behind the plain loads the kernel is paced by the loader
+    threads' copies, and the TMA store gained nothing there (measured on an
+    H100 at EXTRALARGE; a float32 panel ran 11% slower).  A map is legal
+    when its base is 16-byte aligned and its strides are multiples of 16
+    bytes: the buffer's rows (M values when C is j-major, ``nb * N`` when
+    i-major) and the step from one j-block to the next (N rows of M values,
+    or N values).  So M (j-major) or N (i-major) times the item size must
+    be a multiple of 16, for C and for ``acc`` (same shape, its own item
+    size)."""
+    if loader != "tma":
+        return "direct"
+    c_trans = parse_majors(majors)[2]
+    extent = M if c_trans else N
+
+    def legal(address: int, itemsize: int) -> bool:
+        return address % 16 == 0 and extent * itemsize % 16 == 0
+
+    ok = M > 0 and N > 0 and nb > 0 and legal(c_address, c_itemsize)
+    if acc_address is not None:
+        ok = ok and legal(acc_address, acc_itemsize)
+    return "tma" if ok else "direct"
+
+
 def check_dtypes(a, b, other=None, out_dtype=None) -> torch.dtype:
     """The dtype of A and B for the card's kernels; raises ``TypeError``
     naming what they do not take.  A and B are float32 or bfloat16, both of
@@ -189,15 +229,18 @@ def load_bf16_library() -> ctypes.CDLL:
     return bind_bf16(build.load("gemm_bf16"))
 
 
-def bind_bf16(lib: ctypes.CDLL) -> ctypes.CDLL:
+def bind_bf16(lib: ctypes.CDLL, *, takes_store: bool = True) -> ctypes.CDLL:
     """``lib``, a build of ``csrc/gemm_bf16.cu``, with the argument types of
-    its entry points set."""
+    its entry points set; ``takes_store=False`` for a build whose entry
+    points take no store argument (before the TMA store)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.layout_gemm_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    store = [i] if takes_store else []
+    lib.layout_gemm_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, *store, p]
     lib.layout_gemm_bf16.restype = i
-    lib.layout_gemm_panel_bf16.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p, i, i, i, p]
+    lib.layout_gemm_panel_bf16.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p, i, i, i, *store,
+                                           p]
     lib.layout_gemm_panel_bf16.restype = i
-    lib.layout_gemm_bf16_smem_bytes.argtypes = []
+    lib.layout_gemm_bf16_smem_bytes.argtypes = store
     lib.layout_gemm_bf16_smem_bytes.restype = i
     lib.layout_gemm_bf16_error_string.argtypes = [i]
     lib.layout_gemm_bf16_error_string.restype = ctypes.c_char_p
@@ -299,14 +342,19 @@ def gemm_bf16_cuda(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor | None = 
     lib = load_bf16_library()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     path = loader_path_bf16(M, N, K, majors, a.data_ptr(), b.data_ptr())
+    store = store_path_bf16(M, N, majors, out.data_ptr(), out.element_size(),
+                            None if acc is None else acc.data_ptr(),
+                            0 if acc is None else acc.element_size(), loader=path)
     code = lib.layout_gemm_bf16(a.data_ptr(), b.data_ptr(),
                                 acc.data_ptr() if acc is not None else None, out.data_ptr(),
                                 M, N, K, a_trans, b_trans, c_trans,
                                 acc is not None and acc.dtype == torch.bfloat16,
-                                out_dtype == torch.bfloat16, BF16_LOADERS[path], stream)
+                                out_dtype == torch.bfloat16, BF16_LOADERS[path],
+                                BF16_STORES[store], stream)
     _raise_if_failed(code, "layout_gemm_bf16_kernel", lib.layout_gemm_bf16_error_string)
     gemm_bf16_cuda.launches += 1  # type: ignore[attr-defined]
     gemm_bf16_cuda.launches_by_path[path] += 1  # type: ignore[attr-defined]
+    gemm_bf16_cuda.launches_by_store[store] += 1  # type: ignore[attr-defined]
     return out
 
 
@@ -325,13 +373,16 @@ def gemm_panel_bf16_cuda(a: torch.Tensor, b: torch.Tensor, panel: torch.Tensor, 
     lib = load_bf16_library()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     path = loader_path_bf16(M, N, K, majors, a.data_ptr(), b.data_ptr())
+    store = store_path_bf16(M, N, majors, panel.data_ptr(), panel.element_size(), nb=nb,
+                            loader=path)
     code = lib.layout_gemm_panel_bf16(a.data_ptr(), b.data_ptr(), panel.data_ptr(), M, N, K,
                                       a_trans, b_trans, c_trans, panel.shape[1], nb, jb_dev,
                                       jb_host, panel.dtype == torch.bfloat16,
-                                      BF16_LOADERS[path], stream)
+                                      BF16_LOADERS[path], BF16_STORES[store], stream)
     _raise_if_failed(code, "layout_gemm_panel_bf16_kernel", lib.layout_gemm_bf16_error_string)
     gemm_panel_bf16_cuda.launches += 1  # type: ignore[attr-defined]
     gemm_panel_bf16_cuda.launches_by_path[path] += 1  # type: ignore[attr-defined]
+    gemm_panel_bf16_cuda.launches_by_store[store] += 1  # type: ignore[attr-defined]
     return panel
 
 
@@ -341,6 +392,8 @@ def reset_launches() -> None:
                         (gemm_bf16_cuda, BF16_LOADERS), (gemm_panel_bf16_cuda, BF16_LOADERS)):
         fn.launches = 0  # type: ignore[attr-defined]
         fn.launches_by_path = dict.fromkeys(loaders, 0)  # type: ignore[attr-defined]
+    for fn in (gemm_bf16_cuda, gemm_panel_bf16_cuda):
+        fn.launches_by_store = dict.fromkeys(BF16_STORES, 0)  # type: ignore[attr-defined]
 
 
 reset_launches()

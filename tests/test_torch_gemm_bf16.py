@@ -187,3 +187,69 @@ def test_loader_path_bf16_reads_each_operands_row_length(majors):
     (N = 132 values) miss it."""
     want = "tma" if majors.endswith("J") else "plain"
     assert tgemm.loader_path_bf16(128, 132, 64, majors, 0, 0) == want
+
+
+# (M, N, majors, nb, (C's address, item size), (acc's address, item size) or
+# None, the loader's path)
+STORE_CASES = {
+    "extralarge_bf16": ((2048, 2560, "I/I/K", 1, (1024, 2), None, "tma"), "tma"),
+    "extralarge_f32_out": ((2048, 2560, "I/I/K", 1, (1024, 4), None, "tma"), "tma"),
+    "behind_plain_loads": ((2048, 2560, "I/I/K", 1, (1024, 2), None, "plain"), "direct"),
+    "panel_behind_plain_loads": ((2048, 1280, "J/I/K", 2, (1024, 4), None, "plain"), "direct"),
+    "c_base_off_16_bytes": ((2048, 2560, "I/I/K", 1, (1026, 2), None, "tma"), "direct"),
+    "c_base_off_8_bytes_f32": ((2048, 2560, "I/I/K", 1, (1032, 4), None, "tma"), "direct"),
+    "acc_aligned": ((2048, 2560, "I/I/K", 1, (1024, 2), (4096, 2), "tma"), "tma"),
+    "acc_base_off_16_bytes": ((2048, 2560, "I/I/K", 1, (1024, 2), (4098, 2), "tma"), "direct"),
+    "ragged_dims_plus_1": ((2049, 2561, "I/I/K", 1, (1024, 2), None, "tma"), "direct"),
+    "i_major_ignores_M": ((2049, 2560, "I/I/K", 1, (1024, 2), None, "tma"), "tma"),
+    "row_of_8_bytes_bf16": ((64, 132, "I/I/K", 1, (1024, 2), None, "tma"), "direct"),
+    "row_of_16_bytes_f32": ((64, 132, "I/I/K", 1, (1024, 4), None, "tma"), "tma"),
+    "acc_own_item_size": ((64, 132, "I/I/K", 1, (1024, 4), (4096, 2), "tma"), "direct"),
+    "acc_f32_row_of_16_bytes": ((64, 136, "I/I/K", 1, (1024, 2), (4096, 4), "tma"), "tma"),
+    "j_major_reads_M": ((2049, 2560, "J/I/K", 1, (1024, 2), None, "tma"), "direct"),
+    "j_major_ignores_N": ((2056, 2561, "J/K/J", 1, (1024, 2), None, "tma"), "tma"),
+    "j_major_acc_unaligned": ((2056, 2568, "J/I/J", 1, (1024, 4), (4100, 4), "tma"), "direct"),
+    "panel_width_45": ((67, 45, "I/I/K", 4, (1024, 2), None, "tma"), "direct"),
+    "panel_width_45_f32": ((67, 45, "I/K/J", 4, (1024, 4), None, "tma"), "direct"),
+    "panel_row_aligned_block_offset_not": ((64, 4, "I/I/K", 4, (1024, 2), None, "tma"), "direct"),
+    "panel_block_offset_of_16_bytes": ((64, 8, "I/I/K", 3, (1024, 2), None, "tma"), "tma"),
+    "panel_j_major_width_45": ((2056, 45, "J/I/K", 2, (1024, 2), None, "tma"), "tma"),
+    "panel_j_major_odd_M": ((67, 64, "J/K/K", 2, (1024, 4), None, "tma"), "direct"),
+    "empty": ((0, 128, "I/I/K", 1, (1024, 2), None, "tma"), "direct"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STORE_CASES))
+def test_store_path_bf16(case):
+    """The TMA store (and acc's TMA load) goes with the TMA loader, and
+    wants 16-byte aligned bases and map strides of multiples of 16 bytes:
+    the rows of C and acc (N values i-major, M j-major, each at its own item
+    size) and, for a panel, the step from one j-block to the next (N values
+    i-major, N rows of M j-major); anything else stores directly."""
+    (M, N, majors, nb, (c_addr, c_size), acc, loader), want = STORE_CASES[case]
+    acc_addr, acc_size = acc or (None, 0)
+    assert tgemm.store_path_bf16(M, N, majors, c_addr, c_size, acc_addr, acc_size, nb=nb,
+                                 loader=loader) == want
+
+
+@pytest.mark.parametrize("majors", ALL_MAJORS)
+def test_gemm_bf16_on_cpu_takes_the_plain_version_and_counts_nothing(majors):
+    """On CPU tensors ``ops.gemm`` and ``ops.gemm_panel`` run their plain
+    versions: the results are the plain functions' own, and neither the
+    loader nor the store counters of the bf16 wrappers move."""
+    rng = np.random.default_rng(14)
+    (_, ta), (_, tb) = _operands(rng, 40, 24, 16, majors)
+    shape = (24, 40) if majors.startswith("J") else (40, 24)
+    _, acc = _pair(rng, shape, torch.float32)
+    _, panel = _pair(rng, (48, 40) if majors.startswith("J") else (40, 48))
+    tgemm.reset_launches()
+    got = tops.gemm(ta, tb, acc, majors=majors, out_dtype=torch.float32)
+    assert torch.equal(got, tops.gemm(ta, tb, acc, majors=majors, out_dtype=torch.float32,
+                                      impl="ref"))
+    got_panel = tops.gemm_panel(ta, tb, panel.clone(), 1, majors=majors)
+    assert torch.equal(got_panel, tops.gemm_panel(ta, tb, panel.clone(), 1, majors=majors,
+                                                  impl="ref"))
+    for fn in (tgemm.gemm_bf16_cuda, tgemm.gemm_panel_bf16_cuda):
+        assert fn.launches == 0
+        assert fn.launches_by_path == {"plain": 0, "tma": 0}
+        assert fn.launches_by_store == {"direct": 0, "tma": 0}

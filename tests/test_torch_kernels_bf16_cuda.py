@@ -10,6 +10,10 @@ plain version both sum in float32, in other orders, and round once: one
 bf16 ulp apart at most); its float32 output ``rtol=1e-4, atol=1e-3``
 (float32 sums in another order), as for the float32 kernels; decode as in
 ``tests/test_torch_attention_cuda.py``: float32 ``2e-4``, bf16 ``1e-2``.
+Each GEMM launch is counted on its store too: 2056 x 2568 x 1408 takes the
+TMA loader and the TMA store (its rows multiples of 8, its edge tiles 8
+wide, so the store is clipped); the ragged shapes and a bf16 panel of
+width 45 store directly.
 """
 import pytest
 import torch
@@ -48,19 +52,23 @@ def _buffers(majors, m, n, k, device, *, nb=1, c_dtype=torch.bfloat16, seed=0):
 @pytest.mark.parametrize("acc_dtype,out_dtype", [(None, None), (None, torch.float32),
                                                  (torch.bfloat16, None),
                                                  (torch.float32, torch.float32)])
-@pytest.mark.parametrize("shape,path", [((256, 384, 192), "tma"), ((67, 131, 45), "plain"),
-                                        ((200, 136, 1000), "tma")])
+@pytest.mark.parametrize("shape,path,store", [((256, 384, 192), "tma", "tma"),
+                                              ((67, 131, 45), "plain", "direct"),
+                                              ((200, 136, 1000), "tma", "tma"),
+                                              ((2056, 2568, 1408), "tma", "tma")])
 @pytest.mark.parametrize("majors", LAYOUT_CONFIGS)
-def test_gemm_bf16_cuda_matches_plain_version(cuda, majors, shape, path, acc_dtype, out_dtype):
-    """Every majors, each loader, with and without acc, both outputs; the
-    launch is counted on the loader expected (200 x 136 x 1000: TMA with
-    edge tiles in every dimension)."""
+def test_gemm_bf16_cuda_matches_plain_version(cuda, majors, shape, path, store, acc_dtype,
+                                              out_dtype):
+    """Every majors, each loader and store, with and without acc, both
+    outputs; the launch is counted on the loader and the store expected
+    (200 x 136 x 1000: TMA with edge tiles in every dimension)."""
     a, b, acc = _buffers(majors, *shape, cuda, c_dtype=acc_dtype or torch.bfloat16)
     acc = acc if acc_dtype is not None else None
     kernels.reset_launches()
     got = ops.gemm(a, b, acc, majors=majors, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert kernels.gemm_bf16_cuda.launches_by_path[path] == 1
+    assert kernels.gemm_bf16_cuda.launches_by_store[store] == 1
     assert kernels.gemm_cuda.launches == 0
     want = ops.gemm(a, b, acc, majors=majors, out_dtype=out_dtype, impl="ref")
     assert got.dtype == want.dtype == (out_dtype or torch.bfloat16)
@@ -71,9 +79,11 @@ def test_gemm_bf16_cuda_matches_plain_version(cuda, majors, shape, path, acc_dty
 @pytest.mark.parametrize("majors", LAYOUT_CONFIGS)
 def test_gemm_panel_bf16_cuda_matches_plain_version(cuda, majors, panel_dtype):
     """Every block, jb as an int and as a device tensor, bf16 and float32
-    panels; the other blocks stay bitwise unchanged."""
+    panels; the other blocks stay bitwise unchanged.  Blocks of 45 columns
+    (and 67 rows) store directly."""
     n, nb = 45, 4
     a, b, panel = _buffers(majors, 67, n, 33, cuda, nb=nb, c_dtype=panel_dtype)
+    kernels.reset_launches()
     for jb in range(nb):
         for jb_arg in (jb, torch.tensor([jb], dtype=torch.int32, device=cuda)):
             got = ops.gemm_panel(a, b, panel.clone(), jb_arg, majors=majors)
@@ -85,6 +95,59 @@ def test_gemm_panel_bf16_cuda_matches_plain_version(cuda, majors, panel_dtype):
             else:
                 keep[:, jb * n:(jb + 1) * n] = False
             assert torch.equal(got[keep], panel[keep])
+    assert kernels.gemm_panel_bf16_cuda.launches_by_store == {"direct": 2 * nb, "tma": 0}
+
+
+@pytest.mark.parametrize("panel_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("majors", LAYOUT_CONFIGS)
+def test_gemm_panel_bf16_cuda_tma_store_clipped_at_its_block(cuda, majors, panel_dtype):
+    """Two blocks of 2056 x 2568 (K 1408), jb by value and from the device:
+    the TMA store's edge tiles, 8 columns (or rows) wide, are clipped at
+    their own block, the other block stays bitwise unchanged, and a rerun
+    is bitwise equal."""
+    m, n, k, nb = 2056, 2568, 1408, 2
+    a, b, panel = _buffers(majors, m, n, k, cuda, nb=nb, c_dtype=panel_dtype)
+    kernels.reset_launches()
+    for jb in range(nb):
+        want = ops.gemm_panel(a, b, panel.clone(), jb, majors=majors, impl="ref")
+        keep = torch.ones_like(panel, dtype=torch.bool)
+        if majors.startswith("J"):
+            keep[jb * n:(jb + 1) * n, :] = False
+        else:
+            keep[:, jb * n:(jb + 1) * n] = False
+        for jb_arg in (jb, torch.tensor([jb], dtype=torch.int32, device=cuda)):
+            got = ops.gemm_panel(a, b, panel.clone(), jb_arg, majors=majors)
+            torch.testing.assert_close(got, want, **GEMM_TOL[panel_dtype])
+            assert torch.equal(got[keep], panel[keep])
+            assert torch.equal(got, ops.gemm_panel(a, b, panel.clone(), jb_arg, majors=majors))
+    assert kernels.gemm_panel_bf16_cuda.launches_by_path == {"plain": 0, "tma": 4 * nb}
+    assert kernels.gemm_panel_bf16_cuda.launches_by_store == {"direct": 0, "tma": 4 * nb}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("majors", ["I/I/K", "J/K/J"])
+@pytest.mark.parametrize("shape,store", [((2056, 2568, 1408), "tma"),
+                                         ((2049, 2561, 1409), "direct")])
+def test_gemm_bf16_cuda_acc_may_be_the_output(cuda, shape, store, majors, dtype):
+    """acc passed as the output buffer itself (the entry point allows it:
+    each tile is read before it is written, by one block) gives the bits
+    of the same sum into a new buffer, on either store."""
+    a, b, c = _buffers(majors, *shape, cuda, c_dtype=dtype)
+    m, n, k = shape
+    a_trans, b_trans, c_trans = kernels.parse_majors(majors)
+    want = ops.gemm(a, b, c, majors=majors, out_dtype=dtype)
+    loader = kernels.loader_path_bf16(m, n, k, majors, a.data_ptr(), b.data_ptr())
+    assert kernels.store_path_bf16(m, n, majors, c.data_ptr(), c.element_size(), c.data_ptr(),
+                                   c.element_size(), loader=loader) == store
+    lib = kernels.load_bf16_library()
+    bf16 = dtype == torch.bfloat16
+    code = lib.layout_gemm_bf16(a.data_ptr(), b.data_ptr(), c.data_ptr(), c.data_ptr(), m, n, k,
+                                a_trans, b_trans, c_trans, bf16, bf16,
+                                kernels.BF16_LOADERS[loader], kernels.BF16_STORES[store],
+                                torch.cuda.current_stream().cuda_stream)
+    assert code == 0
+    torch.cuda.synchronize()
+    assert torch.equal(c, want)
 
 
 @pytest.mark.parametrize("majors", ["I/I/K", "J/K/J"])
@@ -126,7 +189,7 @@ def test_gemm_bf16_cuda_short_k(cuda, k):
                                    **GEMM_TOL[torch.float32])
 
 
-@pytest.mark.parametrize("shape", [(2048, 2560, 1408), (2049, 2561, 1409)])
+@pytest.mark.parametrize("shape", [(2048, 2560, 1408), (2049, 2561, 1409), (2056, 2568, 1408)])
 @pytest.mark.parametrize("majors", ["I/I/K", "J/K/J"])
 def test_gemm_bf16_cuda_is_deterministic(cuda, shape, majors):
     a, b, _ = _buffers(majors, *shape, cuda)
