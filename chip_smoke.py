@@ -49,9 +49,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   the serving run's 8 requests through ``Engine(recipe=...)``
   (``flash_decode`` once a layer a step, greedy tokens against the
   single-host run except at its near ties, a decode step's host and device
-  ms, idle share and kernels launched beside the single-host step's); and
-  one training step under ``tp`` at the training phase's depth against the
-  no-recipe step.  On one card every axis has one rank: the recipe's
+  ms, idle share and kernels launched beside the single-host step's); the
+  same 8 requests through ``Engine(recipe=..., mesh=..., microbatches=2)``
+  (prefill under the recipe, decode through the TP step, one cache
+  allocation: ``flash_decode`` once a layer a prefill chunk and twice a
+  layer a decode step, greedy tokens equal to the TP serving run's, the TP
+  weights views of the shards, decode tok/s beside the TP run's, the
+  card's peak memory); and one training step under ``tp`` at the training
+  phase's depth against the no-recipe step.  On one card every axis has one rank: the recipe's
   gathers and reductions move nothing; across ranks they are held on gloo
   CPU processes in the tests;
 * the sequence-parallel ring's kernel work at phi4-mini's full width: every
@@ -1422,6 +1427,74 @@ def recipe_serve(cfg, params, lm, Engine, ServeConfig, fd, mesh, sharding,
     return out
 
 
+def recipe_tp_serve(cfg, params, lm, Engine, ServeConfig, fd, mesh, sharding,
+                    shard_params_by_recipe, tree_leaves, tp: dict, tp_done: dict) -> dict:
+    """``recipe_tp_serve``: the serving run's 8 requests on 4 slots through
+    ``Engine(recipe=make_recipe(cfg, mesh), mesh=mesh, microbatches=2)`` on
+    a one-rank NCCL ``(data, model)`` mesh and the rank's shards: prefill
+    under the recipe, decode through the explicit TP step, both on the
+    recipe's cache blocks.  Fails unless every request finishes,
+    ``flash_decode`` launches ``n_layers`` times a prefill chunk and
+    ``n_layers x microbatches`` times a decode step, the greedy tokens equal
+    the ``tp_serve`` run's (``tp_done``) exactly (on one rank the recipe's
+    prefill is the program without a recipe), and the TP step's weights are
+    views of the shards (no second copy on one rank).  Prints prefill s,
+    decode tok/s and wall s beside ``tp_serve``'s (``tp``), what building
+    the engine added to the card's memory (its K/V and nothing else) and
+    the card's peak GB."""
+    requests = serve_prompts(cfg)
+    recipe = sharding.make_recipe(cfg, mesh)
+    shards = shard_params_by_recipe(params, lm.build_specs(cfg), recipe)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    engine = Engine(cfg, shards, ServeConfig(max_len=MAX_LEN, batch_slots=SLOTS, eos_token=-1),
+                    recipe=recipe, mesh=mesh, microbatches=TP_MICROBATCHES)
+    built_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    build_peak_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+    kv_gb = sum(t.numel() * t.element_size() for t in engine.state.caches) / 1e9
+    views = all(a.data_ptr() == b.data_ptr() for a, b in
+                zip(tree_leaves(engine.tp_params), tree_leaves(engine.params), strict=True))
+    if not views:
+        raise AssertionError("recipe_tp_serve: the TP weights are not views of the shards")
+    for rid, prompt in enumerate(requests):
+        engine.submit(rid, prompt, NEW_TOKENS)
+    stats = _instrument(engine, record_gaps=False, fd=fd)
+    fd.flash_decode_cuda.launches = 0
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fd.flash_decode_cuda.launches
+    if sorted(done) != list(range(REQUESTS)) or any(
+            len(done[r]) != len(requests[r]) + NEW_TOKENS for r in range(REQUESTS)):
+        raise AssertionError(f"recipe_tp_serve: not every request finished with {NEW_TOKENS} "
+                             "tokens")
+    by_kind = {"prefill": cfg.n_layers * engine.steps["prefill"],
+               "decode": cfg.n_layers * TP_MICROBATCHES * engine.steps["decode"]}
+    if stats["launches"] != by_kind or launches != sum(by_kind.values()):
+        raise AssertionError(f"recipe_tp_serve: flash_decode launches {stats['launches']} "
+                             f"(total {launches}) != {by_kind}")
+    differ = [r for r in range(REQUESTS) if done[r] != tp_done[r]]
+    if differ:
+        raise AssertionError(f"recipe_tp_serve: requests {differ} differ from tp_serve's tokens")
+    steps = dict(engine.steps)
+    del engine
+    torch.cuda.empty_cache()
+    out = dict(mesh=dict(mesh.shape), attn_mode=recipe.attn_mode, microbatches=TP_MICROBATCHES,
+               requests=REQUESTS, slots=SLOTS, max_len=MAX_LEN, new_tokens=NEW_TOKENS,
+               steps=steps, flash_decode_launches=launches,
+               flash_decode_launches_by_kind=stats["launches"], tokens_equal_tp_serve=True,
+               prefill_s=stats["prefill_s"], decode_s=stats["decode_s"],
+               decode_tok_s=REQUESTS * NEW_TOKENS / stats["decode_s"], wall_s=wall,
+               tp_serve_prefill_s=tp["prefill_s"], tp_serve_decode_tok_s=tp["decode_tok_s"],
+               tp_serve_wall_s=tp["wall_s"], tp_weights_views_of_shards=views,
+               engine_built_gb=built_gb, engine_build_peak_gb=build_peak_gb, kv_cache_gb=kv_gb,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    phase("recipe_tp_serve", arch=cfg.name, backend="nccl", **out)
+    return out
+
+
 def tp_engine(cfg, params, Engine, ServeConfig, mesh, prompts):
     """The TP serving engine on ``mesh`` with ``prompts`` submitted."""
     engine = Engine(cfg, params, ServeConfig(max_len=MAX_LEN, batch_slots=SLOTS, eos_token=-1),
@@ -1440,7 +1513,8 @@ def serve_tp(cfg, params, Engine, ServeConfig, fd, mesh, single: dict, single_de
     microbatches`` times a decode step, and the greedy tokens equal the
     single-host kernel run's (``single``) except at its near ties.  Then
     decode tok/s and a steady decode step's host and device ms
-    (:func:`window`) beside the single-host run's (``single_dec``)."""
+    (:func:`window`) beside the single-host run's (``single_dec``).
+    Returns the phase's numbers and the run's tokens."""
     requests = serve_prompts(cfg)
     engine = tp_engine(cfg, params, Engine, ServeConfig, mesh, requests)
     stats = _instrument(engine, record_gaps=False, fd=fd)
@@ -1483,7 +1557,7 @@ def serve_tp(cfg, params, Engine, ServeConfig, fd, mesh, single: dict, single_de
                greedy_agreement_with_single_host=agree, divergences_at_near_ties=near_ties,
                tol=LOGIT_TOL)
     phase("tp_serve", arch=cfg.name, **out)
-    return out
+    return out, done
 
 
 def check_tp_blocking(cfg, params, Engine, ServeConfig, mesh, make_tp_decode_step,
@@ -4581,16 +4655,19 @@ def main() -> int:
     device = init_world("cuda")
     try:
         tp_mesh = make_mesh((1, 1), ("data", "model"), device=device)
-        tp = serve_tp(cfg, params, Engine, ServeConfig, fd, tp_mesh, single, single_dec)
+        tp, tp_done = serve_tp(cfg, params, Engine, ServeConfig, fd, tp_mesh, single,
+                               single_dec)
         check_tp_blocking(cfg, params, Engine, ServeConfig, tp_mesh, make_tp_decode_step)
         t0 = time.perf_counter()
         rec_fwd = recipe_forward(cfg, params, lm, fa, tp_mesh, sharding, shard_params_by_recipe)
         rec_srv = recipe_serve(cfg, params, lm, Engine, ServeConfig, fd, tp_mesh, sharding,
                                shard_params_by_recipe, single)
+        rec_tp_srv = recipe_tp_serve(cfg, params, lm, Engine, ServeConfig, fd, tp_mesh,
+                                     sharding, shard_params_by_recipe, tree_leaves, tp, tp_done)
         recipe_s = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
-    del params, single
+    del params, single, tp_done
     torch.cuda.empty_cache()
 
     # phase 10: attention, carry and transpose kernel times
@@ -4789,8 +4866,8 @@ def main() -> int:
         audio_srv, audio_single = serve_full_width(audio_cfg, audio_params, Engine, ServeConfig,
                                                    fd)
         audio_dec = decode_window(audio_cfg, audio_params, Engine, ServeConfig, VLM_WINDOW_STEPS)
-        audio_tp = serve_tp(audio_cfg, audio_params, Engine, ServeConfig, fd, fmesh,
-                            audio_single, audio_dec, window_steps=VLM_WINDOW_STEPS)
+        audio_tp, _ = serve_tp(audio_cfg, audio_params, Engine, ServeConfig, fd, fmesh,
+                               audio_single, audio_dec, window_steps=VLM_WINDOW_STEPS)
         t1 = time.perf_counter()
         audio_rec_fwd = family_recipe_forward(audio_cfg, audio_params, lm, ops, fa, fmesh,
                                               sharding, shard_params_by_recipe,
@@ -4901,6 +4978,9 @@ def main() -> int:
                    "tp_serve_launches_by_kind": tp["flash_decode_launches_by_kind"],
                    "recipe_serve_launches": rec_srv["flash_decode_launches"],
                    "recipe_serve_launches_by_kind": rec_srv["flash_decode_launches_by_kind"],
+                   "recipe_tp_serve_launches": rec_tp_srv["flash_decode_launches"],
+                   "recipe_tp_serve_launches_by_kind":
+                   rec_tp_srv["flash_decode_launches_by_kind"],
                    "moe_serve_launches": moe_srv["flash_decode_launches"],
                    "moe_recipe_serve_launches": moe_rec_srv["flash_decode_launches"],
                    "hybrid_serve_launches": hyb_srv["flash_decode_launches"],

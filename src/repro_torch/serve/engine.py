@@ -45,9 +45,16 @@ does: the caches and recurrent states are the rank's blocks
 the rank that holds them), the logits come back whole on every rank, and
 all ranks sample the same tokens; the audio family's frames enter each
 step whole and every rank takes its rows of them.  A whole-prompt prefill
-chunk under ``sp_ring`` runs the ring.  The reference's mix of a recipe for
-prefill with the explicit TP decode step is not taken: a ``recipe`` with a
-``mesh`` is refused.  The VLM family is refused: the reference's engine
+chunk under ``sp_ring`` runs the ring.  A ``recipe`` with a ``mesh`` (the
+recipe's own) and ``microbatches`` is the reference's mix: prefill under
+the recipe, decode through the explicit TP step, both on the recipe's
+cache blocks, one allocation.  The pair is taken where the two blocks are
+one: the recipe cuts the rows over ``data`` and the KV groups over
+``model`` exactly as the TP step does (:func:`tp_decode.tp_block`),
+which holds for the dense and audio families wherever the TP step accepts
+the mesh; the TP step's weights are cut once, at construction, from the
+recipe's shards gathered back (a transient whole copy across ranks; views
+on a mesh of one rank).  The VLM family is refused: the reference's engine
 builds no ``image_embeds`` batch, so its VLM ``decode_step`` cannot be
 served there (ROADMAP.md §3); the VLM is served through ``lm.init_cache``
 and ``lm.decode_step`` directly, under a recipe too.
@@ -55,16 +62,19 @@ and ``lm.decode_step`` directly, under a recipe too.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
+from repro_torch.core.dims import mixed_radix_join
 from repro_torch.models import lm
+from repro_torch.models.attention import KVCache
 from repro_torch.models.module import tree_leaves
-from repro_torch.models.sharding import placement, use_recipe
-from repro_torch.models.weights import cast_params, shard_params
+from repro_torch.models.sharding import decode_state_shardings, placement, use_recipe
+from repro_torch.models.weights import cast_params, gather_params, shard_params
 from repro_torch.serve.kv import KVLedger
-from repro_torch.serve.tp_decode import make_tp_decode_step, tp_decode_specs
+from repro_torch.serve.tp_decode import make_tp_decode_step, tp_block, tp_decode_specs
 
 __all__ = ["ServeConfig", "Engine", "check_servable"]
 
@@ -153,6 +163,30 @@ def _reset_slot_rows(caches, i: int, rows: tuple[int, int, int] | None = None) -
             raise ValueError(f"unknown cache leaf {name!r}")
 
 
+def _check_pair_blocks(cfg, recipe, mesh, B: int, max_len: int) -> None:
+    """Refuse a ``recipe`` with the explicit TP decode on ``mesh`` unless the
+    recipe's block of the K/V (its rows, :func:`placement`, and the cut of
+    ``lm.init_cache``'s K/V) is the TP step's block (:func:`tp_block`): the
+    same rows and KV groups, in the same order, every other axis whole."""
+    rows, groups = tp_block(cfg, mesh, B)
+    place = placement(recipe, B)
+    whole = torch.empty((cfg.n_layers, B, cfg.n_kv, max_len, cfg.head_dim), device="meta")
+    spec = decode_state_shardings(recipe, KVCache(whole, whole, whole)).k
+    coords, got = mesh.coords(), []
+    for n, entry in zip(whole.shape, spec):
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        size = n // math.prod(mesh.shape[a] for a in axes)
+        i = mixed_radix_join([coords[a] for a in axes], [mesh.shape[a] for a in axes])
+        got.append((i * size, (i + 1) * size))
+    want = [(0, cfg.n_layers), (rows.start, rows.stop), (groups.start, groups.stop),
+            (0, max_len), (0, cfg.head_dim)]
+    if (place.row0, place.row0 + place.n_rows) != want[1] or got != want:
+        raise ValueError(
+            f"Engine: the recipe's K/V block (spec {spec}, rows {place.row0}:"
+            f"{place.row0 + place.n_rows}) is not the tensor-parallel decode's (rows "
+            f"{rows.start}:{rows.stop}, KV groups {groups.start}:{groups.stop})")
+
+
 def check_servable(cfg) -> None:
     """Raises ``NotImplementedError`` for the VLM family, which the engine
     does not serve."""
@@ -172,7 +206,10 @@ class Engine:
     ``mesh`` (a :class:`repro_torch.core.dist.Mesh` with ``data`` and
     ``model`` axes, on the same device) and ``microbatches`` switch decode
     to the explicit tensor-parallel step; every rank of the mesh runs the
-    engine on the same requests.  Temperature sampling draws from
+    engine on the same requests.  With a ``recipe`` too, ``mesh`` must be
+    ``recipe.mesh``: prefill stays under the recipe, decode takes the TP
+    step, and ``tp_params`` is the TP step's cut of the gathered shards.
+    Temperature sampling draws from
     a ``torch.Generator`` seeded from ``ServeConfig.seed`` (its numbers are
     not JAX's; greedy decoding is what is held against the reference).
     ``featurizer`` maps a list of token ids to (n, d_model) float32 frame
@@ -185,14 +222,14 @@ class Engine:
     def __init__(self, cfg, params, scfg: ServeConfig, recipe=None, *, mesh=None,
                  microbatches: int = 0, featurizer=None):
         check_servable(cfg)
-        if recipe is not None and (mesh is not None or microbatches):
-            raise ValueError("Engine takes a sharding recipe or the explicit tensor-parallel "
-                             "decode (mesh, microbatches), not both")
         if (mesh is None) != (not microbatches):
             raise ValueError("tensor-parallel decode needs both a (data, model) mesh and "
                              f"microbatches >= 1 (got mesh={mesh!r}, microbatches={microbatches})")
         if mesh is not None and cfg.n_experts:
             raise ValueError("tensor-parallel decode: MoE blocks not supported")
+        if recipe is not None and mesh is not None and recipe.mesh is not mesh:
+            raise ValueError("Engine: a recipe with the tensor-parallel decode must be cut on "
+                             "its mesh (recipe.mesh is not mesh)")
         self.cfg = cfg
         self.scfg = scfg
         self.recipe = recipe
@@ -203,7 +240,11 @@ class Engine:
         if mesh is not None:
             self._tp = make_tp_decode_step(cfg, mesh, slots=B, microbatches=microbatches,
                                            attn_impl=cfg.attn_impl)
-            self.tp_params = shard_params(self.params, tp_decode_specs(cfg)[0], mesh)
+            whole = self.params
+            if recipe is not None:
+                _check_pair_blocks(cfg, recipe, mesh, B, scfg.max_len)
+                whole = gather_params(self.params, lm.build_specs(cfg), recipe)
+            self.tp_params = shard_params(whole, tp_decode_specs(cfg)[0], mesh)
         with use_recipe(recipe):
             caches = lm.init_cache(cfg, B, scfg.max_len, device=self.device)
         self._rows = None

@@ -25,17 +25,22 @@ features of their positions, both in the activation dtype, as the
 single-host step's :func:`repro_torch.models.lm.embed_inputs` does.
 
 Per-rank state.  The reference's ``shard_map`` hands back global caches.
-Here every rank holds the global cache allocation, and a step reads and
-writes, in place, only its own block ``k[l, rows_d, groups_m]`` (and
-``v``): the rows of its ``data`` coordinate and the KV groups of its
-``model`` coordinate.  The other blocks go stale on this rank, and nothing
-reads them: the engine's admission prefill (the single-host program on the
-whole weights, on every rank) writes every group of the admitted slots and
-then reads only what it wrote, and it discards its logits; the rows it
-leaves idle keep their entries.  Lengths and positions are replicated: every
-rank advances every row.  A block of the cache is a strided view whose
-rows keep the 16-byte alignment the decode kernel wants, so the kernel
-reads it in place.
+A step reads and writes, in place, only this rank's block ``k[l, rows_d,
+groups_m]`` (and ``v``): the rows of its ``data`` coordinate and the KV
+groups of its ``model`` coordinate (:func:`tp_block`).  It takes the K/V in
+either of two layouts and tells them apart by shape, axis by axis: the
+global allocation (``B`` rows, ``n_kv`` groups), which every rank of a mesh
+without a sharding recipe holds, or the rank's block alone (``B / data``
+rows, ``n_kv / model`` groups), which a recipe's ``lm.init_cache`` gives
+each rank; an axis of one rank has the same slice in both.  In the global
+allocation the other blocks go stale on this rank, and nothing reads them:
+the engine's admission prefill (the single-host program on the whole
+weights, on every rank) writes every group of the admitted slots and then
+reads only what it wrote, and it discards its logits; the rows it leaves
+idle keep their entries.  Lengths and positions are whole and replicated in
+both layouts: every rank advances every row.  A block of the cache is a
+strided view whose rows keep the 16-byte alignment the decode kernel wants,
+so the kernel reads it in place.
 
 Idle rows (``active`` False) do not write the cache and attend over it
 unwritten, as the reference's ``masked_update`` does; their logits are
@@ -78,7 +83,7 @@ from repro_torch.models.attention import (KVCache, _cache_update, _project, appl
 from repro_torch.models.blocks import rmsnorm
 from repro_torch.models.sharding import partial_product as _partial
 
-__all__ = ["make_tp_decode_step", "tp_decode_specs", "DECODE_TP_PLAN_INTENT"]
+__all__ = ["make_tp_decode_step", "tp_block", "tp_decode_specs", "DECODE_TP_PLAN_INTENT"]
 
 # declared overlap intent of the decode schedule
 DECODE_TP_PLAN_INTENT = intent_of("stagger")
@@ -142,6 +147,28 @@ def tp_decode_specs(cfg, *, stacked: bool = True):
     return params, kv, (*lead, "data")
 
 
+def tp_block(cfg, mesh, slots: int) -> tuple[slice, slice]:
+    """This rank's block of the TP decode's K/V: ``(rows, groups)``, its
+    ``data`` coordinate's slice of the ``slots`` rows and its ``model``
+    coordinate's slice of the KV groups."""
+    coords = mesh.coords()
+    Bl, gl = slots // mesh.shape["data"], cfg.n_kv // mesh.shape["model"]
+    return (slice(coords["data"] * Bl, (coords["data"] + 1) * Bl),
+            slice(coords["model"] * gl, (coords["model"] + 1) * gl))
+
+
+def _own(n: int, whole: int, block: slice, what: str) -> slice:
+    """This rank's slice of a cache axis of ``n`` entries: ``block`` of the
+    global allocation's ``whole``, or all of an axis that holds the block
+    alone."""
+    if n == whole:
+        return block
+    if n == block.stop - block.start:
+        return slice(None)
+    raise ValueError(f"tp decode: a cache of {n} {what} is neither the whole {whole} "
+                     f"nor this rank's {block.stop - block.start}")
+
+
 def make_tp_decode_step(cfg, mesh, *, slots: int, microbatches: int = 2,
                         double_buffer: bool = True, attn_impl: str | None = None):
     """Build this rank's ``step(params, state, batch, active) -> (logits,
@@ -150,10 +177,10 @@ def make_tp_decode_step(cfg, mesh, *, slots: int, microbatches: int = 2,
     ``params`` is this rank's shard (``shard_params(params,
     tp_decode_specs(cfg)[0], mesh)``); ``state`` the stacked
     :class:`repro_torch.models.lm.DecodeState` over all ``slots`` (the
-    global allocation, see the module docstring), whose K/V are updated in
-    place; ``batch`` holds ``tokens`` (B, S), or the audio family's
-    ``embeds`` (B, S, m), for all slots; ``active`` (B,)
-    bool marks the slots that carry a real token this step.  Returns every
+    global allocation or this rank's block of it, see the module
+    docstring), whose K/V are updated in place; ``batch`` holds
+    ``tokens`` (B, S), or the audio family's ``embeds`` (B, S, m), for all
+    slots; ``active`` (B,) bool marks the slots that carry a real token this step.  Returns every
     slot's (B, S, vocab_padded) logits, the same on every rank.
     ``attn_impl`` picks the attention path as ``cfg.attn_impl`` does
     (``None``: the decode kernel on the card, its plain version on the
@@ -166,9 +193,7 @@ def make_tp_decode_step(cfg, mesh, *, slots: int, microbatches: int = 2,
     mb = microbatches
     Bl = slots // D
     bm = Bl // mb
-    rows_d = slice(coords["data"] * Bl, (coords["data"] + 1) * Bl)
-    gl = cfg.n_kv // M
-    groups = slice(coords["model"] * gl, (coords["model"] + 1) * gl)
+    rows_d, groups = tp_block(cfg, mesh, slots)
     vl = cfg.vocab_padded // M
     v0 = coords["model"] * vl
     act_dt = cfg.act_dtype
@@ -191,6 +216,8 @@ def make_tp_decode_step(cfg, mesh, *, slots: int, microbatches: int = 2,
 
     def step(params, state, batch, active):
         caches = state.caches
+        rows_kv = _own(caches.k.shape[1], slots, rows_d, "rows")
+        groups_kv = _own(caches.k.shape[2], cfg.n_kv, groups, "KV groups")
         act = active[rows_d]
         counts = act.to(torch.int32)
         S = batch["embeds" if embeds_in else "tokens"].shape[1]
@@ -206,8 +233,8 @@ def make_tp_decode_step(cfg, mesh, *, slots: int, microbatches: int = 2,
             f = {k: v[l] for k, v in blocks["ffn"].items()}
             ln1, ln2 = blocks["ln1"][l], blocks["ln2"][l]
             length = caches.length[l, rows_d]
-            kc = caches.k[l, rows_d, groups]  # this rank's block, a view
-            vc = caches.v[l, rows_d, groups]
+            kc = caches.k[l, rows_kv, groups_kv]  # this rank's block, a view
+            vc = caches.v[l, rows_kv, groups_kv]
 
             def attn_compute(_c, _s, s, p=p, ln1=ln1, length=length, kc=kc, vc=vc):
                 r = mbs[s]

@@ -1050,6 +1050,95 @@ def p2p_cases(np, L, C, mesh1, mesh2, views, is_me) -> dict:
     return out
 
 
+def p2p_twin_cases() -> dict:
+    """Seeded cases of ``tests/test_p2p.py``'s ring and permute tests on 4
+    ranks: ``start`` shifts (``ring_shift_start`` against the blocking
+    shift, with a relayout), ``relayout`` shifts (a ring shift flipping
+    every tile's major), ``partial`` pair lists (a permute that leaves some
+    ranks unsent: they receive zeros), ``grid`` ``(shift, rank_dim)`` on the
+    2x2 grid (fixed)."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    shift = lambda: int(rng.integers(-8, 9))  # noqa: E731
+    partial = []
+    for n in (1, 2, 1, 3):  # n disjoint pairs: their sources and destinations draw apart
+        src = [int(r) for r in rng.permutation(4)[:n]]
+        dst = [int(r) for r in rng.permutation(4)[:n]]
+        partial.append(tuple(zip(src, dst)))
+    return {"start": [3] + [shift() for _ in range(3)],
+            "relayout": [3] + [shift() for _ in range(3)],
+            "partial": [((0, 1), (1, 0))] + partial,
+            # a size-2 dim: odd shifts swap, even ones keep
+            "grid": [(1, "Cj"), (-1, "Ri"), (2, "Cj"), (-3, "Ri")]}
+
+
+def p2p_twins(np, L, C, mesh1, mesh2, views, is_me, cases) -> dict:
+    """Run ``tests/test_p2p.py``'s ring and permute tests in either package
+    over ``cases`` (:func:`p2p_twin_cases`) and return ``{case: views(result)}``
+    and ``{(case, "law"): bool}`` for each law this process can check on
+    its own ranks (``is_me(r)``: this process holds rank ``r`` of
+    ``mesh1``):
+
+    * ``ring_shift_start(...).wait()`` is bitwise the blocking shift, with a
+      relayout, and ``wait`` completes two requests (a ring shift and a
+      partial permute) to their blocking results (``:86``);
+    * a ring shift with a relayout delivers the relaid source tile of rank
+      ``r - shift`` (each rank records its source relaid, ``"src"``) (``:121``);
+    * a permute's unsent ranks receive zeros, its sent ranks their
+      source's tile (``:148``);
+    * a ring shift along one dim of the 2x2 grid moves tiles inside each
+      row (or column) sub-communicator alone; ``dt.sub`` keeps the dim
+      (``:173``)."""
+    f32 = np.float32
+    out: dict = {}
+
+    def own(d, fn):  # fn(r, tile) of every rank this process holds
+        return {r: fn(r, d.tile(r)) for r in range(4) if is_me(r)}
+
+    col = L.scalar(f32) ^ L.vector("i", 4) ^ L.vector("j", 16)
+    root = C.bag(col ^ L.into_blocks("j", "R", num_blocks=4), np.arange(64, dtype=f32))
+    db = C.scatter(root, L.scalar(f32) ^ L.vector("i", 4) ^ L.vector("j", 4),
+                   C.mpi_traverser("R", C.traverser(root), mesh1))
+    dst = L.scalar(f32) ^ L.vector("j", 4) ^ L.vector("i", 4)
+
+    def same(a, b) -> bool:
+        return all(np.array_equal(v[0], w[0]) and v[1] == w[1]
+                   for v, w in zip(views(a).values(), views(b).values(), strict=True))
+
+    for shift in cases["start"]:
+        got = C.ring_shift_start(db, shift, dst_tile_layout=dst).wait()
+        want = C.ring_shift(db, shift, dst_tile_layout=dst)
+        pairs = [(0, 3), (3, 0)]
+        d1, d2 = C.wait(C.ring_shift_start(db, shift), C.permute_start(db, pairs))
+        out[("start", shift)] = views(got)
+        out[("start", shift, "law")] = (got.tile_layout is dst and same(got, want)
+                                        and same(d1, C.ring_shift(db, shift))
+                                        and same(d2, C.permute(db, pairs)))
+    for shift in cases["relayout"]:
+        out[("relayout", shift)] = views(C.ring_shift(db, shift, dst_tile_layout=dst))
+    out[("relayout", "src")] = own(db, lambda r, t: np.asarray(t.to_layout(dst).data))
+    small = L.scalar(f32) ^ L.vector("i", 2) ^ L.vector("j", 4)
+    proot = C.bag(small ^ L.into_blocks("j", "R", num_blocks=4), np.arange(8, dtype=f32) + 1.0)
+    pdb = C.scatter(proot, L.scalar(f32) ^ L.vector("i", 2) ^ L.vector("j", 1),
+                    C.mpi_traverser("R", C.traverser(proot), mesh1))
+    out[("partial", "src")] = views(pdb)
+    for pairs in cases["partial"]:
+        out[("partial", pairs)] = views(C.permute(pdb, list(pairs)))
+    g = L.scalar(f32) ^ L.vector("i", 4) ^ L.vector("j", 8)
+    groot = C.bag(g ^ L.into_blocks("i", "Ri", num_blocks=2) ^ L.into_blocks("j", "Cj",
+                                                                             num_blocks=2),
+                  np.arange(32, dtype=f32))
+    gdt = C.mpi_cart_traverser([("Ri", "rows"), ("Cj", "cols")], C.traverser(groot), mesh2)
+    gdb = C.scatter(groot, L.scalar(f32) ^ L.vector("i", 2) ^ L.vector("j", 4), gdt)
+    out[("grid", "src")] = views(gdb)
+    for shift, dim in cases["grid"]:
+        out[("grid", shift, dim)] = views(C.ring_shift(gdb, shift, rank_dim=dim))
+    sub = gdt.sub("Cj")
+    out[("grid", "sub")] = (sub.rank_dims, sub.comm_size())
+    return out
+
+
 def _rows(L, f32, items):
     layout = L.scalar(f32)
     for d, n in reversed(items):
@@ -1077,6 +1166,7 @@ def p2p_family() -> dict:
                                      tuple(t.layout.dim_map)))}
 
     out = p2p_cases(np, L, C, mesh1, mesh2, views, lambda r: r == me)
+    out.update(p2p_twins(np, L, C, mesh1, mesh2, views, lambda r: r == me, p2p_twin_cases()))
     f32 = np.float32
     col = L.scalar(f32) ^ L.vector("i", 8) ^ L.vector("j", 8)
     root = C.bag(col ^ L.into_blocks("j", "R", num_blocks=4), np.arange(64, dtype=f32))
@@ -1252,3 +1342,263 @@ def collective_properties_family(*, cases) -> dict:
 
     return collective_properties(np, L, C, C.make_mesh((4,), ("r",), device="cpu"), views,
                                  cases)
+
+
+# -----------------------------------------------------------------------------
+# the ragged v-collective laws (tests/test_vcollective_properties.py)
+# -----------------------------------------------------------------------------
+VPROP_KINDS = ("col", "row")
+
+
+def vcollective_property_cases() -> dict:
+    """Seeded cases of the laws of ``tests/test_vcollective_properties.py`` on
+    a 4-rank communicator: ``pad_mask`` ``(nj, ni, root_kind, tile_kind,
+    back_kind, seed)``, ``a2av`` ``(ni, nj, kind)``, ``rs_max_min`` ``(nj,
+    ni, op, seed)``, ``imbalance`` ``(profile, kind)`` (every profile with
+    every kind), ``wait_all`` ``(kind, order)``."""
+    import itertools
+
+    import numpy as np
+
+    rng = np.random.default_rng(41)
+    pick = lambda seq: seq[int(rng.integers(len(seq)))]  # noqa: E731
+    seed = lambda: int(rng.integers(0, 10**9))  # noqa: E731
+    orders = list(itertools.permutations(range(4)))
+    return {
+        "pad_mask": [(int(rng.integers(9, 21)), pick((1, 3)), VPROP_KINDS[i % 2],
+                      pick(VPROP_KINDS), pick(VPROP_KINDS), seed()) for i in range(6)],
+        "a2av": [(int(rng.integers(8, 17)), int(rng.integers(8, 17)), VPROP_KINDS[i % 2])
+                 for i in range(5)],
+        "rs_max_min": [(int(rng.integers(5, 13)), pick((1, 3)), ("max", "min")[i % 2], seed())
+                       for i in range(5)],
+        "imbalance": [(p, k) for p in ("one_dest", "zero_holes", "exact_cap")
+                      for k in VPROP_KINDS],
+        "wait_all": [(VPROP_KINDS[i % 2], orders[int(rng.integers(len(orders)))])
+                     for i in range(5)],
+    }
+
+
+def vcollective_properties(np, L, C, dt, views, raw, root_data, make_dist, cases) -> dict:
+    """Run the ragged v-collective laws in either package on the 4-rank
+    communicator ``dt`` over ``cases`` (:func:`vcollective_property_cases`)
+    and return ``{case: views(result)}`` for each result, ``{case: root as
+    numpy}`` for each replicated root, the extents tables, and ``{(case,
+    "law"): bool}`` for each law.  ``views(dist_bag)`` maps each rank this
+    process can read to (valid tile as numpy, layout signature), ``raw`` to
+    its padded buffer as numpy; ``root_data(bag)`` is a bag's data as
+    numpy; ``make_dist(buf, layout)`` the bag whose rank ``r`` holds
+    ``buf[r]``.  The laws are the reference file's:
+
+    * scatterv -> gatherv is a bitwise round trip for any counts table, the
+      padding of every slot exactly zero, and all_gatherv equals gatherv,
+      its start form bitwise the blocking one (``:68``);
+    * all_to_allv j-ragged -> i-ragged -> j-ragged is the identity, tiles
+      and extents, and its start form the blocking one (``:121``);
+    * the ragged max/min reduce-scatter equals the numpy oracle with its
+      output padding re-zeroed; the identity table; the dense max/min
+      reduce-scatter (``:161``);
+    * all_to_allv under adversarial counts (all rows to one destination,
+      zero-count holes, exact capacity) keeps its padding out of the tiles
+      and round-trips (``:247``);
+    * a mix of dense and ragged requests completes to the same buffers in
+      any order and through ``wait_all`` (``:315``)."""
+    import random
+
+    f32 = np.float32
+    R = 4
+    out: dict = {}
+
+    def root_layout(kind, ni, nj):
+        if kind == "col":
+            return L.scalar(f32) ^ L.vector("i", ni) ^ L.vector("j", nj)
+        return L.scalar(f32) ^ L.vector("j", nj) ^ L.vector("i", ni)
+
+    tile_layout = root_layout  # the same forms over (ni, j capacity)
+
+    def rand_extents(seed, total):
+        rng = random.Random(seed)
+        exts = list(C.ragged_split(total, R)[1])
+        for _ in range(rng.randrange(2 * R)):
+            a, b = rng.randrange(R), rng.randrange(R)
+            if exts[a] > 1:
+                exts[a] -= 1
+                exts[b] += 1
+        return tuple(exts)
+
+    def same(a, b) -> bool:
+        ra, rb = raw(a), raw(b)
+        return ra.keys() == rb.keys() and all(np.array_equal(ra[r], rb[r]) for r in ra)
+
+    def padding_stays_out(d) -> bool:  # every nonzero element lies in the valid region
+        return all(np.count_nonzero(raw(d)[r]) == np.count_nonzero(v[0])
+                   for r, v in views(d).items())
+
+    for case in cases.get("pad_mask", ()):
+        nj, ni, root_kind, tile_kind, back_kind, seed = case
+        exts = rand_extents(seed, nj)
+        rl = root_layout(root_kind, ni, nj)
+        root = C.bag(rl, np.random.default_rng(seed % 2**31).standard_normal(rl.shape)
+                     .astype(f32))
+        db = C.scatterv_bag(root, tile_layout(tile_kind, ni, max(exts)), dt, {"R": ("j", exts)})
+        bl = root_layout(back_kind, ni, nj)
+        back = C.gatherv_bag(db, bl)
+        got = C.all_gatherv_bag(db, bl)
+        out[("pad_mask", case)] = views(db)
+        out[("pad_mask", case, "extents")] = db.extents
+        out[("pad_mask", case, "root")] = root_data(back)
+        out[("pad_mask", case, "law")] = (
+            padding_stays_out(db)
+            and all(v[0].size == ni * exts[r] for r, v in views(db).items())
+            and np.array_equal(root_data(back), root_data(root.to_layout(bl)))
+            and np.array_equal(root_data(got), root_data(back))
+            and same(C.all_gatherv_start(db, bl).wait(), C.all_gatherv_dist(db, bl)))
+    for case in cases.get("a2av", ()):
+        ni, nj, kind = case
+        cap_i, ei = C.ragged_split(ni, R)
+        cap_j, ej = C.ragged_split(nj, R)
+        rl = root_layout("row", ni, nj)
+        in_tile = tile_layout(kind, ni, cap_j)
+        db = C.scatterv_bag(C.bag(rl, np.arange(ni * nj, dtype=f32).reshape(rl.shape)),
+                            in_tile, dt, {"R": ("j", ej)})
+        out_tile = (L.scalar(f32) ^ L.vector("j", nj) ^ L.vector("i", cap_i) if kind == "row"
+                    else L.scalar(f32) ^ L.vector("i", cap_i) ^ L.vector("j", nj))
+        res = C.all_to_allv_bag(db, out_tile, split_dim="i", concat_dim="j", split_extents=ei)
+        back = C.all_to_allv_bag(res, in_tile, split_dim="j", concat_dim="i", split_extents=ej)
+        out[("a2av", case)] = views(res)
+        out[("a2av", case, "extents")] = res.extents
+        out[("a2av", case, "law")] = (
+            back.extents == db.extents and same(back, db)
+            and same(res, C.all_to_allv_start(db, out_tile, split_dim="i", concat_dim="j",
+                                              split_extents=ei).wait()))
+    for case in cases.get("rs_max_min", ()):
+        nj, ni, op, seed = case
+        cap_b, eb = C.ragged_split(nj, R)
+        eo = rand_extents(seed, nj)
+        panel_l = L.scalar(f32) ^ L.vector("j", R * cap_b) ^ L.vector("i", ni)
+        out_l = L.scalar(f32) ^ L.vector("j", max(eo)) ^ L.vector("i", ni)
+        dense = np.random.default_rng(seed % 2**31).standard_normal((R, ni, nj)).astype(f32)
+        buf = np.zeros((R, ni, R * cap_b), f32)
+        for r in range(R):
+            off = 0
+            for b in range(R):
+                buf[r, :, b * cap_b:b * cap_b + eb[b]] = dense[r, :, off:off + eb[b]]
+                off += eb[b]
+        db = make_dist(buf, panel_l)
+        total = (np.max if op == "max" else np.min)(dense, axis=0)
+        res = C.reduce_scatterv_bag(db, out_l, scatter_dim="j", in_blocks=(cap_b, eb),
+                                    out_extents=eo, op=op)
+        starts = np.cumsum((0,) + eo)
+        out[("rs_max_min", case)] = views(res)
+        out[("rs_max_min", case, "law")] = (
+            all(np.array_equal(v[0], total[:, starts[r]:starts[r] + eo[r]])
+                for r, v in views(res).items())
+            and all(np.all(raw(res)[r][:, eo[r]:] == 0.0) for r in raw(res))
+            and same(res, C.reduce_scatterv_start(db, out_l, scatter_dim="j",
+                                                  in_blocks=(cap_b, eb), out_extents=eo,
+                                                  op=op).wait()))
+    if "rs_max_min" in cases:  # the identity table and the dense route ride with it
+        out["reduce_identity"] = [C.reduce_identity(op, np.dtype(t)) for op, t in (
+            ("add", np.float32), ("mean", np.int32), ("max", np.float32), ("min", np.float32),
+            ("max", np.int32), ("min", np.int32))]
+        try:
+            C.reduce_identity("max", np.dtype(np.bool_))
+            out["reduce_identity_bool_refused"] = False
+        except C.LayoutError:
+            out["reduce_identity_bool_refused"] = True
+        ni, cap = 3, 2  # the dense max/min reduce-scatter against the numpy oracle
+        tl = L.scalar(f32) ^ L.vector("j", R * cap) ^ L.vector("i", ni)
+        ol = L.scalar(f32) ^ L.vector("j", cap) ^ L.vector("i", ni)
+        buf = np.random.default_rng(7).standard_normal((R, ni, R * cap)).astype(f32)
+        db = make_dist(buf, tl)
+        for op in ("max", "min"):
+            res = C.reduce_scatter_bag(db, ol, scatter_dim="j", op=op)
+            red = np.max if op == "max" else np.min
+            out[("rs_dense", op)] = views(res)
+            out[("rs_dense", op, "law")] = (
+                all(np.array_equal(v[0], red(buf[:, :, r * cap:(r + 1) * cap], axis=0))
+                    for r, v in views(res).items())
+                and same(res, C.reduce_scatter_start(db, ol, scatter_dim="j", op=op).wait()))
+    for case in cases.get("imbalance", ()):
+        profile, kind = case
+        nj = R + 3
+        cap_j, ej = C.ragged_split(nj, R)
+        if profile == "one_dest":
+            ni, ei = 2 * R + 1, (2 * R + 1,) + (0,) * (R - 1)
+        elif profile == "zero_holes":
+            ni, ei = ((R + 1) // 2) * 3, tuple(3 if r % 2 == 0 else 0 for r in range(R))
+        else:  # exact capacity: every count the block capacity, no padding
+            ni, ei = 3 * R, (3,) * R
+        rl = root_layout("row", ni, nj)
+        in_tile = tile_layout(kind, ni, cap_j)
+        # 1-based values: a zero in a valid tile could only be leaked padding
+        db = C.scatterv_bag(C.bag(rl, np.arange(1, ni * nj + 1, dtype=f32).reshape(rl.shape)),
+                            in_tile, dt, {"R": ("j", ej)})
+        out_tile = (L.scalar(f32) ^ L.vector("j", nj) ^ L.vector("i", max(ei)) if kind == "row"
+                    else L.scalar(f32) ^ L.vector("i", max(ei)) ^ L.vector("j", nj))
+        res = C.all_to_allv_bag(db, out_tile, split_dim="i", concat_dim="j", split_extents=ei)
+        back = C.all_to_allv_bag(res, in_tile, split_dim="j", concat_dim="i", split_extents=ej)
+        out[("imbalance", case)] = views(res)
+        out[("imbalance", case, "extents")] = res.extents
+        out[("imbalance", case, "law")] = (
+            padding_stays_out(res)
+            and all(v[0].size == nj * ei[r] for r, v in views(res).items())
+            and (profile != "exact_cap" or all(raw(res)[r].size == v[0].size
+                                               for r, v in views(res).items()))
+            and back.extents == db.extents and same(back, db)
+            and same(res, C.all_to_allv_start(db, out_tile, split_dim="i", concat_dim="j",
+                                              split_extents=ei).wait()))
+    for case in cases.get("wait_all", ()):
+        kind, order = case
+        ni, nj = R + 1, R + 5
+        cap_j, ej = C.ragged_split(nj, R)
+        cap_i, ei = C.ragged_split(ni, R)
+        rl = root_layout("row", ni, nj)
+        db = C.scatterv_bag(C.bag(rl, np.arange(ni * nj, dtype=f32).reshape(rl.shape)),
+                            tile_layout(kind, ni, cap_j), dt, {"R": ("j", ej)})
+        dense = C.dist_full(dt, tile_layout(kind, ni, 2), fill=1.5)
+        out_tile = L.scalar(f32) ^ L.vector("j", nj) ^ L.vector("i", cap_i)
+
+        def issue():
+            return (C.all_gatherv_start(db, rl),
+                    C.all_to_allv_start(db, out_tile, split_dim="i", concat_dim="j",
+                                        split_extents=ei),
+                    C.ring_shift_start(db, 1),
+                    C.all_reduce_start(dense, "add"))
+
+        canonical = [p.wait() for p in issue()]
+        pending = list(issue())
+        got = [None] * 4
+        for idx in order:  # a permuted completion order
+            got[idx] = pending[idx].wait()
+        out[("wait_all", case)] = [views(d) for d in canonical]
+        out[("wait_all", case, "law")] = (
+            all(same(a, b) for a, b in zip(canonical, got))
+            and all(same(a, b) for a, b in zip(canonical, C.wait_all(*issue()))))
+    return out
+
+
+def vcollective_properties_family(*, cases) -> dict:
+    """:func:`vcollective_properties` on this gloo rank (a 1-D mesh of 4)."""
+    import numpy as np
+    import torch
+
+    import repro_torch.core as C
+    from repro_torch.core import layout as L
+
+    mesh = C.make_mesh((4,), ("r",), device="cpu")
+    dt = C.mpi_traverser("R", C.traverser(L.scalar(np.float32) ^ L.vector("R", 4)), mesh)
+    me = mesh.coords()["r"]
+
+    def views(d):
+        t = d.tile(d.coords[0])
+        return {d.flat_rank(d.coords): (t.data.numpy(),
+                                        (tuple((a.name, a.size) for a in t.layout.axes),
+                                         tuple(t.layout.dim_map)))}
+
+    def raw(d):
+        return {d.flat_rank(d.coords): d.data.numpy()}
+
+    return vcollective_properties(
+        np, L, C, dt, views, raw, lambda b: b.data.numpy(),
+        lambda buf, layout: C.DistBag(torch.from_numpy(buf[me].copy()), layout, dt, ("R",)),
+        cases)

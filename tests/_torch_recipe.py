@@ -112,6 +112,47 @@ def serve_family(*, shape, models, requests, slots, max_len, prefill_tokens) -> 
     return out
 
 
+def serve_recipe_tp(*, shape, models, requests, slots, max_len, microbatches) -> dict:
+    """``Engine(recipe=..., mesh=..., microbatches=...)`` under ``tp``, ``sp``
+    and ``sp_ring`` on this rank: prefill under the recipe, decode through
+    the explicit TP step, one cache allocation.  Its greedy outputs of
+    ``requests[arch]``, this rank's K/V blocks and the lengths after the
+    run, and the names of the ``tp_params`` leaves that differ from
+    ``shard_params`` of the whole cast tree (bitwise)."""
+    import torch
+
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.models.sharding import make_recipe
+    from repro_torch.models.weights import cast_params, shard_params
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.tp_decode import tp_decode_specs
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    scfg = ServeConfig(max_len=max_len, batch_slots=slots, eos_token=-1)
+    out: dict = {"coords": mesh.coords()}
+    for arch, tree in models.items():
+        cfg, params = _model(arch, tree)
+        want = tree_leaves(shard_params(cast_params(params, cfg.act_dtype),
+                                        tp_decode_specs(cfg)[0], mesh))
+        for mode in RECIPE_MODES + ("sp_ring",):
+            recipe = make_recipe(cfg, mesh, attn_mode=mode)
+            engine = Engine(cfg, _shards(cfg, params, recipe), scfg, recipe=recipe, mesh=mesh,
+                            microbatches=microbatches)
+            for rid, prompt, n in requests[arch]:
+                engine.submit(rid, prompt, n)
+            out[(arch, mode, "tokens")] = engine.run()
+            caches = engine.state.caches
+            out[(arch, mode, "caches")] = (caches.k.numpy(), caches.v.numpy(),
+                                           caches.length.numpy())
+            out[(arch, mode, "tp_params_differ")] = [
+                i for i, (a, b) in enumerate(zip(tree_leaves(engine.tp_params), want, strict=True))
+                if not torch.equal(a, b)]
+            out[(arch, mode, "steps")] = dict(engine.steps)
+    return out
+
+
 def train_family(*, shape, params, batch, ocfg, modes) -> dict:
     """``make_train_step`` under each recipe mode of ``modes`` on this rank:
     the loss, the gradient norm, the gradients (``_accum_loss_grads``) and

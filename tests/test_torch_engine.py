@@ -82,9 +82,16 @@ def test_engine_rejects_what_is_not_ported():
     mla_params = lm.init_model(mla, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(ValueError, match="must divide the model axis"):
         Engine(mla, mla_params, ServeConfig(max_len=15), recipe=make_recipe(mla, _Mesh()))
-    with pytest.raises(ValueError, match="not both"):
-        Engine(cfg, params, ServeConfig(), recipe=make_recipe(cfg, _Mesh()), mesh=object(),
+    # a recipe with the explicit TP decode: the recipe must be cut on the TP
+    # step's mesh, and the TP step takes no MoE blocks
+    with pytest.raises(ValueError, match="recipe.mesh is not mesh"):
+        Engine(cfg, params, ServeConfig(), recipe=make_recipe(cfg, _Mesh()), mesh=_Mesh(),
                microbatches=1)
+    moe = tconfigs.get("phi3.5-moe-42b-a6.6b", smoke=True)
+    mesh = _Mesh()
+    with pytest.raises(ValueError, match="MoE blocks not supported"):
+        Engine(moe, lm.init_model(moe, torch.Generator().manual_seed(0), device="cpu"),
+               ServeConfig(), recipe=make_recipe(moe, mesh), mesh=mesh, microbatches=1)
     with pytest.raises(ValueError, match="microbatches"):
         Engine(cfg, params, ServeConfig(), mesh=object())
     with pytest.raises(ValueError, match="max_len"):

@@ -15,7 +15,14 @@ tile in the layout it keeps, that layout's axes, the per-rank
   already carries ``tile_layouts``;
 * the ring laws of ``tests/test_p2p_properties.py`` (inverse identity,
   endpoint relayout commutes with the transfer, for ring shifts and a
-  partial permute) over a fixed list of seeded cases, in one gloo job.
+  partial permute) over a fixed list of seeded cases, in one gloo job;
+* ``tests/test_p2p.py``'s ring and permute tests over seeded shifts and
+  pair lists (:func:`_torch_dist.p2p_twin_cases`), in the same job:
+  ``ring_shift_start`` against the blocking shift with a relayout and
+  ``wait`` over two requests (``:86``), the ring shift with a relayout
+  delivering rank ``r - shift``'s relaid tile (``:121``), the partial
+  permute's zero fill (``:148``) and the ring along one dim of the 2x2
+  grid (``:173``).
 
 Port only: every bag collective issued on a heterogeneous bag raises
 ``LayoutError`` on every rank before any transfer (the gloo job's timeout
@@ -27,14 +34,14 @@ import pickle
 import numpy as np
 import pytest
 
-from _torch_dist import TESTS, p2p_property_cases, run_gloo
+from _torch_dist import TESTS, p2p_property_cases, p2p_twin_cases, run_gloo
 
 _REFERENCE = """
 import importlib, pickle, sys
 import numpy as np
 sys.path.insert(0, {tests!r})
 import repro.core as C
-from _torch_dist import p2p_cases
+from _torch_dist import p2p_cases, p2p_twin_cases, p2p_twins
 
 def views(d):
     out = {{}}
@@ -45,9 +52,10 @@ def views(d):
                                      tuple(t.layout.dim_map)))
     return out
 
-out = p2p_cases(np, importlib.import_module("repro.core.layout"), C,
-                C.make_mesh((4,), ("r",)), C.make_mesh((2, 2), ("rows", "cols")), views,
-                lambda r: True)
+L = importlib.import_module("repro.core.layout")
+mesh1, mesh2 = C.make_mesh((4,), ("r",)), C.make_mesh((2, 2), ("rows", "cols"))
+out = p2p_cases(np, L, C, mesh1, mesh2, views, lambda r: True)
+out.update(p2p_twins(np, L, C, mesh1, mesh2, views, lambda r: True, p2p_twin_cases()))
 with open({path!r}, "wb") as f:
     pickle.dump(out, f)
 print("OK")
@@ -60,6 +68,7 @@ TABLES = [c + ("table",) for c in SEND_RECV[:6]] + [c + ("kept",) for c in SEND_
     ("send_recv", "ragged", "extents"), ("send_recv", "ragged_back", "extents")]
 REFUSALS = ["index_space", "duplicate_dst", "out_of_range", "hetero_send_recv"]
 LAWS = p2p_property_cases()
+TWINS = p2p_twin_cases()
 HETERO = ["gather", "all_gather", "all_reduce", "reduce_scatter", "all_to_all", "permute",
           "ring_shift", "send_recv"]
 
@@ -138,3 +147,52 @@ def test_collective_on_heterogeneous_bag_raises_on_every_rank(port, name):
 def test_per_rank_all_gather_records_its_layout_table(port):
     for rank in range(4):
         assert port[rank]["all_gather_table"] == (True, True, True), rank
+
+
+@pytest.mark.parametrize("shift", TWINS["start"])
+def test_ring_shift_start_wait_matches_blocking_and_reference(reference, port, shift):
+    assert reference[("start", shift, "law")] is True
+    for rank in range(4):
+        assert port[rank][("start", shift, "law")] is True, rank
+        _same_views(port[rank][("start", shift)], reference[("start", shift)], shift)
+
+
+@pytest.mark.parametrize("shift", TWINS["relayout"])
+def test_ring_shift_with_relayout_delivers_the_rotated_tiles(reference, port, shift):
+    """Rank r holds rank (r - shift)'s tile in the destination layout: in
+    the reference (every rank's view) and on every gloo rank."""
+    want_src = reference[("relayout", "src")]
+    for rank in range(4):
+        src = (rank - shift) % 4
+        got = port[rank][("relayout", shift)][rank]
+        assert got[1][0] == (("i", 4), ("j", 4))  # the destination layout: j-major
+        np.testing.assert_array_equal(reference[("relayout", shift)][rank][0], want_src[src])
+        np.testing.assert_array_equal(got[0], port[src][("relayout", "src")][src])
+        _same_views(port[rank][("relayout", shift)], reference[("relayout", shift)], shift)
+
+
+@pytest.mark.parametrize("pairs", TWINS["partial"], ids=str)
+def test_partial_permute_zero_fills_unsent_ranks(reference, port, pairs):
+    senders = {d: s for s, d in pairs}
+    for rank in range(4):
+        got = port[rank][("partial", pairs)][rank][0]
+        if rank in senders:
+            s = senders[rank]
+            np.testing.assert_array_equal(got, port[s][("partial", "src")][s][0])
+        else:
+            assert not got.any(), (pairs, rank)
+        _same_views(port[rank][("partial", pairs)], reference[("partial", pairs)], pairs)
+
+
+@pytest.mark.parametrize("shift,dim", TWINS["grid"], ids=str)
+def test_grid_ring_along_one_axis_matches_reference(reference, port, shift, dim):
+    """On the 2x2 grid (flat rank = 2 row + col) a shift along one dim
+    moves tiles inside that dim's sub-communicators alone."""
+    for rank in range(4):
+        r, c = divmod(rank, 2)
+        src = 2 * ((r - shift) % 2) + c if dim == "Ri" else 2 * r + (c - shift) % 2
+        got = port[rank][("grid", shift, dim)][rank][0]
+        np.testing.assert_array_equal(got, port[src][("grid", "src")][src][0])
+        _same_views(port[rank][("grid", shift, dim)], reference[("grid", shift, dim)],
+                    (shift, dim))
+        assert port[rank][("grid", "sub")] == reference[("grid", "sub")] == (("Cj",), 2)
