@@ -107,15 +107,15 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   attention: q/k/v 1x32x4096x112 causal; an MHA decode step of 5 slots of
   a 4096-position cache, one wrapped past it) against their plain
   versions, float64 and themselves, timed beside their bounds and
-  ``scaled_dot_product_attention``; zamba2-7b (81 layers: 68 Mamba2 blocks
-  and 13 applications of one shared attention block, 5.74 B parameters)
-  and rwkv6-3b (32 RWKV6 layers, 3.07 B) at full width and depth, seeded
-  bf16 weights: a 1 x 4096 forward (zamba2's through 13 kernel launches,
+  ``scaled_dot_product_attention``; zamba2-7b (39 of its 81 layers: 33
+  Mamba2 blocks and 6 applications of one shared attention block) and
+  rwkv6-3b (16 of its 32 RWKV6 layers) at full width, seeded bf16
+  weights: a 1 x 4096 forward (zamba2's through 6 kernel launches,
   held against its plain path at every token) with its device time split
   into the attention kernel, the SSM's scan work (the ``ssm.scan`` ranges),
   cuBLAS GEMMs and the rest; 6 requests on 4 slots (two slots reused, the
   recurrent state zeroed), prefilled token by token, zamba2's through the
-  decode kernel (13 launches a step) with greedy tokens held against its
+  decode kernel (6 launches a step) with greedy tokens held against its
   plain run except at near ties and the TMA map cache's hit rate; a steady
   decode step's host and device time; decode against the forward at
   float32 on the card for both (depth cut, the reference's 5e-3); and
@@ -127,10 +127,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   and float32, the chain over 1024-key chunks bitwise the single-shot
   kernel, timed beside its bounds.
 * the SSM and hybrid families under a sharding recipe at full width and
-  depth, on a one-rank NCCL ``(data, model)`` mesh and the rank's shards:
-  zamba2-7b's 1 x 4096 forward under ``tp``, ``sp`` and ``sp_ring`` (the
-  (112, 112) forward instance 13 times, or under ``sp_ring`` the carry
-  instance 13 times) and rwkv6-3b's under ``tp`` and ``sp_ring``, logits
+  the depth above, on a one-rank NCCL ``(data, model)`` mesh and the
+  rank's shards: zamba2-7b's 1 x 4096 forward under ``tp``, ``sp`` and
+  ``sp_ring`` (the (112, 112) forward instance 6 times, or under
+  ``sp_ring`` the carry instance 6 times) and rwkv6-3b's under ``tp`` and ``sp_ring``, logits
   against the no-recipe forward (``tp`` bitwise), the host ms of a forward
   in turns with it (and under ``sp_ring`` a profiled window beside the
   no-recipe one);
@@ -157,7 +157,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   single-host engine's; and one ``tp`` training step of each (minicpm3-4b
   at 8 layers, phi3.5-moe at 1) against the no-recipe step, loss and
   gradient norm bitwise.
-* the VLM and audio families at full width and depth, seeded bf16
+* the VLM and audio families at full width and half depth, seeded bf16
   weights: the forward kernel's (128, 128) instance non-causal at the
   VLM's cross attention (q 1 x 32 x 4096 over the image's k/v 1 x 8 x 1024,
   and a decode step's 4 x 32 x 1 over 4 x 8 x 1024), its (64, 64) instance
@@ -165,18 +165,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   D = 64 instance at musicgen's decode step (4 slots, one row a group),
   each against its plain version, float64 and itself, timed beside its
   bound, its plain version and ``scaled_dot_product_attention``;
-  llama-3.2-vision-11b (40 layers: 8 groups of 4 self-attention blocks and
-  a gated cross-attention block; its gates drawn from U[0.5, 1], since at
-  their zero init the cross path would not show) on 1 x 4096 tokens and a
-  seeded image (40 ``flash_attention`` launches, 8 of them non-causal),
+  llama-3.2-vision-11b (20 of its 40 layers: 4 groups of 4 self-attention
+  blocks and a gated cross-attention block; its gates drawn from U[0.5,
+  1], since at their zero init the cross path would not show) on 1 x 4096
+  tokens and a seeded image (20 ``flash_attention`` launches, 4 of them
+  non-causal),
   logits at every token against the plain path and a second image moving
   them; 4 rows served through ``lm.init_cache`` and ``lm.decode_step``
   (a whole-prompt chunk, then 32 greedy steps, each launching
-  ``flash_decode`` 32 times and the cross attention 8 times), greedy
-  tokens against the plain run; musicgen-large (48 layers, ``embeds``
-  input) on 1 x 4096 frames against the plain path, 8 requests through
-  the engine's featurizer on 4 slots (single host and TP on a one-rank
-  NCCL mesh, ``flash_decode`` 48 times a step, 96 under TP); decode
+  ``flash_decode`` 16 times and the cross attention 4 times), greedy
+  tokens against the plain run; musicgen-large (24 of its 48 layers,
+  ``embeds`` input) on 1 x 4096 frames against the plain path, 8 requests
+  through the engine's featurizer on 4 slots (single host and TP on a
+  one-rank NCCL mesh, ``flash_decode`` 24 times a step, 48 under TP); decode
   against the forward at float32 for both (depth cut, the reference's
   2e-4); one training step of each (depth cut) against the plain
   attention's, its seconds and peak memory.
@@ -218,6 +219,17 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
   slots over a 4096-position cache, a 4 x 2048 prefill chunk with an idle
   slot), bf16 and float32, against its plain version with the per-block
   rounding margins, timed beside its bound.
+* the dry run's prediction against the card (``dryrun_check``): the
+  phi4-mini 1 x 4096 forward and the 8-layer training step (2 x 4096
+  tokens, 2 microbatches) each traced as ``repro_torch.launch.dryrun``
+  traces a cell (a fake world of one rank, ``CardTrace`` fake tensors of
+  the same shapes, the op walk) and then run once on the card after a
+  warm-up: the predicted peak memory above the program's inputs against
+  ``max_memory_allocated`` (within 3% or 256 MiB), the predicted launches
+  of every kernel against every wrapper's count (equal), and the
+  predicted compute term against the run's device ms (not above it); and
+  the package's work formulas (``kernels/work.py``) against this script's
+  ``bound`` and ``attn_bound`` at the kernel table's shapes.
 
 Every kernel time (``ms``, ``plain_ms``, ``library_ms``) is device time per
 call from ``repro_torch.kernels.timing.queued_ms`` (calls run back to back
@@ -332,13 +344,14 @@ ZERO_LOSS_RTOL, ZERO_NORM_RTOL, ZERO_FAR_SHARE = 1e-6, 1e-4, 1e-4
 RING_LOSS_RTOL, RING_NORM_RTOL = 1e-6, 5e-3
 TRAIN_RANGES = {"attn.recompute": "backward_recompute",
                 "train.optimizer": "optimizer"}  # the training step's profiler ranges
-HYBRID_ARCH = "zamba2-7b"  # full width and depth: 5.74 B parameters, 11.5 GB in bf16
-SSM_ARCH = "rwkv6-3b"  # full width and depth: 3.07 B parameters, 6.1 GB in bf16
+HYBRID_ARCH = "zamba2-7b"  # full width (5.74 B parameters at its full depth)
+SSM_ARCH = "rwkv6-3b"  # full width (3.07 B parameters at its full depth)
 # the hybrid's and the SSM's serving run: 5 requests (seeded prompts of
-# 32-96 tokens, 16 new each) on SLOTS slots of MAX_LEN, so a slot serves a
+# 16-48 tokens, 16 new each) on SLOTS slots of MAX_LEN, so a slot serves a
 # second request after a release; both families prefill token by token
-# (zamba2: 0.1-0.2 s a token on an H100), so the prompts stay short
-RECURRENT_REQUESTS, RECURRENT_NEW_TOKENS, RECURRENT_PROMPT_LENS = 5, 16, (32, 97)
+# (zamba2: 0.1-0.2 s a token on an H100), so the prompts stay short (32-96
+# tokens until the dry run's phase was added: a cut for run length)
+RECURRENT_REQUESTS, RECURRENT_NEW_TOKENS, RECURRENT_PROMPT_LENS = 5, 16, (16, 49)
 # the D = 112 decode step at zamba2's shape (MHA, 32 heads): 5 slots of a
 # 4096-position ring buffer, the last wrapped past it (every slot valid, the
 # query at position 5999)
@@ -361,7 +374,7 @@ RECURRENT_CHECK_TOKENS, RECURRENT_TOL = 128, 5e-3
 HYBRID_TRAIN_DEPTH = 13
 SCAN_RANGES = {"ssm.scan": "ssm_scan"}  # models/ssm.py:SCAN_RANGE, the mixers' recurrent work
 # zamba2's bf16 logits through the kernel against the plain path, every
-# token: the 13 attention outputs may round one bf16 ulp apart, and 81
+# token: the attention outputs may round one bf16 ulp apart, and dozens of
 # layers of random weights amplify any such difference (on an H100 a one-ulp
 # nudge of the plain path's attention outputs moves its logits by about 5%
 # relative, and the kernel path's differ by as much).  So the control is
@@ -401,8 +414,8 @@ MLA_TRAIN_DEPTH, MOE_TRAIN_DEPTH = 8, 1
 # the VLM and audio families: llama-3.2-vision-11b (40 layers: 8 groups of 4
 # self-attention blocks and a gated cross-attention block over a 1024-position
 # image) and musicgen-large (48 layers, MHA at head dim 64, frame embeddings),
-# full width and depth, seeded bf16 weights; the VLM's cross blocks' gates
-# drawn from GATE_RANGE (their zero init would hide the cross path)
+# full width, depth cut (FAMILY_DEPTH), seeded bf16 weights; the VLM's cross
+# blocks' gates drawn from GATE_RANGE (their zero init would hide the cross path)
 VLM_ARCH, AUDIO_ARCH, VLM_ENC_LEN = "llama-3.2-vision-11b", "musicgen-large", 1024
 GATE_RANGE = (0.5, 1.0)
 # the VLM served through lm.decode_step: 4 rows, a whole-prompt chunk each
@@ -419,6 +432,12 @@ VLM_CHECK_DEPTH, AUDIO_CHECK_DEPTH, FAMILY_CHECK_TOKENS, FAMILY_DECODE_TOL = 10,
 # logits and their gradient in float32 are 1 GB a thousand tokens);
 # musicgen-large at 24 of its 48 layers (1.21 B parameters) over 1 x SEQ
 VLM_TRAIN_DEPTH, VLM_TRAIN_SEQ, AUDIO_TRAIN_DEPTH = 5, 2048, 24
+# the recurrent, VLM and audio families' forward, serving and recipe phases
+# at full width and about half depth: zamba2 81 -> 39 layers (6 super-blocks
+# and the config's 3-layer tail), rwkv6 32 -> 16, the VLM 40 -> 20 (4
+# groups), musicgen 48 -> 24; a cut for run length (full depth until a slow
+# host took the run past 1,140 s of its 1,200)
+FAMILY_DEPTH = {HYBRID_ARCH: 39, SSM_ARCH: 16, VLM_ARCH: 20, AUDIO_ARCH: 24}
 
 
 def phase(name: str, **fields) -> None:
@@ -1079,6 +1098,189 @@ def forward_full_width(cfg, params, lm, fa) -> dict:
                argmax_equal=bool(last.argmax() == ref_last.argmax()))
     phase("forward", arch=cfg.name, **out)
     return out
+
+
+# a predicted peak agrees with the card's within 3% or 256 MiB, whichever is larger
+DRYRUN_PEAK_RTOL, DRYRUN_PEAK_ATOL = 0.03, 256 << 20
+
+
+def dryrun_trace(program, make_inputs):
+    """The dry run's trace of ``program`` (``repro_torch.launch.dryrun``):
+    one rank of a fake world of one, on fake tensors of the card's shapes
+    from ``make_inputs(device)``, walked op by op; returns its op stats and
+    the trace's seconds.  Nothing is allocated on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.core import init_fake_world
+    from repro_torch.kernels.fake import card_trace
+    from repro_torch.launch.op_walk import OpWalk
+
+    t0 = time.perf_counter()
+    init_fake_world(1, 0, DEVICE)
+    try:
+        mode, dev = card_trace(DEVICE)
+        with mode:
+            inputs = make_inputs(dev)
+            with OpWalk() as walk:
+                out = program(*inputs)
+            del out, inputs
+    finally:
+        dist.destroy_process_group()
+    return walk.stats(), time.perf_counter() - t0
+
+
+def dryrun_compare(name: str, st, trace_s: float, program, inputs, launch_counts) -> dict:
+    """``dryrun_check`` of one program: its trace's predicted peak memory
+    (above what is live at its start), kernel launches by kernel and
+    compute/memory roofline terms against one run on the card (after one
+    warm-up run: the allocator and cuBLAS map their memory once):
+    ``max_memory_allocated`` after ``reset_peak_memory_stats`` less what was
+    allocated before, the wrappers' launch counts, and the device ms of one
+    more run (``queued_ms``).  Fails on a peak off by more than 3% or 256
+    MiB, a launch count that differs, or device ms below ``t_compute``."""
+    from repro_torch.kernels.timing import queued_ms
+    from repro_torch.launch import roofline
+
+    out = program(*inputs)  # warm-up
+    del out
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = program(*inputs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    launches = launch_counts()
+    del out
+    torch.cuda.empty_cache()
+    device_ms = queued_ms(lambda: program(*inputs), iters=1, reps=1, warmup=0)
+    t_compute_ms, t_memory_ms = st.compute_seconds * 1e3, st.bytes / roofline.HW["hbm_bw"] * 1e3
+    predicted = {k: v for k, v in st.kernel_launches.items() if v}
+    tol = max(DRYRUN_PEAK_RTOL * peak, DRYRUN_PEAK_ATOL)
+    row = dict(program=name, predicted_peak_gb=st.peak_live_bytes / 1e9,
+               measured_peak_gb=peak / 1e9, peak_diff_gb=(st.peak_live_bytes - peak) / 1e9,
+               peak_tol_gb=tol / 1e9, predicted_launches=predicted, launches=launches,
+               t_compute_ms=t_compute_ms, t_memory_ms=t_memory_ms, device_ms=device_ms,
+               flops=st.flops, bytes=st.bytes, ops=st.n_ops, trace_s=trace_s,
+               total_memory_gb=torch.cuda.get_device_properties(0).total_memory / 1e9)
+    phase("dryrun_check", **row)
+    if abs(st.peak_live_bytes - peak) > tol:
+        raise AssertionError(f"dryrun_check {name}: predicted peak {st.peak_live_bytes} B vs "
+                             f"the card's {peak} B (tolerance {tol:.0f} B)")
+    if predicted != launches:
+        raise AssertionError(f"dryrun_check {name}: predicted launches {predicted} != the "
+                             f"card's {launches}")
+    if device_ms < t_compute_ms:
+        raise AssertionError(f"dryrun_check {name}: device {device_ms} ms below the "
+                             f"predicted compute term {t_compute_ms} ms")
+    return row
+
+
+def kernel_launches(fa, fd, kernels, relayout):
+    """``launch_counts`` for :func:`dryrun_compare`: every kernel wrapper's
+    ``launches`` by the name the walk records, the ones made since the
+    last ``reset`` (the counts themselves are left as they are)."""
+    fns = {"flash_attention_kernel": fa.flash_attention_cuda,
+           "flash_attention_carry_kernel": fa.flash_attention_carry_cuda,
+           "flash_decode_kernel": fd.flash_decode_cuda,
+           "layout_gemm_kernel": kernels.gemm_cuda,
+           "layout_gemm_panel_kernel": kernels.gemm_panel_cuda,
+           "layout_gemm_bf16_kernel": kernels.gemm_bf16_cuda,
+           "layout_gemm_panel_bf16_kernel": kernels.gemm_panel_bf16_cuda,
+           "transpose_kernel": relayout.transpose_cuda}
+    start: dict = {}
+
+    def counts(reset: bool = False):
+        if reset:
+            start.update({k: fn.launches for k, fn in fns.items()})
+            return None
+        made = {k: fn.launches - start[k] for k, fn in fns.items()}
+        return {k: n for k, n in made.items() if n}
+    return counts
+
+
+def dryrun_forward(cfg, params, lm, launch_counts, cast_params) -> dict:
+    """``dryrun_check`` for the forward phase's program: ``lm.forward`` of
+    1 x SEQ tokens at full width on bf16 weights."""
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, SEQ), device=DEVICE, generator=g)}
+
+    def program(p, b):
+        return lm.forward(p, b, cfg)
+
+    def inputs(dev):
+        return (cast_params(lm.abstract_model(cfg, device=dev), cfg.act_dtype),
+                {"tokens": torch.empty((1, SEQ), dtype=torch.int64, device=dev)})
+
+    st, trace_s = dryrun_trace(program, inputs)
+    return dryrun_compare("forward", st, trace_s, program, (params, batch), launch_counts)
+
+
+def dryrun_train(cfg, params, batch, launch_counts, lm, trainer, optimizer) -> dict:
+    """``dryrun_check`` for the training phase's step: ``make_train_step``
+    (TRAIN_MICROBATCHES microbatches, AdamW) on its parameters and batch."""
+    ocfg = optimizer.OptConfig(lr=TRAIN_LR)
+    step = trainer.make_train_step(cfg, None, ocfg, microbatches=TRAIN_MICROBATCHES)
+
+    def inputs(dev):
+        fake = lm.abstract_model(cfg, device=dev)
+        return (fake, optimizer.init_opt_state(fake, ocfg),
+                {k: torch.empty(v.shape, dtype=v.dtype, device=dev) for k, v in batch.items()})
+
+    st, trace_s = dryrun_trace(step, inputs)
+    opt = optimizer.init_opt_state(params, ocfg)
+    row = dryrun_compare("train_step", st, trace_s, step, (params, opt, batch), launch_counts)
+    del opt
+    torch.cuda.empty_cache()
+    return row
+
+
+def dryrun_formulas() -> dict:
+    """The package's work formulas (``kernels/work.py``, what the kernel
+    wrappers report under fake tensors, and ``launch/roofline.py``'s GEMM
+    bound) against this script's ``bound`` and
+    ``attn_bound`` at the shapes PERF.md's kernel table times: the GEMMs,
+    decode and ring steps equal, the causal forward within its pair count
+    (S (S + 1) / 2 against S^2 / 2)."""
+    from repro_torch.kernels import work
+    from repro_torch.kernels.flash_attention import P_PIECES
+    from repro_torch.launch import roofline as rl
+
+    rows = {}
+    for label, (m, n, k), kw in (("gemm", EXTRALARGE, {}), ("gemm_unaligned", UNALIGNED, {}),
+                                 ("gemm_bf16", EXTRALARGE,
+                                  dict(dtype=torch.bfloat16, out_bytes=2)),
+                                 ("gemm_panel", EXTRALARGE, dict(acc=True))):
+        kw = {"acc": False, **kw}
+        rows[label] = (rl.gemm_bound(m, n, k, **kw)[0], bound(m, n, k, **kw)[0])
+    B, Hq, G, D = 1, 24, 8, 128
+    flops, nbytes, secs = work.flash_attention_work(B, Hq, G, SEQ, SEQ, D, D, causal=True,
+                                                    dtype=torch.bfloat16, pieces=P_PIECES)
+    rows["flash_attention"] = (max(secs, nbytes / rl.HW["hbm_bw"]) * 1e3, attn_bound(
+        4 * B * Hq * SEQ * SEQ * D / 2, 2 * (2 * B * Hq * SEQ * D + 2 * B * G * SEQ * D),
+        products=1 + P_PIECES)[0])
+    lens = DECODE_LENS
+    visible, keys = sum(min(n, MAX_LEN) for n in lens), sum(min(n, MAX_LEN) for n in lens)
+    flops, nbytes, secs = work.flash_decode_work(len(lens), Hq, G, 1, visible, keys, D, D,
+                                                 dtype=torch.bfloat16)
+    rows["flash_decode"] = (max(secs, nbytes / rl.HW["hbm_bw"]) * 1e3, attn_bound(
+        4 * Hq * visible * D, 2 * 2 * G * D * keys + 2 * 2 * len(lens) * Hq * D)[0])
+    cap = SEQ // RING_R
+    for label, step in (("carry_diagonal", 0), ("carry_off_diagonal", 1)):
+        q_off, k_off = cap, (1 - step) % RING_R * cap
+        flops, nbytes, secs = work.flash_carry_work(
+            1, Hq, G, cap, cap, D, D, q_offset=q_off, k_offset=k_off, valid_len=None,
+            causal=True, dtype=torch.bfloat16, pieces=P_PIECES)
+        pairs = cap * (cap + 1) // 2 if step == 0 else cap * cap
+        mine = 2 * (Hq * cap * D + 2 * G * cap * D) + 2 * 4 * (Hq * cap * D + 2 * Hq * cap)
+        rows[label] = (max(secs, nbytes / rl.HW["hbm_bw"]) * 1e3,
+                       attn_bound(4 * Hq * pairs * D, mine, products=1 + P_PIECES)[0])
+    worst = max(abs(a - b) / b for a, b in rows.values())
+    phase("dryrun_formulas", bound_ms={k: dict(package=a, script=b) for k, (a, b) in rows.items()},
+          max_rel_diff=worst)
+    if worst > 1e-3:
+        raise AssertionError(f"the package's work formulas differ from bound/attn_bound: {rows}")
+    return rows
 
 
 def _instrument(engine, record_gaps: bool, fd):
@@ -3226,9 +3428,9 @@ def recurrent_recipe_serve(cfg, params, lm, Engine, ServeConfig, fd, mesh, shard
 
 
 def recurrent_model(configs, lm, name: str):
-    """``recurrent_model``: ``name`` at full width and depth with
-    :func:`seeded_params` (bf16)."""
-    cfg = configs.get(name)
+    """``recurrent_model``: ``name`` at full width, FAMILY_DEPTH layers,
+    with :func:`seeded_params` (bf16)."""
+    cfg = dataclasses.replace(configs.get(name), n_layers=FAMILY_DEPTH[name])
     t0 = time.perf_counter()
     params = seeded_params(cfg, lm)
     torch.cuda.synchronize()
@@ -3951,9 +4153,9 @@ def open_gates(params, seed: int) -> None:
 
 
 def family_model(configs, lm, name: str):
-    """``family_model``: ``name`` at full width and depth with
+    """``family_model``: ``name`` at full width, FAMILY_DEPTH layers, with
     :func:`seeded_params` (bf16), a VLM's gates opened (:func:`open_gates`)."""
-    cfg = configs.get(name)
+    cfg = dataclasses.replace(configs.get(name), n_layers=FAMILY_DEPTH[name])
     t0 = time.perf_counter()
     params = seeded_params(cfg, lm)
     if cfg.family == "vlm":
@@ -4641,6 +4843,12 @@ def main() -> int:
           memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
     fwd = forward_full_width(cfg, params, lm, fa)
     torch.cuda.empty_cache()
+    # phase 7b: the dry run's trace of the forward against the card's run
+    t0 = time.perf_counter()
+    dryrun_formulas()
+    dryrun_forward(cfg, params, lm, kernel_launches(fa, fd, kernels, relayout), cast_params)
+    dryrun_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
 
     # phase 8: serving at full width
     srv, single = serve_full_width(cfg, params, Engine, ServeConfig, fd)
@@ -4743,6 +4951,11 @@ def main() -> int:
     batch = train_batch(train_cfg)
     tbreak = train_breakdown(train_cfg, train_params, batch, trainer, optimizer)
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    dryrun_train(train_cfg, train_params, batch, kernel_launches(fa, fd, kernels, relayout),
+                 lm, trainer, optimizer)
+    dryrun_s += time.perf_counter() - t1
+    phase("dryrun_phases", seconds=dryrun_s)
     _, train_g, tgrad = train_grads(train_cfg, train_params, batch, fa, trainer, tree_leaves)
     torch.cuda.empty_cache()
     device = init_world("cuda")
@@ -4772,7 +4985,7 @@ def main() -> int:
     # phase 14: the hybrid and SSM families: the kernels' head dim of 112
     # (zamba2's shared attention; the forward, decode and carry forms)
     # against their plain versions and timed;
-    # zamba2-7b and rwkv6-3b at full width and depth (seeded bf16 weights):
+    # zamba2-7b and rwkv6-3b at full width, FAMILY_DEPTH (seeded bf16 weights):
     # forwards of 1 x SEQ tokens and serving with reused slots, zamba2's
     # through the kernels and held against its plain path; decode against
     # the forward at float32; one zamba2 training step
@@ -4836,7 +5049,7 @@ def main() -> int:
         dist.destroy_process_group()
     phase("latent_moe_recipe_phases", seconds=latent_recipe_s)
 
-    # phase 17: the VLM and audio families at full width and depth: the
+    # phase 17: the VLM and audio families at full width, FAMILY_DEPTH: the
     # kernels at their shapes, llama-3.2-vision-11b's forward and decode
     # through lm.decode_step, musicgen-large's forward and serving (single
     # host and TP on a one-rank NCCL mesh), decode against the forward at

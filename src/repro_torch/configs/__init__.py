@@ -4,7 +4,7 @@ resolves an architecture (its published config, or ``smoke=True`` for the
 reduced CPU one)."""
 from importlib import import_module
 
-from .base import ArchConfig
+from .base import SHAPES, ArchConfig, ShapeCell
 
 _MODULES = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
@@ -29,4 +29,4 @@ def get(name: str, *, smoke: bool = False) -> ArchConfig:
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-__all__ = ["ArchConfig", "ARCH_IDS", "get"]
+__all__ = ["ArchConfig", "ShapeCell", "SHAPES", "ARCH_IDS", "get"]

@@ -1,9 +1,12 @@
-"""Architecture configuration schema.
+"""Architecture configuration schema and the shape cells assigned to every
+architecture.
 
 The reference's field set (``src/repro/configs/base.py``) with torch dtypes:
 ``param_dtype=torch.float32``, ``act_dtype=torch.bfloat16``.  Each ported
 architecture has one ``configs/<id>.py`` exporting ``CONFIG`` (the published
 configuration) and ``SMOKE`` (a reduced same-family config for CPU tests).
+:data:`SHAPES` holds the four input-shape cells the dry run
+(:mod:`repro_torch.launch.dryrun`) traces for every architecture.
 """
 from __future__ import annotations
 
@@ -12,11 +15,32 @@ from typing import Any
 
 import torch
 
-__all__ = ["ArchConfig", "round_up"]
+__all__ = ["ArchConfig", "ShapeCell", "SHAPES", "round_up"]
 
 
 def round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """A batch shape: ``global_batch`` sequences of ``seq_len`` tokens, for
+    a ``train``, ``prefill`` or ``decode`` program (a decode cell's
+    ``seq_len`` is its cache length)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+# The four assigned input-shape cells for the LM families.
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,3 +112,21 @@ class ArchConfig:
     def vocab_padded(self) -> int:
         """Vocab rounded up for clean sharding (Megatron-style padding)."""
         return round_up(self.vocab, 256)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch run the long_500k cell? (SSM / hybrid only)"""
+        return self.family in ("ssm", "hybrid")
+
+    def supported_shapes(self) -> list[str]:
+        out = ["train_4k", "prefill_32k", "decode_32k"]
+        if self.sub_quadratic:
+            out.append("long_500k")
+        return out
+
+    def param_count(self, *, active_only: bool = False) -> int:
+        """The parameter count (``active_only``: a token's, the MoE's
+        unchosen experts left out), for MODEL_FLOPS = 6 N D."""
+        from repro_torch.models import lm
+
+        return lm.count_params(self, active_only=active_only)

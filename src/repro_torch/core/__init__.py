@@ -57,8 +57,8 @@ from .traverser import hoist as hoist_trav
 from .traverser import set_length as set_length_trav
 from .relayout import RelayoutPlan, check_ragged_dims, relayout, relayout_plan, transfer_kind
 from .request import Pending, wait_all
-from .dist import (DistTraverser, Mesh, init_world, make_mesh, mpi_cart_traverser,
-                   mpi_traverser, resolve_device)
+from .dist import (DistTraverser, Mesh, init_fake_world, init_world, is_fake_world, make_mesh,
+                   mpi_cart_traverser, mpi_traverser, resolve_device)
 from .collectives import (
     DistBag,
     all_gather_bag,
@@ -105,8 +105,8 @@ __all__ = [
     "set_length_trav",
     "RelayoutPlan", "check_ragged_dims", "relayout", "relayout_plan", "transfer_kind",
     "Pending", "wait_all",
-    "DistTraverser", "Mesh", "init_world", "make_mesh", "mpi_cart_traverser", "mpi_traverser",
-    "resolve_device",
+    "DistTraverser", "Mesh", "init_world", "init_fake_world", "is_fake_world", "make_mesh",
+    "mpi_cart_traverser", "mpi_traverser", "resolve_device",
     "DistBag", "all_gather_bag", "all_gather_dist", "all_gather_start", "all_reduce_bag",
     "all_reduce_start", "all_to_all_bag", "all_to_all_start", "all_to_allv_bag",
     "all_to_allv_start", "all_gatherv_bag", "all_gatherv_dist", "all_gatherv_start",

@@ -30,6 +30,8 @@ __all__ = [
     "Mesh",
     "make_mesh",
     "init_world",
+    "init_fake_world",
+    "is_fake_world",
     "resolve_device",
     "DistTraverser",
     "mpi_traverser",
@@ -45,10 +47,20 @@ def _as_axes(a) -> MeshAxes:
     return tuple(a)
 
 
+def is_fake_world() -> bool:
+    """Whether this process runs a world of ``torch.distributed``'s ``fake``
+    backend (:func:`init_fake_world`)."""
+    return dist.is_initialized() and str(dist.get_backend()) == "fake"
+
+
 def resolve_device(device: torch.device | str) -> torch.device:
     """The concrete device for ``device``; raises when CUDA is asked for and
-    no GPU is present (entry points never fall back to the CPU silently)."""
+    no GPU is present (entry points never fall back to the CPU silently).
+    In a fake world (:func:`init_fake_world`) ``cuda`` is ``cuda:0`` with
+    or without a GPU: its tensors are fake, nothing touches a card."""
     dev = torch.device(device)
+    if dev.type == "cuda" and is_fake_world():
+        return torch.device("cuda", 0 if dev.index is None else dev.index)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -62,6 +74,8 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 
 def _check_one_gpu_per_rank() -> None:
+    if is_fake_world():
+        return  # one process plays every rank, on fake tensors
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", dist.get_world_size()
                                      if dist.is_initialized() else 1))
     if local_world > torch.cuda.device_count():
@@ -102,6 +116,26 @@ def init_world(device: torch.device | str) -> torch.device:
             torch.cuda.set_device(dev)
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
     return dev
+
+
+def init_fake_world(world_size: int, rank: int = 0,
+                    device: torch.device | str = "cuda") -> torch.device:
+    """Start a world of ``world_size`` ranks of ``torch.distributed``'s
+    ``fake`` backend in this one process, playing rank ``rank``, and return
+    the device its tensors name (``cuda:0`` for ``cuda``, with or without a
+    GPU).  Every collective of a fake world returns at once and moves no
+    data: it is for tracing one rank's program (under ``FakeTensorMode``,
+    :mod:`repro_torch.launch.dryrun`), and values computed in it mean
+    nothing.  Groups, meshes and every collective of the comm layer work
+    on it as on a real world; :func:`init_world` refuses it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("init_fake_world: a torch.distributed world is already running")
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} outside a world of {world_size}")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
+    return resolve_device(device)
 
 
 class Mesh:
@@ -198,6 +232,8 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
             f"make_mesh: grid {tuple(axis_shapes)} holds {prod(shape.values())} ranks "
             f"but the world has {world}"
         )
+    if device is None and is_fake_world():
+        device = "cpu"
     if device is None:
         nccl = "nccl" in str(dist.get_backend())
         device = torch.device("cuda", torch.cuda.current_device()) if nccl else torch.device("cpu")

@@ -375,7 +375,10 @@ def shard_all_gather_start(x, axis_name: str, *, mesh, axis: int = 0) -> Pending
     def finish():
         out = []
         for flat, shape in flats:
-            out.append(torch.cat(flat.reshape(R, *shape).unbind(0), dim=axis))
+            # rank blocks in rank order along ``axis``: a view for axis 0,
+            # else one copy
+            blocks = flat.reshape(R, *shape).movedim(0, axis)
+            out.append(blocks.reshape(*shape[:axis], R * shape[axis], *shape[axis + 1:]))
         return type(x)(out) if is_seq else out[0]
 
     return Pending(finish, works, op="all_gather")

@@ -16,8 +16,9 @@ Each plan also carries its *declared overlap intent*
 issue/complete window with independent compute inside it, so they declare
 ``"overlapped"``; a pipeline chains compute -> transfer -> compute through
 data dependence, so it declares ``"serialized"``.  The reference package
-checks the declared intent against its compiled programs; here it records
-the schedule's contract (the issue/wait order the planner emits).
+checks the declared intent against its compiled programs;
+:mod:`repro_torch.launch.dryrun` checks it against the eager op stream the
+planner emits.
 
 MPI correspondence
 ------------------
@@ -163,6 +164,8 @@ class CommPlan:
             raise ValueError("bucket plan needs a combine stage (the param all-gather)")
         if self.reduce is not None and self.kind != "bucket":
             raise ValueError(f"reduce stage is bucket-plan only, not {self.kind!r}")
+        if self.epilogue is not None and self.kind == "stagger":
+            raise ValueError("a stagger plan has no epilogue: its caller waits each step")
 
     @property
     def intent(self) -> str:
@@ -199,7 +202,8 @@ class CommPlan:
         ``double_buffer=True`` issues step ``k+1``'s transfer before step
         ``k``'s compute and waits after it (the overlap window);
         ``double_buffer=False`` starts and waits back-to-back at the
-        completion point — same issue path, bit-identical results.
+        completion point — same issue path, bit-identical results.  A
+        stagger plan returns its steps' requests (see :func:`stagger`).
         """
         if self.kind == "stagger":
             # round-robin over independent steps (microbatches): every step
@@ -207,21 +211,16 @@ class CommPlan:
             # consumes another's result, so each transfer's completion hides
             # behind the *other* steps' compute — the continuous-batching
             # decode schedule (microbatch i's reduction behind microbatch
-            # i+1's math).  The blocking form completes each transfer before
-            # the next issue; the waits are pure completion points
-            # so both forms are bit-identical.
-            if double_buffer:
-                pends = [
-                    self._issue(self.compute(carry, state, s), s)
-                    for s in range(self.steps)
-                ]
-                done = [p.wait() for p in pends]
-            else:
-                done = [
-                    self._issue(self.compute(carry, state, s), s).wait()
-                    for s in range(self.steps)
-                ]
-            return self._finish(done, state)
+            # i+1's math).  The caller waits each request where it reads the
+            # result.  The blocking form completes each transfer before the
+            # next issue (its requests come back completed); the waits are
+            # pure completion points, so both forms are bit-identical.
+            pends = []
+            for s in range(self.steps):
+                pends.append(self._issue(self.compute(carry, state, s), s))
+                if not double_buffer:
+                    pends[-1].wait()
+            return pends
         if self.kind == "bucket":
             # ZeRO gradient schedule (see module docstring): issue EVERY
             # bucket's reduce-scatter up front (the whole backward's grads in
@@ -236,7 +235,10 @@ class CommPlan:
             # downstream); its all-gather has no downstream compute at all.
             if double_buffer:
                 pends = [self._issue(state, s) for s in range(self.steps)]
-                arrived = [p.wait() for p in pends]
+                # each arrival is waited where the reduce stage first reads
+                # it: the earlier buckets' reduce math runs while the later
+                # ones are still in flight
+                arrived = _Arrivals(pends)
                 gval = self.reduce(arrived) if self.reduce else None
                 results = [self.compute(gval, arrived[s], s)
                            for s in range(self.steps)]
@@ -312,6 +314,28 @@ class CommPlan:
         return self._finish(carry, state)
 
 
+class _Arrivals:
+    """A bucket plan's arrivals in step order, each request waited once,
+    where its result is first read (``len``, indexing and iteration, as a
+    list)."""
+
+    def __init__(self, pends):
+        self._pends = pends
+        self._done: dict = {}
+
+    def __len__(self) -> int:
+        return len(self._pends)
+
+    def __getitem__(self, s: int):
+        s = range(len(self._pends))[s]
+        if s not in self._done:
+            self._done[s] = self._pends[s].wait()
+        return self._done[s]
+
+    def __iter__(self):
+        return (self[s] for s in range(len(self._pends)))
+
+
 def ring(
     steps: int,
     *,
@@ -354,7 +378,6 @@ def stagger(
     *,
     transfer: Callable[[Any, int], Pending],
     compute: Callable[[Any, Any, int], Any],
-    epilogue: Callable[[Any, Any], Any] | None = None,
 ) -> CommPlan:
     """Declare a round-robin schedule over *independent* steps: each step's
     ``compute`` produces a fresh partial and ``transfer`` issues its
@@ -364,9 +387,12 @@ def stagger(
     the continuous-batching decode schedule — with one step (one
     microbatch) the collective sits alone on the compute chain and
     serializes; with two or more, each reduction hides behind the other
-    microbatch's math.  ``epilogue(done, state)`` receives the list of
-    completed results in step order.  Declared intent: ``"overlapped"``."""
-    return CommPlan("stagger", steps, transfer, compute, epilogue)
+    microbatch's math.  :meth:`CommPlan.run` returns the steps' requests
+    in step order, and the caller waits each where it first reads the
+    result, so a chain of staggered stages waits microbatch ``s``'s
+    transfer behind the next stage's compute of the microbatches before
+    it.  Declared intent: ``"overlapped"``."""
+    return CommPlan("stagger", steps, transfer, compute)
 
 
 def dispatch(

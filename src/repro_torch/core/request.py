@@ -37,7 +37,22 @@ from __future__ import annotations
 
 from typing import Any, Callable, Sequence
 
-__all__ = ["Pending", "wait_all"]
+__all__ = ["Pending", "wait_all", "set_observer"]
+
+# The walk observing this process's requests (``repro_torch.launch.op_walk``),
+# ``None`` unless one runs: each :class:`Pending` reports its issue
+# (``observer.issued(pending, works)``) and its completion
+# (``observer.waited(pending)``).  A process that runs no walk pays one
+# ``is None`` test per request.
+_OBSERVER = None
+
+
+def set_observer(observer):
+    """Make ``observer`` (or ``None``) the one that sees every request's
+    issue and completion; returns the one it replaces."""
+    global _OBSERVER
+    previous, _OBSERVER = _OBSERVER, observer
+    return previous
 
 
 class Pending:
@@ -56,11 +71,15 @@ class Pending:
         self._finish = finish
         self._result: Any = None
         self._done = False
+        if _OBSERVER is not None:
+            _OBSERVER.issued(self, self._works)
 
     def wait(self):
         """Complete the operation (``MPI_Wait``) and hand back its result
         (a ``DistBag`` or ``Bag``, as issued)."""
         if not self._done:
+            if _OBSERVER is not None:
+                _OBSERVER.waited(self)
             for w in self._works:
                 w.wait()
             self._result = self._finish()

@@ -18,6 +18,8 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.configs.base import ShapeCell
+
 __all__ = ["DataConfig", "ShapeCell", "make_batch", "batch_specs"]
 
 
@@ -27,16 +29,6 @@ class DataConfig:
     seed: int = 0
     path: str | None = None  # for memmap
     zipf_a: float = 1.2
-
-
-@dataclasses.dataclass(frozen=True)
-class ShapeCell:
-    """A batch shape: the reference's ``configs.base.ShapeCell``."""
-
-    name: str
-    seq_len: int
-    global_batch: int
-    kind: str  # train | prefill | decode
 
 
 def _synthetic_tokens(rng: np.random.Generator, B: int, S: int, vocab: int, a: float):

@@ -26,12 +26,16 @@ the sequence-parallel recipes; :func:`check_carry_head_dims`), its state
 batch, head and sequence strides, so the transposed views of the
 projections need no copy.
 It launches on PyTorch's current stream and never synchronises; a build or
-launch failure raises.  The wrappers write through ``ctypes``, so their
-results carry no autograd history: with grad mode on, an input that
-requires grad raises ``TypeError`` (:func:`refuse_grad`), and the gradient
-goes through the ``autograd.Function`` classes of
-:mod:`repro_torch.kernels.ops`.  ``flash_attention_cuda.launches`` and
-``flash_attention_carry_cuda.launches`` count launches.
+launch failure raises.  On fake tensors (``FakeTensorMode``: shapes, no
+data) a wrapper runs its checks, allocates what its launch would, reports
+the launch's work and returns without loading the library, touching the
+card or reading an address (:mod:`repro_torch.kernels.fake`): the dry
+run's trace of the card's program.  The wrappers write through ``ctypes``, so their results carry no
+autograd history: with grad mode on, an input that requires grad raises
+``TypeError`` (:func:`refuse_grad`), and the gradient goes through the
+``autograd.Function`` classes of :mod:`repro_torch.kernels.ops`.
+``flash_attention_cuda.launches`` and ``flash_attention_carry_cuda.launches``
+count real launches only.
 """
 from __future__ import annotations
 
@@ -41,6 +45,8 @@ import functools
 import torch
 
 from . import build
+from .fake import address, is_fake, on_card, report
+from .work import flash_attention_work, flash_carry_work
 
 __all__ = ["flash_attention_cuda", "flash_attention_carry_cuda", "check_attention",
            "check_carry", "check_carry_head_dims", "refuse_grad", "load_library", "bind",
@@ -94,7 +100,7 @@ def _row_aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when its head dim is contiguous and every row starts on
     16 bytes, else a contiguous copy."""
     per = 16 // t.element_size()
-    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+    if (t.stride(-1) == 1 and address(t) % 16 == 0
             and all(s % per == 0 for s in t.stride()[:-1])):
         return t
     return t.contiguous()
@@ -107,7 +113,7 @@ def check_on_card(dtypes, head_dims, **tensors) -> torch.device:
     (the caller checks them)."""
     first = next(iter(tensors.values()))
     for name, t in tensors.items():
-        if not t.is_cuda or t.device != first.device:
+        if not on_card(t) or t.device != first.device:
             raise ValueError(f"{name} must be a CUDA tensor on {first.device}, got {t.device}")
         if t.dtype != first.dtype or t.dtype not in dtypes:
             raise TypeError(f"{name}: the kernel takes one of {list(dtypes)} for all operands, "
@@ -160,6 +166,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if Skv == 0:
         raise ValueError("attention over an empty key sequence")
     q, k, v = _row_aligned(q), _row_aligned(k), _row_aligned(v)
+    if is_fake(q):
+        report("flash_attention_kernel", (q, k, v), (out,), flash_attention_work(
+            B, Hq, G, Sq, Skv, D, Dv, causal=causal, dtype=q.dtype, pieces=P_PIECES))
+        return out
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     scale = float(scale if scale is not None else D ** -0.5)
     lib = lib or load_library()
@@ -224,6 +234,12 @@ def flash_attention_carry_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         if not 0 <= int(val) <= INT32_MAX - Sq - Skv:
             raise ValueError(f"{name}={val} outside the kernel's int32 positions")
     q, k, v = _row_aligned(q), _row_aligned(k), _row_aligned(v)
+    if is_fake(q):
+        report("flash_attention_carry_kernel", (q, k, v, *carry), carry, flash_carry_work(
+            B, Hq, G, Sq, Skv, D, Dv, q_offset=int(q_offset), k_offset=int(k_offset),
+            valid_len=None if valid_len == INT32_MAX else valid_len, causal=causal,
+            dtype=q.dtype, pieces=P_PIECES))
+        return carry
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     scale = float(scale if scale is not None else D ** -0.5)
     lib = lib or load_library()

@@ -35,7 +35,9 @@ import functools
 import torch
 
 from . import build
+from .fake import address, is_fake, report
 from .flash_attention import KERNEL_DTYPES, KEY_TILE, check_on_card, refuse_grad
+from .work import flash_decode_work
 
 __all__ = ["flash_decode_cuda", "check_decode", "load_library", "bind", "plan_launch",
            "smem_bytes", "arrivals", "map_cache_stats", "DECODE_HEAD_DIMS"]
@@ -45,6 +47,7 @@ DECODE_HEAD_DIMS = ((64, 64), (112, 112), (128, 128), (96, 64))
 MAX_SMEM = 232448 - 1024  # bytes one block may opt into on Hopper, less static shared memory
 ROW_TILES = (4, 1)  # row-tile factors: 64 or 16 rows per block
 STAGES = 4  # K or V tiles in flight in the bf16 body's ring
+H100_SMS = 132  # the H100 SXM's SMs: the split plan of a fake call (no card to ask)
 
 
 def smem_bytes(D: int, tr: int, bk: int, Dv: int | None = None) -> int:
@@ -171,7 +174,7 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
         return out
     per_row = 16 // k_cache.element_size()
     for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if c.stride(-1) != 1 or c.data_ptr() % 16 or any(s % per_row for s in c.stride()[:3]):
+        if c.stride(-1) != 1 or address(c) % 16 or any(s % per_row for s in c.stride()[:3]):
             raise ValueError(f"{name} needs a contiguous head dim and 16-byte aligned rows, "
                              f"got strides {c.stride()}")
     if cache_len.device != device or q_positions is not None and q_positions.device != device:
@@ -182,13 +185,24 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
     rep = Hq // G
     bk = min(block, T)
     nb = -(-T // bk)
-    lib = lib or load_library()
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tr, splits, per = plan_launch(rep * S, B * G, nb, D, bk, sms,
-                                  lambda D, tr, bk: lib.flash_decode_smem_bytes(D, tr, bk, Dv))
+    fake = is_fake(q)
+    if fake:  # the plan from the Python twins of the card's queries
+        sms, smem = H100_SMS, lambda D, tr, bk: smem_bytes(D, tr, bk, Dv)
+    else:
+        lib = lib or load_library()
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        smem = lambda D, tr, bk: lib.flash_decode_smem_bytes(D, tr, bk, Dv)  # noqa: E731
+    tr, splits, per = plan_launch(rep * S, B * G, nb, D, bk, sms, smem)
     o_part = torch.empty((B * G, splits, rep * S, Dv), dtype=torch.float32, device=device)
     m_part = torch.empty((B * G, splits, rep * S), dtype=torch.float32, device=device)
     l_part = torch.empty_like(m_part)
+    if fake:
+        # a fake length has no value: every row is charged its whole cache,
+        # the dry run's cell (one token against the full cache)
+        report("flash_decode_kernel", (q, k_cache, v_cache, lens, pos),
+               (out, o_part, m_part, l_part), flash_decode_work(
+                   B, Hq, G, S, B * S * T, B * T, D, Dv, dtype=q.dtype))
+        return out
     strides = (ctypes.c_longlong * 6)(*k_cache.stride()[:3], *v_cache.stride()[:3])
     scale = float(scale if scale is not None else D ** -0.5)
     stream = torch.cuda.current_stream(device).cuda_stream

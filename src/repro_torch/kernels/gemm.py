@@ -43,7 +43,10 @@ in ``launches_by_path`` (``{"tma": n, "tma_strided": n, "async": n}``, or
 ``{"tma": n, "plain": n}`` for the bf16 wrappers, summing to ``launches``),
 so a run can show that it went through the kernel and which loader it took;
 the bf16 wrappers count their stores too, in ``launches_by_store``
-(``{"tma": n, "direct": n}``).
+(``{"tma": n, "direct": n}``).  On fake tensors (``FakeTensorMode``) a
+wrapper runs its checks, allocates its output, reports the launch's work
+and launches nothing (:mod:`repro_torch.kernels.fake`); its counts stay as
+they are.
 """
 from __future__ import annotations
 
@@ -53,7 +56,9 @@ import functools
 import torch
 
 from . import build
+from .fake import is_fake, on_card, report
 from .flash_attention import refuse_grad
+from .work import gemm_work, peak_seconds
 
 __all__ = ["gemm_cuda", "gemm_panel_cuda", "gemm_bf16_cuda", "gemm_panel_bf16_cuda",
            "gemm_shape", "check_gemm", "check_panel", "check_dtypes", "parse_majors",
@@ -253,7 +258,7 @@ def _check_on_card(device: torch.device, operands: torch.dtype, a, b, other=None
     :func:`check_dtypes` finds A and B of the wrapper's ``operands`` dtype
     (``TypeError``)."""
     for name, t in (("a", a), ("b", b), ("acc/panel", other)):
-        if t is not None and (not t.is_cuda or t.device != device):
+        if t is not None and (not on_card(t) or t.device != device):
             raise ValueError(f"{name} must be a CUDA tensor on {device}, got {t.device}")
     if check_dtypes(a, b, other, out_dtype) != operands:
         raise TypeError(f"this kernel takes {operands} operands, got {a.dtype}")
@@ -275,6 +280,9 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor | None = None,
     _check_on_card(a.device, torch.float32, a, b, acc, out_dtype)
     out = torch.empty((N, M) if c_trans else (M, N), dtype=torch.float32, device=a.device)
     if M == 0 or N == 0:
+        return out
+    if is_fake(a):
+        _report("layout_gemm_kernel", a, b, acc, out, M, N, K)
         return out
     lib = load_library()
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -303,6 +311,9 @@ def gemm_panel_cuda(a: torch.Tensor, b: torch.Tensor, panel: torch.Tensor, jb, *
     jb_dev, jb_host = _jb_arg(jb, a.device)
     if M == 0:
         return panel
+    if is_fake(a):
+        _report("layout_gemm_panel_kernel", a, b, panel, panel, M, N, K, jb=jb)
+        return panel
     lib = load_library()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     ldp = panel.shape[1]
@@ -322,8 +333,23 @@ def _jb_arg(jb, device: torch.device) -> tuple[int | None, int]:
         if jb.device != device or jb.dtype != torch.int32 or jb.numel() != 1:
             raise ValueError(f"jb must be one int32 on {device}, got {jb.dtype} "
                              f"{tuple(jb.shape)} on {jb.device}")
-        return jb.data_ptr(), 0
+        return (None if is_fake(jb) else jb.data_ptr()), 0
     return None, int(jb)
+
+
+def _report(kernel: str, a, b, acc, out, M: int, N: int, K: int, jb=None) -> None:
+    """A fake call's report of its launch: A and B (and acc, or the panel's
+    block) read, the output (or the panel) written, and the GEMM kernels'
+    work (:func:`repro_torch.kernels.work.gemm_work`): a panel call reads
+    and writes its one (M, N) block."""
+    other = 4 if acc is None else acc.element_size()
+    flops, nbytes = gemm_work(M, N, K, acc=acc is not None, dtype=a.dtype,
+                              out_bytes=out.element_size(), acc_bytes=other)
+    kind = "split_tf32" if a.dtype == torch.float32 else a.dtype
+    seconds = peak_seconds(2 * M * N * K, kind) + peak_seconds(M * N if acc is not None else 0,
+                                                               torch.float32)
+    report(kernel, (a, b, acc, jb if isinstance(jb, torch.Tensor) else None), (out,),
+           (flops, nbytes, seconds))
 
 
 def gemm_bf16_cuda(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor | None = None, *,
@@ -338,6 +364,9 @@ def gemm_bf16_cuda(a: torch.Tensor, b: torch.Tensor, acc: torch.Tensor | None = 
     out_dtype = out_dtype or a.dtype
     out = torch.empty((N, M) if c_trans else (M, N), dtype=out_dtype, device=a.device)
     if M == 0 or N == 0:
+        return out
+    if is_fake(a):
+        _report("layout_gemm_bf16_kernel", a, b, acc, out, M, N, K)
         return out
     lib = load_bf16_library()
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -369,6 +398,9 @@ def gemm_panel_bf16_cuda(a: torch.Tensor, b: torch.Tensor, panel: torch.Tensor, 
     _check_on_card(a.device, torch.bfloat16, a, b, panel)
     jb_dev, jb_host = _jb_arg(jb, a.device)
     if M == 0:
+        return panel
+    if is_fake(a):
+        _report("layout_gemm_panel_bf16_kernel", a, b, panel, panel, M, N, K, jb=jb)
         return panel
     lib = load_bf16_library()
     stream = torch.cuda.current_stream(a.device).cuda_stream

@@ -6,8 +6,10 @@ Each op picks an implementation:
     ``kernels/relayout.py``),
   * ``impl="ref"``  — the plain PyTorch version (``kernels/ref.py``).
 
-The default follows the operands' device: the kernel for CUDA tensors, the
-plain version for CPU tensors.  A CUDA tensor never falls back to the plain
+The default follows the operands' device: the kernel for CUDA tensors (and
+for the fake tensors of a trace of the card's program,
+:func:`repro_torch.kernels.fake.on_card`), the plain version for CPU
+tensors.  A CUDA tensor never falls back to the plain
 version: the kernel launches or raises.
 """
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import ref as _ref
+from .fake import on_card
 from .flash_attention import (check_attention, check_carry, flash_attention_carry_cuda,
                               flash_attention_cuda)
 from .flash_decode import check_decode, flash_decode_cuda
@@ -32,7 +35,7 @@ RECOMPUTE_RANGE = "attn.recompute"
 
 
 def default_impl(x: torch.Tensor) -> str:
-    return "cuda" if x.is_cuda else "ref"
+    return "cuda" if on_card(x) else "ref"
 
 
 def gemm(a, b, acc=None, *, majors: str = "I/I/K", impl: str | None = None, out_dtype=None):

@@ -22,7 +22,9 @@ import math
 import torch
 
 from . import build
+from .fake import is_fake, on_card, report
 from .flash_attention import refuse_grad
+from .work import transpose_work
 
 __all__ = ["transpose_cuda", "check_transpose", "load_library"]
 
@@ -58,7 +60,7 @@ def transpose_cuda(x: torch.Tensor) -> torch.Tensor:
     """``(..., M, N) -> (..., N, M)`` on the card, contiguous, bitwise; a
     non-contiguous ``x`` is made contiguous first."""
     refuse_grad("transpose_kernel", x=x)
-    if not x.is_cuda:
+    if not on_card(x):
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.element_size() not in ELEMENT_SIZES:
         raise TypeError(f"the kernel moves elements of {ELEMENT_SIZES} bytes, got {x.dtype}")
@@ -68,6 +70,9 @@ def transpose_cuda(x: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     x = x.contiguous()
+    if is_fake(x):  # stands for the launch (kernels/fake.py)
+        report("transpose_kernel", (x,), (out,), transpose_work(x.numel(), x.element_size()))
+        return out
     lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.transpose_fwd(x.data_ptr(), out.data_ptr(), x.element_size(), batch, M, N, stream)

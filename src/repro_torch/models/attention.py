@@ -62,6 +62,7 @@ import torch
 from repro_torch.core.p2p import shard_ring_shift_start
 from repro_torch.core.plan import ring
 from repro_torch.kernels import ops
+from repro_torch.kernels.fake import is_fake
 from repro_torch.kernels.ref import NEG_INF
 
 from .module import pspec
@@ -295,14 +296,15 @@ def gqa_attention(p, x, *, n_heads: int, n_kv: int, head_dim: int, rope_theta: f
                   positions=None, cache: KVCache | None = None, causal: bool = True,
                   attn_impl: str | None = None, block: int = 512, new_counts=None,
                   prefill: bool = False, idle_read_chunk: bool | None = None,
-                  seq_len: int | None = None):
+                  seq_len: int | None = None, sp_ring_double_buffer: bool = True):
     """x (B,S,m) -> (B,S,m).  ``cache`` switches to decode mode.
 
     Under an active ``sp_ring`` recipe over R ranks of ``model``, the
     full-sequence path runs :func:`_ring_attention_local`: ``x`` is then
     this rank's chunk of a sequence padded to R chunks, ``positions`` its
     absolute positions and ``seq_len`` the sequence's valid length (keys
-    past it are padding).
+    past it are padding); ``sp_ring_double_buffer=False`` runs the ring's
+    blocking form (bitwise the same).
 
     Decode takes multi-token chunks (S >= 1) with per-row state:
     ``positions`` may be (B,S) absolute positions and ``new_counts`` (B,)
@@ -342,7 +344,7 @@ def gqa_attention(p, x, *, n_heads: int, n_kv: int, head_dim: int, rope_theta: f
     if _ring_applicable(recipe, q, k):
         R = recipe.mesh.shape["model"]
         o = _ring_attention_local(q, k, v, mesh=recipe.mesh, axis_name="model", causal=causal,
-                                  double_buffer=True,
+                                  double_buffer=sp_ring_double_buffer,
                                   valid_len=seq_len if seq_len not in (None, R * S) else None,
                                   impl=attn_impl)
         return _out_proj(o, p["wo"]), None
@@ -512,7 +514,13 @@ def idle_rows_read_chunk(length: torch.Tensor, new_counts: torch.Tensor, T: int,
     """Whether an idle row (count 0) of a decode step would read its own
     chunk in the reference, which writes it: a row that sees no key (then
     every key counts, as the mean of v) or whose clamped write start lies
-    below its visible length.  One host sync."""
+    below its visible length.  One host sync.
+
+    Fake tensors (the dry run's trace, ``FakeTensorMode``) hold no values
+    to read: there the answer is the dry run's state's, in which every row
+    is live, so no idle row reads its chunk (``False``)."""
+    if is_fake(new_counts):
+        return False
     length = length.long()
     seen = torch.clamp(length, max=T)
     start = torch.clamp(length % T, max=T - S)

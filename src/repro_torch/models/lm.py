@@ -101,7 +101,8 @@ from .sharding import (current_recipe, decode_state_shardings, gather_cut, local
                        placement, recipe_pspecs, token_shard)
 
 __all__ = ["build_specs", "count_params", "embed_inputs", "lm_logits", "forward", "loss_fn",
-           "DecodeState", "init_cache", "decode_step", "init_model", "hybrid_dims", "vlm_dims"]
+           "DecodeState", "init_cache", "decode_step", "init_model", "abstract_model",
+           "hybrid_dims", "vlm_dims"]
 
 _FAMILIES = ("dense", "moe", "mla", "vlm", "ssm", "hybrid", "audio")
 
@@ -865,3 +866,26 @@ def init_model(cfg, generator: torch.Generator, *, device="cuda") -> dict:
     """Seeded random float32 parameters on ``device`` (``generator`` on the
     same device)."""
     return init_params(build_specs(cfg), generator, resolve_device(device))
+
+
+def abstract_model(cfg, *, recipe=None, device="cuda") -> dict:
+    """Uninitialized parameters in this rank's shapes (the reference's
+    ``abstract_model``): each leaf an empty tensor of its whole shape, or
+    under ``recipe`` of this rank's shard (the shape
+    ``weights.shard_params_by_recipe`` cuts, from
+    :meth:`repro_torch.models.sharding.Recipe.param_pspecs`; nothing whole
+    is made and sliced).  Under the caller's ``FakeTensorMode`` nothing is
+    allocated: the dry run's parameters, whose bytes are this rank's
+    shards' alone."""
+    dev = resolve_device(device)
+    specs = build_specs(cfg)
+    pspecs = None if recipe is None else recipe_pspecs(recipe, specs)
+
+    def leaf(spec, pspec):
+        if isinstance(spec, dict):
+            return {k: leaf(spec[k], None if pspec is None else pspec[k]) for k in sorted(spec)}
+        shape = spec.shape if pspec is None else local_shape(spec.shape, pspec, recipe.mesh)
+        return torch.empty(shape, dtype=spec.dtype, device=dev)
+
+    return leaf(specs, pspecs)
+

@@ -102,14 +102,16 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(tree, leaves):
     """A tree shaped like ``tree`` whose leaves are ``leaves``, taken in
     :func:`tree_leaves` order."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
 
-    return build(tree)
+def _build(t, it):
+    # a module-level recursion: a recursive closure is a reference cycle
+    # that would keep ``leaves`` (a step's gradients) alive until the
+    # cyclic garbage collector runs
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    return next(it)
 
 
 def stack_specs(tree, num: int, dim: str = "l"):

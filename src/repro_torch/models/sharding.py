@@ -62,6 +62,7 @@ import torch
 from repro_torch.core.dims import mixed_radix_join
 from repro_torch.core.p2p import (shard_all_gather_start, shard_all_reduce_start,
                                   shard_reduce_scatter_start)
+from repro_torch.kernels.fake import on_card
 
 __all__ = ["Recipe", "make_recipe", "use_recipe", "current_recipe", "fit_spec",
            "ragged_seq_extents", "ragged_expert_extents", "ragged_grad_extents", "TokenShard",
@@ -350,7 +351,7 @@ def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     or when a gradient is wanted, a product of float32 upcasts (exact:
     the product of two bf16 values is exact in float32)."""
     w = w.to(x.dtype)
-    if x.is_cuda and x.dtype != torch.float32 and not (
+    if on_card(x) and x.dtype != torch.float32 and not (
             torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
         out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])

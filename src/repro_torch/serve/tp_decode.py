@@ -13,10 +13,13 @@ Per decode step and layer, this rank's rows of the batch are split into
 FFN) produces a *partial* output on this rank's head (or ``d_ff``) shard and
 issues its tensor-parallel ``Iallreduce`` over ``model``; because the
 microbatches are mutually independent, microbatch ``i``'s reduction
-completes behind microbatch ``i+1``'s compute.  With ``microbatches=1``
-every reduction lands on the critical path (the negative control).  The
-token embedding is a gather from this rank's vocab shard plus an all-reduce
-with exactly one nonzero addend, bitwise the plain lookup; the head is
+completes behind microbatch ``i+1``'s compute, and each microbatch's
+reduction is waited only where the next stage (the FFN, the next layer's
+attention) first reads it, so the last microbatch's completes behind the
+next stage's compute of the ones before it (:func:`stagger`).  With ``microbatches=1`` every reduction lands on the critical
+path (the negative control).  The token embedding is, per microbatch, a
+gather from this rank's vocab shard plus an all-reduce with exactly one
+nonzero addend, bitwise the plain lookup, staggered the same way; the head is
 vocab-sharded, and its logits come back with one ``Iallgather`` along the
 vocab over ``model`` and one along the batch over ``data``, so that every
 rank (each runs the same engine loop) holds every slot's logits.  The
@@ -77,6 +80,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.p2p import shard_all_gather_start, shard_all_reduce_start
 from repro_torch.core.plan import intent_of, stagger
+from repro_torch.core.request import Pending
 from repro_torch.models import lm
 from repro_torch.models.attention import (KVCache, _cache_update, _project, apply_rope,
                                           attention_decode, rope_angles)
@@ -204,15 +208,25 @@ def make_tp_decode_step(cfg, mesh, *, slots: int, microbatches: int = 2,
         return shard_all_reduce_start(part, "model", mesh=mesh)
 
     def embed(params, batch, pos2d):
+        """The embedding of every microbatch, as requests: the frames plus
+        sinusoidal positions (no transfer), or each microbatch's local
+        vocab-shard gather with its all-reduce (one nonzero addend) in
+        flight, staggered like the blocks' reductions."""
         if embeds_in:  # the frames plus sinusoidal positions, in the activation dtype
-            return (batch["embeds"][rows_d].to(act_dt)
-                    + lm._sinusoidal(pos2d, cfg.d_model).to(act_dt))
-        # local vocab-shard gather + an all-reduce with one nonzero addend
-        loc = batch["tokens"][rows_d] - v0
-        ok = (loc >= 0) & (loc < vl)
-        e = params["embed"].to(act_dt)[loc.clamp(0, vl - 1)]
-        e = torch.where(ok[..., None], e, torch.zeros((), dtype=act_dt, device=e.device))
-        return shard_all_reduce_start(e, "model", mesh=mesh).wait()
+            x = (batch["embeds"][rows_d].to(act_dt)
+                 + lm._sinusoidal(pos2d, cfg.d_model).to(act_dt))
+            return [Pending(lambda r=r: x[r], op="embed") for r in mbs]
+        tokens = batch["tokens"][rows_d]
+        table = params["embed"].to(act_dt)
+
+        def lookup(_c, _s, s):
+            loc = tokens[mbs[s]] - v0
+            ok = (loc >= 0) & (loc < vl)
+            e = table[loc.clamp(0, vl - 1)]
+            return torch.where(ok[..., None], e, torch.zeros((), dtype=act_dt, device=e.device))
+
+        return stagger(mb, transfer=reduce, compute=lookup).run(
+            None, None, double_buffer=double_buffer)
 
     def step(params, state, batch, active):
         caches = state.caches
@@ -224,8 +238,26 @@ def make_tp_decode_step(cfg, mesh, *, slots: int, microbatches: int = 2,
         positions = state.positions[rows_d]
         pos2d = positions[:, None] + torch.arange(S, dtype=positions.dtype,
                                                   device=positions.device)[None, :]
-        x = embed(params, batch, pos2d)
-        xs = [x[r] for r in mbs]
+        # each microbatch's last stage in flight, with the epilogue its sum
+        # takes before it enters the microbatch's stream: a stage's compute
+        # of microbatch s first settles s's previous stage, so that transfer
+        # lands behind the compute of the microbatches before s
+        inflight = [(req, lambda d: d) for req in embed(params, batch, pos2d)]
+        xs: list = [None] * mb
+
+        def settle(s):
+            req, epilogue = inflight[s]
+            d = epilogue(req.wait())
+            xs[s] = d if xs[s] is None else xs[s] + d
+
+        def run_stage(part, epilogue):
+            def compute(_c, _s, s):
+                settle(s)
+                return part(s)
+
+            reqs = stagger(mb, transfer=reduce, compute=compute).run(
+                None, None, double_buffer=double_buffer)
+            inflight[:] = [(req, epilogue) for req in reqs]
 
         blocks = params["blocks"]
         for l in range(cfg.n_layers):
@@ -236,7 +268,7 @@ def make_tp_decode_step(cfg, mesh, *, slots: int, microbatches: int = 2,
             kc = caches.k[l, rows_kv, groups_kv]  # this rank's block, a view
             vc = caches.v[l, rows_kv, groups_kv]
 
-            def attn_compute(_c, _s, s, p=p, ln1=ln1, length=length, kc=kc, vc=vc):
+            def attn_part(s, p=p, ln1=ln1, length=length, kc=kc, vc=vc):
                 r = mbs[s]
                 xn = rmsnorm(ln1, xs[s])
                 q, k, v = _project(xn, p["wq"]), _project(xn, p["wk"]), _project(xn, p["wv"])
@@ -256,35 +288,32 @@ def make_tp_decode_step(cfg, mesh, *, slots: int, microbatches: int = 2,
                 return _partial(o.transpose(1, 2).reshape(B_, S_, h * d),
                                 p["wo"].reshape(h * d, -1))
 
-            attn = stagger(mb, transfer=reduce, compute=attn_compute,
-                           epilogue=lambda done, _s: [d.to(act_dt) for d in done],
-                           ).run(None, None, double_buffer=double_buffer)
-            xs = [xs[s] + attn[s] for s in range(mb)]
+            run_stage(attn_part, lambda d: d.to(act_dt))
 
             if cfg.ffn_kind == "gelu":
-                def ffn_compute(_c, _s, s, f=f, ln2=ln2):
+                def ffn_part(s, f=f, ln2=ln2):
                     xn = rmsnorm(ln2, xs[s])
                     h = F.gelu(torch.matmul(xn, f["w_in"].to(xn.dtype)) + f["b_in"].to(xn.dtype),
                                approximate="tanh")
                     return _partial(h, f["w_out"])
 
-                def ffn_epilogue(done, _s, f=f):
+                def ffn_epilogue(d, f=f):
                     # round the float32 sum once, then add the replicated bias
-                    return [d.to(act_dt) + f["b_out"].to(act_dt) for d in done]
+                    return d.to(act_dt) + f["b_out"].to(act_dt)
             else:
-                def ffn_compute(_c, _s, s, f=f, ln2=ln2):
+                def ffn_part(s, f=f, ln2=ln2):
                     xn = rmsnorm(ln2, xs[s])
                     g = torch.matmul(xn, f["w_gate"].to(xn.dtype))
                     u = torch.matmul(xn, f["w_up"].to(xn.dtype))
                     return _partial(F.silu(g) * u, f["w_down"])
 
-                def ffn_epilogue(done, _s):
-                    return [d.to(act_dt) for d in done]
+                def ffn_epilogue(d):
+                    return d.to(act_dt)
 
-            ffn = stagger(mb, transfer=reduce, compute=ffn_compute, epilogue=ffn_epilogue,
-                          ).run(None, None, double_buffer=double_buffer)
-            xs = [xs[s] + ffn[s] for s in range(mb)]
+            run_stage(ffn_part, ffn_epilogue)
 
+        for s in range(mb):
+            settle(s)
         xn = rmsnorm(params["final_norm"], torch.cat(xs, dim=0))
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         # vocab-sharded head: each rank's logit columns are full dots

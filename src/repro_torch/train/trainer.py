@@ -58,7 +58,8 @@ from .buckets import assign_buckets, pack_bucket, unpack_bucket
 from .optimizer import (OptConfig, OptState, _clip_scale, _step_scalars, adamw_leaf_update,
                         apply_updates, compress_leaf, lr_at_step)
 
-__all__ = ["make_train_step", "make_eval_step", "make_zero_train_step", "make_zero_update",
+__all__ = ["make_train_step", "make_eval_step", "make_serve_step", "make_zero_train_step",
+           "make_zero_update",
            "ZERO_TRAIN_PLAN_INTENT", "OPTIMIZER_RANGE", "zero_train_buckets"]
 
 # the declared overlap intent of the bucketed gradient schedule
@@ -178,6 +179,18 @@ def make_eval_step(cfg, recipe):
     return eval_step
 
 
+def make_serve_step(cfg, recipe):
+    """``serve_step(params, state, batch) -> (logits, new_state)``: one
+    :func:`repro_torch.models.lm.decode_step` under ``recipe``, without a
+    gradient (the reference's ``make_serve_step``; the dry run's decode
+    program)."""
+    def serve_step(params, state, batch):
+        with use_recipe(recipe), torch.no_grad():
+            return lm.decode_step(params, state, batch, cfg)
+
+    return serve_step
+
+
 # ====================================================== explicit ZeRO step ====
 
 def zero_train_buckets(cfg, *, bucket_bytes: int, ranks: int):
@@ -211,7 +224,6 @@ def make_zero_update(cfg, mesh, ocfg: OptConfig, *, bucket_bytes: int = 4 << 20,
         ridx = mesh.coords()["data"]
         p_leaves = tree_leaves(params)
         g_leaves = tree_leaves(grads)
-        packs = [pack_bucket(g_leaves, b) for b in buckets]
         step = opt_state.step + 1
         lr, b1c, b2c = _step_scalars(step, ocfg)
         # the shard-local optimizer state the stages write, and the norm
@@ -221,8 +233,10 @@ def make_zero_update(cfg, mesh, ocfg: OptConfig, *, bucket_bytes: int = 4 << 20,
         norm_cell: list = [None]
 
         def transfer(_state, s):
-            return shard_reduce_scatterv_start(packs[s], "data", extents=buckets[s].extents,
-                                               mesh=mesh)
+            # each bucket packed as it is issued: the packing of bucket s + 1
+            # runs while bucket s is in flight
+            return shard_reduce_scatterv_start(pack_bucket(g_leaves, buckets[s]), "data",
+                                               extents=buckets[s].extents, mesh=mesh)
 
         def reduce(arrived):
             # the mean gradient on this rank's shards (int8 error feedback

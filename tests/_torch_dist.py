@@ -1602,3 +1602,39 @@ def vcollective_properties_family(*, cases) -> dict:
         np, L, C, dt, views, raw, lambda b: b.data.numpy(),
         lambda buf, layout: C.DistBag(torch.from_numpy(buf[me].copy()), layout, dt, ("R",)),
         cases)
+
+
+def walk_train_step(*, grid, seq, batch) -> dict:
+    """One training step of phi4-mini's smoke config under the auto recipe
+    on a ``(data, model)`` mesh of this gloo world, real weights (this
+    rank's shards), walked op by op (``repro_torch.launch.op_walk``): the
+    op names in issue order, the collectives and the operation and byte
+    counts, for the dry run's fake trace to be held against."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import make_mesh
+    from repro_torch.data.pipeline import ShapeCell, make_batch
+    from repro_torch.launch.op_walk import OpWalk
+    from repro_torch.models import lm
+    from repro_torch.models.sharding import make_recipe
+    from repro_torch.models.weights import shard_params_by_recipe
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = configs.get("phi4-mini-3.8b", smoke=True)
+    mesh = make_mesh(grid, ("data", "model"), device="cpu")
+    recipe = make_recipe(cfg, mesh)
+    params = shard_params_by_recipe(lm.init_model(cfg, torch.Generator().manual_seed(0),
+                                                  device="cpu"), lm.build_specs(cfg), recipe)
+    data = {k: torch.from_numpy(v) for k, v in
+            make_batch(cfg, ShapeCell("t", seq, batch, "train"), 0).items()}
+    ocfg = OptConfig()
+    step = make_train_step(cfg, recipe, ocfg)
+    opt = init_opt_state(params, ocfg)
+    with OpWalk() as walk:
+        step(params, opt, data)
+    st = walk.stats()
+    return {"names": [op.name for op in walk.stream.ops], "flops": st.flops, "bytes": st.bytes,
+            "collectives": [(c.kind, c.bytes, c.ranks) for c in st.collectives],
+            "peak_live_bytes": st.peak_live_bytes}

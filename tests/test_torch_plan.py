@@ -178,8 +178,10 @@ def test_plan_agreement_helper():
 
 def test_stagger_executor_round_robin_issue_wait_placement():
     """Double-buffered issues EVERY step's transfer before any wait (the
-    whole wave in flight); blocking completes each step before the next
-    begins.  The results are identical: the steps share no state."""
+    whole wave in flight) and hands back the requests for the caller to
+    wait; blocking completes each step before the next begins, and its
+    requests come back completed.  The results are identical: the steps
+    share no state.  A stagger plan takes no epilogue."""
     assert tplan.intent_of("stagger") == "overlapped"
     trace: list = []
 
@@ -188,7 +190,8 @@ def test_stagger_executor_round_robin_issue_wait_placement():
 
         class Traced(Pending):
             def wait(self2):
-                trace.append(("wait", s))
+                if not self2._done:
+                    trace.append(("wait", s))
                 return Pending.wait(self2)
 
         return Traced(lambda: v * 10)
@@ -198,10 +201,14 @@ def test_stagger_executor_round_robin_issue_wait_placement():
         return s + 1
 
     plan = tplan.stagger(3, transfer=transfer, compute=compute)
-    done_db = plan.run(None, None)
+    pends = plan.run(None, None)
+    assert not any(p._done for p in pends)
+    done_db = [p.wait() for p in pends]
     order_db = list(trace)
     trace.clear()
-    done_bl = plan.run(None, None, double_buffer=False)
+    pends = plan.run(None, None, double_buffer=False)
+    assert all(p._done for p in pends)
+    done_bl = [p.wait() for p in pends]
     order_bl = list(trace)
 
     assert done_db == [10, 20, 30] == done_bl
@@ -211,6 +218,8 @@ def test_stagger_executor_round_robin_issue_wait_placement():
     assert order_bl == [("comp", 0), ("xfer", 0), ("wait", 0),
                         ("comp", 1), ("xfer", 1), ("wait", 1),
                         ("comp", 2), ("xfer", 2), ("wait", 2)]
+    with pytest.raises(ValueError, match="stagger plan has no epilogue"):
+        tplan.CommPlan("stagger", 2, transfer, compute, epilogue=lambda d, s: d)
 
 
 def test_bucket_plan_intent_and_validation():
@@ -232,7 +241,8 @@ def test_bucket_plan_intent_and_validation():
 def test_bucket_executor_issue_wait_placement_and_identity():
     """The ZeRO bucket schedule: double-buffered puts EVERY bucket's
     reduce-scatter in flight before any wait, runs the one cross-bucket
-    reduce, then each bucket's compute, then issues every all-gather before
+    reduce (which waits each bucket, once, where it first reads it), then
+    each bucket's compute, then issues every all-gather before
     waiting; blocking starts and waits each leg back to back through the
     same issue path.  The folded values are identical."""
     trace: list = []
@@ -270,10 +280,11 @@ def test_bucket_executor_issue_wait_placement_and_identity():
 
     # arrived = [1, 2, 3] -> gval = 6 -> results [601, 602, 603], both modes
     assert done_db == [601, 602, 603] == done_bl
+    # the reduce stage waits each bucket where it first reads it, in order
     assert order_db == [
         ("xfer", 0), ("xfer", 1), ("xfer", 2),
-        ("xwait", 0), ("xwait", 1), ("xwait", 2),
         ("reduce",),
+        ("xwait", 0), ("xwait", 1), ("xwait", 2),
         ("comp", 0), ("comp", 1), ("comp", 2),
         ("cissue", 0), ("cissue", 1), ("cissue", 2),
         ("cwait", 0), ("cwait", 1), ("cwait", 2),
