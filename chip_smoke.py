@@ -1307,10 +1307,12 @@ def _instrument(engine, record_gaps: bool, fd):
             fd.flash_decode_cuda.launches - before
         stats["peak_occupancy"] = max(stats["peak_occupancy"], engine.ledger.valid_fraction())
         if prefill and stats["first_prefill"] is None:
-            stats["first_prefill"] = {i: logits[i, n - 1].clone()
+            last = engine.last_logits(logits, counts, prefill=True)
+            stats["first_prefill"] = {i: last[i].clone()
                                       for i, n in enumerate(counts.tolist()) if n > 0}
         if record_gaps and not prefill:
-            top2 = logits[:, -1, :engine.cfg.vocab].float().topk(2, dim=-1).values
+            last = engine.last_logits(logits, counts, prefill=False)
+            top2 = last[:, :engine.cfg.vocab].float().topk(2, dim=-1).values
             gaps = (top2[:, 0] - top2[:, 1]).tolist()
             for i, key in owners.items():
                 stats["gaps"][key] = gaps[i]
@@ -1524,7 +1526,7 @@ def recipe_forward(cfg, params, lm, fa, mesh, sharding, shard_params_by_recipe) 
         shards = shard_params_by_recipe(params, specs, recipe)
         fa.flash_attention_cuda.launches = 0
         with sharding.use_recipe(recipe):
-            got = lm.forward(shards, batch, cfg)[0]
+            got = lm.gather_logits(lm.forward(shards, batch, cfg)[0], recipe, 1)
         torch.cuda.synchronize()
         launches = fa.flash_attention_cuda.launches
         if launches != cfg.n_layers:
@@ -3313,7 +3315,7 @@ def recurrent_recipe_forward(cfg, params, lm, fa, mesh, sharding, shard_params_b
         shards = shard_params_by_recipe(params, specs, recipe)
         fa.flash_attention_cuda.launches = fa.flash_attention_carry_cuda.launches = 0
         with sharding.use_recipe(recipe):
-            got = lm.forward(shards, batch, cfg)[0]
+            got = lm.gather_logits(lm.forward(shards, batch, cfg)[0], recipe, 1)
         torch.cuda.synchronize()
         launches = (fa.flash_attention_cuda.launches, fa.flash_attention_carry_cuda.launches)
         expected = (0, n_shared) if mode == "sp_ring" else (n_shared, 0)
@@ -3908,7 +3910,7 @@ def latent_recipe_forward(cfg, params, lm, fa, mesh, sharding, shard_params_by_r
         fa.flash_attention_cuda.launches = fa.flash_attention_carry_cuda.launches = 0
         with sharding.use_recipe(recipe), warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            got = lm.forward(shards, batch, cfg)[0]
+            got = lm.gather_logits(lm.forward(shards, batch, cfg)[0], recipe, 1)
         torch.cuda.synchronize()
         fell_back = sum("falling back" in str(w.message) for w in caught)
         launches = (fa.flash_attention_cuda.launches, fa.flash_attention_carry_cuda.launches)
@@ -4249,14 +4251,16 @@ def vlm_prompts(cfg) -> list[list[int]]:
             for _ in range(VLM_ROWS)]
 
 
-def vlm_generate(cfg, params, lm, fd, fa, prompts, image, impl) -> dict:
+def vlm_generate(cfg, params, lm, fd, fa, prompts, image, impl, recipe=None) -> dict:
     """The VLM served through ``lm.init_cache`` and ``lm.decode_step``, the
     way the reference's own test drives it: every row's prompt but its last
     token as one whole-prompt chunk (``prefill=True``, padded to a power of
     two, ``new_counts`` the rows' lengths), then VLM_NEW_TOKENS greedy steps
     of one token a row, each row with its own image every step.  Returns the
     tokens, each step's top-2 logit gaps, the launches of both kernels per
-    step kind, seconds, and a function that runs one more decode step."""
+    step kind, seconds, and a function that runs one more decode step.
+    Under ``recipe`` (active around the call) each step's sampled position
+    is gathered from the rank's block (``lm.last_logits``)."""
     c = dataclasses.replace(cfg, attn_impl=impl)
     B = len(prompts)
     state = lm.DecodeState(lm.init_cache(c, B, MAX_LEN, device=DEVICE),
@@ -4293,7 +4297,7 @@ def vlm_generate(cfg, params, lm, fd, fa, prompts, image, impl) -> dict:
         (logits, state), dt = counted("decode", lambda: lm.decode_step(
             params, state, {"tokens": tok, "image_embeds": image}, c, new_counts=ones))
         decode_s += dt
-        top2 = logits[:, -1, :cfg.vocab].float().topk(2, dim=-1)
+        top2 = lm.last_logits(logits, ones, recipe)[:, :cfg.vocab].float().topk(2, dim=-1)
         last = top2.indices[:, 0].tolist()
         for r, gap in enumerate((top2.values[:, 0] - top2.values[:, 1]).tolist()):
             gaps[(r, len(prompts[r]) + j)] = gap
@@ -4305,7 +4309,7 @@ def vlm_generate(cfg, params, lm, fd, fa, prompts, image, impl) -> dict:
         logits, holder["state"] = lm.decode_step(params, holder["state"],
                                                  {"tokens": tok, "image_embeds": image}, c,
                                                  new_counts=ones)
-        holder["last"] = logits[:, -1, :cfg.vocab].argmax(-1).tolist()
+        holder["last"] = lm.last_logits(logits, ones, recipe)[:, :cfg.vocab].argmax(-1).tolist()
 
     return dict(done=out, gaps=gaps, launches={k: sorted(v) for k, v in launches.items()},
                 prefill_s=prefill_s, decode_s=decode_s, chunk=S, step=step)
@@ -4521,7 +4525,7 @@ def family_recipe_forward(cfg, params, lm, ops, fa, mesh, sharding, shard_params
         shards = shard_params_by_recipe(params, specs, recipe)
         fa.flash_attention_cuda.launches = fa.flash_attention_carry_cuda.launches = 0
         with sharding.use_recipe(recipe), attention_calls(ops) as calls:
-            got = lm.forward(shards, batch, cfg)[0]
+            got = lm.gather_logits(lm.forward(shards, batch, cfg)[0], recipe, 1)
         torch.cuda.synchronize()
         ring = mode == "sp_ring"
         launches = dict(flash_attention=dict(calls.counts),
@@ -4587,7 +4591,7 @@ def vlm_recipe_decode(cfg, params, lm, fd, fa, mesh, sharding, shard_params_by_r
     recipe = sharding.make_recipe(cfg, mesh, attn_mode="tp")
     shards = shard_params_by_recipe(params, lm.build_specs(cfg), recipe)
     with sharding.use_recipe(recipe):
-        run = vlm_generate(cfg, shards, lm, fd, fa, prompts, image, None)
+        run = vlm_generate(cfg, shards, lm, fd, fa, prompts, image, None, recipe)
     want = {kind: [(n_cross * group_self, n_cross)] for kind in ("prefill", "decode")}
     if run["launches"] != want:
         raise AssertionError(f"vlm recipe decode launches (flash_decode, flash_attention) a "

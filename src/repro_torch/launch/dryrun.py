@@ -207,6 +207,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False, attn_mode
         "trace_seconds": round(trace_s, 1),
         "ops": st.n_ops,
         "memory": mem,
+        "largest_storage_bytes": st.largest_storage_bytes,
         "cost": {"flops": st.flops, "bytes accessed": st.bytes},
         "kernel_launches": st.kernel_launches,
         "roofline": rep.to_json(),

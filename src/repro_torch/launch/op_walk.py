@@ -39,7 +39,8 @@ it needs no loop trip counts and multiplies nothing.  From the stream it gives:
     through copies and other collectives, as the reference's reach does;
   * ``peak_live_bytes`` — the peak of the bytes of the storages allocated
     during the walk and still alive (each rounded up to the CUDA caching
-    allocator's 512-byte block), above what was live at its entry;
+    allocator's 512-byte block), above what was live at its entry, and
+    ``largest_storage_bytes``, the largest of those storages;
   * ``kernel_launches`` — the port's kernels launched, by name.
 
 Kinds of collective (``c10d`` ops): ``allreduce_`` is an all-reduce;
@@ -158,6 +159,7 @@ class OpStream:
     ops: list = dataclasses.field(default_factory=list)
     collectives: list = dataclasses.field(default_factory=list)
     peak_live_bytes: int = 0
+    largest_storage_bytes: int = 0
     kernel_launches: dict = dataclasses.field(default_factory=dict)
 
     def add(self, op: Op) -> int:
@@ -176,6 +178,7 @@ class OpStats:
     coll_by_op_valid: dict = dataclasses.field(default_factory=dict)  # payload, per kind
     collectives: list = dataclasses.field(default_factory=list)  # list[Collective]
     peak_live_bytes: int = 0
+    largest_storage_bytes: int = 0
     kernel_launches: dict = dataclasses.field(default_factory=dict)
     n_ops: int = 0
 
@@ -269,6 +272,7 @@ def analyze(stream: OpStream, *, valid_fractions: Mapping[str, float] | None = N
     fractions = _check_fractions(valid_fractions)
     _classify(stream)
     st = OpStats(peak_live_bytes=stream.peak_live_bytes,
+                 largest_storage_bytes=stream.largest_storage_bytes,
                  kernel_launches=dict(stream.kernel_launches), n_ops=len(stream.ops))
     for op in stream.ops:
         st.flops += op.flops
@@ -345,6 +349,7 @@ class OpWalk(TorchDispatchMode):
         if size:
             self._live += size
             self.stream.peak_live_bytes = max(self.stream.peak_live_bytes, self._live)
+            self.stream.largest_storage_bytes = max(self.stream.largest_storage_bytes, size)
         self._finalizers.append(weakref.finalize(st, self._dead, key, size))
         return sid
 

@@ -31,15 +31,23 @@ before the block, keeps the residual stream whole over ``model``, and
 runs its heads (``tp``) or its chunk of the queries (``sp``) and its
 block of the FFN's hidden columns, the partials summed over ``model``; the
 embedding and the head are vocab-sharded (a lookup whose all-reduce has one
-nonzero addend, and logits gathered over ``model`` and the batch axes), so
-every rank returns the whole ``(B, S, V)`` logits.  ``decode_step`` and
-:func:`init_cache` take the caches cut by ``decode_state_shardings``.
+nonzero addend, and the head's columns).  The logits stay cut as the
+recipe's ``logits`` spec cuts them
+(:func:`repro_torch.models.sharding.logits_spec`): every rank returns its
+rows' block of the vocab, ``(B_local, S, vocab_padded / M)``, and nothing
+on the training or serving path makes them whole (:func:`loss_fn` is
+vocab-parallel; serving gathers the sampled position alone,
+:func:`last_logits`); :func:`gather_logits` is for a caller that needs
+them whole.  ``decode_step`` and :func:`init_cache` take the caches cut by
+``decode_state_shardings``.
 Under ``sp_ring`` the forward is sequence-parallel: each rank keeps its
 contiguous, padded chunk of the residual stream (and its share of the
 batch over the ``data`` axes) through every block, and attention runs as
-the ``model``-axis ring, on whole weights (a cut leaf is gathered first).
-A MoE block routes the chunk by expert parallelism (``moe_dispatch="ep"``)
-where the recipe's grid fits, else by the whole grid's dispatch
+the ``model``-axis ring, on whole weights (a cut leaf is gathered first);
+its rows' final states are gathered over ``model`` alone, and the head
+makes the same block of the logits as under ``tp``.  A MoE block routes
+the chunk by expert parallelism (``moe_dispatch="ep"``) where the recipe's
+grid fits, else by the whole grid's dispatch
 (:func:`repro_torch.models.ffn.moe_ffn`).  The SSM and hybrid families
 run under every mode: under ``tp``/``sp`` their mixers by heads
 (:func:`repro_torch.models.ssm.rwkv6_mix_placed`,
@@ -92,17 +100,19 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.dist import resolve_device
+from repro_torch.core.p2p import shard_all_reduce_start
 
 from . import attention as attn_mod
 from . import blocks as blk
 from . import ssm as ssm_mod
 from .module import init_params, pspec, stack_specs, tree_map, tree_size
-from .sharding import (current_recipe, decode_state_shardings, gather_cut, local_shape,
-                       placement, recipe_pspecs, token_shard)
+from .sharding import (all_gather, all_reduce, batch_rows, current_recipe,
+                       decode_state_shardings, gather_cut, local_shape, logits_spec, placement,
+                       recipe_pspecs, spec_axes, sum_grads, token_shard)
 
 __all__ = ["build_specs", "count_params", "embed_inputs", "lm_logits", "forward", "loss_fn",
-           "DecodeState", "init_cache", "decode_step", "init_model", "abstract_model",
-           "hybrid_dims", "vlm_dims"]
+           "gather_logits", "last_logits", "DecodeState", "init_cache", "decode_step",
+           "init_model", "abstract_model", "hybrid_dims", "vlm_dims"]
 
 _FAMILIES = ("dense", "moe", "mla", "vlm", "ssm", "hybrid", "audio")
 
@@ -242,9 +252,11 @@ def forward(params, batch, cfg, *, positions=None):
     dense family).
 
     Under an active recipe every rank takes the whole batch and this
-    rank's shards of the parameters, and returns the whole ``(B, S, V)``
-    logits, the same on every rank; in between it computes only its own
-    part (:func:`_forward_placed`, :func:`_forward_sp_ring`)."""
+    rank's shards of the parameters, computes only its own part
+    (:func:`_forward_placed`, :func:`_forward_sp_ring`) and returns its
+    block of the logits, cut by
+    :func:`repro_torch.models.sharding.logits_spec` (:func:`gather_logits`
+    makes them whole), and the aux loss, the same on every rank."""
     recipe = current_recipe()
     if recipe is not None and recipe.sp_ring:
         return _forward_sp_ring(params, batch, cfg, recipe, positions)
@@ -331,10 +343,11 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
     R = |model| chunks of ``cap`` (:func:`ragged_seq_extents`) and this rank
     keeps chunk ``r``, at absolute positions ``r*cap + i`` for RoPE, through
     every block (the recipe's ``hidden`` spec: (B, model, None)); attention
-    is the ring, with the padded keys masked.  The final hidden states are
-    gathered along ``model`` and the batch axes, the padding dropped, and
-    the head applied to the whole (B, S, m) on every rank, so all ranks
-    return the same logits (and the same aux loss)."""
+    is the ring, with the padded keys masked.  The final norm runs on the
+    chunk; the rank's rows' normed states are gathered along ``model``
+    alone, the padding dropped, and the head makes the rank's block of the
+    logits (:func:`_head_sp_ring`).  Every rank returns the same aux
+    loss."""
     params = _whole(params, cfg, recipe)
     inputs = _input_of(batch, cfg)
     B, S = inputs.shape[:2]
@@ -367,8 +380,29 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
         for i in range(cfg.n_layers):
             x, _, a = block(_layer(blocks, i), x, cfg, shard=shard, **kw)
             aux = aux + a
-    return (lm_logits(params, shard.gather(x), cfg),
+    return (_head_sp_ring(params, x, cfg, recipe, shard),
             torch.as_tensor(aux, dtype=torch.float32, device=x.device))
+
+
+def _head_sp_ring(params, x, cfg, recipe, shard):
+    """This rank's block of the logits under ``sp_ring``
+    (:func:`repro_torch.models.sharding.logits_spec`) from its chunk ``x``
+    of the final states, on whole weights.  Where the recipe cuts ``v``,
+    each ``model`` rank applies its vocab block of the head to its rows'
+    whole sequence: the gather's cotangents are partials (reduce-scattered)
+    and the head's and the norm's gradients are summed over the ranks
+    (:meth:`TokenShard.partial`).  Otherwise every ``model`` rank applies
+    the whole head, the same work, so the head's gradient is summed over
+    the batch axes alone."""
+    mesh = recipe.mesh
+    x = blk.rmsnorm(shard.partial(params["final_norm"]), x)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if logits_spec(recipe, shard.B)[2] is None:
+        x = all_gather(x, mesh, "model", 1, split=False)[:, :shard.S]
+        return torch.matmul(x, sum_grads(head, mesh, shard.batch_axes).to(x.dtype))
+    vl = cfg.vocab_padded // mesh.shape["model"]
+    head = shard.partial(head).narrow(1, shard.chunk * vl, vl)
+    return torch.matmul(shard.gather_seq(x), head.to(x.dtype))
 
 
 # ======================================================== under a recipe ====
@@ -451,18 +485,18 @@ def _embed_placed(params, batch, cfg, place, pspecs, positions=None):
 
 
 def _head_placed(params, x, cfg, place, pspecs):
-    """The whole ``(B, S, vocab_padded)`` logits from this rank's rows:
-    each rank's vocab block of the head's columns (full dots), gathered
-    over ``model`` and then over the batch axes."""
+    """This rank's block of the ``(B, S, vocab_padded)`` logits
+    (:func:`repro_torch.models.sharding.logits_spec`) from its rows ``x``:
+    its vocab block of the head's columns (full dots) where the recipe cuts
+    ``v``, else all of them."""
     x = blk.rmsnorm(place.use(params["final_norm"], pspecs["final_norm"]), x)
     if cfg.tie_embeddings:
         head = place.use(params["embed"], pspecs["embed"]).T
     else:
         head = place.use(params["lm_head"], pspecs["lm_head"])
     if head.shape[1] == cfg.vocab_padded:
-        return place.gather_rows(torch.matmul(x, head.to(x.dtype)))
-    logits = torch.matmul(place.enter_model(x), head.to(x.dtype))
-    return place.gather_rows(place.gather_model(logits, 2))
+        return torch.matmul(x, head.to(x.dtype))
+    return torch.matmul(place.enter_model(x), head.to(x.dtype))
 
 
 def _forward_placed(params, batch, cfg, recipe, positions):
@@ -498,18 +532,93 @@ def loss_fn(params, batch, cfg):
     ``labels`` (B, S), the labels already shifted by the pipeline; the
     VLM's ``image_embeds``; an optional float ``loss_mask``).  Returns ``(loss,
     metrics)``: the loss a float32 scalar with its graph, the metrics
-    (``nll``, ``aux``, ``ppl_proxy``) detached float32 scalars."""
+    (``nll``, ``aux``, ``ppl_proxy``) detached float32 scalars.
+
+    Under an active recipe it is taken on this rank's block of the logits
+    (:func:`forward`), the reference's function on its cut array: where
+    the vocab is cut over ``model`` the log-sum-exp and the gold logit are
+    vocab-parallel (:func:`_vocab_parallel`), and the masked sum of the
+    rows' nll and their mask count are summed over the batch axes, so every
+    rank ends with the same loss.  Those sums are all-reduces whose
+    backward is the identity: each rank's backward gives the gradient of
+    its own block, once."""
     logits, aux = forward(params, batch, cfg)
     labels = batch["labels"].long()
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     mask = batch.get("loss_mask")
+    recipe = current_recipe()
+    spec = None
+    if recipe is not None:
+        spec = logits_spec(recipe, labels.shape[0])
+        _, row0, n_rows = batch_rows(recipe, labels.shape[0])
+        labels = labels.narrow(0, row0, n_rows)
+        mask = None if mask is None else mask.narrow(0, row0, n_rows)
+    logits = logits.float()
+    if spec is not None and spec[2] is not None:
+        logz, gold = _vocab_parallel(logits, labels, recipe.mesh)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     mask = torch.ones_like(logz) if mask is None else mask.float()
-    nll = ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    total, count = ((logz - gold) * mask).sum(), mask.sum()
+    axes = [] if spec is None else [a for a in spec_axes(spec[:1]) if recipe.mesh.shape[a] > 1]
+    if axes:
+        both = torch.stack([total, count])
+        for a in axes:
+            both = all_reduce(both, recipe.mesh, a)
+        total, count = both[0], both[1]
+    nll = total / torch.clamp(count, min=1.0)
     loss = nll + aux
     nll, aux = nll.detach(), aux.detach()
     return loss, {"nll": nll, "aux": aux, "ppl_proxy": torch.exp(torch.clamp(nll, max=20.0))}
+
+
+def _vocab_parallel(logits, labels, mesh):
+    """``(logz, gold)`` per row and position from this rank's float32 vocab
+    block ``logits`` (the ``model`` ranks' blocks in rank order, the padded
+    columns counted as the reference counts them): the block's row max
+    all-reduced with ``max`` and detached, ``sum exp(l - max)`` and the gold
+    logit (its owning rank's entry, zero on the others) summed over
+    ``model`` in one all-reduce whose backward is the identity."""
+    vl = logits.shape[-1]
+    mx = logits.detach().amax(dim=-1)
+    mx = shard_all_reduce_start(mx, "model", mesh=mesh, op="max").wait()
+    local = labels - mesh.coords()["model"] * vl
+    own = (local >= 0) & (local < vl)
+    gold = torch.gather(logits, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    gold = torch.where(own, gold, torch.zeros((), dtype=gold.dtype, device=gold.device))
+    parts = torch.stack([torch.exp(logits - mx[..., None]).sum(dim=-1), gold], dim=-1)
+    parts = all_reduce(parts, mesh, "model")
+    return mx + torch.log(parts[..., 0]), parts[..., 1]
+
+
+def gather_logits(logits, recipe, B: int):
+    """The whole ``(B, S, vocab_padded)`` logits from this rank's block
+    ``logits`` of a ``B``-row batch under ``recipe`` (what :func:`forward`
+    and :func:`decode_step` return under it; ``logits`` may be any slice of
+    the block's positions): gathered over the vocab's and the rows' axes of
+    :func:`repro_torch.models.sharding.logits_spec`, the same on every
+    rank.  ``logits`` as it is without a recipe.  For a caller that needs
+    the whole tensor; nothing on the training or serving path calls it on
+    the whole ``(B, S, V)``."""
+    if recipe is None:
+        return logits
+    return gather_cut(logits, logits_spec(recipe, B), recipe.mesh)
+
+
+def last_logits(logits, counts, recipe=None):
+    """``(B, vocab_padded)``: each row's logits at its last valid position,
+    ``counts[b] - 1`` (position 0 of an idle row, ``counts[b] == 0``), from
+    a step's logits and its whole ``counts`` (B,).  Under ``recipe``
+    ``logits`` is this rank's block: its rows' ``(B_local, 1, V / M)``
+    slice is gathered over ``model`` and the batch axes, the only whole
+    logits serving holds."""
+    B = counts.shape[0]
+    if recipe is not None:
+        _, row0, n_rows = batch_rows(recipe, B)
+        counts = counts.narrow(0, row0, n_rows)
+    pos = (counts.long() - 1).clamp(min=0).to(logits.device)
+    rows = torch.arange(pos.shape[0], device=logits.device)
+    return gather_logits(logits[rows, pos][:, None], recipe, B)[:, 0]
 
 
 # ================================================================ caching ====
@@ -650,8 +759,9 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     Under an active recipe ``params`` are this rank's shards and ``state``
     holds this rank's blocks of the caches and states
     (:func:`init_cache` under the recipe), with the lengths and positions
-    whole; ``batch`` and ``new_counts`` are whole, and so are the returned
-    logits, the same on every rank (:func:`_decode_placed`)."""
+    whole; ``batch`` and ``new_counts`` are whole, and the returned logits
+    are this rank's block, cut as :func:`forward`'s (:func:`_decode_placed`;
+    :func:`last_logits` gathers the positions a sampler reads)."""
     recipe = current_recipe()
     if recipe is not None:
         return _decode_placed(params, state, batch, cfg, recipe, new_counts, prefill)

@@ -24,9 +24,13 @@ reference's ``hidden`` spec): attention under ``tp`` runs the rank's heads
 and KV groups, under ``sp`` the rank's chunk of the queries against the
 whole K/V, the FFN runs the rank's ``f`` columns, and each block's float32
 partials are summed with one all-reduce over ``model``.  The head's
-logits come out vocab-sharded and are gathered.  The decode caches are cut
-by :func:`decode_state_shardings`: heads over ``model`` where the KV
-groups divide it, else the sequence.
+logits stay cut as the recipe's ``logits`` spec cuts them
+(:func:`logits_spec`): a rank holds its rows and its block of the vocab
+over ``model``, the loss is taken vocab-parallel on that block
+(:func:`repro_torch.models.lm.loss_fn`), and only a caller that needs the
+whole tensor gathers it (:func:`repro_torch.models.lm.gather_logits`).
+The decode caches are cut by :func:`decode_state_shardings`: heads over
+``model`` where the KV groups divide it, else the sequence.
 
 Under ``sp_ring`` every rank keeps its contiguous, padded chunk of the
 residual stream through the blocks and the attention runs as a
@@ -35,8 +39,10 @@ double-buffered ring of KV blocks
 takes the chunk (:class:`TokenShard` says which block of the token grid it
 is) by expert parallelism or by the whole grid's dispatch
 (:func:`repro_torch.models.ffn.moe_ffn`).  Its weights are used whole: a
-cut leaf is gathered at the start of the forward.  Training under it
-differentiates through the ring and the final gather and sums each
+cut leaf is gathered at the start of the forward.  The final hidden
+states of the rank's rows are gathered over ``model`` alone and the head
+computes the rank's block of the logits, cut as under ``tp``.  Training
+under it differentiates through the ring and that gather and sums each
 parameter's partial gradients over the ranks (:meth:`TokenShard.partial`).
 
 Gradients under ``tp``/``sp`` flow through the explicit collectives: the
@@ -66,10 +72,10 @@ from repro_torch.kernels.fake import on_card
 
 __all__ = ["Recipe", "make_recipe", "use_recipe", "current_recipe", "fit_spec",
            "ragged_seq_extents", "ragged_expert_extents", "ragged_grad_extents", "TokenShard",
-           "token_shard", "PRIORITY", "batch_shardings", "decode_state_shardings",
-           "recipe_pspecs", "local_shape", "spec_axes", "partial_product", "Placement",
-           "placement", "all_gather", "all_reduce", "sum_stat", "sum_grads", "gather_cut",
-           "lse_merge"]
+           "token_shard", "PRIORITY", "batch_shardings", "decode_state_shardings", "batch_rows",
+           "logits_spec", "recipe_pspecs", "local_shape", "spec_axes", "partial_product",
+           "Placement", "placement", "all_gather", "all_reduce", "sum_stat", "sum_grads",
+           "gather_cut", "lse_merge"]
 
 Spec = tuple  # one entry per dim: a mesh axis, a tuple of them, or None
 
@@ -446,13 +452,13 @@ def token_shard(recipe: Recipe, B: int, S: int) -> TokenShard:
     """This process's :class:`TokenShard` of a ``(B, S)`` token grid under
     ``recipe`` (the ``tokens`` spec's batch axes, where they divide B)."""
     mesh = recipe.mesh
-    batch_axes, row0, n_rows = _batch_rows(recipe, B)
+    batch_axes, row0, n_rows = batch_rows(recipe, B)
     cap, _ = ragged_seq_extents(S, mesh.shape.get("model", 1))
     return TokenShard(mesh=mesh, batch_axes=batch_axes, B=B, S=S, cap=cap, row0=row0,
                       n_rows=n_rows, chunk=mesh.coords().get("model", 0))
 
 
-def _batch_rows(recipe: Recipe, B: int) -> tuple[tuple[str, ...], int, int]:
+def batch_rows(recipe: Recipe, B: int) -> tuple[tuple[str, ...], int, int]:
     """``(batch_axes, row0, n_rows)``: this process's rows of a ``B``-row
     batch, split over the ``tokens`` spec's batch axes where they divide B
     (no axes, and every row, otherwise)."""
@@ -463,6 +469,18 @@ def _batch_rows(recipe: Recipe, B: int) -> tuple[tuple[str, ...], int, int]:
     n_rows = B // math.prod(sizes)
     coords = mesh.coords()
     return batch_axes, mixed_radix_join([coords[a] for a in batch_axes], sizes) * n_rows, n_rows
+
+
+def logits_spec(recipe: Recipe, B: int) -> Spec:
+    """The spec of the ``(B, S, vocab_padded)`` logits of a ``B``-row batch
+    as every rank of the port holds them under ``recipe``: the recipe's
+    ``logits`` spec, rows over the batch axes where they divide B
+    (:func:`batch_rows`), the vocab over ``model`` where the recipe cuts
+    ``v`` (the head's columns), else whole."""
+    batch_axes, _, _ = batch_rows(recipe, B)
+    rows = None if not batch_axes else batch_axes[0] if len(batch_axes) == 1 else batch_axes
+    cut = recipe.mesh.shape.get("model", 1) > 1 and recipe.bindings.get("v") == "model"
+    return (rows, None, "model" if cut else None)
 
 
 class _SumPartials(torch.autograd.Function):
@@ -700,5 +718,5 @@ def placement(recipe: Recipe, B: int) -> Placement:
     mesh = recipe.mesh
     for a in mesh.axis_names:
         mesh.create_groups((a,))
-    batch_axes, row0, n_rows = _batch_rows(recipe, B)
+    batch_axes, row0, n_rows = batch_rows(recipe, B)
     return Placement(recipe=recipe, batch_axes=batch_axes, row0=row0, n_rows=n_rows)

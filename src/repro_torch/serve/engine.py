@@ -42,9 +42,11 @@ rank hands the engine its shards of the weights
 ``lm.decode_step`` under the recipe, as the reference's ``gspmd_step``
 does: the caches and recurrent states are the rank's blocks
 (``lm.init_cache`` under the recipe; a released slot's rows are zeroed on
-the rank that holds them), the logits come back whole on every rank, and
-all ranks sample the same tokens; the audio family's frames enter each
-step whole and every rank takes its rows of them.  A whole-prompt prefill
+the rank that holds them), each step returns the rank's block of the
+logits, and only the sampled position is gathered whole
+(``lm.last_logits``), so all ranks sample the same tokens; the audio
+family's frames enter each step whole and every rank takes its rows of
+them.  A whole-prompt prefill
 chunk under ``sp_ring`` runs the ring.  A ``recipe`` with a ``mesh`` (the
 recipe's own) and ``microbatches`` is the reference's mix: prefill under
 the recipe, decode through the explicit TP step, both on the recipe's
@@ -325,6 +327,16 @@ class Engine:
         self.steps["prefill" if prefill else "decode"] += 1
         return logits
 
+    def last_logits(self, logits, counts: np.ndarray, *, prefill: bool):
+        """``(B, vocab_padded)``: each slot's logits at its last valid
+        position from a step's ``logits`` and its ``counts``.  The TP decode
+        step's are whole; ``lm.decode_step``'s under a recipe are the rank's
+        block, whose sampled positions alone are gathered
+        (``lm.last_logits``)."""
+        if self._tp is not None and not prefill:
+            return logits[:, -1]
+        return lm.last_logits(logits, torch.from_numpy(counts), self.recipe)
+
     def _fill_slots(self) -> None:
         newly: list[tuple[int, list[int], np.ndarray | None]] = []
         for i, slot in enumerate(self.slots):
@@ -395,7 +407,8 @@ class Engine:
                                  else self._featurize([slot.tokens[-1]])[0])
                 else:
                     buf[i, 0] = slot.tokens[-1]
-        logits = self._step(buf, counts, prefill=False)[:, -1, : self.cfg.vocab]  # strip pad
+        logits = self.last_logits(self._step(buf, counts, prefill=False), counts,
+                                  prefill=False)[:, : self.cfg.vocab]  # strip pad
         if self.scfg.temperature > 0:
             probs = torch.softmax(logits.float() / self.scfg.temperature, dim=-1)
             nxt = torch.multinomial(probs, 1, generator=self._gen)[:, 0].tolist()

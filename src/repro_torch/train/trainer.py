@@ -183,7 +183,8 @@ def make_serve_step(cfg, recipe):
     """``serve_step(params, state, batch) -> (logits, new_state)``: one
     :func:`repro_torch.models.lm.decode_step` under ``recipe``, without a
     gradient (the reference's ``make_serve_step``; the dry run's decode
-    program)."""
+    program).  Under ``recipe`` the logits are this rank's block, as the
+    reference's step returns its cut array (``lm.gather_logits``)."""
     def serve_step(params, state, batch):
         with use_recipe(recipe), torch.no_grad():
             return lm.decode_step(params, state, batch, cfg)

@@ -312,7 +312,8 @@ def sp_ring_forward_family(*, models, tokens) -> dict:
     """``lm.forward`` under ``make_recipe(cfg, mesh, attn_mode="sp_ring")`` on
     this gloo rank, for every mesh of :data:`RING_MESHES`, every
     ``models[arch]`` (the reference's float32 parameters as numpy) and every
-    ``tokens[S]``: the logits every rank returns."""
+    ``tokens[S]``: the logits, each rank's block gathered whole
+    (``lm.gather_logits``)."""
     import dataclasses
 
     import torch
@@ -333,7 +334,7 @@ def sp_ring_forward_family(*, models, tokens) -> dict:
             for S, toks in tokens.items():
                 with use_recipe(recipe):
                     logits, _ = lm.forward(params, {"tokens": torch.from_numpy(toks).long()}, cfg)
-                out[(arch, shape, S)] = logits.numpy()
+                out[(arch, shape, S)] = lm.gather_logits(logits, recipe, len(toks)).numpy()
     return out
 
 
@@ -669,7 +670,8 @@ def moe_sp_ring_family(*, models, tokens) -> dict:
                     warnings.simplefilter("always")
                     logits, aux = lm.forward(params, {"tokens": torch.from_numpy(toks).long()},
                                              cfg)
-                out[(name, shape, S)] = (logits.numpy(), aux.numpy(),
+                out[(name, shape, S)] = (lm.gather_logits(logits, recipe, len(toks)).numpy(),
+                                         aux.numpy(),
                                          sum("falling back" in str(w.message) for w in caught))
     return out
 

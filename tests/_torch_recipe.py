@@ -36,7 +36,8 @@ def _shards(cfg, params, recipe):
 
 def forward_family(*, shape, models, tokens) -> dict:
     """``lm.forward`` under each recipe mode on this rank of a ``shape``
-    mesh: the whole logits, and whether the shards gathered back are the
+    mesh: the whole logits (this rank's block gathered,
+    ``lm.gather_logits``), and whether the shards gathered back are the
     whole tree bitwise."""
     import torch
 
@@ -56,7 +57,7 @@ def forward_family(*, shape, models, tokens) -> dict:
             with use_recipe(recipe), torch.no_grad():
                 logits, _ = lm.forward(shards, {"tokens": torch.from_numpy(tokens[arch]).long()},
                                        cfg)
-            out[(arch, mode)] = logits.numpy()
+            out[(arch, mode)] = lm.gather_logits(logits, recipe, len(tokens[arch])).numpy()
             whole = gather_params(shards, lm.build_specs(cfg), recipe)
             out[(arch, mode, "gathered")] = all(
                 torch.equal(a, b) for a, b in zip(tree_leaves(whole), tree_leaves(params)))
@@ -107,7 +108,8 @@ def serve_family(*, shape, models, requests, slots, max_len, prefill_tokens) -> 
                     if axis is not None:
                         t = all_gather(t, mesh, axis, dim, split=False)
                 caches.append(t.numpy())
-            out[(arch, mode, "prefill")] = (logits.numpy(), *caches, new.caches.length.numpy(),
+            out[(arch, mode, "prefill")] = (lm.gather_logits(logits, recipe, B).numpy(), *caches,
+                                            new.caches.length.numpy(),
                                             new.positions.numpy())
     return out
 
@@ -199,6 +201,50 @@ def train_family(*, shape, params, batch, ocfg, modes) -> dict:
     return out
 
 
+def logits_cut(*, shape, models, batch, modes) -> dict:
+    """The logits as each rank holds them under a recipe, and the
+    vocab-parallel loss: for every ``models[name] = (config overrides, the
+    reference's parameters as numpy)`` of phi4-mini SMOKE (float32) and
+    each mode of ``modes[name]`` on this rank of a ``shape`` mesh,
+    ``lm.forward``'s logits as returned (this rank's block), and
+    ``loss_fn``'s loss, metrics and gradients (``_accum_loss_grads`` on
+    ``batch``, with its ``loss_mask``), the gradients gathered back to the
+    whole tree."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.weights import gather_params, params_from_jax
+    from repro_torch.train import trainer
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    b = {k: torch.from_numpy(v) if v.dtype.kind == "f" else torch.from_numpy(v).long()
+         for k, v in batch.items()}
+    out: dict = {"coords": mesh.coords()}
+    for name, (overrides, tree) in models.items():
+        cfg = dataclasses.replace(configs.get("phi4-mini-3.8b", smoke=True),
+                                  act_dtype=torch.float32, **overrides)
+        whole = params_from_jax(tree, device="cpu")
+        for mode in modes[name]:
+            recipe = make_recipe(cfg, mesh, attn_mode=mode)
+            shards = _shards(cfg, whole, recipe)
+            with use_recipe(recipe), torch.no_grad():
+                logits, _ = lm.forward(shards, {"tokens": b["tokens"]}, cfg)
+            out[(name, mode, "logits")] = logits.numpy()
+            with use_recipe(recipe):
+                loss, metrics, grads = trainer._accum_loss_grads(shards, b, cfg, 1)
+            out[(name, mode, "loss")] = float(loss)
+            out[(name, mode, "metrics")] = {k: float(v) for k, v in metrics.items()}
+            out[(name, mode, "grads")] = [g.numpy() for g in tree_leaves(
+                gather_params(grads, lm.build_specs(cfg), recipe))]
+    return out
+
+
 def ckpt_family(*, shape, params, directory, save) -> dict:
     """Save this rank's shards under a ``shape`` recipe (``save``), or
     restore the latest checkpoint under it: the restored shards gathered
@@ -269,7 +315,7 @@ def forward_recurrent(*, shape, models, tokens) -> dict:
             with use_recipe(recipe), torch.no_grad():
                 logits, _ = lm.forward(shards, {"tokens": torch.from_numpy(tokens[arch]).long()},
                                        cfg)
-            out[(arch, mode)] = logits.numpy()
+            out[(arch, mode)] = lm.gather_logits(logits, recipe, len(tokens[arch])).numpy()
             whole = gather_params(shards, lm.build_specs(cfg), recipe)
             out[(arch, mode, "gathered")] = all(
                 torch.equal(a, b) for a, b in zip(tree_leaves(whole), tree_leaves(params)))
@@ -377,13 +423,14 @@ def recurrent_whole_mixers(*, shape, models, overrides, tokens, steps) -> dict:
         toks = torch.from_numpy(tokens[arch]).long()
         B = toks.shape[0]
         with use_recipe(recipe), torch.no_grad():
-            out[(arch, "forward")] = lm.forward(shards, {"tokens": toks}, cfg)[0].numpy()
+            out[(arch, "forward")] = lm.gather_logits(
+                lm.forward(shards, {"tokens": toks}, cfg)[0], recipe, B).numpy()
             state = lm.DecodeState(lm.init_cache(cfg, B, 16, device="cpu"),
                                    torch.zeros((B,), dtype=torch.int32))
             logits = []
             for t in range(steps):
                 step, state = lm.decode_step(shards, state, {"tokens": toks[:, t:t + 1]}, cfg)
-                logits.append(step.numpy())
+                logits.append(lm.gather_logits(step, recipe, B).numpy())
         out[(arch, "decode")] = logits
         whole = lm.init_cache(cfg, B, 16, device="cpu")
         specs = decode_state_shardings(recipe, whole)
@@ -473,9 +520,10 @@ def forward_named(*, shape, models, tokens, modes=LATENT_MOE_MODES, others=None)
                 warnings.simplefilter("always")
                 logits, aux = lm.forward(shards, _as_batch(tokens[name]), cfg)
                 if others and name in others:
-                    out[(name, mode, "other")] = lm.forward(shards, _as_batch(others[name]),
-                                                            cfg)[0].numpy()
-            out[(name, mode)] = logits.numpy()
+                    out[(name, mode, "other")] = lm.gather_logits(
+                        lm.forward(shards, _as_batch(others[name]), cfg)[0], recipe,
+                        _rows(others[name])).numpy()
+            out[(name, mode)] = lm.gather_logits(logits, recipe, _rows(tokens[name])).numpy()
             out[(name, mode, "aux")] = float(aux)
             out[(name, mode, "warnings")] = sum("falling back" in str(w.message) for w in caught)
             whole = gather_params(shards, lm.build_specs(cfg), recipe)
@@ -529,7 +577,7 @@ def serve_named(*, shape, models, requests, slots, max_len, steps,
                     step, state = lm.decode_step(
                         shards, state, _as_batch(toks), cfg, new_counts=torch.from_numpy(counts),
                         prefill=i == 0 and cfg.family in _CHUNK_FAMILIES)
-                    logits.append(step.numpy())
+                    logits.append(lm.gather_logits(step, recipe, B).numpy())
             out[(name, mode, "steps")] = logits
             out[(name, mode, "caches")] = _whole_state(cfg, B, state.caches, recipe)
             out[(name, mode, "positions")] = state.positions.numpy()
@@ -588,10 +636,11 @@ def decode_greedy(*, shape, models, prompts, counts, image, other_image,
                 state = lm.DecodeState(caches=lm.init_cache(cfg, B, 16, device="cpu"),
                                        positions=torch.zeros((B,), dtype=torch.int32))
                 first = {"tokens": torch.from_numpy(toks).long(), "image_embeds": other}
-                out[(name, mode, "other")] = lm.decode_step(
+                out[(name, mode, "other")] = lm.gather_logits(lm.decode_step(
                     shards, lm.DecodeState(lm.init_cache(cfg, B, 16, device="cpu"),
                                            state.positions.clone()),
-                    first, cfg, new_counts=torch.from_numpy(counts[0]), prefill=True)[0].numpy()
+                    first, cfg, new_counts=torch.from_numpy(counts[0]), prefill=True)[0], recipe,
+                    B).numpy()
                 feed = toks
                 prev = toks[:, 0]
                 for t, c in enumerate(counts):
@@ -599,7 +648,7 @@ def decode_greedy(*, shape, models, prompts, counts, image, other_image,
                         shards, state, {"tokens": torch.from_numpy(feed).long(),
                                         "image_embeds": img}, cfg,
                         new_counts=torch.from_numpy(c), prefill=t == 0)
-                    logits.append(step.numpy())
+                    logits.append(lm.gather_logits(step, recipe, B).numpy())
                     prev = greedy_feed(logits[-1], c, prev, cfg.vocab)
                     fed.append(prev)
                     feed = prev[:, None]
