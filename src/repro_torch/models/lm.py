@@ -43,8 +43,9 @@ them whole.  ``decode_step`` and :func:`init_cache` take the caches cut by
 Under ``sp_ring`` the forward is sequence-parallel: each rank keeps its
 contiguous, padded chunk of the residual stream (and its share of the
 batch over the ``data`` axes) through every block, and attention runs as
-the ``model``-axis ring, on whole weights (a cut leaf is gathered first);
-its rows' final states are gathered over ``model`` alone, and the head
+the ``model``-axis ring, on whole weights, one layer at a time (each
+block gathers its layer's cut leaves inside its checkpoint); its rows'
+final states are gathered over ``model`` alone, and the head
 makes the same block of the logits as under ``tp``.  A MoE block routes
 the chunk by expert parallelism (``moe_dispatch="ep"``) where the recipe's
 grid fits, else by the whole grid's dispatch
@@ -89,7 +90,13 @@ taken.  Under a recipe each rank's gradients are those of its shards: the
 collectives are differentiable (:class:`repro_torch.models.sharding.Placement`),
 and under ``sp_ring`` the parameters used by this rank's chunk sum their
 partial gradients over the ranks
-(:meth:`repro_torch.models.sharding.TokenShard.partial`).
+(:meth:`repro_torch.models.sharding.TokenShard.partial`).  A checkpointed
+block takes its layer's weights as the rank holds them and gathers them
+first thing inside (:func:`_block`, :func:`_user`): the checkpoint keeps
+the shards, which are views of the parameters, and its recompute gathers
+again, so no layer's gathered weights outlive its block.  The stacks'
+layers are taken by one ``unbind`` a leaf (:func:`_layers`), so a layer's
+backward writes only its own slice of the stacked gradient.
 """
 from __future__ import annotations
 
@@ -106,7 +113,7 @@ from . import attention as attn_mod
 from . import blocks as blk
 from . import ssm as ssm_mod
 from .module import init_params, pspec, stack_specs, tree_map, tree_size
-from .sharding import (all_gather, all_reduce, batch_rows, current_recipe,
+from .sharding import (Placement, all_gather, all_reduce, batch_rows, current_recipe,
                        decode_state_shardings, gather_cut, local_shape, logits_spec, placement,
                        recipe_pspecs, spec_axes, sum_grads, token_shard)
 
@@ -224,8 +231,22 @@ def lm_logits(params, x, cfg):
 
 
 def _layer(tree, i: int):
-    """Layer ``i`` of a tree of stacked ``(L, ...)`` leaves (views)."""
+    """Layer ``i`` of a tree of stacked ``(L, ...)`` leaves (views), for a
+    step without a gradient (a layer's ``select`` writes a zero-filled
+    ``(L, ...)`` gradient in the backward: :func:`_layers` does not)."""
     return tree_map(lambda t: t[i], tree)
+
+
+def _layers(tree) -> list:
+    """Every layer of a tree of stacked ``(L, ...)`` leaves, one tree of
+    views a layer, taken by one ``unbind`` a leaf: its backward stacks the
+    layers' gradients once, each into a slice of its own (the reference's
+    scan returns the stacked gradient so)."""
+    if isinstance(tree, dict):
+        parts = {k: _layers(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 def _remat(fn, cfg):
@@ -237,11 +258,18 @@ def _remat(fn, cfg):
     return lambda *args, **kw: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
-def _block(cfg):
+def _block(cfg, use=None):
     """The family's block function (the hybrid's Mamba2 block), under
-    :func:`_remat`."""
-    return _remat({"mla": blk.mla_block, "ssm": blk.rwkv_block,
-                   "hybrid": blk.mamba_block}.get(cfg.family, blk.attn_block), cfg)
+    :func:`_remat`.  With ``use`` it takes the layer's weights as this rank
+    holds them and ``use`` makes them ready (gathers them) first thing
+    inside the checkpoint: the checkpoint keeps the rank's shards, and its
+    recompute gathers again, as the reference's ``jax.checkpoint`` of a
+    body that takes the sharded layer."""
+    fn = {"mla": blk.mla_block, "ssm": blk.rwkv_block,
+          "hybrid": blk.mamba_block}.get(cfg.family, blk.attn_block)
+    if use is None:
+        return _remat(fn, cfg)
+    return _remat(lambda p, *args, **kw: fn(use(p), *args, **kw), cfg)
 
 
 # ================================================================ forward ====
@@ -266,72 +294,77 @@ def forward(params, batch, cfg, *, positions=None):
     block = _block(cfg)
     aux = 0.0
     if cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            x, _, _ = block(_layer(params["blocks"], i), x, cfg)
+        for p in _layers(params["blocks"]):
+            x, _, _ = block(p, x, cfg)
     elif cfg.family == "hybrid":
-        x = _forward_hybrid(params, x, cfg, positions)
+        x = _forward_hybrid(params, x, cfg, positions, use=_user(None, None))
     elif cfg.family == "vlm":
-        x = _forward_vlm(params, x, batch["image_embeds"], cfg, positions)
+        x = _forward_vlm(params, x, batch["image_embeds"], cfg, positions, use=_user(None, None))
     else:
-        for i in range(cfg.n_layers):
-            x, _, a = block(_layer(params["blocks"], i), x, cfg, positions=positions)
+        for p in _layers(params["blocks"]):
+            x, _, a = block(p, x, cfg, positions=positions)
             aux = aux + a
     return lm_logits(params, x, cfg), torch.as_tensor(aux, dtype=torch.float32, device=x.device)
 
 
-def _forward_hybrid(params, x, cfg, positions, *, place=None, pspecs=None, shard=None):
+def _forward_hybrid(params, x, cfg, positions, *, use, place=None, shard=None):
     """The hybrid stack: ``n_shared`` super-blocks of ``group_m`` Mamba2
     blocks and the shared attention block under that application's LoRA
     (each super-block, and each Mamba2 block in it, under :func:`_remat`),
-    then the tail's Mamba2 blocks.  Under a ``tp``/``sp`` recipe
-    (``place``, ``pspecs``) each block's weights are gathered over ``data``
-    for it (the shared block's once); under ``sp_ring`` (``shard``) the
-    blocks take this rank's chunk."""
+    then the tail's Mamba2 blocks.  ``params`` are as this rank holds them
+    and ``use`` (:func:`_user`) makes a block's weights ready inside the
+    checkpoint that runs it: each Mamba2 block's inside its own, the LoRA's
+    and the shared block's inside the super-block's (the shared block is
+    so gathered once a super-block, the reference's group closing over the
+    sharded ``params["shared_block"]``).  Under a ``tp``/``sp`` recipe
+    (``place``) ``x`` is this rank's rows; under ``sp_ring`` (``shard``)
+    its chunk."""
     n_shared, group_m, n_tail = hybrid_dims(cfg)
-    mamba = _block(cfg)
     kw = dict(place=place, shard=shard)
-    use = _user(place, pspecs)
-    shared = use(params["shared_block"], "shared_block", 0)
+    mamba = _block(cfg, lambda p: use(p, "mamba_blocks", 2))
 
-    def group(p_mamba, p_lora, x):
-        for j in range(group_m):
-            x, _, _ = mamba(use(_layer(p_mamba, j), "mamba_blocks", 2), x, cfg, **kw)
-        x, _, _ = blk.shared_attn_block(shared, use(p_lora, "shared_lora", 1), x, cfg,
+    def group(p_mamba, p_lora, p_shared, x):
+        for p in _layers(p_mamba):
+            x, _, _ = mamba(p, x, cfg, **kw)
+        x, _, _ = blk.shared_attn_block(use(p_shared, "shared_block", 0),
+                                        use(p_lora, "shared_lora", 1), x, cfg,
                                         positions=positions, **kw)
         return x
 
     group = _remat(group, cfg)
-    for i in range(n_shared):
-        x = group(_layer(params["mamba_blocks"], i), _layer(params["shared_lora"], i), x)
-    for i in range(n_tail):
-        x, _, _ = mamba(use(_layer(params["tail_blocks"], i), "tail_blocks", 1), x, cfg, **kw)
+    for p_mamba, p_lora in zip(_layers(params["mamba_blocks"]), _layers(params["shared_lora"])):
+        x = group(p_mamba, p_lora, params["shared_block"], x)
+    if n_tail:
+        tail = _block(cfg, lambda p: use(p, "tail_blocks", 1))
+        for p in _layers(params["tail_blocks"]):
+            x, _, _ = tail(p, x, cfg, **kw)
     return x
 
 
-def _forward_vlm(params, x, enc, cfg, positions, *, place=None, pspecs=None, shard=None):
+def _forward_vlm(params, x, enc, cfg, positions, *, use, place=None, shard=None):
     """The VLM stack: ``n_cross`` groups of ``group_self`` self-attention
     blocks and one gated cross-attention block over the image's states
     ``enc`` (each group, and each self block in it, under :func:`_remat`,
-    the reference's ``_maybe_remat`` of its scanned bodies).  Under a
-    ``tp``/``sp`` recipe (``place``, ``pspecs``) ``x`` and ``enc`` are this
-    rank's rows and each block's weights are gathered over ``data`` inside
-    its group (a remat's recompute gathers them again); under ``sp_ring``
-    (``shard``) ``x`` is this rank's chunk and ``enc`` its rows' images."""
+    the reference's ``_maybe_remat`` of its scanned bodies).  ``params``
+    are as this rank holds them and ``use`` (:func:`_user`) makes a block's
+    weights ready inside the checkpoint that runs it: each self block's
+    inside its own, the cross block's inside the group's.  Under a
+    ``tp``/``sp`` recipe (``place``) ``x`` and ``enc`` are this rank's
+    rows; under ``sp_ring`` (``shard``) ``x`` is this rank's chunk and
+    ``enc`` its rows' images."""
     n_cross, group_self = vlm_dims(cfg)
-    block = _block(cfg)
-    use = _user(place, pspecs)
+    block = _block(cfg, lambda p: use(p, "self_blocks", 2))
     split = place is not None and place.recipe.attn_mode == "sp"
 
     def group(p_self, p_cross, x):
-        for j in range(group_self):
-            x, _, _ = block(use(_layer(p_self, j), "self_blocks", 2), x, cfg,
-                            positions=positions, place=place, shard=shard)
+        for p in _layers(p_self):
+            x, _, _ = block(p, x, cfg, positions=positions, place=place, shard=shard)
         return blk.cross_block(use(p_cross, "cross_blocks", 1), x, enc, cfg, place=place,
                                split_queries=split)
 
     group = _remat(group, cfg)
-    for i in range(n_cross):
-        x = group(_layer(params["self_blocks"], i), _layer(params["cross_blocks"], i), x)
+    for p_self, p_cross in zip(_layers(params["self_blocks"]), _layers(params["cross_blocks"])):
+        x = group(p_self, p_cross, x)
     return x
 
 
@@ -343,61 +376,75 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
     R = |model| chunks of ``cap`` (:func:`ragged_seq_extents`) and this rank
     keeps chunk ``r``, at absolute positions ``r*cap + i`` for RoPE, through
     every block (the recipe's ``hidden`` spec: (B, model, None)); attention
-    is the ring, with the padded keys masked.  The final norm runs on the
-    chunk; the rank's rows' normed states are gathered along ``model``
-    alone, the padding dropped, and the head makes the rank's block of the
-    logits (:func:`_head_sp_ring`).  Every rank returns the same aux
-    loss."""
-    params = _whole(params, cfg, recipe)
+    is the ring, with the padded keys masked.  The blocks run on whole
+    weights, one layer at a time: ``params`` are this rank's shards (or
+    whole leaves) and each block gathers its layer whole inside its
+    checkpoint (:func:`_user`; the hybrid's and the VLM's nested blocks as
+    :func:`_forward_hybrid` and :func:`_forward_vlm` say).  The embedding
+    and the final norm are gathered whole before and after the blocks.  The
+    final norm runs on the chunk; the rank's rows' normed states are
+    gathered along ``model`` alone, the padding dropped, and the head makes
+    the rank's block of the logits (:func:`_head_sp_ring`).  Every rank
+    returns the same aux loss."""
+    specs, pspecs = _recipe_pspecs(cfg, recipe)
     inputs = _input_of(batch, cfg)
     B, S = inputs.shape[:2]
     dev = inputs.device
     shard = token_shard(recipe, B, S)
+    use = _user(None, pspecs, shard=shard, specs=specs)
     if positions is None:
         positions = torch.arange(S, device=dev)
     pad = recipe.mesh.shape.get("model", 1) * shard.cap - S
     pos = torch.cat([positions, positions[-1] + 1 + torch.arange(pad, device=dev)])
     chunk = slice(shard.chunk * shard.cap, (shard.chunk + 1) * shard.cap)
+    embed = None
     if cfg.input_kind == "embeds":  # the chunk's frames (zero past S), sinusoid at pos[chunk]
         x = embed_inputs(params, {"embeds": shard.local(inputs)}, cfg, positions=pos[chunk])
     else:
-        x = embed_inputs({"embed": shard.partial(params["embed"])},
-                         {"tokens": shard.local(inputs)}, cfg)
+        embed = _gather_whole(params["embed"], specs["embed"].shape, pspecs["embed"], recipe.mesh)
+        x = embed_inputs({"embed": shard.partial(embed)}, {"tokens": shard.local(inputs)}, cfg)
     aux = 0.0
     if cfg.family == "hybrid":
-        stacks = ("mamba_blocks", "tail_blocks", "shared_block", "shared_lora")
-        x = _forward_hybrid({k: tree_map(shard.partial, params[k]) for k in stacks if k in params},
-                            x, cfg, pos[chunk], shard=shard)
+        x = _forward_hybrid(params, x, cfg, pos[chunk], use=use, shard=shard)
     elif cfg.family == "vlm":  # the image split by the chunk's rows, never by sequence
         enc = batch["image_embeds"][shard.row0:shard.row0 + shard.n_rows]
-        x = _forward_vlm({k: tree_map(shard.partial, params[k])
-                          for k in ("self_blocks", "cross_blocks")},
-                         x, enc, cfg, pos[chunk], shard=shard)
+        x = _forward_vlm(params, x, enc, cfg, pos[chunk], use=use, shard=shard)
     else:
-        blocks = tree_map(shard.partial, params["blocks"])
-        block = _block(cfg)
+        block = _block(cfg, lambda p: use(p, "blocks", 1))
         kw = {} if cfg.family == "ssm" else {"positions": pos[chunk]}
-        for i in range(cfg.n_layers):
-            x, _, a = block(_layer(blocks, i), x, cfg, shard=shard, **kw)
+        for p in _layers(params["blocks"]):
+            x, _, a = block(p, x, cfg, shard=shard, **kw)
             aux = aux + a
-    return (_head_sp_ring(params, x, cfg, recipe, shard),
+    return (_head_sp_ring(params, embed, x, cfg, recipe, shard, use),
             torch.as_tensor(aux, dtype=torch.float32, device=x.device))
 
 
-def _head_sp_ring(params, x, cfg, recipe, shard):
+def _head_sp_ring(params, embed, x, cfg, recipe, shard, use):
     """This rank's block of the logits under ``sp_ring``
     (:func:`repro_torch.models.sharding.logits_spec`) from its chunk ``x``
-    of the final states, on whole weights.  Where the recipe cuts ``v``,
-    each ``model`` rank applies its vocab block of the head to its rows'
-    whole sequence: the gather's cotangents are partials (reduce-scattered)
-    and the head's and the norm's gradients are summed over the ranks
-    (:meth:`TokenShard.partial`).  Otherwise every ``model`` rank applies
-    the whole head, the same work, so the head's gradient is summed over
-    the batch axes alone."""
+    of the final states; ``embed`` the whole embedding the lookup took,
+    ``use`` the forward's :func:`_user`.  Where the recipe cuts ``v``, each
+    ``model`` rank applies its vocab block of the head to its rows' whole
+    sequence, and the gather's cotangents are partials (reduce-scattered).
+    An untied head cut over ``model`` is that block already: it is gathered
+    over its other axes alone, as :meth:`Placement.use` gathers a weight
+    for the rank's rows.  A tied head is the lookup's whole embedding (and
+    a whole head is whole), narrowed, its gradient summed over the ranks
+    (:meth:`TokenShard.partial`).  Where ``v`` is whole, every ``model``
+    rank applies the whole head, the same work, so the head's gradient is
+    summed over the batch axes alone."""
     mesh = recipe.mesh
-    x = blk.rmsnorm(shard.partial(params["final_norm"]), x)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    if logits_spec(recipe, shard.B)[2] is None:
+    specs, pspecs = _recipe_pspecs(cfg, recipe)
+    x = blk.rmsnorm(use(params["final_norm"], "final_norm", 0), x)
+    cut = logits_spec(recipe, shard.B)[2] is not None
+    if cut and not cfg.tie_embeddings and params["lm_head"].shape[1] != cfg.vocab_padded:
+        rows = Placement(recipe=recipe, batch_axes=shard.batch_axes, row0=shard.row0,
+                         n_rows=shard.n_rows)
+        head = rows.use(params["lm_head"], pspecs["lm_head"])
+        return torch.matmul(shard.gather_seq(x), head.to(x.dtype))
+    head = embed.T if cfg.tie_embeddings else _gather_whole(
+        params["lm_head"], specs["lm_head"].shape, pspecs["lm_head"], mesh)
+    if not cut:
         x = all_gather(x, mesh, "model", 1, split=False)[:, :shard.S]
         return torch.matmul(x, sum_grads(head, mesh, shard.batch_axes).to(x.dtype))
     vl = cfg.vocab_padded // mesh.shape["model"]
@@ -420,19 +467,12 @@ def _recipe_pspecs(cfg, recipe):
     return hit[1], hit[2]
 
 
-def _whole(params, cfg, recipe):
-    """Whole parameters from this rank's shards under ``recipe`` (a leaf
-    already whole stays as it is): each cut leaf gathered over its axes.
-    The gathers' backward hands a rank its own block of the gradient, which
-    the sp_ring program makes whole on every rank."""
-    specs, pspecs = _recipe_pspecs(cfg, recipe)
-
-    def walk(t, spec, pspec):
-        if isinstance(t, dict):
-            return {k: walk(t[k], spec[k], pspec[k]) for k in t}
-        return t if tuple(t.shape) == spec.shape else gather_cut(t, pspec, recipe.mesh)
-
-    return walk(params, specs, pspecs)
+def _gather_whole(t, shape, spec, mesh):
+    """``t`` whole: as it is where it has the whole ``shape``, else this
+    rank's block of a leaf cut by ``spec``, gathered over its axes.  The
+    gathers' backward hands a rank its own block of the gradient, which the
+    sp_ring program makes whole on every rank."""
+    return t if tuple(t.shape) == tuple(shape) else gather_cut(t, spec, mesh)
 
 
 def _placed_pspecs(params, cfg, recipe):
@@ -502,22 +542,22 @@ def _head_placed(params, x, cfg, place, pspecs):
 def _forward_placed(params, batch, cfg, recipe, positions):
     """The forward on this rank of a ``tp`` or plain ``sp`` recipe's mesh
     (see the module docstring): its rows, each block's weights gathered
-    over ``data`` for the block, the blocks' work split over ``model``."""
+    over ``data`` inside the block's checkpoint (:func:`_block`), the
+    blocks' work split over ``model``."""
     pspecs = _placed_pspecs(params, cfg, recipe)
     place = placement(recipe, _input_of(batch, cfg).shape[0])
     x = _embed_placed(params, batch, cfg, place, pspecs, positions)
     aux = 0.0
     if cfg.family == "hybrid":
-        x = _forward_hybrid(params, x, cfg, positions, place=place, pspecs=pspecs)
+        x = _forward_hybrid(params, x, cfg, positions, use=_user(place, pspecs), place=place)
     elif cfg.family == "vlm":
         x = _forward_vlm(params, x, place.local_rows(batch["image_embeds"]), cfg, positions,
-                         place=place, pspecs=pspecs)
+                         use=_user(place, pspecs), place=place)
     else:
-        layer_specs = _layer_specs(pspecs["blocks"])
-        block = _block(cfg)
+        use = _user(place, pspecs)
+        block = _block(cfg, lambda p: use(p, "blocks", 1))
         kw = {} if cfg.family == "ssm" else {"positions": positions}
-        for i in range(cfg.n_layers):
-            p = place.use_tree(_layer(params["blocks"], i), layer_specs)
+        for p in _layers(params["blocks"]):
             x, _, a = block(p, x, cfg, place=place, **kw)
             aux = aux + a
     return (_head_placed(params, x, cfg, place, pspecs),
@@ -904,19 +944,33 @@ def _store_state(dst, new, active) -> None:
         d.copy_(n)
 
 
-def _user(place, pspecs):
+def _user(place, pspecs, *, shard=None, specs=None):
     """``use(tree, name, depth)``: layer weights of ``params[name]`` (a
-    ``depth``-times stacked tree) ready for this rank's work under
-    ``place`` (gathered over ``data``), or as they are without one."""
+    ``depth``-times stacked tree, as this rank holds them) ready for this
+    rank's work: under ``place`` (``tp``/``sp``) gathered over ``data``
+    (:meth:`repro_torch.models.sharding.Placement.use`); under ``shard``
+    (``sp_ring``) gathered whole (``specs`` give the whole shapes) and used
+    by this rank's chunk (:meth:`repro_torch.models.sharding.TokenShard.partial`);
+    as they are with neither."""
     def use(tree, name, depth):
-        if place is None:
+        if place is None and shard is None:
             return tree
-        specs = pspecs[name]
+        ps = pspecs[name]
         for _ in range(depth):
-            specs = _layer_specs(specs)
-        return place.use_tree(tree, specs)
+            ps = _layer_specs(ps)
+        if place is not None:
+            return place.use_tree(tree, ps)
+        return _use_whole(tree, specs[name], ps, depth, shard)
 
     return use
+
+
+def _use_whole(tree, spec, pspec, depth: int, shard):
+    """:func:`_user`'s ``sp_ring`` form: each leaf gathered whole, then
+    :meth:`TokenShard.partial`."""
+    if isinstance(tree, dict):
+        return {k: _use_whole(v, spec[k], pspec[k], depth, shard) for k, v in tree.items()}
+    return shard.partial(_gather_whole(tree, spec.shape[depth:], pspec, shard.mesh))
 
 
 def _decode_ssm(params, caches, x, cfg, active, *, place=None, pspecs=None):

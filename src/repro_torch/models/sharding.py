@@ -18,12 +18,14 @@ cut by the recipe's bindings (:meth:`Recipe.param_pspecs`,
 under ``tp`` the heads ``h`` and KV groups ``g``).  Under ``tp`` and plain
 ``sp`` (:func:`repro_torch.models.lm.forward`) a rank takes its rows of the
 batch (split over the ``data`` axes where they divide it), all-gathers a
-block's ``m``-sharded weights over ``data`` before the block and drops
-them after, and keeps the residual stream whole over ``model`` (the
-reference's ``hidden`` spec): attention under ``tp`` runs the rank's heads
-and KV groups, under ``sp`` the rank's chunk of the queries against the
-whole K/V, the FFN runs the rank's ``f`` columns, and each block's float32
-partials are summed with one all-reduce over ``model``.  The head's
+block's ``m``-sharded weights over ``data`` first thing inside the block's
+checkpoint (so the checkpoint keeps the shards and its recompute gathers
+again: no layer's gathered weights outlive its block), and keeps the
+residual stream whole over ``model`` (the reference's ``hidden`` spec):
+attention under ``tp`` runs the rank's heads and KV groups, under ``sp``
+the rank's chunk of the queries against the whole K/V, the FFN runs the
+rank's ``f`` columns, and each block's float32 partials are summed with
+one all-reduce over ``model``.  The head's
 logits stay cut as the recipe's ``logits`` spec cuts them
 (:func:`logits_spec`): a rank holds its rows and its block of the vocab
 over ``model``, the loss is taken vocab-parallel on that block
@@ -38,10 +40,11 @@ double-buffered ring of KV blocks
 (:func:`repro_torch.models.attention.ring_attention_seq`).  A MoE block
 takes the chunk (:class:`TokenShard` says which block of the token grid it
 is) by expert parallelism or by the whole grid's dispatch
-(:func:`repro_torch.models.ffn.moe_ffn`).  Its weights are used whole: a
-cut leaf is gathered at the start of the forward.  The final hidden
-states of the rank's rows are gathered over ``model`` alone and the head
-computes the rank's block of the logits, cut as under ``tp``.  Training
+(:func:`repro_torch.models.ffn.moe_ffn`).  Its weights are used whole, one
+layer at a time: each block gathers its layer's cut leaves inside its
+checkpoint, as under ``tp``.  The final hidden states of the rank's rows
+are gathered over ``model`` alone and the head computes the rank's block
+of the logits, cut as under ``tp``.  Training
 under it differentiates through the ring and that gather and sums each
 parameter's partial gradients over the ranks (:meth:`TokenShard.partial`).
 
@@ -595,8 +598,8 @@ class _Gather(torch.autograd.Function):
         mesh, axis, dim, split, n = ctx.meta
         if split:
             d = shard_reduce_scatter_start(d.contiguous(), axis, mesh=mesh, axis=dim).wait()
-        else:
-            d = d.narrow(dim, mesh.coords()[axis] * n, n)
+        else:  # a copy: a view of the block would keep the whole cotangent alive
+            d = d.narrow(dim, mesh.coords()[axis] * n, n).clone()
         return None, None, None, None, d
 
 

@@ -861,3 +861,70 @@ def serve_launcher(*, argv, arch, ckpt_dir, grid, requests, max_new) -> dict:
         out["rc"] = serve.main(argv)
     out["stdout"] = buf.getvalue()
     return out
+
+
+# --------------------------------------------- remat against no remat ----
+def _named_leaves(tree, prefix="") -> list:
+    """``(dotted name, leaf)`` of a parameter tree, in ``tree_leaves``'
+    order."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in _named_leaves(tree[k], f"{prefix}.{k}" if prefix else k)]
+    return [(prefix, tree)]
+
+
+def remat_against_none(*, shape, cases, batches) -> dict:
+    """The loss and gradients of each ``cases`` entry ``(arch, mode,
+    layers)`` on this rank of a ``shape`` mesh, with ``cfg.remat`` at
+    ``"block"`` and at ``"none"``: float32 SMOKE configs cut to ``layers``,
+    seeded weights (the same on every rank) whose constant leaves get seeded
+    noise and whose VLM gates are drawn from U[0.5, 1], under the recipe
+    mode.  Returns per case whether the losses are bitwise equal, the two
+    losses, and each gradient leaf that is not bitwise equal, with its name
+    and largest difference."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.module import tree_leaves, tree_map
+    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.train import trainer
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    out: dict = {}
+    for arch, mode, layers in cases:
+        cfg = dataclasses.replace(configs.get(arch, smoke=True), act_dtype=torch.float32,
+                                  n_layers=layers)
+        gen = torch.Generator().manual_seed(31)
+        whole = lm.init_model(cfg, gen, device="cpu")
+
+        def spread(t):
+            if t.numel() > 1 and bool((t == t.flatten()[0]).all()):
+                return t + 0.1 * torch.randn(t.shape, generator=gen)
+            return t
+
+        whole = tree_map(spread, whole)
+        if "cross_blocks" in whole:
+            for g in ("gate_attn", "gate_ffn"):
+                leaf = whole["cross_blocks"][g]
+                whole["cross_blocks"][g] = 0.5 + 0.5 * torch.rand(leaf.shape, generator=gen)
+        recipe = make_recipe(cfg, mesh, attn_mode=mode)
+        shards = _shards(cfg, whole, recipe)
+        b = _as_batch(batches[arch])
+        got = {}
+        for remat in ("block", "none"):
+            with use_recipe(recipe):
+                got[remat] = trainer._accum_loss_grads(
+                    shards, b, dataclasses.replace(cfg, remat=remat), 1)
+        (l_on, _, g_on), (l_off, _, g_off) = got["block"], got["none"]
+        unequal = [(name, float((a - b).abs().max()))
+                   for (name, a), b in zip(_named_leaves(g_on), tree_leaves(g_off))
+                   if not torch.equal(a, b)]
+        out[(arch, mode)] = {"loss_equal": torch.equal(l_on, l_off),
+                             "losses": (float(l_on), float(l_off)), "unequal": unequal,
+                             "leaves": len(tree_leaves(g_on)),
+                             "nonzero": sum(bool(g.abs().sum() > 0) for g in tree_leaves(g_on))}
+    return out

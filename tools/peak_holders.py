@@ -3,6 +3,8 @@ twice on the CPU, the second walk listing the storages live when the live
 bytes first reach the first walk's peak, grouped by the op that made them.
 
     PYTHONPATH=src python tools/peak_holders.py --arch qwen2.5-32b --shape train_4k
+    PYTHONPATH=src python tools/peak_holders.py --arch qwen2.5-32b --shape train_4k \
+        --attn-mode sp_ring --set n_layers=8
 
 Prints the cell's memory record, then one line per (op, shape, dtype)
 group, largest first: the storages' count and GB.  The storages are those
@@ -57,13 +59,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True)
+    ap.add_argument("--attn-mode", default="auto", choices=["auto", "tp", "sp", "sp_ring"])
+    ap.add_argument("--set", action="append", default=[], help="cfg override k=v")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
+    cell = dict(attn_mode=args.attn_mode, sets=args.set, verbose=False)
     op_walk.OpWalk, plain = PeakWalk, op_walk.OpWalk
     try:
-        first = dryrun.lower_cell(args.arch, args.shape, verbose=False)
+        first = dryrun.lower_cell(args.arch, args.shape, **cell)
         PeakWalk.target = first["memory"]["peak_live_bytes"]
-        dryrun.lower_cell(args.arch, args.shape, verbose=False)
+        dryrun.lower_cell(args.arch, args.shape, **cell)
     finally:
         op_walk.OpWalk = plain
     print(first["memory"])
