@@ -118,7 +118,9 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, scale: float | None = N
             if causal:
                 mask = mask & (q_pos >= k_pos)
             s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-            m_new = torch.maximum(m, s.amax(dim=-1))
+            # the running max shifts the softmax, which does not depend on
+            # it: detached, its gradient (zero) keeps no block's scores
+            m_new = torch.maximum(m, s.detach().amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1)

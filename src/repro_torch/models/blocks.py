@@ -36,12 +36,61 @@ def norm_spec(d: int, dtype=torch.float32):
     return pspec(("m", d), dtype=dtype, init="ones")
 
 
+# float32 elements that a training Function upcasts at a time (256 MiB):
+# the loss's logits block (lm._LossTerms) and RMSNorm's backward go by whole
+# rows, this many elements' worth of them at a time
+UPCAST_CHUNK = 1 << 26
+
+
+def row_chunks(n: int, width: int) -> list[slice]:
+    """Slices of ``n`` rows of ``width`` columns, UPCAST_CHUNK elements'
+    worth each (at least one row), the last ragged."""
+    rows = max(1, UPCAST_CHUNK // width)
+    return [slice(r, min(r + rows, n)) for r in range(0, n, rows)]
+
+
 def rmsnorm(w, x, eps: float = 1e-5):
     """Normalized in float32, cast to x's dtype, then times the weight in
-    x's dtype (the reference's order)."""
-    xf = x.float()
-    v = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(v + eps)).to(x.dtype) * w.to(x.dtype)
+    x's dtype (the reference's order).  Its graph keeps ``x`` in its own
+    dtype and the float32 ``(..., 1)`` reciprocal root (:class:`_RMSNorm`),
+    no float32 copy of ``x``."""
+    return _RMSNorm.apply(x, w, eps)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """:func:`rmsnorm`: the forward is the composite ``xf = x.float()``,
+    ``r = rsqrt(mean(xf^2) + eps)``, ``(xf * r).to(x.dtype) * w.to(x.dtype)``;
+    the backward recomputes ``xf`` and the normalized ``x`` by row chunks
+    (:func:`row_chunks`) and writes out the composite's gradient op by op,
+    so both are the composite's bitwise."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        xf = x.float()
+        r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, w, r)
+        return (xf * r).to(x.dtype) * w.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, r = ctx.saved_tensors
+        wd, m = w.to(x.dtype), x.shape[-1]
+        x2, g2, r2 = x.reshape(-1, m), g.reshape(-1, m), r.reshape(-1, 1)
+        dx = torch.empty_like(x2) if ctx.needs_input_grad[0] else None
+        gn = torch.empty_like(x2) if ctx.needs_input_grad[1] else None
+        for rows in row_chunks(x2.shape[0], m):  # every op but wd's sum is by rows
+            xf, gr, rr = x2[rows].to(torch.float32, copy=True), g2[rows], r2[rows]
+            if gn is not None:  # out = n * wd: wd's share
+                gn[rows] = gr * (xf * rr).to(x.dtype)
+            if dx is not None:
+                dn = (gr * wd).float()
+                dr = (dn * xf).sum(dim=-1, keepdim=True)  # n = xf * r, r's share
+                dv = -0.5 * dr * rr.pow(3)  # rsqrt
+                # mean then square: dv / m at every column, times 2 xf; plus
+                # xf's share of xf * r
+                dx[rows] = dn.mul_(rr).add_(xf.mul_(2.0).mul_(dv / m))
+        dw = None if gn is None else gn.sum(dim=0).to(w.dtype)  # summed to wd's shape
+        return None if dx is None else dx.view(x.shape), dw, None
 
 
 def attn_block_specs(cfg) -> dict:

@@ -193,6 +193,38 @@ def _combine(rows, slot, gate_vals, w):
     return (yt * (gate_vals.to(rows.dtype) * w)[..., None]).sum(dim=1)
 
 
+class _PartialCombine(torch.autograd.Function):
+    """The float32 partial of the placed MoE's combine, ``(T, m)``: the sum
+    over the ``k`` choices of ``ye[local[:, j]].float() * wk[:, j].float()``
+    (``ye (rows, m)`` the experts' rows, ``local (T, k)`` each choice's row,
+    ``wk (T, k)`` its weight), one choice's rows upcast at a time.  It
+    saves ``ye`` and ``wk`` in their own dtypes and rebuilds a choice's
+    float32 rows in the backward, whose gradients are the composite's
+    (``(ye[local].float() * wk.float()[..., None]).sum(1)``) op by op."""
+
+    @staticmethod
+    def forward(ctx, ye, local, wk):
+        ctx.save_for_backward(ye, local, wk)
+        y = None
+        for j in range(local.shape[1]):
+            t = ye[local[:, j]].float().mul_(wk[:, j, None].float())
+            y = t if y is None else y.add_(t)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        ye, local, wk = ctx.saved_tensors
+        dye = torch.zeros_like(ye) if ctx.needs_input_grad[0] else None
+        dwk = wk.new_empty(wk.shape, dtype=torch.float32) if ctx.needs_input_grad[2] else None
+        for j in range(local.shape[1]):
+            if dwk is not None:
+                dwk[:, j] = (g * ye[local[:, j]].float()).sum(dim=-1)
+            if dye is not None:  # a kept choice's row takes its cotangent alone
+                dye.index_put_((local[:, j],), (g * wk[:, j, None].float()).to(ye.dtype),
+                               accumulate=True)
+        return dye, None, None if dwk is None else dwk.to(wk.dtype)
+
+
 def moe_ffn(p, x, *, n_experts: int, top_k: int = 2, capacity_factor: float = 1.25,
             aux_loss_weight: float = 0.01, groups: int = 0, dispatch: str = "auto",
             shard=None):
@@ -333,10 +365,12 @@ def moe_placed(p, x, *, place, n_experts: int, d_ff: int, top_k: int = 2,
       all ``B * S`` tokens) gathers the rows over the batch axes that cut
       B; the grouped path uses the rank's rows as they are where they form
       whole groups, else gathers them; decode (S == 1) is dropless, so the
-      rank routes its own rows.  Where ``e`` is cut the rank runs its
-      experts' buffer rows, where ``f`` is cut every expert on its columns;
-      either way a float32 partial of the combine is summed over ``model``
-      and rounded once.  The aux loss comes from the rank's own rows'
+      rank routes its own rows.  Where ``e`` is cut the rank's dispatch
+      buffer holds its own experts' rows alone (another rank's experts'
+      choices weigh 0, as overflowing ones do), where ``f`` is cut every
+      expert's rows, on its columns; either way a float32 partial of the
+      combine (:class:`_PartialCombine`) is summed over ``model`` and
+      rounded once.  The aux loss comes from the rank's own rows'
       statistics summed over the batch axes, so each rank's gradient of it
       is its own rows' share.  On one rank of every axis this is
       :func:`moe_ffn` itself."""
@@ -380,15 +414,20 @@ def moe_placed(p, x, *, place, n_experts: int, d_ff: int, top_k: int = 2,
             sums = all_reduce(sums, mesh, a)
         aux = _aux(sums, B * S, E, aux_loss_weight)
         pos = _positions(gate_idx, E)  # the counter runs over each group's tokens
-        w = (pos < C).to(x.dtype)
-        group0 = torch.arange(G, device=x.device)[:, None, None] * (E * C)
-        slot = group0 + gate_idx * C + pos.clamp_max(C - 1)
+        e0 = place.mr * El if El != E else 0
+        # the dispatch weight: 0 drops the overflow and the choices of
+        # another rank's experts, which this rank's buffer has no rows for
+        w = ((pos < C) & (gate_idx >= e0) & (gate_idx < e0 + El)).to(x.dtype)
+        slot = (torch.arange(G, device=x.device)[:, None, None] * (El * C)
+                + (gate_idx - e0).clamp(0, El - 1) * C + pos.clamp_max(C - 1))
         xe = place.enter_model(xg) if split else xg
-        buf = x.new_zeros((G * E * C, m)).index_add_(
-            0, slot.reshape(-1), (xe[:, :, None, :] * w[..., None]).reshape(-1, m))
-    e0 = place.mr * El if El != E else 0
+        buf = x.new_zeros((G * El * C, m))
+        for j in range(top_k):  # a kept choice's slot takes its row alone
+            buf.index_put_((slot[..., j].reshape(-1),), (xe * w[..., j, None]).reshape(-1, m),
+                           accumulate=True)
     with record_function("moe.experts"):
-        be = buf.view(G, E, C, m)[:, e0:e0 + El].transpose(0, 1).reshape(El, G * C, m)
+        be = buf.view(G, El, C, m).transpose(0, 1).reshape(El, G * C, m)
+        del buf
         if El == E and split:  # every expert on this rank's hidden columns: a partial
             h = F.silu(torch.bmm(be, p["w_gate"].to(x.dtype))) * \
                 torch.bmm(be, p["w_up"].to(x.dtype))
@@ -397,16 +436,13 @@ def moe_placed(p, x, *, place, n_experts: int, d_ff: int, top_k: int = 2,
             ye = _experts(be, p["w_gate"], p["w_up"], p["w_down"])
         ye = ye.view(El, G, C, m).transpose(0, 1).reshape(G * El * C, m)
     with record_function("moe.combine"):
-        mine = (gate_idx >= e0) & (gate_idx < e0 + El)
-        local = (torch.arange(G, device=x.device)[:, None, None] * (El * C)
-                 + (gate_idx - e0).clamp(0, El - 1) * C + pos.clamp_max(C - 1))
         gv = place.enter_model(gate_vals) if split else gate_vals
-        wk = (gv.to(x.dtype) * (w * mine.to(x.dtype))).reshape(-1, top_k)
-        yt = ye[local.reshape(-1)].reshape(-1, top_k, m)
+        wk = (gv.to(x.dtype) * w).reshape(-1, top_k)
         if split:
-            y = (yt.float() * wk.float()[..., None]).sum(dim=1).reshape(Br, S, m)
+            y = _PartialCombine.apply(ye, slot.reshape(-1, top_k), wk).reshape(Br, S, m)
         else:
-            y = (yt * wk[..., None]).sum(dim=1).reshape(Br, S, m)
+            y = (ye[slot.reshape(-1)].reshape(-1, top_k, m) * wk[..., None]).sum(dim=1)
+            y = y.reshape(Br, S, m)
     if gather:
         y = place.local_rows(y)
     if split:

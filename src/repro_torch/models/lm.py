@@ -577,7 +577,7 @@ def loss_fn(params, batch, cfg):
     Under an active recipe it is taken on this rank's block of the logits
     (:func:`forward`), the reference's function on its cut array: where
     the vocab is cut over ``model`` the log-sum-exp and the gold logit are
-    vocab-parallel (:func:`_vocab_parallel`), and the masked sum of the
+    vocab-parallel (:func:`_loss_terms`), and the masked sum of the
     rows' nll and their mask count are summed over the batch axes, so every
     rank ends with the same loss.  Those sums are all-reduces whose
     backward is the identity: each rank's backward gives the gradient of
@@ -592,12 +592,8 @@ def loss_fn(params, batch, cfg):
         _, row0, n_rows = batch_rows(recipe, labels.shape[0])
         labels = labels.narrow(0, row0, n_rows)
         mask = None if mask is None else mask.narrow(0, row0, n_rows)
-    logits = logits.float()
-    if spec is not None and spec[2] is not None:
-        logz, gold = _vocab_parallel(logits, labels, recipe.mesh)
-    else:
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    mesh = recipe.mesh if spec is not None and spec[2] is not None else None
+    logz, gold = _loss_terms(logits, labels, mesh)
     mask = torch.ones_like(logz) if mask is None else mask.float()
     total, count = ((logz - gold) * mask).sum(), mask.sum()
     axes = [] if spec is None else [a for a in spec_axes(spec[:1]) if recipe.mesh.shape[a] > 1]
@@ -612,13 +608,72 @@ def loss_fn(params, batch, cfg):
     return loss, {"nll": nll, "aux": aux, "ppl_proxy": torch.exp(torch.clamp(nll, max=20.0))}
 
 
-def _vocab_parallel(logits, labels, mesh):
-    """``(logz, gold)`` per row and position from this rank's float32 vocab
-    block ``logits`` (the ``model`` ranks' blocks in rank order, the padded
-    columns counted as the reference counts them): the block's row max
-    all-reduced with ``max`` and detached, ``sum exp(l - max)`` and the gold
-    logit (its owning rank's entry, zero on the others) summed over
-    ``model`` in one all-reduce whose backward is the identity."""
+def _loss_terms(logits, labels, mesh=None):
+    """``(logz, gold)`` float32 per row and position from the logits block
+    ``logits`` (B, S, V) in its own dtype, :class:`_LossTerms` in row
+    chunks.  With ``mesh`` the block is this rank's vocab block (the
+    ``model`` ranks' blocks in rank order, the padded columns counted as
+    the reference counts them) and the terms are vocab-parallel: the rows'
+    max all-reduced with ``max`` and detached, then ``sum exp(l - max)``
+    and the gold logit (its owning rank's entry, zero on the others) summed
+    over ``model`` in one all-reduce whose backward is the identity."""
+    vl = logits.shape[-1]
+    mx = logits.detach().amax(dim=-1).float()
+    local = labels
+    if mesh is not None:
+        mx = shard_all_reduce_start(mx, "model", mesh=mesh, op="max").wait()
+        local = labels - mesh.coords()["model"] * vl
+    own = (local >= 0) & (local < vl)
+    sums, gold = _LossTerms.apply(logits.reshape(-1, vl), mx.reshape(-1),
+                                  local.clamp(0, vl - 1).reshape(-1), own.reshape(-1))
+    sums, gold = sums.view(labels.shape), gold.view(labels.shape)
+    if mesh is not None:
+        parts = all_reduce(torch.stack([sums, gold], dim=-1), mesh, "model")
+        sums, gold = parts[..., 0], parts[..., 1]
+    return mx + torch.log(sums), gold
+
+
+class _LossTerms(torch.autograd.Function):
+    """``(sum exp(l - mx), l[local])`` float32 for each row of a logits block
+    ``(N, V)`` in its own dtype, given each row's detached max ``mx``, its
+    label's column ``local`` in the block and whether the block owns it
+    (``own``; the gold logit of a row it does not own is 0).  It upcasts
+    ``blocks.UPCAST_CHUNK // V`` rows at a time and saves the block in its own
+    dtype; the backward rebuilds each chunk's ``exp(l - mx)`` from it and
+    writes the cotangent straight into one tensor of the block's dtype, so
+    no float32 storage the size of the block exists."""
+
+    @staticmethod
+    def forward(ctx, logits, mx, local, own):
+        ctx.save_for_backward(logits, mx, local, own)
+        sums = torch.empty_like(mx)
+        gold = torch.empty_like(mx)
+        for r in blk.row_chunks(*logits.shape):
+            lf = logits[r].to(torch.float32, copy=True)
+            gold[r] = torch.gather(lf, -1, local[r, None])[:, 0]
+            sums[r] = lf.sub_(mx[r, None]).exp_().sum(dim=-1)
+        return sums, torch.where(own, gold, torch.zeros((), dtype=gold.dtype, device=gold.device))
+
+    @staticmethod
+    def backward(ctx, d_sums, d_gold):
+        logits, mx, local, own = ctx.saved_tensors
+        d_gold = torch.where(own, d_gold, torch.zeros((), dtype=d_gold.dtype,
+                                                      device=d_gold.device))
+        grad = torch.empty_like(logits)
+        for r in blk.row_chunks(*logits.shape):
+            d = logits[r].to(torch.float32, copy=True).sub_(mx[r, None]).exp_()
+            grad[r] = d.mul_(d_sums[r, None]).scatter_add_(-1, local[r, None], d_gold[r, None])
+        return grad, None, None, None
+
+
+def _loss_terms_plain(logits, labels, mesh=None):
+    """The plain version of :func:`_loss_terms`: the composite on a float32
+    copy of the whole block, its graph saving that copy (the tests' oracle;
+    the training path takes :func:`_loss_terms`)."""
+    logits = logits.float()
+    if mesh is None:
+        return (torch.logsumexp(logits, dim=-1),
+                torch.gather(logits, -1, labels[..., None])[..., 0])
     vl = logits.shape[-1]
     mx = logits.detach().amax(dim=-1)
     mx = shard_all_reduce_start(mx, "model", mesh=mesh, op="max").wait()

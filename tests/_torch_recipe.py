@@ -201,7 +201,7 @@ def train_family(*, shape, params, batch, ocfg, modes) -> dict:
     return out
 
 
-def logits_cut(*, shape, models, batch, modes) -> dict:
+def logits_cut(*, shape, models, batch, modes, upcast_chunk=None) -> dict:
     """The logits as each rank holds them under a recipe, and the
     vocab-parallel loss: for every ``models[name] = (config overrides, the
     reference's parameters as numpy)`` of phi4-mini SMOKE (float32) and
@@ -209,19 +209,23 @@ def logits_cut(*, shape, models, batch, modes) -> dict:
     ``lm.forward``'s logits as returned (this rank's block), and
     ``loss_fn``'s loss, metrics and gradients (``_accum_loss_grads`` on
     ``batch``, with its ``loss_mask``), the gradients gathered back to the
-    whole tree."""
+    whole tree.  ``upcast_chunk``: ``blocks.UPCAST_CHUNK`` for the run (the
+    float32 elements the loss and RMSNorm's backward upcast at a time),
+    else the module's."""
     import dataclasses
 
     import torch
 
     from repro_torch import configs
     from repro_torch.core import make_mesh
-    from repro_torch.models import lm
+    from repro_torch.models import blocks, lm
     from repro_torch.models.module import tree_leaves
     from repro_torch.models.sharding import make_recipe, use_recipe
     from repro_torch.models.weights import gather_params, params_from_jax
     from repro_torch.train import trainer
 
+    if upcast_chunk is not None:
+        blocks.UPCAST_CHUNK = upcast_chunk
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
     b = {k: torch.from_numpy(v) if v.dtype.kind == "f" else torch.from_numpy(v).long()
          for k, v in batch.items()}
@@ -242,6 +246,35 @@ def logits_cut(*, shape, models, batch, modes) -> dict:
             out[(name, mode, "metrics")] = {k: float(v) for k, v in metrics.items()}
             out[(name, mode, "grads")] = [g.numpy() for g in tree_leaves(
                 gather_params(grads, lm.build_specs(cfg), recipe))]
+    return out
+
+
+def loss_terms(*, shape, logits, labels, mask, upcast_chunk) -> dict:
+    """The loss's ``(logz, gold)`` on this rank of a ``shape`` mesh, its
+    rows (over ``data``) of the whole float32 ``logits (B, S, V)`` and its
+    block of the vocab (over ``model``): through ``lm._loss_terms`` with
+    ``blocks.UPCAST_CHUNK = upcast_chunk`` (``"chunks"``) and through the plain
+    ``lm._loss_terms_plain`` (``"plain"``), each with the cotangent of the
+    block under the masked mean of ``logz - gold``."""
+    import torch
+
+    from repro_torch.core import make_mesh
+    from repro_torch.models import blocks, lm
+
+    blocks.UPCAST_CHUNK = upcast_chunk
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    D, M = shape
+    d, r = mesh.coords()["data"], mesh.coords()["model"]
+    B, V = logits.shape[0], logits.shape[-1]
+    rows, cols = slice(d * (B // D), (d + 1) * (B // D)), slice(r * (V // M), (r + 1) * (V // M))
+    lab = torch.from_numpy(labels[rows]).long()
+    msk = torch.from_numpy(mask[rows])
+    out: dict = {"coords": mesh.coords()}
+    for name, fn in (("chunks", lm._loss_terms), ("plain", lm._loss_terms_plain)):
+        block = torch.from_numpy(logits[rows, :, cols].copy()).requires_grad_()
+        logz, gold = fn(block, lab, mesh)
+        (((logz - gold) * msk).sum() / msk.sum()).backward()
+        out[name] = (logz.detach().numpy(), gold.detach().numpy(), block.grad.numpy())
     return out
 
 

@@ -1,9 +1,11 @@
-"""Host and device time of two steps of the port, for the ``repro_torch``
+"""Host and device time of steps of the port, for the ``repro_torch``
 package under ``--src``, on one CUDA card.
 
     python tools/step_times.py --src src --label change --out chiprun_out/steps.jsonl
+    python tools/step_times.py --src src --label change --out chiprun_out/steps.jsonl \
+        --only train_step
 
-The steps are the tensor-parallel decode step and the ZeRO update:
+The steps (``--only`` picks some; all by default):
 
 * ``tp_decode``: phi4-mini-3.8b at full width (32 layers, bf16 weights drawn
   from seed 0), ``Engine(mesh=..., microbatches=2)`` on a one-rank NCCL
@@ -18,6 +20,13 @@ The steps are the tensor-parallel decode step and the ZeRO update:
   fixed gradients (seed 1), after one warm-up call: ``--windows`` calls on
   the host clock, then one under the profiler, each call's results let go
   (``gc.collect()``, outside the timed span) before the next.
+* ``train_step``: ``make_train_step`` with no recipe on ``chip_smoke.py``'s
+  training model and batch (phi4-mini at full width, 8 layers, float32
+  masters drawn from seed 0; 2 x 4096 tokens in 2 microbatches): after one
+  warm-up step, the peak memory is reset and ``--windows`` steps run on the
+  host clock (s a step), with the peak GB over them and the GB held between
+  steps; then one step under the profiler (device ms by kind:
+  ``chip_smoke.train_by_kind``).
 
 Each run appends one JSON line to ``--out``.  To compare two trees, run
 both in one session on one card, interleaved (``git archive`` the other
@@ -95,6 +104,33 @@ def zero_update(cs, configs, lm, trainer, optimizer, tree_map, mesh, windows: in
     return summary(host, prof)
 
 
+def train_step(cs, configs, lm, trainer, optimizer, windows: int) -> dict:
+    cfg = cs.train_config(configs)
+    params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    batch = cs.train_batch(cfg)
+    ocfg = optimizer.OptConfig(lr=cs.TRAIN_LR)
+    step = trainer.make_train_step(cfg, None, ocfg, microbatches=cs.TRAIN_MICROBATCHES)
+    opt = optimizer.init_opt_state(params, ocfg)
+
+    def once():
+        step(params, opt, batch)
+
+    once()  # warm-up: builds the kernels and maps the step's memory
+    gc.collect()
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    host = [host_ms(once, 1) for _ in range(windows)]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = cs.window(once, 1, classify=cs.train_by_kind)
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return dict(summary(host, prof), peak_gb=peak, held_gb=held,
+                device_ms_by_kind=prof["device_ms_by_kind"])
+
+
+STEPS = ("tp_decode", "zero_update", "train_step")
+
+
 def summary(host: list[float], prof: dict) -> dict:
     return dict(median_host_ms=statistics.median(host), host_ms=host,
                 **{k: prof[k] for k in ("wall_ms", "device_ms", "kernels_launched",
@@ -108,6 +144,7 @@ def main() -> int:
     ap.add_argument("--out", required=True, help="JSON lines file to append to")
     ap.add_argument("--windows", type=int, default=7)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--only", nargs="+", choices=STEPS, default=list(STEPS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("step_times: no CUDA device", file=sys.stderr)
@@ -130,17 +167,21 @@ def main() -> int:
     out = dict(label=args.label, src=args.src, card=cs.nvidia_smi())
     device = init_world("cuda")
     try:
-        cfg = configs.get(cs.ARCH)
-        params = cast_params(lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
-                                           device="cuda"), cfg.act_dtype)
-        out["tp_decode"] = tp_decode(cs, cfg, params, Engine, ServeConfig,
-                                     make_mesh((1, 1), ("data", "model"), device=device),
-                                     args.windows, args.steps)
-        del params
-        torch.cuda.empty_cache()
-        out["zero_update"] = zero_update(cs, configs, lm, trainer, optimizer, tree_map,
-                                         make_mesh((1,), ("data",), device=device),
-                                         args.windows)
+        if "tp_decode" in args.only:
+            cfg = configs.get(cs.ARCH)
+            params = cast_params(lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                               device="cuda"), cfg.act_dtype)
+            out["tp_decode"] = tp_decode(cs, cfg, params, Engine, ServeConfig,
+                                         make_mesh((1, 1), ("data", "model"), device=device),
+                                         args.windows, args.steps)
+            del params
+            torch.cuda.empty_cache()
+        if "zero_update" in args.only:
+            out["zero_update"] = zero_update(cs, configs, lm, trainer, optimizer, tree_map,
+                                             make_mesh((1,), ("data",), device=device),
+                                             args.windows)
+        if "train_step" in args.only:
+            out["train_step"] = train_step(cs, configs, lm, trainer, optimizer, args.windows)
     finally:
         dist.destroy_process_group()
     out["seconds"] = time.perf_counter() - t0
