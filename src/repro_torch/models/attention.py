@@ -387,7 +387,13 @@ def gqa_attention_placed(p, x, *, place, n_heads: int, n_kv: int, head_dim: int,
       (the carry form's offsets, one step from an empty carry; the chunk at
       offset 0 takes the single-shot kernel, whose top-left causal mask is
       its own), and the chunks' projected outputs are gathered over
-      ``model``.
+      ``model``.  Where the residual stream is carried cut by sequence
+      (``place.S`` set: the cache-less forward of the flat attention
+      stacks), ``x`` is this rank's ``(Bl, cap, m)`` chunk and
+      ``positions`` its positions: the rank projects its chunk's Q/K/V,
+      ropes them there, gathers the chunks' K/V along the sequence (the
+      padding dropped; the backward reduce-scatters), and returns its
+      chunk of the output, projected and not gathered.
     * Decode (``cache`` this rank's block of the caches, cut by
       :func:`repro_torch.models.sharding.decode_state_shardings`; its
       ``length`` (B,), ``positions`` (B, S) and ``new_counts`` (B,) whole): a
@@ -412,6 +418,7 @@ def gqa_attention_placed(p, x, *, place, n_heads: int, n_kv: int, head_dim: int,
     ring = (cache is not None and prefill and M > 1 and recipe.sp_ring
             and recipe.attn_mode == "sp")
     seq_split = cache is None and M > 1 and recipe.attn_mode == "sp"
+    chunk = seq_split and place.S is not None  # x is this rank's chunk of the sequence
     # the heads this rank attends with: all of them (sp), its cache's
     # groups' heads, or its tp head block
     if ring or seq_split:
@@ -433,11 +440,11 @@ def gqa_attention_placed(p, x, *, place, n_heads: int, n_kv: int, head_dim: int,
     def take(w, dim, start, n, full):
         return place.block(w, dim, start, n, full, split=split)
 
-    xn = place.enter_model(x) if split else x
+    xn = place.enter_model(x) if split and not chunk else x
     wq, wo = take(p["wq"], 1, h0, hl, H), take(p["wo"], 0, h0, hl, H)
     wk, wv = take(p["wk"], 1, kg0, kg1 - kg0, G), take(p["wv"], 1, kg0, kg1 - kg0, G)
     rows, q_pos = xn, pos
-    if seq_split:
+    if seq_split and not chunk:
         cap, _ = ragged_seq_extents(S, M)
         rows = torch.nn.functional.pad(xn, (0, 0, 0, M * cap - S))[:, mr * cap:(mr + 1) * cap]
         q_pos = torch.cat([pos, pos[-1] + 1 + torch.arange(M * cap - S, device=x.device)])[
@@ -451,6 +458,8 @@ def gqa_attention_placed(p, x, *, place, n_heads: int, n_kv: int, head_dim: int,
     k = apply_rope(k, cos, sin)
     q = apply_rope(q, *((cos, sin) if q_pos is pos else rope_angles(q_pos, head_dim,
                                                                      rope_theta)))
+    if chunk:  # the chunks' K/V along the sequence, as the reference's program gathers them
+        k, v = place.gather_seq(k, 2), place.gather_seq(v, 2)
     new_cache = None
     if cache is not None:
         counts = None if new_counts is None else local(new_counts)
@@ -493,6 +502,8 @@ def gqa_attention_placed(p, x, *, place, n_heads: int, n_kv: int, head_dim: int,
                 q, k, v, None, q_offset=mr * q.shape[2], k_offset=0, causal=causal,
                 scale=head_dim ** -0.5, impl=_kernel_impl(attn_impl))
             o = (acc / torch.where(l == 0.0, 1.0, l)[..., None]).to(dt)
+        if chunk:
+            return _out_proj(o, wo), None
         return place.gather_model(_out_proj(o, wo), 1)[:, :S], new_cache
     o = attention_seq(q, _kv_for_heads(k, h0, hl, rep, g0), _kv_for_heads(v, h0, hl, rep, g0),
                       causal=causal, impl=attn_impl, block=block)

@@ -124,10 +124,13 @@ def attn_block(p, x, cfg, *, cache=None, positions=None, new_counts=None, prefil
     :class:`repro_torch.models.sharding.Placement`) its part of the
     recipe's program (:func:`repro_torch.models.attention.gqa_attention_placed`,
     :func:`repro_torch.models.ffn.ffn_placed`, the MoE's
-    :func:`repro_torch.models.ffn.moe_placed`)."""
+    :func:`repro_torch.models.ffn.moe_placed`); where ``place.S`` is set,
+    ``x`` is this rank's chunk of its rows' sequence, and the residual
+    adds and both norms run on the chunk."""
     if place is not None:
+        ln1, ln2 = place.for_chunk(p["ln1"]), place.for_chunk(p["ln2"])
         h, new_cache = attn.gqa_attention_placed(
-            p["attn"], rmsnorm(p["ln1"], x), place=place,
+            p["attn"], rmsnorm(ln1, x), place=place,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
             rope_theta=cfg.rope_theta, positions=positions, cache=cache,
             attn_impl=cfg.attn_impl, block=cfg.attn_block, new_counts=new_counts,
@@ -135,11 +138,11 @@ def attn_block(p, x, cfg, *, cache=None, positions=None, new_counts=None, prefil
         x = x + h
         if cfg.ffn_kind == "moe":
             f, aux = ffn_mod.moe_placed(
-                p["ffn"], rmsnorm(p["ln2"], x), place=place, n_experts=cfg.n_experts,
+                p["ffn"], rmsnorm(ln2, x), place=place, n_experts=cfg.n_experts,
                 d_ff=cfg.d_ff, top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
                 groups=cfg.moe_groups, dispatch=cfg.moe_dispatch)
             return x + f, new_cache, aux
-        f = ffn_mod.ffn_placed(p["ffn"], rmsnorm(p["ln2"], x), kind=cfg.ffn_kind,
+        f = ffn_mod.ffn_placed(p["ffn"], rmsnorm(ln2, x), kind=cfg.ffn_kind,
                                d_ff=cfg.d_ff, place=place)
         return x + f, new_cache, 0.0
     h, new_cache = attn.gqa_attention(

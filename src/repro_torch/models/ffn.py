@@ -105,19 +105,28 @@ def ffn_placed(p, x, *, kind: str, d_ff: int, place):
     to ``model`` the rank holds its block of the hidden columns: its float32
     partial of the down projection is summed over ``model`` and rounded
     once (the GELU's output bias added after); else every rank runs the
-    whole FFN.  ``x`` is whole over ``model``, and so is the result."""
+    whole FFN.  ``x`` is whole over ``model``, and so is the result; where
+    the residual stream is cut by sequence (``place.S`` set) ``x`` and the
+    result are this rank's chunk: the chunks are gathered along the
+    sequence and the partial reduce-scattered back to them (rounded once),
+    or, with ``f`` whole, the FFN runs on the chunk."""
     w_in = p["w_gate"] if kind == "swiglu" else p["w_in"]
     if place.M == 1 or w_in.shape[1] == d_ff:
+        if place.S is not None:
+            p = {k: place.for_chunk(w) for k, w in p.items()}
         return swiglu(p, x) if kind == "swiglu" else gelu_mlp(p, x)
-    xn = place.enter_model(x)
+    if place.S is None:
+        xn, reduce = place.enter_model(x), place.sum_model
+    else:
+        xn, reduce = place.gather_seq(x), place.scatter_seq
     if kind == "swiglu":
         h = F.silu(torch.matmul(xn, p["w_gate"].to(x.dtype))) * \
             torch.matmul(xn, p["w_up"].to(x.dtype))
-        return place.sum_model(partial_product(h, p["w_down"])).to(x.dtype)
+        return reduce(partial_product(h, p["w_down"])).to(x.dtype)
     h = F.gelu(torch.matmul(xn, p["w_in"].to(x.dtype)) + p["b_in"].to(x.dtype),
                approximate="tanh")
-    out = place.sum_model(partial_product(h, p["w_out"])).to(x.dtype)
-    return out + p["b_out"].to(x.dtype)
+    out = reduce(partial_product(h, p["w_out"])).to(x.dtype)
+    return out + place.for_chunk(p["b_out"]).to(x.dtype)
 
 
 # ------------------------------------------------------------------- MoE ----
@@ -373,11 +382,21 @@ def moe_placed(p, x, *, place, n_experts: int, d_ff: int, top_k: int = 2,
       rounded once.  The aux loss comes from the rank's own rows'
       statistics summed over the batch axes, so each rank's gradient of it
       is its own rows' share.  On one rank of every axis this is
-      :func:`moe_ffn` itself."""
+      :func:`moe_ffn` itself.
+
+    Where the residual stream is cut by sequence (``place.S`` set) ``x``
+    and ``y`` are this rank's ``(Bl, cap, m)`` chunks: the expert-parallel
+    token shard is the chunk itself; otherwise the rank gathers its rows'
+    whole sequence first (the same on every ``model`` rank, so routing,
+    capacity and the aux statistics see every position and no padding),
+    and the summed partial is reduce-scattered back to the chunk (a whole
+    output: the rank takes its chunk), the dense residual run on the
+    chunk as :func:`ffn_placed` runs it."""
     if dispatch not in ("auto", "ep"):
         raise ValueError(f"moe_placed: unknown dispatch {dispatch!r} (have 'auto', 'ep')")
     recipe, mesh = place.recipe, place.mesh
     Bl, S, m = x.shape
+    S = place.S or S
     D = prod(mesh.shape[a] for a in place.batch_axes)
     B, E = Bl * D, n_experts
     kw = dict(n_experts=E, top_k=top_k, capacity_factor=capacity_factor,
@@ -388,10 +407,14 @@ def moe_placed(p, x, *, place, n_experts: int, d_ff: int, top_k: int = 2,
             return _moe_ep_placed(p, x, place=place, d_ff=d_ff, **kw)
         warnings.warn(f"moe_ffn: dispatch='ep' requested but {why}; falling back to the "
                       "dense/grouped capacity dispatch", stacklevel=2)
+    xc = x  # the chunk, where the stream is cut by sequence
+    if place.S is not None:  # the rows' whole sequence, the same on every model rank
+        x = place.gather_seq(x, split=False)
     El = p["w_gate"].shape[0]
     split = place.M > 1 and (El != E or p["w_gate"].shape[2] != d_ff)
     if not split and D == 1:
-        return moe_ffn(p, x, groups=groups, **kw)
+        y, aux = moe_ffn(p, x, groups=groups, **kw)
+        return (y if place.S is None else place.scatter_seq(y, split=False)), aux
     grouped = bool(groups) and groups > 1 and S > 1 and B % groups == 0
     gather = S > 1 and D > 1 and (not grouped or Bl % (B // groups))
     xr = place.gather_rows(x) if gather else x  # the rows routed together
@@ -445,10 +468,12 @@ def moe_placed(p, x, *, place, n_experts: int, d_ff: int, top_k: int = 2,
             y = y.reshape(Br, S, m)
     if gather:
         y = place.local_rows(y)
-    if split:
+    if place.S is not None:
+        y = place.scatter_seq(y, split=split).to(x.dtype)
+    elif split:
         y = place.sum_model(y).to(x.dtype)
     if "residual" in p:
-        y = y + ffn_placed(p["residual"], x, kind="swiglu", d_ff=d_ff, place=place)
+        y = y + ffn_placed(p["residual"], xc, kind="swiglu", d_ff=d_ff, place=place)
     return y, aux
 
 
@@ -471,6 +496,10 @@ def _moe_ep_placed(p, x, *, place, d_ff: int, n_experts: int, top_k: int,
     if "residual" in p:
         pe["residual"] = {k: whole(p["residual"][k], dim, d_ff)
                           for k, dim in (("w_gate", 1), ("w_up", 1), ("w_down", 0))}
+    if place.S is not None:  # x is the token shard (S divides model: cap == Sr)
+        return moe_expert_parallel(pe, x, n_experts=E, top_k=top_k,
+                                   capacity_factor=capacity_factor,
+                                   aux_loss_weight=aux_loss_weight, recipe=place.recipe)
     xs = place.enter_model(x)[:, mr * Sr:(mr + 1) * Sr]
     y, aux = moe_expert_parallel(pe, xs, n_experts=E, top_k=top_k,
                                  capacity_factor=capacity_factor,

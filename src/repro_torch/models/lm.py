@@ -29,7 +29,10 @@ the program is this rank's part of the recipe's.  Under ``tp`` and plain
 rows of the batch, gathers each block's FSDP-cut weights over ``data``
 before the block, keeps the residual stream whole over ``model``, and
 runs its heads (``tp``) or its chunk of the queries (``sp``) and its
-block of the FFN's hidden columns, the partials summed over ``model``; the
+block of the FFN's hidden columns, the partials summed over ``model``
+(under plain ``sp`` the cache-less forward of the dense, MoE and audio
+stacks carries the residual as the rank's chunk of the sequence instead,
+as the reference's compiled program does: :func:`_forward_placed`); the
 embedding and the head are vocab-sharded (a lookup whose all-reduce has one
 nonzero addend, and the head's columns).  The logits stay cut as the
 recipe's ``logits`` spec cuts them
@@ -100,6 +103,7 @@ backward writes only its own slice of the stacked gradient.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, NamedTuple
 
@@ -506,46 +510,75 @@ def _embed_placed(params, batch, cfg, place, pspecs, positions=None):
     per row), as :func:`embed_inputs`.  Tokens: a lookup into the vocab
     block this rank holds, zero elsewhere, summed over ``model`` (one
     nonzero addend: bitwise the plain lookup); the plain lookup where ``v``
-    is whole."""
+    is whole.  Where the stream is cut by sequence (``place.S``) it is this
+    rank's chunk: the frames' chunk (zero frames past S) plus the sinusoid
+    at the chunk's ``positions``; the lookup's sum reduce-scattered to the
+    chunk (its backward all-gathers the cotangent, so each vocab block
+    gets every position's gradient), or the whole lookup's chunk."""
     if cfg.input_kind == "embeds":
         if positions is not None and positions.ndim == 2:
             positions = place.local_rows(positions)
-        return embed_inputs(params, {"embeds": place.local_rows(batch["embeds"])}, cfg,
-                            positions=positions)
+        frames = place.local_rows(batch["embeds"])
+        if place.S is not None:
+            frames = place.scatter_seq(frames, split=False)
+        return embed_inputs(params, {"embeds": frames}, cfg, positions=positions)
     tokens = place.local_rows(batch["tokens"])
     emb = place.use(params["embed"], pspecs["embed"]).to(cfg.act_dtype)
     if emb.shape[0] == cfg.vocab_padded:
-        return emb[tokens]
+        return emb[tokens] if place.S is None else place.scatter_seq(emb[tokens], split=False)
     vl = emb.shape[0]
     loc = tokens - place.mr * vl
     ok = (loc >= 0) & (loc < vl)
     e = torch.where(ok[..., None], emb[loc.clamp(0, vl - 1)],
                     torch.zeros((), dtype=emb.dtype, device=emb.device))
-    return place.sum_model(e)
+    return place.sum_model(e) if place.S is None else place.scatter_seq(e)
 
 
 def _head_placed(params, x, cfg, place, pspecs):
     """This rank's block of the ``(B, S, vocab_padded)`` logits
     (:func:`repro_torch.models.sharding.logits_spec`) from its rows ``x``:
     its vocab block of the head's columns (full dots) where the recipe cuts
-    ``v``, else all of them."""
-    x = blk.rmsnorm(place.use(params["final_norm"], pspecs["final_norm"]), x)
+    ``v``, else all of them.  Where ``x`` is this rank's chunk of the
+    sequence (``place.S``) the final norm runs on the chunk and the normed
+    chunks are gathered along the sequence (for the vocab block, a gather
+    whose backward reduce-scatters)."""
+    x = blk.rmsnorm(place.for_chunk(place.use(params["final_norm"], pspecs["final_norm"])), x)
     if cfg.tie_embeddings:
         head = place.use(params["embed"], pspecs["embed"]).T
     else:
         head = place.use(params["lm_head"], pspecs["lm_head"])
-    if head.shape[1] == cfg.vocab_padded:
+    whole = head.shape[1] == cfg.vocab_padded
+    if place.S is not None:
+        return torch.matmul(place.gather_seq(x, split=not whole), head.to(x.dtype))
+    if whole:
         return torch.matmul(x, head.to(x.dtype))
     return torch.matmul(place.enter_model(x), head.to(x.dtype))
+
+
+# the families whose reference carries the residual stream cut by sequence
+# under plain ``sp`` (the flat stacks of ``attn_block``)
+_SEQ_CUT_FAMILIES = ("dense", "moe", "audio")
 
 
 def _forward_placed(params, batch, cfg, recipe, positions):
     """The forward on this rank of a ``tp`` or plain ``sp`` recipe's mesh
     (see the module docstring): its rows, each block's weights gathered
     over ``data`` inside the block's checkpoint (:func:`_block`), the
-    blocks' work split over ``model``."""
+    blocks' work split over ``model``.  Under plain ``sp`` with more than
+    one ``model`` rank the dense, MoE and audio stacks carry the residual
+    stream as this rank's ``(n_rows, cap, m)`` chunk of its rows' sequence
+    between blocks (:attr:`repro_torch.models.sharding.Placement.S`), as
+    the reference's compiled program does: it enters after the embedding
+    and leaves at the head."""
     pspecs = _placed_pspecs(params, cfg, recipe)
-    place = placement(recipe, _input_of(batch, cfg).shape[0])
+    B, S = _input_of(batch, cfg).shape[:2]
+    place = placement(recipe, B)
+    if (recipe.attn_mode == "sp" and place.M > 1 and cfg.family in _SEQ_CUT_FAMILIES
+            and (positions is None or positions.ndim == 1)):
+        place = dataclasses.replace(place, S=S)
+        if positions is None:
+            positions = torch.arange(S, device=_input_of(batch, cfg).device)
+        positions = place.chunk_positions(positions)
     x = _embed_placed(params, batch, cfg, place, pspecs, positions)
     aux = 0.0
     if cfg.family == "hybrid":

@@ -20,12 +20,21 @@ under ``tp`` the heads ``h`` and KV groups ``g``).  Under ``tp`` and plain
 batch (split over the ``data`` axes where they divide it), all-gathers a
 block's ``m``-sharded weights over ``data`` first thing inside the block's
 checkpoint (so the checkpoint keeps the shards and its recompute gathers
-again: no layer's gathered weights outlive its block), and keeps the
-residual stream whole over ``model`` (the reference's ``hidden`` spec):
-attention under ``tp`` runs the rank's heads and KV groups, under ``sp``
-the rank's chunk of the queries against the whole K/V, the FFN runs the
-rank's ``f`` columns, and each block's float32 partials are summed with
-one all-reduce over ``model``.  The head's
+again: no layer's gathered weights outlive its block).  Under ``tp`` it
+keeps the residual stream whole over ``model`` (the reference's ``hidden``
+spec): attention runs the rank's heads and KV groups, the FFN the rank's
+``f`` columns, and each block's float32 partials are summed with one
+all-reduce over ``model``.  Under plain ``sp`` the cache-less forward of
+the flat attention stacks (the dense, MoE and audio families) carries the
+residual stream cut over ``model`` by sequence between blocks, as the
+reference's compiled program carries it (GSPMD propagates the cut of
+``q``/``attn_out``): each rank holds its rows' ``(n_rows, cap, m)`` chunk
+(:func:`ragged_seq_extents`, :attr:`Placement.S`), attention projects
+its chunk's Q/K/V and gathers the chunks' K/V along the sequence, the FFN
+gathers the normed chunks and reduce-scatters its float32 partial back to
+the chunks (:func:`scatter`).  The other families, and every forward with
+a cache, keep the residual whole and run the rank's chunk of the queries
+against the whole K/V.  The head's
 logits stay cut as the recipe's ``logits`` spec cuts them
 (:func:`logits_spec`): a rank holds its rows and its block of the vocab
 over ``model``, the loss is taken vocab-parallel on that block
@@ -77,8 +86,8 @@ __all__ = ["Recipe", "make_recipe", "use_recipe", "current_recipe", "fit_spec",
            "ragged_seq_extents", "ragged_expert_extents", "ragged_grad_extents", "TokenShard",
            "token_shard", "PRIORITY", "batch_shardings", "decode_state_shardings", "batch_rows",
            "logits_spec", "recipe_pspecs", "local_shape", "spec_axes", "partial_product",
-           "Placement", "placement", "all_gather", "all_reduce", "sum_stat", "sum_grads",
-           "gather_cut", "lse_merge"]
+           "Placement", "placement", "all_gather", "all_reduce", "scatter", "sum_stat",
+           "sum_grads", "gather_cut", "lse_merge"]
 
 Spec = tuple  # one entry per dim: a mesh axis, a tuple of them, or None
 
@@ -532,6 +541,25 @@ def all_reduce(x, mesh, axis: str):
     return shard_all_reduce_start(x, axis, mesh=mesh).wait()
 
 
+def scatter(x, mesh, axis: str, dim: int, *, split: bool):
+    """This rank's block of ``x`` along ``dim`` over mesh ``axis`` (rank
+    order; ``x``'s size there divides into the axis's ranks): the converse
+    of :func:`all_gather`.  ``split``: each rank holds a partial of the
+    whole, and the block is of their sum (a reduce-scatter); else every
+    rank holds the same whole ``x`` and takes its own block.  Its backward
+    all-gathers the cotangent, so every rank holds the whole of it.
+    Nothing moves on an axis of one rank."""
+    R = mesh.shape.get(axis, 1)
+    if R == 1:
+        return x
+    if _wants_grad(x):
+        return _Scatter.apply(mesh, axis, dim, split, x)
+    if split:
+        return shard_reduce_scatter_start(x, axis, mesh=mesh, axis=dim).wait()
+    n = x.shape[dim] // R  # a copy: a view of the block would keep the whole alive
+    return x.narrow(dim, mesh.coords()[axis] * n, n).clone()
+
+
 def sum_grads(x, mesh, axes):
     """``x`` as it is, with its cotangent summed over ``axes`` in the
     backward: where a tensor every rank of ``axes`` holds whole (a weight,
@@ -603,6 +631,18 @@ class _Gather(torch.autograd.Function):
         return None, None, None, None, d
 
 
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, split, x):
+        ctx.meta = (mesh, axis, dim)
+        return scatter(x, mesh, axis, dim, split=split)  # no grad in here: the plain path
+
+    @staticmethod
+    def backward(ctx, d):
+        mesh, axis, dim = ctx.meta
+        return None, None, None, None, shard_all_gather_start(d, axis, mesh=mesh, axis=dim).wait()
+
+
 class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mesh, axis, x):
@@ -637,10 +677,53 @@ class Placement:
     batch_axes: tuple[str, ...]
     row0: int
     n_rows: int
+    # set where the rows' residual stream is carried cut over ``model`` by
+    # sequence (plain ``sp``'s cache-less forward): the rows' S positions
+    # pad to M chunks of ``cap`` and this rank holds chunk ``mr``
+    S: int | None = None
 
     @property
     def mesh(self):
         return self.recipe.mesh
+
+    @property
+    def cap(self) -> int:
+        return ragged_seq_extents(self.S, self.M)[0]
+
+    def chunk_positions(self, positions):
+        """The ``(cap,)`` absolute positions of this rank's chunk, from the
+        rows' ``(S,)`` ones; the padding's go on past the last (as
+        :func:`repro_torch.models.lm._forward_sp_ring`'s)."""
+        pad = torch.arange(self.M * self.cap - self.S, device=positions.device)
+        pos = torch.cat([positions, positions[-1] + 1 + pad])
+        return pos[self.mr * self.cap:(self.mr + 1) * self.cap]
+
+    def gather_seq(self, x, dim: int = 1, *, split: bool = True):
+        """The rows' whole sequence of ``S`` positions from every ``model``
+        rank's chunk ``x`` (along ``dim``), the padding dropped: the
+        counterpart of :meth:`TokenShard.gather_seq`.  ``split``: each rank
+        goes on with work of its own on it (its ``f`` columns, its vocab
+        block, its chunk's queries), so its cotangent is a partial and the
+        backward reduce-scatters it; else every rank does the same work and
+        the backward takes this rank's chunk of the cotangent."""
+        return all_gather(x, self.mesh, "model", dim, split=split).narrow(dim, 0, self.S)
+
+    def scatter_seq(self, y, *, split: bool = True):
+        """This rank's ``(n_rows, cap, ...)`` chunk of the rows' whole
+        ``(n_rows, S, ...)`` ``y``, padded past ``S`` with zeros: the
+        counterpart of :meth:`TokenShard.local_seq`.  ``split``: ``y`` is
+        this rank's partial and the chunk is of the ranks' sum (a
+        reduce-scatter); else every rank holds the same ``y``.  Either
+        way the backward all-gathers the cotangent (:func:`scatter`)."""
+        if self.M * self.cap != self.S:  # rebound: the unpadded y goes before the scatter
+            y = torch.nn.functional.pad(y, [0, 0] * (y.ndim - 2) + [0, self.M * self.cap - self.S])
+        return scatter(y, self.mesh, "model", 1, split=split)
+
+    def for_chunk(self, t):
+        """Weight ``t``, whole on every ``model`` rank, used by this rank's
+        chunk alone when the stream is cut by sequence (its gradient then
+        summed over ``model``); else as it is."""
+        return t if self.S is None else self.enter_model(t)
 
     @property
     def M(self) -> int:

@@ -961,3 +961,63 @@ def remat_against_none(*, shape, cases, batches) -> dict:
                              "leaves": len(tree_leaves(g_on)),
                              "nonzero": sum(bool(g.abs().sum() > 0) for g in tree_leaves(g_on))}
     return out
+
+
+def sp_residual(*, shape, models, batches) -> dict:
+    """Every ``models[name] = (arch, overrides, tree)`` under a forced
+    plain ``sp`` recipe on this rank of a ``shape`` mesh, on
+    ``batches[name]`` (its input and ``labels``): ``lm.forward``'s whole
+    logits and aux loss, the shape of the residual stream entering each
+    block (``blocks.attn_block``'s ``x``) in that forward, this rank's
+    ``(n_rows, cap, d_model)`` chunk of the rows' sequence, how many
+    fallback warnings the forward raised, and ``loss_fn``'s loss, metrics
+    and gradients gathered back whole."""
+    import warnings
+
+    import torch
+
+    from repro_torch.core import make_mesh
+    from repro_torch.models import blocks, lm
+    from repro_torch.models.module import tree_leaves
+    from repro_torch.models.sharding import (batch_rows, make_recipe, ragged_seq_extents,
+                                             use_recipe)
+    from repro_torch.models.weights import gather_params
+    from repro_torch.train import trainer
+
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    real = blocks.attn_block
+    out: dict = {"coords": mesh.coords()}
+    for name, entry in models.items():
+        cfg, params = _named(name, entry)
+        recipe = make_recipe(cfg, mesh, attn_mode="sp")
+        shards = _shards(cfg, params, recipe)
+        b = _as_batch(batches[name])
+        B, S = b["labels"].shape
+        seen = []
+
+        def spy(p, x, *args, **kw):
+            seen.append(tuple(x.shape))
+            return real(p, x, *args, **kw)
+
+        blocks.attn_block = spy
+        try:
+            with use_recipe(recipe), torch.no_grad(), \
+                    warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                logits, aux = lm.forward(shards, {k: v for k, v in b.items() if k != "labels"},
+                                         cfg)
+        finally:
+            blocks.attn_block = real
+        out[(name, "warnings")] = sum("falling back" in str(w.message) for w in caught)
+        out[(name, "logits")] = lm.gather_logits(logits, recipe, B).numpy()
+        out[(name, "aux")] = float(aux)
+        out[(name, "residual")] = seen
+        out[(name, "chunk")] = (batch_rows(recipe, B)[2],
+                                ragged_seq_extents(S, shape[1])[0], cfg.d_model)
+        with use_recipe(recipe):
+            loss, metrics, grads = trainer._accum_loss_grads(shards, b, cfg, 1)
+        out[(name, "loss")] = float(loss)
+        out[(name, "metrics")] = {k: float(v) for k, v in metrics.items()}
+        out[(name, "grads")] = [g.numpy() for g in tree_leaves(
+            gather_params(grads, lm.build_specs(cfg), recipe))]
+    return out
