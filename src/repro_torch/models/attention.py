@@ -906,39 +906,45 @@ def cross_attention(p, x, enc, *, attn_impl: str | None = None, block: int = 512
     return _out_proj(o, p["wo"])
 
 
-def cross_attention_placed(p, x, enc, *, place, n_heads: int, n_kv: int, split_queries: bool,
+def cross_attention_placed(p, x, enc, *, place, n_heads: int, n_kv: int,
                            attn_impl: str | None = None, block: int = 512):
     """This rank's part of :func:`cross_attention` under a ``tp`` or plain
     ``sp`` recipe (:class:`repro_torch.models.sharding.Placement`): ``x``
-    (Bl, S, m) and ``enc`` (Bl, T, d_enc) are this rank's rows (the recipe's
-    ``enc`` spec: the whole image on every ``model`` rank), ``p`` the
-    layer's weights with their ``m`` dim gathered.  Returns ``(Bl, S, m)``,
-    the same on every ``model`` rank.
+    (Bl, S, m) are this rank's rows and ``enc`` (Bl, T, d_enc) their images
+    (the recipe's ``enc`` spec: the whole image on every ``model`` rank),
+    ``p`` the layer's weights with their ``m`` dim gathered.  Returns
+    ``(Bl, S, m)``, as ``x``.
 
     * Heads cut over ``model`` (``tp``): the rank runs its query heads and
       the KV groups they read (whole groups on every rank where ``n_kv``
       does not divide ``model``, as :func:`gqa_attention_placed`) through
       the forward kernel, non-causal, and its float32 partial of ``wo`` is
-      summed over ``model``.
-    * ``split_queries`` with whole heads (plain ``sp``'s forward): the
-      rank's chunk of the queries (:func:`ragged_seq_extents`) attends over
-      the whole image, Sq the chunk and Skv ``T``; the chunks' projected
-      outputs are gathered over ``model`` and the padded rows dropped.  No
-      ring and no carry: nothing of the image is cut by sequence.
-    * Otherwise (one ``model`` rank, or whole heads in a decode step) every
-      rank runs :func:`cross_attention` on its rows.
+      summed over ``model``; the result is the same on every ``model``
+      rank.
+    * The residual stream cut by sequence (``place.S`` set: plain ``sp``'s
+      cache-less forward): ``x`` is this rank's ``(Bl, cap, m)`` chunk and
+      its queries attend over the whole image of its rows, Sq ``cap`` and
+      Skv ``T``, as the reference's program runs them (``q`` cut by
+      sequence, ``enc`` whole over ``model``); the output projection runs
+      on the chunk and is not gathered.  No ring and no carry: nothing of
+      the image is cut by sequence.  The chunk's own cotangent stays its
+      own; every weight (``wq``, ``wk``, ``wv``, ``wo`` and both norms) is
+      used by this rank's queries alone, so its gradient is summed over
+      ``model``.
+    * Otherwise (one ``model`` rank, or whole heads over the rows' whole
+      sequence: a decode step, a forward at per-row positions) every rank
+      runs :func:`cross_attention` on its rows.
 
     The norms (and whole weights) feeding split work sum their gradients
     over ``model`` (:meth:`~repro_torch.models.sharding.Placement.block`,
     :meth:`~repro_torch.models.sharding.Placement.enter_model`)."""
-    B, S, _ = x.shape
     H, G = n_heads, n_kv
     rep = H // G
     M, mr = place.M, place.mr
     dt = x.dtype
-    heads_cut = p["wq"].shape[1] != H
-    seq_split = split_queries and not heads_cut
-    if M == 1 or not (heads_cut or seq_split):
+    chunk = place.S is not None
+    heads_cut = p["wq"].shape[1] != H and not chunk
+    if M == 1 or not (heads_cut or chunk):
         return cross_attention(p, x, enc, attn_impl=attn_impl, block=block)
     hl = p["wq"].shape[1] if heads_cut else H
     h0 = mr * hl if heads_cut else 0
@@ -947,20 +953,14 @@ def cross_attention_placed(p, x, enc, *, place, n_heads: int, n_kv: int, split_q
     def take(w, dim, start, n, full):
         return place.block(w, dim, start, n, full, split=True)
 
-    xn = place.enter_model(x)
     wq, wo = take(p["wq"], 1, h0, hl, H), take(p["wo"], 0, h0, hl, H)
     wk, wv = take(p["wk"], 1, g0, g1 - g0, G), take(p["wv"], 1, g0, g1 - g0, G)
-    rows = xn
-    if seq_split:
-        cap, _ = ragged_seq_extents(S, M)
-        rows = torch.nn.functional.pad(xn, (0, 0, 0, M * cap - S))[:, mr * cap:(mr + 1) * cap]
-    q = _rms(_project(rows, wq), place.enter_model(p["q_norm"]))
+    q = _rms(_project(x if chunk else place.enter_model(x), wq), place.enter_model(p["q_norm"]))
     e = enc.to(dt)
     k = _rms(_project(e, wk), place.enter_model(p["k_norm"]))
     v = _project(e, wv)
-    if seq_split:
-        o = attention_seq(q, k, v, causal=False, impl=attn_impl, block=block)
-        return place.gather_model(_out_proj(o, wo), 1)[:, :S]
+    if chunk:
+        return _out_proj(attention_seq(q, k, v, causal=False, impl=attn_impl, block=block), wo)
     o = attention_seq(q, _kv_for_heads(k, h0, hl, rep, g0), _kv_for_heads(v, h0, hl, rep, g0),
                       causal=False, impl=attn_impl, block=block)
     return _placed_out(o, wo, place, True, dt)

@@ -218,22 +218,28 @@ def cross_block_specs(cfg) -> dict:
     }
 
 
-def cross_block(p, x, enc, cfg, *, place=None, split_queries: bool = False):
+def cross_block(p, x, enc, cfg, *, place=None):
     """The gated cross-attention block (Llama-3.2-Vision style): ``x +
     tanh(gate_attn) * cross_attention(...)``, then ``x + tanh(gate_ffn) *
     swiglu(...)``, each gate's tanh in x's dtype.  ``enc`` (B, enc_len,
     enc_dim) are the image's states; the block keeps no cache.  Under a
     ``tp``/``sp`` recipe ``x`` and ``enc`` are this rank's rows and
-    ``place`` its part of the program: the attention by heads, or by query
-    chunks where ``split_queries`` (plain ``sp``'s forward), through
+    ``place`` its part of the program: the attention by heads, or by the
+    rank's chunk of the queries, through
     :func:`repro_torch.models.attention.cross_attention_placed`, and the
-    SwiGLU's ``f`` columns (:func:`repro_torch.models.ffn.ffn_placed`); the
-    gates act on the whole sums."""
+    SwiGLU's ``f`` columns (:func:`repro_torch.models.ffn.ffn_placed`).
+    Where ``place.S`` is set, ``x`` is this rank's chunk of its rows'
+    sequence: both norms, both gates and the residual adds run on the
+    chunk, and the four whole weights, used by the chunk alone, sum their
+    gradients over ``model`` (:meth:`Placement.for_chunk`); else the gates
+    act on the whole sums."""
+    if place is not None:
+        p = {**p, **{k: place.for_chunk(p[k]) for k in ("ln1", "ln2", "gate_attn", "gate_ffn")}}
     xn = rmsnorm(p["ln1"], x)
     if place is not None:
         h = attn.cross_attention_placed(p["attn"], xn, enc, place=place, n_heads=cfg.n_heads,
-                                        n_kv=cfg.n_kv, split_queries=split_queries,
-                                        attn_impl=cfg.attn_impl, block=cfg.attn_block)
+                                        n_kv=cfg.n_kv, attn_impl=cfg.attn_impl,
+                                        block=cfg.attn_block)
     else:
         h = attn.cross_attention(p["attn"], xn, enc, attn_impl=cfg.attn_impl,
                                  block=cfg.attn_block)

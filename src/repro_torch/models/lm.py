@@ -30,8 +30,8 @@ rows of the batch, gathers each block's FSDP-cut weights over ``data``
 before the block, keeps the residual stream whole over ``model``, and
 runs its heads (``tp``) or its chunk of the queries (``sp``) and its
 block of the FFN's hidden columns, the partials summed over ``model``
-(under plain ``sp`` the cache-less forward of the dense, MoE and audio
-stacks carries the residual as the rank's chunk of the sequence instead,
+(under plain ``sp`` the cache-less forward of the dense, MoE, audio and
+VLM stacks carries the residual as the rank's chunk of the sequence instead,
 as the reference's compiled program does: :func:`_forward_placed`); the
 embedding and the head are vocab-sharded (a lookup whose all-reduce has one
 nonzero addend, and the head's columns).  The logits stay cut as the
@@ -76,7 +76,8 @@ positions; it has no ``embed`` table, and its untied head is the vocab-cut
 family's, the nested ``(n_cross, group_self, ...)`` leaves bound with both
 stack dims dropped, and each cross block over this rank's rows of the
 image (the recipe's ``enc`` spec: the whole image on every ``model`` rank)
-by heads (``tp``) or by query chunks (plain ``sp``,
+by heads (``tp``) or by the rank's chunk of the sequence, the residual
+it carries (plain ``sp``,
 :func:`repro_torch.models.attention.cross_attention_placed`); under
 ``sp_ring`` the chunk's queries attend over the whole image of its rows,
 with no ring.  Its decode caches are the self blocks' K/V alone, cut as the
@@ -353,18 +354,19 @@ def _forward_vlm(params, x, enc, cfg, positions, *, use, place=None, shard=None)
     are as this rank holds them and ``use`` (:func:`_user`) makes a block's
     weights ready inside the checkpoint that runs it: each self block's
     inside its own, the cross block's inside the group's.  Under a
-    ``tp``/``sp`` recipe (``place``) ``x`` and ``enc`` are this rank's
-    rows; under ``sp_ring`` (``shard``) ``x`` is this rank's chunk and
+    ``tp``/``sp`` recipe (``place``) ``enc`` are this rank's rows' images
+    and ``x`` its rows, or where ``place.S`` is set (plain ``sp``) its
+    chunk of their sequence: the group's checkpoint, each self block's and
+    the cross block take the chunk, and the cross block's queries are the
+    chunk's.  Under ``sp_ring`` (``shard``) ``x`` is this rank's chunk and
     ``enc`` its rows' images."""
     n_cross, group_self = vlm_dims(cfg)
     block = _block(cfg, lambda p: use(p, "self_blocks", 2))
-    split = place is not None and place.recipe.attn_mode == "sp"
 
     def group(p_self, p_cross, x):
         for p in _layers(p_self):
             x, _, _ = block(p, x, cfg, positions=positions, place=place, shard=shard)
-        return blk.cross_block(use(p_cross, "cross_blocks", 1), x, enc, cfg, place=place,
-                               split_queries=split)
+        return blk.cross_block(use(p_cross, "cross_blocks", 1), x, enc, cfg, place=place)
 
     group = _remat(group, cfg)
     for p_self, p_cross in zip(_layers(params["self_blocks"]), _layers(params["cross_blocks"])):
@@ -556,8 +558,9 @@ def _head_placed(params, x, cfg, place, pspecs):
 
 
 # the families whose reference carries the residual stream cut by sequence
-# under plain ``sp`` (the flat stacks of ``attn_block``)
-_SEQ_CUT_FAMILIES = ("dense", "moe", "audio")
+# under plain ``sp``: the flat stacks of ``attn_block``, and the VLM's
+# groups of self blocks and a cross block
+_SEQ_CUT_FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
 def _forward_placed(params, batch, cfg, recipe, positions):
@@ -565,10 +568,12 @@ def _forward_placed(params, batch, cfg, recipe, positions):
     (see the module docstring): its rows, each block's weights gathered
     over ``data`` inside the block's checkpoint (:func:`_block`), the
     blocks' work split over ``model``.  Under plain ``sp`` with more than
-    one ``model`` rank the dense, MoE and audio stacks carry the residual
-    stream as this rank's ``(n_rows, cap, m)`` chunk of its rows' sequence
-    between blocks (:attr:`repro_torch.models.sharding.Placement.S`), as
-    the reference's compiled program does: it enters after the embedding
+    one ``model`` rank the dense, MoE, audio and VLM stacks carry the
+    residual stream as this rank's ``(n_rows, cap, m)`` chunk of its rows'
+    sequence between blocks (:attr:`repro_torch.models.sharding.Placement.S`),
+    as the reference's compiled program does: it enters after the
+    embedding, goes through every block (the VLM's self and cross blocks
+    alike, the cross block's queries the chunk over its rows' whole image)
     and leaves at the head."""
     pspecs = _placed_pspecs(params, cfg, recipe)
     B, S = _input_of(batch, cfg).shape[:2]

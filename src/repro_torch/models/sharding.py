@@ -25,16 +25,17 @@ keeps the residual stream whole over ``model`` (the reference's ``hidden``
 spec): attention runs the rank's heads and KV groups, the FFN the rank's
 ``f`` columns, and each block's float32 partials are summed with one
 all-reduce over ``model``.  Under plain ``sp`` the cache-less forward of
-the flat attention stacks (the dense, MoE and audio families) carries the
+the attention stacks (the dense, MoE, audio and VLM families) carries the
 residual stream cut over ``model`` by sequence between blocks, as the
 reference's compiled program carries it (GSPMD propagates the cut of
 ``q``/``attn_out``): each rank holds its rows' ``(n_rows, cap, m)`` chunk
 (:func:`ragged_seq_extents`, :attr:`Placement.S`), attention projects
 its chunk's Q/K/V and gathers the chunks' K/V along the sequence, the FFN
 gathers the normed chunks and reduce-scatters its float32 partial back to
-the chunks (:func:`scatter`).  The other families, and every forward with
-a cache, keep the residual whole and run the rank's chunk of the queries
-against the whole K/V.  The head's
+the chunks (:func:`scatter`), and the VLM's cross block runs the chunk's
+queries against its rows' whole image.  The other families, and every
+forward with a cache, keep the residual whole and run the rank's chunk of
+the queries against the whole K/V.  The head's
 logits stay cut as the recipe's ``logits`` spec cuts them
 (:func:`logits_spec`): a rank holds its rows and its block of the vocab
 over ``model``, the loss is taken vocab-parallel on that block

@@ -968,10 +968,11 @@ def sp_residual(*, shape, models, batches) -> dict:
     plain ``sp`` recipe on this rank of a ``shape`` mesh, on
     ``batches[name]`` (its input and ``labels``): ``lm.forward``'s whole
     logits and aux loss, the shape of the residual stream entering each
-    block (``blocks.attn_block``'s ``x``) in that forward, this rank's
-    ``(n_rows, cap, d_model)`` chunk of the rows' sequence, how many
-    fallback warnings the forward raised, and ``loss_fn``'s loss, metrics
-    and gradients gathered back whole."""
+    block (``blocks.attn_block``'s ``x``, and apart the VLM's
+    ``blocks.cross_block``'s) in that forward, this rank's ``(n_rows, cap,
+    d_model)`` chunk of the rows' sequence, how many fallback warnings the
+    forward raised, and ``loss_fn``'s loss, metrics and gradients gathered
+    back whole."""
     import warnings
 
     import torch
@@ -985,7 +986,7 @@ def sp_residual(*, shape, models, batches) -> dict:
     from repro_torch.train import trainer
 
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
-    real = blocks.attn_block
+    real = {k: getattr(blocks, k) for k in ("attn_block", "cross_block")}
     out: dict = {"coords": mesh.coords()}
     for name, entry in models.items():
         cfg, params = _named(name, entry)
@@ -993,13 +994,16 @@ def sp_residual(*, shape, models, batches) -> dict:
         shards = _shards(cfg, params, recipe)
         b = _as_batch(batches[name])
         B, S = b["labels"].shape
-        seen = []
+        seen = {k: [] for k in real}
 
-        def spy(p, x, *args, **kw):
-            seen.append(tuple(x.shape))
-            return real(p, x, *args, **kw)
+        def spy(kind):
+            def fn(p, x, *args, **kw):
+                seen[kind].append(tuple(x.shape))
+                return real[kind](p, x, *args, **kw)
+            return fn
 
-        blocks.attn_block = spy
+        for kind in real:
+            setattr(blocks, kind, spy(kind))
         try:
             with use_recipe(recipe), torch.no_grad(), \
                     warnings.catch_warnings(record=True) as caught:
@@ -1007,11 +1011,13 @@ def sp_residual(*, shape, models, batches) -> dict:
                 logits, aux = lm.forward(shards, {k: v for k, v in b.items() if k != "labels"},
                                          cfg)
         finally:
-            blocks.attn_block = real
+            for kind, fn in real.items():
+                setattr(blocks, kind, fn)
         out[(name, "warnings")] = sum("falling back" in str(w.message) for w in caught)
         out[(name, "logits")] = lm.gather_logits(logits, recipe, B).numpy()
         out[(name, "aux")] = float(aux)
-        out[(name, "residual")] = seen
+        out[(name, "residual")] = seen["attn_block"]
+        out[(name, "cross_residual")] = seen["cross_block"]
         out[(name, "chunk")] = (batch_rows(recipe, B)[2],
                                 ragged_seq_extents(S, shape[1])[0], cfg.d_model)
         with use_recipe(recipe):
@@ -1021,3 +1027,29 @@ def sp_residual(*, shape, models, batches) -> dict:
         out[(name, "grads")] = [g.numpy() for g in tree_leaves(
             gather_params(grads, lm.build_specs(cfg), recipe))]
     return out
+
+
+def checkpoint_inputs(arch, shape="train_4k", *, layers=2, attn_mode="auto"):
+    """The tensors each checkpoint is handed (the blocks', and the hybrid's
+    and the VLM's groups') in the port's dry run of rank 0 of a fake 16 x
+    16 world, ``arch`` cut to ``layers`` layers under ``attn_mode``, as
+    ``(shape, dtype)``."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+
+    seen = []
+    real = lm.checkpoint
+
+    def spy(fn, *args, **kw):
+        seen.append([(tuple(a.shape), a.dtype) for a in args if isinstance(a, torch.Tensor)])
+        return real(fn, *args, **kw)
+
+    lm.checkpoint = spy
+    try:
+        dryrun.lower_cell(arch, shape, sets=[f"n_layers={layers}"], attn_mode=attn_mode,
+                          verbose=False)
+    finally:
+        lm.checkpoint = real
+    return seen
