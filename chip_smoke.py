@@ -1526,7 +1526,8 @@ def recipe_forward(cfg, params, lm, fa, mesh, sharding, shard_params_by_recipe) 
         shards = shard_params_by_recipe(params, specs, recipe)
         fa.flash_attention_cuda.launches = 0
         with sharding.use_recipe(recipe):
-            got = lm.gather_logits(lm.forward(shards, batch, cfg)[0], recipe, 1)
+            mine = sharding.local_batch(recipe, batch)
+            got = lm.gather_logits(lm.forward(shards, mine, cfg)[0], recipe, 1)
         torch.cuda.synchronize()
         launches = fa.flash_attention_cuda.launches
         if launches != cfg.n_layers:
@@ -1543,7 +1544,7 @@ def recipe_forward(cfg, params, lm, fa, mesh, sharding, shard_params_by_recipe) 
 
         def fwd(shards=shards, recipe=recipe):
             with sharding.use_recipe(recipe):
-                lm.forward(shards, batch, cfg)
+                lm.forward(shards, sharding.local_batch(recipe, batch), cfg)
 
         out[recipe.attn_mode] = dict(
             mode=mode, flash_attention_launches=launches, logits_max_abs_err=err,
@@ -2850,7 +2851,8 @@ def zero_train(cfg, params, batch, grads, trainer, optimizer, tree_leaves, mesh)
     zstep = trainer.make_zero_train_step(cfg, mesh, ocfg, microbatches=TRAIN_MICROBATCHES)
     t0 = time.perf_counter()
     zero, m_zero = params_and_metrics(zstep(
-        params, optimizer.init_zero_opt_state(params, buckets, ocfg), batch))
+        params, optimizer.init_zero_opt_state(params, buckets, ocfg),
+        trainer.zero_local_batch(mesh, batch)))
     torch.cuda.synchronize()
     zero_s = time.perf_counter() - t0
     loss_err = abs(m_zero["loss"].item() - m_base["loss"].item()) / m_base["loss"].item()
@@ -2901,12 +2903,15 @@ def sp_ring_train(cfg, params, batch, m_base, fa, trainer, optimizer, make_recip
     launched once a layer and microbatch in the forward and again in remat's
     recompute (its gradient through ``_CarryStep``), held against the
     no-recipe step's metrics ``m_base`` (see RING_*)."""
+    from repro_torch.models.sharding import local_batch
+
     ocfg = optimizer.OptConfig(lr=TRAIN_LR)
     recipe = make_recipe(cfg, mesh, attn_mode="sp_ring")
     fa.flash_attention_cuda.launches = fa.flash_attention_carry_cuda.launches = 0
     t0 = time.perf_counter()
     m_ring = trainer.make_train_step(cfg, recipe, ocfg, microbatches=TRAIN_MICROBATCHES)(
-        params, optimizer.init_opt_state(params, ocfg), batch)[2]
+        params, optimizer.init_opt_state(params, ocfg),
+        local_batch(recipe, batch, microbatches=TRAIN_MICROBATCHES))[2]
     torch.cuda.synchronize()
     ring_s = time.perf_counter() - t0
     carry, single = fa.flash_attention_carry_cuda.launches, fa.flash_attention_cuda.launches
@@ -2943,7 +2948,8 @@ def recipe_train(cfg, params, batch, m_base, fa, lm, trainer, optimizer, shardin
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention_cuda.launches = 0
     t0 = time.perf_counter()
-    m = step(shards, optimizer.init_opt_state(shards, ocfg), batch)[2]
+    m = step(shards, optimizer.init_opt_state(shards, ocfg),
+             sharding.local_batch(recipe, batch, microbatches=TRAIN_MICROBATCHES))[2]
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     launches = fa.flash_attention_cuda.launches
@@ -3315,7 +3321,8 @@ def recurrent_recipe_forward(cfg, params, lm, fa, mesh, sharding, shard_params_b
         shards = shard_params_by_recipe(params, specs, recipe)
         fa.flash_attention_cuda.launches = fa.flash_attention_carry_cuda.launches = 0
         with sharding.use_recipe(recipe):
-            got = lm.gather_logits(lm.forward(shards, batch, cfg)[0], recipe, 1)
+            mine = sharding.local_batch(recipe, batch)
+            got = lm.gather_logits(lm.forward(shards, mine, cfg)[0], recipe, 1)
         torch.cuda.synchronize()
         launches = (fa.flash_attention_cuda.launches, fa.flash_attention_carry_cuda.launches)
         expected = (0, n_shared) if mode == "sp_ring" else (n_shared, 0)
@@ -3335,7 +3342,7 @@ def recurrent_recipe_forward(cfg, params, lm, fa, mesh, sharding, shard_params_b
 
         def fwd(shards=shards, recipe=recipe):
             with sharding.use_recipe(recipe):
-                lm.forward(shards, batch, cfg)
+                lm.forward(shards, sharding.local_batch(recipe, batch), cfg)
 
         fns[mode] = fwd
         out[mode] = dict(flash_attention_launches=launches[0],
@@ -3702,12 +3709,13 @@ def hybrid_train(configs, lm, fa, trainer, optimizer, tree_leaves, sharding,
     recipe = sharding.make_recipe(cfg, mesh, attn_mode="tp")
     shards = shard_params_by_recipe(params, lm.build_specs(cfg), recipe)
     rstep = trainer.make_train_step(cfg, recipe, ocfg)
+    mine = sharding.local_batch(recipe, batch)
     torch.cuda.reset_peak_memory_stats()
-    rstep(shards, opt, batch)  # warm-up, as the no-recipe step's
+    rstep(shards, opt, mine)  # warm-up, as the no-recipe step's
     torch.cuda.synchronize()
     fa.flash_attention_cuda.launches = 0
     t0 = time.perf_counter()
-    m_rec = rstep(shards, opt, batch)[2]
+    m_rec = rstep(shards, opt, mine)[2]
     torch.cuda.synchronize()
     rec_s = time.perf_counter() - t0
     rec_launches = fa.flash_attention_cuda.launches
@@ -3910,7 +3918,8 @@ def latent_recipe_forward(cfg, params, lm, fa, mesh, sharding, shard_params_by_r
         fa.flash_attention_cuda.launches = fa.flash_attention_carry_cuda.launches = 0
         with sharding.use_recipe(recipe), warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            got = lm.gather_logits(lm.forward(shards, batch, cfg)[0], recipe, 1)
+            mine = sharding.local_batch(recipe, batch)
+            got = lm.gather_logits(lm.forward(shards, mine, cfg)[0], recipe, 1)
         torch.cuda.synchronize()
         fell_back = sum("falling back" in str(w.message) for w in caught)
         launches = (fa.flash_attention_cuda.launches, fa.flash_attention_carry_cuda.launches)
@@ -3934,7 +3943,7 @@ def latent_recipe_forward(cfg, params, lm, fa, mesh, sharding, shard_params_by_r
         def fwd(shards=shards, recipe=recipe):
             with sharding.use_recipe(recipe), warnings.catch_warnings():
                 warnings.simplefilter("ignore")
-                lm.forward(shards, batch, cfg)
+                lm.forward(shards, sharding.local_batch(recipe, batch), cfg)
 
         fns[mode] = fwd
         out[mode] = dict(flash_attention_launches=launches[0],
@@ -4061,12 +4070,13 @@ def latent_recipe_train(cfg, lm, fa, trainer, optimizer, sharding, shard_params_
         warnings.simplefilter("ignore")  # the MoE's ep fallback on one rank
         for name, rec, p in (("no_recipe", None, params), ("tp", recipe, shards)):
             step = trainer.make_train_step(cfg, rec, ocfg)
+            b = batch if rec is None else sharding.local_batch(rec, batch)
             torch.cuda.reset_peak_memory_stats()
-            step(p, opt, batch)  # warm-up
+            step(p, opt, b)  # warm-up
             torch.cuda.synchronize()
             fa.flash_attention_cuda.launches = 0
             t0 = time.perf_counter()
-            m = step(p, opt, batch)[2]
+            m = step(p, opt, b)[2]
             torch.cuda.synchronize()
             rows[name] = dict(step_s=time.perf_counter() - t0,
                               flash_attention_launches=fa.flash_attention_cuda.launches,
@@ -4261,6 +4271,11 @@ def vlm_generate(cfg, params, lm, fd, fa, prompts, image, impl, recipe=None) -> 
     step kind, seconds, and a function that runs one more decode step.
     Under ``recipe`` (active around the call) each step's sampled position
     is gathered from the rank's block (``lm.last_logits``)."""
+    from repro_torch.models.sharding import local_batch
+
+    def rows(batch):  # a step's inputs: this rank's rows under the recipe
+        return batch if recipe is None else local_batch(recipe, batch, decode=True)
+
     c = dataclasses.replace(cfg, attn_impl=impl)
     B = len(prompts)
     state = lm.DecodeState(lm.init_cache(c, B, MAX_LEN, device=DEVICE),
@@ -4286,7 +4301,7 @@ def vlm_generate(cfg, params, lm, fd, fa, prompts, image, impl, recipe=None) -> 
         return out, dt
 
     (_, state), prefill_s = counted("prefill", lambda: lm.decode_step(
-        params, state, {"tokens": chunk.to(DEVICE), "image_embeds": image}, c,
+        params, state, rows({"tokens": chunk.to(DEVICE), "image_embeds": image}), c,
         new_counts=counts, prefill=True))
     out = [list(p) for p in prompts]
     gaps, decode_s = {}, 0.0
@@ -4295,7 +4310,7 @@ def vlm_generate(cfg, params, lm, fd, fa, prompts, image, impl, recipe=None) -> 
     for j in range(VLM_NEW_TOKENS):
         tok = torch.tensor(last, device=DEVICE)[:, None]
         (logits, state), dt = counted("decode", lambda: lm.decode_step(
-            params, state, {"tokens": tok, "image_embeds": image}, c, new_counts=ones))
+            params, state, rows({"tokens": tok, "image_embeds": image}), c, new_counts=ones))
         decode_s += dt
         top2 = lm.last_logits(logits, ones, recipe)[:, :cfg.vocab].float().topk(2, dim=-1)
         last = top2.indices[:, 0].tolist()
@@ -4307,7 +4322,7 @@ def vlm_generate(cfg, params, lm, fd, fa, prompts, image, impl, recipe=None) -> 
     def step():
         tok = torch.tensor(holder["last"], device=DEVICE)[:, None]
         logits, holder["state"] = lm.decode_step(params, holder["state"],
-                                                 {"tokens": tok, "image_embeds": image}, c,
+                                                 rows({"tokens": tok, "image_embeds": image}), c,
                                                  new_counts=ones)
         holder["last"] = lm.last_logits(logits, ones, recipe)[:, :cfg.vocab].argmax(-1).tolist()
 
@@ -4467,12 +4482,13 @@ def family_train(configs, lm, fa, ops, trainer, optimizer, tree_leaves, name: st
     recipe = sharding.make_recipe(cfg, mesh, attn_mode="tp")
     shards = shard_params_by_recipe(params, lm.build_specs(cfg), recipe)
     step = trainer.make_train_step(cfg, recipe, ocfg)
+    mine = sharding.local_batch(recipe, batch)
     torch.cuda.reset_peak_memory_stats()
-    step(shards, opt, batch)  # warm-up
+    step(shards, opt, mine)  # warm-up
     torch.cuda.synchronize()
     fa.flash_attention_cuda.launches = 0
     t0 = time.perf_counter()
-    rec = step(shards, opt, batch)[2]
+    rec = step(shards, opt, mine)[2]
     torch.cuda.synchronize()
     rec_s = time.perf_counter() - t0
     got = (rec["loss"].item(), rec["grad_norm"].item())
@@ -4525,7 +4541,8 @@ def family_recipe_forward(cfg, params, lm, ops, fa, mesh, sharding, shard_params
         shards = shard_params_by_recipe(params, specs, recipe)
         fa.flash_attention_cuda.launches = fa.flash_attention_carry_cuda.launches = 0
         with sharding.use_recipe(recipe), attention_calls(ops) as calls:
-            got = lm.gather_logits(lm.forward(shards, batch, cfg)[0], recipe, 1)
+            mine = sharding.local_batch(recipe, batch)
+            got = lm.gather_logits(lm.forward(shards, mine, cfg)[0], recipe, 1)
         torch.cuda.synchronize()
         ring = mode == "sp_ring"
         launches = dict(flash_attention=dict(calls.counts),
@@ -4547,7 +4564,7 @@ def family_recipe_forward(cfg, params, lm, ops, fa, mesh, sharding, shard_params
 
         def fwd(shards=shards, recipe=recipe):
             with sharding.use_recipe(recipe):
-                lm.forward(shards, batch, cfg)
+                lm.forward(shards, sharding.local_batch(recipe, batch), cfg)
 
         fns[mode] = fwd
         out[mode] = dict(instance=(cfg.head_dim, cfg.head_dim), launches=launches,

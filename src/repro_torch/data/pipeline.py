@@ -9,7 +9,9 @@ Two sources:
     restart exact;
   * ``memmap``: a flat binary token file (``np.memmap``), strided by step.
 
-A batch is a dict of numpy arrays; the trainer moves it to its device.
+A batch is a dict of numpy arrays; under a sharding recipe each rank cuts
+its blocks of it on the host (``repro_torch.models.sharding.local_batch``)
+and :func:`to_device` moves what it holds to its device.
 :func:`batch_specs` gives the shapes and dtypes without making a batch.
 """
 from __future__ import annotations
@@ -20,7 +22,7 @@ import numpy as np
 
 from repro_torch.configs.base import ShapeCell
 
-__all__ = ["DataConfig", "ShapeCell", "make_batch", "batch_specs"]
+__all__ = ["DataConfig", "ShapeCell", "make_batch", "batch_specs", "to_device"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,3 +83,20 @@ def batch_specs(cfg, shape) -> dict:
     if cfg.input_kind == "tokens+image":
         out["image_embeds"] = ((B, cfg.enc_len, cfg.enc_dim), np.dtype(np.float32))
     return out
+
+
+def to_device(batch: dict, device) -> dict:
+    """A numpy batch on ``device``: token ids and labels as int64 tensors,
+    the ``embeds`` and ``image_embeds`` inputs as float32.  A rank's blocks
+    (``sharding.RankBatch``) stay one, their global shapes kept."""
+    import torch
+
+    from repro_torch.models.sharding import RankBatch
+
+    def one(v):
+        return torch.from_numpy(v).to(device=device, dtype=torch.long if v.dtype.kind in "iu"
+                                      else torch.float32)
+
+    if isinstance(batch, RankBatch):
+        return batch.map(one)
+    return {k: one(v) for k, v in batch.items()}

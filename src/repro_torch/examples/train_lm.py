@@ -42,13 +42,12 @@ def main(argv=None) -> int:
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.configs.base import ArchConfig
     from repro_torch.core.dist import init_world, make_mesh, resolve_device
-    from repro_torch.data.pipeline import DataConfig, ShapeCell, make_batch
-    from repro_torch.launch.train import to_device
+    from repro_torch.data.pipeline import DataConfig, ShapeCell, make_batch, to_device
     from repro_torch.models import lm
-    from repro_torch.models.sharding import make_recipe
+    from repro_torch.models.sharding import local_batch, make_recipe
     from repro_torch.train.optimizer import OptConfig, init_opt_state, init_zero_opt_state
     from repro_torch.train.trainer import (make_train_step, make_zero_train_step,
-                                           zero_train_buckets)
+                                           zero_local_batch, zero_train_buckets)
 
     # ~100M params: 12 layers, d=768, untied 32k vocab
     cfg = ArchConfig(name="demo-100m", family="dense", n_layers=12, d_model=768, n_heads=12,
@@ -71,6 +70,7 @@ def main(argv=None) -> int:
     ocfg = OptConfig(lr=3e-4, warmup_steps=20, total_steps=args.steps)
     params = lm.init_model(cfg, torch.Generator(device=device).manual_seed(0), device=device)
     ckpt_dir = args.ckpt_dir
+    recipe = None
     if args.zero:
         mesh = make_mesh((world,), ("data",), device=device)
         buckets = zero_train_buckets(cfg, bucket_bytes=args.bucket_kb << 10, ranks=world)
@@ -82,7 +82,6 @@ def main(argv=None) -> int:
                                        bucket_bytes=args.bucket_kb << 10)
         ckpt_dir = os.path.join(ckpt_dir, f"rank{rank}")  # each rank's optimizer shard
     else:
-        recipe = None
         if distributed:
             model = 2 if world % 2 == 0 else 1
             mesh = make_mesh((world // model, model), ("data", "model"), device=device)
@@ -95,8 +94,12 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     for step in range(args.steps):
-        batch = to_device(make_batch(cfg, cell, step, dcfg), device)
-        params, opt, m = step_fn(params, opt, batch)
+        batch = make_batch(cfg, cell, step, dcfg)  # each rank's block cut on the host
+        if args.zero:
+            batch = zero_local_batch(mesh, batch)
+        elif recipe is not None:
+            batch = local_batch(recipe, batch, microbatches=2)
+        params, opt, m = step_fn(params, opt, to_device(batch, device))
         if step % 10 == 0 or step == args.steps - 1:
             tok_s = (step + 1) * cell.global_batch * cell.seq_len / (time.time() - t0)
             log(f"step {step:4d}  loss {float(m['loss']):.4f}  "

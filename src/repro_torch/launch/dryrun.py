@@ -14,7 +14,11 @@ For each cell (:func:`iter_cells`) :func:`lower_cell` traces rank
                     against the whole cache)
 
 The parameters are this rank's shards (``lm.abstract_model``), the batch is
-the global batch (every rank of the port takes it and uses its rows).
+this rank's blocks of the global batch (``sharding.local_batch_shapes``, the
+reference's ``batch_shardings``; a train cell's rows laid out for its
+microbatches, a decode cell's rows), made at their local shapes with the
+global shapes attached (``sharding.RankBatch``), so ``batch_bytes`` is a
+rank's.
 ``--device cuda`` (the default) traces the card's program, with the port's
 kernels standing in for their launches (``repro_torch.kernels.fake``);
 ``--device cpu`` traces the plain versions.  The op walk
@@ -76,7 +80,7 @@ from repro_torch.data.pipeline import batch_specs
 from repro_torch.kernels.fake import card_trace
 from repro_torch.models import lm
 from repro_torch.models.module import tree_leaves
-from repro_torch.models.sharding import make_recipe, use_recipe
+from repro_torch.models.sharding import RankBatch, local_batch_shapes, make_recipe, use_recipe
 from repro_torch.train.optimizer import OptConfig, init_opt_state
 from repro_torch.train.trainer import make_serve_step, make_train_step
 
@@ -145,6 +149,18 @@ def _flat(x) -> list:
     return []
 
 
+def _rank_batch(cfg, shape, recipe, dev, microbatches: int) -> RankBatch:
+    """This rank's blocks of a cell's global batch, empty tensors of their
+    local shapes: a train cell's laid out for ``microbatches``, a decode
+    cell's rows."""
+    specs = batch_specs(cfg, shape)
+    shapes = {n: s for n, (s, _) in specs.items()}
+    k = microbatches if shape.kind == "train" else 1
+    local = local_batch_shapes(recipe, shapes, microbatches=k, decode=shape.kind == "decode")
+    return RankBatch({n: torch.empty(local[n], dtype=_NP_TORCH[d], device=dev)
+                      for n, (_, d) in specs.items()}, shapes, k)
+
+
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False, attn_mode: str = "auto",
                microbatches: int = 1, sets: list[str] | None = None, rank: int = 0,
                device: str = "cuda", verbose: bool = True) -> dict:
@@ -160,8 +176,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False, attn_mode
     t0 = time.time()
     with mode:
         params = lm.abstract_model(cfg, recipe=recipe, device=dev)
-        batch = {name: torch.empty(s, dtype=_NP_TORCH[d], device=dev)
-                 for name, (s, d) in batch_specs(cfg, shape).items()}
+        batch = _rank_batch(cfg, shape, recipe, dev, microbatches)
         mem = {"param_bytes": _nbytes(params), "batch_bytes": _nbytes(batch),
                "optimizer_bytes": 0, "state_bytes": 0}
         if shape.kind == "train":
@@ -534,7 +549,7 @@ def train_dryrun(*, arch: str = "phi4-mini-3.8b", ranks: int = 8, seq: int = 64,
     from repro_torch.train.buckets import zero_comm_model
     from repro_torch.train.optimizer import init_zero_opt_state
     from repro_torch.train.trainer import (ZERO_TRAIN_PLAN_INTENT, make_zero_train_step,
-                                           zero_train_buckets)
+                                           zero_local_batch, zero_train_buckets)
 
     fake_world(ranks)
     cfg = configs.get(arch, smoke=True)
@@ -542,8 +557,8 @@ def train_dryrun(*, arch: str = "phi4-mini-3.8b", ranks: int = 8, seq: int = 64,
     ocfg = OptConfig(compress=compress)
     params = lm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
     shape = ShapeCell("train_gate", seq, batch, "train")
-    data = {name: torch.zeros(s, dtype=_NP_TORCH[d])
-            for name, (s, d) in batch_specs(cfg, shape).items()}
+    data = zero_local_batch(mesh, {name: torch.zeros(s, dtype=_NP_TORCH[d])
+                                   for name, (s, d) in batch_specs(cfg, shape).items()})
 
     def walk(bucket_bytes, db):
         bkts = zero_train_buckets(cfg, bucket_bytes=bucket_bytes, ranks=ranks)

@@ -14,9 +14,12 @@ with more than one process the world is a ``(data, model)`` mesh
 (``model`` 2 when the world size is even, the reference's rule) and the
 step runs under ``make_recipe(cfg, mesh, attn_mode=--attn-mode)``
 (``auto``: ``tp`` where the heads divide ``model``, else ``sp``; or
-``tp``, ``sp``, ``sp_ring``): every rank holds and updates its shards of
-the parameters and the optimizer state; checkpoints hold the logical
-arrays (gathered, rank 0 writes) and restore under any world size.  Runs
+``tp``, ``sp``, ``sp_ring``): every rank makes the step's global batch
+(the reference's, bit for bit), cuts its blocks on the host
+(``sharding.local_batch``) and moves only those to the device, and holds
+and updates its shards of the parameters and the optimizer state;
+checkpoints hold the logical arrays (gathered, rank 0 writes) and
+restore under any world size.  Runs
 on the GPU (NCCL under ``torchrun``) unless given ``--device cpu`` (gloo).
 Every family trains under every mode; a one-process run takes no recipe
 whatever ``--attn-mode`` says.
@@ -35,6 +38,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from repro_torch.data.pipeline import to_device
 
 
 def parse_args(argv=None):
@@ -120,15 +125,6 @@ def setup(args):
     return cfg, device, mesh, mesh.rank
 
 
-def to_device(batch: dict, device) -> dict:
-    """A numpy batch on ``device``: token ids and labels as int64 tensors,
-    the ``embeds`` and ``image_embeds`` inputs as float32."""
-    import torch
-
-    return {k: torch.from_numpy(v).to(device=device, dtype=torch.long if v.dtype.kind in "iu"
-                                      else torch.float32) for k, v in batch.items()}
-
-
 def run(args, cfg=None) -> dict:
     """The training loop of ``args`` (``cfg`` replaces the architecture's
     config, e.g. cut in depth); returns this process's record: the step
@@ -139,7 +135,7 @@ def run(args, cfg=None) -> dict:
     from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.data.pipeline import DataConfig, ShapeCell, make_batch
     from repro_torch.models import lm
-    from repro_torch.models.sharding import make_recipe
+    from repro_torch.models.sharding import local_batch, make_recipe
     from repro_torch.models.weights import shard_params_by_recipe
     from repro_torch.train.optimizer import OptConfig, OptState, init_opt_state
     from repro_torch.train.trainer import make_train_step
@@ -182,8 +178,10 @@ def run(args, cfg=None) -> dict:
             print(f"[train] FAULT INJECTION: crashing at step {step}", flush=True)
             os._exit(42)
         t0 = time.perf_counter()
-        batch = to_device(make_batch(cfg, cell, step, dcfg), device)
-        params, opt, metrics = step_fn(params, opt, batch)
+        batch = make_batch(cfg, cell, step, dcfg)
+        if recipe is not None:  # this rank's blocks, cut on the host
+            batch = local_batch(recipe, batch, microbatches=args.microbatches)
+        params, opt, metrics = step_fn(params, opt, to_device(batch, device))
         record["loss"].append(float(metrics["loss"]))
         record["seconds"].append(time.perf_counter() - t0)
         if rank == 0:

@@ -24,9 +24,14 @@ frame embeddings plus sinusoidal positions (:func:`embed_inputs`), with no
 
 Under an active recipe (:mod:`repro_torch.models.sharding`) the
 parameters are this rank's shards (``weights.shard_params_by_recipe``) and
-the program is this rank's part of the recipe's.  Under ``tp`` and plain
-``sp`` (:func:`_forward_placed`, :func:`_decode_placed`) a rank takes its
-rows of the batch, gathers each block's FSDP-cut weights over ``data``
+the program is this rank's part of the recipe's.  The batch is this rank's
+blocks of it (:func:`repro_torch.models.sharding.local_batch`, the
+reference's ``batch_shardings``), a
+:class:`~repro_torch.models.sharding.RankBatch` that carries the global
+shapes; a whole dict under a recipe raises ``TypeError``, and no path
+narrows a whole batch.  Under ``tp`` and plain ``sp``
+(:func:`_forward_placed`, :func:`_decode_placed`) a rank runs its rows of
+the batch, gathers each block's FSDP-cut weights over ``data``
 before the block, keeps the residual stream whole over ``model``, and
 runs its heads (``tp``) or its chunk of the queries (``sp``) and its
 block of the FFN's hidden columns, the partials summed over ``model``
@@ -70,8 +75,9 @@ grid hosts it, else the capacity dispatch over the tokens the reference
 routes together, the experts or their columns split over ``model``), and
 its aux loss is summed over the blocks as without a recipe.  The audio
 family takes this rank's rows of the frames (under ``sp_ring`` its chunk of
-them, padded with zero frames) and adds the sinusoid at their absolute
-positions; it has no ``embed`` table, and its untied head is the vocab-cut
+them, as handed where ``model`` divides S, else cut from its rows' whole
+sequence and padded with zero frames) and adds the sinusoid at their
+absolute positions; it has no ``embed`` table, and its untied head is the vocab-cut
 ``lm_head``.  The VLM family runs each group's self blocks as the dense
 family's, the nested ``(n_cross, group_self, ...)`` leaves bound with both
 stack dims dropped, and each cross block over this rank's rows of the
@@ -120,7 +126,7 @@ from . import ssm as ssm_mod
 from .module import init_params, pspec, stack_specs, tree_map, tree_size
 from .sharding import (Placement, all_gather, all_reduce, batch_rows, current_recipe,
                        decode_state_shardings, gather_cut, local_shape, logits_spec, placement,
-                       recipe_pspecs, spec_axes, sum_grads, token_shard)
+                       rank_batch, recipe_pspecs, spec_axes, sum_grads, token_shard)
 
 __all__ = ["build_specs", "count_params", "embed_inputs", "lm_logits", "forward", "loss_fn",
            "gather_logits", "last_logits", "DecodeState", "init_cache", "decode_step",
@@ -228,6 +234,12 @@ def _input_of(batch, cfg) -> torch.Tensor:
     return batch["embeds" if cfg.input_kind == "embeds" else "tokens"]
 
 
+def _global_rows_seq(batch, cfg) -> tuple[int, int]:
+    """``(B, S)`` of the global batch whose blocks ``batch`` (a
+    :class:`~repro_torch.models.sharding.RankBatch`) are."""
+    return batch.shapes["embeds" if cfg.input_kind == "embeds" else "tokens"][:2]
+
+
 def lm_logits(params, x, cfg):
     """(B, S, vocab_padded) logits; the tied head is ``x @ embed.T``."""
     x = blk.rmsnorm(params["final_norm"], x)
@@ -284,16 +296,19 @@ def forward(params, batch, cfg, *, positions=None):
     ``(logits, aux_loss)``; the aux loss sums the MoE blocks' (0 for the
     dense family).
 
-    Under an active recipe every rank takes the whole batch and this
-    rank's shards of the parameters, computes only its own part
-    (:func:`_forward_placed`, :func:`_forward_sp_ring`) and returns its
-    block of the logits, cut by
+    Under an active recipe every rank takes its blocks of the batch (a
+    :class:`~repro_torch.models.sharding.RankBatch` from
+    :func:`~repro_torch.models.sharding.local_batch`; a whole dict raises
+    ``TypeError``) and this rank's shards of the parameters, computes only
+    its own part (:func:`_forward_placed`, :func:`_forward_sp_ring`) and
+    returns its block of the logits, cut by
     :func:`repro_torch.models.sharding.logits_spec` (:func:`gather_logits`
     makes them whole), and the aux loss, the same on every rank."""
     recipe = current_recipe()
-    if recipe is not None and recipe.sp_ring:
-        return _forward_sp_ring(params, batch, cfg, recipe, positions)
     if recipe is not None:
+        batch = rank_batch(recipe, batch, "lm.forward")
+        if recipe.sp_ring:
+            return _forward_sp_ring(params, batch, cfg, recipe, positions)
         return _forward_placed(params, batch, cfg, recipe, positions)
     x = embed_inputs(params, batch, cfg, positions=positions)
     block = _block(cfg)
@@ -377,8 +392,11 @@ def _forward_vlm(params, x, enc, cfg, positions, *, use, place=None, shard=None)
 def _forward_sp_ring(params, batch, cfg, recipe, positions):
     """The forward on this rank of a sequence-parallel recipe's mesh.
 
-    The batch splits over the recipe's batch axes where they divide it
-    (else every rank takes all of it).  The sequence of S tokens pads to
+    ``batch`` is this rank's blocks: its rows (every row where the batch
+    axes do not divide B), token ids over their whole sequence, the
+    ``embeds`` frames as this rank's chunk where ``model`` divides S (the
+    recipe's ``hidden`` spec), else over their whole sequence, cut here
+    (:meth:`TokenShard.local_seq`).  The sequence of S tokens pads to
     R = |model| chunks of ``cap`` (:func:`ragged_seq_extents`) and this rank
     keeps chunk ``r``, at absolute positions ``r*cap + i`` for RoPE, through
     every block (the recipe's ``hidden`` spec: (B, model, None)); attention
@@ -394,7 +412,7 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
     returns the same aux loss."""
     specs, pspecs = _recipe_pspecs(cfg, recipe)
     inputs = _input_of(batch, cfg)
-    B, S = inputs.shape[:2]
+    B, S = _global_rows_seq(batch, cfg)
     dev = inputs.device
     shard = token_shard(recipe, B, S)
     use = _user(None, pspecs, shard=shard, specs=specs)
@@ -405,16 +423,17 @@ def _forward_sp_ring(params, batch, cfg, recipe, positions):
     chunk = slice(shard.chunk * shard.cap, (shard.chunk + 1) * shard.cap)
     embed = None
     if cfg.input_kind == "embeds":  # the chunk's frames (zero past S), sinusoid at pos[chunk]
-        x = embed_inputs(params, {"embeds": shard.local(inputs)}, cfg, positions=pos[chunk])
+        frames = shard.local_seq(inputs) if inputs.shape[1] == S else inputs
+        x = embed_inputs(params, {"embeds": frames}, cfg, positions=pos[chunk])
     else:
         embed = _gather_whole(params["embed"], specs["embed"].shape, pspecs["embed"], recipe.mesh)
-        x = embed_inputs({"embed": shard.partial(embed)}, {"tokens": shard.local(inputs)}, cfg)
+        x = embed_inputs({"embed": shard.partial(embed)}, {"tokens": shard.local_seq(inputs)},
+                         cfg)
     aux = 0.0
     if cfg.family == "hybrid":
         x = _forward_hybrid(params, x, cfg, pos[chunk], use=use, shard=shard)
     elif cfg.family == "vlm":  # the image split by the chunk's rows, never by sequence
-        enc = batch["image_embeds"][shard.row0:shard.row0 + shard.n_rows]
-        x = _forward_vlm(params, x, enc, cfg, pos[chunk], use=use, shard=shard)
+        x = _forward_vlm(params, x, batch["image_embeds"], cfg, pos[chunk], use=use, shard=shard)
     else:
         block = _block(cfg, lambda p: use(p, "blocks", 1))
         kw = {} if cfg.family == "ssm" else {"positions": pos[chunk]}
@@ -507,7 +526,8 @@ def _layer_specs(pspecs):
 
 
 def _embed_placed(params, batch, cfg, place, pspecs, positions=None):
-    """This rank's rows' embeddings.  The ``embeds`` input kind: its rows
+    """This rank's rows' embeddings, from its blocks ``batch`` (its rows,
+    each over its whole sequence).  The ``embeds`` input kind: its rows
     of the frames plus the sinusoid at ``positions`` ((S,), or whole (B, S)
     per row), as :func:`embed_inputs`.  Tokens: a lookup into the vocab
     block this rank holds, zero elsewhere, summed over ``model`` (one
@@ -520,11 +540,11 @@ def _embed_placed(params, batch, cfg, place, pspecs, positions=None):
     if cfg.input_kind == "embeds":
         if positions is not None and positions.ndim == 2:
             positions = place.local_rows(positions)
-        frames = place.local_rows(batch["embeds"])
+        frames = batch["embeds"]
         if place.S is not None:
             frames = place.scatter_seq(frames, split=False)
         return embed_inputs(params, {"embeds": frames}, cfg, positions=positions)
-    tokens = place.local_rows(batch["tokens"])
+    tokens = batch["tokens"]
     emb = place.use(params["embed"], pspecs["embed"]).to(cfg.act_dtype)
     if emb.shape[0] == cfg.vocab_padded:
         return emb[tokens] if place.S is None else place.scatter_seq(emb[tokens], split=False)
@@ -576,7 +596,7 @@ def _forward_placed(params, batch, cfg, recipe, positions):
     alike, the cross block's queries the chunk over its rows' whole image)
     and leaves at the head."""
     pspecs = _placed_pspecs(params, cfg, recipe)
-    B, S = _input_of(batch, cfg).shape[:2]
+    B, S = _global_rows_seq(batch, cfg)
     place = placement(recipe, B)
     if (recipe.attn_mode == "sp" and place.M > 1 and cfg.family in _SEQ_CUT_FAMILIES
             and (positions is None or positions.ndim == 1)):
@@ -589,7 +609,7 @@ def _forward_placed(params, batch, cfg, recipe, positions):
     if cfg.family == "hybrid":
         x = _forward_hybrid(params, x, cfg, positions, use=_user(place, pspecs), place=place)
     elif cfg.family == "vlm":
-        x = _forward_vlm(params, x, place.local_rows(batch["image_embeds"]), cfg, positions,
+        x = _forward_vlm(params, x, batch["image_embeds"], cfg, positions,
                          use=_user(place, pspecs), place=place)
     else:
         use = _user(place, pspecs)
@@ -612,7 +632,9 @@ def loss_fn(params, batch, cfg):
     metrics)``: the loss a float32 scalar with its graph, the metrics
     (``nll``, ``aux``, ``ppl_proxy``) detached float32 scalars.
 
-    Under an active recipe it is taken on this rank's block of the logits
+    Under an active recipe ``batch`` is this rank's blocks
+    (:func:`repro_torch.models.sharding.local_batch`: its rows of the labels
+    and the mask) and the loss is taken on this rank's block of the logits
     (:func:`forward`), the reference's function on its cut array: where
     the vocab is cut over ``model`` the log-sum-exp and the gold logit are
     vocab-parallel (:func:`_loss_terms`), and the masked sum of the
@@ -620,16 +642,13 @@ def loss_fn(params, batch, cfg):
     rank ends with the same loss.  Those sums are all-reduces whose
     backward is the identity: each rank's backward gives the gradient of
     its own block, once."""
+    recipe = current_recipe()
+    if recipe is not None:
+        batch = rank_batch(recipe, batch, "lm.loss_fn")
     logits, aux = forward(params, batch, cfg)
     labels = batch["labels"].long()
     mask = batch.get("loss_mask")
-    recipe = current_recipe()
-    spec = None
-    if recipe is not None:
-        spec = logits_spec(recipe, labels.shape[0])
-        _, row0, n_rows = batch_rows(recipe, labels.shape[0])
-        labels = labels.narrow(0, row0, n_rows)
-        mask = None if mask is None else mask.narrow(0, row0, n_rows)
+    spec = None if recipe is None else logits_spec(recipe, batch.shapes["labels"][0])
     mesh = recipe.mesh if spec is not None and spec[2] is not None else None
     logz, gold = _loss_terms(logits, labels, mesh)
     mask = torch.ones_like(logz) if mask is None else mask.float()
@@ -892,11 +911,14 @@ def decode_step(params, state: DecodeState, batch, cfg, *, new_counts=None,
     Under an active recipe ``params`` are this rank's shards and ``state``
     holds this rank's blocks of the caches and states
     (:func:`init_cache` under the recipe), with the lengths and positions
-    whole; ``batch`` and ``new_counts`` are whole, and the returned logits
+    whole; ``batch`` is this rank's rows of every leaf, each over its whole
+    sequence (``sharding.local_batch(recipe, batch, decode=True)``),
+    ``new_counts`` is whole, and the returned logits
     are this rank's block, cut as :func:`forward`'s (:func:`_decode_placed`;
     :func:`last_logits` gathers the positions a sampler reads)."""
     recipe = current_recipe()
     if recipe is not None:
+        batch = rank_batch(recipe, batch, "lm.decode_step", decode=True)
         return _decode_placed(params, state, batch, cfg, recipe, new_counts, prefill)
     positions = state.positions
     S = _input_of(batch, cfg).shape[1]
@@ -970,7 +992,7 @@ def _decode_placed(params, state, batch, cfg, recipe, new_counts, prefill):
     the block (:func:`repro_torch.models.attention.gqa_attention_placed`);
     a whole-prompt ``prefill`` chunk under ``sp_ring`` runs the ring."""
     pspecs = _placed_pspecs(params, cfg, recipe)
-    B, S = _input_of(batch, cfg).shape[:2]
+    B, S = _global_rows_seq(batch, cfg)
     place = placement(recipe, B)
     positions = state.positions
     pos2d = positions[:, None] + torch.arange(S, dtype=positions.dtype,
@@ -979,8 +1001,8 @@ def _decode_placed(params, state, batch, cfg, recipe, new_counts, prefill):
     x = _embed_placed(params, batch, cfg, place, pspecs, pos2d)
     caches = state.caches
     if cfg.family == "vlm":
-        x, new_caches = _decode_vlm(params, caches, x, place.local_rows(batch["image_embeds"]),
-                                    cfg, pos2d, new_counts, prefill, place=place, pspecs=pspecs)
+        x, new_caches = _decode_vlm(params, caches, x, batch["image_embeds"], cfg, pos2d,
+                                    new_counts, prefill, place=place, pspecs=pspecs)
         return _head_placed(params, x, cfg, place, pspecs), DecodeState(
             caches=new_caches, positions=(positions + adv).to(positions.dtype))
     if cfg.family in ("ssm", "hybrid"):

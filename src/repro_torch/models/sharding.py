@@ -16,8 +16,11 @@ cut by the recipe's bindings (:meth:`Recipe.param_pspecs`,
 :func:`repro_torch.models.weights.shard_params_by_recipe`): FSDP over
 ``data`` (``m``), tensor parallelism over ``model`` (``v``, ``f``, and
 under ``tp`` the heads ``h`` and KV groups ``g``).  Under ``tp`` and plain
-``sp`` (:func:`repro_torch.models.lm.forward`) a rank takes its rows of the
-batch (split over the ``data`` axes where they divide it), all-gathers a
+``sp`` (:func:`repro_torch.models.lm.forward`) a rank is handed its rows of
+the batch (:func:`local_batch`: split over the ``data`` axes where they
+divide it, as the reference's :func:`batch_shardings` places them; every
+entry point takes this rank's blocks, a :class:`RankBatch`, and none
+narrows a whole batch), all-gathers a
 block's ``m``-sharded weights over ``data`` first thing inside the block's
 checkpoint (so the checkpoint keeps the shards and its recompute gathers
 again: no layer's gathered weights outlive its block).  Under ``tp`` it
@@ -76,6 +79,7 @@ import math
 import warnings
 from typing import Any, Mapping
 
+import numpy as np
 import torch
 
 from repro_torch.core.dims import mixed_radix_join
@@ -85,7 +89,8 @@ from repro_torch.kernels.fake import on_card
 
 __all__ = ["Recipe", "make_recipe", "use_recipe", "current_recipe", "fit_spec",
            "ragged_seq_extents", "ragged_expert_extents", "ragged_grad_extents", "TokenShard",
-           "token_shard", "PRIORITY", "batch_shardings", "decode_state_shardings", "batch_rows",
+           "token_shard", "PRIORITY", "batch_shardings", "RankBatch", "local_batch",
+           "local_batch_shapes", "rank_batch", "decode_state_shardings", "batch_rows",
            "logits_spec", "recipe_pspecs", "local_shape", "spec_axes", "partial_product",
            "Placement", "placement", "all_gather", "all_reduce", "scatter", "sum_stat",
            "sum_grads", "gather_cut", "lse_merge"]
@@ -276,17 +281,132 @@ def _batch_entry(recipe: Recipe):
     return b if len(b) > 1 else (b[0] if b else None)
 
 
+def _batch_spec(recipe: Recipe, name: str, shape) -> Spec:
+    spec = recipe.spec("tokens") if name in ("tokens", "labels", "loss_mask") else \
+        recipe.spec("hidden") if name == "embeds" else \
+        recipe.spec("enc") if name == "image_embeds" else ()
+    return fit_spec(spec or (), tuple(shape), recipe.mesh)
+
+
 def batch_shardings(recipe: Recipe, batch) -> dict:
     """Each leaf's spec of a batch dict (tokens, labels, loss_mask), after
     :func:`fit_spec`: the reference's ``batch_shardings``, with the spec
     tuple in place of a ``NamedSharding``."""
-    def one(name, leaf):
-        spec = recipe.spec("tokens") if name in ("tokens", "labels", "loss_mask") else \
-            recipe.spec("hidden") if name == "embeds" else \
-            recipe.spec("enc") if name == "image_embeds" else ()
-        return fit_spec(spec or (), tuple(leaf.shape), recipe.mesh)
+    return {name: _batch_spec(recipe, name, leaf.shape) for name, leaf in batch.items()}
 
-    return {name: one(name, leaf) for name, leaf in batch.items()}
+
+class RankBatch(dict):
+    """This rank's blocks of a batch's leaves under a recipe, as
+    :func:`local_batch` cuts them: the form every entry point takes under
+    an active recipe (``lm.forward``, ``lm.loss_fn``, ``lm.decode_step``
+    and the trainer's steps).  ``shapes`` holds each leaf's global shape,
+    which the blocks alone cannot tell (6 rows on 4 ``data`` ranks are
+    either a 24-row batch split or a 6-row batch held whole);
+    ``microbatches`` is the number of microbatches the rows are laid out
+    for (:func:`local_batch`), 1 for the block of one batch or of one
+    microbatch."""
+
+    def __init__(self, blocks, shapes, microbatches: int = 1):
+        super().__init__(blocks)
+        self.shapes = {name: tuple(s) for name, s in shapes.items()}
+        self.microbatches = microbatches
+
+    def map(self, fn) -> "RankBatch":
+        """``fn`` applied to every block (a move to the device, a cast), the
+        global shapes kept."""
+        return RankBatch({k: fn(v) for k, v in self.items()}, self.shapes, self.microbatches)
+
+
+def _leaf_spec(recipe: Recipe, name: str, shape, *, decode: bool) -> Spec:
+    """One leaf's spec under :func:`batch_shardings` for a leaf of global
+    ``shape`` (one microbatch's); ``decode`` cuts the rows alone, the
+    sequence whole."""
+    spec = _batch_spec(recipe, name, shape)
+    return spec[:1] + (None,) * (len(spec) - 1) if decode else spec
+
+
+def _micro_shape(name, shape, k: int) -> tuple:
+    shape = tuple(shape)
+    if shape[0] % k:
+        raise ValueError(f"batch {shape[0]} (leaf {name!r} of shape {shape}) does not divide "
+                         f"into {k} microbatches")
+    return (shape[0] // k,) + shape[1:]
+
+
+def local_batch_shapes(recipe: Recipe, shapes, *, microbatches: int = 1,
+                       decode: bool = False) -> dict:
+    """``{name: shape}`` of this rank's blocks (:func:`local_batch`) of a
+    batch whose leaves have the global ``shapes``, without a batch."""
+    out = {}
+    for name, shape in shapes.items():
+        shape = _micro_shape(name, shape, microbatches)
+        loc = local_shape(shape, _leaf_spec(recipe, name, shape, decode=decode), recipe.mesh)
+        out[name] = (microbatches * loc[0],) + loc[1:]
+    return out
+
+
+def local_batch(recipe: Recipe, batch, *, microbatches: int = 1,
+                decode: bool = False) -> RankBatch:
+    """This rank's blocks of the whole ``batch`` (numpy arrays or tensors;
+    cut on the host, so that only the blocks reach the device), as the
+    reference places a batch by :func:`batch_shardings`: token ids,
+    labels, the mask and the VLM's image by rows over the batch axes, the
+    audio family's ``embeds`` by the ``hidden`` spec (under ``sp_ring``
+    also by sequence over ``model``, where it divides S).  A dim the axes
+    do not divide is held whole (:func:`fit_spec`: B = 1 on every rank).
+    ``decode``: the rows alone, every leaf's sequence whole (a decode
+    step's input).
+
+    With ``microbatches=k`` the global batch is taken as ``k`` consecutive
+    microbatches of ``B/k`` rows (the trainer's split) and the block lays
+    out this rank's rows of each, microbatch 0's first
+    (:func:`batch_rows` of ``B/k``), so that the trainer's consecutive split
+    of the block gives each microbatch's block.  The result carries the
+    global shapes (:class:`RankBatch`)."""
+    if isinstance(batch, RankBatch):
+        raise TypeError("local_batch: the batch is already this rank's blocks")
+    k = microbatches
+    mesh = recipe.mesh
+    coords = mesh.coords()
+    blocks, shapes = {}, {}
+    for name, x in batch.items():
+        shape = _micro_shape(name, x.shape, k)
+        idx = [slice(None)]  # every microbatch
+        for n, entry in zip(shape, _leaf_spec(recipe, name, shape, decode=decode)):
+            if entry is None:
+                idx.append(slice(None))
+                continue
+            axes = (entry,) if isinstance(entry, str) else tuple(entry)
+            sizes = [mesh.shape[a] for a in axes]
+            size = n // math.prod(sizes)
+            i = mixed_radix_join([coords[a] for a in axes], sizes)
+            idx.append(slice(i * size, (i + 1) * size))
+        blk = x.reshape((k,) + shape)[tuple(idx)]
+        blk = blk.reshape((k * blk.shape[1],) + tuple(blk.shape[2:]))
+        blocks[name] = blk.contiguous() if isinstance(blk, torch.Tensor) else \
+            np.ascontiguousarray(blk)
+        shapes[name] = tuple(x.shape)
+    return RankBatch(blocks, shapes, k)
+
+
+def rank_batch(recipe: Recipe, batch, fn: str, *, decode: bool = False) -> RankBatch:
+    """``batch`` checked to be this rank's blocks of one batch under
+    ``recipe`` (a :class:`RankBatch` of one microbatch whose blocks have
+    the shapes :func:`local_batch` cuts): what ``fn``, an entry point,
+    takes.  A whole dict raises ``TypeError``: no entry point narrows a
+    whole batch."""
+    if not isinstance(batch, RankBatch):
+        raise TypeError(f"{fn}: under a recipe the batch is this rank's blocks, "
+                        f"sharding.local_batch(recipe, batch), not a whole {type(batch).__name__}")
+    if batch.microbatches != 1:
+        raise ValueError(f"{fn}: the blocks are laid out for {batch.microbatches} microbatches: "
+                         "split them first (the trainer's step does)")
+    want = local_batch_shapes(recipe, batch.shapes, decode=decode)
+    for name, x in batch.items():
+        if tuple(x.shape) != want[name]:
+            raise ValueError(f"{fn}: leaf {name!r} has shape {tuple(x.shape)}, this rank's "
+                             f"block of {batch.shapes[name]} is {want[name]}")
+    return batch
 
 
 def decode_state_shardings(recipe: Recipe, state):
@@ -439,7 +559,9 @@ class TokenShard:
 
     def local(self, y):
         """This rank's ``(n_rows, cap, ...)`` block of a whole ``(B, S, ...)``
-        grid, zero-padded past ``S``."""
+        grid, zero-padded past ``S``: for a tensor the program made whole
+        (the whole grid's MoE output), never for the batch, which enters as
+        this rank's blocks (:func:`local_batch`)."""
         return self.local_seq(y[self.row0:self.row0 + self.n_rows])
 
     def gather_seq(self, x):
@@ -735,7 +857,10 @@ class Placement:
         return self.mesh.coords().get("model", 0)
 
     def local_rows(self, x):
-        """This rank's rows of a whole ``(B, ...)`` tensor."""
+        """This rank's rows of a whole ``(B, ...)`` tensor: the per-row
+        positions and counts, which every rank holds whole, or a tensor the
+        program made whole; never the batch, which enters as this rank's
+        blocks (:func:`local_batch`)."""
         return x if not self.batch_axes else x.narrow(0, self.row0, self.n_rows)
 
     def gather_rows(self, x):

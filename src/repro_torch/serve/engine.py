@@ -44,9 +44,10 @@ does: the caches and recurrent states are the rank's blocks
 (``lm.init_cache`` under the recipe; a released slot's rows are zeroed on
 the rank that holds them), each step returns the rank's block of the
 logits, and only the sampled position is gathered whole
-(``lm.last_logits``), so all ranks sample the same tokens; the audio
-family's frames enter each step whole and every rank takes its rows of
-them.  A whole-prompt prefill
+(``lm.last_logits``), so all ranks sample the same tokens; each step's
+inputs (token ids, or the audio family's frames) are cut to the rank's
+rows on the host (``sharding.local_batch(..., decode=True)``) and only
+those reach the device.  A whole-prompt prefill
 chunk under ``sp_ring`` runs the ring.  A ``recipe`` with a ``mesh`` (the
 recipe's own) and ``microbatches`` is the reference's mix: prefill under
 the recipe, decode through the explicit TP step, both on the recipe's
@@ -70,10 +71,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.dims import mixed_radix_join
+from repro_torch.data.pipeline import to_device
 from repro_torch.models import lm
 from repro_torch.models.attention import KVCache
 from repro_torch.models.module import tree_leaves
-from repro_torch.models.sharding import decode_state_shardings, placement, use_recipe
+from repro_torch.models.sharding import (decode_state_shardings, local_batch, placement,
+                                        use_recipe)
 from repro_torch.models.weights import cast_params, gather_params, shard_params
 from repro_torch.serve.kv import KVLedger
 from repro_torch.serve.tp_decode import make_tp_decode_step, tp_block, tp_decode_specs
@@ -315,10 +318,13 @@ class Engine:
         from position 0) is passed on as ``prefill=True``, which under an
         ``sp_ring`` recipe rings the chunk's fresh Q/K/V alone: a per-token
         prefill step attends over its row's cache like a decode step."""
-        batch = {"embeds" if self._embeds_in else "tokens":
-                 torch.from_numpy(inputs).to(self.device)}
+        batch = {"embeds" if self._embeds_in else "tokens": inputs}
         counts = torch.from_numpy(counts).to(self.device)
-        if self._tp is not None and not prefill:
+        tp = self._tp is not None and not prefill
+        if self.recipe is not None and not tp:  # the rank's rows, cut on the host
+            batch = local_batch(self.recipe, batch, decode=True)
+        batch = to_device(batch, self.device)
+        if tp:
             logits, self.state = self._tp(self.tp_params, self.state, batch, counts > 0)
         else:
             with use_recipe(self.recipe):

@@ -5,7 +5,10 @@ and as the explicit ZeRO-2 comm program.  The port of
 
 ``make_train_step(cfg, recipe, ocfg, microbatches=k)`` is the baseline:
 without a recipe it is the single-device step (the numerics oracle); under
-a recipe every rank runs its part of :func:`repro_torch.models.lm.forward`
+a recipe every rank is handed its blocks of the batch
+(``sharding.local_batch(recipe, batch, microbatches=k)``: its rows of
+each microbatch, one microbatch after another), runs its part of
+:func:`repro_torch.models.lm.forward`
 and its backward on its shards of the parameters
 (``weights.shard_params_by_recipe``), the gradients flowing back through
 the explicit collectives (:class:`repro_torch.models.sharding.Placement`;
@@ -37,7 +40,10 @@ a :func:`repro_torch.core.plan.bucket` comm plan:
 Microbatching (both steps): the batch splits into ``k`` microbatches whose
 gradients add up in a Python loop (the reference's ``lax.scan``), then
 divide by ``k``; per-microbatch aux metrics are averaged alongside the
-loss.  Remat comes from ``cfg.remat`` inside the model.  Parameters are
+loss.  Microbatch ``i`` is rows ``[i*B/k, (i+1)*B/k)`` of the global batch;
+under a recipe the rank's blocks hold its rows of each in that order, so
+the same consecutive split of the blocks gives each microbatch's.  Remat
+comes from ``cfg.remat`` inside the model.  Parameters are
 float32 masters and stay so: the gradients are float32 (see
 :mod:`repro_torch.models.lm`).
 """
@@ -52,14 +58,14 @@ from repro_torch.core.plan import bucket as bucket_plan
 from repro_torch.core.plan import intent_of
 from repro_torch.models import lm
 from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
-from repro_torch.models.sharding import recipe_pspecs, spec_axes, use_recipe
+from repro_torch.models.sharding import RankBatch, recipe_pspecs, spec_axes, use_recipe
 
 from .buckets import assign_buckets, pack_bucket, unpack_bucket
 from .optimizer import (OptConfig, OptState, _clip_scale, _step_scalars, adamw_leaf_update,
                         apply_updates, compress_leaf, lr_at_step)
 
 __all__ = ["make_train_step", "make_eval_step", "make_serve_step", "make_zero_train_step",
-           "make_zero_update",
+           "make_zero_update", "zero_local_batch",
            "ZERO_TRAIN_PLAN_INTENT", "OPTIMIZER_RANGE", "zero_train_buckets"]
 
 # the declared overlap intent of the bucketed gradient schedule
@@ -71,13 +77,38 @@ OPTIMIZER_RANGE = "train.optimizer"
 
 def _split_batch(batch, k: int) -> list[dict]:
     """``k`` microbatches of ``batch``: each leaf's leading (batch) dim cut
-    into ``k`` consecutive blocks."""
+    into ``k`` consecutive blocks.  A :class:`RankBatch` must be laid out
+    for ``k`` microbatches; each part is then the rank's blocks of one
+    microbatch, whose global shapes have ``B/k`` rows."""
     for name, x in batch.items():
         if x.shape[0] % k:
             raise ValueError(f"batch {x.shape[0]} (leaf {name!r} of shape {tuple(x.shape)}) "
                              f"does not divide into {k} microbatches")
-    return [{name: x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))[i]
-             for name, x in batch.items()} for i in range(k)]
+    parts = [{name: x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))[i]
+              for name, x in batch.items()} for i in range(k)]
+    if not isinstance(batch, RankBatch):
+        return parts
+    if batch.microbatches != k:
+        raise ValueError(f"the rank's blocks are laid out for {batch.microbatches} microbatches, "
+                         f"the step takes {k}: sharding.local_batch(..., microbatches={k})")
+    shapes = {name: (s[0] // k,) + s[1:] for name, s in batch.shapes.items()}
+    return [RankBatch(part, shapes) for part in parts]
+
+
+def _rank_blocks(recipe, batch, fn: str, microbatches: int = 1):
+    """``batch`` as a step under ``recipe`` takes it: this rank's blocks
+    (a :class:`RankBatch`) laid out for the step's ``microbatches``; a
+    whole dict raises ``TypeError``."""
+    if recipe is None:
+        return batch
+    if not isinstance(batch, RankBatch):
+        raise TypeError(f"{fn}: under a recipe the batch is this rank's blocks, "
+                        "sharding.local_batch(recipe, batch, microbatches=...), not a whole "
+                        f"{type(batch).__name__}")
+    if batch.microbatches != microbatches:
+        raise ValueError(f"{fn}: the rank's blocks are laid out for {batch.microbatches} "
+                         f"microbatches, the step takes {microbatches}")
+    return batch
 
 
 def _accum_loss_grads(params, batch, cfg, microbatches: int):
@@ -108,11 +139,14 @@ def make_train_step(cfg, recipe, ocfg: OptConfig, *, microbatches: int = 1):
     """``train_step(params, opt_state, batch) -> (new_params, new_opt,
     metrics)``: the gradients of :func:`repro_torch.models.lm.loss_fn`
     (under ``recipe`` when one is given) and one AdamW step
-    (:func:`repro_torch.train.optimizer.apply_updates`).  ``params`` are
-    not modified; ``metrics`` holds ``loss``, the loss function's metrics,
+    (:func:`repro_torch.train.optimizer.apply_updates`).  Under ``recipe``
+    ``batch`` is this rank's blocks laid out for the step's microbatches
+    (``sharding.local_batch(recipe, batch, microbatches=microbatches)``).
+    ``params`` are not modified; ``metrics`` holds ``loss``, the loss function's metrics,
     ``grad_norm`` and ``lr``."""
 
     def train_step(params, opt_state, batch):
+        batch = _rank_blocks(recipe, batch, "make_train_step", microbatches)
         with use_recipe(recipe):
             loss, metrics, grads = _accum_loss_grads(params, batch, cfg, microbatches)
         cut = None if recipe is None else _shard_cut(params, cfg, recipe)
@@ -170,8 +204,11 @@ def _shard_cut(params, cfg, recipe):
 
 
 def make_eval_step(cfg, recipe):
-    """``eval_step(params, batch) -> {"loss", ...}`` without a gradient."""
+    """``eval_step(params, batch) -> {"loss", ...}`` without a gradient;
+    under ``recipe`` ``batch`` is this rank's blocks
+    (``sharding.local_batch(recipe, batch)``)."""
     def eval_step(params, batch):
+        batch = _rank_blocks(recipe, batch, "make_eval_step")
         with use_recipe(recipe), torch.no_grad():
             loss, metrics = lm.loss_fn(params, batch, cfg)
         return {"loss": loss, **metrics}
@@ -183,9 +220,12 @@ def make_serve_step(cfg, recipe):
     """``serve_step(params, state, batch) -> (logits, new_state)``: one
     :func:`repro_torch.models.lm.decode_step` under ``recipe``, without a
     gradient (the reference's ``make_serve_step``; the dry run's decode
-    program).  Under ``recipe`` the logits are this rank's block, as the
-    reference's step returns its cut array (``lm.gather_logits``)."""
+    program).  Under ``recipe`` ``batch`` is this rank's rows
+    (``sharding.local_batch(recipe, batch, decode=True)``) and the logits
+    are this rank's block, as the reference's step returns its cut array
+    (``lm.gather_logits``)."""
     def serve_step(params, state, batch):
+        batch = _rank_blocks(recipe, batch, "make_serve_step")
         with use_recipe(recipe), torch.no_grad():
             return lm.decode_step(params, state, batch, cfg)
 
@@ -193,6 +233,23 @@ def make_serve_step(cfg, recipe):
 
 
 # ====================================================== explicit ZeRO step ====
+
+def zero_local_batch(mesh, batch) -> dict:
+    """This rank's block of the global ``batch`` for
+    :func:`make_zero_train_step`: rows ``[r*n, (r+1)*n)`` of every leaf,
+    ``r`` the rank's ``data`` coordinate and ``n = B / |data|`` (the
+    reference's ``shard_map`` block ``P("data")``).  Numpy arrays or
+    tensors; cut on the host, so that only the block reaches the device."""
+    R = _data_ranks(mesh)
+    r = mesh.coords()["data"]
+    out = {}
+    for name, x in batch.items():
+        if x.shape[0] % R:
+            raise ValueError(f"global batch {x.shape[0]} (leaf {name!r}) does not split over "
+                             f"{R} data ranks")
+        n = x.shape[0] // R
+        out[name] = x[r * n:(r + 1) * n]
+    return out
 
 def zero_train_buckets(cfg, *, bucket_bytes: int, ranks: int):
     """The step's bucket tables, from the parameter specs (no allocation)."""
@@ -290,7 +347,9 @@ def make_zero_train_step(cfg, mesh, ocfg: OptConfig, *, microbatches: int = 1,
     :func:`repro_torch.train.optimizer.init_zero_opt_state` over the same
     bucket tables (``zero_train_buckets(cfg, bucket_bytes=...,
     ranks=mesh.shape['data'])``) and holds this rank's shards; ``batch`` is
-    the global batch, of which this rank takes its block of rows.  Per step
+    this rank's contiguous block of the global batch's rows
+    (:func:`zero_local_batch`, the reference's ``P("data")`` block), which
+    it splits into its ``microbatches``.  Per step
     the rank takes gradients of its *local-mean* loss, the bucket plan
     reduce-scatters them (:func:`make_zero_update`), and the loss and
     metrics are averaged over the ranks.  Summing the rank partials and
@@ -306,13 +365,7 @@ def make_zero_train_step(cfg, mesh, ocfg: OptConfig, *, microbatches: int = 1,
     inv_R = 1.0 / R
 
     def train_step(params, opt_state: OptState, batch):
-        ridx = mesh.coords()["data"]
-        rows = next(iter(batch.values())).shape[0]
-        if rows % R:
-            raise ValueError(f"global batch {rows} does not split over {R} data ranks")
-        n = rows // R
-        local = {k: v[ridx * n:(ridx + 1) * n] for k, v in batch.items()}
-        loss, metrics, grads = _accum_loss_grads(params, local, cfg, microbatches)
+        loss, metrics, grads = _accum_loss_grads(params, batch, cfg, microbatches)
         with torch.profiler.record_function(OPTIMIZER_RANGE):
             new_params, new_opt, gnorm = update(params, opt_state, grads)
         names = ["loss", *metrics]

@@ -321,7 +321,7 @@ def sp_ring_forward_family(*, models, tokens) -> dict:
     from repro_torch import configs
     from repro_torch.core import make_mesh
     from repro_torch.models import lm
-    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.sharding import local_batch, make_recipe, use_recipe
     from repro_torch.models.weights import params_from_jax
 
     out: dict = {}
@@ -332,8 +332,9 @@ def sp_ring_forward_family(*, models, tokens) -> dict:
         for shape, mesh in meshes.items():
             recipe = make_recipe(cfg, mesh, attn_mode="sp_ring")
             for S, toks in tokens.items():
+                batch = local_batch(recipe, {"tokens": torch.from_numpy(toks).long()})
                 with use_recipe(recipe):
-                    logits, _ = lm.forward(params, {"tokens": torch.from_numpy(toks).long()}, cfg)
+                    logits, _ = lm.forward(params, batch, cfg)
                 out[(arch, shape, S)] = lm.gather_logits(logits, recipe, len(toks)).numpy()
     return out
 
@@ -653,7 +654,7 @@ def moe_sp_ring_family(*, models, tokens) -> dict:
     from repro_torch import configs
     from repro_torch.core import make_mesh
     from repro_torch.models import lm
-    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.sharding import local_batch, make_recipe, use_recipe
     from repro_torch.models.weights import params_from_jax
 
     out: dict = {}
@@ -668,8 +669,9 @@ def moe_sp_ring_family(*, models, tokens) -> dict:
             for S, toks in tokens.items():
                 with use_recipe(recipe), warnings.catch_warnings(record=True) as caught:
                     warnings.simplefilter("always")
-                    logits, aux = lm.forward(params, {"tokens": torch.from_numpy(toks).long()},
-                                             cfg)
+                    logits, aux = lm.forward(
+                        params, local_batch(recipe, {"tokens": torch.from_numpy(toks).long()}),
+                        cfg)
                 out[(name, shape, S)] = (lm.gather_logits(logits, recipe, len(toks)).numpy(),
                                          aux.numpy(),
                                          sum("falling back" in str(w.message) for w in caught))
@@ -753,7 +755,8 @@ def zero_train_family(*, params, batch, cfg_overrides, ocfg, bucket_bytes, steps
                       microbatches, grads=None) -> dict:
     """``make_zero_train_step`` on this gloo rank of a one-axis ``data``
     mesh over the world: ``steps`` steps from the reference's parameters
-    (numpy) on the global ``batch``, double-buffered and blocking: the
+    (numpy) on this rank's block of the global ``batch``
+    (``trainer.zero_local_batch``), double-buffered and blocking: the
     parameters, this rank's moment shards, the metrics of every step, the
     bucket extents, and the order in which the first step issued and waited
     its reduce-scatters.  With ``grads`` (one list of gradient leaves a
@@ -777,7 +780,7 @@ def zero_train_family(*, params, batch, cfg_overrides, ocfg, bucket_bytes, steps
                               act_dtype=torch.float32, **cfg_overrides)
     oc = optimizer.OptConfig(**ocfg)
     buckets = trainer.zero_train_buckets(cfg, bucket_bytes=bucket_bytes, ranks=world)
-    tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v).long() for k, v in trainer.zero_local_batch(mesh, batch).items()}
     log: list = []
     issue = trainer.shard_reduce_scatterv_start
 
@@ -836,16 +839,17 @@ ZERO_BUCKET_BYTES = 4096  # several buckets at the SMOKE widths, some ragged
 def zero_step_families(*, models, batches, ocfg) -> dict:
     """One ``make_zero_train_step`` step on this gloo rank of a one-axis
     ``data`` mesh over the world, for every ``models[arch]`` (the
-    reference's parameters as numpy, SMOKE config at float32) on the global
-    pipeline batch ``batches[arch]`` (numpy, moved as ``launch/train.py``
-    moves it): the loss, the gradient norm and the stepped parameters."""
+    reference's parameters as numpy, SMOKE config at float32) on this
+    rank's block of the global pipeline batch ``batches[arch]`` (numpy, cut
+    by ``trainer.zero_local_batch`` and moved as ``launch/train.py`` moves
+    it): the loss, the gradient norm and the stepped parameters."""
     import dataclasses
 
     import torch
 
     from repro_torch import configs
     from repro_torch.core import make_mesh
-    from repro_torch.launch.train import to_device
+    from repro_torch.data.pipeline import to_device
     from repro_torch.models.module import tree_leaves
     from repro_torch.models.weights import params_from_jax
     from repro_torch.train import optimizer, trainer
@@ -860,7 +864,7 @@ def zero_step_families(*, models, batches, ocfg) -> dict:
                                              ranks=mesh.shape["data"])
         o = optimizer.init_zero_opt_state(p, buckets, oc)
         step = trainer.make_zero_train_step(cfg, mesh, oc, bucket_bytes=ZERO_BUCKET_BYTES)
-        p, o, m = step(p, o, to_device(batches[arch], "cpu"))
+        p, o, m = step(p, o, to_device(trainer.zero_local_batch(mesh, batches[arch]), "cpu"))
         out[arch] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                      "params": [t.numpy() for t in tree_leaves(p)]}
     return out
@@ -885,7 +889,7 @@ def sp_ring_train_family(*, params, batches, ocfg) -> dict:
     from repro_torch import configs
     from repro_torch.core import make_mesh, shard_ring_shift_start
     from repro_torch.models.module import tree_leaves
-    from repro_torch.models.sharding import make_recipe, token_shard
+    from repro_torch.models.sharding import local_batch, make_recipe, token_shard, use_recipe
     from repro_torch.models.weights import params_from_jax
     from repro_torch.train import optimizer, trainer
 
@@ -899,8 +903,8 @@ def sp_ring_train_family(*, params, batches, ocfg) -> dict:
         mesh = make_mesh(shape, ("data", "model"), device="cpu")
         recipe = make_recipe(cfg, mesh, attn_mode="sp_ring")
         for S, (toks, labels) in batches.items():
-            b = {"tokens": torch.from_numpy(toks).long(), "labels": torch.from_numpy(labels).long()}
-            from repro_torch.models.sharding import use_recipe
+            b = local_batch(recipe, {"tokens": torch.from_numpy(toks).long(),
+                                     "labels": torch.from_numpy(labels).long()})
             with use_recipe(recipe):
                 loss, _, grads = trainer._accum_loss_grads(p0, b, cfg, 1)
             out[(shape, S, "loss")] = float(loss)
@@ -1619,7 +1623,7 @@ def walk_train_step(*, grid, seq, batch) -> dict:
     from repro_torch.data.pipeline import ShapeCell, make_batch
     from repro_torch.launch.op_walk import OpWalk
     from repro_torch.models import lm
-    from repro_torch.models.sharding import make_recipe
+    from repro_torch.models.sharding import local_batch, make_recipe
     from repro_torch.models.weights import shard_params_by_recipe
     from repro_torch.train.optimizer import OptConfig, init_opt_state
     from repro_torch.train.trainer import make_train_step
@@ -1629,8 +1633,8 @@ def walk_train_step(*, grid, seq, batch) -> dict:
     recipe = make_recipe(cfg, mesh)
     params = shard_params_by_recipe(lm.init_model(cfg, torch.Generator().manual_seed(0),
                                                   device="cpu"), lm.build_specs(cfg), recipe)
-    data = {k: torch.from_numpy(v) for k, v in
-            make_batch(cfg, ShapeCell("t", seq, batch, "train"), 0).items()}
+    data = local_batch(recipe, make_batch(cfg, ShapeCell("t", seq, batch, "train"), 0)).map(
+        torch.from_numpy)
     ocfg = OptConfig()
     step = make_train_step(cfg, recipe, ocfg)
     opt = init_opt_state(params, ocfg)

@@ -44,7 +44,7 @@ def forward_family(*, shape, models, tokens) -> dict:
     from repro_torch.core import make_mesh
     from repro_torch.models import lm
     from repro_torch.models.module import tree_leaves
-    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.sharding import local_batch, make_recipe, use_recipe
     from repro_torch.models.weights import gather_params
 
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
@@ -54,9 +54,9 @@ def forward_family(*, shape, models, tokens) -> dict:
         for mode in RECIPE_MODES:
             recipe = make_recipe(cfg, mesh, attn_mode=mode)
             shards = _shards(cfg, params, recipe)
+            batch = local_batch(recipe, {"tokens": torch.from_numpy(tokens[arch]).long()})
             with use_recipe(recipe), torch.no_grad():
-                logits, _ = lm.forward(shards, {"tokens": torch.from_numpy(tokens[arch]).long()},
-                                       cfg)
+                logits, _ = lm.forward(shards, batch, cfg)
             out[(arch, mode)] = lm.gather_logits(logits, recipe, len(tokens[arch])).numpy()
             whole = gather_params(shards, lm.build_specs(cfg), recipe)
             out[(arch, mode, "gathered")] = all(
@@ -76,8 +76,8 @@ def serve_family(*, shape, models, requests, slots, max_len, prefill_tokens) -> 
     from repro_torch.core import make_mesh
     from repro_torch.models import lm
     from repro_torch.models.attention import KVCache
-    from repro_torch.models.sharding import (all_gather, decode_state_shardings, make_recipe,
-                                             use_recipe)
+    from repro_torch.models.sharding import (all_gather, decode_state_shardings, local_batch,
+                                             make_recipe, use_recipe)
     from repro_torch.serve.engine import Engine, ServeConfig
 
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
@@ -98,7 +98,8 @@ def serve_family(*, shape, models, requests, slots, max_len, prefill_tokens) -> 
                 state = lm.DecodeState(caches=lm.init_cache(cfg, B, 16, device="cpu"),
                                        positions=torch.zeros((B,), dtype=torch.int32))
                 logits, new = lm.decode_step(
-                    shards, state, {"tokens": torch.from_numpy(prefill_tokens).long()}, cfg,
+                    shards, state, local_batch(recipe, {"tokens": torch.from_numpy(
+                        prefill_tokens).long()}, decode=True), cfg,
                     new_counts=torch.tensor(PREFILL_COUNTS, dtype=torch.int32), prefill=True)
             whole = torch.empty((cfg.n_layers, B, cfg.n_kv, 16, cfg.head_dim), device="meta")
             spec = decode_state_shardings(recipe, KVCache(whole, whole, whole)).k
@@ -166,7 +167,7 @@ def train_family(*, shape, params, batch, ocfg, modes) -> dict:
     from repro_torch.core import make_mesh
     from repro_torch.models import lm
     from repro_torch.models.module import tree_leaves
-    from repro_torch.models.sharding import make_recipe, recipe_pspecs, use_recipe
+    from repro_torch.models.sharding import local_batch, make_recipe, recipe_pspecs, use_recipe
     from repro_torch.models.weights import gather_params, shard_params
     from repro_torch.train import optimizer, trainer
 
@@ -179,8 +180,9 @@ def train_family(*, shape, params, batch, ocfg, modes) -> dict:
     for mode in modes:
         recipe = make_recipe(cfg, mesh, attn_mode=mode)
         shards = _shards(cfg, whole, recipe)
+        mine = local_batch(recipe, b)
         with use_recipe(recipe):
-            loss, _, grads = trainer._accum_loss_grads(shards, b, cfg, 1)
+            loss, _, grads = trainer._accum_loss_grads(shards, mine, cfg, 1)
         out[(mode, "loss")] = float(loss)
         whole_g = gather_params(grads, specs, recipe)
         out[(mode, "grads")] = [g.numpy() for g in tree_leaves(whole_g)]
@@ -194,7 +196,7 @@ def train_family(*, shape, params, batch, ocfg, modes) -> dict:
             for g, w, amax, ps in zip(tree_leaves(grads), tree_leaves(whole_g), amaxes,
                                       tree_leaves(recipe_pspecs(recipe, specs))))
         new_p, _, m = trainer.make_train_step(cfg, recipe, oc)(
-            shards, optimizer.init_opt_state(shards, oc), b)
+            shards, optimizer.init_opt_state(shards, oc), mine)
         out[(mode, "metrics")] = {k: float(v) for k, v in m.items()}
         out[(mode, "params")] = [p.numpy() for p in tree_leaves(gather_params(new_p, specs,
                                                                                recipe))]
@@ -220,7 +222,7 @@ def logits_cut(*, shape, models, batch, modes, upcast_chunk=None) -> dict:
     from repro_torch.core import make_mesh
     from repro_torch.models import blocks, lm
     from repro_torch.models.module import tree_leaves
-    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.sharding import local_batch, make_recipe, use_recipe
     from repro_torch.models.weights import gather_params, params_from_jax
     from repro_torch.train import trainer
 
@@ -237,11 +239,12 @@ def logits_cut(*, shape, models, batch, modes, upcast_chunk=None) -> dict:
         for mode in modes[name]:
             recipe = make_recipe(cfg, mesh, attn_mode=mode)
             shards = _shards(cfg, whole, recipe)
+            mine = local_batch(recipe, b)
             with use_recipe(recipe), torch.no_grad():
-                logits, _ = lm.forward(shards, {"tokens": b["tokens"]}, cfg)
+                logits, _ = lm.forward(shards, local_batch(recipe, {"tokens": b["tokens"]}), cfg)
             out[(name, mode, "logits")] = logits.numpy()
             with use_recipe(recipe):
-                loss, metrics, grads = trainer._accum_loss_grads(shards, b, cfg, 1)
+                loss, metrics, grads = trainer._accum_loss_grads(shards, mine, cfg, 1)
             out[(name, mode, "loss")] = float(loss)
             out[(name, mode, "metrics")] = {k: float(v) for k, v in metrics.items()}
             out[(name, mode, "grads")] = [g.numpy() for g in tree_leaves(
@@ -335,7 +338,7 @@ def forward_recurrent(*, shape, models, tokens) -> dict:
     from repro_torch.core import make_mesh
     from repro_torch.models import lm
     from repro_torch.models.module import tree_leaves
-    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.sharding import local_batch, make_recipe, use_recipe
     from repro_torch.models.weights import gather_params
 
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
@@ -345,9 +348,9 @@ def forward_recurrent(*, shape, models, tokens) -> dict:
         for mode in RECURRENT_MODES:
             recipe = make_recipe(cfg, mesh, attn_mode=mode)
             shards = _shards(cfg, params, recipe)
+            batch = local_batch(recipe, {"tokens": torch.from_numpy(tokens[arch]).long()})
             with use_recipe(recipe), torch.no_grad():
-                logits, _ = lm.forward(shards, {"tokens": torch.from_numpy(tokens[arch]).long()},
-                                       cfg)
+                logits, _ = lm.forward(shards, batch, cfg)
             out[(arch, mode)] = lm.gather_logits(logits, recipe, len(tokens[arch])).numpy()
             whole = gather_params(shards, lm.build_specs(cfg), recipe)
             out[(arch, mode, "gathered")] = all(
@@ -405,7 +408,7 @@ def train_recurrent(*, shape, models, batch, ocfg) -> dict:
     from repro_torch.core import make_mesh
     from repro_torch.models import lm
     from repro_torch.models.module import tree_leaves
-    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.sharding import local_batch, make_recipe, use_recipe
     from repro_torch.models.weights import gather_params
     from repro_torch.train import optimizer, trainer
 
@@ -419,12 +422,13 @@ def train_recurrent(*, shape, models, batch, ocfg) -> dict:
         for mode in RECURRENT_MODES:
             recipe = make_recipe(cfg, mesh, attn_mode=mode)
             shards = _shards(cfg, whole, recipe)
+            mine = local_batch(recipe, b)
             with use_recipe(recipe):
-                _, _, grads = trainer._accum_loss_grads(shards, b, cfg, 1)
+                _, _, grads = trainer._accum_loss_grads(shards, mine, cfg, 1)
             out[(arch, mode, "grads")] = [g.numpy() for g in tree_leaves(
                 gather_params(grads, specs, recipe))]
             new_p, _, m = trainer.make_train_step(cfg, recipe, oc)(
-                shards, optimizer.init_opt_state(shards, oc), b)
+                shards, optimizer.init_opt_state(shards, oc), mine)
             out[(arch, mode, "metrics")] = {k: float(v) for k, v in m.items()}
             out[(arch, mode, "params")] = [
                 p.numpy() for p in tree_leaves(gather_params(new_p, specs, recipe))]
@@ -443,8 +447,8 @@ def recurrent_whole_mixers(*, shape, models, overrides, tokens, steps) -> dict:
 
     from repro_torch.core import make_mesh
     from repro_torch.models import lm
-    from repro_torch.models.sharding import (decode_state_shardings, local_shape, make_recipe,
-                                             use_recipe)
+    from repro_torch.models.sharding import (decode_state_shardings, local_batch, local_shape,
+                                             make_recipe, use_recipe)
 
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
     out: dict = {}
@@ -457,12 +461,15 @@ def recurrent_whole_mixers(*, shape, models, overrides, tokens, steps) -> dict:
         B = toks.shape[0]
         with use_recipe(recipe), torch.no_grad():
             out[(arch, "forward")] = lm.gather_logits(
-                lm.forward(shards, {"tokens": toks}, cfg)[0], recipe, B).numpy()
+                lm.forward(shards, local_batch(recipe, {"tokens": toks}), cfg)[0], recipe,
+                B).numpy()
             state = lm.DecodeState(lm.init_cache(cfg, B, 16, device="cpu"),
                                    torch.zeros((B,), dtype=torch.int32))
             logits = []
             for t in range(steps):
-                step, state = lm.decode_step(shards, state, {"tokens": toks[:, t:t + 1]}, cfg)
+                step, state = lm.decode_step(
+                    shards, state, local_batch(recipe, {"tokens": toks[:, t:t + 1]}, decode=True),
+                    cfg)
                 logits.append(lm.gather_logits(step, recipe, B).numpy())
         out[(arch, "decode")] = logits
         whole = lm.init_cache(cfg, B, 16, device="cpu")
@@ -538,7 +545,7 @@ def forward_named(*, shape, models, tokens, modes=LATENT_MOE_MODES, others=None)
     from repro_torch.core import make_mesh
     from repro_torch.models import lm
     from repro_torch.models.module import tree_leaves
-    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.sharding import local_batch, make_recipe, use_recipe
     from repro_torch.models.weights import gather_params
 
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
@@ -551,11 +558,12 @@ def forward_named(*, shape, models, tokens, modes=LATENT_MOE_MODES, others=None)
             with use_recipe(recipe), torch.no_grad(), \
                     warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
-                logits, aux = lm.forward(shards, _as_batch(tokens[name]), cfg)
+                logits, aux = lm.forward(shards, local_batch(recipe, _as_batch(tokens[name])),
+                                         cfg)
                 if others and name in others:
                     out[(name, mode, "other")] = lm.gather_logits(
-                        lm.forward(shards, _as_batch(others[name]), cfg)[0], recipe,
-                        _rows(others[name])).numpy()
+                        lm.forward(shards, local_batch(recipe, _as_batch(others[name])), cfg)[0],
+                        recipe, _rows(others[name])).numpy()
             out[(name, mode)] = lm.gather_logits(logits, recipe, _rows(tokens[name])).numpy()
             out[(name, mode, "aux")] = float(aux)
             out[(name, mode, "warnings")] = sum("falling back" in str(w.message) for w in caught)
@@ -580,8 +588,8 @@ def serve_named(*, shape, models, requests, slots, max_len, steps,
 
     from repro_torch.core import make_mesh
     from repro_torch.models import lm
-    from repro_torch.models.sharding import (decode_state_shardings, local_shape, make_recipe,
-                                             use_recipe)
+    from repro_torch.models.sharding import (decode_state_shardings, local_batch, local_shape,
+                                             make_recipe, use_recipe)
     from repro_torch.serve.engine import _CHUNK_FAMILIES, Engine, ServeConfig
 
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
@@ -608,7 +616,8 @@ def serve_named(*, shape, models, requests, slots, max_len, steps,
                                        positions=torch.zeros((B,), dtype=torch.int32))
                 for i, (toks, counts) in enumerate(steps[name]):
                     step, state = lm.decode_step(
-                        shards, state, _as_batch(toks), cfg, new_counts=torch.from_numpy(counts),
+                        shards, state, local_batch(recipe, _as_batch(toks), decode=True), cfg,
+                        new_counts=torch.from_numpy(counts),
                         prefill=i == 0 and cfg.family in _CHUNK_FAMILIES)
                     logits.append(lm.gather_logits(step, recipe, B).numpy())
             out[(name, mode, "steps")] = logits
@@ -652,7 +661,7 @@ def decode_greedy(*, shape, models, prompts, counts, image, other_image,
 
     from repro_torch.core import make_mesh
     from repro_torch.models import lm
-    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.sharding import local_batch, make_recipe, use_recipe
 
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
     out: dict = {}
@@ -668,7 +677,8 @@ def decode_greedy(*, shape, models, prompts, counts, image, other_image,
             with use_recipe(recipe), torch.no_grad():
                 state = lm.DecodeState(caches=lm.init_cache(cfg, B, 16, device="cpu"),
                                        positions=torch.zeros((B,), dtype=torch.int32))
-                first = {"tokens": torch.from_numpy(toks).long(), "image_embeds": other}
+                first = local_batch(recipe, {"tokens": torch.from_numpy(toks).long(),
+                                             "image_embeds": other}, decode=True)
                 out[(name, mode, "other")] = lm.gather_logits(lm.decode_step(
                     shards, lm.DecodeState(lm.init_cache(cfg, B, 16, device="cpu"),
                                            state.positions.clone()),
@@ -678,9 +688,9 @@ def decode_greedy(*, shape, models, prompts, counts, image, other_image,
                 prev = toks[:, 0]
                 for t, c in enumerate(counts):
                     step, state = lm.decode_step(
-                        shards, state, {"tokens": torch.from_numpy(feed).long(),
-                                        "image_embeds": img}, cfg,
-                        new_counts=torch.from_numpy(c), prefill=t == 0)
+                        shards, state, local_batch(recipe, {"tokens": torch.from_numpy(feed).long(),
+                                                            "image_embeds": img}, decode=True),
+                        cfg, new_counts=torch.from_numpy(c), prefill=t == 0)
                     logits.append(lm.gather_logits(step, recipe, B).numpy())
                     prev = greedy_feed(logits[-1], c, prev, cfg.vocab)
                     fed.append(prev)
@@ -692,16 +702,21 @@ def decode_greedy(*, shape, models, prompts, counts, image, other_image,
     return out
 
 
-def train_named(*, shape, models, batch, ocfg, modes=LATENT_MOE_MODES) -> dict:
+def train_named(*, shape, models, batch, ocfg, modes=LATENT_MOE_MODES, microbatches=1,
+                contiguous=False) -> dict:
     """``make_train_step`` of every named model under each mode on this
-    rank: the gradients (``_accum_loss_grads``), the step's metrics and the
-    stepped parameters, each gathered back to the whole tree."""
+    rank, ``microbatches`` of them, the rank handed its blocks of the
+    batch laid out for them (``sharding.local_batch``; ``contiguous``: the
+    rank's contiguous block of the global rows instead, the wrong layout,
+    for a test to show that it fails): the gradients
+    (``_accum_loss_grads``), the step's metrics and the stepped
+    parameters, each gathered back to the whole tree."""
     import torch
 
     from repro_torch.core import make_mesh
     from repro_torch.models import lm
     from repro_torch.models.module import tree_leaves
-    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.sharding import local_batch, make_recipe, use_recipe
     from repro_torch.models.weights import gather_params
     from repro_torch.train import optimizer, trainer
 
@@ -715,16 +730,32 @@ def train_named(*, shape, models, batch, ocfg, modes=LATENT_MOE_MODES) -> dict:
         for mode in modes:
             recipe = make_recipe(cfg, mesh, attn_mode=mode)
             shards = _shards(cfg, whole, recipe)
+            mine = local_batch(recipe, b, microbatches=microbatches)
+            if contiguous:
+                mine = _contiguous(recipe, b, mine)
             with use_recipe(recipe):
-                _, _, grads = trainer._accum_loss_grads(shards, b, cfg, 1)
+                _, _, grads = trainer._accum_loss_grads(shards, mine, cfg, microbatches)
             out[(name, mode, "grads")] = [g.numpy() for g in tree_leaves(
                 gather_params(grads, specs, recipe))]
-            new_p, _, m = trainer.make_train_step(cfg, recipe, oc)(
-                shards, optimizer.init_opt_state(shards, oc), b)
+            new_p, _, m = trainer.make_train_step(cfg, recipe, oc, microbatches=microbatches)(
+                shards, optimizer.init_opt_state(shards, oc), mine)
             out[(name, mode, "metrics")] = {k: float(v) for k, v in m.items()}
             out[(name, mode, "params")] = [
                 p.numpy() for p in tree_leaves(gather_params(new_p, specs, recipe))]
     return out
+
+
+def _contiguous(recipe, batch, mine):
+    """``mine`` (this rank's blocks, laid out for its microbatches) with
+    every leaf's rows replaced by the rank's contiguous block of the
+    global rows, ``[r*n, (r+1)*n)``: the layout that gives the wrong
+    microbatches."""
+    from repro_torch.models.sharding import RankBatch, batch_rows
+
+    B = next(iter(mine.shapes.values()))[0]
+    _, row0, n = batch_rows(recipe, B)
+    return RankBatch({k: batch[k][row0:row0 + n].reshape(v.shape) for k, v in mine.items()},
+                     mine.shapes, mine.microbatches)
 
 
 def ep_grads(*, shape, params, x, cot) -> dict:
@@ -923,7 +954,7 @@ def remat_against_none(*, shape, cases, batches) -> dict:
     from repro_torch.core import make_mesh
     from repro_torch.models import lm
     from repro_torch.models.module import tree_leaves, tree_map
-    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.sharding import local_batch, make_recipe, use_recipe
     from repro_torch.train import trainer
 
     mesh = make_mesh(shape, ("data", "model"), device="cpu")
@@ -946,7 +977,7 @@ def remat_against_none(*, shape, cases, batches) -> dict:
                 whole["cross_blocks"][g] = 0.5 + 0.5 * torch.rand(leaf.shape, generator=gen)
         recipe = make_recipe(cfg, mesh, attn_mode=mode)
         shards = _shards(cfg, whole, recipe)
-        b = _as_batch(batches[arch])
+        b = local_batch(recipe, _as_batch(batches[arch]))
         got = {}
         for remat in ("block", "none"):
             with use_recipe(recipe):
@@ -980,8 +1011,8 @@ def sp_residual(*, shape, models, batches) -> dict:
     from repro_torch.core import make_mesh
     from repro_torch.models import blocks, lm
     from repro_torch.models.module import tree_leaves
-    from repro_torch.models.sharding import (batch_rows, make_recipe, ragged_seq_extents,
-                                             use_recipe)
+    from repro_torch.models.sharding import (batch_rows, local_batch, make_recipe,
+                                             ragged_seq_extents, use_recipe)
     from repro_torch.models.weights import gather_params
     from repro_torch.train import trainer
 
@@ -1008,8 +1039,8 @@ def sp_residual(*, shape, models, batches) -> dict:
             with use_recipe(recipe), torch.no_grad(), \
                     warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
-                logits, aux = lm.forward(shards, {k: v for k, v in b.items() if k != "labels"},
-                                         cfg)
+                logits, aux = lm.forward(shards, local_batch(
+                    recipe, {k: v for k, v in b.items() if k != "labels"}), cfg)
         finally:
             for kind, fn in real.items():
                 setattr(blocks, kind, fn)
@@ -1021,7 +1052,8 @@ def sp_residual(*, shape, models, batches) -> dict:
         out[(name, "chunk")] = (batch_rows(recipe, B)[2],
                                 ragged_seq_extents(S, shape[1])[0], cfg.d_model)
         with use_recipe(recipe):
-            loss, metrics, grads = trainer._accum_loss_grads(shards, b, cfg, 1)
+            loss, metrics, grads = trainer._accum_loss_grads(shards, local_batch(recipe, b),
+                                                             cfg, 1)
         out[(name, "loss")] = float(loss)
         out[(name, "metrics")] = {k: float(v) for k, v in metrics.items()}
         out[(name, "grads")] = [g.numpy() for g in tree_leaves(

@@ -28,7 +28,7 @@ from repro_torch.launch import dryrun, op_walk
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.op_walk import Collective, Op, OpStream, analyze, plan_agreement
 from repro_torch.models import lm
-from repro_torch.models.sharding import make_recipe
+from repro_torch.models.sharding import local_batch, make_recipe
 from repro_torch.models.weights import shard_params_by_recipe
 from repro_torch.train.optimizer import OptConfig, init_opt_state
 from repro_torch.train.trainer import make_train_step
@@ -93,8 +93,8 @@ def test_lower_compile_and_roofline_smoke(world):
     with mode:
         params = lm.abstract_model(cfg, recipe=recipe, device=dev)
         opt = init_opt_state(params, ocfg)
-        batch = {k: torch.empty((8, 128), dtype=torch.int32, device=dev)
-                 for k in ("tokens", "labels")}
+        batch = local_batch(recipe, {k: torch.empty((8, 128), dtype=torch.int32, device=dev)
+                                     for k in ("tokens", "labels")})
         with op_walk.OpWalk() as walk:
             make_train_step(cfg, recipe, ocfg)(params, opt, batch)
     st = walk.stats()
@@ -126,7 +126,8 @@ def test_fake_trace_equals_real_gloo_run(world, tmp_path):
     with torch._subclasses.fake_tensor.FakeTensorMode():
         params = lm.abstract_model(cfg, recipe=recipe, device="cpu")
         opt = init_opt_state(params, ocfg)
-        batch = {k: torch.empty((2, 16), dtype=torch.int32) for k in ("tokens", "labels")}
+        batch = local_batch(recipe, {k: torch.empty((2, 16), dtype=torch.int32)
+                                     for k in ("tokens", "labels")})
         with op_walk.OpWalk() as walk:
             make_train_step(cfg, recipe, ocfg)(params, opt, batch)
     st = walk.stats()

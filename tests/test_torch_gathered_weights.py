@@ -38,7 +38,7 @@ from repro_torch.core.dist import init_fake_world, make_mesh
 from repro_torch.launch import op_walk
 from repro_torch.models import lm
 from repro_torch.models.module import tree_leaves
-from repro_torch.models.sharding import make_recipe, use_recipe
+from repro_torch.models.sharding import RankBatch, local_batch_shapes, make_recipe, use_recipe
 from repro_torch.train import trainer
 
 B, S, D, M = 4, 16, 4, 4
@@ -65,11 +65,15 @@ def _cfg(arch, layers):
                                n_layers=layers, **WIDE)
 
 
-def _batch(cfg):
-    batch = {k: torch.empty((B, S), dtype=torch.int32) for k in ("tokens", "labels")}
+def _batch(cfg, recipe):
+    """The step's batch: whole without a recipe, else this rank's blocks."""
+    shapes = {"tokens": (B, S), "labels": (B, S)}
     if cfg.family == "vlm":
-        batch["image_embeds"] = torch.empty((B, cfg.enc_len, cfg.enc_dim), dtype=torch.float32)
-    return batch
+        shapes["image_embeds"] = (B, cfg.enc_len, cfg.enc_dim)
+    local = shapes if recipe is None else local_batch_shapes(recipe, shapes)
+    batch = {k: torch.empty(local[k], dtype=torch.float32 if k == "image_embeds" else torch.int32)
+             for k in shapes}
+    return batch if recipe is None else RankBatch(batch, shapes)
 
 
 def _layer_bytes(spec, depth: int) -> int:
@@ -82,7 +86,7 @@ def _layer_bytes(spec, depth: int) -> int:
 def _walk_grads(cfg, params, recipe, walk):
     with walk:
         with use_recipe(recipe):
-            out = trainer._accum_loss_grads(params, _batch(cfg), cfg, 1)
+            out = trainer._accum_loss_grads(params, _batch(cfg, recipe), cfg, 1)
         del out
     return walk.stats()
 

@@ -244,7 +244,7 @@ def test_sharding_recipe_is_refused(arch):
     """Both families run under a recipe (``tests/test_torch_recipe_recurrent*.py``);
     what stays refused is the whole tree where a ``tp`` recipe over 2
     ``model`` ranks wants this rank's shards, with the hint."""
-    from repro_torch.models.sharding import make_recipe
+    from repro_torch.models.sharding import RankBatch, make_recipe
 
     class _Mesh:  # what make_recipe reads of a mesh
         shape = {"data": 1, "model": 2}
@@ -254,7 +254,8 @@ def test_sharding_recipe_is_refused(arch):
     params = tlm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
     with use_recipe(make_recipe(cfg, _Mesh(), attn_mode="tp")):
         with pytest.raises(ValueError, match="shard_params_by_recipe"):
-            tlm.forward(params, {"tokens": torch.zeros((1, 16), dtype=torch.long)}, cfg)
+            tlm.forward(params, RankBatch({"tokens": torch.zeros((1, 16), dtype=torch.long)},
+                                          {"tokens": (1, 16)}), cfg)
 
 
 # ------------------------------------------- attention at head dim 112 ----

@@ -39,7 +39,7 @@ from repro_torch import configs
 from repro_torch.core.dist import init_fake_world, make_mesh
 from repro_torch.launch import op_walk
 from repro_torch.models import lm
-from repro_torch.models.sharding import make_recipe, use_recipe
+from repro_torch.models.sharding import RankBatch, local_batch, make_recipe, use_recipe
 from repro_torch.train.optimizer import OptConfig, init_opt_state
 from repro_torch.train.trainer import make_train_step
 
@@ -163,8 +163,8 @@ def test_dry_run_holds_no_whole_logits(world, kind):
     recipe = make_recipe(cfg, mesh, attn_mode="tp")
     with torch._subclasses.fake_tensor.FakeTensorMode():
         params = lm.abstract_model(cfg, recipe=recipe, device="cpu")
-        batch = {k: torch.empty((batch_rows, seq), dtype=torch.int32)
-                 for k in ("tokens", "labels")}
+        batch = local_batch(recipe, {k: torch.empty((batch_rows, seq), dtype=torch.int32)
+                                     for k in ("tokens", "labels")})
         if kind == "train":
             ocfg = OptConfig()
             opt = init_opt_state(params, ocfg)
@@ -173,7 +173,8 @@ def test_dry_run_holds_no_whole_logits(world, kind):
         else:
             with op_walk.OpWalk() as walk:
                 with use_recipe(recipe), torch.no_grad():
-                    logits, _ = lm.forward(params, {"tokens": batch["tokens"]}, cfg)
+                    logits, _ = lm.forward(
+                        params, RankBatch({"tokens": batch["tokens"]}, batch.shapes), cfg)
                 assert logits.shape == (batch_rows // D, seq, cfg.vocab_padded // M)
                 del logits
     st = walk.stats()

@@ -44,7 +44,7 @@ from repro.models.sharding import make_recipe as jmake_recipe
 from repro_torch import configs as tconfigs
 from repro_torch.models import lm as tlm
 from repro_torch.models.module import tree_leaves
-from repro_torch.models.sharding import make_recipe, use_recipe
+from repro_torch.models.sharding import RankBatch, local_batch, make_recipe, use_recipe
 
 ALL_MODES = ("auto", "tp", "sp", "sp_ring")
 
@@ -215,7 +215,7 @@ def test_families_still_to_port_refuse_tp(arch):
     with torch.no_grad():
         want, want_aux = tlm.forward(params, {"tokens": toks}, cfg)
         with use_recipe(recipe):
-            got, aux = tlm.forward(params, {"tokens": toks}, cfg)
+            got, aux = tlm.forward(params, local_batch(recipe, {"tokens": toks}), cfg)
     assert torch.equal(got, want)
     assert torch.equal(aux, want_aux)
 
@@ -224,5 +224,6 @@ def test_whole_params_where_shards_are_expected_are_refused():
     cfg = dataclasses.replace(tconfigs.get("phi4-mini-3.8b", smoke=True), act_dtype=torch.float32)
     params = tlm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
     recipe = make_recipe(cfg, _fake_mesh((1, 2)), attn_mode="tp")
+    batch = RankBatch({"tokens": torch.zeros((2, 8), dtype=torch.long)}, {"tokens": (2, 8)})
     with use_recipe(recipe), pytest.raises(ValueError, match="shard_params_by_recipe"):
-        tlm.forward(params, {"tokens": torch.zeros((2, 8), dtype=torch.long)}, cfg)
+        tlm.forward(params, batch, cfg)

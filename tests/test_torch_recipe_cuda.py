@@ -22,7 +22,7 @@ from repro_torch import configs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.models import lm
-from repro_torch.models.sharding import make_recipe, use_recipe
+from repro_torch.models.sharding import local_batch, make_recipe, use_recipe
 from repro_torch.models.weights import cast_params, shard_params_by_recipe
 
 pytestmark = pytest.mark.cuda
@@ -46,6 +46,11 @@ def setup():
     dist.destroy_process_group()
 
 
+def _rows(recipe, batch):
+    """A decode step's batch: whole without a recipe, else this rank's rows."""
+    return batch if recipe is None else local_batch(recipe, batch, decode=True)
+
+
 @pytest.mark.parametrize("mode", ["tp", "sp"])
 def test_recipe_forward_on_one_rank_is_the_plain_forward(setup, mode):
     cfg, params, mesh = setup
@@ -57,7 +62,7 @@ def test_recipe_forward_on_one_rank_is_the_plain_forward(setup, mode):
     want, _ = lm.forward(params, {"tokens": tokens}, cfg)
     before = fa.flash_attention_cuda.launches
     with use_recipe(recipe):
-        got, _ = lm.forward(shards, {"tokens": tokens}, cfg)
+        got, _ = lm.forward(shards, local_batch(recipe, {"tokens": tokens}), cfg)
     assert fa.flash_attention_cuda.launches == before + LAYERS
     assert torch.isfinite(got).all()
     assert torch.equal(got, want)
@@ -79,9 +84,9 @@ def test_recipe_decode_step_on_one_rank_is_the_plain_step(setup, mode):
                                    positions=torch.zeros((2,), dtype=torch.int32, device="cuda"))
             before = fd.flash_decode_cuda.launches
             p = params if r is None else shards
-            first, state = lm.decode_step(p, state, {"tokens": chunk}, cfg, new_counts=counts,
-                                          prefill=True)
-            second, state = lm.decode_step(p, state, {"tokens": nxt}, cfg,
+            first, state = lm.decode_step(p, state, _rows(r, {"tokens": chunk}), cfg,
+                                          new_counts=counts, prefill=True)
+            second, state = lm.decode_step(p, state, _rows(r, {"tokens": nxt}), cfg,
                                            new_counts=torch.ones_like(counts))
             assert fd.flash_decode_cuda.launches == before + 2 * LAYERS
         runs.append((first, second, state))
@@ -119,7 +124,7 @@ def test_hybrid_recipe_forward_on_one_rank(hybrid, mode):
     want, _ = lm.forward(params, {"tokens": tokens}, cfg)
     before = (fa.flash_attention_cuda.launches, fa.flash_attention_carry_cuda.launches)
     with use_recipe(recipe):
-        got, _ = lm.forward(shards, {"tokens": tokens}, cfg)
+        got, _ = lm.forward(shards, local_batch(recipe, {"tokens": tokens}), cfg)
     torch.cuda.synchronize()
     ring = mode == "sp_ring"
     assert fa.flash_attention_cuda.launches == before[0] + (0 if ring else 1)
@@ -148,7 +153,7 @@ def test_hybrid_recipe_decode_steps_on_one_rank(hybrid):
             logits = []
             for t, c in zip(toks, counts):
                 out, state = lm.decode_step(params if r is None else shards, state,
-                                            {"tokens": t}, cfg, new_counts=c)
+                                            _rows(r, {"tokens": t}), cfg, new_counts=c)
                 logits.append(out)
             assert fd.flash_decode_cuda.launches == before + 2
         runs.append((logits, state))

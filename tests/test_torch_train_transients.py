@@ -47,7 +47,7 @@ from repro_torch.core.dist import init_fake_world, make_mesh
 from repro_torch.kernels import ref as kref
 from repro_torch.launch import op_walk
 from repro_torch.models import blocks, ffn, lm
-from repro_torch.models.sharding import all_reduce, make_recipe
+from repro_torch.models.sharding import all_reduce, local_batch, make_recipe
 from repro_torch.train.optimizer import OptConfig, init_opt_state
 from repro_torch.train.trainer import make_train_step
 
@@ -285,7 +285,8 @@ def _walk_train_step(cfg, B, S):
                          attn_mode="tp")
     with torch._subclasses.fake_tensor.FakeTensorMode():
         params = lm.abstract_model(cfg, recipe=recipe, device="cpu")
-        batch = {k: torch.empty((B, S), dtype=torch.int32) for k in ("tokens", "labels")}
+        batch = local_batch(recipe, {k: torch.empty((B, S), dtype=torch.int32)
+                                     for k in ("tokens", "labels")})
         ocfg = OptConfig()
         opt = init_opt_state(params, ocfg)
         with _Made() as walk:

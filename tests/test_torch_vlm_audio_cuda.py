@@ -175,7 +175,7 @@ def world():
 @pytest.mark.parametrize("arch, layers", [("llama-3.2-vision-11b", 5), ("musicgen-large", 2)])
 def test_recipe_forward_on_one_rank_is_the_no_recipe_program(world, arch, layers):
     from repro_torch.models import lm
-    from repro_torch.models.sharding import make_recipe, use_recipe
+    from repro_torch.models.sharding import local_batch, make_recipe, use_recipe
     from repro_torch.models.weights import cast_params, shard_params_by_recipe
 
     cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
@@ -197,7 +197,7 @@ def test_recipe_forward_on_one_rank_is_the_no_recipe_program(world, arch, layers
         shards = shard_params_by_recipe(params, lm.build_specs(cfg), recipe)
         fwd, carry = fa.flash_attention_cuda.launches, fa.flash_attention_carry_cuda.launches
         with use_recipe(recipe), torch.no_grad():
-            got = lm.forward(shards, batch, cfg)[0]
+            got = lm.forward(shards, local_batch(recipe, batch), cfg)[0]
         torch.cuda.synchronize()
         ring = mode == "sp_ring"
         assert fa.flash_attention_cuda.launches - fwd == (n_cross if ring else layers), mode
